@@ -1,0 +1,319 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (htslib_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's kernels from htslib_tpu_torch/csrc with nvcc, drives the
+port's main path at full size through its public entry points, holds every
+result against a host truth, then holds each kernel against its plain
+PyTorch version on the card and times both.  Phases:
+
+  1. the card's name and power limit (nvidia-smi);
+  2. the kernel build, timed;
+  3. leg 1, the BAM record-batch step: entry()'s forward over 400,000
+     records (seq4 uint8 [400000, 64], starts sorted over 1 Mbp, spans of
+     50-150 bp, tile 1 << 20), checked against numpy: flag sum, the bytes
+     of nibble_to_base, coverage, and the step's int32 total;
+  4. leg 2, the CRAM quality lane: 40 QS-sized streams of 1 MiB, encoded
+     on the host with the port's rans4x16.compress(d, 0x04):
+     qualstats_device must equal numpy.bincount of the raw qualities, and
+     decode_nx16_o0_batch must give 8 of the streams back byte for byte;
+  5. the file-level lane: cram_qual_hist on the committed CRAM 3.1 fixture
+     must equal the histogram committed beside it, with blocks decoded on
+     the device;
+  6. each kernel (B1, B2, B3) against its plain version at the main path's
+     shapes, and one JSON line with launches, error and times.  Outputs
+     are bytes and integer counts, so the tolerance is zero: kernel and
+     plain version must be equal.
+
+Launch counts are reset just before phase 3 and read just after phase 5.
+Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
+Exits non-zero, printing no result, without a CUDA device or outside a
+checkout of the repository.
+"""
+from __future__ import annotations
+
+import json
+import multiprocessing
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ProcessPoolExecutor
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(REPO, "htslib_tpu_torch", "testdata", "qual_o0.cram")
+
+N_RECORDS = 400_000
+MAX_LEN = 128
+TILE_LEN = 1 << 20
+N_STREAMS = 40
+STREAM_BYTES = 1 << 20
+N_DECODE = 8
+# peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s; 32-bit scalar
+# operations are held to the non-tensor fp32 rate, the nearest listed one
+HBM_BYTES_S = 3.35e12
+SCALAR_OPS_S = 67e12
+
+
+def _encode(data: bytes) -> bytes:
+    from htslib_tpu_torch.codecs.rans4x16 import compress
+    return compress(data, 0x04)
+
+
+def leg1_batch(n: int = N_RECORDS, seed: int = 1):
+    """Records for the record-batch step: random cores and packed
+    sequences, sorted starts over 1 Mbp, spans of 50-150 bp."""
+    rng = np.random.default_rng(seed)
+    cores = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    seq4 = rng.integers(0, 256, (n, MAX_LEN // 2), dtype=np.uint8)
+    starts = np.sort(rng.integers(0, 1_000_000, n)).astype(np.int32)
+    ends = (starts + rng.integers(50, 151, n)).astype(np.int32)
+    return cores, seq4, starts, ends, np.ones(n, bool)
+
+
+def leg2_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
+                 seed: int = 2):
+    """QS-sized quality streams, raw and encoded: most uniform over
+    20..40, the last fifth bounded random walks over 0..44."""
+    rng = np.random.default_rng(seed)
+    raws = []
+    for i in range(n):
+        if i < n - n // 5:
+            q = rng.integers(20, 41, size, dtype=np.uint8)
+        else:
+            q = np.clip(np.cumsum(rng.integers(-2, 3, size)) + 20,
+                        0, 44).astype(np.uint8)
+        raws.append(q.tobytes())
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        encs = list(pool.map(_encode, raws))
+    return raws, encs
+
+
+def nt16_numpy(seq4: np.ndarray) -> np.ndarray:
+    lut = np.frombuffer(b"=ACMGRSVTWYHKDBN", np.uint8)
+    out = np.empty((seq4.shape[0], 2 * seq4.shape[1]), np.uint8)
+    out[:, 0::2] = lut[seq4 >> 4]
+    out[:, 1::2] = lut[seq4 & 15]
+    return out
+
+
+def coverage_numpy(starts, ends, tile_len):
+    diff = np.zeros(tile_len + 1, np.int64)
+    np.add.at(diff, np.clip(starts, 0, tile_len), 1)
+    np.add.at(diff, np.clip(ends, 0, tile_len), -1)
+    return np.cumsum(diff[:-1])
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"mismatch: {what}")
+
+
+def main_path(device, batch, raws, encs, tile_len=TILE_LEN,
+              n_decode=N_DECODE):
+    """Phases 3-5 through the port's entry points on `device`, each
+    result held against its host truth.  Returns (leg-1 args on the
+    device, seconds of each phase)."""
+    from htslib_tpu_torch.entry import entry
+    from htslib_tpu_torch.ops.device_stats import (QBINS, cram_qual_hist,
+                                                   qualstats_device)
+    from htslib_tpu_torch.ops.pileup_kernel import coverage_tile
+    from htslib_tpu_torch.ops.rans_nx16 import decode_nx16_o0_batch
+    from htslib_tpu_torch.ops.seqfmt import nibble_to_base, unpack_core_fields
+
+    cores, seq4, starts, ends, _valid = batch
+    flags_np = cores[:, 14].astype(np.int64) | (cores[:, 15].astype(np.int64)
+                                                << 8)
+    bases_np = nt16_numpy(seq4)
+    cov_np = coverage_numpy(starts, ends, tile_len)
+    with open(FIXTURE + ".hist.json") as fp:
+        fixture_want = json.load(fp)
+    secs = {}
+
+    t0 = time.time()
+    forward, args = entry(device=device, tile_len=tile_len, batch=batch)
+    total = int(forward(*args))
+    want = (int(flags_np.sum()) + int(bases_np.sum(dtype=np.int64))
+            + int(cov_np.sum()) + (1 << 31)) % (1 << 32) - (1 << 31)
+    require(total == want, f"leg 1 total {total} != {want}")
+    require(int(unpack_core_fields(args[0])["flag"].sum())
+            == int(flags_np.sum()), "leg 1 flag sum")
+    require(np.array_equal(nibble_to_base(args[1]).cpu().numpy(), bases_np),
+            "leg 1 nibble_to_base bytes")
+    cov = coverage_tile(args[2], args[3], args[4], 0, tile_len)
+    require(np.array_equal(cov.cpu().numpy(), cov_np), "leg 1 coverage")
+    secs["leg1"] = time.time() - t0
+
+    t0 = time.time()
+    hist, _ = qualstats_device(encs, device=device)
+    for i, raw in enumerate(raws):
+        q = np.minimum(np.frombuffer(raw, np.uint8), QBINS - 1)
+        require(np.array_equal(hist[i], np.bincount(q, minlength=QBINS)),
+                f"leg 2 histogram of stream {i}")
+    out = decode_nx16_o0_batch(encs[:n_decode], device=device)
+    require(out == raws[:n_decode], "leg 2 decoded bytes")
+    secs["leg2"] = time.time() - t0
+
+    t0 = time.time()
+    stats = {}
+    fh = cram_qual_hist(FIXTURE, device=device, stats=stats)
+    require(fh.tolist() == fixture_want["hist"], "fixture histogram")
+    require(stats["device_blocks"] > 0, f"fixture device blocks {stats}")
+    require(stats == {"device_blocks": fixture_want["device_blocks"],
+                      "host_blocks": fixture_want["host_blocks"]},
+            f"fixture stats {stats}")
+    secs["file"] = time.time() - t0
+    return args, secs
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time of fn over `iters` calls, from CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """The least time for the work: bytes over the memory rate or
+    operations over the scalar rate, whichever is larger."""
+    tb = n_bytes / HBM_BYTES_S * 1e3
+    to = n_ops / SCALAR_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def kernels_vs_plain(seq4_d, encs, launches):
+    """Phase 6: each kernel against its plain version on the same card
+    tensors, with times.  Returns the rows of the kernels line."""
+    import torch
+
+    from htslib_tpu_torch.ops.device_stats import QBINS
+    from htslib_tpu_torch.ops.rans_nx16 import (frame_streams, rans_o0_cuda,
+                                                rans_o0_plain)
+    from htslib_tpu_torch.ops.seqfmt import (nibble_to_base_cuda,
+                                             nibble_to_base_plain)
+    rows = []
+    got = nibble_to_base_cuda(seq4_d)
+    ref = nibble_to_base_plain(seq4_d)
+    require(torch.equal(got, ref), "B1 kernel != plain")
+    # the library yardstick: one gather through a 256-entry table of
+    # base pairs (u16), indexed by the packed byte
+    pairs = nt16_numpy(np.arange(256, dtype=np.uint8)[:, None])
+    lut2 = torch.from_numpy(pairs.view(np.int16)[:, 0].copy()).to(
+        seq4_d.device)
+    lib = lut2[seq4_d.long()].view(torch.uint8)
+    require(torch.equal(lib, ref), "B1 library yardstick != plain")
+    n = seq4_d.numel()
+    b_ms, b_by = bound_ms(3 * n, 6 * n)
+    rows.append({
+        "name": "nibble_to_base", "route": "cuda",
+        "source": "htslib_tpu_torch/csrc/nibble.cu",
+        "replaces": "htslib_tpu/ops/seqfmt.py:54",
+        "launches": launches["nibble_to_base"],
+        "max_abs_err": int((got.int() - ref.int()).abs().max()),
+        "ms": cuda_ms(lambda: nibble_to_base_cuda(seq4_d), 50),
+        "plain_ms": cuda_ms(lambda: nibble_to_base_plain(seq4_d), 10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: lut2[seq4_d.long()], 10),
+        "shape": list(seq4_d.shape), "match": True})
+
+    for key, blocks, qb, line in (
+            ("rans_nx16_o0_decode", encs[:N_DECODE], None, 234),
+            ("rans_nx16_o0_hist", encs, QBINS, 323)):
+        b = frame_streams(blocks, seq4_d.device)
+        offs = torch.zeros(b.n_streams, dtype=torch.int32,
+                           device=seq4_d.device)
+        got = rans_o0_cuda(b, offs=offs, qbins=qb)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = rans_o0_plain(b, offs=offs, qbins=qb)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        for g, r, what in zip(got, ref, ("output", "states", "cursors")):
+            require(torch.equal(g, r), f"{key} kernel != plain ({what})")
+        n_sym = b.total_out
+        n_out = n_sym if qb is None else 4 * qb * b.n_streams
+        # per symbol: mask, table lookup, two table loads, shift,
+        # multiply-add, subtract, compare, and the store or bin
+        b_ms, b_by = bound_ms(sum(len(x) for x in blocks) + n_out,
+                              10 * n_sym)
+        rows.append({
+            "name": key, "route": "cuda",
+            "source": "htslib_tpu_torch/csrc/rans_nx16_o0.cu",
+            "replaces": f"htslib_tpu/ops/rans_pallas.py:{line}",
+            "launches": launches[key],
+            "max_abs_err": int((got[0].long() - ref[0].long()).abs().max()),
+            "ms": cuda_ms(lambda: rans_o0_cuda(b, offs=offs, qbins=qb), 5),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "streams": b.n_streams, "symbols": n_sym,
+            "chain_rounds": -(-int(b.ulen.max()) // 32), "match": True})
+    return rows
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isfile(os.path.join(REPO, "htslib_tpu_torch",
+                                       "_build.py")):
+        print("chip_smoke: htslib_tpu_torch/ not found beside the script; "
+              "run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from htslib_tpu_torch import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(f"card: {card}", flush=True)
+
+    t0 = time.time()
+    libs = _build.build()
+    build_s = time.time() - t0
+    print(f"build: {build_s:.1f} s", flush=True)
+    for name, path in libs.items():
+        with open(path + ".log") as fp:
+            for line in fp:
+                if "registers" in line or "spill" in line:
+                    print(f"  {name}: {line.strip()}")
+
+    t0 = time.time()
+    batch = leg1_batch()
+    raws, encs = leg2_streams()
+    print(f"inputs: {time.time() - t0:.1f} s", flush=True)
+
+    _build.reset_launches()
+    args, secs = main_path("cuda", batch, raws, encs)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"main path ok: {secs}, launches {launches}", flush=True)
+    for k, v in launches.items():
+        require(v >= 1, f"kernel {k} not launched on the main path")
+
+    rows = kernels_vs_plain(args[1], encs, launches)
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,109 @@
+"""The port's kernels on the card against their plain PyTorch versions
+(and host truths), at small shapes.  Every test here needs a CUDA device:
+it carries the `gpu` marker and skips without one.  This file imports
+neither JAX nor the JAX package, so it runs on a machine with torch alone:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py -q
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from htslib_tpu_torch.codecs.rans4x16 import compress
+from htslib_tpu_torch.entry import entry
+from htslib_tpu_torch.ops import device_stats as tds
+from htslib_tpu_torch.ops import rans_nx16 as tr
+from htslib_tpu_torch.ops import seqfmt as tsf
+from htslib_tpu_torch.ops.pileup_kernel import coverage_tile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "htslib_tpu_torch", "testdata", "qual_o0.cram")
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _streams(seed=2):
+    rng = np.random.default_rng(seed)
+    datas = [rng.integers(20, 41, 70000 + 13 * i, dtype=np.uint8).tobytes()
+             for i in range(5)]
+    datas += [rng.integers(0, 256, 3001, dtype=np.uint8).tobytes(),
+              bytes([9]) * 999, rng.integers(0, 40, 13, dtype=np.uint8)
+              .tobytes(), rng.integers(0, 4, 4096, dtype=np.uint8).tobytes()]
+    return datas
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 7), (1000, 64), (4097, 33)])
+def test_nibble_kernel_matches_plain(card, shape):
+    rng = np.random.default_rng(4)
+    packed = torch.from_numpy(rng.integers(0, 256, shape,
+                                           dtype=np.uint8)).to(card)
+    assert torch.equal(tsf.nibble_to_base(packed),
+                       tsf.nibble_to_base_plain(packed))
+
+
+def test_nibble_kernel_unaligned_view(card):
+    packed = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, 4099, dtype=np.uint8)).to(card)
+    view = packed[3:].reshape(1, -1)
+    assert torch.equal(tsf.nibble_to_base(view),
+                       tsf.nibble_to_base_plain(view))
+
+
+@pytest.mark.parametrize("qbins", [None, 64, 256])
+def test_rans_kernels_match_plain(card, qbins):
+    encs = [compress(d, 0x04) for d in _streams()]
+    b = tr.frame_streams(encs, card)
+    offs = torch.arange(b.n_streams, dtype=torch.int32, device=card)
+    got = tr.rans_o0(b, offs=offs, qbins=qbins)
+    want = tr.rans_o0_plain(b, offs=offs, qbins=qbins)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_rans_kernel_stops_after_max_rounds(card):
+    encs = [compress(d, 0x04) for d in _streams()]
+    b = tr.frame_streams(encs, card)
+    got = tr.rans_o0(b, max_rounds=100)
+    want = tr.rans_o0_plain(b, max_rounds=100)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("field", ["n_words", "out_off", "freqs"])
+def test_rans_kernel_rejects_inconsistent_batch(card, field):
+    b = tr.frame_streams([compress(d, 0x04) for d in _streams()], card)
+    getattr(b, field)[0] += 1 << 20
+    with pytest.raises(ValueError, match="outside its buffers"):
+        tr.rans_o0(b)
+
+
+def test_decode_and_hist_match_host_truth(card):
+    datas = _streams()
+    encs = [compress(d, 0x04) for d in datas]
+    assert tr.decode_nx16_o0_batch(encs, device=card) == datas
+    hist, _ = tds.qualstats_device(encs, device=card)
+    assert np.array_equal(hist, tds.qualstats_host(datas))
+
+
+def test_cram_qual_hist_on_card_matches_cpu(card):
+    sc, sg = {}, {}
+    assert np.array_equal(tds.cram_qual_hist(FIXTURE, device=card, stats=sg),
+                          tds.cram_qual_hist(FIXTURE, device="cpu", stats=sc))
+    assert sg == sc and sg["device_blocks"] > 0
+
+
+def test_entry_on_card_matches_cpu(card):
+    fn, args = entry(device=card)
+    cfn, cargs = entry(device="cpu")
+    assert int(fn(*args)) == int(cfn(*cargs))
+    cov = coverage_tile(args[2], args[3], args[4], 0, 1 << 14)
+    ccov = coverage_tile(cargs[2], cargs[3], cargs[4], 0, 1 << 14)
+    assert torch.equal(cov.cpu(), ccov)
