@@ -18,13 +18,25 @@ PyTorch version on the card and times both.  Phases:
      on the host with the port's rans4x16.compress(d, 0x04):
      qualstats_device must equal numpy.bincount of the raw qualities, and
      decode_nx16_o0_batch must give 8 of the streams back byte for byte;
-  5. the file-level lane: cram_qual_hist on the committed CRAM 3.1 fixture
-     must equal the histogram committed beside it, with blocks decoded on
-     the device;
-  6. each kernel (B1, B2, B3) against its plain version at the main path's
-     shapes, and one JSON line with launches, error and times.  Outputs
-     are bytes and integer counts, so the tolerance is zero: kernel and
-     plain version must be equal.
+  4b. leg 3, the quality lane on the other rANS wires: 40 x 1 MiB Nx16
+     order-1 (0x05) bounded random walks and 40 x 1 MiB rANS 4x8 streams
+     (20 order 0, 20 order 1), encoded on the host with the port's codecs:
+     qualstats_device_o1 and qualstats_device_4x8 (both orders) must equal
+     numpy.bincount of the raw qualities, and decode_nx16_o1_batch and
+     decode_4x8_o0_batch must give 8 streams each back byte for byte;
+  5. the file-level lane: cram_qual_hist on each committed fixture (CRAM
+     3.1 order 0, CRAM 3.1 order 1, CRAM 3.0 rANS 4x8, CRAM 3.1 STRIPE and
+     PACK) must equal the histogram and block counts committed beside it,
+     with blocks decoded on the device;
+  6. each kernel (B1, B2, B3, B5, B6, B7, B8 in both orders) against its
+     plain version at the main path's shapes, and one JSON line with
+     launches, error and times.  The plain versions of B5-B8 take half a
+     millisecond to a millisecond per round on the card, so they are held
+     against their kernels at full size over the first 4096 rounds
+     (states, cursors, contexts and those rounds' symbols or counts), and
+     over whole streams on a 64 KiB batch.  Outputs are bytes and integer
+     counts, so the tolerance is zero: kernel and plain version must be
+     equal.
 
 Launch counts are reset just before phase 3 and read just after phase 5.
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
@@ -44,7 +56,9 @@ from concurrent.futures import ProcessPoolExecutor
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(REPO, "htslib_tpu_torch", "testdata", "qual_o0.cram")
+TESTDATA = os.path.join(REPO, "htslib_tpu_torch", "testdata")
+FIXTURES = [os.path.join(TESTDATA, f) for f in (
+    "qual_o0.cram", "qual_o1.cram", "qual_v30.cram", "qual_stripe_pack.cram")]
 
 N_RECORDS = 400_000
 MAX_LEN = 128
@@ -52,15 +66,41 @@ TILE_LEN = 1 << 20
 N_STREAMS = 40
 STREAM_BYTES = 1 << 20
 N_DECODE = 8
+SMALL_BYTES = 1 << 16   # whole-stream kernel/plain comparisons
+N_SMALL = 4
+PLAIN_ROUNDS = 4096     # prefix of the full-size kernel/plain comparisons
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s; 32-bit scalar
 # operations are held to the non-tensor fp32 rate, the nearest listed one
 HBM_BYTES_S = 3.35e12
 SCALAR_OPS_S = 67e12
 
 
-def _encode(data: bytes) -> bytes:
-    from htslib_tpu_torch.codecs.rans4x16 import compress
-    return compress(data, 0x04)
+def _encode(data: bytes, wire: str = "nx16_o0") -> bytes:
+    """One stream on one rANS wire, with the port's own host codecs."""
+    from htslib_tpu_torch.codecs import rans4x8, rans4x16
+    if wire.startswith("4x8"):
+        return rans4x8.compress(data, int(wire[-1]))
+    return rans4x16.compress(data, 0x05 if wire == "nx16_o1" else 0x04)
+
+
+def _encode_all(raws, wires):
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        return list(pool.map(_encode, raws, wires, chunksize=1))
+
+
+def _walks(rng, n: int, size: int, read: int = 100):
+    """n quality streams of `size` bytes: bounded random walks over 2..41,
+    one per read of `read` bp, as a QS series concatenates its reads."""
+    k = -(-size // read)
+    out = []
+    for _ in range(n):
+        q = np.clip(rng.integers(25, 38, (k, 1))
+                    + np.cumsum(rng.integers(-2, 3, (k, read)), axis=1),
+                    2, 41)
+        out.append(q.reshape(-1)[:size].astype(np.uint8).tobytes())
+    return out
 
 
 def leg1_batch(n: int = N_RECORDS, seed: int = 1):
@@ -87,11 +127,38 @@ def leg2_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
             q = np.clip(np.cumsum(rng.integers(-2, 3, size)) + 20,
                         0, 44).astype(np.uint8)
         raws.append(q.tobytes())
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
-                             mp_context=ctx) as pool:
-        encs = list(pool.map(_encode, raws))
-    return raws, encs
+    return raws, _encode_all(raws, ["nx16_o0"] * n)
+
+
+def leg3_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
+                 small: int = SMALL_BYTES, n_small: int = N_SMALL,
+                 seed: int = 3):
+    """QS-sized streams on the other rANS wires, raw and encoded, with
+    n_small streams of `small` bytes per wire for the whole-stream
+    comparisons: {wire: (raws, encs, small raws, small encs)} for wires
+    nx16_o1 (n bounded random walks), 4x8_o0 (n/2, uniform over 20..40)
+    and 4x8_o1 (n/2 random walks)."""
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    raws = {"nx16_o1": _walks(rng, n, size),
+            "4x8_o0": [rng.integers(20, 41, size, dtype=np.uint8).tobytes()
+                       for _ in range(half)],
+            "4x8_o1": _walks(rng, half, size)}
+    smalls = {w: (_walks(rng, n_small, small) if w.endswith("o1")
+                  else [rng.integers(20, 41, small, dtype=np.uint8)
+                        .tobytes() for _ in range(n_small)])
+              for w in raws}
+    jobs = [(w, d) for w, ds in list(raws.items()) + list(smalls.items())
+            for d in ds]
+    encs = _encode_all([d for _, d in jobs], [w for w, _ in jobs])
+    out, k = {}, 0
+    for w in raws:
+        out[w] = [raws[w], encs[k:k + len(raws[w])]]
+        k += len(raws[w])
+    for w in raws:
+        out[w] += [smalls[w], encs[k:k + n_small]]
+        k += n_small
+    return out
 
 
 def nt16_numpy(seq4: np.ndarray) -> np.ndarray:
@@ -114,16 +181,25 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"mismatch: {what}")
 
 
-def main_path(device, batch, raws, encs, tile_len=TILE_LEN,
+def hist_of(raw: bytes, qbins: int) -> np.ndarray:
+    return np.bincount(np.minimum(np.frombuffer(raw, np.uint8), qbins - 1),
+                       minlength=qbins)
+
+
+def main_path(device, batch, raws, encs, leg3, tile_len=TILE_LEN,
               n_decode=N_DECODE):
     """Phases 3-5 through the port's entry points on `device`, each
     result held against its host truth.  Returns (leg-1 args on the
     device, seconds of each phase)."""
     from htslib_tpu_torch.entry import entry
     from htslib_tpu_torch.ops.device_stats import (QBINS, cram_qual_hist,
-                                                   qualstats_device)
+                                                   qualstats_device,
+                                                   qualstats_device_4x8,
+                                                   qualstats_device_o1)
     from htslib_tpu_torch.ops.pileup_kernel import coverage_tile
+    from htslib_tpu_torch.ops.rans4x8 import decode_4x8_o0_batch
     from htslib_tpu_torch.ops.rans_nx16 import decode_nx16_o0_batch
+    from htslib_tpu_torch.ops.rans_nx16_o1 import decode_nx16_o1_batch
     from htslib_tpu_torch.ops.seqfmt import nibble_to_base, unpack_core_fields
 
     cores, seq4, starts, ends, _valid = batch
@@ -131,8 +207,10 @@ def main_path(device, batch, raws, encs, tile_len=TILE_LEN,
                                                 << 8)
     bases_np = nt16_numpy(seq4)
     cov_np = coverage_numpy(starts, ends, tile_len)
-    with open(FIXTURE + ".hist.json") as fp:
-        fixture_want = json.load(fp)
+    fixture_want = []
+    for path in FIXTURES:
+        with open(path + ".hist.json") as fp:
+            fixture_want.append(json.load(fp))
     secs = {}
 
     t0 = time.time()
@@ -152,21 +230,40 @@ def main_path(device, batch, raws, encs, tile_len=TILE_LEN,
     t0 = time.time()
     hist, _ = qualstats_device(encs, device=device)
     for i, raw in enumerate(raws):
-        q = np.minimum(np.frombuffer(raw, np.uint8), QBINS - 1)
-        require(np.array_equal(hist[i], np.bincount(q, minlength=QBINS)),
+        require(np.array_equal(hist[i], hist_of(raw, QBINS)),
                 f"leg 2 histogram of stream {i}")
     out = decode_nx16_o0_batch(encs[:n_decode], device=device)
     require(out == raws[:n_decode], "leg 2 decoded bytes")
     secs["leg2"] = time.time() - t0
 
     t0 = time.time()
-    stats = {}
-    fh = cram_qual_hist(FIXTURE, device=device, stats=stats)
-    require(fh.tolist() == fixture_want["hist"], "fixture histogram")
-    require(stats["device_blocks"] > 0, f"fixture device blocks {stats}")
-    require(stats == {"device_blocks": fixture_want["device_blocks"],
-                      "host_blocks": fixture_want["host_blocks"]},
-            f"fixture stats {stats}")
+    for wire, run in (
+            ("nx16_o1", lambda e: qualstats_device_o1(e, device=device)),
+            ("4x8_o0", lambda e: qualstats_device_4x8(e, device=device)),
+            ("4x8_o1", lambda e: qualstats_device_4x8(e, device=device,
+                                                      o1=True))):
+        w_raws, w_encs = leg3[wire][:2]
+        hist, _ = run(w_encs)
+        for i, raw in enumerate(w_raws):
+            require(np.array_equal(hist[i], hist_of(raw, QBINS)),
+                    f"leg 3 {wire} histogram of stream {i}")
+    for wire, dec in (("nx16_o1", decode_nx16_o1_batch),
+                      ("4x8_o0", decode_4x8_o0_batch)):
+        w_raws, w_encs = leg3[wire][:2]
+        require(dec(w_encs[:n_decode], device=device) == w_raws[:n_decode],
+                f"leg 3 {wire} decoded bytes")
+    secs["leg3"] = time.time() - t0
+
+    t0 = time.time()
+    for path, want in zip(FIXTURES, fixture_want):
+        stats = {}
+        fh = cram_qual_hist(path, device=device, stats=stats)
+        name = os.path.basename(path)
+        require(fh.tolist() == want["hist"], f"{name} histogram")
+        require(stats["device_blocks"] > 0, f"{name} device blocks {stats}")
+        require(stats == {"device_blocks": want["device_blocks"],
+                          "host_blocks": want["host_blocks"]},
+                f"{name} stats {stats}")
     secs["file"] = time.time() - t0
     return args, secs
 
@@ -263,6 +360,96 @@ def kernels_vs_plain(seq4_d, encs, launches):
     return rows
 
 
+def leg3_kernels_vs_plain(device, leg3, launches):
+    """Phase 6 for kernels B5-B8: each kernel against its plain version on
+    the same card tensors, at full size over the first PLAIN_ROUNDS
+    rounds and over whole streams on the 64 KiB batch, with times.
+    Returns the rows of the kernels line."""
+    import torch
+
+    from htslib_tpu_torch.ops.device_stats import QBINS
+    from htslib_tpu_torch.ops.rans4x8 import (frame_4x8, rans4x8_cuda,
+                                              rans4x8_plain)
+    from htslib_tpu_torch.ops.rans_nx16_o1 import (_parse_o1_header,
+                                                   frame_o1_streams,
+                                                   rans_o1_cuda,
+                                                   rans_o1_plain)
+
+    def o1_batch(blocks):
+        return frame_o1_streams([_parse_o1_header(e) for e in blocks],
+                                device)
+
+    def chain_o1(n, nway):   # the last state's length (order 1)
+        return n - (nway - 1) * (n // nway)
+
+    # (launch key, wire, streams, qbins, framing, kernel, plain, source,
+    #  TPU kernel, chain rounds of a stream of n symbols, ops per symbol:
+    #  mask, lookup (order 1: bucket, row and one compare more), two
+    #  field extracts, multiply-add, compare, refill select, and the store
+    #  or bin)
+    specs = [
+        ("rans_nx16_o1_decode", "nx16_o1", N_DECODE, None, o1_batch,
+         rans_o1_cuda, rans_o1_plain, "rans_nx16_o1.cu",
+         "rans_o1_pallas.py:98", lambda n: chain_o1(n, 32), 12),
+        ("rans_nx16_o1_hist", "nx16_o1", None, QBINS, o1_batch,
+         rans_o1_cuda, rans_o1_plain, "rans_nx16_o1.cu",
+         "rans_o1_pallas.py:170", lambda n: chain_o1(n, 32), 12),
+        ("rans4x8_o0_decode", "4x8_o0", N_DECODE, None,
+         lambda e: frame_4x8(e, False, device), rans4x8_cuda, rans4x8_plain,
+         "rans4x8.cu", "rans4x8_pallas.py:49", lambda n: -(-n // 4), 10),
+        ("rans4x8_o0_hist", "4x8_o0", None, QBINS,
+         lambda e: frame_4x8(e, False, device), rans4x8_cuda, rans4x8_plain,
+         "rans4x8.cu", "rans4x8_pallas.py:120", lambda n: -(-n // 4), 10),
+        ("rans4x8_o1_hist", "4x8_o1", None, QBINS,
+         lambda e: frame_4x8(e, True, device), rans4x8_cuda, rans4x8_plain,
+         "rans4x8.cu", "rans4x8_pallas.py:120", lambda n: chain_o1(n, 4),
+         12),
+    ]
+    rows = []
+    for (key, wire, n_streams, qb, frame, kern, plain, src, line, chain,
+         ops) in specs:
+        blocks = leg3[wire][1][:n_streams]
+        b = frame(blocks)
+        offs = torch.zeros(b.n_streams, dtype=torch.int32, device=device)
+        got = kern(b, PLAIN_ROUNDS, offs, qb)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = plain(b, PLAIN_ROUNDS, offs, qb)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        for g, r, what in zip(got, ref, ("output", "states", "cursors",
+                                         "contexts")):
+            require(torch.equal(g, r),
+                    f"{key} kernel != plain over {PLAIN_ROUNDS} rounds "
+                    f"({what})")
+        err = int((got[0].long() - ref[0].long()).abs().max())
+        small = frame(leg3[wire][3])
+        soffs = torch.zeros(small.n_streams, dtype=torch.int32, device=device)
+        for g, r, what in zip(kern(small, -1, soffs, qb),
+                              plain(small, -1, soffs, qb),
+                              ("output", "states", "cursors", "contexts")):
+            require(torch.equal(g, r),
+                    f"{key} kernel != plain on whole 64 KiB streams ({what})")
+        n_sym = b.total_out
+        n_out = n_sym if qb is None else 4 * qb * b.n_streams
+        b_ms, b_by = bound_ms(sum(len(x) for x in blocks) + n_out,
+                              ops * n_sym)
+        rows.append({
+            "name": key, "route": "cuda",
+            "source": f"htslib_tpu_torch/csrc/{src}",
+            "replaces": f"htslib_tpu/ops/{line}",
+            "launches": launches[key], "max_abs_err": err,
+            "ms": cuda_ms(lambda: kern(b, -1, offs, qb), 3),
+            "plain_ms": plain_ms, "plain_rounds": PLAIN_ROUNDS,
+            "ms_at_plain_rounds": cuda_ms(
+                lambda: kern(b, PLAIN_ROUNDS, offs, qb), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "streams": b.n_streams, "symbols": n_sym,
+            "chain_rounds": max(chain(int(n)) for n in b.ulen.tolist()),
+            "match": True})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -296,17 +483,24 @@ def main() -> int:
     t0 = time.time()
     batch = leg1_batch()
     raws, encs = leg2_streams()
+    leg3 = leg3_streams()
     print(f"inputs: {time.time() - t0:.1f} s", flush=True)
 
     _build.reset_launches()
-    args, secs = main_path("cuda", batch, raws, encs)
+    args, secs = main_path("cuda", batch, raws, encs, leg3)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"main path ok: {secs}, launches {launches}", flush=True)
+    print(f"leg 3 wall: {secs['leg3']:.3f} s", flush=True)
     for k, v in launches.items():
         require(v >= 1, f"kernel {k} not launched on the main path")
 
+    t0 = time.time()
     rows = kernels_vs_plain(args[1], encs, launches)
+    print(f"phase 6, B1-B3: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    rows += leg3_kernels_vs_plain(args[1].device, leg3, launches)
+    print(f"phase 6, B5-B8: {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,8 +29,10 @@ BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"nibble_to_base": 0, "rans_nx16_o0_decode": 0,
-                            "rans_nx16_o0_hist": 0}
+LAUNCHES: Dict[str, int] = {
+    "nibble_to_base": 0, "rans_nx16_o0_decode": 0, "rans_nx16_o0_hist": 0,
+    "rans_nx16_o1_decode": 0, "rans_nx16_o1_hist": 0,
+    "rans4x8_o0_decode": 0, "rans4x8_o0_hist": 0, "rans4x8_o1_hist": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # (function, argtypes) per library: every pointer and the stream are
 # c_void_p, so ctypes never narrows them to 32-bit ints
@@ -42,6 +44,14 @@ _SIGNATURES = {
     "rans_nx16_o0": {
         "rans_nx16_o0_launch": [ctypes.c_void_p] * 12
         + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    },
+    "rans_nx16_o1": {
+        "rans_nx16_o1_launch": [ctypes.c_void_p] * 16
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    },
+    "rans4x8": {
+        "rans4x8_launch": [ctypes.c_void_p] * 17
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     },
 }
 

@@ -1,14 +1,18 @@
 """State carried between the JAX package and the port.
 
 The system has no weights; what crosses between the two packages is the
-rANS Nx16 group state.  The JAX front end (htslib_tpu/ops/device_stats.py
-`_prepare_group`) lays up to 32 streams out for its Pallas kernels as
-packed [W, 32] payload columns (two little-endian 16-bit words per int32
-row), state-major [8, 1024] states (state j of stream b at lane
-j * 32 + b) and telescoped [A, 1024] tables.  `from_jax_group` turns those
-arrays into the port's per-stream `Nx16Batch`, and `from_jax_segment`
-turns the state a JAX segment call returns into the port's per-stream
-states and word cursors, so both can be held equal.
+rANS group state.  The JAX front ends lay a group of streams out for
+their Pallas kernels as packed [W, B] payload columns (each int32 row two
+little-endian 16-bit words, or four stream bytes for the 4x8 wire),
+state-major [8, nway * B] states (state j of stream b at lane j * B + b)
+and tables tiled over the lanes: telescoped [A, L] order-0 tables
+(ops/device_stats.py `_prepare_group`, ops/rans4x8_pallas.py
+`_prepare_group4`) or the stacked order-1 tables keyed by dense context
+index (ops/rans_o1_pallas.py `_prepare_group_o1`).  The `from_jax_group*`
+functions turn those arrays into the port's per-stream batches, and the
+`from_jax_segment*` functions turn the state a JAX segment call returns
+into the port's per-stream states, cursors and (order 1) contexts, so
+both can be held equal.
 """
 from __future__ import annotations
 
@@ -17,30 +21,76 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from htslib_tpu_torch.ops.rans_nx16 import NWAY, TOTFREQ, Nx16Batch
+from htslib_tpu_torch.ops.rans4x8 import NWAY4, Rans4x8Batch
+from htslib_tpu_torch.ops.rans_nx16 import (NWAY, TOTFREQ, Nx16Batch,
+                                            exclusive_cumsum)
+from htslib_tpu_torch.ops.rans_nx16_o1 import Nx16O1Batch, frame_o1_tables
 
-BLOCKS = 32  # streams per JAX group
+BLOCKS = 32  # streams per JAX order-0 Nx16 group
 
 
-def _lanes_to_streams(x8: np.ndarray) -> np.ndarray:
-    """State-major lanes [8, 32 * BLOCKS] -> uint32 states [BLOCKS, 32]."""
+def _dev(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _lanes_to_streams(x8: np.ndarray, blocks: int = BLOCKS,
+                      nway: int = NWAY) -> np.ndarray:
+    """State-major lanes [8, nway * blocks] -> uint32 [blocks, nway]."""
     row = np.asarray(x8)[0].astype(np.int64) & 0xFFFFFFFF
-    return row.reshape(NWAY, BLOCKS).T.astype(np.uint32)
+    return row.reshape(nway, blocks).T.astype(np.uint32)
 
 
-def _freqs_from_tables(lo: np.ndarray, dfc: np.ndarray) -> np.ndarray:
-    """Telescoped tables [A, lanes] -> frequencies [BLOCKS, 256].  Stream
-    b's table sits in lane b; the running sum of its deltas (mod 2^32) is
-    (f-1) | cum<<12 | sym<<24 at each present symbol's row, and padding
-    rows carry the boundary TOTFREQ."""
+def _freqs_from_tables(lo: np.ndarray, dfc: np.ndarray,
+                       blocks: int = BLOCKS) -> np.ndarray:
+    """Telescoped tables [A, lanes] -> frequencies [blocks, 256].
+    Stream b's table sits in lane b; the running sum of its deltas (mod
+    2^32) is (f-1) | cum<<12 | sym<<24 at each present symbol's row, and
+    padding rows carry the boundary TOTFREQ."""
     lo = np.asarray(lo)
     packed = np.cumsum(np.asarray(dfc).astype(np.int64), axis=0) & 0xFFFFFFFF
-    freqs = np.zeros((BLOCKS, 256), np.int32)
-    for b in range(BLOCKS):
+    freqs = np.zeros((blocks, 256), np.int32)
+    for b in range(blocks):
         rows = lo[:, b] < TOTFREQ
         fc = packed[rows, b]
         freqs[b, fc >> 24] = (fc & 0xFFF) + 1
     return freqs
+
+
+def _alphabets(ad: np.ndarray, blocks: int) -> np.ndarray:
+    """Telescoped union alphabets [a_pad, lanes] -> symbol value of each
+    dense index, int64 [blocks, a_pad] (sum_{i <= idx} ad[i])."""
+    return np.cumsum(np.asarray(ad)[:, :blocks].astype(np.int64), axis=0).T
+
+
+def _o1_freqs(lo2: np.ndarray, d2: np.ndarray, ad: np.ndarray,
+              blocks: int) -> List[np.ndarray]:
+    """Stacked order-1 tables (rans_o1_pallas.build_o1_tables, tiled over
+    the lanes) -> per-context frequencies [256, 256] of each stream.  Row
+    r of stream b is present while lo2 < 2^30; the running sum of d2 is
+    (f-1) | cum<<12 | dense_sym<<24 there, and lo2 = dense_ctx*4096 +
+    cum."""
+    lo2 = np.asarray(lo2)
+    packed = np.cumsum(np.asarray(d2).astype(np.int64), axis=0) & 0xFFFFFFFF
+    alpha = _alphabets(ad, blocks)
+    out = []
+    for b in range(blocks):
+        rows = lo2[:, b] < (1 << 30)
+        fc = packed[rows, b]
+        F = np.zeros((256, 256), np.int64)
+        F[alpha[b, lo2[rows, b] // TOTFREQ], alpha[b, fc >> 24]] = \
+            (fc & 0xFFF) + 1
+        out.append(F)
+    return out
+
+
+def _payload_columns(data_w, unit: int):
+    """Packed [W, B] int32 columns -> (u8 payload of the columns back to
+    back, first `unit` of each column, units per column)."""
+    cols = np.ascontiguousarray(np.asarray(data_w, np.int32).T)  # [B, W]
+    per = 4 * cols.shape[1] // unit
+    B = cols.shape[0]
+    return (cols.view(np.uint8).reshape(-1),
+            np.arange(B, dtype=np.int64) * per, np.full(B, per, np.int32))
 
 
 def from_jax_group(data_w, lo, dfc, x, out_szs: List[int],
@@ -48,26 +98,68 @@ def from_jax_group(data_w, lo, dfc, x, out_szs: List[int],
     """The arrays of `device_stats._prepare_group` -> an `Nx16Batch` of
     its 32 streams (streams the group pads have ulen 0).  Each stream's
     payload is its whole zero-padded column."""
-    cols = np.ascontiguousarray(np.asarray(data_w, np.int32).T)  # [B, W]
-    words_per = 2 * cols.shape[1]
+    payload, word_off, n_words = _payload_columns(data_w, 2)
     ulen = np.asarray(out_szs, np.int64)
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
     return Nx16Batch(
-        payload=dev(cols.view(np.uint8).reshape(-1)),
-        word_off=dev(np.arange(BLOCKS, dtype=np.int64) * words_per),
-        n_words=dev(np.full(BLOCKS, words_per, np.int32)),
-        freqs=dev(_freqs_from_tables(lo, dfc)),
-        x0=dev(_lanes_to_streams(x).view(np.int32)),
-        ulen=dev(ulen.astype(np.int32)),
-        out_off=dev(np.concatenate([[0], np.cumsum(ulen)[:-1]])
-                    .astype(np.int64)))
+        payload=_dev(payload, device), word_off=_dev(word_off, device),
+        n_words=_dev(n_words, device),
+        freqs=_dev(_freqs_from_tables(lo, dfc), device),
+        x0=_dev(_lanes_to_streams(x).view(np.int32), device),
+        ulen=_dev(ulen.astype(np.int32), device),
+        out_off=_dev(exclusive_cumsum(ulen), device))
 
 
-def from_jax_segment(x_out, cur_out) -> Tuple[np.ndarray, np.ndarray]:
-    """A JAX segment's (x [8, 1024], cursor [1, 32]) -> (uint32 states
-    [32, 32], word cursors int64 [32]) in the port's per-stream order."""
-    return (_lanes_to_streams(x_out),
-            np.asarray(cur_out).reshape(-1).astype(np.int64))
+def from_jax_group_o1(data_w, lo2, d2, ad, x, out_szs: List[int],
+                      device="cpu") -> Nx16O1Batch:
+    """The arrays of `rans_o1_pallas._prepare_group_o1` -> an
+    `Nx16O1Batch` of its B1 streams (B1 = data_w's width)."""
+    blocks = np.asarray(data_w).shape[1]
+    payload, word_off, n_words = _payload_columns(data_w, 2)
+    ulen = np.asarray(out_szs, np.int64)
+    return Nx16O1Batch(
+        payload=_dev(payload, device), word_off=_dev(word_off, device),
+        n_words=_dev(n_words, device),
+        tables=frame_o1_tables(_o1_freqs(lo2, d2, ad, blocks), device),
+        x0=_dev(_lanes_to_streams(x, blocks).view(np.int32), device),
+        ulen=_dev(ulen.astype(np.int32), device),
+        out_off=_dev(exclusive_cumsum(ulen), device))
+
+
+def from_jax_group4(data_w, lo, dfc, x, out_szs: List[int], device="cpu",
+                    ad=None) -> Rans4x8Batch:
+    """The arrays of `rans4x8_pallas._prepare_group4` (order 0: `lo`,
+    `dfc` telescoped as pack_tables) or of the order-1 front end of
+    `device_stats.qualstats_device_4x8` (`lo`, `dfc` stacked as
+    build_o1_tables_4x8, with its alphabet table `ad`) -> a
+    `Rans4x8Batch` of the group's 64 streams."""
+    blocks = np.asarray(data_w).shape[1]
+    payload, word_off, n_bytes = _payload_columns(data_w, 4)
+    ulen = np.asarray(out_szs, np.int64)
+    o1 = ad is not None
+    return Rans4x8Batch(
+        payload=_dev(payload, device), byte_off=_dev(4 * word_off, device),
+        n_bytes=_dev(4 * n_bytes, device),
+        freqs=_dev(np.zeros((blocks, 256), np.int32) if o1
+                   else _freqs_from_tables(lo, dfc, blocks), device),
+        tables=(frame_o1_tables(_o1_freqs(lo, dfc, ad, blocks), device)
+                if o1 else None),
+        x0=_dev(_lanes_to_streams(x, blocks, NWAY4).view(np.int32), device),
+        ulen=_dev(ulen.astype(np.int32), device),
+        out_off=_dev(exclusive_cumsum(ulen), device))
+
+
+def from_jax_segment(x_out, cur_out, ctx_out=None, ad=None,
+                     nway: int = NWAY) -> Tuple[np.ndarray, ...]:
+    """A JAX segment's (x [8, nway * B], cursor [1, B]) -> (uint32 states
+    [B, nway], cursors int64 [B]) in the port's per-stream order; with
+    the order-1 kernels' dense contexts `ctx_out` [8, nway * B] and their
+    alphabet table `ad`, also the contexts as symbol values, int64
+    [B, nway]."""
+    cur = np.asarray(cur_out).reshape(-1).astype(np.int64)
+    blocks = len(cur)
+    x = _lanes_to_streams(x_out, blocks, nway)
+    if ctx_out is None:
+        return x, cur
+    dense = np.asarray(ctx_out)[0].astype(np.int64).reshape(nway, blocks).T
+    alpha = _alphabets(ad, blocks)
+    return x, cur, np.take_along_axis(alpha, dense, axis=1)

@@ -2,9 +2,9 @@
 
 Host-side framing: file definition, container headers, blocks, and block
 decompression for the methods the port has codecs for (RAW, GZIP, BZIP2,
-LZMA and RANSPR, the rANS Nx16 coder; cram_uncompress_block,
-cram_io.c:1576-1750).  Blocks under RANS (4x8), ARITH, FQZ or TOK3 raise
-NotImplementedError until their codecs are ported.
+LZMA, RANS, the rANS 4x8 coder, and RANSPR, the rANS Nx16 coder;
+cram_uncompress_block, cram_io.c:1576-1750).  Blocks under ARITH, FQZ or
+TOK3 raise NotImplementedError until their codecs are ported.
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ from htslib_tpu_torch.cram.structs import (ARITH, BZIP2, FQZ, GZIP, LZMA,
                                            RANS, RANSPR, RAW, TOK3)
 from htslib_tpu_torch.cram.v4 import varint_vec
 
-_UNPORTED = {RANS: "rANS 4x8", ARITH: "arithmetic coder",
-             FQZ: "fqzcomp", TOK3: "name tokeniser (tok3)"}
+_UNPORTED = {ARITH: "arithmetic coder", FQZ: "fqzcomp",
+             TOK3: "name tokeniser (tok3)"}
 
 
 @dataclass
@@ -48,6 +48,9 @@ class CramBlock:
             out = bz2.decompress(self.data)
         elif m == LZMA:
             out = lzma.decompress(self.data)
+        elif m == RANS:
+            from htslib_tpu_torch.codecs import rans4x8
+            out = rans4x8.uncompress(self.data)
         elif m == RANSPR:
             from htslib_tpu_torch.codecs import rans4x16
             out = rans4x16.uncompress(self.data)

@@ -22,12 +22,14 @@
 #define RANS16_L (1u << 15)
 #define RANS_NWAY 32
 
-// Slot table of one stream from its 256 frequencies f (which sum to 4096):
-// entry m packs, for the symbol s owning slot m, (f[s] - 1) in bits 0-11,
-// m - cum[s] (the slot's offset within s) in bits 12-23 and s in bits
-// 24-31, so a decode step needs one table load.  Lane `lane` of `nlanes`
-// fills the symbols s with s % nlanes == lane; each lane sums cum itself,
-// so the lanes need no scan between them.
+// Slot table of one stream from its 256 frequencies f (which sum to at
+// most 4096): entry m packs, for the symbol s owning slot m, (f[s] - 1) in
+// bits 0-11, m - cum[s] (the slot's offset within s) in bits 12-23 and s
+// in bits 24-31, so a decode step needs one table load.  Slots past the
+// sum (a rANS 4x8 table may sum to less than 4096; no valid stream reaches
+// them) hold 0.  Lane `lane` of `nlanes` fills the symbols s with
+// s % nlanes == lane and the spare slots k with k % nlanes == lane; each
+// lane sums cum itself, so the lanes need no scan between them.
 RANS_HD void rans_o0_build_slots(const uint16_t* f, uint32_t* slot, int lane,
                                  int nlanes) {
   uint32_t c = 0;
@@ -38,6 +40,8 @@ RANS_HD void rans_o0_build_slots(const uint16_t* f, uint32_t* slot, int lane,
         slot[k] = (fs - 1) | ((k - c) << 12) | ((uint32_t)s << 24);
     c += fs;
   }
+  for (uint32_t k = c; k < RANS_TOTFREQ; ++k)
+    if (k % nlanes == (uint32_t)lane) slot[k] = 0;
 }
 
 // Resolve slot x & 4095 to its symbol s and advance the state:

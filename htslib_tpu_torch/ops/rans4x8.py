@@ -1,0 +1,320 @@
+"""rANS 4x8 decode on the card (kernels B7 and B8), the CRAM 3.0 wire.
+
+Port of htslib_tpu/ops/rans4x8_pallas.py: `decode_4x8_o0_batch` (its
+`_seg4_kernel`) here, and the order-0 or order-1 histogram variant (its
+`_seg4_hist_kernel`) through `rans4x8(..., qbins=...)`, which
+ops/device_stats.py drives.
+
+Layout.  The Pallas kernels decode 64 streams per call in state-major
+[8, 256] lanes over byte-packed [W, 64] windows, 1024 rounds per call,
+and finish the odd tail on the host.  The port keeps the wire and the
+outputs: a batch (`Rans4x8Batch`) holds each stream's payload bytes back
+to back, each starting on a 4-byte boundary, its order-0 frequencies or
+its order-1 rows (`O1Tables`, as for the Nx16 order-1 kernels), and its 4
+initial states; one launch decodes every stream of the batch to its end,
+tail included (csrc/rans4x8.cu, one warp per stream).
+
+`rans4x8` launches the kernel for tensors on the card and takes the plain
+PyTorch version (`rans4x8_plain`, the same rounds as tensor ops over all
+streams and states at once) for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from htslib_tpu_torch import _build
+from htslib_tpu_torch.codecs.rans4x8 import _read_freqs, _read_freqs_o1
+from htslib_tpu_torch.ops.rans_nx16 import (TOTFREQ, _U32, exclusive_cumsum,
+                                            pack_payloads)
+from htslib_tpu_torch.ops.rans_nx16_o1 import (A2_MAX, O1Tables,
+                                               check_o1_tables,
+                                               frame_o1_tables,
+                                               o1_slot_table, slot_step)
+
+RANS8_L = 1 << 23
+NWAY4 = 4
+
+
+@dataclass
+class Rans4x8Batch:
+    """4x8 streams of one order framed for decode, on one device."""
+    payload: torch.Tensor   # u8: payloads back to back, 4-byte aligned
+    byte_off: torch.Tensor  # int64 [S]: first byte of each payload
+    n_bytes: torch.Tensor   # int32 [S]: bytes in each payload
+    freqs: torch.Tensor     # int32 [S, 256]: order-0 frequencies (sum
+    #                         <= 4096); zeros for order 1
+    tables: Optional[O1Tables]  # order-1 rows; None for order 0
+    x0: torch.Tensor        # int32 [S, 4]: initial states (u32 bits)
+    ulen: torch.Tensor      # int32 [S]: symbols in each stream
+    out_off: torch.Tensor   # int64 [S]: each stream's first output byte
+
+    @property
+    def o1(self) -> bool:
+        return self.tables is not None
+
+    @property
+    def n_streams(self) -> int:
+        return int(self.ulen.shape[0])
+
+    @property
+    def total_out(self) -> int:
+        return int(self.ulen.sum())
+
+
+def _parse_4x8_o0(data: bytes):
+    """Parse a 4x8 ORDER-0 stream: returns (out_sz, f [256], states [4],
+    payload ndarray); the checks of rans4x8_pallas._prepare_group4."""
+    if data[0] != 0:
+        raise ValueError("device rans4x8: order-0 only")
+    _comp_sz, out_sz = struct.unpack_from("<II", data, 1)
+    f, p = _read_freqs(data, 9)
+    if f.sum() > TOTFREQ:
+        raise ValueError("rans4x8: frequencies exceed 4096")
+    states = np.frombuffer(data, "<u4", NWAY4, p).astype(np.int64)
+    p += 16
+    return out_sz, f, states, np.frombuffer(data, np.uint8, len(data) - p, p)
+
+
+def _parse_4x8_o1(data: bytes):
+    """Parse a 4x8 ORDER-1 stream: returns (out_sz, F [256,256],
+    states [4], payload_offset)."""
+    if data[0] != 1:
+        raise ValueError("not a 4x8 order-1 stream")
+    _comp_sz, out_sz = struct.unpack_from("<II", data, 1)
+    F, p = _read_freqs_o1(data, 9)
+    states = np.zeros(4, np.int64)
+    for j in range(4):
+        states[j] = int.from_bytes(data[p + 4 * j:p + 4 * j + 4], "little")
+    return out_sz, F, states, p + 16
+
+
+def o1_gate_4x8(F: np.ndarray) -> None:
+    """The JAX routing gate of 4x8 order-1 streams: raise ValueError when
+    the stacked rows pad past A2_MAX."""
+    nrows = int((np.asarray(F) > 0).sum())
+    a2 = 8
+    while a2 < nrows:
+        a2 <<= 1
+    if a2 > A2_MAX:
+        raise ValueError("alphabet too large for the device O1 kernel")
+
+
+def frame_4x8(blocks: List[bytes], o1: bool, device) -> Rans4x8Batch:
+    """Parse 4x8 streams of one order (flag byte included) into a
+    `Rans4x8Batch`; raises as the JAX front ends do."""
+    S = len(blocks)
+    freqs = np.zeros((S, 256), np.int32)
+    states = np.zeros((S, NWAY4), np.int64)
+    ulen = np.zeros(S, np.int64)
+    payloads, Fs = [], []
+    for i, data in enumerate(blocks):
+        if o1:
+            ulen[i], F, states[i], poff = _parse_4x8_o1(data)
+            Fs.append(F)
+            payloads.append(np.frombuffer(data, np.uint8, len(data) - poff,
+                                          poff))
+        else:
+            ulen[i], freqs[i], states[i], pl = _parse_4x8_o0(data)
+            payloads.append(pl)
+    if (ulen >= 1 << 31).any():
+        raise ValueError("stream too long for the 4x8 kernel")
+    if o1:
+        for F in Fs:
+            o1_gate_4x8(F)
+    payload, word_off, _ = pack_payloads(payloads, 4)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return Rans4x8Batch(
+        dev(payload), dev(4 * word_off),
+        dev(np.array([len(p) for p in payloads], np.int32)), dev(freqs),
+        frame_o1_tables(Fs, device) if o1 else None,
+        dev(states.astype(np.uint32).view(np.int32)),
+        dev(ulen.astype(np.int32)), dev(exclusive_cumsum(ulen)))
+
+
+def o0_slot_table(freqs: torch.Tensor) -> torch.Tensor:
+    """Packed order-0 slot tables int64 [S, 4096] (rans_o0_build_slots):
+    (f-1) | (m - cum)<<12 | sym<<24 per slot m, 0 past the sum."""
+    f = freqs.long()
+    cum_incl = torch.cumsum(f, 1)
+    slots = torch.arange(TOTFREQ, device=f.device).expand(
+        f.shape[0], TOTFREQ).contiguous()
+    s = torch.searchsorted(cum_incl, slots, right=True)
+    sc = s.clamp(max=255)
+    fs = torch.gather(f, 1, sc)
+    cs = torch.gather(cum_incl, 1, sc) - fs
+    return torch.where(s < 256, (fs - 1) | ((slots - cs) << 12) | (sc << 24),
+                       0)
+
+
+def rans4x8_plain(b: Rans4x8Batch, max_rounds: int = -1,
+                  offs: Optional[torch.Tensor] = None,
+                  qbins: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """Plain PyTorch version of kernels B7/B8: the same rounds as tensor
+    ops over [streams, 4 states].  Returns (symbols u8 [total_out], or
+    with `qbins` the histogram int32 [S, qbins] of clip(sym - offs, 0,
+    qbins - 1); final states int32 [S, 4]; final byte cursors int32 [S];
+    final contexts int32 [S, 4], 0 for order 0)."""
+    dev = b.payload.device
+    S = b.n_streams
+    table = o1_slot_table(b.tables) if b.o1 else o0_slot_table(b.freqs)
+    data = b.payload.long()
+    nb = b.n_bytes.long()[:, None]
+    bo = b.byte_off[:, None]
+    n = b.ulen.long()[:, None]
+    lanes = torch.arange(NWAY4, device=dev)[None, :]
+    isz4 = n // NWAY4
+    if b.o1:
+        lens = torch.where(lanes < NWAY4 - 1, isz4, n - (NWAY4 - 1) * isz4)
+        rounds = lens[:, -1]
+    else:
+        rounds = (n[:, 0] + NWAY4 - 1) // NWAY4
+    if max_rounds >= 0:
+        rounds = rounds.clamp(max=max_rounds)
+    x = b.x0.long() & _U32
+    ctx = torch.zeros((S, NWAY4), dtype=torch.long, device=dev)
+    cur = torch.zeros((S, 1), dtype=torch.long, device=dev)
+    total = b.total_out
+    if qbins is None:
+        out = torch.zeros(total + 1, dtype=torch.uint8, device=dev)
+    else:
+        out = torch.zeros((S, qbins), dtype=torch.long, device=dev)
+        off = (offs.long() if offs is not None
+               else torch.zeros(S, dtype=torch.long, device=dev))[:, None]
+
+    def byte(idx):
+        inb = idx < nb
+        return torch.where(inb, data[torch.where(inb, bo + idx, 0)], 0)
+
+    for r in range(int(rounds.max()) if S else 0):
+        if b.o1:
+            pos = lanes * isz4 + r
+            act = r < lens
+        else:
+            pos = r * NWAY4 + lanes
+            act = pos < n
+        act = act & (r < rounds)[:, None]
+        s, step = slot_step(x, ctx * TOTFREQ + (x & (TOTFREQ - 1)), table)
+        x = torch.where(act, step, x)
+        if b.o1:
+            ctx = torch.where(act, s, ctx)
+        if qbins is None:
+            at = torch.where(act, b.out_off[:, None] + pos, total)
+            out[at.reshape(-1)] = s.reshape(-1).to(torch.uint8)
+        else:
+            out.scatter_add_(1, (s - off).clamp(0, qbins - 1), act.long())
+        need = act.long() * ((x < RANS8_L).long() + (x < (1 << 15)).long())
+        first = cur + torch.cumsum(need, 1) - need
+        x = torch.where(need >= 1, ((x << 8) | byte(first)) & _U32, x)
+        x = torch.where(need == 2, ((x << 8) | byte(first + 1)) & _U32, x)
+        cur = torch.minimum(cur + need.sum(1, keepdim=True), nb)
+    res = out[:total] if qbins is None else out.to(torch.int32)
+    return (res, x.to(torch.int32), cur[:, 0].to(torch.int32),
+            ctx.to(torch.int32))
+
+
+def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
+                 offs: Optional[torch.Tensor] = None,
+                 qbins: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Kernel B7 (order-0 symbols) or, with `qbins`, kernel B8 (order-0
+    or order-1 histogram) over the whole batch in one launch; same
+    results as `rans4x8_plain`."""
+    S = b.n_streams
+    req = _build.require_cuda
+    req(b.payload, torch.uint8, "payload")
+    req(b.byte_off, torch.int64, "byte_off", (S,))
+    req(b.n_bytes, torch.int32, "n_bytes", (S,))
+    req(b.freqs, torch.int32, "freqs", (S, 256))
+    req(b.x0, torch.int32, "x0", (S, NWAY4))
+    req(b.ulen, torch.int32, "ulen", (S,))
+    req(b.out_off, torch.int64, "out_off", (S,))
+    if b.payload.data_ptr() % 4:
+        raise ValueError("payload: expected a 4-byte aligned buffer")
+    # the kernel reads each payload as whole 32-bit words
+    words_end = (b.byte_off + 4 * ((b.n_bytes.long() + 3) // 4))
+    bad = ((words_end > b.payload.numel()) | (b.byte_off % 4 != 0)
+           | (b.byte_off < 0) | (b.n_bytes < 0) | (b.ulen < 0)
+           | (b.out_off < 0) | (b.out_off + b.ulen > b.total_out)).any() \
+        | (b.freqs < 0).any() | (b.freqs.sum(1) > TOTFREQ).any()
+    if bool(bad):
+        raise ValueError("batch: a stream lies outside its buffers or has "
+                         "a frequency table past 4096")
+    if b.o1:
+        check_o1_tables(b.tables, S)
+    # the order-0 kernel reads no order-1 table: null pointers
+    t_ptrs = ([x.data_ptr() for x in (b.tables.rows, b.tables.row_off,
+                                      b.tables.n_rows, b.tables.ctx_start)]
+              if b.o1 else [None] * 4)
+    dev = b.payload.device
+    x_out = torch.empty((S, NWAY4), dtype=torch.int32, device=dev)
+    ctx_out = torch.empty((S, NWAY4), dtype=torch.int32, device=dev)
+    cur_out = torch.empty(S, dtype=torch.int32, device=dev)
+    if qbins is None:
+        if b.o1:
+            raise ValueError("rANS 4x8 order-1 symbols: no kernel (the "
+                             "order-1 lane is histogram only)")
+        # positions a max_rounds stop leaves undecoded hold 0, as in
+        # the plain version
+        res = (torch.empty if max_rounds < 0 else torch.zeros)(
+            b.total_out, dtype=torch.uint8, device=dev)
+        out_ptr, hist_ptr, offs_ptr, key = res.data_ptr(), None, None, \
+            "rans4x8_o0_decode"
+    else:
+        if not 1 <= qbins <= 256:
+            raise ValueError("qbins must be in 1..256")
+        if offs is None:
+            offs = torch.zeros(S, dtype=torch.int32, device=dev)
+        req(offs, torch.int32, "offs", (S,))
+        res = torch.empty((S, qbins), dtype=torch.int32, device=dev)
+        out_ptr, hist_ptr, offs_ptr = None, res.data_ptr(), offs.data_ptr()
+        key = "rans4x8_o1_hist" if b.o1 else "rans4x8_o0_hist"
+    lib = _build.load("rans4x8")
+    rc = lib.rans4x8_launch(
+        b.payload.data_ptr(), b.byte_off.data_ptr(), b.n_bytes.data_ptr(),
+        b.freqs.data_ptr(), *t_ptrs, b.x0.data_ptr(),
+        b.ulen.data_ptr(), b.out_off.data_ptr(), out_ptr, offs_ptr,
+        hist_ptr, x_out.data_ptr(), cur_out.data_ptr(), ctx_out.data_ptr(),
+        S, qbins or 0, max_rounds, int(b.o1),
+        _build.stream_handle(b.payload))
+    _build.check(lib, rc, key)
+    _build.LAUNCHES[key] += 1
+    return res, x_out, cur_out, ctx_out
+
+
+def rans4x8(b: Rans4x8Batch, max_rounds: int = -1,
+            offs: Optional[torch.Tensor] = None, qbins: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor]:
+    """Decode a batch: the kernel for a batch on the card, the plain
+    version for one on the CPU.  `max_rounds` >= 0 stops every stream
+    after that many rounds (the state a JAX segment call leaves)."""
+    if b.payload.is_cuda:
+        return rans4x8_cuda(b, max_rounds, offs, qbins)
+    if b.payload.device.type != "cpu":
+        raise ValueError(f"unsupported device {b.payload.device}")
+    return rans4x8_plain(b, max_rounds, offs, qbins)
+
+
+def decode_4x8_o0_batch(blocks: List[bytes], device="cuda") -> List[bytes]:
+    """Wire-exact rANS 4x8 order-0 decode of whole streams (the CRAM 3.0
+    wire; codecs/rans4x8.py is the host model), every stream of the list
+    in one kernel launch, the odd tail included."""
+    dev = _build.resolve_device(device)
+    if not blocks:
+        return []
+    b = frame_4x8(blocks, False, dev)
+    syms = rans4x8(b)[0].cpu().numpy()
+    offs = b.out_off.cpu().numpy()
+    lens = b.ulen.cpu().numpy()
+    return [syms[o:o + n].tobytes() for o, n in zip(offs, lens)]

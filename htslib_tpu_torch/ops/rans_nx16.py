@@ -56,6 +56,27 @@ class Nx16Batch:
         return int(self.ulen.sum())
 
 
+def pack_payloads(payloads: List[np.ndarray], unit: int
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Payloads back to back in one zero-padded u8 buffer, each starting
+    at a multiple of `unit` bytes.  Returns (buffer, first unit of each
+    payload int64, units in each int64)."""
+    n_units = np.array([(len(p) + unit - 1) // unit for p in payloads],
+                       np.int64)
+    first = exclusive_cumsum(n_units)
+    # one spare unit keeps the buffer non-empty when every payload is
+    buf = np.zeros(unit * (int(n_units.sum()) + 1), np.uint8)
+    for o, p in zip(first, payloads):
+        buf[unit * o:unit * o + len(p)] = p
+    return buf, first, n_units
+
+
+def exclusive_cumsum(a: np.ndarray) -> np.ndarray:
+    out = np.zeros(len(a), np.int64)
+    np.cumsum(a[:-1], out=out[1:])
+    return out
+
+
 def frame_streams(blocks: List[bytes], device) -> Nx16Batch:
     """Parse the headers of plain Nx16 O0 32-way streams (flag byte
     included; flags checked by the caller) into an `Nx16Batch`."""
@@ -76,15 +97,7 @@ def frame_streams(blocks: List[bytes], device) -> Nx16Batch:
         states[i] = np.frombuffer(data, "<u4", NWAY, p)
         payloads.append(np.frombuffer(data, np.uint8, len(data) - p - 4 * NWAY,
                                       p + 4 * NWAY))
-    n_words = np.array([(len(pl) + 1) // 2 for pl in payloads], np.int64)
-    word_off = np.zeros(S, np.int64)
-    np.cumsum(n_words[:-1], out=word_off[1:])
-    # one spare word keeps the buffer non-empty when every payload is
-    payload = np.zeros(2 * (int(n_words.sum()) + 1), np.uint8)
-    for off, pl in zip(word_off, payloads):
-        payload[2 * off:2 * off + len(pl)] = pl
-    out_off = np.zeros(S, np.int64)
-    np.cumsum(ulen[:-1], out=out_off[1:])
+    payload, word_off, n_words = pack_payloads(payloads, 2)
 
     def dev(a):
         return torch.from_numpy(a).to(device)
@@ -92,7 +105,7 @@ def frame_streams(blocks: List[bytes], device) -> Nx16Batch:
     return Nx16Batch(dev(payload), dev(word_off),
                      dev(n_words.astype(np.int32)), dev(freqs),
                      dev(states.view(np.int32)), dev(ulen.astype(np.int32)),
-                     dev(out_off))
+                     dev(exclusive_cumsum(ulen)))
 
 
 def rans_o0_plain(b: Nx16Batch, max_rounds: int = -1,
@@ -141,15 +154,22 @@ def rans_o0_plain(b: Nx16Batch, max_rounds: int = -1,
             out[at.reshape(-1)] = s.reshape(-1).to(torch.uint8)
         else:
             out.scatter_add_(1, (s - off).clamp(0, qbins - 1), act.long())
-        need = act & (x < RANS16_L)
-        needi = need.long()
-        idx = cur + torch.cumsum(needi, 1) - needi
-        inb = idx < nw
-        word = torch.where(inb, words[torch.where(inb, wo + idx, 0)], 0)
-        x = torch.where(need, ((x << 16) | word) & _U32, x)
-        cur = torch.minimum(cur + needi.sum(1, keepdim=True), nw)
+        x, cur = refill16(x, act & (x < RANS16_L), cur, words, wo, nw)
     res = out[:total] if qbins is None else out.to(torch.int32)
     return res, x.to(torch.int32), cur[:, 0].to(torch.int32)
+
+
+def refill16(x, need, cur, words, wo, nw):
+    """One round's refills of [S, 32] states in state order: state j of
+    stream i, where `need`, shifts in word cur + (states below j that
+    need one) of its stream (0 past the end); the cursor advances by the
+    count, clamped to the stream's end.  Returns (x, cur)."""
+    needi = need.long()
+    idx = cur + torch.cumsum(needi, 1) - needi
+    inb = idx < nw
+    word = torch.where(inb, words[torch.where(inb, wo + idx, 0)], 0)
+    x = torch.where(need, ((x << 16) | word) & _U32, x)
+    return x, torch.minimum(cur + needi.sum(1, keepdim=True), nw)
 
 
 def rans_o0_cuda(b: Nx16Batch, max_rounds: int = -1,
@@ -181,7 +201,10 @@ def rans_o0_cuda(b: Nx16Batch, max_rounds: int = -1,
     x_out = torch.empty((S, NWAY), dtype=torch.int32, device=dev)
     cur_out = torch.empty(S, dtype=torch.int32, device=dev)
     if qbins is None:
-        res = torch.empty(b.total_out, dtype=torch.uint8, device=dev)
+        # positions a max_rounds stop leaves undecoded hold 0, as in
+        # the plain version
+        res = (torch.empty if max_rounds < 0 else torch.zeros)(
+            b.total_out, dtype=torch.uint8, device=dev)
         out_ptr, hist_ptr, offs_ptr, key = res.data_ptr(), None, None, \
             "rans_nx16_o0_decode"
     else:

@@ -1,0 +1,355 @@
+"""rANS Nx16 order-1 32-way decode on the card (kernels B5 and B6).
+
+Port of htslib_tpu/ops/rans_o1_pallas.py: `decode_nx16_o1_batch` (its
+`_make_seg1_kernel`) here, and the histogram variant (its
+`_make_seg1_hist_kernel`) through `rans_o1(..., qbins=...)`, which
+ops/device_stats.py drives.
+
+Layout.  The Pallas kernels stack every context's table into one
+telescoped [a2_pad, L] compare-sum keyed by ctx_idx*4096 + slot, with a
+union-alphabet select back to symbol values, 1024 rounds per call, and
+finish the <= 31-symbol tail on the host.  The port keeps the wire and
+the outputs, not that layout: a batch (`Nx16O1Batch`) holds each
+stream's payload words back to back, its present (ctx, sym) rows packed
+(f-1) | cum<<12 | sym<<24 and sorted by (ctx, cum) with the first row of
+each context (`O1Tables`), and its 32 initial states; one launch decodes
+every stream of the batch to its end, tail included
+(csrc/rans_nx16_o1.cu, one warp per stream).  Contexts are symbol
+values, not dense indices.
+
+`rans_o1` launches the kernel for tensors on the card and takes the plain
+PyTorch version (`rans_o1_plain`, the same rounds as tensor ops over all
+streams and states at once, through a dense [ctx, slot] table) for
+tensors on the CPU.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from htslib_tpu_torch import _build
+from htslib_tpu_torch.codecs.rans4x16 import (_read_alphabet,
+                                              _read_freq_table, u7_get)
+from htslib_tpu_torch.ops.rans_nx16 import (NWAY, RANS16_L, TF_SHIFT,
+                                            TOTFREQ, _U32, exclusive_cumsum,
+                                            pack_payloads, refill16)
+
+A2_MAX = 4096  # stacked (ctx, sym) rows the device O1 kernels take
+
+
+@dataclass
+class O1Tables:
+    """Order-1 tables of S streams, as the kernels read them."""
+    rows: torch.Tensor       # int32 (u32 bits): every stream's rows
+    row_off: torch.Tensor    # int64 [S]: each stream's first row
+    n_rows: torch.Tensor     # int32 [S]: rows of each stream (<= A2_MAX)
+    ctx_start: torch.Tensor  # int32 [S, 257]: first row of each context
+
+
+@dataclass
+class Nx16O1Batch:
+    """Order-1 streams framed for decode, all tensors on one device."""
+    payload: torch.Tensor   # u8: payloads back to back, each padded to even
+    word_off: torch.Tensor  # int64 [S]: first 16-bit word of each stream
+    n_words: torch.Tensor   # int32 [S]: words in each (padded) payload
+    tables: O1Tables
+    x0: torch.Tensor        # int32 [S, 32]: initial states (u32 bits)
+    ulen: torch.Tensor      # int32 [S]: symbols in each stream
+    out_off: torch.Tensor   # int64 [S]: each stream's first output byte
+
+    @property
+    def n_streams(self) -> int:
+        return int(self.ulen.shape[0])
+
+    @property
+    def total_out(self) -> int:
+        return int(self.ulen.sum())
+
+
+def _parse_o1_header(data: bytes):
+    """Parse an Nx16 ORDER-1 32-way stream (flags already checked):
+    returns (n_out, F [256,256], states [32], payload ndarray)."""
+    flags = data[0]
+    if flags & ~0x05 or not (flags & 0x04) or not (flags & 0x01):
+        raise ValueError("device O1 kernel: plain 32-way O1 only")
+    p = 1
+    ulen, p = u7_get(data, p)
+    tlen, p = u7_get(data, p)
+    tab = data[p:p + tlen]
+    p += tlen
+    tp = 0
+    ctxs, tp = _read_alphabet(tab, tp)
+    F = np.zeros((256, 256), np.int64)
+    for ctx in ctxs:
+        F[ctx], tp = _read_freq_table(tab, tp)
+    states = np.zeros(NWAY, np.int64)
+    for j in range(NWAY):
+        states[j] = int.from_bytes(data[p:p + 4], "little")
+        p += 4
+    payload = np.frombuffer(data, np.uint8, len(data) - p, p)
+    return ulen, F, states, payload
+
+
+def o1_pads(parsed) -> Tuple[int, int]:
+    """(a2_pad, a_pad) covering a list of parsed O1 streams: the JAX
+    kernels' table heights, whose A2_MAX gate is the routing rule."""
+    a2_pad = 8
+    a_pad = 8
+    for _ulen, F, _states, _payload in parsed:
+        used_ctx = np.nonzero(F.sum(axis=1))[0]
+        syms = np.nonzero(F.sum(axis=0))[0]
+        A = len(np.union1d(used_ctx, syms))
+        while a_pad < A:
+            a_pad <<= 1
+        nrows = int((F > 0).sum())
+        while a2_pad < nrows:
+            a2_pad <<= 1
+    if a2_pad > A2_MAX:
+        raise ValueError("alphabet too large for the device O1 kernel")
+    return a2_pad, a_pad
+
+
+def o1_rows(F: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-context frequencies [256, 256] -> (rows uint32 [n], packed
+    (f-1) | cum<<12 | sym<<24 in (ctx, sym) order; ctx_start int32
+    [257]).  Raises ValueError when a context's frequencies exceed 4096
+    or the rows exceed A2_MAX."""
+    F = np.asarray(F, np.int64)
+    if (F.sum(axis=1) > TOTFREQ).any():
+        raise ValueError("order-1 context frequencies exceed 4096")
+    ctx, sym = np.nonzero(F)
+    if len(ctx) > A2_MAX:
+        raise ValueError("alphabet too large for the device O1 kernel")
+    cum = np.cumsum(F, axis=1) - F
+    rows = ((F[ctx, sym] - 1) | (cum[ctx, sym] << 12) | (sym << 24))
+    ctx_start = np.zeros(257, np.int32)
+    np.cumsum((F > 0).sum(axis=1), out=ctx_start[1:])
+    return rows.astype(np.uint32), ctx_start
+
+
+def frame_o1_tables(Fs: List[np.ndarray], device) -> O1Tables:
+    """O1Tables of streams with per-context frequencies Fs."""
+    built = [o1_rows(F) for F in Fs]
+    n_rows = np.array([len(r) for r, _ in built], np.int64)
+    rows = np.concatenate([r for r, _ in built] + [np.zeros(1, np.uint32)])
+    ctx_start = np.stack([c for _, c in built]) if built \
+        else np.zeros((0, 257), np.int32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return O1Tables(dev(rows.view(np.int32)), dev(exclusive_cumsum(n_rows)),
+                    dev(n_rows.astype(np.int32)), dev(ctx_start))
+
+
+def frame_o1_streams(parsed, device) -> Nx16O1Batch:
+    """Parsed O1 streams (`_parse_o1_header`) -> an `Nx16O1Batch`."""
+    ulen = np.array([p[0] for p in parsed], np.int64)
+    if (ulen >= 1 << 31).any():
+        raise ValueError("stream too long for the Nx16 kernel")
+    payload, word_off, n_words = pack_payloads([p[3] for p in parsed], 2)
+    states = np.array([p[2] for p in parsed], np.int64).reshape(-1, NWAY)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return Nx16O1Batch(
+        dev(payload), dev(word_off), dev(n_words.astype(np.int32)),
+        frame_o1_tables([p[1] for p in parsed], device),
+        dev(states.astype(np.uint32).view(np.int32)),
+        dev(ulen.astype(np.int32)), dev(exclusive_cumsum(ulen)))
+
+
+def o1_slot_table(t: O1Tables) -> torch.Tensor:
+    """Dense slot table int64 [S, 256 * 4096] of the plain versions:
+    entry ctx*4096 + m packs, for the row of context ctx owning slot m,
+    (f-1) | (m - cum)<<12 | sym<<24 (the order-0 slot packing), and 0
+    where no row owns the slot."""
+    S = int(t.n_rows.shape[0])
+    dev = t.rows.device
+    table = torch.zeros((S, 256 * TOTFREQ), dtype=torch.long, device=dev)
+    rows = t.rows.long() & _U32
+    for i in range(S):
+        lo = int(t.row_off[i])
+        e = rows[lo:lo + int(t.n_rows[i])]
+        if not len(e):
+            continue
+        ctx = torch.searchsorted(t.ctx_start[i, 1:].long(),
+                                 torch.arange(len(e), device=dev), right=True)
+        f = (e & 0xFFF) + 1
+        # offset of each slot within its row
+        within = torch.arange(int(f.sum()), device=dev) \
+            - torch.repeat_interleave(torch.cumsum(f, 0) - f, f)
+        slot = torch.repeat_interleave(ctx * TOTFREQ + ((e >> 12) & 0xFFF),
+                                       f) + within
+        table[i, slot] = torch.repeat_interleave(e & ~(0xFFF << 12), f) \
+            | (within << 12)
+    return table
+
+
+def slot_step(x, idx, table):
+    """One decode step of states x [S, k] through a packed slot table
+    [S, T] at entries idx: returns (symbols, advanced states)."""
+    e = torch.gather(table, 1, idx)
+    step = (((e & 0xFFF) + 1) * (x >> TF_SHIFT) + ((e >> 12) & 0xFFF)) \
+        & _U32
+    return e >> 24, step
+
+
+def rans_o1_plain(b: Nx16O1Batch, max_rounds: int = -1,
+                  offs: Optional[torch.Tensor] = None,
+                  qbins: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """Plain PyTorch version of kernels B5/B6: the same rounds as tensor
+    ops over [streams, 32 states].  Returns (symbols u8 [total_out], or
+    with `qbins` the histogram int32 [S, qbins] of clip(sym - offs, 0,
+    qbins - 1); final states int32 [S, 32]; final word cursors int32 [S];
+    final contexts int32 [S, 32])."""
+    dev = b.payload.device
+    S = b.n_streams
+    table = o1_slot_table(b.tables)
+    words = b.payload.view(torch.int16).long() & 0xFFFF
+    nw = b.n_words.long()[:, None]
+    wo = b.word_off[:, None]
+    n = b.ulen.long()[:, None]
+    lanes = torch.arange(NWAY, device=dev)[None, :]
+    seg = n // NWAY
+    lens = torch.where(lanes < NWAY - 1, seg, n - (NWAY - 1) * seg)
+    rounds = lens[:, -1]
+    if max_rounds >= 0:
+        rounds = rounds.clamp(max=max_rounds)
+    x = b.x0.long() & _U32
+    ctx = torch.zeros((S, NWAY), dtype=torch.long, device=dev)
+    cur = torch.zeros((S, 1), dtype=torch.long, device=dev)
+    total = b.total_out
+    if qbins is None:
+        out = torch.zeros(total + 1, dtype=torch.uint8, device=dev)
+    else:
+        out = torch.zeros((S, qbins), dtype=torch.long, device=dev)
+        off = (offs.long() if offs is not None
+               else torch.zeros(S, dtype=torch.long, device=dev))[:, None]
+    for r in range(int(rounds.max()) if S else 0):
+        act = (r < lens) & (r < rounds)[:, None]
+        s, step = slot_step(x, ctx * TOTFREQ + (x & (TOTFREQ - 1)), table)
+        x = torch.where(act, step, x)
+        ctx = torch.where(act, s, ctx)
+        if qbins is None:
+            at = torch.where(act, b.out_off[:, None] + lanes * seg + r, total)
+            out[at.reshape(-1)] = s.reshape(-1).to(torch.uint8)
+        else:
+            out.scatter_add_(1, (s - off).clamp(0, qbins - 1), act.long())
+        x, cur = refill16(x, act & (x < RANS16_L), cur, words, wo, nw)
+    res = out[:total] if qbins is None else out.to(torch.int32)
+    return (res, x.to(torch.int32), cur[:, 0].to(torch.int32),
+            ctx.to(torch.int32))
+
+
+def check_o1_tables(t: O1Tables, S: int) -> None:
+    """Validate tables the kernels trust: on the card, of the right
+    types and shapes, every stream's rows inside the buffer and its
+    context starts rising from 0 to its row count."""
+    req = _build.require_cuda
+    req(t.rows, torch.int32, "rows")
+    req(t.row_off, torch.int64, "row_off", (S,))
+    req(t.n_rows, torch.int32, "n_rows", (S,))
+    req(t.ctx_start, torch.int32, "ctx_start", (S, 257))
+    cs = t.ctx_start
+    bad = ((t.row_off < 0) | (t.n_rows < 0) | (t.n_rows > A2_MAX)
+           | (t.row_off + t.n_rows > t.rows.numel())
+           | (cs[:, 0] != 0) | (cs[:, -1] != t.n_rows)).any() \
+        | (cs[:, 1:] < cs[:, :-1]).any()
+    if bool(bad):
+        raise ValueError("order-1 tables: a stream's rows lie outside "
+                         "their buffer or its context starts are invalid")
+
+
+def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
+                 offs: Optional[torch.Tensor] = None,
+                 qbins: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Kernel B5 (symbols) or, with `qbins`, kernel B6 (histogram) over
+    the whole batch in one launch; same results as `rans_o1_plain`."""
+    S = b.n_streams
+    req = _build.require_cuda
+    req(b.payload, torch.uint8, "payload")
+    req(b.word_off, torch.int64, "word_off", (S,))
+    req(b.n_words, torch.int32, "n_words", (S,))
+    req(b.x0, torch.int32, "x0", (S, NWAY))
+    req(b.ulen, torch.int32, "ulen", (S,))
+    req(b.out_off, torch.int64, "out_off", (S,))
+    check_o1_tables(b.tables, S)
+    if b.payload.numel() % 2 or b.payload.data_ptr() % 2:
+        raise ValueError("payload: expected whole, aligned 16-bit words")
+    bad = (((b.word_off + b.n_words) * 2 > b.payload.numel())
+           | (b.word_off < 0) | (b.n_words < 0) | (b.ulen < 0)
+           | (b.out_off < 0) | (b.out_off + b.ulen > b.total_out)).any()
+    if bool(bad):
+        raise ValueError("batch: a stream lies outside its buffers")
+    dev = b.payload.device
+    x_out = torch.empty((S, NWAY), dtype=torch.int32, device=dev)
+    ctx_out = torch.empty((S, NWAY), dtype=torch.int32, device=dev)
+    cur_out = torch.empty(S, dtype=torch.int32, device=dev)
+    if qbins is None:
+        # positions a max_rounds stop leaves undecoded hold 0, as in
+        # the plain version
+        res = (torch.empty if max_rounds < 0 else torch.zeros)(
+            b.total_out, dtype=torch.uint8, device=dev)
+        out_ptr, hist_ptr, offs_ptr, key = res.data_ptr(), None, None, \
+            "rans_nx16_o1_decode"
+    else:
+        if not 1 <= qbins <= 256:
+            raise ValueError("qbins must be in 1..256")
+        if offs is None:
+            offs = torch.zeros(S, dtype=torch.int32, device=dev)
+        req(offs, torch.int32, "offs", (S,))
+        res = torch.empty((S, qbins), dtype=torch.int32, device=dev)
+        out_ptr, hist_ptr, offs_ptr, key = None, res.data_ptr(), \
+            offs.data_ptr(), "rans_nx16_o1_hist"
+    t = b.tables
+    lib = _build.load("rans_nx16_o1")
+    rc = lib.rans_nx16_o1_launch(
+        b.payload.data_ptr(), b.word_off.data_ptr(), b.n_words.data_ptr(),
+        t.rows.data_ptr(), t.row_off.data_ptr(), t.n_rows.data_ptr(),
+        t.ctx_start.data_ptr(), b.x0.data_ptr(), b.ulen.data_ptr(),
+        b.out_off.data_ptr(), out_ptr, offs_ptr, hist_ptr, x_out.data_ptr(),
+        cur_out.data_ptr(), ctx_out.data_ptr(), S, qbins or 0, max_rounds,
+        _build.stream_handle(b.payload))
+    _build.check(lib, rc, key)
+    _build.LAUNCHES[key] += 1
+    return res, x_out, cur_out, ctx_out
+
+
+def rans_o1(b: Nx16O1Batch, max_rounds: int = -1,
+            offs: Optional[torch.Tensor] = None, qbins: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor]:
+    """Decode a batch: the kernel for a batch on the card, the plain
+    version for one on the CPU.  `max_rounds` >= 0 stops every stream
+    after that many rounds (the state a JAX segment call leaves)."""
+    if b.payload.is_cuda:
+        return rans_o1_cuda(b, max_rounds, offs, qbins)
+    if b.payload.device.type != "cpu":
+        raise ValueError(f"unsupported device {b.payload.device}")
+    return rans_o1_plain(b, max_rounds, offs, qbins)
+
+
+def decode_nx16_o1_batch(blocks: List[bytes],
+                         device="cuda") -> List[bytes]:
+    """Wire-exact rANS Nx16 ORDER-1 32-way decode of whole streams (host
+    model: codecs/rans4x16._dec_core_o1), every stream of the list in
+    one kernel launch, the <= 31-symbol tail included."""
+    dev = _build.resolve_device(device)
+    parsed = [_parse_o1_header(d) for d in blocks]
+    o1_pads(parsed)
+    if not blocks:
+        return []
+    b = frame_o1_streams(parsed, dev)
+    syms = rans_o1(b)[0].cpu().numpy()
+    offs = b.out_off.cpu().numpy()
+    lens = b.ulen.cpu().numpy()
+    return [syms[o:o + n].tobytes() for o, n in zip(offs, lens)]

@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from htslib_tpu_torch.codecs import rans4x8 as r8
 from htslib_tpu_torch.codecs.rans4x16 import compress
 from htslib_tpu_torch.entry import entry
 from htslib_tpu_torch.ops import device_stats as tds
+from htslib_tpu_torch.ops import rans4x8 as t8
 from htslib_tpu_torch.ops import rans_nx16 as tr
+from htslib_tpu_torch.ops import rans_nx16_o1 as o1
 from htslib_tpu_torch.ops import seqfmt as tsf
 from htslib_tpu_torch.ops.pileup_kernel import coverage_tile
 
@@ -97,6 +100,101 @@ def test_cram_qual_hist_on_card_matches_cpu(card):
     sc, sg = {}, {}
     assert np.array_equal(tds.cram_qual_hist(FIXTURE, device=card, stats=sg),
                           tds.cram_qual_hist(FIXTURE, device="cpu", stats=sc))
+    assert sg == sc and sg["device_blocks"] > 0
+
+
+def _walk(rng, n, read=100):
+    """Quality-like bytes: bounded random walks over 2..41, one per
+    read of `read` symbols."""
+    k = -(-n // read)
+    q = np.clip(rng.integers(25, 38, (k, 1))
+                + np.cumsum(rng.integers(-2, 3, (k, read)), axis=1), 2, 41)
+    return q.reshape(-1)[:n].astype(np.uint8).tobytes()
+
+
+def _markov(rng, n, succ=15):
+    """Bytes from a chain over all 256 symbols, each with `succ` seeded
+    successors: 256 order-1 contexts and 256 * succ table rows."""
+    nxt = rng.integers(0, 256, (256, succ))
+    out = np.zeros(n, np.uint8)
+    for i in range(1, n):
+        out[i] = nxt[out[i - 1], rng.integers(0, succ)]
+    return out.tobytes()
+
+
+def _o1_streams(seed=3):
+    rng = np.random.default_rng(seed)
+    return [_walk(rng, 70000 + 13 * i) for i in range(3)] + [
+        _walk(rng, 1007), _walk(rng, 13), bytes([9]) * 999, _walk(rng, 64),
+        _markov(rng, 20000), rng.integers(0, 256, 3000, dtype=np.uint8)
+        .tobytes()]
+
+
+def _4x8_streams(seed=4):
+    rng = np.random.default_rng(seed)
+    return [_walk(rng, 30000 + 13 * i) for i in range(3)] + [
+        rng.integers(20, 41, 5001, dtype=np.uint8).tobytes(),
+        _walk(rng, 1006), _walk(rng, 7), bytes([9]) * 999,
+        _markov(rng, 9000), rng.integers(0, 256, 3003, dtype=np.uint8)
+        .tobytes()]
+
+
+@pytest.mark.parametrize("qbins", [None, 64, 256])
+def test_o1_kernels_match_plain(card, qbins):
+    encs = [compress(d, 0x05) for d in _o1_streams()]
+    b = o1.frame_o1_streams([o1._parse_o1_header(e) for e in encs], card)
+    offs = torch.arange(b.n_streams, dtype=torch.int32, device=card)
+    for mr in (-1, 700):
+        got = o1.rans_o1(b, max_rounds=mr, offs=offs, qbins=qbins)
+        want = o1.rans_o1_plain(b, max_rounds=mr, offs=offs, qbins=qbins)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("order,qbins", [(0, None), (0, 64), (0, 256),
+                                         (1, 64), (1, 256)])
+def test_4x8_kernels_match_plain(card, order, qbins):
+    datas = [d for d in _4x8_streams() if order == 0 or len(d) >= 4]
+    b = t8.frame_4x8([r8.compress(d, order) for d in datas], order == 1,
+                     card)
+    offs = torch.arange(b.n_streams, dtype=torch.int32, device=card)
+    for mr in (-1, 1500):
+        got = t8.rans4x8(b, max_rounds=mr, offs=offs, qbins=qbins)
+        want = t8.rans4x8_plain(b, max_rounds=mr, offs=offs, qbins=qbins)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_4x8_o1_decode_has_no_kernel(card):
+    b = t8.frame_4x8([r8.compress(_walk(np.random.default_rng(1), 99), 1)],
+                     True, card)
+    with pytest.raises(ValueError, match="no kernel"):
+        t8.rans4x8(b)
+
+
+def test_new_lanes_match_host_truth(card):
+    datas = _o1_streams()
+    encs = [compress(d, 0x05) for d in datas]
+    assert o1.decode_nx16_o1_batch(encs, device=card) == datas
+    hist, _ = tds.qualstats_device_o1(encs, device=card)
+    assert np.array_equal(hist, tds.qualstats_host(datas))
+    datas = _4x8_streams()
+    assert t8.decode_4x8_o0_batch([r8.compress(d, 0) for d in datas],
+                                  device=card) == datas
+    for order in (0, 1):
+        hist, _ = tds.qualstats_device_4x8(
+            [r8.compress(d, order) for d in datas], device=card,
+            o1=bool(order))
+        assert np.array_equal(hist, tds.qualstats_host(datas))
+
+
+@pytest.mark.parametrize("name", ["qual_o1.cram", "qual_v30.cram",
+                                  "qual_stripe_pack.cram"])
+def test_new_fixtures_on_card_match_cpu(card, name):
+    path = os.path.join(REPO, "htslib_tpu_torch", "testdata", name)
+    sc, sg = {}, {}
+    assert np.array_equal(tds.cram_qual_hist(path, device=card, stats=sg),
+                          tds.cram_qual_hist(path, device="cpu", stats=sc))
     assert sg == sc and sg["device_blocks"] > 0
 
 

@@ -32,6 +32,9 @@ def test_sources_found():
     rel = {os.path.relpath(p, REPO) for p in SOURCES}
     for want in ("chip_smoke.py", "htslib_tpu_torch/entry.py",
                  "htslib_tpu_torch/ops/rans_nx16.py",
+                 "htslib_tpu_torch/ops/rans_nx16_o1.py",
+                 "htslib_tpu_torch/ops/rans4x8.py",
+                 "htslib_tpu_torch/codecs/rans4x8.py",
                  "htslib_tpu_torch/cram/io.py"):
         assert want in rel
 
