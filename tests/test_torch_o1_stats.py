@@ -36,20 +36,23 @@ def _datas():
 
 
 DATAS = _datas()
+# with these, more than 32 streams: the JAX lane takes two groups
+FILLERS = [_walk(np.random.default_rng(42), 40 + 37 * i) for i in range(27)]
 
 
 @pytest.mark.parametrize("qbins", [64, 256])
 def test_qualstats_device_o1_matches_jax(qbins):
-    encs = [compress(d, 0x05) for d in DATAS]
+    datas = DATAS + (FILLERS if qbins == 64 else [])
+    encs = [compress(d, 0x05) for d in datas]
     got, timing = tds.qualstats_device_o1(encs, device="cpu", qbins=qbins)
     ref, _ = jds.qualstats_device_o1(encs, interpret=True, qbins=qbins)
     truth = np.stack([np.bincount(np.minimum(np.frombuffer(d, np.uint8),
                                              qbins - 1), minlength=qbins)
-                      for d in DATAS])
-    assert got.dtype == np.int64 and got.shape == (len(DATAS), qbins)
+                      for d in datas])
+    assert got.dtype == np.int64 and got.shape == (len(datas), qbins)
     assert np.array_equal(got, truth)
     assert np.array_equal(got, ref)
-    assert timing["uncompressed_bytes"] == sum(len(d) for d in DATAS)
+    assert timing["uncompressed_bytes"] == sum(len(d) for d in datas)
 
 
 def test_qualstats_device_o1_rejects_other_wires():
