@@ -28,17 +28,25 @@ PyTorch version on the card and times both.  Phases:
      3.1 order 0, CRAM 3.1 order 1, CRAM 3.0 rANS 4x8, CRAM 3.1 STRIPE and
      PACK) must equal the histogram and block counts committed beside it,
      with blocks decoded on the device;
-  6. each kernel (B1, B2, B3, B5, B6, B7, B8 in both orders) against its
-     plain version at the main path's shapes, and one JSON line with
-     launches, error and times.  The plain versions of B5-B8 take half a
-     millisecond to a millisecond per round on the card, so they are held
-     against their kernels at full size over the first 4096 rounds
-     (states, cursors, contexts and those rounds' symbols or counts), and
-     over whole streams on a 64 KiB batch.  Outputs are bytes and integer
-     counts, so the tolerance is zero: kernel and plain version must be
-     equal.
+  5b. leg 4, the encode lane: encode_nx16_o0_batch on the card over leg
+     2's 40 raw 1 MiB streams must give leg 2's host encodings byte for
+     byte, and 8 of the device-encoded streams must decode (B2) back to
+     their raw bytes;
+  5c. leg 5, the resolve chains: make_resolve_bench (G=128 chains, 32,768
+     steps, the JAX package's bench shape) and make_huffman_resolve_bench
+     (L=128 chains, the same depth) must equal their numpy chains; their
+     lookups per second are printed;
+  6. each kernel (B1, B2, B3, B5, B6, B7, B8 in both orders, B9, B4, B10)
+     against its plain version at the main path's shapes, and one JSON
+     line with launches, error and times.  The plain versions of B5-B9
+     take half a millisecond to a millisecond per round on the card, so
+     they are held against their kernels at full size over the first 4096
+     rounds (states, cursors, contexts, emitted words and those rounds'
+     symbols or counts), and over whole streams on a 64 KiB batch; those
+     of B4 and B10 run all 32,768 steps.  Outputs are bytes and integers,
+     so the tolerance is zero: kernel and plain version must be equal.
 
-Launch counts are reset just before phase 3 and read just after phase 5.
+Launch counts are reset just before phase 3 and read just after phase 5c.
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -69,6 +77,8 @@ N_DECODE = 8
 SMALL_BYTES = 1 << 16   # whole-stream kernel/plain comparisons
 N_SMALL = 4
 PLAIN_ROUNDS = 4096     # prefix of the full-size kernel/plain comparisons
+CHAINS = 128            # resolve chains (the JAX package's bench: G=128)
+CHAIN_ROUNDS = 32768    # steps of each resolve chain (its bench depth)
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s; 32-bit scalar
 # operations are held to the non-tensor fp32 rate, the nearest listed one
 HBM_BYTES_S = 3.35e12
@@ -188,17 +198,21 @@ def hist_of(raw: bytes, qbins: int) -> np.ndarray:
 
 def main_path(device, batch, raws, encs, leg3, tile_len=TILE_LEN,
               n_decode=N_DECODE):
-    """Phases 3-5 through the port's entry points on `device`, each
+    """Phases 3-5c through the port's entry points on `device`, each
     result held against its host truth.  Returns (leg-1 args on the
-    device, seconds of each phase)."""
+    device, seconds of each phase, leg 4's timing dict and leg 5's
+    lookups per second)."""
     from htslib_tpu_torch.entry import entry
     from htslib_tpu_torch.ops.device_stats import (QBINS, cram_qual_hist,
                                                    qualstats_device,
                                                    qualstats_device_4x8,
                                                    qualstats_device_o1)
+    from htslib_tpu_torch.ops.huffman import make_huffman_resolve_bench
     from htslib_tpu_torch.ops.pileup_kernel import coverage_tile
     from htslib_tpu_torch.ops.rans4x8 import decode_4x8_o0_batch
-    from htslib_tpu_torch.ops.rans_nx16 import decode_nx16_o0_batch
+    from htslib_tpu_torch.ops.rans_enc import encode_nx16_o0_batch
+    from htslib_tpu_torch.ops.rans_nx16 import (decode_nx16_o0_batch,
+                                                make_resolve_bench)
     from htslib_tpu_torch.ops.rans_nx16_o1 import decode_nx16_o1_batch
     from htslib_tpu_torch.ops.seqfmt import nibble_to_base, unpack_core_fields
 
@@ -265,7 +279,40 @@ def main_path(device, batch, raws, encs, leg3, tile_len=TILE_LEN,
                           "host_blocks": want["host_blocks"]},
                 f"{name} stats {stats}")
     secs["file"] = time.time() - t0
-    return args, secs
+
+    t0 = time.time()
+    enc_timing = {}
+    out = encode_nx16_o0_batch(raws, device=device, timing=enc_timing)
+    for i, (got, want) in enumerate(zip(out, encs)):
+        require(got == want, f"leg 4 device encoding of stream {i}")
+    require(len(out) == len(encs), "leg 4 stream count")
+    require(decode_nx16_o0_batch(out[:n_decode], device=device)
+            == raws[:n_decode], "leg 4 round trip through B2")
+    secs["leg4"] = time.time() - t0
+    notes = {"leg4_timing": enc_timing}
+
+    t0 = time.time()
+    fn, fargs, ref_chain = make_resolve_bench(G=CHAINS, rounds=CHAIN_ROUNDS,
+                                              device=device)
+    t1 = time.time()
+    got = fn(*fargs).cpu().numpy()
+    notes["rans_resolve_lookups_per_s"] = CHAINS * CHAIN_ROUNDS / (
+        time.time() - t1)
+    require(np.array_equal(got, ref_chain().view(np.int32)),
+            "leg 5 rANS resolve chain")
+    fn, fargs, ref_step, v0 = make_huffman_resolve_bench(
+        L=CHAINS, rounds=CHAIN_ROUNDS, device=device)
+    t1 = time.time()
+    got = fn(*fargs).cpu().numpy()
+    notes["huffman_resolve_lookups_per_s"] = CHAINS * CHAIN_ROUNDS / (
+        time.time() - t1)
+    v = v0[0]
+    for _ in range(CHAIN_ROUNDS):
+        v, _sym = ref_step(v)
+    require(np.array_equal(got, np.broadcast_to(v, got.shape)),
+            "leg 5 Huffman resolve chain")
+    secs["leg5"] = time.time() - t0
+    return args, secs, notes
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -450,6 +497,101 @@ def leg3_kernels_vs_plain(device, leg3, launches):
     return rows
 
 
+def new_kernels_vs_plain(device, raws, leg3, launches):
+    """Phase 6 for kernels B9, B4 and B10: each kernel against its plain
+    version on the same card tensors, with times.  B9 at full size over
+    the first PLAIN_ROUNDS rounds and over whole streams on the 64 KiB
+    batches; B4 and B10 over all CHAIN_ROUNDS steps.  Returns the rows of
+    the kernels line."""
+    import torch
+
+    from htslib_tpu_torch.ops.huffman import (huffman_resolve_cuda,
+                                              huffman_resolve_plain,
+                                              make_huffman_resolve_bench)
+    from htslib_tpu_torch.ops.rans_enc import (frame_enc, rans_enc_cuda,
+                                               rans_enc_plain)
+    from htslib_tpu_torch.ops.rans_nx16 import (make_resolve_bench,
+                                                rans_resolve_cuda,
+                                                rans_resolve_plain)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.time() - t0) * 1e3
+
+    rows = []
+    b = frame_enc(raws, device)
+    got = rans_enc_cuda(b, PLAIN_ROUNDS)
+    ref, plain_ms = timed(lambda: rans_enc_plain(b, PLAIN_ROUNDS))
+    for g, r, what in zip(got, ref, ("words", "states", "counts")):
+        require(torch.equal(g, r), f"rans_nx16_o0_encode kernel != plain "
+                f"over {PLAIN_ROUNDS} rounds ({what})")
+    err = int((got[0].long() - ref[0].long()).abs().max())
+    small = frame_enc(leg3["4x8_o0"][2] + leg3["nx16_o1"][2], device)
+    for g, r, what in zip(rans_enc_cuda(small), rans_enc_plain(small),
+                          ("words", "states", "counts")):
+        require(torch.equal(g, r), "rans_nx16_o0_encode kernel != plain "
+                f"on whole 64 KiB streams ({what})")
+    full = rans_enc_cuda(b)
+    n_sym = sum(len(r) for r in raws)
+    # bytes: the symbols in, the emitted words and final states out; per
+    # symbol: table load, compare, select, shift, divide, remainder,
+    # shift, two adds, ballot, popcount and store (12 operations)
+    b_ms, b_by = bound_ms(n_sym + 2 * int(full[2].long().sum())
+                          + 4 * full[1].numel(), 12 * n_sym)
+    rows.append({
+        "name": "rans_nx16_o0_encode", "route": "cuda",
+        "source": "htslib_tpu_torch/csrc/rans_nx16_enc.cu",
+        "replaces": "htslib_tpu/ops/rans_enc_pallas.py:89",
+        "launches": launches["rans_nx16_o0_encode"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: rans_enc_cuda(b), 3),
+        "plain_ms": plain_ms, "plain_rounds": PLAIN_ROUNDS,
+        "ms_at_plain_rounds": cuda_ms(lambda: rans_enc_cuda(b, PLAIN_ROUNDS),
+                                      3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "streams": b.n_streams, "symbols": n_sym,
+        "chain_rounds": -(-max(len(r) for r in raws) // 32), "match": True})
+
+    # (launch key, bench, kernel, plain, source, TPU kernel, operations
+    #  per step: B4 mask, table load, two field extracts, shift,
+    #  multiply-add, compare and renormalising select (8); B10 16 compares
+    #  and their sum, two table loads, shift, add, subtract, range check,
+    #  order load and the five-operation mix (47))
+    specs = [
+        ("rans_resolve_bench", lambda: make_resolve_bench(
+            G=CHAINS, rounds=CHAIN_ROUNDS, device=device)[1],
+         rans_resolve_cuda, rans_resolve_plain, "rans_resolve_bench.cu",
+         "rans_pallas.py:542", 8),
+        ("huffman_resolve_bench", lambda: make_huffman_resolve_bench(
+            L=CHAINS, rounds=CHAIN_ROUNDS, device=device)[1],
+         huffman_resolve_cuda, huffman_resolve_plain, "huffman_resolve.cu",
+         "huffman_pallas.py:116", 47),
+    ]
+    for key, bench, kern, plain, src, line, ops in specs:
+        targs = bench()
+        got = kern(*targs, CHAIN_ROUNDS)
+        ref, plain_ms = timed(lambda: plain(*targs, CHAIN_ROUNDS))
+        require(torch.equal(got, ref), f"{key} kernel != plain")
+        ms = cuda_ms(lambda: kern(*targs, CHAIN_ROUNDS), 3)
+        n_bytes = sum(t.numel() * t.element_size() for t in targs) \
+            + got.numel() * got.element_size()
+        b_ms, b_by = bound_ms(n_bytes, ops * CHAINS * CHAIN_ROUNDS)
+        rows.append({
+            "name": key, "route": "cuda",
+            "source": f"htslib_tpu_torch/csrc/{src}",
+            "replaces": f"htslib_tpu/ops/{line}",
+            "launches": launches[key],
+            "max_abs_err": int((got.long() - ref.long()).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "chains": CHAINS,
+            "chain_rounds": CHAIN_ROUNDS,
+            "lookups_per_s": CHAINS * CHAIN_ROUNDS / (ms / 1e3),
+            "match": True})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -487,11 +629,16 @@ def main() -> int:
     print(f"inputs: {time.time() - t0:.1f} s", flush=True)
 
     _build.reset_launches()
-    args, secs = main_path("cuda", batch, raws, encs, leg3)
+    args, secs, notes = main_path("cuda", batch, raws, encs, leg3)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"main path ok: {secs}, launches {launches}", flush=True)
     print(f"leg 3 wall: {secs['leg3']:.3f} s", flush=True)
+    print(f"leg 4 wall: {secs['leg4']:.3f} s, timing "
+          f"{notes['leg4_timing']}", flush=True)
+    print(f"leg 5 wall: {secs['leg5']:.3f} s, lookups/s: rANS "
+          f"{notes['rans_resolve_lookups_per_s']:.6g}, Huffman "
+          f"{notes['huffman_resolve_lookups_per_s']:.6g}", flush=True)
     for k, v in launches.items():
         require(v >= 1, f"kernel {k} not launched on the main path")
 
@@ -501,6 +648,9 @@ def main() -> int:
     t0 = time.time()
     rows += leg3_kernels_vs_plain(args[1].device, leg3, launches)
     print(f"phase 6, B5-B8: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    rows += new_kernels_vs_plain(args[1].device, raws, leg3, launches)
+    print(f"phase 6, B9, B4, B10: {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """State carried between the JAX package and the port.
 
 The system has no weights; what crosses between the two packages is the
-rANS group state.  The JAX front ends lay a group of streams out for
+rANS group state and the tables of the device benchmarks.  The JAX front ends lay a group of streams out for
 their Pallas kernels as packed [W, B] payload columns (each int32 row two
 little-endian 16-bit words, or four stream bytes for the 4x8 wire),
 state-major [8, nway * B] states (state j of stream b at lane j * B + b)
@@ -12,7 +12,10 @@ index (ops/rans_o1_pallas.py `_prepare_group_o1`).  The `from_jax_group*`
 functions turn those arrays into the port's per-stream batches, and the
 `from_jax_segment*` functions turn the state a JAX segment call returns
 into the port's per-stream states, cursors and (order 1) contexts, so
-both can be held equal.
+both can be held equal.  `from_jax_enc_tables` recovers the frequencies
+from the encoder's telescoped tables, and `from_jax_resolve_bench` and
+`from_jax_huffman_bench` turn the resolve benchmarks' arguments into the
+port's.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from htslib_tpu_torch.ops.huffman import order_of
 from htslib_tpu_torch.ops.rans4x8 import NWAY4, Rans4x8Batch
 from htslib_tpu_torch.ops.rans_nx16 import (NWAY, TOTFREQ, Nx16Batch,
                                             exclusive_cumsum)
@@ -163,3 +167,36 @@ def from_jax_segment(x_out, cur_out, ctx_out=None, ad=None,
     dense = np.asarray(ctx_out)[0].astype(np.int64).reshape(nway, blocks).T
     alpha = _alphabets(ad, blocks)
     return x, cur, np.take_along_axis(alpha, dense, axis=1)
+
+
+def from_jax_enc_tables(lo, d1, d2) -> np.ndarray:
+    """`rans_enc_pallas._enc_tables`' symbol-keyed telescoped tables
+    [A, B] -> the frequencies int64 [B, 256].  Stream b's present symbols
+    are lo's rows below 256; the running sum of d2 (mod 2^32) is
+    shift | (4096 - f) << 4 | bias << 17 there.  d1 (the reciprocals)
+    follows from f and is not read."""
+    lo = np.asarray(lo)
+    pk2 = np.cumsum(np.asarray(d2).astype(np.int64), axis=0) & 0xFFFFFFFF
+    freqs = np.zeros((lo.shape[1], 256), np.int64)
+    for b in range(lo.shape[1]):
+        rows = lo[:, b] < 256
+        freqs[b, lo[rows, b]] = TOTFREQ - ((pk2[rows, b] >> 4) & 0x1FFF)
+    return freqs
+
+
+def from_jax_resolve_bench(lo_T, dfc_T, x0, device="cpu"):
+    """The JAX resolve bench's args (`pack_tables` output [256, G] and
+    the states [8, G]) -> the port's (freqs int32 [G, 256], x0 int32
+    [G])."""
+    G = np.asarray(lo_T).shape[1]
+    x = np.asarray(x0)[0].astype(np.int64) & 0xFFFFFFFF
+    return (_dev(_freqs_from_tables(lo_T, dfc_T, G), device),
+            _dev(x.astype(np.uint32).view(np.int32), device))
+
+
+def from_jax_huffman_bench(limits, firsts, bases, dord, v0, device="cpu"):
+    """The JAX Huffman bench's args -> the port's (limits, firsts,
+    bases int32 [16, L], order int32 [320, L] (the prefix sum of dord),
+    v0 int32 [L])."""
+    return tuple(_dev(np.array(a, np.int32), device) for a in (
+        limits, firsts, bases, order_of(dord), np.asarray(v0)[0]))

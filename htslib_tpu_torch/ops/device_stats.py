@@ -51,13 +51,32 @@ def _timing(blocks: List[bytes]) -> dict:
             "decode_s": 0.0}
 
 
-def _run(batch, run, timing: dict) -> np.ndarray:
+def _run(batch, run, timing: dict, reps: int = 1) -> np.ndarray:
     """Histograms of a framed batch through `run` (a kernel wrapper
-    returning them first), timed into `timing`."""
+    returning them first), timed into `timing` with the JAX package's
+    keys: decode_s is the wall time of the launch and download, or with
+    reps > 1 the best of `reps` re-runs of the already framed,
+    device-resident batch; MBps_uncompressed_collect_wall or
+    MBps_uncompressed_resident is the rate over it."""
     t0 = time.time()
     out = run(batch)[0].cpu().numpy().astype(np.int64)
     timing["decode_s"] = time.time() - t0
     timing["uncompressed_bytes"] = batch.total_out
+    if reps > 1:
+        best = None
+        for _ in range(reps):
+            t0 = time.time()
+            run(batch)
+            if batch.x0.is_cuda:
+                torch.cuda.synchronize(batch.x0.device)
+            dt = time.time() - t0
+            best = dt if best is None else min(best, dt)
+        timing["decode_s"] = best
+    if timing["decode_s"] > 0:
+        key = ("MBps_uncompressed_resident" if reps > 1
+               else "MBps_uncompressed_collect_wall")
+        timing[key] = round(
+            timing["uncompressed_bytes"] / timing["decode_s"] / 1e6, 2)
     return out
 
 
@@ -66,14 +85,16 @@ def _check_qbins(qbins: int) -> None:
         raise ValueError("qbins must be in 1..256")
 
 
-def qualstats_device(blocks: List[bytes], device="cuda",
+def qualstats_device(blocks: List[bytes], device="cuda", reps: int = 1,
                      offsets: Optional[List[int]] = None,
                      qbins: int = QBINS) -> Tuple[np.ndarray, dict]:
     """Per-stream symbol histograms of rANS Nx16 O0 32-way streams,
     decoded and counted on `device`.  `offsets[i]` is subtracted from
     stream i's symbols before binning (e.g. 33 for ASCII series), and
     symbols clip to [0, qbins - 1].  Returns (hist int64 [n, qbins],
-    timing dict: uncompressed_bytes, compressed_bytes, decode_s)."""
+    timing dict: uncompressed_bytes, compressed_bytes, decode_s and
+    MBps_uncompressed_collect_wall, or with reps > 1 decode_s the best of
+    `reps` device-resident re-runs and MBps_uncompressed_resident)."""
     dev = _build.resolve_device(device)
     for data in blocks:
         if data[0] != 0x04:
@@ -88,10 +109,11 @@ def qualstats_device(blocks: List[bytes], device="cuda",
         off[:n] = offsets[:n]
     offs = torch.from_numpy(off).to(dev)
     return _run(frame_streams(blocks, dev),
-                lambda b: rans_o0(b, offs=offs, qbins=qbins), timing), timing
+                lambda b: rans_o0(b, offs=offs, qbins=qbins), timing,
+                reps), timing
 
 
-def qualstats_device_o1(blocks: List[bytes], device="cuda",
+def qualstats_device_o1(blocks: List[bytes], device="cuda", reps: int = 1,
                         qbins: int = QBINS) -> Tuple[np.ndarray, dict]:
     """Per-stream histograms (clip(sym, 0, qbins - 1)) of rANS Nx16
     ORDER-1 32-way streams, decoded and counted on `device` (kernel B6),
@@ -105,10 +127,10 @@ def qualstats_device_o1(blocks: List[bytes], device="cuda",
     if not blocks:
         return np.zeros((0, qbins), np.int64), timing
     return _run(frame_o1_streams(parsed, dev),
-                lambda b: rans_o1(b, qbins=qbins), timing), timing
+                lambda b: rans_o1(b, qbins=qbins), timing, reps), timing
 
 
-def qualstats_device_4x8(blocks: List[bytes], device="cuda",
+def qualstats_device_4x8(blocks: List[bytes], device="cuda", reps: int = 1,
                          qbins: int = QBINS, o1: bool = False
                          ) -> Tuple[np.ndarray, dict]:
     """Per-stream histograms (clip(sym, 0, qbins - 1)) of rANS 4x8
@@ -120,7 +142,7 @@ def qualstats_device_4x8(blocks: List[bytes], device="cuda",
     if not blocks:
         return np.zeros((0, qbins), np.int64), timing
     return _run(frame_4x8(blocks, o1, dev),
-                lambda b: rans4x8(b, qbins=qbins), timing), timing
+                lambda b: rans4x8(b, qbins=qbins), timing, reps), timing
 
 
 def qualstats_host(datas: List[bytes]) -> np.ndarray:

@@ -1,8 +1,11 @@
-"""rANS Nx16 order-0 32-way decode on the card (kernels B2 and B3).
+"""rANS Nx16 order-0 32-way decode on the card (kernels B2 and B3), and
+the rANS resolve chain (kernel B4).
 
 Port of htslib_tpu/ops/rans_pallas.py: `decode_nx16_o0_batch` (its
-`_seg_kernel`) here, and the histogram variant (its `_seg_hist_kernel`)
-through `rans_o0(..., qbins=...)`, which ops/device_stats.py drives.
+`_seg_kernel`) here, the histogram variant (its `_seg_hist_kernel`)
+through `rans_o0(..., qbins=...)`, which ops/device_stats.py drives, and
+`make_resolve_bench` (its `make_resolve_bench.kernel`,
+csrc/rans_resolve_bench.cu).
 
 Layout.  The Pallas kernels decode 32 streams per call in state-major
 [8, 1024] lanes over telescoped [A, 1024] tables and packed [W, 32]
@@ -108,6 +111,14 @@ def frame_streams(blocks: List[bytes], device) -> Nx16Batch:
                      dev(exclusive_cumsum(ulen)))
 
 
+def _slot_symbols(f: torch.Tensor) -> torch.Tensor:
+    """Frequencies int64 [G, 256] -> the symbol owning each of the 4096
+    slots, int64 [G, 4096]."""
+    slots = torch.arange(TOTFREQ, device=f.device).expand(
+        f.shape[0], TOTFREQ).contiguous()
+    return torch.searchsorted(torch.cumsum(f, 1), slots, right=True)
+
+
 def rans_o0_plain(b: Nx16Batch, max_rounds: int = -1,
                   offs: Optional[torch.Tensor] = None,
                   qbins: Optional[int] = None
@@ -119,10 +130,8 @@ def rans_o0_plain(b: Nx16Batch, max_rounds: int = -1,
     dev = b.freqs.device
     S = b.n_streams
     f = b.freqs.long()
-    cum_incl = torch.cumsum(f, 1)
-    cum = cum_incl - f
-    slots = torch.arange(TOTFREQ, device=dev).expand(S, TOTFREQ).contiguous()
-    sym_of = torch.searchsorted(cum_incl, slots, right=True)  # [S, 4096]
+    cum = torch.cumsum(f, 1) - f
+    sym_of = _slot_symbols(f)
     words = b.payload.view(torch.int16).long() & 0xFFFF
     nw = b.n_words.long()[:, None]
     wo = b.word_off[:, None]
@@ -259,3 +268,93 @@ def decode_nx16_o0_batch(blocks: List[bytes],
     offs = b.out_off.cpu().numpy()
     lens = b.ulen.cpu().numpy()
     return [syms[o:o + n].tobytes() for o, n in zip(offs, lens)]
+
+
+# -- the resolve chain (kernel B4) -------------------------------------------
+
+def rans_resolve_plain(freqs: torch.Tensor, x0: torch.Tensor,
+                       rounds: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel B4: `rounds` steps of G chains,
+    each x = f[s] * (x >> 12) + (x & 4095) - cum[s] for the symbol s
+    owning slot x & 4095, then x = (x << 16) | 1 where x < 2^15.
+    freqs int32 [G, 256], x0 int32 [G]; returns the states int32 [G]."""
+    f = freqs.long()
+    cum = torch.cumsum(f, 1) - f
+    sym_of = _slot_symbols(f)
+    x = x0.long()[:, None] & _U32
+    for _ in range(rounds):
+        m = x & (TOTFREQ - 1)
+        s = torch.gather(sym_of, 1, m)
+        x = (torch.gather(f, 1, s) * (x >> TF_SHIFT) + m
+             - torch.gather(cum, 1, s)) & _U32
+        x = torch.where(x < RANS16_L, ((x << 16) | 1) & _U32, x)
+    return x[:, 0].to(torch.int32)
+
+
+def rans_resolve_cuda(freqs: torch.Tensor, x0: torch.Tensor,
+                      rounds: int) -> torch.Tensor:
+    """Kernel B4, one launch for every chain; same result as
+    `rans_resolve_plain`."""
+    G = int(freqs.shape[0])
+    _build.require_cuda(freqs, torch.int32, "freqs", (G, 256))
+    _build.require_cuda(x0, torch.int32, "x0", (G,))
+    # the slot table build trusts the frequencies to stay inside 4096
+    if bool((freqs < 0).any() | (freqs.sum(1) != TOTFREQ).any()):
+        raise ValueError("freqs: an unnormalised frequency table")
+    x_out = torch.empty(G, dtype=torch.int32, device=freqs.device)
+    lib = _build.load("rans_resolve_bench")
+    rc = lib.rans_resolve_bench_launch(freqs.data_ptr(), x0.data_ptr(),
+                                       x_out.data_ptr(), G, rounds,
+                                       _build.stream_handle(freqs))
+    _build.check(lib, rc, "rans_resolve_bench")
+    _build.LAUNCHES["rans_resolve_bench"] += 1
+    return x_out
+
+
+def rans_resolve(freqs: torch.Tensor, x0: torch.Tensor,
+                 rounds: int) -> torch.Tensor:
+    """The resolve chain: the kernel for tensors on the card, the plain
+    version for tensors on the CPU."""
+    if freqs.is_cuda:
+        return rans_resolve_cuda(freqs, x0, rounds)
+    if freqs.device.type != "cpu":
+        raise ValueError(f"unsupported device {freqs.device}")
+    return rans_resolve_plain(freqs, x0, rounds)
+
+
+def make_resolve_bench(G: int = 128, rounds: int = 4096, unroll: int = 4,
+                       seed: int = 7, device="cuda"):
+    """The resolve-rate benchmark (port of the JAX package's
+    make_resolve_bench): G chains over seeded 256-symbol tables.  Returns
+    (fn, args, ref_chain): fn(*args) runs rounds // unroll * unroll steps
+    (the JAX loop's count) and gives int32 [8, G], every row the chains'
+    states, as the JAX fn does; args are (freqs int32 [G, 256], x0 int32
+    [G]) on `device`, from the JAX function's draws; ref_chain(nrounds)
+    is the same chain in numpy (renormalisation included), uint32
+    [8, G], by default over fn's steps."""
+    dev = _build.resolve_device(device)
+    rng = np.random.RandomState(seed)
+    freqs = rng.randint(1, 64, (G, 256)).astype(np.int64)
+    freqs = np.maximum(1, freqs * TOTFREQ // freqs.sum(1, keepdims=True))
+    freqs[:, 0] += TOTFREQ - freqs.sum(1)
+    x0 = rng.randint(1 << 23, 1 << 30, (1, G))[0].astype(np.int32)
+    steps = rounds // unroll * unroll
+
+    def fn(freqs_t, x0_t):
+        return rans_resolve(freqs_t, x0_t, steps)[None, :].expand(8, -1)
+
+    def ref_chain(nrounds=None):
+        cum = np.cumsum(freqs, 1) - freqs
+        sym_of = np.stack([np.repeat(np.arange(256), f) for f in freqs])
+        gi = np.arange(G)
+        x = x0.astype(np.int64)
+        for _ in range(steps if nrounds is None else nrounds):
+            m = x & (TOTFREQ - 1)
+            s = sym_of[gi, m]
+            x = freqs[gi, s] * (x >> TF_SHIFT) + m - cum[gi, s]
+            x = np.where(x < RANS16_L, (x << 16) | 1, x)
+        return np.broadcast_to((x & _U32).astype(np.uint32), (8, G)).copy()
+
+    args = (torch.from_numpy(freqs.astype(np.int32)).to(dev),
+            torch.from_numpy(x0).to(dev))
+    return fn, args, ref_chain

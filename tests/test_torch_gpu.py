@@ -15,7 +15,9 @@ from htslib_tpu_torch.codecs import rans4x8 as r8
 from htslib_tpu_torch.codecs.rans4x16 import compress
 from htslib_tpu_torch.entry import entry
 from htslib_tpu_torch.ops import device_stats as tds
+from htslib_tpu_torch.ops import huffman as th
 from htslib_tpu_torch.ops import rans4x8 as t8
+from htslib_tpu_torch.ops import rans_enc as te
 from htslib_tpu_torch.ops import rans_nx16 as tr
 from htslib_tpu_torch.ops import rans_nx16_o1 as o1
 from htslib_tpu_torch.ops import seqfmt as tsf
@@ -205,3 +207,61 @@ def test_entry_on_card_matches_cpu(card):
     cov = coverage_tile(args[2], args[3], args[4], 0, 1 << 14)
     ccov = coverage_tile(cargs[2], cargs[3], cargs[4], 0, 1 << 14)
     assert torch.equal(cov.cpu(), ccov)
+
+
+def _enc_streams(seed=6):
+    """Streams for the encode kernel: long ones, a full alphabet, a
+    single symbol (f = 4096, never emits), one symbol alone, lengths
+    under 32 and with n % 32 != 0."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(20, 41, 70000 + 13 * i, dtype=np.uint8).tobytes()
+            for i in range(3)] + [
+        rng.integers(0, 256, 3001, dtype=np.uint8).tobytes(),
+        bytes([9]) * 999, bytes([5]),
+        rng.integers(0, 40, 13, dtype=np.uint8).tobytes(),
+        rng.integers(0, 40, 31, dtype=np.uint8).tobytes(),
+        rng.integers(0, 4, 4097, dtype=np.uint8).tobytes(),
+        _walk(rng, 1007)]
+
+
+def test_enc_kernel_matches_plain(card):
+    b = te.frame_enc(_enc_streams(), card)
+    for mr in (-1, 50):
+        got = te.rans_enc(b, max_rounds=mr)
+        want = te.rans_enc_plain(b, max_rounds=mr)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_enc_on_card_matches_host_and_round_trips(card):
+    datas = _enc_streams()
+    encs = te.encode_nx16_o0_batch(datas, device=card)
+    assert encs == [compress(d, 0x04) for d in datas]
+    assert tr.decode_nx16_o0_batch(encs, device=card) == datas
+
+
+@pytest.mark.parametrize("field", ["off", "ulen", "freqs", "cum"])
+def test_enc_kernel_rejects_inconsistent_batch(card, field):
+    b = te.frame_enc(_enc_streams(), card)
+    getattr(b, field)[0] += 1 << 20
+    with pytest.raises(ValueError, match="outside its buffers"):
+        te.rans_enc(b)
+
+
+def test_resolve_chain_kernels_match_plain_and_numpy(card):
+    """Both resolve chains with an unroll that does not divide the
+    rounds (203 // 4 * 4 = 200 steps), and 100 Huffman chains, so a
+    block of 32 is partly empty."""
+    fn, args, ref_chain = tr.make_resolve_bench(G=128, rounds=203, unroll=4,
+                                                device=card)
+    got = fn(*args)
+    assert torch.equal(got[0], tr.rans_resolve_plain(*args, 200))
+    assert np.array_equal(got.cpu().numpy(), ref_chain().view(np.int32))
+    fn, args, ref_step, v0 = th.make_huffman_resolve_bench(
+        L=100, rounds=203, unroll=4, device=card)
+    got = fn(*args)
+    assert torch.equal(got[0], th.huffman_resolve_plain(*args, 200))
+    v = v0[0]
+    for _ in range(200):
+        v, _sym = ref_step(v)
+    assert np.array_equal(got[0].cpu().numpy(), v)
