@@ -43,8 +43,11 @@ PyTorch version on the card and times both.  Phases:
      they are held against their kernels at full size over the first 4096
      rounds (states, cursors, contexts, emitted words and those rounds'
      symbols or counts), and over whole streams on a 64 KiB batch; those
-     of B4 and B10 run all 32,768 steps.  Outputs are bytes and integers,
-     so the tolerance is zero: kernel and plain version must be equal.
+     of B4 and B10 run all 32,768 steps.  B8 order 1 is also held over a
+     whole 64 KiB wide-alphabet stream whose lookups take the loop.  Each
+     chain-bound row gives ns_per_round (ms over its longest chain).
+     Outputs are bytes and integers, so the tolerance is zero: kernel and
+     plain version must be equal.
 
 Launch counts are reset just before phase 3 and read just after phase 5c.
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
@@ -147,7 +150,8 @@ def leg3_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
     n_small streams of `small` bytes per wire for the whole-stream
     comparisons: {wire: (raws, encs, small raws, small encs)} for wires
     nx16_o1 (n bounded random walks), 4x8_o0 (n/2, uniform over 20..40)
-    and 4x8_o1 (n/2 random walks)."""
+    and 4x8_o1 (n/2 random walks), and under "4x8_o1_wide" one (raw,
+    encoded) 4x8 order-1 `wide_stream` of `small` bytes."""
     rng = np.random.default_rng(seed)
     half = n // 2
     raws = {"nx16_o1": _walks(rng, n, size),
@@ -168,7 +172,34 @@ def leg3_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
     for w in raws:
         out[w] += [smalls[w], encs[k:k + n_small]]
         k += n_small
+    wide = wide_stream(rng, small)
+    out["4x8_o1_wide"] = (wide, _encode(wide, "4x8_o1"))
     return out
+
+
+def wide_stream(rng, size: int) -> bytes:
+    """Every other byte 0 and then a random one: order-1 context 0 has
+    ~256 successors of frequency ~16, so a 64-slot bucket of its table
+    holds several row starts and the 4x8 order-1 lookup (B8) falls
+    through to its loop."""
+    d = np.zeros(size, np.uint8)
+    d[1::2] = rng.integers(0, 256, size // 2)
+    return d.tobytes()
+
+
+def fallback_buckets(tables) -> int:
+    """(context, 64-slot bucket) pairs of stream 0's order-1 table in
+    which two or more rows start after the bucket's first slot: the
+    buckets whose lookups can reach the loop."""
+    n = int(tables.n_rows[0])
+    rows = tables.rows.cpu().numpy().view(np.uint32)[:n].astype(np.int64)
+    cs = tables.ctx_start[0].cpu().numpy()
+    ctx = np.repeat(np.arange(256), np.diff(cs))
+    cum = (rows >> 12) & 0xFFF
+    inside = cum & 63 != 0
+    _, counts = np.unique(ctx[inside] * 64 + (cum[inside] >> 6),
+                          return_counts=True)
+    return int((counts >= 2).sum())
 
 
 def nt16_numpy(seq4: np.ndarray) -> np.ndarray:
@@ -494,6 +525,20 @@ def leg3_kernels_vs_plain(device, leg3, launches):
             "streams": b.n_streams, "symbols": n_sym,
             "chain_rounds": max(chain(int(n)) for n in b.ulen.tolist()),
             "match": True})
+    # B8 order 1 over a whole wide-alphabet stream, whose lookups take
+    # the loop
+    wide = frame_4x8([leg3["4x8_o1_wide"][1]], True, device)
+    n_fall = fallback_buckets(wide.tables)
+    require(n_fall > 0, "wide 4x8 order-1 stream: no bucket reaches the "
+            "lookup's loop")
+    woffs = torch.zeros(1, dtype=torch.int32, device=device)
+    for g, r, what in zip(rans4x8_cuda(wide, -1, woffs, QBINS),
+                          rans4x8_plain(wide, -1, woffs, QBINS),
+                          ("output", "states", "cursors", "contexts")):
+        require(torch.equal(g, r), "rans4x8_o1_hist kernel != plain on the "
+                f"whole wide-alphabet stream ({what})")
+    rows[-1]["wide_stream"] = {"bytes": int(wide.ulen[0]),
+                               "fallback_buckets": n_fall, "match": True}
     return rows
 
 
@@ -651,6 +696,10 @@ def main() -> int:
     t0 = time.time()
     rows += new_kernels_vs_plain(args[1].device, raws, leg3, launches)
     print(f"phase 6, B9, B4, B10: {time.time() - t0:.1f} s", flush=True)
+    # the figure the chain-bound kernels are designed against
+    for row in rows:
+        if "chain_rounds" in row:
+            row["ns_per_round"] = row["ms"] / row["chain_rounds"] * 1e6
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,22 +8,35 @@
 // odd tail (order 0: states 0..n%4-1; order 1: state 3) runs here too, so
 // no stream is finished on the host.
 //
-// What bounds it: not bytes.  A stream is a chain of about n/4 dependent
-// rounds, 262,144 for a 1 MiB stream, 8x the Nx16 chain of the same
-// stream: each round a table lookup in shared memory, a multiply-add, and
-// a byte refill whose offsets depend on every state of the round.
+// What bounds it: round latency, not bytes or operations.  A stream is one
+// chain of about n/4 dependent rounds, 262,144 for a 1 MiB stream: the four
+// states share one byte cursor, so the wire cannot be split, and a batch
+// holds fewer streams than the card has SMs, so no other warp hides a
+// round's latency.  The kernel's time is one stream's rounds times the
+// round's time, and with one warp on its scheduler that is set by the
+// round's dependent chain and by its instruction count together.
 //
-// Design: one warp per stream (one per block).  Lanes 0..3 hold the four
-// states (and, for order 1, their contexts); all 32 lanes hold a register
-// window of the stream's next 256 bytes as 32-bit words, read with
-// shuffles, so no global load sits on the chain.  The tables are those of
-// the step headers: the order-0 packed slot table (16 KB, zeros past the
-// sum) or the order-1 row/bucket table (33 KB), built by the warp in shared
-// memory.  Refills follow the wire's order from two ballots, m1 (states
-// taking >= 1 byte) and m2 (states taking 2): state j's first byte is at
-// cursor + popc(m1 & below) + popc(m2 & below), and the cursor advances by
-// popc(m1) + popc(m2).  The histogram variants count into a shared
-// histogram with shared atomics.
+// Design: one warp (one block) per stream, every lane running the same
+// round on the same registers (rans4x8_step.cuh: the four states, their
+// contexts and the payload window at the cursor), so the round has no
+// cross-lane operation and every branch on the cursor is uniform.  A round
+// is four independent lookups in shared memory, each one 16-byte load
+// (order 0: the slot's record; order 1: a bucket holding the byte offset
+// of its row record, then that record and the next one, with a loop only
+// where a 64-slot bucket holds two or more row starts after its first
+// slot), four multiply-adds, the refill sizes, a 4-term prefix of bit
+// offsets, and funnel shifts of a 64-bit big-endian window whose three
+// words are read from shared memory at the end of the round before.
+// Rounds run in blocks of 32 with no branch but the loop's (and order 1's
+// rare loop): the payload is staged into a ring of 128-byte chunks in
+// shared memory by cp.async (bytes past the end zero-filled) six chunks
+// ahead of the cursor, and between blocks the warp waits for the chunks
+// copied a block earlier and byte-swaps them, so no global load sits on
+// the chain.  Lane 0 stores each round's four symbols as one word; after
+// the block lane L writes round L's four bytes out (B7) or counts them
+// into its own histogram with shared atomics (B8).  The tables (order 1:
+// 68 KB of records and 64 KB of buckets) exceed 48 KB, so they are
+// dynamic shared memory, one block per SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,150 +46,261 @@
 
 namespace {
 
-constexpr int kPrefetchWords = 512;  // 2 KiB ahead, into L2
+constexpr int kWarp = 32;
+constexpr uint32_t kChunkWords = 32;  // one coalesced 128-byte copy
+constexpr uint32_t kRingChunks = 8;
+constexpr uint32_t kRingWords = kRingChunks * kChunkWords;
+constexpr uint32_t kRingMask = kRingWords - 1;
+constexpr uint32_t kAhead = 6;   // chunks staged ahead of the cursor's
+constexpr uint32_t kBlock = 32;  // rounds between stagings
+constexpr int kUnroll = 2;      // rounds a loop step (4 measured no faster)
+
+// Per-lane histograms (a padded row each) and the symbol buffer: lane 0
+// stores a round's four symbols as one word, and after each block of
+// rounds lane L counts (or writes out) round L's.
+struct Emit {
+  int32_t hist[kWarp][257];
+  uint32_t buf[kBlock];
+};
 
 struct O0Tables {
-  uint32_t slot[RANS_TOTFREQ];
+  Rans8Slot tab[RANS_TOTFREQ];
+  // the ring of payload chunks, and copies of its first two words
+  uint32_t ring[kRingWords + 2];
+  Emit emit;
   uint16_t f[256];
-  int32_t hist[256];
 };
 
 struct O1Tables {
-  uint32_t rows[RANS_O1_MAX_ROWS + 1];  // + a zero sentinel
-  uint8_t bucket[256 * RANS_O1_BUCKETS];
+  Rans8Row rec[RANS8_O1_RECORDS];
+  uint32_t ring[kRingWords + 2];
+  Emit emit;
+  uint32_t bucket[256 * RANS_O1_BUCKETS];
   uint16_t ctx_start[258];
-  int32_t hist[256];
 };
 
-// Word `idx` (4 bytes, little-endian) of a payload of n_words words.
-__device__ __forceinline__ uint32_t word32(const uint32_t* words,
-                                           int64_t idx, int64_t n_words) {
-  return idx < n_words ? words[idx] : 0u;
-}
+template <bool kO1>
+using TablesOf = typename std::conditional<kO1, O1Tables, O0Tables>::type;
 
-// Byte k (< 256) of the window held in w0 (bytes 0..127) and w1 (128..255)
-// across the warp; every lane must call it.
-__device__ __forceinline__ uint32_t window_byte(uint32_t w0, uint32_t w1,
-                                                int k) {
-  const int wi = k >> 2;
-  const uint32_t v0 = __shfl_sync(0xffffffffu, w0, wi & 31);
-  const uint32_t v1 = __shfl_sync(0xffffffffu, w1, wi & 31);
-  return ((wi < 32 ? v0 : v1) >> ((k & 3) * 8)) & 0xFFu;
-}
+struct Args {
+  const uint8_t* payload;
+  const int64_t* byte_off;
+  const int32_t* n_bytes;
+  const int32_t* freqs;
+  const uint32_t* rows;
+  const int64_t* row_off;
+  const int32_t* ctx_start;
+  const uint32_t* x0;
+  const int32_t* ulen;
+  const int64_t* out_off;
+  uint8_t* out;
+  const int32_t* offs;
+  int32_t* hist;
+  uint32_t* x_out;
+  int32_t* cur_out;
+  int32_t* ctx_out;
+  int qbins;
+  int max_rounds;
+};
+
+// One stream's decode state: the four states and contexts, the window at
+// the cursor, and the ring's staging counters.  `round` is one round of
+// the warp (every lane the same), forced inline so the state stays in
+// registers; it returns the round's four symbols packed in a word.
+template <bool kHist, bool kO1>
+struct Stream {
+  TablesOf<kO1>& t;
+  const uint32_t* words;
+  uint8_t* out;
+  uint32_t nb, cap;
+  int lane, off, qbins;
+  uint32_t x[RANS8_NWAY], ctx8[RANS8_NWAY];  // contexts times 256
+  Rans8Window w;
+  uint32_t issued, swapped;  // chunks copied in, and byte-swapped
+
+  // Copy chunk q into its ring slot (cp.async, the bytes past the payload
+  // zero-filled).
+  __device__ __forceinline__ void copy_chunk(uint32_t q) {
+    const uint32_t idx = q * kChunkWords + lane;
+    const uint32_t at = idx * 4u;
+    const uint32_t n = at >= nb ? 0u : (nb - at < 4u ? nb - at : 4u);
+    const uint32_t dst = static_cast<uint32_t>(
+        __cvta_generic_to_shared(&t.ring[idx & kRingMask]));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(words + (n ? idx : 0u)), "r"(n));
+  }
+
+  // Make the chunks the next block of rounds reads ready: copy up to
+  // kAhead chunks past the cursor's, wait for all but this call's copies,
+  // and byte-swap the chunks that arrived (so the window reads them
+  // big-endian).  Every lane runs it: the branches are uniform.
+  __device__ __forceinline__ void stage() {
+    rans8_cap(&w, cap, t.ring, kRingMask);
+    const uint32_t before = issued;
+    for (; issued <= (w.pos >> 7) + kAhead; ++issued) copy_chunk(issued);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncwarp();
+    bool swapped_any = false;
+    for (; swapped < before; ++swapped) {
+      const uint32_t i = (swapped * kChunkWords + lane) & kRingMask;
+      const uint32_t v = rans8_bswap(t.ring[i]);
+      t.ring[i] = v;
+      if (i < 2) t.ring[kRingWords + i] = v;
+      swapped_any = true;
+    }
+    if (swapped_any) {
+      __syncwarp();
+      rans8_load(&w, w.pos, t.ring, kRingMask);
+    }
+  }
+
+  __device__ __forceinline__ uint32_t round(unsigned live) {
+    uint32_t syms, hi, lo;
+    rans8_window(w.w0, w.w1, w.w2, w.pos, &hi, &lo);
+    uint32_t k;
+    if constexpr (kO1)
+      k = rans8_round<true>(x, ctx8, &syms, live, hi, lo, nullptr, t.rec,
+                            t.bucket);
+    else
+      k = rans8_round<false>(x, ctx8, &syms, live, hi, lo, t.tab, nullptr,
+                             nullptr);
+    rans8_advance(&w, k, t.ring, kRingMask);
+    return syms;
+  }
+
+  // Symbol j (< 4) of round r: counted in this lane's histogram, or
+  // written to its order-0 position.
+  __device__ __forceinline__ void keep(uint32_t r, int j, uint32_t s) {
+    if constexpr (kHist)
+      atomicAdd(&t.emit.hist[lane][rans_hist_bin(s, off, qbins)], 1);
+    else
+      out[(int64_t)r * RANS8_NWAY + j] = (uint8_t)s;
+  }
+
+  // The buffered rounds r0 .. r0 + n - 1: lane L keeps round r0 + L's.
+  __device__ __forceinline__ void flush(uint32_t r0, uint32_t n) {
+    __syncwarp();
+    if ((uint32_t)lane < n) {
+      const uint32_t v = t.emit.buf[lane];
+      for (int j = 0; j < RANS8_NWAY; ++j)
+        keep(r0 + lane, j, (v >> (8 * j)) & 0xFFu);
+    }
+    __syncwarp();
+  }
+};
 
 template <bool kHist, bool kO1>
-__global__ void __launch_bounds__(32) rans4x8_kernel(
-    const uint8_t* __restrict__ payload, const int64_t* __restrict__ byte_off,
-    const int32_t* __restrict__ n_bytes, const int32_t* __restrict__ freqs,
-    const uint32_t* __restrict__ rows, const int64_t* __restrict__ row_off,
-    const int32_t* __restrict__ n_rows,
-    const int32_t* __restrict__ ctx_start, const uint32_t* __restrict__ x0,
-    const int32_t* __restrict__ ulen, const int64_t* __restrict__ out_off,
-    uint8_t* __restrict__ out, const int32_t* __restrict__ offs,
-    int32_t* __restrict__ hist, uint32_t* __restrict__ x_out,
-    int32_t* __restrict__ cur_out, int32_t* __restrict__ ctx_out,
-    int qbins, int max_rounds) {
-  using Tables = typename std::conditional<kO1, O1Tables, O0Tables>::type;
-  __shared__ Tables t;
+__global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& t = *reinterpret_cast<TablesOf<kO1>*>(smem);
   const int lane = threadIdx.x;
   const int st = blockIdx.x;
+  const uint32_t nb = (uint32_t)a.n_bytes[st];
+  // past the payload's last word every byte reads 0; the cap keeps the
+  // cursor (and the ring's chunks) a few words beyond it
+  Stream<kHist, kO1> s = {
+      t, reinterpret_cast<const uint32_t*>(a.payload + a.byte_off[st]),
+      kHist ? nullptr : a.out + a.out_off[st], nb, 4u * ((nb + 3u) / 4u) + 32u,
+      lane, kHist ? a.offs[st] : 0, a.qbins};
+
   if constexpr (kO1) {
-    const int nrows = n_rows[st];
-    const uint32_t* rs = rows + row_off[st];
-    for (int i = lane; i < nrows; i += 32) t.rows[i] = rs[i];
-    if (lane == 0) t.rows[nrows] = 0;
-    for (int c = lane; c < 257; c += 32)
-      t.ctx_start[c] = (uint16_t)ctx_start[(int64_t)st * 257 + c];
+    for (int c = lane; c < 257; c += kWarp)
+      t.ctx_start[c] = (uint16_t)a.ctx_start[(int64_t)st * 257 + c];
+    __syncwarp();
+    rans8_o1_build(a.rows + a.row_off[st], t.ctx_start, t.rec, t.bucket,
+                   lane, kWarp);
   } else {
-    for (int s = lane; s < 256; s += 32)
-      t.f[s] = (uint16_t)freqs[(int64_t)st * 256 + s];
+    for (int i = lane; i < 256; i += kWarp)
+      t.f[i] = (uint16_t)a.freqs[(int64_t)st * 256 + i];
+    __syncwarp();
+    rans8_o0_build(t.f, t.tab, lane, kWarp);
   }
   if (kHist)
-    for (int b = lane; b < qbins; b += 32) t.hist[b] = 0;
-  __syncwarp();
-  if constexpr (kO1)
-    rans_o1_build_buckets(t.rows, t.ctx_start, t.bucket, lane, 32);
-  else
-    rans_o0_build_slots(t.f, t.slot, lane, 32);
-  __syncwarp();
+    for (int i = 0; i < 257; ++i) t.emit.hist[lane][i] = 0;
+  // the first chunks, waited for in full
+  for (; s.issued < kAhead + 1; ++s.issued) s.copy_chunk(s.issued);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  s.stage();
 
-  const uint32_t* words =
-      reinterpret_cast<const uint32_t*>(payload + byte_off[st]);
-  const int64_t nb = n_bytes[st];
-  const int64_t nw = (nb + 3) / 4;
-  const int64_t n = ulen[st];
+  const int64_t n = a.ulen[st];
   int64_t rounds = rans8_rounds(kO1, n);
-  if (max_rounds >= 0 && rounds > max_rounds) rounds = max_rounds;
-  const bool is_state = lane < RANS8_NWAY;
-  const int off = kHist ? offs[st] : 0;
-  uint8_t* o = kHist ? nullptr : out + out_off[st];
-  const unsigned below = (1u << lane) - 1u;
-
-  // window: lane k holds bytes base + 4k.. in w[0], base + 128 + 4k.. in
-  // w[1], and the two windows after them in flight in w[2] and w[3]; a
-  // round takes at most 8 bytes, so the cursor never runs 128 past base
-  int64_t base = 0;  // in bytes, a multiple of 128
-  uint32_t w[4];
-  for (int i = 0; i < 4; ++i) w[i] = word32(words, 32 * i + lane, nw);
-
-  uint32_t x = is_state ? x0[(int64_t)st * RANS8_NWAY + lane] : 0u;
-  uint32_t ctx = 0;
-  int64_t cur = 0;  // bytes taken
-  for (int64_t r = 0; r < rounds; ++r) {
-    int64_t pos;
-    const bool live = is_state && rans8_live(kO1, n, lane, r, &pos);
-    uint32_t xs = x;
-    uint32_t s;
-    if constexpr (kO1)
-      s = rans_o1_decode(&xs, ctx, t.rows, t.ctx_start, t.bucket);
-    else
-      s = rans_o0_decode(&xs, t.slot);
-    if (live) {
-      x = xs;
-      if (kO1) ctx = s;
-      if (kHist)
-        atomicAdd(&t.hist[rans_hist_bin(s, off, qbins)], 1);
-      else
-        o[pos] = (uint8_t)s;
-    }
-    const int need = live ? rans8_refill_count(x) : 0;
-    const unsigned m1 = __ballot_sync(0xffffffffu, need >= 1);
-    const unsigned m2 = __ballot_sync(0xffffffffu, need == 2);
-    const int k =
-        (int)(cur - base) + __popc(m1 & below) + __popc(m2 & below);
-    const uint32_t b1 = window_byte(w[0], w[1], k);
-    const uint32_t b2 = window_byte(w[0], w[1], k + 1);
-    x = rans8_refill(x, need, b1, b2);
-    cur = rans_advance(cur, __popc(m1) + __popc(m2), nb);
-    if (cur - base >= 128) {
-      base += 128;
-      w[0] = w[1];
-      w[1] = w[2];
-      w[2] = w[3];
-      w[3] = word32(words, base / 4 + 96 + lane, nw);
-      if (lane == 0 && base / 4 + kPrefetchWords < nw)
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(words + base / 4 +
-                                                      kPrefetchWords));
-    }
+  if (a.max_rounds >= 0 && rounds > a.max_rounds) rounds = a.max_rounds;
+  // rounds in which all four states decode, then the tail
+  const uint32_t full =
+      (uint32_t)(n / RANS8_NWAY < rounds ? n / RANS8_NWAY : rounds);
+  for (int j = 0; j < RANS8_NWAY; ++j) {
+    s.x[j] = a.x0[(int64_t)st * RANS8_NWAY + j];
+    s.ctx8[j] = 0;
   }
-  if (is_state) {
-    x_out[(int64_t)st * RANS8_NWAY + lane] = x;
-    ctx_out[(int64_t)st * RANS8_NWAY + lane] = (int32_t)ctx;
+  // blocks of kBlock rounds with no branch but the loop's: a block takes
+  // at most 256 bytes, so the chunks staged before it cover it
+  uint32_t r = 0;
+  for (; r + kBlock <= full; r += kBlock) {
+#pragma unroll kUnroll
+    for (uint32_t i = 0; i < kBlock; ++i) {
+      const uint32_t p = s.round(0xFu);
+      if (lane == 0) t.emit.buf[i] = p;
+    }
+    s.flush(r, kBlock);
+    s.stage();
   }
-  if (lane == 0) cur_out[st] = (int32_t)cur;
+  // the rest one round at a time
+  for (; r < (uint32_t)rounds; ++r) {
+    unsigned live = 0;
+    for (int j = 0; j < RANS8_NWAY; ++j) {
+      int64_t pos;
+      if (rans8_live(kO1, n, j, r, &pos)) live |= 1u << j;
+    }
+    const uint32_t p = s.round(live);
+    if (lane < RANS8_NWAY && ((live >> lane) & 1u))
+      s.keep(r, lane, (p >> (8 * lane)) & 0xFFu);
+    s.stage();
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  // lane 0 writes every state: indexing the states by lane would move
+  // them to local memory
+  if (lane == 0) {
+    for (int j = 0; j < RANS8_NWAY; ++j) {
+      a.x_out[(int64_t)st * RANS8_NWAY + j] = s.x[j];
+      a.ctx_out[(int64_t)st * RANS8_NWAY + j] = (int32_t)(s.ctx8[j] >> 8);
+    }
+    // the wire's cursor stops at the payload's end (rans_advance)
+    a.cur_out[st] = (int32_t)(s.w.pos < nb ? s.w.pos : nb);
+  }
   if (kHist) {
     __syncwarp();
-    for (int b = lane; b < qbins; b += 32)
-      hist[(int64_t)st * qbins + b] = t.hist[b];
+    for (int b = lane; b < a.qbins; b += kWarp) {
+      int32_t sum = 0;
+      for (int l = 0; l < kWarp; ++l) sum += t.emit.hist[l][b];
+      a.hist[(int64_t)st * a.qbins + b] = sum;
+    }
   }
+}
+
+// One launch of the variant, its tables in dynamic shared memory; returns
+// a CUDA error code (the shared-memory attribute's, or the launch's).
+template <bool kHist, bool kO1>
+int launch(const Args& a, int n_streams, cudaStream_t s) {
+  const int bytes = (int)sizeof(TablesOf<kO1>);
+  cudaError_t e = cudaFuncSetAttribute(
+      rans4x8_kernel<kHist, kO1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rans4x8_kernel<kHist, kO1><<<n_streams, kWarp, bytes, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Order-0 decode (out != NULL, o1 == 0) or order-0/1 histogram
-// (hist != NULL) of n_streams streams on `stream`.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an
-// order-1 decode, which has no kernel.
+// (hist != NULL) of n_streams streams on `stream`; n_rows is not read
+// (a stream's ctx_start[256] is its row count).  Returns
+// cudaGetLastError() after the launch, the error of the shared-memory
+// attribute when it is refused, or cudaErrorInvalidValue for an order-1
+// decode, which has no kernel.
 extern "C" int rans4x8_launch(
     const void* payload, const void* byte_off, const void* n_bytes,
     const void* freqs, const void* rows, const void* row_off,
@@ -185,38 +309,29 @@ extern "C" int rans4x8_launch(
     void* hist, void* x_out, void* cur_out, void* ctx_out, int n_streams,
     int qbins, int max_rounds, int o1, void* stream) {
   if (n_streams <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const uint8_t*>(payload);
-  const auto* bo = static_cast<const int64_t*>(byte_off);
-  const auto* nb = static_cast<const int32_t*>(n_bytes);
-  const auto* fr = static_cast<const int32_t*>(freqs);
-  const auto* rw = static_cast<const uint32_t*>(rows);
-  const auto* ro = static_cast<const int64_t*>(row_off);
-  const auto* nr = static_cast<const int32_t*>(n_rows);
-  const auto* cs = static_cast<const int32_t*>(ctx_start);
-  const auto* xs = static_cast<const uint32_t*>(x0);
-  const auto* ul = static_cast<const int32_t*>(ulen);
-  const auto* of = static_cast<const int64_t*>(out_off);
-  auto* ot = static_cast<uint8_t*>(out);
-  const auto* os = static_cast<const int32_t*>(offs);
-  auto* hs = static_cast<int32_t*>(hist);
-  auto* xo = static_cast<uint32_t*>(x_out);
-  auto* co = static_cast<int32_t*>(cur_out);
-  auto* cx = static_cast<int32_t*>(ctx_out);
   if (hist == nullptr && o1) return static_cast<int>(cudaErrorInvalidValue);
-  if (hist == nullptr)
-    rans4x8_kernel<false, false><<<n_streams, 32, 0, s>>>(
-        p, bo, nb, fr, rw, ro, nr, cs, xs, ul, of, ot, os, hs, xo, co, cx,
-        qbins, max_rounds);
-  else if (o1)
-    rans4x8_kernel<true, true><<<n_streams, 32, 0, s>>>(
-        p, bo, nb, fr, rw, ro, nr, cs, xs, ul, of, ot, os, hs, xo, co, cx,
-        qbins, max_rounds);
-  else
-    rans4x8_kernel<true, false><<<n_streams, 32, 0, s>>>(
-        p, bo, nb, fr, rw, ro, nr, cs, xs, ul, of, ot, os, hs, xo, co, cx,
-        qbins, max_rounds);
-  return static_cast<int>(cudaGetLastError());
+  const Args a = {static_cast<const uint8_t*>(payload),
+                  static_cast<const int64_t*>(byte_off),
+                  static_cast<const int32_t*>(n_bytes),
+                  static_cast<const int32_t*>(freqs),
+                  static_cast<const uint32_t*>(rows),
+                  static_cast<const int64_t*>(row_off),
+                  static_cast<const int32_t*>(ctx_start),
+                  static_cast<const uint32_t*>(x0),
+                  static_cast<const int32_t*>(ulen),
+                  static_cast<const int64_t*>(out_off),
+                  static_cast<uint8_t*>(out),
+                  static_cast<const int32_t*>(offs),
+                  static_cast<int32_t*>(hist),
+                  static_cast<uint32_t*>(x_out),
+                  static_cast<int32_t*>(cur_out),
+                  static_cast<int32_t*>(ctx_out),
+                  qbins,
+                  max_rounds};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hist == nullptr) return launch<false, false>(a, n_streams, s);
+  if (o1) return launch<true, true>(a, n_streams, s);
+  return launch<true, false>(a, n_streams, s);
 }
 
 extern "C" const char* kernel_error_string(int rc) {

@@ -1,7 +1,6 @@
-// Per-state round step of rANS 4x8 decode (CRAM 3.0, htscodecs
-// rANS_static.c), shared by the kernels in rans4x8.cu.  Host compilers see
-// plain inline functions, so a CPU harness can drive the exact arithmetic
-// the card runs.
+// Round step of rANS 4x8 decode (CRAM 3.0, htscodecs rANS_static.c), shared
+// by the kernels in rans4x8.cu.  Host compilers see plain inline functions,
+// so a CPU harness can drive the exact arithmetic the card runs.
 //
 // Wire: 4 interleaved states, 12-bit frequencies (a table may sum to less
 // than 4096), byte renormalisation against 2^23.  Order 0 decodes symbol i
@@ -11,30 +10,67 @@
 // one byte pointer: a state below 2^23 shifts in one byte, and one below
 // 2^15 a second (from a state >= 2^23 a decode step leaves x >= 2^11, so
 // two bytes always lift it back above 2^23).
+//
+// One thread runs a whole round (`rans8_round`): the four states, their
+// contexts and the payload bytes at the cursor all sit in its registers.
+// A round takes at most 8 bytes, so the bytes come from a 64-bit window of
+// the payload at the cursor, held big-endian (`rans8_window`, from three
+// byte-swapped payload words); state j's bytes start at a prefix sum of the
+// bits the states before it take, and a funnel shift moves them into the
+// state.  `Rans8Window` holds the three words at the cursor, read at the
+// end of the round before the one that needs them.
+//
+// On the card a round is bound by its instruction count as much as by its
+// latency (one warp issues it, every lane the same), so the tables are
+// laid out for the fewest instructions a lookup, not as the Nx16 step
+// headers keep them: 16-byte records that one load brings in whole, every
+// field ready to use.
 #pragma once
 
 #include "rans_nx16_o1_step.cuh"
 
 #define RANS8_L (1u << 23)
 #define RANS8_NWAY 4
+// order-1 row records: the stream's rows, one spare, then one record per
+// context (used by the empty ones) and one spare
+#define RANS8_O1_EMPTY (RANS_O1_MAX_ROWS + 1)
+#define RANS8_O1_RECORDS (RANS8_O1_EMPTY + 257)
 
-// Bytes a state takes after its decode step: 0, 1 or 2.
-RANS_HD int rans8_refill_count(uint32_t x) {
-  return (x < RANS8_L ? 1 : 0) + (x < (1u << 15) ? 1 : 0);
+// An order-0 slot record: the frequency of the symbol owning the slot, the
+// slot's offset in the symbol's range, and the symbol in each of its four
+// bytes (so a round packs its four symbols with masks alone).
+struct alignas(16) Rans8Slot {
+  uint32_t f, bias, sym, pad;
+};
+
+// An order-1 row record: f, -cum (mod 2^32), the cum of the next row of the
+// row's context (4096 at its last row), and the symbol times 256 (the byte
+// offset of its context's buckets).
+struct alignas(16) Rans8Row {
+  uint32_t f, neg_cum, next_cum, ctx8;
+};
+
+RANS_HD uint32_t rans8_bswap(uint32_t v) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(v, 0, 0x0123);
+#else
+  return __builtin_bswap32(v);
+#endif
 }
 
-// The state after taking `need` bytes, b1 first.
-RANS_HD uint32_t rans8_refill(uint32_t x, int need, uint32_t b1,
-                              uint32_t b2) {
-  if (need >= 1) x = (x << 8) | b1;
-  if (need == 2) x = (x << 8) | b2;
-  return x;
+// The top 32 bits of (hi:lo) << (s % 32).
+RANS_HD uint32_t rans8_funnel(uint32_t lo, uint32_t hi, uint32_t s) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_l(lo, hi, s);
+#else
+  s &= 31u;
+  return s ? (hi << s) | (lo >> (32u - s)) : hi;
+#endif
 }
 
-// Byte `idx` of a payload of `n_bytes` bytes; 0 past its end.
-RANS_HD uint32_t rans8_byte(const uint8_t* bytes, int64_t idx,
-                            int64_t n_bytes) {
-  return idx < n_bytes ? (uint32_t)bytes[idx] : 0u;
+// Bits a state takes after its decode step: 0, 8 or 16.
+RANS_HD uint32_t rans8_refill_bits(uint32_t x) {
+  return x >= (1u << 15) ? (x >= RANS8_L ? 0u : 8u) : 16u;
 }
 
 // Whether state j decodes in round r, and at which output position.
@@ -51,4 +87,231 @@ RANS_HD bool rans8_live(bool o1, int64_t n, int j, int64_t r, int64_t* pos) {
 RANS_HD int64_t rans8_rounds(bool o1, int64_t n) {
   return o1 ? rans_o1_state_len(n, RANS8_NWAY - 1, RANS8_NWAY)
             : (n + RANS8_NWAY - 1) / RANS8_NWAY;
+}
+
+// Payload word idx (4 bytes as they lie in memory, little-endian) of a
+// payload of n_bytes bytes as the window reads it: bytes past the end
+// cleared (they read 0), then byte-swapped so the first byte is on top.
+RANS_HD uint32_t rans8_stage_word(uint32_t v, uint32_t idx,
+                                  uint32_t n_bytes) {
+  const uint32_t at = idx * 4u;
+  const uint32_t valid = at >= n_bytes ? 0u : n_bytes - at;
+  const uint32_t mask =
+      valid >= 4u ? 0xFFFFFFFFu : (1u << (8u * valid)) - 1u;
+  return rans8_bswap(v & mask);
+}
+
+// The order-0 table of one stream from its 256 frequencies (summing to at
+// most 4096): a record per slot (f = 1, offset 0, symbol 0 past the sum).
+// Lane `lane` of `nlanes` fills the symbols s with s % nlanes == lane and
+// the spare slots k with k % nlanes == lane.
+RANS_HD void rans8_o0_build(const uint16_t* f, Rans8Slot* tab, int lane,
+                            int nlanes) {
+  uint32_t c = 0;
+  for (int s = 0; s < 256; ++s) {
+    const uint32_t fs = f[s];
+    if (s % nlanes == lane)
+      for (uint32_t k = c; k < c + fs && k < RANS_TOTFREQ; ++k)
+        tab[k] = {fs, k - c, (uint32_t)s * 0x01010101u, 0u};
+    c += fs;
+  }
+  for (uint32_t k = c; k < RANS_TOTFREQ; ++k)
+    if (k % nlanes == (uint32_t)lane) tab[k] = {1u, 0u, 0u, 0u};
+}
+
+// Order-0 decode step: x = f * (x >> 12) + (x & 4095) - cum; the symbol,
+// in each byte, in *sym.
+RANS_HD uint32_t rans8_o0_step(uint32_t x, const Rans8Slot* tab,
+                               uint32_t* sym) {
+  const Rans8Slot e = tab[x & (RANS_TOTFREQ - 1)];
+  *sym = e.sym;
+  return e.f * (x >> RANS_TF_SHIFT) + e.bias;
+}
+
+// The record of a packed row e ((f-1) | cum<<12 | sym<<24) whose context's
+// next row starts at next_cum.
+RANS_HD Rans8Row rans8_o1_record(uint32_t e, uint32_t next_cum) {
+  return {(e & 0xFFFu) + 1u, 0u - rans_row_cum(e), next_cum, (e >> 24) << 8};
+}
+
+// The order-1 tables of one stream from its n packed rows (sorted by (ctx,
+// cum), as in rans_nx16_o1_step.cuh) and context starts (ctx_start[256] =
+// n): rec[r] for row r; rec[RANS8_O1_EMPTY + c] for an empty context c, a
+// copy of the row at its start (the zero row past the last) whose next cum
+// is 4096; and bucket[c*64 + k], the byte offset in rec of the record of
+// context c owning slot k*64.  Lane `lane` of `nlanes` fills the contexts c
+// with c % nlanes == lane.
+RANS_HD void rans8_o1_build(const uint32_t* rows, const uint16_t* ctx_start,
+                            Rans8Row* rec, uint32_t* bucket, int lane,
+                            int nlanes) {
+  const int n = ctx_start[256];
+  if (lane == 0) {
+    rec[n] = rans8_o1_record(0u, 4096u);
+    rec[RANS8_O1_RECORDS - 1] = rans8_o1_record(0u, 4096u);
+  }
+  for (int c = lane; c < 256; c += nlanes) {
+    const int lo = ctx_start[c], hi = ctx_start[c + 1];
+    uint32_t* bk = bucket + c * RANS_O1_BUCKETS;
+    if (lo == hi) {
+      rec[RANS8_O1_EMPTY + c] =
+          rans8_o1_record(lo < n ? rows[lo] : 0u, 4096u);
+      for (int k = 0; k < RANS_O1_BUCKETS; ++k)
+        bk[k] = (uint32_t)((RANS8_O1_EMPTY + c) * sizeof(Rans8Row));
+      continue;
+    }
+    for (int r = lo; r < hi; ++r)
+      rec[r] = rans8_o1_record(
+          rows[r], r + 1 < hi ? rans_row_cum(rows[r + 1]) : 4096u);
+    int r = lo;
+    for (int k = 0; k < RANS_O1_BUCKETS; ++k) {
+      const uint32_t slot = (uint32_t)k << RANS_O1_BUCKET_SHIFT;
+      while (r + 1 < hi && rans_row_cum(rows[r + 1]) <= slot) ++r;
+      bk[k] = (uint32_t)(r * sizeof(Rans8Row));
+    }
+  }
+}
+
+// The record of the row of context ctx8 / 256 owning slot x & 4095: the
+// last of its rows whose cum is <= the slot, as rans_o1_lookup finds it
+// (slots past a context's sum: its last row; an empty context: the row at
+// its start).  The bucket's row owns the bucket's first slot, so the
+// answer is that row or the next: `rans8_o1_pick` loads both records
+// together and selects, and sets *slow where a bucket in which two or more
+// rows start after its first slot needs `rans8_o1_walk`.
+RANS_HD const Rans8Row* rans8_o1_bucket(const Rans8Row* rec,
+                                        const uint32_t* bucket, uint32_t ctx8,
+                                        uint32_t x) {
+  const uint32_t at = ctx8 | ((x >> 4) & 0xFCu);  // (ctx*64 + m/64) * 4
+  return reinterpret_cast<const Rans8Row*>(
+      reinterpret_cast<const uint8_t*>(rec) +
+      *reinterpret_cast<const uint32_t*>(
+          reinterpret_cast<const uint8_t*>(bucket) + at));
+}
+
+RANS_HD Rans8Row rans8_o1_pick(const Rans8Row* rec, const uint32_t* bucket,
+                               uint32_t ctx8, uint32_t x, bool* slow) {
+  const Rans8Row* r = rans8_o1_bucket(rec, bucket, ctx8, x);
+  const uint32_t m = x & (RANS_TOTFREQ - 1);
+  const Rans8Row e0 = r[0], e1 = r[1];
+  const bool first = m < e0.next_cum;
+  Rans8Row e;
+  e.f = first ? e0.f : e1.f;
+  e.neg_cum = first ? e0.neg_cum : e1.neg_cum;
+  e.next_cum = first ? e0.next_cum : e1.next_cum;
+  e.ctx8 = first ? e0.ctx8 : e1.ctx8;
+  *slow = m >= e.next_cum;  // never where the first row is the answer
+  return e;
+}
+
+RANS_HD Rans8Row rans8_o1_walk(const Rans8Row* rec, const uint32_t* bucket,
+                               uint32_t ctx8, uint32_t x) {
+  const Rans8Row* q = rans8_o1_bucket(rec, bucket, ctx8, x) + 2;
+  const uint32_t m = x & (RANS_TOTFREQ - 1);
+  while (m >= q->next_cum) ++q;
+  return *q;
+}
+
+// The 8 payload bytes from byte `pos` on, big-endian (the first byte on
+// top: hi:lo), out of the byte-swapped words w0, w1, w2 at word pos / 4.
+RANS_HD void rans8_window(uint32_t w0, uint32_t w1, uint32_t w2,
+                          uint32_t pos, uint32_t* hi, uint32_t* lo) {
+  const uint32_t sh = pos * 8u;  // the funnel shift takes it mod 32
+  *hi = rans8_funnel(w1, w0, sh);
+  *lo = rans8_funnel(w2, w1, sh);
+}
+
+// The four symbols of a round in one word, state j's in byte j: from
+// order-0 symbols held in every byte (o1 false) or from order-1 contexts
+// times 256 (o1 true).
+RANS_HD uint32_t rans8_pack(bool o1, const uint32_t* s) {
+  if (!o1)
+    return (s[0] & 0xFFu) | (s[1] & 0xFF00u) | (s[2] & 0xFF0000u) |
+           (s[3] & 0xFF000000u);
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(__byte_perm(s[0], s[1], 0x0051),
+                     __byte_perm(s[2], s[3], 0x0051), 0x5410);
+#else
+  return ((s[0] >> 8) & 0xFFu) | (s[1] & 0xFF00u) |
+         ((s[2] << 8) & 0xFF0000u) | ((s[3] << 16) & 0xFF000000u);
+#endif
+}
+
+// One round of the four states in order 0..3: state j decodes where bit j
+// of `live` is set (order 0 through tab; order 1 through rec/bucket, its
+// context held as ctx8 = ctx * 256, the four lookups issued together and
+// any loop after them), and shifts in its refill bytes from the window
+// hi:lo.  Leaves the four symbols in *syms (state j's in byte j) and
+// returns the bytes the round took.
+template <bool kO1>
+RANS_HD uint32_t rans8_round(uint32_t* x, uint32_t* ctx8, uint32_t* syms,
+                             unsigned live, uint32_t hi, uint32_t lo,
+                             const Rans8Slot* tab, const Rans8Row* rec,
+                             const uint32_t* bucket) {
+  uint32_t xs[RANS8_NWAY], sym[RANS8_NWAY];
+  if (kO1) {
+    Rans8Row e[RANS8_NWAY];
+    bool slow[RANS8_NWAY];
+    for (int j = 0; j < RANS8_NWAY; ++j)
+      e[j] = rans8_o1_pick(rec, bucket, ctx8[j], x[j], &slow[j]);
+    if (slow[0] || slow[1] || slow[2] || slow[3])
+      for (int j = 0; j < RANS8_NWAY; ++j)
+        if (slow[j]) e[j] = rans8_o1_walk(rec, bucket, ctx8[j], x[j]);
+    for (int j = 0; j < RANS8_NWAY; ++j) {
+      xs[j] = e[j].f * (x[j] >> RANS_TF_SHIFT) +
+              (x[j] & (RANS_TOTFREQ - 1)) + e[j].neg_cum;
+      sym[j] = e[j].ctx8;
+    }
+  } else {
+    for (int j = 0; j < RANS8_NWAY; ++j)
+      xs[j] = rans8_o0_step(x[j], tab, &sym[j]);
+  }
+  *syms = rans8_pack(kO1, sym);
+  uint32_t bits[RANS8_NWAY];
+  for (int j = 0; j < RANS8_NWAY; ++j) {
+    const bool on = (live >> j) & 1u;
+    if (on) {
+      x[j] = xs[j];
+      if (kO1) ctx8[j] = sym[j];
+    }
+    bits[j] = on ? rans8_refill_bits(xs[j]) : 0u;
+  }
+  const uint64_t win = ((uint64_t)hi << 32) | lo;
+  const uint32_t at[RANS8_NWAY] = {0u, bits[0], bits[0] + bits[1],
+                                   bits[0] + bits[1] + bits[2]};
+  for (int j = 0; j < RANS8_NWAY; ++j)
+    x[j] = rans8_funnel((uint32_t)((win << at[j]) >> 32), x[j], bits[j]);
+  return (at[3] + bits[3]) >> 3;
+}
+
+// The byte cursor and the three (byte-swapped) words at it.  The cursor
+// runs on past the payload's end, where every byte reads 0 (`rans8_cap`
+// holds it a little beyond); the wire's cursor, clamped at n_bytes, is
+// min(pos, n_bytes).
+struct Rans8Window {
+  uint32_t w0, w1, w2;
+  uint32_t pos;
+};
+
+// The three words at byte `pos`, word i read from src[i & mask] (src holds
+// two more words after src[mask], copies of src[0] and src[1]).
+RANS_HD void rans8_load(Rans8Window* w, uint32_t pos, const uint32_t* src,
+                        uint32_t mask) {
+  const uint32_t* at = src + ((pos >> 2) & mask);
+  w->w0 = at[0];
+  w->w1 = at[1];
+  w->w2 = at[2];
+  w->pos = pos;
+}
+
+// Take k (<= 8) bytes.
+RANS_HD void rans8_advance(Rans8Window* w, uint32_t k, const uint32_t* src,
+                           uint32_t mask) {
+  rans8_load(w, w->pos + k, src, mask);
+}
+
+// Hold the cursor at `cap` (>= n_bytes) once past it: the bytes there read
+// 0 as well, so the decode does not change, and the cursor cannot wrap.
+RANS_HD void rans8_cap(Rans8Window* w, uint32_t cap, const uint32_t* src,
+                       uint32_t mask) {
+  if (w->pos > cap) rans8_load(w, cap, src, mask);
 }

@@ -153,12 +153,41 @@ def test_o1_kernels_match_plain(card, qbins):
             assert torch.equal(g, w)
 
 
+def _4x8_edge_streams(order, seed=9):
+    """Three streams of one order at the kernels' edges: a wide alphabet
+    (context 0 with ~256 successors of frequency ~16, so order-1 lookups
+    fall through to the loop), a payload of n_bytes % 4 != 0, and tables
+    summing to 4096 - 96 (the largest frequency cut)."""
+    rng = np.random.default_rng(seed)
+    wide = np.zeros(6000, np.uint8)
+    wide[1::2] = rng.integers(0, 256, 3000)
+    encs = [r8.compress(wide.tobytes(), order)]
+    while True:
+        enc = r8.compress(_walk(rng, 4001), order)
+        if int(t8.frame_4x8([enc], order == 1, "cpu").n_bytes[0]) % 4:
+            encs.append(enc)
+            break
+    norm = r8._normalize
+
+    def cut(h, total=r8.TOTFREQ):
+        f = norm(h, total)
+        f[int(np.argmax(f))] -= 96
+        return f
+
+    r8._normalize = cut
+    try:
+        encs.append(r8.compress(_walk(rng, 3007), order))
+    finally:
+        r8._normalize = norm
+    return encs
+
+
 @pytest.mark.parametrize("order,qbins", [(0, None), (0, 64), (0, 256),
                                          (1, 64), (1, 256)])
 def test_4x8_kernels_match_plain(card, order, qbins):
     datas = [d for d in _4x8_streams() if order == 0 or len(d) >= 4]
-    b = t8.frame_4x8([r8.compress(d, order) for d in datas], order == 1,
-                     card)
+    b = t8.frame_4x8([r8.compress(d, order) for d in datas]
+                     + _4x8_edge_streams(order), order == 1, card)
     offs = torch.arange(b.n_streams, dtype=torch.int32, device=card)
     for mr in (-1, 1500):
         got = t8.rans4x8(b, max_rounds=mr, offs=offs, qbins=qbins)

@@ -3,7 +3,7 @@ against the reference codec, and its order-0 decode (htslib_tpu_torch/
 ops/rans4x8.py, kernel B7's plain version on the CPU) against the host
 codec and the JAX package's Pallas decode in interpret mode; the state
 carried across after one JAX segment (htslib_tpu_torch/carry.py); and the
-kernels' per-state step (csrc/rans4x8_step.cuh) compiled for the CPU.
+kernels' round step (csrc/rans4x8_step.cuh) compiled for the CPU.
 Bytes and states: equality is exact."""
 import ctypes
 import os
@@ -37,9 +37,11 @@ def _jax_32bit():
     jax.config.update("jax_enable_x64", False)
 
 
-def _short_table_compress(data: bytes, short: int = 96) -> bytes:
-    """A valid order-0 4x8 stream whose frequencies sum to 4096 - short:
-    the port's encoder with its largest frequency cut."""
+def _short_table_compress(data: bytes, short: int = 96,
+                          order: int = 0) -> bytes:
+    """A valid 4x8 stream whose frequencies (order 1: those of every
+    context) sum to 4096 - short: the port's encoder with its largest
+    frequency cut."""
     norm = r8._normalize
 
     def cut(h, total=r8.TOTFREQ):
@@ -49,7 +51,7 @@ def _short_table_compress(data: bytes, short: int = 96) -> bytes:
 
     r8._normalize = cut
     try:
-        return r8.compress(data, 0)
+        return r8.compress(data, order)
     finally:
         r8._normalize = norm
 
@@ -171,61 +173,111 @@ def test_carry_segment_state_equals_jax(decoded):
 
 
 _HARNESS = r"""
+#include <vector>
+
 #include "rans4x8_step.cuh"
 
-// One 4x8 stream through the kernels' step code, the 4 states of a round
-// run in order: m1/m2 are the masks of states taking >= 1 and 2 bytes,
-// and state j's first byte is cursor + popc(m1 & below) + popc(m2 & below).
-// Order 0 uses the slot table; order 1 the row/bucket table.
+static Rans8Slot tab[RANS_TOTFREQ];
+static Rans8Row rec[RANS8_O1_RECORDS];
+static uint32_t bucket[256 * RANS_O1_BUCKETS];
+static uint16_t ctx_start[257];
+
+// The kernels' tables, built by 32 lanes in turn: order 0 the slot
+// table, order 1 the row records and buckets.
+static void tables(int o1, const int32_t* freq, const uint32_t* rows,
+                   const int32_t* cs) {
+  if (o1) {
+    for (int c = 0; c < 257; ++c) ctx_start[c] = (uint16_t)cs[c];
+    for (int lane = 0; lane < 32; ++lane)
+      rans8_o1_build(rows, ctx_start, rec, bucket, lane, 32);
+  } else {
+    uint16_t f[256];
+    for (int s = 0; s < 256; ++s) f[s] = (uint16_t)freq[s];
+    for (int lane = 0; lane < 32; ++lane) rans8_o0_build(f, tab, lane, 32);
+  }
+}
+
+// One 4x8 stream through the kernels' round: rans8_round on the window at
+// the cursor, rans8_advance over the whole payload staged as the kernels
+// stage it (rans8_stage_word; they read it from a ring of chunks).  `tail`
+// is the payload's last word as it lies in memory, bytes past the end
+// included.  Returns the wire's cursor; *pos is the kernels' cursor
+// (capped here after every round, in the kernels between blocks), *loops
+// the lookups that fell through to the order-1 loop, or -1
+// when a round before the tail was not full.
 extern "C" int64_t decode_stream(int o1, const int32_t* freq,
                                  const uint32_t* rows, const int32_t* cs,
                                  const uint32_t* x0, const uint8_t* bytes,
-                                 int64_t n_bytes, int64_t ulen, uint8_t* out,
-                                 uint32_t* x_out) {
-  uint16_t f[256];
-  static uint32_t slot[RANS_TOTFREQ];
-  static uint8_t bucket[256 * RANS_O1_BUCKETS];
-  uint16_t ctx_start[257];
-  for (int s = 0; s < 256; ++s) f[s] = (uint16_t)freq[s];
-  for (int c = 0; c < 257; ++c) ctx_start[c] = (uint16_t)cs[c];
-  for (int lane = 0; lane < 32; ++lane) {
-    if (o1)
-      rans_o1_build_buckets(rows, ctx_start, bucket, lane, 32);
-    else
-      rans_o0_build_slots(f, slot, lane, 32);
+                                 int64_t n_bytes, uint32_t tail, int64_t ulen,
+                                 uint8_t* out, uint32_t* x_out, int64_t* pos,
+                                 int64_t* loops) {
+  tables(o1, freq, rows, cs);
+  const uint32_t nb = (uint32_t)n_bytes, nw = (nb + 3u) / 4u;
+  const uint32_t cap = 4u * nw + 32u;
+  std::vector<uint32_t> words(nw + 16, 0u);
+  for (uint32_t i = 0; i < nw; ++i) {
+    uint32_t v = tail;
+    if (i + 1 < nw)
+      v = bytes[4 * i] | (bytes[4 * i + 1] << 8) | (bytes[4 * i + 2] << 16) |
+          ((uint32_t)bytes[4 * i + 3] << 24);
+    words[i] = rans8_stage_word(v, i, nb);
   }
-  uint32_t x[RANS8_NWAY], ctx[RANS8_NWAY] = {0, 0, 0, 0};
+  uint32_t x[RANS8_NWAY], ctx8[RANS8_NWAY] = {0, 0, 0, 0}, syms;
   for (int j = 0; j < RANS8_NWAY; ++j) x[j] = x0[j];
-  int64_t cur = 0;
+  Rans8Window w = {words[0], words[1], words[2], 0u};
   const int64_t rounds = rans8_rounds(o1, ulen);
+  *loops = 0;
   for (int64_t r = 0; r < rounds; ++r) {
-    int need[RANS8_NWAY];
-    uint32_t m1 = 0, m2 = 0;
-    for (int j = 0; j < RANS8_NWAY; ++j) {
-      int64_t pos;
-      need[j] = 0;
-      if (!rans8_live(o1, ulen, j, r, &pos)) continue;
-      const uint32_t s =
-          o1 ? rans_o1_decode(&x[j], ctx[j], rows, ctx_start, bucket)
-             : rans_o0_decode(&x[j], slot);
-      ctx[j] = o1 ? s : 0;
-      out[pos] = (uint8_t)s;
-      need[j] = rans8_refill_count(x[j]);
-      if (need[j] >= 1) m1 |= 1u << j;
-      if (need[j] == 2) m2 |= 1u << j;
+    unsigned live = 0;
+    int64_t at[RANS8_NWAY];
+    for (int j = 0; j < RANS8_NWAY; ++j)
+      if (rans8_live(o1, ulen, j, r, &at[j])) live |= 1u << j;
+    if (r < ulen / RANS8_NWAY && live != 0xFu) return *loops = -1;
+    for (int j = 0; j < RANS8_NWAY && o1; ++j) {
+      bool slow;
+      rans8_o1_pick(rec, bucket, ctx8[j], x[j], &slow);
+      if (((live >> j) & 1u) && slow) ++*loops;
     }
-    for (int j = 0; j < RANS8_NWAY; ++j) {
-      const uint32_t below = (1u << j) - 1u;
-      const int64_t k = cur + __builtin_popcount(m1 & below) +
-                        __builtin_popcount(m2 & below);
-      x[j] = rans8_refill(x[j], need[j], rans8_byte(bytes, k, n_bytes),
-                          rans8_byte(bytes, k + 1, n_bytes));
-    }
-    cur = rans_advance(cur, __builtin_popcount(m1) + __builtin_popcount(m2),
-                       n_bytes);
+    uint32_t hi, lo;
+    rans8_window(w.w0, w.w1, w.w2, w.pos, &hi, &lo);
+    const uint32_t k =
+        o1 ? rans8_round<true>(x, ctx8, &syms, live, hi, lo, nullptr, rec,
+                               bucket)
+           : rans8_round<false>(x, ctx8, &syms, live, hi, lo, tab, nullptr,
+                                nullptr);
+    for (int j = 0; j < RANS8_NWAY; ++j)
+      if ((live >> j) & 1u) out[at[j]] = (uint8_t)(syms >> (8 * j));
+    rans8_advance(&w, k, words.data(), 0xFFFFFFFFu);
+    rans8_cap(&w, cap, words.data(), 0xFFFFFFFFu);
   }
   for (int j = 0; j < RANS8_NWAY; ++j) x_out[j] = x[j];
-  return cur;
+  *pos = w.pos;
+  return w.pos < nb ? w.pos : nb;
+}
+
+// (ctx, slot) pairs over all 256 x 4096 where the 4x8 lookup's record and
+// that of the row the Nx16 order-1 lookup finds (rans_o1_lookup on its
+// byte buckets) differ in f, cum or symbol.
+extern "C" int64_t lookup_mismatches(const uint32_t* rows,
+                                     const int32_t* cs) {
+  tables(1, nullptr, rows, cs);
+  std::vector<uint32_t> padded(rows, rows + cs[256]);
+  padded.push_back(0u);  // the zero row past the last
+  static uint8_t b8[256 * RANS_O1_BUCKETS];
+  for (int lane = 0; lane < 32; ++lane)
+    rans_o1_build_buckets(padded.data(), ctx_start, b8, lane, 32);
+  int64_t bad = 0;
+  for (uint32_t c = 0; c < 256; ++c)
+    for (uint32_t m = 0; m < RANS_TOTFREQ; ++m) {
+      bool slow;
+      Rans8Row got = rans8_o1_pick(rec, bucket, c << 8, m, &slow);
+      if (slow) got = rans8_o1_walk(rec, bucket, c << 8, m);
+      const Rans8Row want = rans8_o1_record(
+          rans_o1_lookup(padded.data(), ctx_start, b8, c, m), 0u);
+      bad += got.f != want.f || got.neg_cum != want.neg_cum ||
+             got.ctx8 != want.ctx8;
+    }
+  return bad;
 }
 """
 
@@ -239,29 +291,64 @@ def step_lib(tmp_path_factory):
     src = d / "harness.cpp"
     src.write_text(_HARNESS)
     lib = d / "libstep.so"
-    subprocess.run([gxx, "-x", "c++", "-shared", "-fPIC", "-O2", "-I", CSRC,
-                    "-o", str(lib), str(src)], check=True)
+    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-shared", "-fPIC", "-O2",
+                    "-I", CSRC, "-o", str(lib), str(src)], check=True)
     h = ctypes.CDLL(str(lib))
     h.decode_stream.restype = ctypes.c_int64
     h.decode_stream.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
-        + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int64, ctypes.c_uint32, ctypes.c_int64] \
+        + [ctypes.c_void_p] * 4
+    h.lookup_mismatches.restype = ctypes.c_int64
+    h.lookup_mismatches.argtypes = [ctypes.c_void_p] * 2
     return h
 
 
-@pytest.mark.parametrize("name,order", [
-    ("two_segments", 0), ("tail3", 0), ("short_table", 0),
-    ("full_alphabet", 0), ("constant", 0), ("under_4", 0),
-    ("two_segments", 1), ("tail3", 1), ("full_alphabet", 1),
-    ("constant", 1)])
-def test_step_header_on_cpu(step_lib, name, order):
-    """The CUDA step code, compiled for the host with the two-ballot
-    refill run in order, decodes byte for byte and leaves the plain
-    version's final states and cursor."""
-    enc = _enc(name) if order == 0 else r8.compress(CASES[name], 1)
-    b = t8.frame_4x8([enc], bool(order), "cpu")
+def _odd_payload_stream():
+    """A random-walk stream whose order-0 payload is not a whole number
+    of words: the first of a seeded series."""
+    rng = np.random.default_rng(5)
+    while True:
+        d = _walk(rng, 4001)
+        enc = r8.compress(d, 0)
+        if int(t8.frame_4x8([enc], False, "cpu").n_bytes[0]) % 4:
+            return d, enc
+
+
+def _step_cases():
+    rng = np.random.default_rng(8)
+    # every other byte 0 and then a random one: context 0 has ~256
+    # successors of frequency ~16, so a 64-slot bucket holds several row
+    # starts
+    wide = np.zeros(6000, np.uint8)
+    wide[1::2] = rng.integers(0, 256, 3000)
+    short = _walk(rng, 3007)
+    odd, odd_enc = _odd_payload_stream()
+    trunc = r8.compress(_walk(rng, 2003), 0)
+    return {
+        ("wide_o1", 1): (wide.tobytes(), r8.compress(wide.tobytes(), 1)),
+        ("short_table_o1", 1): (short, _short_table_compress(short, order=1)),
+        ("odd_payload", 0): (odd, odd_enc),
+        # the last 5 payload bytes cut: the cursor runs past the end
+        ("truncated", 0): (None, trunc[:-5]),
+    }
+
+
+STEP_CASES = _step_cases()
+
+
+def _step_stream(name, order):
+    if (name, order) in STEP_CASES:
+        return STEP_CASES[name, order]
+    d = CASES[name]
+    return d, (_enc(name) if order == 0 else r8.compress(d, 1))
+
+
+def _run_step(step_lib, b):
+    """Stream 0 of batch b through the harness: (symbols, final states,
+    wire cursor, kernel cursor, fallback lookups)."""
     data = b.payload.numpy()
     freq = b.freqs.numpy()[0].copy()
-    if order:
+    if b.o1:
         rows = b.tables.rows.numpy().view(np.uint32).copy()
         cs = b.tables.ctx_start.numpy()[0].copy()
     else:
@@ -269,13 +356,72 @@ def test_step_header_on_cpu(step_lib, name, order):
         cs = np.zeros(257, np.int32)
     x0 = b.x0.numpy()[0].view(np.uint32).copy()
     ulen = int(b.ulen[0])
+    nb = int(b.n_bytes[0])
     out = np.zeros(max(ulen, 1), np.uint8)
     x_out = np.zeros(4, np.uint32)
-    cur = step_lib.decode_stream(order, freq.ctypes.data, rows.ctypes.data,
-                                 cs.ctypes.data, x0.ctypes.data,
-                                 data.ctypes.data, int(b.n_bytes[0]), ulen,
-                                 out.ctypes.data, x_out.ctypes.data)
-    assert out[:ulen].tobytes() == CASES[name] == r8.uncompress(enc)
+    pos = np.zeros(1, np.int64)
+    loops = np.zeros(1, np.int64)
+    # the last word's bytes past the payload hold garbage, as a buffer
+    # packed without padding would
+    last = bytearray(data[4 * ((nb - 1) // 4):][:4].tobytes()
+                     if nb else b"\0" * 4)
+    for i in range(nb % 4 or 4, 4):
+        last[i] = 0xA5
+    cur = step_lib.decode_stream(
+        int(b.o1), freq.ctypes.data, rows.ctypes.data, cs.ctypes.data,
+        x0.ctypes.data, data.ctypes.data, nb,
+        int.from_bytes(bytes(last), "little"), ulen, out.ctypes.data,
+        x_out.ctypes.data, pos.ctypes.data, loops.ctypes.data)
+    assert int(loops[0]) >= 0, "a round before the tail was not full"
+    return out[:ulen].tobytes(), x_out, cur, int(pos[0]), int(loops[0])
+
+
+@pytest.mark.parametrize("name,order", [
+    ("two_segments", 0), ("tail3", 0), ("short_table", 0),
+    ("full_alphabet", 0), ("constant", 0), ("under_4", 0),
+    ("two_segments", 1), ("tail3", 1), ("full_alphabet", 1),
+    ("constant", 1), ("wide_o1", 1), ("short_table_o1", 1),
+    ("odd_payload", 0), ("truncated", 0)])
+def test_step_header_on_cpu(step_lib, name, order):
+    """The CUDA round code, compiled for the host with the kernels' word
+    window, decodes byte for byte and leaves the plain version's final
+    states and cursor."""
+    raw, enc = _step_stream(name, order)
+    b = t8.frame_4x8([enc], bool(order), "cpu")
+    out, x_out, cur, pos, loops = _run_step(step_lib, b)
+    nb = int(b.n_bytes[0])
+    if raw is None:
+        # no host truth for a cut stream: the plain version's symbols,
+        # and the cursor held at the payload's end
+        assert out == t8.rans4x8(b)[0].numpy().tobytes()
+        assert pos > nb and cur == nb
+    else:
+        assert out == raw == r8.uncompress(enc)
     _, px, pcur, _ = t8.rans4x8(b, qbins=64)
     assert np.array_equal(x_out, px.numpy()[0].view(np.uint32))
     assert cur == int(pcur[0])
+    if name == "wide_o1":
+        assert loops > 0
+    if name == "odd_payload":
+        assert nb % 4 and cur == nb
+    if name == "short_table_o1":
+        F = b.tables
+        rows = F.rows.numpy().view(np.uint32)[:int(F.n_rows[0])]
+        cs = F.ctx_start.numpy()[0]
+        sums = np.add.reduceat((rows & 0xFFF).astype(np.int64) + 1,
+                               cs[:-1][cs[:-1] < cs[1:]])
+        assert (sums < 4096).all()
+
+
+@pytest.mark.parametrize("name", ["two_segments", "full_alphabet",
+                                  "constant", "wide_o1", "short_table_o1"])
+def test_o1_lookup_matches_nx16_lookup(step_lib, name):
+    """Over every (context, slot), the 4x8 order-1 lookup finds the row
+    the Nx16 order-1 lookup finds, unreachable slots included (past a
+    context's sum: its last row; an empty context: the row at its
+    start)."""
+    _, enc = _step_stream(name, 1)
+    t = t8.frame_4x8([enc], True, "cpu").tables
+    rows = t.rows.numpy().view(np.uint32).copy()
+    cs = t.ctx_start.numpy()[0].copy()
+    assert step_lib.lookup_mismatches(rows.ctypes.data, cs.ctypes.data) == 0
