@@ -45,7 +45,8 @@ PyTorch version on the card and times both.  Phases:
      symbols or counts), and over whole streams on a 64 KiB batch; those
      of B4 and B10 run all 32,768 steps.  B8 order 1 is also held over a
      whole 64 KiB wide-alphabet stream whose lookups take the loop.  Each
-     chain-bound row gives ns_per_round (ms over its longest chain).
+     chain-bound row gives ns_per_round (ms over its longest chain), and
+     the B7/B8 rows the streams one SM holds (streams_per_sm).
      Outputs are bytes and integers, so the tolerance is zero: kernel and
      plain version must be equal.
 
@@ -446,8 +447,8 @@ def leg3_kernels_vs_plain(device, leg3, launches):
     import torch
 
     from htslib_tpu_torch.ops.device_stats import QBINS
-    from htslib_tpu_torch.ops.rans4x8 import (frame_4x8, rans4x8_cuda,
-                                              rans4x8_plain)
+    from htslib_tpu_torch.ops.rans4x8 import (blocks_per_sm, frame_4x8,
+                                              rans4x8_cuda, rans4x8_plain)
     from htslib_tpu_torch.ops.rans_nx16_o1 import (_parse_o1_header,
                                                    frame_o1_streams,
                                                    rans_o1_cuda,
@@ -525,6 +526,8 @@ def leg3_kernels_vs_plain(device, leg3, launches):
             "streams": b.n_streams, "symbols": n_sym,
             "chain_rounds": max(chain(int(n)) for n in b.ulen.tolist()),
             "match": True})
+        if key.startswith("rans4x8"):
+            rows[-1]["streams_per_sm"] = blocks_per_sm(qb is not None, b.o1)
     # B8 order 1 over a whole wide-alphabet stream, whose lookups take
     # the loop
     wide = frame_4x8([leg3["4x8_o1_wide"][1]], True, device)

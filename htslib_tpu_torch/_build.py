@@ -54,6 +54,7 @@ _SIGNATURES = {
     "rans4x8": {
         "rans4x8_launch": [ctypes.c_void_p] * 17
         + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "rans4x8_blocks_per_sm": [ctypes.c_int] * 2,
     },
     "rans_nx16_enc": {
         "rans_nx16_enc_launch": [ctypes.c_void_p] * 8

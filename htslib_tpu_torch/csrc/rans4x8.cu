@@ -10,33 +10,37 @@
 //
 // What bounds it: round latency, not bytes or operations.  A stream is one
 // chain of about n/4 dependent rounds, 262,144 for a 1 MiB stream: the four
-// states share one byte cursor, so the wire cannot be split, and a batch
-// holds fewer streams than the card has SMs, so no other warp hides a
-// round's latency.  The kernel's time is one stream's rounds times the
-// round's time, and with one warp on its scheduler that is set by the
-// round's dependent chain and by its instruction count together.
+// states share one byte cursor, so the wire cannot be split.  Where a
+// batch holds fewer streams than the card has SMs, no other warp hides a
+// round, and the kernel's time is one stream's rounds times the round's
+// time, which with one warp on its scheduler is set by the round's
+// instruction count (rans4x8_step.cuh).
 //
 // Design: one warp (one block) per stream, every lane running the same
 // round on the same registers (rans4x8_step.cuh: the four states, their
 // contexts and the payload window at the cursor), so the round has no
 // cross-lane operation and every branch on the cursor is uniform.  A round
-// is four independent lookups in shared memory, each one 16-byte load
-// (order 0: the slot's record; order 1: a bucket holding the byte offset
-// of its row record, then that record and the next one, with a loop only
-// where a 64-slot bucket holds two or more row starts after its first
-// slot), four multiply-adds, the refill sizes, a 4-term prefix of bit
-// offsets, and funnel shifts of a 64-bit big-endian window whose three
-// words are read from shared memory at the end of the round before.
-// Rounds run in blocks of 32 with no branch but the loop's (and order 1's
-// rare loop): the payload is staged into a ring of 128-byte chunks in
-// shared memory by cp.async (bytes past the end zero-filled) six chunks
-// ahead of the cursor, and between blocks the warp waits for the chunks
-// copied a block earlier and byte-swaps them, so no global load sits on
-// the chain.  Lane 0 stores each round's four symbols as one word; after
-// the block lane L writes round L's four bytes out (B7) or counts them
-// into its own histogram with shared atomics (B8).  The tables (order 1:
-// 68 KB of records and 64 KB of buckets) exceed 48 KB, so they are
-// dynamic shared memory, one block per SM.
+// is four independent lookups of a packed 32-bit word in shared memory
+// (order 0: the slot's; order 1: a u16 bucket holding the byte offset of
+// its row, then that row and the next, with a loop only where a 64-slot
+// bucket holds two or more row starts after its first slot), four
+// multiply-adds, the refill sizes, a 4-term prefix of bit offsets, and
+// funnel shifts of a 64-bit big-endian window whose three words are read
+// from shared memory at the end of the round before.  Rounds run in blocks
+// of 32 with no branch but the loop's (and order 1's rare loop): the
+// payload is staged into a ring of 128-byte chunks in shared memory by
+// cp.async (bytes past the end zero-filled) six chunks ahead of the
+// cursor, and between blocks the warp waits for the chunks copied a block
+// earlier and byte-swaps them, so no global load sits on the chain.  Lane
+// 0 stores each round's four symbols as one word; after the block lane L
+// writes round L's four bytes out (B7) or counts them into histogram row
+// L % 4 with shared atomics (B8).
+//
+// Streams per SM: with one warp a stream, a batch of more streams than
+// the card has SMs is bound by how many blocks an SM holds, which the
+// shared memory sets.  A block takes 17 KB (B7), 21 KB (B8 order 0) or
+// 55 KB (B8 order 1: dynamic shared memory, past the 48 KB static limit),
+// so an SM holds 12, 10 or 4 streams.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,32 +59,41 @@ constexpr uint32_t kAhead = 6;   // chunks staged ahead of the cursor's
 constexpr uint32_t kBlock = 32;  // rounds between stagings
 constexpr int kUnroll = 2;      // rounds a loop step (4 measured no faster)
 
-// Per-lane histograms (a padded row each) and the symbol buffer: lane 0
-// stores a round's four symbols as one word, and after each block of
-// rounds lane L counts (or writes out) round L's.
+constexpr int kHistRows = 4;  // lane L counts into row L % 4
+
+// The symbol buffer (lane 0 stores a round's four symbols as one word, and
+// after each block of rounds lane L counts or writes out round L's) and,
+// for B8, the histogram rows.
+template <bool kHist>
 struct Emit {
-  int32_t hist[kWarp][257];
   uint32_t buf[kBlock];
 };
-
-struct O0Tables {
-  Rans8Slot tab[RANS_TOTFREQ];
-  // the ring of payload chunks, and copies of its first two words
-  uint32_t ring[kRingWords + 2];
-  Emit emit;
-  uint16_t f[256];
+template <>
+struct Emit<true> {
+  uint32_t buf[kBlock];
+  int32_t hist[kHistRows][257];
 };
 
-struct O1Tables {
-  Rans8Row rec[RANS8_O1_RECORDS];
-  uint32_t ring[kRingWords + 2];
-  Emit emit;
-  uint32_t bucket[256 * RANS_O1_BUCKETS];
-  uint16_t ctx_start[258];
+struct O0Lookup {
+  uint32_t tab[RANS_TOTFREQ];
+};
+struct O1Lookup {
+  uint32_t tab[RANS8_O1_RECORDS];
+  uint16_t bucket[256 * RANS_O1_BUCKETS];
 };
 
-template <bool kO1>
-using TablesOf = typename std::conditional<kO1, O1Tables, O0Tables>::type;
+template <bool kHist, bool kO1>
+struct Tables {
+  typename std::conditional<kO1, O1Lookup, O0Lookup>::type lut;
+  union {
+    // the ring of payload chunks, and copies of its first two words
+    uint32_t ring[kRingWords + 2];
+    // the frequencies (order 0) or context starts (order 1), read only
+    // while the tables are built
+    uint16_t setup[258];
+  };
+  Emit<kHist> emit;
+};
 
 struct Args {
   const uint8_t* payload;
@@ -109,12 +122,12 @@ struct Args {
 // registers; it returns the round's four symbols packed in a word.
 template <bool kHist, bool kO1>
 struct Stream {
-  TablesOf<kO1>& t;
+  Tables<kHist, kO1>& t;
   const uint32_t* words;
   uint8_t* out;
   uint32_t nb, cap;
   int lane, off, qbins;
-  uint32_t x[RANS8_NWAY], ctx8[RANS8_NWAY];  // contexts times 256
+  uint32_t x[RANS8_NWAY], ctx7[RANS8_NWAY];  // contexts times 128
   Rans8Window w;
   uint32_t issued, swapped;  // chunks copied in, and byte-swapped
 
@@ -160,20 +173,21 @@ struct Stream {
     rans8_window(w.w0, w.w1, w.w2, w.pos, &hi, &lo);
     uint32_t k;
     if constexpr (kO1)
-      k = rans8_round<true>(x, ctx8, &syms, live, hi, lo, nullptr, t.rec,
-                            t.bucket);
+      k = rans8_round<true>(x, ctx7, &syms, live, hi, lo, t.lut.tab,
+                            t.lut.bucket);
     else
-      k = rans8_round<false>(x, ctx8, &syms, live, hi, lo, t.tab, nullptr,
+      k = rans8_round<false>(x, ctx7, &syms, live, hi, lo, t.lut.tab,
                              nullptr);
     rans8_advance(&w, k, t.ring, kRingMask);
     return syms;
   }
 
-  // Symbol j (< 4) of round r: counted in this lane's histogram, or
+  // Symbol j (< 4) of round r: counted in this lane's histogram row, or
   // written to its order-0 position.
   __device__ __forceinline__ void keep(uint32_t r, int j, uint32_t s) {
     if constexpr (kHist)
-      atomicAdd(&t.emit.hist[lane][rans_hist_bin(s, off, qbins)], 1);
+      atomicAdd(&t.emit.hist[lane % kHistRows][rans_hist_bin(s, off, qbins)],
+                1);
     else
       out[(int64_t)r * RANS8_NWAY + j] = (uint8_t)s;
   }
@@ -193,7 +207,7 @@ struct Stream {
 template <bool kHist, bool kO1>
 __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  auto& t = *reinterpret_cast<TablesOf<kO1>*>(smem);
+  auto& t = *reinterpret_cast<Tables<kHist, kO1>*>(smem);
   const int lane = threadIdx.x;
   const int st = blockIdx.x;
   const uint32_t nb = (uint32_t)a.n_bytes[st];
@@ -206,18 +220,22 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
 
   if constexpr (kO1) {
     for (int c = lane; c < 257; c += kWarp)
-      t.ctx_start[c] = (uint16_t)a.ctx_start[(int64_t)st * 257 + c];
+      t.setup[c] = (uint16_t)a.ctx_start[(int64_t)st * 257 + c];
     __syncwarp();
-    rans8_o1_build(a.rows + a.row_off[st], t.ctx_start, t.rec, t.bucket,
+    rans8_o1_build(a.rows + a.row_off[st], t.setup, t.lut.tab, t.lut.bucket,
                    lane, kWarp);
   } else {
     for (int i = lane; i < 256; i += kWarp)
-      t.f[i] = (uint16_t)a.freqs[(int64_t)st * 256 + i];
+      t.setup[i] = (uint16_t)a.freqs[(int64_t)st * 256 + i];
     __syncwarp();
-    rans8_o0_build(t.f, t.tab, lane, kWarp);
+    rans_o0_build_slots(t.setup, t.lut.tab, lane, kWarp);
   }
-  if (kHist)
-    for (int i = 0; i < 257; ++i) t.emit.hist[lane][i] = 0;
+  if constexpr (kHist)
+    for (int i = lane; i < kHistRows * 257; i += kWarp)
+      (&t.emit.hist[0][0])[i] = 0;
+  // the ring takes the place of the set-up words: every lane is done with
+  // them before the first copy
+  __syncwarp();
   // the first chunks, waited for in full
   for (; s.issued < kAhead + 1; ++s.issued) s.copy_chunk(s.issued);
   asm volatile("cp.async.commit_group;\n" ::);
@@ -232,7 +250,7 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
       (uint32_t)(n / RANS8_NWAY < rounds ? n / RANS8_NWAY : rounds);
   for (int j = 0; j < RANS8_NWAY; ++j) {
     s.x[j] = a.x0[(int64_t)st * RANS8_NWAY + j];
-    s.ctx8[j] = 0;
+    s.ctx7[j] = 0;
   }
   // blocks of kBlock rounds with no branch but the loop's: a block takes
   // at most 256 bytes, so the chunks staged before it cover it
@@ -265,32 +283,57 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
   if (lane == 0) {
     for (int j = 0; j < RANS8_NWAY; ++j) {
       a.x_out[(int64_t)st * RANS8_NWAY + j] = s.x[j];
-      a.ctx_out[(int64_t)st * RANS8_NWAY + j] = (int32_t)(s.ctx8[j] >> 8);
+      a.ctx_out[(int64_t)st * RANS8_NWAY + j] = (int32_t)(s.ctx7[j] >> 7);
     }
     // the wire's cursor stops at the payload's end (rans_advance)
     a.cur_out[st] = (int32_t)(s.w.pos < nb ? s.w.pos : nb);
   }
-  if (kHist) {
+  if constexpr (kHist) {
     __syncwarp();
     for (int b = lane; b < a.qbins; b += kWarp) {
       int32_t sum = 0;
-      for (int l = 0; l < kWarp; ++l) sum += t.emit.hist[l][b];
+      for (int l = 0; l < kHistRows; ++l) sum += t.emit.hist[l][b];
       a.hist[(int64_t)st * a.qbins + b] = sum;
     }
   }
 }
 
-// One launch of the variant, its tables in dynamic shared memory; returns
-// a CUDA error code (the shared-memory attribute's, or the launch's).
+// Set the variant up for its tables in dynamic shared memory, with the
+// largest shared-memory carveout so that as many blocks share an SM as the
+// tables allow; returns a CUDA error code.
+template <bool kHist, bool kO1>
+cudaError_t configure() {
+  auto* fn = rans4x8_kernel<kHist, kO1>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(Tables<kHist, kO1>));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// One launch of the variant; returns a CUDA error code (an attribute's, or
+// the launch's).
 template <bool kHist, bool kO1>
 int launch(const Args& a, int n_streams, cudaStream_t s) {
-  const int bytes = (int)sizeof(TablesOf<kO1>);
-  cudaError_t e = cudaFuncSetAttribute(
-      rans4x8_kernel<kHist, kO1>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t e = configure<kHist, kO1>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  rans4x8_kernel<kHist, kO1><<<n_streams, kWarp, bytes, s>>>(a);
+  rans4x8_kernel<kHist, kO1>
+      <<<n_streams, kWarp, sizeof(Tables<kHist, kO1>), s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks (streams) of the variant one SM holds at once, or minus a CUDA
+// error code.
+template <bool kHist, bool kO1>
+int blocks_per_sm() {
+  cudaError_t e = configure<kHist, kO1>();
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, rans4x8_kernel<kHist, kO1>, kWarp, sizeof(Tables<kHist, kO1>));
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // namespace
@@ -332,6 +375,13 @@ extern "C" int rans4x8_launch(
   if (hist == nullptr) return launch<false, false>(a, n_streams, s);
   if (o1) return launch<true, true>(a, n_streams, s);
   return launch<true, false>(a, n_streams, s);
+}
+
+// Streams of a launch that one SM decodes at once: B7 (hist == 0) or B8
+// of order o1; minus a CUDA error code on failure.
+extern "C" int rans4x8_blocks_per_sm(int hist, int o1) {
+  if (!hist) return blocks_per_sm<false, false>();
+  return o1 ? blocks_per_sm<true, true>() : blocks_per_sm<true, false>();
 }
 
 extern "C" const char* kernel_error_string(int rc) {

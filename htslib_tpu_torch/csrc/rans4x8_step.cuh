@@ -20,35 +20,31 @@
 // state.  `Rans8Window` holds the three words at the cursor, read at the
 // end of the round before the one that needs them.
 //
-// On the card a round is bound by its instruction count as much as by its
-// latency (one warp issues it, every lane the same), so the tables are
-// laid out for the fewest instructions a lookup, not as the Nx16 step
-// headers keep them: 16-byte records that one load brings in whole, every
-// field ready to use.
+// On the card a round is bound by its instruction count: one warp issues
+// it, every lane the same, at about two SM cycles an instruction on an
+// H100 (an order-0 round is 76 instructions).  A batch larger than the
+// card's SMs is bound by how many streams share an SM, that is by the
+// shared memory a stream's tables take.  So the tables are the packed
+// 32-bit words of the Nx16 step headers (order 0: 16 KB; order 1: 18 KB of
+// rows and 32 KB of buckets), read by one load, with the order-1 buckets
+// holding the byte offset of their row so that no context start sits on
+// the chain.  Their field extracts cost three instructions a state, about
+// an eighth of a round more than 16-byte records whose fields are ready to
+// use, and let an SM hold six times the streams.
 #pragma once
 
 #include "rans_nx16_o1_step.cuh"
 
 #define RANS8_L (1u << 23)
 #define RANS8_NWAY 4
-// order-1 row records: the stream's rows, one spare, then one record per
-// context (used by the empty ones) and one spare
+// order-1 records: the stream's rows, a zero row, then a pair per empty
+// context (a copy of the row at its start, then a zero row)
 #define RANS8_O1_EMPTY (RANS_O1_MAX_ROWS + 1)
-#define RANS8_O1_RECORDS (RANS8_O1_EMPTY + 257)
-
-// An order-0 slot record: the frequency of the symbol owning the slot, the
-// slot's offset in the symbol's range, and the symbol in each of its four
-// bytes (so a round packs its four symbols with masks alone).
-struct alignas(16) Rans8Slot {
-  uint32_t f, bias, sym, pad;
-};
-
-// An order-1 row record: f, -cum (mod 2^32), the cum of the next row of the
-// row's context (4096 at its last row), and the symbol times 256 (the byte
-// offset of its context's buckets).
-struct alignas(16) Rans8Row {
-  uint32_t f, neg_cum, next_cum, ctx8;
-};
+#define RANS8_O1_RECORDS (RANS8_O1_EMPTY + 2 * 256)
+// set in an order-1 bucket whose lookups need rans8_o1_walk
+#define RANS8_SLOW 0x8000u
+static_assert(4 * RANS8_O1_RECORDS <= RANS8_SLOW,
+              "a record's byte offset must fit below the bucket's flag");
 
 RANS_HD uint32_t rans8_bswap(uint32_t v) {
 #if defined(__CUDA_ARCH__)
@@ -101,114 +97,83 @@ RANS_HD uint32_t rans8_stage_word(uint32_t v, uint32_t idx,
   return rans8_bswap(v & mask);
 }
 
-// The order-0 table of one stream from its 256 frequencies (summing to at
-// most 4096): a record per slot (f = 1, offset 0, symbol 0 past the sum).
-// Lane `lane` of `nlanes` fills the symbols s with s % nlanes == lane and
-// the spare slots k with k % nlanes == lane.
-RANS_HD void rans8_o0_build(const uint16_t* f, Rans8Slot* tab, int lane,
-                            int nlanes) {
-  uint32_t c = 0;
-  for (int s = 0; s < 256; ++s) {
-    const uint32_t fs = f[s];
-    if (s % nlanes == lane)
-      for (uint32_t k = c; k < c + fs && k < RANS_TOTFREQ; ++k)
-        tab[k] = {fs, k - c, (uint32_t)s * 0x01010101u, 0u};
-    c += fs;
-  }
-  for (uint32_t k = c; k < RANS_TOTFREQ; ++k)
-    if (k % nlanes == (uint32_t)lane) tab[k] = {1u, 0u, 0u, 0u};
-}
-
-// Order-0 decode step: x = f * (x >> 12) + (x & 4095) - cum; the symbol,
-// in each byte, in *sym.
-RANS_HD uint32_t rans8_o0_step(uint32_t x, const Rans8Slot* tab,
-                               uint32_t* sym) {
-  const Rans8Slot e = tab[x & (RANS_TOTFREQ - 1)];
-  *sym = e.sym;
-  return e.f * (x >> RANS_TF_SHIFT) + e.bias;
-}
-
-// The record of a packed row e ((f-1) | cum<<12 | sym<<24) whose context's
-// next row starts at next_cum.
-RANS_HD Rans8Row rans8_o1_record(uint32_t e, uint32_t next_cum) {
-  return {(e & 0xFFFu) + 1u, 0u - rans_row_cum(e), next_cum, (e >> 24) << 8};
-}
-
-// The order-1 tables of one stream from its n packed rows (sorted by (ctx,
-// cum), as in rans_nx16_o1_step.cuh) and context starts (ctx_start[256] =
-// n): rec[r] for row r; rec[RANS8_O1_EMPTY + c] for an empty context c, a
-// copy of the row at its start (the zero row past the last) whose next cum
-// is 4096; and bucket[c*64 + k], the byte offset in rec of the record of
-// context c owning slot k*64.  Lane `lane` of `nlanes` fills the contexts c
-// with c % nlanes == lane.
+// The order-1 tables of one stream from its n packed rows ((f-1) | cum<<12
+// | sym<<24, sorted by (ctx, cum), as in rans_nx16_o1_step.cuh) and context
+// starts (ctx_start[256] = n).  rec holds the rows, a zero row at n and,
+// for each empty context c, the row at its start (the zero row past the
+// last) and a zero row at RANS8_O1_EMPTY + 2c.  bucket[c*64 + k] is the
+// byte offset in rec of the record of context c owning slot k*64, with
+// RANS8_SLOW set where two or more of its rows start inside the bucket
+// after that slot.  Lane `lane` of `nlanes` fills the rows r and the
+// contexts c with r, c % nlanes == lane.
 RANS_HD void rans8_o1_build(const uint32_t* rows, const uint16_t* ctx_start,
-                            Rans8Row* rec, uint32_t* bucket, int lane,
+                            uint32_t* rec, uint16_t* bucket, int lane,
                             int nlanes) {
   const int n = ctx_start[256];
-  if (lane == 0) {
-    rec[n] = rans8_o1_record(0u, 4096u);
-    rec[RANS8_O1_RECORDS - 1] = rans8_o1_record(0u, 4096u);
-  }
+  for (int r = lane; r < n; r += nlanes) rec[r] = rows[r];
+  if (lane == 0) rec[n] = 0u;
   for (int c = lane; c < 256; c += nlanes) {
     const int lo = ctx_start[c], hi = ctx_start[c + 1];
-    uint32_t* bk = bucket + c * RANS_O1_BUCKETS;
+    uint16_t* bk = bucket + c * RANS_O1_BUCKETS;
     if (lo == hi) {
-      rec[RANS8_O1_EMPTY + c] =
-          rans8_o1_record(lo < n ? rows[lo] : 0u, 4096u);
-      for (int k = 0; k < RANS_O1_BUCKETS; ++k)
-        bk[k] = (uint32_t)((RANS8_O1_EMPTY + c) * sizeof(Rans8Row));
+      const int e = RANS8_O1_EMPTY + 2 * c;
+      rec[e] = lo < n ? rows[lo] : 0u;
+      rec[e + 1] = 0u;
+      for (int k = 0; k < RANS_O1_BUCKETS; ++k) bk[k] = (uint16_t)(4 * e);
       continue;
     }
-    for (int r = lo; r < hi; ++r)
-      rec[r] = rans8_o1_record(
-          rows[r], r + 1 < hi ? rans_row_cum(rows[r + 1]) : 4096u);
     int r = lo;
     for (int k = 0; k < RANS_O1_BUCKETS; ++k) {
       const uint32_t slot = (uint32_t)k << RANS_O1_BUCKET_SHIFT;
       while (r + 1 < hi && rans_row_cum(rows[r + 1]) <= slot) ++r;
-      bk[k] = (uint32_t)(r * sizeof(Rans8Row));
+      const bool slow = r + 2 < hi && rans_row_cum(rows[r + 2]) <
+                                          slot + (1u << RANS_O1_BUCKET_SHIFT);
+      bk[k] = (uint16_t)(4 * r + (slow ? RANS8_SLOW : 0u));
     }
   }
 }
 
-// The record of the row of context ctx8 / 256 owning slot x & 4095: the
+// The record of the row of context ctx7 / 128 owning slot x & 4095: the
 // last of its rows whose cum is <= the slot, as rans_o1_lookup finds it
 // (slots past a context's sum: its last row; an empty context: the row at
-// its start).  The bucket's row owns the bucket's first slot, so the
-// answer is that row or the next: `rans8_o1_pick` loads both records
-// together and selects, and sets *slow where a bucket in which two or more
-// rows start after its first slot needs `rans8_o1_walk`.
-RANS_HD const Rans8Row* rans8_o1_bucket(const Rans8Row* rec,
-                                        const uint32_t* bucket, uint32_t ctx8,
-                                        uint32_t x) {
-  const uint32_t at = ctx8 | ((x >> 4) & 0xFCu);  // (ctx*64 + m/64) * 4
-  return reinterpret_cast<const Rans8Row*>(
-      reinterpret_cast<const uint8_t*>(rec) +
-      *reinterpret_cast<const uint32_t*>(
-          reinterpret_cast<const uint8_t*>(bucket) + at));
+// its start).  The bucket's row owns the bucket's first slot, so outside a
+// RANS8_SLOW bucket the answer is that row or the next one:
+// `rans8_o1_pick` loads both together and selects, and sets *slow where
+// the bucket needs `rans8_o1_walk`.  The row after a context's last starts
+// at cum 0 (a context's first row does, and so does a zero row), which is
+// how the select knows it belongs to no later slot of the context.
+RANS_HD const uint32_t* rans8_o1_bucket(const uint32_t* rec,
+                                        const uint16_t* bucket, uint32_t ctx7,
+                                        uint32_t x, uint32_t* v) {
+  // (ctx*64 + m/64) * 2
+  *v = *reinterpret_cast<const uint16_t*>(
+      reinterpret_cast<const uint8_t*>(bucket) + (ctx7 | ((x >> 5) & 0x7Eu)));
+  return reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<const uint8_t*>(rec) + (*v & ~RANS8_SLOW));
 }
 
-RANS_HD Rans8Row rans8_o1_pick(const Rans8Row* rec, const uint32_t* bucket,
-                               uint32_t ctx8, uint32_t x, bool* slow) {
-  const Rans8Row* r = rans8_o1_bucket(rec, bucket, ctx8, x);
-  const uint32_t m = x & (RANS_TOTFREQ - 1);
-  const Rans8Row e0 = r[0], e1 = r[1];
-  const bool first = m < e0.next_cum;
-  Rans8Row e;
-  e.f = first ? e0.f : e1.f;
-  e.neg_cum = first ? e0.neg_cum : e1.neg_cum;
-  e.next_cum = first ? e0.next_cum : e1.next_cum;
-  e.ctx8 = first ? e0.ctx8 : e1.ctx8;
-  *slow = m >= e.next_cum;  // never where the first row is the answer
-  return e;
+// Whether the row e1, the one after a candidate, starts past slot x & 4095
+// of the candidate's context.
+RANS_HD bool rans8_o1_past(uint32_t e1, uint32_t x) {
+  const uint32_t c1 = e1 & 0xFFF000u;  // its cum << 12
+  return c1 == 0u || ((x << 12) & 0xFFF000u) < c1;
 }
 
-RANS_HD Rans8Row rans8_o1_walk(const Rans8Row* rec, const uint32_t* bucket,
-                               uint32_t ctx8, uint32_t x) {
-  const Rans8Row* q = rans8_o1_bucket(rec, bucket, ctx8, x) + 2;
-  const uint32_t m = x & (RANS_TOTFREQ - 1);
-  while (m >= q->next_cum) ++q;
-  return *q;
+RANS_HD uint32_t rans8_o1_pick(const uint32_t* rec, const uint16_t* bucket,
+                               uint32_t ctx7, uint32_t x, bool* slow) {
+  uint32_t v;
+  const uint32_t* r = rans8_o1_bucket(rec, bucket, ctx7, x, &v);
+  const uint32_t e0 = r[0], e1 = r[1];
+  *slow = (v & RANS8_SLOW) != 0u;
+  return rans8_o1_past(e1, x) ? e0 : e1;
+}
+
+RANS_HD uint32_t rans8_o1_walk(const uint32_t* rec, const uint16_t* bucket,
+                               uint32_t ctx7, uint32_t x) {
+  uint32_t v;
+  const uint32_t* r = rans8_o1_bucket(rec, bucket, ctx7, x, &v);
+  while (!rans8_o1_past(r[1], x)) ++r;
+  return r[0];
 }
 
 // The 8 payload bytes from byte `pos` on, big-endian (the first byte on
@@ -220,58 +185,55 @@ RANS_HD void rans8_window(uint32_t w0, uint32_t w1, uint32_t w2,
   *lo = rans8_funnel(w2, w1, sh);
 }
 
-// The four symbols of a round in one word, state j's in byte j: from
-// order-0 symbols held in every byte (o1 false) or from order-1 contexts
-// times 256 (o1 true).
-RANS_HD uint32_t rans8_pack(bool o1, const uint32_t* s) {
-  if (!o1)
-    return (s[0] & 0xFFu) | (s[1] & 0xFF00u) | (s[2] & 0xFF0000u) |
-           (s[3] & 0xFF000000u);
+// The four symbols of a round in one word, state j's in byte j, from the
+// four slot or row words whose symbol is in bits 24-31.
+RANS_HD uint32_t rans8_pack(const uint32_t* e) {
 #if defined(__CUDA_ARCH__)
-  return __byte_perm(__byte_perm(s[0], s[1], 0x0051),
-                     __byte_perm(s[2], s[3], 0x0051), 0x5410);
+  return __byte_perm(__byte_perm(e[0], e[1], 0x0073),
+                     __byte_perm(e[2], e[3], 0x0073), 0x5410);
 #else
-  return ((s[0] >> 8) & 0xFFu) | (s[1] & 0xFF00u) |
-         ((s[2] << 8) & 0xFF0000u) | ((s[3] << 16) & 0xFF000000u);
+  return (e[0] >> 24) | ((e[1] >> 16) & 0xFF00u) | ((e[2] >> 8) & 0xFF0000u) |
+         (e[3] & 0xFF000000u);
 #endif
 }
 
 // One round of the four states in order 0..3: state j decodes where bit j
-// of `live` is set (order 0 through tab; order 1 through rec/bucket, its
-// context held as ctx8 = ctx * 256, the four lookups issued together and
-// any loop after them), and shifts in its refill bytes from the window
-// hi:lo.  Leaves the four symbols in *syms (state j's in byte j) and
-// returns the bytes the round took.
+// of `live` is set (order 0 through the slot table `tab`; order 1 through
+// the records `tab` and `bucket`, its context held as ctx7 = ctx * 128,
+// the four lookups issued together and any loop after them), and shifts
+// in its refill bytes from the window hi:lo.  Leaves the four symbols in
+// *syms (state j's in byte j) and returns the bytes the round took.
 template <bool kO1>
-RANS_HD uint32_t rans8_round(uint32_t* x, uint32_t* ctx8, uint32_t* syms,
+RANS_HD uint32_t rans8_round(uint32_t* x, uint32_t* ctx7, uint32_t* syms,
                              unsigned live, uint32_t hi, uint32_t lo,
-                             const Rans8Slot* tab, const Rans8Row* rec,
-                             const uint32_t* bucket) {
-  uint32_t xs[RANS8_NWAY], sym[RANS8_NWAY];
+                             const uint32_t* tab, const uint16_t* bucket) {
+  uint32_t e[RANS8_NWAY], xs[RANS8_NWAY];
   if (kO1) {
-    Rans8Row e[RANS8_NWAY];
     bool slow[RANS8_NWAY];
     for (int j = 0; j < RANS8_NWAY; ++j)
-      e[j] = rans8_o1_pick(rec, bucket, ctx8[j], x[j], &slow[j]);
+      e[j] = rans8_o1_pick(tab, bucket, ctx7[j], x[j], &slow[j]);
     if (slow[0] || slow[1] || slow[2] || slow[3])
       for (int j = 0; j < RANS8_NWAY; ++j)
-        if (slow[j]) e[j] = rans8_o1_walk(rec, bucket, ctx8[j], x[j]);
-    for (int j = 0; j < RANS8_NWAY; ++j) {
-      xs[j] = e[j].f * (x[j] >> RANS_TF_SHIFT) +
-              (x[j] & (RANS_TOTFREQ - 1)) + e[j].neg_cum;
-      sym[j] = e[j].ctx8;
-    }
-  } else {
+        if (slow[j]) e[j] = rans8_o1_walk(tab, bucket, ctx7[j], x[j]);
+    // x = f * (x >> 12) + (x & 4095) - cum
     for (int j = 0; j < RANS8_NWAY; ++j)
-      xs[j] = rans8_o0_step(x[j], tab, &sym[j]);
+      xs[j] = ((e[j] & 0xFFFu) + 1u) * (x[j] >> RANS_TF_SHIFT) +
+              (x[j] & (RANS_TOTFREQ - 1)) - rans_row_cum(e[j]);
+  } else {
+    // x = f * (x >> 12) + (the slot's offset in its symbol)
+    for (int j = 0; j < RANS8_NWAY; ++j) {
+      e[j] = tab[x[j] & (RANS_TOTFREQ - 1)];
+      xs[j] = ((e[j] & 0xFFFu) + 1u) * (x[j] >> RANS_TF_SHIFT) +
+              ((e[j] >> 12) & 0xFFFu);
+    }
   }
-  *syms = rans8_pack(kO1, sym);
+  *syms = rans8_pack(e);
   uint32_t bits[RANS8_NWAY];
   for (int j = 0; j < RANS8_NWAY; ++j) {
     const bool on = (live >> j) & 1u;
     if (on) {
       x[j] = xs[j];
-      if (kO1) ctx8[j] = sym[j];
+      if (kO1) ctx7[j] = (e[j] >> 17) & 0x7F80u;  // the symbol * 128
     }
     bits[j] = on ? rans8_refill_bits(xs[j]) : 0u;
   }

@@ -292,6 +292,15 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
     return res, x_out, cur_out, ctx_out
 
 
+def blocks_per_sm(hist: bool, o1: bool = False) -> int:
+    """Streams one SM of the card decodes at once in kernel B7 (`hist`
+    false) or B8 of order `o1`: the blocks its shared memory holds."""
+    lib = _build.load("rans4x8")
+    n = lib.rans4x8_blocks_per_sm(int(hist), int(o1))
+    _build.check(lib, max(-n, 0), "rans4x8 occupancy")
+    return n
+
+
 def rans4x8(b: Rans4x8Batch, max_rounds: int = -1,
             offs: Optional[torch.Tensor] = None, qbins: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import wide_stream
 from htslib_tpu_torch.codecs import rans4x8 as r8
 from htslib_tpu_torch.codecs.rans4x16 import compress
 from htslib_tpu_torch.entry import entry
@@ -153,33 +154,44 @@ def test_o1_kernels_match_plain(card, qbins):
             assert torch.equal(g, w)
 
 
+def short_table_compress(data: bytes, order: int = 0,
+                         short: int = 96) -> bytes:
+    """A valid 4x8 stream whose frequencies (order 1: those of every
+    context) sum to 4096 - short: the port's encoder with its largest
+    frequency cut."""
+    norm = r8._normalize
+
+    def cut(h, total=r8.TOTFREQ):
+        f = norm(h, total)
+        f[int(np.argmax(f))] -= short
+        return f
+
+    r8._normalize = cut
+    try:
+        return r8.compress(data, order)
+    finally:
+        r8._normalize = norm
+
+
+def odd_payload_stream(rng, order: int = 0):
+    """(raw, encoded): the first random walk of rng's series whose 4x8
+    payload is not a whole number of 4-byte words."""
+    while True:
+        d = _walk(rng, 4001)
+        enc = r8.compress(d, order)
+        if int(t8.frame_4x8([enc], order == 1, "cpu").n_bytes[0]) % 4:
+            return d, enc
+
+
 def _4x8_edge_streams(order, seed=9):
     """Three streams of one order at the kernels' edges: a wide alphabet
     (context 0 with ~256 successors of frequency ~16, so order-1 lookups
     fall through to the loop), a payload of n_bytes % 4 != 0, and tables
     summing to 4096 - 96 (the largest frequency cut)."""
     rng = np.random.default_rng(seed)
-    wide = np.zeros(6000, np.uint8)
-    wide[1::2] = rng.integers(0, 256, 3000)
-    encs = [r8.compress(wide.tobytes(), order)]
-    while True:
-        enc = r8.compress(_walk(rng, 4001), order)
-        if int(t8.frame_4x8([enc], order == 1, "cpu").n_bytes[0]) % 4:
-            encs.append(enc)
-            break
-    norm = r8._normalize
-
-    def cut(h, total=r8.TOTFREQ):
-        f = norm(h, total)
-        f[int(np.argmax(f))] -= 96
-        return f
-
-    r8._normalize = cut
-    try:
-        encs.append(r8.compress(_walk(rng, 3007), order))
-    finally:
-        r8._normalize = norm
-    return encs
+    return [r8.compress(wide_stream(rng, 6000), order),
+            odd_payload_stream(rng, order)[1],
+            short_table_compress(_walk(rng, 3007), order)]
 
 
 @pytest.mark.parametrize("order,qbins", [(0, None), (0, 64), (0, 256),
@@ -194,6 +206,33 @@ def test_4x8_kernels_match_plain(card, order, qbins):
         want = t8.rans4x8_plain(b, max_rounds=mr, offs=offs, qbins=qbins)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+def test_4x8_streams_per_sm(card):
+    """The tables leave room for 12 (B7), 10 (B8 order 0) and 4 (B8 order
+    1) streams on an SM, so a batch of more streams than SMs overlaps
+    them."""
+    assert t8.blocks_per_sm(False) >= 12
+    assert t8.blocks_per_sm(True, False) >= 10
+    assert t8.blocks_per_sm(True, True) >= 4
+
+
+@pytest.mark.parametrize("order,qbins", [(0, None), (0, 64), (1, 64)])
+def test_4x8_kernels_match_plain_many_streams(card, order, qbins):
+    """A batch of twice the streams the card holds at once: every SM full,
+    then a second wave."""
+    from htslib_tpu_torch.bench_rans4x8 import replicate
+    rng = np.random.default_rng(12)
+    b = t8.frame_4x8([r8.compress(_walk(rng, 1000 + 7 * i), order)
+                      for i in range(4)], order == 1, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    b = replicate(b, -(-2 * sms * t8.blocks_per_sm(qbins is not None,
+                                                   order == 1) // 4))
+    offs = torch.arange(b.n_streams, dtype=torch.int32, device=card) % 7
+    got = t8.rans4x8(b, offs=offs, qbins=qbins)
+    want = t8.rans4x8_plain(b, offs=offs, qbins=qbins)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_4x8_o1_decode_has_no_kernel(card):

@@ -24,7 +24,9 @@ from htslib_tpu_torch.codecs import rans4x8 as r8
 from htslib_tpu_torch.cram.io import CramBlock as TBlock
 from htslib_tpu_torch.cram.structs import RANS
 from htslib_tpu_torch.ops import rans4x8 as t8
+from chip_smoke import wide_stream
 from test_torch_device_stats import read_walks as _walk
+from test_torch_gpu import odd_payload_stream, short_table_compress
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "htslib_tpu_torch", "csrc")
@@ -35,25 +37,6 @@ def _jax_32bit():
     """The JAX reference runs in its default 32-bit mode; another test
     module in the same worker process may have switched JAX to 64-bit."""
     jax.config.update("jax_enable_x64", False)
-
-
-def _short_table_compress(data: bytes, short: int = 96,
-                          order: int = 0) -> bytes:
-    """A valid 4x8 stream whose frequencies (order 1: those of every
-    context) sum to 4096 - short: the port's encoder with its largest
-    frequency cut."""
-    norm = r8._normalize
-
-    def cut(h, total=r8.TOTFREQ):
-        f = norm(h, total)
-        f[int(np.argmax(f))] -= short
-        return f
-
-    r8._normalize = cut
-    try:
-        return r8.compress(data, order)
-    finally:
-        r8._normalize = norm
 
 
 def _cases():
@@ -78,7 +61,7 @@ NAMES = list(CASES)
 
 def _enc(name):
     if name == "short_table":
-        return _short_table_compress(CASES[name])
+        return short_table_compress(CASES[name])
     return r8.compress(CASES[name], 0)
 
 
@@ -177,9 +160,9 @@ _HARNESS = r"""
 
 #include "rans4x8_step.cuh"
 
-static Rans8Slot tab[RANS_TOTFREQ];
-static Rans8Row rec[RANS8_O1_RECORDS];
-static uint32_t bucket[256 * RANS_O1_BUCKETS];
+static uint32_t tab[RANS_TOTFREQ];
+static uint32_t rec[RANS8_O1_RECORDS];
+static uint16_t bucket[256 * RANS_O1_BUCKETS];
 static uint16_t ctx_start[257];
 
 // The kernels' tables, built by 32 lanes in turn: order 0 the slot
@@ -193,7 +176,8 @@ static void tables(int o1, const int32_t* freq, const uint32_t* rows,
   } else {
     uint16_t f[256];
     for (int s = 0; s < 256; ++s) f[s] = (uint16_t)freq[s];
-    for (int lane = 0; lane < 32; ++lane) rans8_o0_build(f, tab, lane, 32);
+    for (int lane = 0; lane < 32; ++lane)
+      rans_o0_build_slots(f, tab, lane, 32);
   }
 }
 
@@ -222,7 +206,7 @@ extern "C" int64_t decode_stream(int o1, const int32_t* freq,
           ((uint32_t)bytes[4 * i + 3] << 24);
     words[i] = rans8_stage_word(v, i, nb);
   }
-  uint32_t x[RANS8_NWAY], ctx8[RANS8_NWAY] = {0, 0, 0, 0}, syms;
+  uint32_t x[RANS8_NWAY], ctx7[RANS8_NWAY] = {0, 0, 0, 0}, syms;
   for (int j = 0; j < RANS8_NWAY; ++j) x[j] = x0[j];
   Rans8Window w = {words[0], words[1], words[2], 0u};
   const int64_t rounds = rans8_rounds(o1, ulen);
@@ -235,16 +219,14 @@ extern "C" int64_t decode_stream(int o1, const int32_t* freq,
     if (r < ulen / RANS8_NWAY && live != 0xFu) return *loops = -1;
     for (int j = 0; j < RANS8_NWAY && o1; ++j) {
       bool slow;
-      rans8_o1_pick(rec, bucket, ctx8[j], x[j], &slow);
+      rans8_o1_pick(rec, bucket, ctx7[j], x[j], &slow);
       if (((live >> j) & 1u) && slow) ++*loops;
     }
     uint32_t hi, lo;
     rans8_window(w.w0, w.w1, w.w2, w.pos, &hi, &lo);
     const uint32_t k =
-        o1 ? rans8_round<true>(x, ctx8, &syms, live, hi, lo, nullptr, rec,
-                               bucket)
-           : rans8_round<false>(x, ctx8, &syms, live, hi, lo, tab, nullptr,
-                                nullptr);
+        o1 ? rans8_round<true>(x, ctx7, &syms, live, hi, lo, rec, bucket)
+           : rans8_round<false>(x, ctx7, &syms, live, hi, lo, tab, nullptr);
     for (int j = 0; j < RANS8_NWAY; ++j)
       if ((live >> j) & 1u) out[at[j]] = (uint8_t)(syms >> (8 * j));
     rans8_advance(&w, k, words.data(), 0xFFFFFFFFu);
@@ -255,9 +237,9 @@ extern "C" int64_t decode_stream(int o1, const int32_t* freq,
   return w.pos < nb ? w.pos : nb;
 }
 
-// (ctx, slot) pairs over all 256 x 4096 where the 4x8 lookup's record and
-// that of the row the Nx16 order-1 lookup finds (rans_o1_lookup on its
-// byte buckets) differ in f, cum or symbol.
+// (ctx, slot) pairs over all 256 x 4096 where the 4x8 lookup's row and
+// the row the Nx16 order-1 lookup finds (rans_o1_lookup on its byte
+// buckets) differ.
 extern "C" int64_t lookup_mismatches(const uint32_t* rows,
                                      const int32_t* cs) {
   tables(1, nullptr, rows, cs);
@@ -270,12 +252,9 @@ extern "C" int64_t lookup_mismatches(const uint32_t* rows,
   for (uint32_t c = 0; c < 256; ++c)
     for (uint32_t m = 0; m < RANS_TOTFREQ; ++m) {
       bool slow;
-      Rans8Row got = rans8_o1_pick(rec, bucket, c << 8, m, &slow);
-      if (slow) got = rans8_o1_walk(rec, bucket, c << 8, m);
-      const Rans8Row want = rans8_o1_record(
-          rans_o1_lookup(padded.data(), ctx_start, b8, c, m), 0u);
-      bad += got.f != want.f || got.neg_cum != want.neg_cum ||
-             got.ctx8 != want.ctx8;
+      uint32_t got = rans8_o1_pick(rec, bucket, c << 7, m, &slow);
+      if (slow) got = rans8_o1_walk(rec, bucket, c << 7, m);
+      bad += got != rans_o1_lookup(padded.data(), ctx_start, b8, c, m);
     }
   return bad;
 }
@@ -303,30 +282,17 @@ def step_lib(tmp_path_factory):
     return h
 
 
-def _odd_payload_stream():
-    """A random-walk stream whose order-0 payload is not a whole number
-    of words: the first of a seeded series."""
-    rng = np.random.default_rng(5)
-    while True:
-        d = _walk(rng, 4001)
-        enc = r8.compress(d, 0)
-        if int(t8.frame_4x8([enc], False, "cpu").n_bytes[0]) % 4:
-            return d, enc
-
-
 def _step_cases():
     rng = np.random.default_rng(8)
-    # every other byte 0 and then a random one: context 0 has ~256
-    # successors of frequency ~16, so a 64-slot bucket holds several row
-    # starts
-    wide = np.zeros(6000, np.uint8)
-    wide[1::2] = rng.integers(0, 256, 3000)
+    # context 0 with ~256 successors of frequency ~16: a 64-slot bucket
+    # holds several row starts
+    wide = wide_stream(rng, 6000)
     short = _walk(rng, 3007)
-    odd, odd_enc = _odd_payload_stream()
+    odd, odd_enc = odd_payload_stream(np.random.default_rng(5))
     trunc = r8.compress(_walk(rng, 2003), 0)
     return {
-        ("wide_o1", 1): (wide.tobytes(), r8.compress(wide.tobytes(), 1)),
-        ("short_table_o1", 1): (short, _short_table_compress(short, order=1)),
+        ("wide_o1", 1): (wide, r8.compress(wide, 1)),
+        ("short_table_o1", 1): (short, short_table_compress(short, order=1)),
         ("odd_payload", 0): (odd, odd_enc),
         # the last 5 payload bytes cut: the cursor runs past the end
         ("truncated", 0): (None, trunc[:-5]),
@@ -425,3 +391,29 @@ def test_o1_lookup_matches_nx16_lookup(step_lib, name):
     rows = t.rows.numpy().view(np.uint32).copy()
     cs = t.ctx_start.numpy()[0].copy()
     assert step_lib.lookup_mismatches(rows.ctypes.data, cs.ctypes.data) == 0
+
+
+def test_bench_batches_copy_every_stream():
+    """The 4x8 batch sweep's replicated batch decodes, copy by copy, as
+    the batch it was made from (plain version, both orders)."""
+    from htslib_tpu_torch.bench_rans4x8 import replicate
+    rng = np.random.default_rng(14)
+    for order in (0, 1):
+        datas = [_walk(rng, n) for n in (301, 1002, 77)]
+        b = t8.frame_4x8([r8.compress(d, order) for d in datas],
+                         bool(order), "cpu")
+        copies = replicate(b, 3)
+        assert copies.n_streams == 9
+        got = t8.rans4x8(copies, qbins=64)
+        for g, w in zip(got, t8.rans4x8(b, qbins=64)):
+            assert torch.equal(g, w.repeat(3, *([1] * (w.dim() - 1))))
+        if order == 0:
+            assert t8.rans4x8(copies)[0].numpy().tobytes() \
+                == b"".join(datas) * 3
+
+
+def test_streams_per_sm_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t8.blocks_per_sm(True, True)

@@ -21,7 +21,7 @@ from htslib_tpu_torch.ops import device_stats as tds
 from htslib_tpu_torch.ops import rans4x8 as t8
 from test_torch_device_stats import check_committed_fixture, write_v30_cram
 from test_torch_device_stats import read_walks as _walk
-from test_torch_rans4x8 import _short_table_compress
+from test_torch_gpu import short_table_compress
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V30_FIXTURE = os.path.join(REPO, "htslib_tpu_torch", "testdata",
@@ -44,7 +44,7 @@ def _cases(order):
         u = [rng.integers(20, 41, n, dtype=np.uint8).tobytes()
              for n in (9001, 4099, 1006, 3, 3003)]
         encs = [ref8.compress(d, 0) for d in u[:4]]
-        encs.append(_short_table_compress(u[4]))
+        encs.append(short_table_compress(u[4]))
         return u, encs
     w = [_walk(rng, n) for n in (9001, 4099, 1006, 7)]
     return w, [ref8.compress(d, 1) for d in w]
