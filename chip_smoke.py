@@ -43,10 +43,12 @@ PyTorch version on the card and times both.  Phases:
      they are held against their kernels at full size over the first 4096
      rounds (states, cursors, contexts, emitted words and those rounds'
      symbols or counts), and over whole streams on a 64 KiB batch; those
-     of B4 and B10 run all 32,768 steps.  B8 order 1 is also held over a
-     whole 64 KiB wide-alphabet stream whose lookups take the loop.  Each
-     chain-bound row gives ns_per_round (ms over its longest chain), and
-     the B7/B8 rows the streams one SM holds (streams_per_sm).
+     of B4 and B10 run all 32,768 steps.  B5, B6 and B8 order 1 are also
+     held over a whole 64 KiB wide-alphabet stream whose lookups meet slow
+     buckets.  Each chain-bound row gives ns_per_round (ms over its longest
+     chain), the B5-B8 rows the streams one SM holds (streams_per_sm), and
+     the B5/B6 rows their shared memory a block and the share of rounds in
+     which some state's lookup met a slow bucket (slow_share).
      Outputs are bytes and integers, so the tolerance is zero: kernel and
      plain version must be equal.
 
@@ -152,7 +154,8 @@ def leg3_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
     comparisons: {wire: (raws, encs, small raws, small encs)} for wires
     nx16_o1 (n bounded random walks), 4x8_o0 (n/2, uniform over 20..40)
     and 4x8_o1 (n/2 random walks), and under "4x8_o1_wide" one (raw,
-    encoded) 4x8 order-1 `wide_stream` of `small` bytes."""
+    encoded) 4x8 order-1 `wide_stream` of `small` bytes, and under
+    "nx16_o1_wide" the same bytes on the Nx16 order-1 wire."""
     rng = np.random.default_rng(seed)
     half = n // 2
     raws = {"nx16_o1": _walks(rng, n, size),
@@ -175,14 +178,15 @@ def leg3_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
         k += n_small
     wide = wide_stream(rng, small)
     out["4x8_o1_wide"] = (wide, _encode(wide, "4x8_o1"))
+    out["nx16_o1_wide"] = (wide, _encode(wide, "nx16_o1"))
     return out
 
 
 def wide_stream(rng, size: int) -> bytes:
     """Every other byte 0 and then a random one: order-1 context 0 has
     ~256 successors of frequency ~16, so a 64-slot bucket of its table
-    holds several row starts and the 4x8 order-1 lookup (B8) falls
-    through to its loop."""
+    holds several row starts: a slow bucket, whose lookups B5/B6 take
+    through its map and B8 through its walk."""
     d = np.zeros(size, np.uint8)
     d[1::2] = rng.integers(0, 256, size // 2)
     return d.tobytes()
@@ -528,8 +532,28 @@ def leg3_kernels_vs_plain(device, leg3, launches):
             "match": True})
         if key.startswith("rans4x8"):
             rows[-1]["streams_per_sm"] = blocks_per_sm(qb is not None, b.o1)
-    # B8 order 1 over a whole wide-alphabet stream, whose lookups take
-    # the loop
+        else:
+            rows[-1].update(o1_table_notes(b, offs, qb))
+    # B5, B6 and B8 order 1 over a whole wide-alphabet stream, whose
+    # lookups meet slow buckets (B5/B6: their maps; B8: the walk)
+    wide = o1_batch([leg3["nx16_o1_wide"][1]])
+    n_fall = fallback_buckets(wide.tables)
+    require(n_fall > 0, "wide Nx16 order-1 stream: no slow bucket")
+    woffs = torch.zeros(1, dtype=torch.int32, device=device)
+    for row, qb in zip(rows[:2], (None, QBINS)):
+        slow = torch.zeros(1, dtype=torch.int32, device=device)
+        for g, r, what in zip(rans_o1_cuda(wide, -1, woffs, qb, slow),
+                              rans_o1_plain(wide, -1, woffs, qb),
+                              ("output", "states", "cursors", "contexts")):
+            require(torch.equal(g, r), f"{row['name']} kernel != plain on "
+                    f"the whole wide-alphabet stream ({what})")
+        rounds = int(wide.ulen[0]) - 31 * (int(wide.ulen[0]) // 32)
+        require(int(slow[0]) > 0, f"{row['name']}: no round of the wide "
+                "stream met a slow bucket")
+        row["wide_stream"] = {"bytes": int(wide.ulen[0]),
+                              "fallback_buckets": n_fall,
+                              "slow_share": int(slow[0]) / rounds,
+                              "match": True}
     wide = frame_4x8([leg3["4x8_o1_wide"][1]], True, device)
     n_fall = fallback_buckets(wide.tables)
     require(n_fall > 0, "wide 4x8 order-1 stream: no bucket reaches the "
@@ -543,6 +567,24 @@ def leg3_kernels_vs_plain(device, leg3, launches):
     rows[-1]["wide_stream"] = {"bytes": int(wide.ulen[0]),
                                "fallback_buckets": n_fall, "match": True}
     return rows
+
+
+def o1_table_notes(b, offs, qb):
+    """Of kernel B5 (qb None) or B6 on batch b: its shared memory a block,
+    the streams one SM holds, the slow buckets of stream 0 and the share
+    of rounds in which some state's bucket was slow (its lookup took the
+    bucket's map)."""
+    import torch
+
+    from htslib_tpu_torch.ops import rans_nx16_o1 as to1
+    slow = torch.zeros(b.n_streams, dtype=torch.int32, device=offs.device)
+    to1.rans_o1_cuda(b, -1, offs, qb, slow)
+    n = b.ulen.long()
+    return {"smem_bytes": to1.o1_smem_bytes(b.tables, qb is not None),
+            "streams_per_sm": to1.blocks_per_sm(b.tables, qb is not None),
+            "fallback_buckets": fallback_buckets(b.tables),
+            "slow_share": float(slow.sum()) / float((n - 31 * (n // 32))
+                                                    .sum())}
 
 
 def new_kernels_vs_plain(device, raws, leg3, launches):

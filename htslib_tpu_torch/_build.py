@@ -48,8 +48,10 @@ _SIGNATURES = {
         + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     },
     "rans_nx16_o1": {
-        "rans_nx16_o1_launch": [ctypes.c_void_p] * 16
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "rans_nx16_o1_launch": [ctypes.c_void_p] * 17
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "rans_nx16_o1_smem_bytes": [ctypes.c_int] * 4,
+        "rans_nx16_o1_blocks_per_sm": [ctypes.c_int] * 2,
     },
     "rans4x8": {
         "rans4x8_launch": [ctypes.c_void_p] * 17

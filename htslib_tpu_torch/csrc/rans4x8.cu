@@ -78,7 +78,7 @@ struct O0Lookup {
   uint32_t tab[RANS_TOTFREQ];
 };
 struct O1Lookup {
-  uint32_t tab[RANS8_O1_RECORDS];
+  uint32_t tab[RANS_O1_RECORDS];
   uint16_t bucket[256 * RANS_O1_BUCKETS];
 };
 
@@ -222,7 +222,7 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
     for (int c = lane; c < 257; c += kWarp)
       t.setup[c] = (uint16_t)a.ctx_start[(int64_t)st * 257 + c];
     __syncwarp();
-    rans8_o1_build(a.rows + a.row_off[st], t.setup, t.lut.tab, t.lut.bucket,
+    rans_o1_build(a.rows + a.row_off[st], t.setup, t.lut.tab, t.lut.bucket,
                    lane, kWarp);
   } else {
     for (int i = lane; i < 256; i += kWarp)

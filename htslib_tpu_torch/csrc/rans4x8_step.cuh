@@ -25,10 +25,11 @@
 // H100 (an order-0 round is 76 instructions).  A batch larger than the
 // card's SMs is bound by how many streams share an SM, that is by the
 // shared memory a stream's tables take.  So the tables are the packed
-// 32-bit words of the Nx16 step headers (order 0: 16 KB; order 1: 18 KB of
-// rows and 32 KB of buckets), read by one load, with the order-1 buckets
-// holding the byte offset of their row so that no context start sits on
-// the chain.  Their field extracts cost three instructions a state, about
+// 32-bit words of the Nx16 step headers (order 0: 16 KB; order 1: the
+// table of rans_nx16_o1_step.cuh over all 256 contexts, 18 KB of records
+// and 32 KB of buckets), read by one load, with the order-1 buckets holding
+// the byte offset of their row so that no context start sits on the
+// chain.  Their field extracts cost three instructions a state, about
 // an eighth of a round more than 16-byte records whose fields are ready to
 // use, and let an SM hold six times the streams.
 #pragma once
@@ -37,14 +38,6 @@
 
 #define RANS8_L (1u << 23)
 #define RANS8_NWAY 4
-// order-1 records: the stream's rows, a zero row, then a pair per empty
-// context (a copy of the row at its start, then a zero row)
-#define RANS8_O1_EMPTY (RANS_O1_MAX_ROWS + 1)
-#define RANS8_O1_RECORDS (RANS8_O1_EMPTY + 2 * 256)
-// set in an order-1 bucket whose lookups need rans8_o1_walk
-#define RANS8_SLOW 0x8000u
-static_assert(4 * RANS8_O1_RECORDS <= RANS8_SLOW,
-              "a record's byte offset must fit below the bucket's flag");
 
 RANS_HD uint32_t rans8_bswap(uint32_t v) {
 #if defined(__CUDA_ARCH__)
@@ -97,85 +90,6 @@ RANS_HD uint32_t rans8_stage_word(uint32_t v, uint32_t idx,
   return rans8_bswap(v & mask);
 }
 
-// The order-1 tables of one stream from its n packed rows ((f-1) | cum<<12
-// | sym<<24, sorted by (ctx, cum), as in rans_nx16_o1_step.cuh) and context
-// starts (ctx_start[256] = n).  rec holds the rows, a zero row at n and,
-// for each empty context c, the row at its start (the zero row past the
-// last) and a zero row at RANS8_O1_EMPTY + 2c.  bucket[c*64 + k] is the
-// byte offset in rec of the record of context c owning slot k*64, with
-// RANS8_SLOW set where two or more of its rows start inside the bucket
-// after that slot.  Lane `lane` of `nlanes` fills the rows r and the
-// contexts c with r, c % nlanes == lane.
-RANS_HD void rans8_o1_build(const uint32_t* rows, const uint16_t* ctx_start,
-                            uint32_t* rec, uint16_t* bucket, int lane,
-                            int nlanes) {
-  const int n = ctx_start[256];
-  for (int r = lane; r < n; r += nlanes) rec[r] = rows[r];
-  if (lane == 0) rec[n] = 0u;
-  for (int c = lane; c < 256; c += nlanes) {
-    const int lo = ctx_start[c], hi = ctx_start[c + 1];
-    uint16_t* bk = bucket + c * RANS_O1_BUCKETS;
-    if (lo == hi) {
-      const int e = RANS8_O1_EMPTY + 2 * c;
-      rec[e] = lo < n ? rows[lo] : 0u;
-      rec[e + 1] = 0u;
-      for (int k = 0; k < RANS_O1_BUCKETS; ++k) bk[k] = (uint16_t)(4 * e);
-      continue;
-    }
-    int r = lo;
-    for (int k = 0; k < RANS_O1_BUCKETS; ++k) {
-      const uint32_t slot = (uint32_t)k << RANS_O1_BUCKET_SHIFT;
-      while (r + 1 < hi && rans_row_cum(rows[r + 1]) <= slot) ++r;
-      const bool slow = r + 2 < hi && rans_row_cum(rows[r + 2]) <
-                                          slot + (1u << RANS_O1_BUCKET_SHIFT);
-      bk[k] = (uint16_t)(4 * r + (slow ? RANS8_SLOW : 0u));
-    }
-  }
-}
-
-// The record of the row of context ctx7 / 128 owning slot x & 4095: the
-// last of its rows whose cum is <= the slot, as rans_o1_lookup finds it
-// (slots past a context's sum: its last row; an empty context: the row at
-// its start).  The bucket's row owns the bucket's first slot, so outside a
-// RANS8_SLOW bucket the answer is that row or the next one:
-// `rans8_o1_pick` loads both together and selects, and sets *slow where
-// the bucket needs `rans8_o1_walk`.  The row after a context's last starts
-// at cum 0 (a context's first row does, and so does a zero row), which is
-// how the select knows it belongs to no later slot of the context.
-RANS_HD const uint32_t* rans8_o1_bucket(const uint32_t* rec,
-                                        const uint16_t* bucket, uint32_t ctx7,
-                                        uint32_t x, uint32_t* v) {
-  // (ctx*64 + m/64) * 2
-  *v = *reinterpret_cast<const uint16_t*>(
-      reinterpret_cast<const uint8_t*>(bucket) + (ctx7 | ((x >> 5) & 0x7Eu)));
-  return reinterpret_cast<const uint32_t*>(
-      reinterpret_cast<const uint8_t*>(rec) + (*v & ~RANS8_SLOW));
-}
-
-// Whether the row e1, the one after a candidate, starts past slot x & 4095
-// of the candidate's context.
-RANS_HD bool rans8_o1_past(uint32_t e1, uint32_t x) {
-  const uint32_t c1 = e1 & 0xFFF000u;  // its cum << 12
-  return c1 == 0u || ((x << 12) & 0xFFF000u) < c1;
-}
-
-RANS_HD uint32_t rans8_o1_pick(const uint32_t* rec, const uint16_t* bucket,
-                               uint32_t ctx7, uint32_t x, bool* slow) {
-  uint32_t v;
-  const uint32_t* r = rans8_o1_bucket(rec, bucket, ctx7, x, &v);
-  const uint32_t e0 = r[0], e1 = r[1];
-  *slow = (v & RANS8_SLOW) != 0u;
-  return rans8_o1_past(e1, x) ? e0 : e1;
-}
-
-RANS_HD uint32_t rans8_o1_walk(const uint32_t* rec, const uint16_t* bucket,
-                               uint32_t ctx7, uint32_t x) {
-  uint32_t v;
-  const uint32_t* r = rans8_o1_bucket(rec, bucket, ctx7, x, &v);
-  while (!rans8_o1_past(r[1], x)) ++r;
-  return r[0];
-}
-
 // The 8 payload bytes from byte `pos` on, big-endian (the first byte on
 // top: hi:lo), out of the byte-swapped words w0, w1, w2 at word pos / 4.
 RANS_HD void rans8_window(uint32_t w0, uint32_t w1, uint32_t w2,
@@ -211,10 +125,10 @@ RANS_HD uint32_t rans8_round(uint32_t* x, uint32_t* ctx7, uint32_t* syms,
   if (kO1) {
     bool slow[RANS8_NWAY];
     for (int j = 0; j < RANS8_NWAY; ++j)
-      e[j] = rans8_o1_pick(tab, bucket, ctx7[j], x[j], &slow[j]);
+      e[j] = rans_o1_pick(tab, bucket, ctx7[j], x[j], &slow[j]);
     if (slow[0] || slow[1] || slow[2] || slow[3])
       for (int j = 0; j < RANS8_NWAY; ++j)
-        if (slow[j]) e[j] = rans8_o1_walk(tab, bucket, ctx7[j], x[j]);
+        if (slow[j]) e[j] = rans_o1_walk(tab, bucket, ctx7[j], x[j]);
     // x = f * (x >> 12) + (x & 4095) - cum
     for (int j = 0; j < RANS8_NWAY; ++j)
       xs[j] = ((e[j] & 0xFFFu) + 1u) * (x[j] >> RANS_TF_SHIFT) +

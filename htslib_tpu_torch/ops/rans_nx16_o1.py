@@ -14,8 +14,10 @@ stream's payload words back to back, its present (ctx, sym) rows packed
 (f-1) | cum<<12 | sym<<24 and sorted by (ctx, cum) with the first row of
 each context (`O1Tables`), and its 32 initial states; one launch decodes
 every stream of the batch to its end, tail included
-(csrc/rans_nx16_o1.cu, one warp per stream).  Contexts are symbol
-values, not dense indices.
+(csrc/rans_nx16_o1.cu, one warp per stream).  The kernels index each
+stream's contexts densely over its own alphabet and map its slow buckets
+(`o1_table_sizes`), building their tables in shared memory sized per
+launch to the batch's largest (`o1_smem_bytes`).
 
 `rans_o1` launches the kernel for tensors on the card and takes the plain
 PyTorch version (`rans_o1_plain`, the same rounds as tensor ops over all
@@ -267,13 +269,74 @@ def check_o1_tables(t: O1Tables, S: int) -> None:
                          "their buffer or its context starts are invalid")
 
 
+def o1_table_sizes(t: O1Tables) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(contexts, slow buckets), int64 [S] each, of every stream's table as
+    the kernels build it (csrc/rans_nx16_o1_step.cuh): the dense alphabet
+    (`rans_o1_mark`: context 0, the contexts with rows and the rows'
+    symbols), and the 64-slot buckets in which two or more of a context's
+    rows start after the bucket's first slot (`rans_o1_build`'s
+    RANS_O1_SLOW).  Raises unless every context's cums rise, as an
+    encoder's table's do (each row has a slot at least): the maps of the
+    slow buckets rest on it."""
+    S = int(t.n_rows.shape[0])
+    dev = t.rows.device
+    n = t.n_rows.long()
+    total = int(n.sum())
+    stream = torch.repeat_interleave(torch.arange(S, device=dev), n,
+                                     output_size=total)
+    e = t.rows[torch.arange(total, device=dev) - (torch.cumsum(n, 0) - n)
+               [stream] + t.row_off[stream]].long()
+    ctx = torch.repeat_interleave(
+        torch.arange(256, device=dev).repeat(S),
+        (t.ctx_start[:, 1:] - t.ctx_start[:, :-1]).reshape(-1).long(),
+        output_size=total)
+    cum = (e >> 12) & 0xFFF
+    same = (stream[1:] == stream[:-1]) & (ctx[1:] == ctx[:-1])
+    if bool((same & (cum[1:] <= cum[:-1])).any()):
+        raise ValueError("order-1 tables: a context's cums do not rise")
+    present = torch.zeros((S, 256), dtype=torch.bool, device=dev)
+    present[:, 0] = True
+    present |= t.ctx_start[:, 1:] > t.ctx_start[:, :-1]
+    present.view(-1)[stream * 256 + ((e >> 24) & 0xFF)] = True
+    inside = cum % 64 != 0
+    key, count = torch.unique((stream * 256 + ctx)[inside] * 64
+                              + cum[inside] // 64, return_counts=True)
+    slow = torch.bincount(key[count >= 2] // (256 * 64), minlength=S)
+    return present.sum(1), slow
+
+
+def o1_smem_bytes(t: O1Tables, hist: bool) -> int:
+    """Bytes of shared memory a block of kernel B5 (or, with `hist`, B6)
+    takes for the largest table of the batch."""
+    if not int(t.n_rows.shape[0]):
+        return 0
+    n_ctx, n_slow = o1_table_sizes(t)
+    rows, ctxs, slow = torch.stack([t.n_rows.max().long(), n_ctx.max(),
+                                    n_slow.max()]).tolist()
+    lib = _build.load("rans_nx16_o1")
+    return lib.rans_nx16_o1_smem_bytes(rows, ctxs, slow, int(hist))
+
+
+def blocks_per_sm(t: O1Tables, hist: bool) -> int:
+    """Streams with tables `t` that one SM of the card decodes at once in
+    kernel B5 (or, with `hist`, B6): the blocks its shared memory holds."""
+    lib = _build.load("rans_nx16_o1")
+    n = lib.rans_nx16_o1_blocks_per_sm(int(hist), o1_smem_bytes(t, hist))
+    _build.check(lib, max(-n, 0), "rans_nx16_o1 occupancy")
+    return n
+
+
 def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
                  offs: Optional[torch.Tensor] = None,
-                 qbins: Optional[int] = None
+                 qbins: Optional[int] = None,
+                 slow_rounds: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
     """Kernel B5 (symbols) or, with `qbins`, kernel B6 (histogram) over
-    the whole batch in one launch; same results as `rans_o1_plain`."""
+    the whole batch in one launch; same results as `rans_o1_plain`.
+    `slow_rounds` (int32 [S] on the card), where given, gets each
+    stream's rounds in which some state's bucket was slow (its lookup
+    took the bucket's map)."""
     S = b.n_streams
     req = _build.require_cuda
     req(b.payload, torch.uint8, "payload")
@@ -310,15 +373,19 @@ def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
         res = torch.empty((S, qbins), dtype=torch.int32, device=dev)
         out_ptr, hist_ptr, offs_ptr, key = None, res.data_ptr(), \
             offs.data_ptr(), "rans_nx16_o1_hist"
+    if slow_rounds is not None:
+        req(slow_rounds, torch.int32, "slow_rounds", (S,))
     t = b.tables
+    smem = o1_smem_bytes(t, qbins is not None)
     lib = _build.load("rans_nx16_o1")
     rc = lib.rans_nx16_o1_launch(
         b.payload.data_ptr(), b.word_off.data_ptr(), b.n_words.data_ptr(),
         t.rows.data_ptr(), t.row_off.data_ptr(), t.n_rows.data_ptr(),
         t.ctx_start.data_ptr(), b.x0.data_ptr(), b.ulen.data_ptr(),
         b.out_off.data_ptr(), out_ptr, offs_ptr, hist_ptr, x_out.data_ptr(),
-        cur_out.data_ptr(), ctx_out.data_ptr(), S, qbins or 0, max_rounds,
-        _build.stream_handle(b.payload))
+        cur_out.data_ptr(), ctx_out.data_ptr(),
+        None if slow_rounds is None else slow_rounds.data_ptr(), S,
+        qbins or 0, max_rounds, smem, _build.stream_handle(b.payload))
     _build.check(lib, rc, key)
     _build.LAUNCHES[key] += 1
     return res, x_out, cur_out, ctx_out

@@ -154,6 +154,81 @@ def test_o1_kernels_match_plain(card, qbins):
             assert torch.equal(g, w)
 
 
+def _o1_batch(datas, dev):
+    return o1.frame_o1_streams(
+        [o1._parse_o1_header(compress(d, 0x05)) for d in datas], dev)
+
+
+@pytest.mark.parametrize("qbins", [None, 64])
+def test_o1_kernels_match_plain_many_streams(card, qbins):
+    """B5/B6 over a batch of twice the streams the card holds at once:
+    every SM full, then a second wave.  The copies are the base batch's
+    streams, so the plain version runs on the base batch and is
+    repeated."""
+    from htslib_tpu_torch.bench_rans import replicate
+    rng = np.random.default_rng(13)
+    base = _o1_batch([_walk(rng, 5000 + 7 * i) for i in range(4)], card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    k = -(-2 * sms * o1.blocks_per_sm(base.tables, qbins is not None) // 4)
+    b = replicate(base, k)
+    offs = torch.zeros(b.n_streams, dtype=torch.int32, device=card)
+    got = o1.rans_o1(b, offs=offs, qbins=qbins)
+    want = o1.rans_o1_plain(base, offs=offs[:4], qbins=qbins)
+    assert torch.equal(got[0], want[0].repeat(k) if qbins is None
+                       else want[0].repeat(k, 1))
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w.repeat(k, *([1] * (w.dim() - 1))))
+
+
+def spread_stream(rng, n, width=64, sd=8.0):
+    """A clipped random walk over 0..width-1 with normal steps: each
+    context has ~35 successors, the rare ones of frequency 1-10 packed at
+    the ends of its slot range, so every context has slow buckets (two or
+    more rows start inside a 64-slot bucket after its first slot)."""
+    steps = np.rint(rng.normal(0, sd, n)).astype(np.int64)
+    out = np.zeros(n, np.uint8)
+    for i in range(1, n):
+        out[i] = min(max(int(out[i - 1]) + int(steps[i]), 0), width - 1)
+    return out.tobytes()
+
+
+@pytest.mark.parametrize("qbins", [None, 64])
+def test_o1_kernels_map_slow_buckets(card, qbins):
+    """B5/B6 on streams whose lookups meet slow buckets (a wide context,
+    slow buckets in every context) equal the plain version, and count the
+    rounds in which they did."""
+    rng = np.random.default_rng(11)
+    b = _o1_batch([wide_stream(rng, 1 << 16), spread_stream(rng, 20000),
+                   _walk(rng, 3001)], card)
+    offs = torch.zeros(b.n_streams, dtype=torch.int32, device=card)
+    slow = torch.zeros(b.n_streams, dtype=torch.int32, device=card)
+    got = o1.rans_o1_cuda(b, offs=offs, qbins=qbins, slow_rounds=slow)
+    want = o1.rans_o1_plain(b, offs=offs, qbins=qbins)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (slow[:2] > 0).all()
+    assert (slow <= (b.ulen - 31 * (b.ulen // 32))).all()
+
+
+def test_o1_streams_per_sm(card):
+    """A quality stream's table (a few dozen contexts) leaves room for 12
+    or more B5/B6 streams on an SM; the largest table the kernels take
+    (4,096 rows over 256 contexts, most buckets slow) still fits."""
+    rng = np.random.default_rng(14)
+    t = _o1_batch([_walk(rng, 1 << 16)], card).tables
+    F = np.zeros((256, 256), np.int64)
+    for c in range(256):
+        F[c, :15] = 1       # 15 one-slot rows: every bucket 0 slow
+        F[c, 15] = 4096 - 15
+    big = o1.frame_o1_tables([F], card)
+    assert int(big.n_rows[0]) == o1.A2_MAX
+    for hist in (False, True):
+        assert o1.blocks_per_sm(t, hist) >= 12
+        assert o1.blocks_per_sm(big, hist) >= 1
+    assert int(o1.o1_table_sizes(big)[1][0]) == 256
+    assert o1.o1_smem_bytes(big, True) > 48 * 1024
+
+
 def short_table_compress(data: bytes, order: int = 0,
                          short: int = 96) -> bytes:
     """A valid 4x8 stream whose frequencies (order 1: those of every
@@ -221,7 +296,7 @@ def test_4x8_streams_per_sm(card):
 def test_4x8_kernels_match_plain_many_streams(card, order, qbins):
     """A batch of twice the streams the card holds at once: every SM full,
     then a second wave."""
-    from htslib_tpu_torch.bench_rans4x8 import replicate
+    from htslib_tpu_torch.bench_rans import replicate
     rng = np.random.default_rng(12)
     b = t8.frame_4x8([r8.compress(_walk(rng, 1000 + 7 * i), order)
                       for i in range(4)], order == 1, card)

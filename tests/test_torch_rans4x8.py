@@ -161,7 +161,7 @@ _HARNESS = r"""
 #include "rans4x8_step.cuh"
 
 static uint32_t tab[RANS_TOTFREQ];
-static uint32_t rec[RANS8_O1_RECORDS];
+static uint32_t rec[RANS_O1_RECORDS];
 static uint16_t bucket[256 * RANS_O1_BUCKETS];
 static uint16_t ctx_start[257];
 
@@ -172,7 +172,7 @@ static void tables(int o1, const int32_t* freq, const uint32_t* rows,
   if (o1) {
     for (int c = 0; c < 257; ++c) ctx_start[c] = (uint16_t)cs[c];
     for (int lane = 0; lane < 32; ++lane)
-      rans8_o1_build(rows, ctx_start, rec, bucket, lane, 32);
+      rans_o1_build(rows, ctx_start, rec, bucket, lane, 32);
   } else {
     uint16_t f[256];
     for (int s = 0; s < 256; ++s) f[s] = (uint16_t)freq[s];
@@ -219,7 +219,7 @@ extern "C" int64_t decode_stream(int o1, const int32_t* freq,
     if (r < ulen / RANS8_NWAY && live != 0xFu) return *loops = -1;
     for (int j = 0; j < RANS8_NWAY && o1; ++j) {
       bool slow;
-      rans8_o1_pick(rec, bucket, ctx7[j], x[j], &slow);
+      rans_o1_pick(rec, bucket, ctx7[j], x[j], &slow);
       if (((live >> j) & 1u) && slow) ++*loops;
     }
     uint32_t hi, lo;
@@ -238,23 +238,23 @@ extern "C" int64_t decode_stream(int o1, const int32_t* freq,
 }
 
 // (ctx, slot) pairs over all 256 x 4096 where the 4x8 lookup's row and
-// the row the Nx16 order-1 lookup finds (rans_o1_lookup on its byte
-// buckets) differ.
+// a brute-force scan of the rows differ: the last row of the context whose
+// cum is <= the slot (so slots past the sum go to the last row), and for
+// an empty context the row at its start (the zero row past the last).
 extern "C" int64_t lookup_mismatches(const uint32_t* rows,
                                      const int32_t* cs) {
   tables(1, nullptr, rows, cs);
-  std::vector<uint32_t> padded(rows, rows + cs[256]);
-  padded.push_back(0u);  // the zero row past the last
-  static uint8_t b8[256 * RANS_O1_BUCKETS];
-  for (int lane = 0; lane < 32; ++lane)
-    rans_o1_build_buckets(padded.data(), ctx_start, b8, lane, 32);
+  const int n = cs[256];
   int64_t bad = 0;
   for (uint32_t c = 0; c < 256; ++c)
     for (uint32_t m = 0; m < RANS_TOTFREQ; ++m) {
+      uint32_t want = cs[c] < n ? rows[cs[c]] : 0u;
+      for (int r = cs[c]; r < cs[c + 1]; ++r)
+        if (rans_row_cum(rows[r]) <= m) want = rows[r];
       bool slow;
-      uint32_t got = rans8_o1_pick(rec, bucket, c << 7, m, &slow);
-      if (slow) got = rans8_o1_walk(rec, bucket, c << 7, m);
-      bad += got != rans_o1_lookup(padded.data(), ctx_start, b8, c, m);
+      uint32_t got = rans_o1_pick(rec, bucket, c << 7, m, &slow);
+      if (slow) got = rans_o1_walk(rec, bucket, c << 7, m);
+      bad += got != want;
     }
   return bad;
 }
@@ -382,10 +382,10 @@ def test_step_header_on_cpu(step_lib, name, order):
 @pytest.mark.parametrize("name", ["two_segments", "full_alphabet",
                                   "constant", "wide_o1", "short_table_o1"])
 def test_o1_lookup_matches_nx16_lookup(step_lib, name):
-    """Over every (context, slot), the 4x8 order-1 lookup finds the row
-    the Nx16 order-1 lookup finds, unreachable slots included (past a
-    context's sum: its last row; an empty context: the row at its
-    start)."""
+    """Over every (context, slot), the 4x8 order-1 lookup (the shared
+    order-1 table over all 256 contexts) finds the row a scan of the
+    context's rows finds, unreachable slots included (past a context's
+    sum: its last row; an empty context: the row at its start)."""
     _, enc = _step_stream(name, 1)
     t = t8.frame_4x8([enc], True, "cpu").tables
     rows = t.rows.numpy().view(np.uint32).copy()
@@ -396,7 +396,7 @@ def test_o1_lookup_matches_nx16_lookup(step_lib, name):
 def test_bench_batches_copy_every_stream():
     """The 4x8 batch sweep's replicated batch decodes, copy by copy, as
     the batch it was made from (plain version, both orders)."""
-    from htslib_tpu_torch.bench_rans4x8 import replicate
+    from htslib_tpu_torch.bench_rans import replicate
     rng = np.random.default_rng(14)
     for order in (0, 1):
         datas = [_walk(rng, n) for n in (301, 1002, 77)]

@@ -18,7 +18,9 @@ from htslib_tpu.codecs.rans4x16 import compress, uncompress
 from htslib_tpu.ops import rans_o1_pallas as jo1
 from htslib_tpu_torch import carry
 from htslib_tpu_torch.ops import rans_nx16_o1 as to1
+from chip_smoke import fallback_buckets, wide_stream
 from test_torch_device_stats import read_walks as _walk
+from test_torch_gpu import spread_stream
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "htslib_tpu_torch", "csrc")
@@ -166,31 +168,87 @@ def test_carry_segment_state_equals_jax(decoded):
 
 
 _HARNESS = r"""
+#include <vector>
+
 #include "rans_nx16_o1_step.cuh"
 
-// One order-1 stream through the kernels' step code, the 32 lanes of a
-// warp run in order: the ballot is the mask of states that need a word,
-// and a state's word is cursor + popc(mask & lanes below it).
+// The kernels' tables of one stream, built by 32 lanes in turn: the dense
+// alphabet, the records and buckets and, with `maps` given, the slow
+// buckets' maps (numbered lane by lane, as the kernels' scan numbers
+// them).  Returns the alphabet's size; *n_slow gets the slow buckets.
+static int tables(const uint32_t* rows, const int32_t* cs,
+                  uint16_t* ctx_start, std::vector<uint32_t>* rec,
+                  std::vector<uint16_t>* bucket, uint8_t* ctx_of,
+                  std::vector<uint8_t>* maps, int64_t* n_slow) {
+  uint8_t present[256] = {0}, index_of[256];
+  for (int c = 0; c < 257; ++c) ctx_start[c] = (uint16_t)cs[c];
+  for (int lane = 0; lane < 32; ++lane)
+    rans_o1_mark(rows, ctx_start, present, lane, 32);
+  int n_ctx = 0;
+  for (int lane = 0; lane < 32; ++lane)
+    n_ctx = rans_o1_index(present, index_of, ctx_of, lane, 32);
+  rec->assign(ctx_start[256] + 1 + 2 * n_ctx, 0u);
+  bucket->assign(n_ctx * RANS_O1_BUCKETS, 0);
+  for (int lane = 0; lane < 32; ++lane)
+    rans_o1_build(rows, ctx_start, rec->data(), bucket->data(), lane, 32,
+                  n_ctx, ctx_of, index_of);
+  int first[33] = {0};
+  for (int lane = 0; lane < 32; ++lane)
+    first[lane + 1] =
+        first[lane] + rans_o1_count_slow(bucket->data(), n_ctx, lane, 32);
+  *n_slow = first[32];
+  if (maps) {
+    maps->assign(first[32] * RANS_O1_MAP_BYTES, 0);
+    for (int lane = 0; lane < 32; ++lane)
+      rans_o1_maps(rec->data(), bucket->data(), maps->data(), n_ctx,
+                   first[lane], lane, 32);
+  }
+  return n_ctx;
+}
+
+// One order-1 stream through the kernels' round, the 32 lanes of a warp run
+// in order: every lane picks, the lanes whose bucket is slow look their
+// slot up in its map, the live ones advance; the ballot is the mask of
+// states that need a word, and a state's word is cursor + popc(mask &
+// lanes below it).  Returns the cursor; *slow_rounds counts the rounds in
+// which some lane's bucket was slow (the kernels' vote), *n_ctx and
+// *n_slow the alphabet and the slow buckets.
 extern "C" int64_t decode_stream(const uint32_t* rows, const int32_t* cs,
                                  const uint32_t* x0, const uint16_t* words,
                                  int64_t n_words, int64_t ulen, uint8_t* out,
-                                 uint32_t* x_out, uint32_t* ctx_out) {
-  static uint8_t bucket[256 * RANS_O1_BUCKETS];
+                                 uint32_t* x_out, uint32_t* ctx_out,
+                                 int64_t* slow_rounds, int64_t* n_ctx,
+                                 int64_t* n_slow) {
   uint16_t ctx_start[257];
-  for (int c = 0; c < 257; ++c) ctx_start[c] = (uint16_t)cs[c];
-  for (int lane = 0; lane < RANS_NWAY; ++lane)
-    rans_o1_build_buckets(rows, ctx_start, bucket, lane, RANS_NWAY);
-  uint32_t x[RANS_NWAY], ctx[RANS_NWAY];
-  for (int j = 0; j < RANS_NWAY; ++j) x[j] = x0[j], ctx[j] = 0;
+  std::vector<uint32_t> rec;
+  std::vector<uint16_t> bucket;
+  std::vector<uint8_t> maps;
+  uint8_t ctx_of[256];
+  *n_ctx = tables(rows, cs, ctx_start, &rec, &bucket, ctx_of, &maps, n_slow);
+  uint32_t x[RANS_NWAY], ctx7[RANS_NWAY];
+  for (int j = 0; j < RANS_NWAY; ++j) x[j] = x0[j], ctx7[j] = 0;
   const int64_t seg = ulen / RANS_NWAY;
   const int64_t rounds = rans_o1_state_len(ulen, RANS_NWAY - 1, RANS_NWAY);
   int64_t cur = 0;
+  *slow_rounds = 0;
   for (int64_t r = 0; r < rounds; ++r) {
+    uint32_t e[RANS_NWAY];
+    bool any = false;
+    for (int j = 0; j < RANS_NWAY; ++j) {
+      bool slow;
+      uint32_t v;
+      e[j] = rans_o1_pick(rec.data(), bucket.data(), ctx7[j], x[j], &slow,
+                          &v);
+      if (slow) e[j] = rans_o1_mapped(rec.data(), maps.data(), v, x[j]);
+      any |= slow;
+    }
+    *slow_rounds += any;
     uint32_t mask = 0;
     for (int j = 0; j < RANS_NWAY; ++j) {
       if (r >= rans_o1_state_len(ulen, j, RANS_NWAY)) continue;
-      ctx[j] = rans_o1_decode(&x[j], ctx[j], rows, ctx_start, bucket);
-      out[j * seg + r] = (uint8_t)ctx[j];
+      x[j] = rans_o1_advance(x[j], e[j]);
+      ctx7[j] = rans_o1_ctx7(e[j]);
+      out[j * seg + r] = ctx_of[e[j] >> 24];
       if (rans_needs_refill(x[j])) mask |= 1u << j;
     }
     for (int j = 0; j < RANS_NWAY; ++j) {
@@ -202,8 +260,50 @@ extern "C" int64_t decode_stream(const uint32_t* rows, const int32_t* cs,
     }
     cur = rans_advance(cur, __builtin_popcount(mask), n_words);
   }
-  for (int j = 0; j < RANS_NWAY; ++j) x_out[j] = x[j], ctx_out[j] = ctx[j];
+  for (int j = 0; j < RANS_NWAY; ++j)
+    x_out[j] = x[j], ctx_out[j] = ctx_of[ctx7[j] >> 7];
   return cur;
+}
+
+// Over every context of the alphabet and every slot, lookups whose row
+// differs from a brute-force scan of the rows (the last row of the context
+// whose cum is <= the slot, so slots past the sum go to the last row; an
+// empty context: the row at its start, or the zero row past the last),
+// through the pick and, where its bucket is slow, the walk (use_maps 0,
+// as the 4x8 kernel) or the bucket's map (1, as the Nx16 kernels), and
+// buckets whose value is not a multiple of 4.  A record's dense index is
+// mapped back to its symbol.
+extern "C" int64_t lookup_mismatches(const uint32_t* rows, const int32_t* cs,
+                                     int use_maps) {
+  uint16_t ctx_start[257];
+  std::vector<uint32_t> rec;
+  std::vector<uint16_t> bucket;
+  std::vector<uint8_t> maps;
+  uint8_t ctx_of[256];
+  int64_t n_slow;
+  const int n_ctx = tables(rows, cs, ctx_start, &rec, &bucket, ctx_of,
+                           use_maps ? &maps : nullptr, &n_slow);
+  const int n = ctx_start[256];
+  int64_t bad = 0;
+  for (int k = 0; k < n_ctx; ++k) {
+    const int lo = ctx_start[ctx_of[k]], hi = ctx_start[ctx_of[k] + 1];
+    for (uint32_t m = 0; m < RANS_TOTFREQ; ++m) {
+      uint32_t want = lo < n ? rows[lo] : 0u;
+      for (int r = lo; r < hi; ++r)
+        if (rans_row_cum(rows[r]) <= m) want = rows[r];
+      bool slow;
+      uint32_t v;
+      uint32_t got = rans_o1_pick(rec.data(), bucket.data(), k << 7, m,
+                                  &slow, &v);
+      if (slow)
+        got = use_maps ? rans_o1_mapped(rec.data(), maps.data(), v, m)
+                       : rans_o1_walk(rec.data(), bucket.data(), k << 7, m);
+      // every bucket holds a multiple of 4: the pick's loads stay aligned
+      bad += (got & 0xFFFFFFu) != (want & 0xFFFFFFu) ||
+             ctx_of[got >> 24] != (want >> 24) || (v & 3u) != 0;
+    }
+  }
+  return bad;
 }
 """
 
@@ -222,17 +322,47 @@ def step_lib(tmp_path_factory):
     h = ctypes.CDLL(str(lib))
     h.decode_stream.restype = ctypes.c_int64
     h.decode_stream.argtypes = [ctypes.c_void_p] * 4 \
-        + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 3
+        + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 6
+    h.lookup_mismatches.restype = ctypes.c_int64
+    h.lookup_mismatches.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     return h
 
 
+# order-1 streams whose lookups meet slow buckets: one wide context (as
+# chip_smoke.py's whole-stream check), and slow buckets in every context
+STEP_EXTRA = {"wide": wide_stream(np.random.default_rng(33), 6000),
+              "spread": spread_stream(np.random.default_rng(40), 20000)}
+
+
+def _step_data(name):
+    if name == "ctx256":
+        return CTX256
+    return STEP_EXTRA[name] if name in STEP_EXTRA else CASES[name]
+
+
+def _slow_contexts(t):
+    """Contexts of stream 0 of tables t with a bucket in which two or more
+    rows start after its first slot."""
+    rows = t.rows.numpy().view(np.uint32)[:int(t.n_rows[0])]
+    cs = t.ctx_start.numpy()[0]
+    ctx = np.repeat(np.arange(256), np.diff(cs))
+    cum = (rows.astype(np.int64) >> 12) & 0xFFF
+    inside = cum % 64 != 0
+    k, cnt = np.unique(ctx[inside] * 64 + cum[inside] // 64,
+                       return_counts=True)
+    return set((k[cnt >= 2] // 64).tolist())
+
+
 @pytest.mark.parametrize("name", ["full_segment", "ulen_mod32", "ulen_lt32",
-                                  "constant", "ctx256", "uniform"])
+                                  "constant", "ctx256", "uniform", "wide",
+                                  "spread"])
 def test_step_header_on_cpu(step_lib, name):
     """The CUDA step code, compiled for the host with the ballot/popc
     refill run in order, decodes byte for byte and leaves the plain
-    version's final states, cursor and contexts."""
-    data = CTX256 if name == "ctx256" else CASES[name]
+    version's final states, cursor and contexts; its alphabet is the one
+    the wrapper sizes shared memory for, and the streams built to walk
+    do."""
+    data = _step_data(name)
     enc = compress(data, 0x05)
     b = to1.frame_o1_streams([to1._parse_o1_header(enc)], "cpu")
     rows = b.tables.rows.numpy().view(np.uint32).copy()
@@ -243,15 +373,87 @@ def test_step_header_on_cpu(step_lib, name):
     out = np.zeros(max(ulen, 1), np.uint8)
     x_out = np.zeros(32, np.uint32)
     ctx_out = np.zeros(32, np.uint32)
+    slow_rounds = np.zeros(1, np.int64)
+    n_ctx = np.zeros(1, np.int64)
+    n_slow = np.zeros(1, np.int64)
     cur = step_lib.decode_stream(rows.ctypes.data, cs.ctypes.data,
                                  x0.ctypes.data, words.ctypes.data,
                                  int(b.n_words[0]), ulen, out.ctypes.data,
-                                 x_out.ctypes.data, ctx_out.ctypes.data)
+                                 x_out.ctypes.data, ctx_out.ctypes.data,
+                                 slow_rounds.ctypes.data, n_ctx.ctypes.data,
+                                 n_slow.ctypes.data)
     assert out[:ulen].tobytes() == data == uncompress(enc)
     _, px, pcur, pctx = to1.rans_o1(b)
     assert np.array_equal(x_out, px.numpy()[0].view(np.uint32))
     assert np.array_equal(ctx_out, pctx.numpy()[0])
     assert cur == int(pcur[0])
+    sizes = to1.o1_table_sizes(b.tables)
+    assert (int(n_ctx[0]), int(n_slow[0])) == (int(sizes[0][0]),
+                                               int(sizes[1][0]))
+    if name in STEP_EXTRA:
+        assert slow_rounds[0] > 0
+    if name == "spread":
+        n_ctx_rows = int((np.diff(b.tables.ctx_start.numpy()[0]) > 0).sum())
+        assert len(_slow_contexts(b.tables)) == n_ctx_rows == 64
+
+
+@pytest.mark.parametrize("path", ["walk", "map"])
+@pytest.mark.parametrize("name", ["full_segment", "constant", "ctx256",
+                                  "uniform", "wide", "spread"])
+def test_o1_lookup_matches_brute_force(step_lib, name, path):
+    """Over every context of the stream's alphabet and every slot, the
+    pick (and, where the bucket is slow, the walk or the bucket's map)
+    finds the row a scan of the context's rows finds, unreachable slots
+    included."""
+    b = to1.frame_o1_streams(
+        [to1._parse_o1_header(compress(_step_data(name), 0x05))], "cpu")
+    rows = b.tables.rows.numpy().view(np.uint32).copy()
+    cs = b.tables.ctx_start.numpy()[0].copy()
+    assert step_lib.lookup_mismatches(rows.ctypes.data, cs.ctypes.data,
+                                      int(path == "map")) == 0
+
+
+def test_table_sizes_of_a_batch():
+    """The wrapper's sizes of each stream's table in a batch: the alphabet
+    (context 0, the contexts with rows and the rows' symbols) and the slow
+    buckets, with the streams' rows at offsets that are not back to back;
+    tables whose cums do not rise within a context are refused."""
+    datas = (CASES["constant"], CTX256, STEP_EXTRA["spread"], bytes([200]))
+    b = to1.frame_o1_streams(
+        [to1._parse_o1_header(compress(d, 0x05)) for d in datas], "cpu")
+    want = [len(set(np.frombuffer(d, np.uint8).tolist()) | {0})
+            for d in datas]
+    t = b.tables
+    gap = to1.O1Tables(torch.cat([t.rows, t.rows]), t.row_off + t.rows.numel(),
+                       t.n_rows, t.ctx_start)
+    for tab in (t, gap):
+        n_ctx, n_slow = to1.o1_table_sizes(tab)
+        assert n_ctx.tolist() == want
+        assert n_slow[2] >= 64 and n_slow[3] == 0
+    for i in range(4):
+        one = to1.frame_o1_streams(
+            [to1._parse_o1_header(compress(datas[i], 0x05))], "cpu").tables
+        assert int(n_slow[i]) == fallback_buckets(one)
+    rows = t.rows.clone()
+    lo = int(t.row_off[2]) + int(t.ctx_start[2, 1])   # context 1's rows
+    rows[lo + 1] = rows[lo]                            # a repeated cum
+    with pytest.raises(ValueError, match="cums do not rise"):
+        to1.o1_table_sizes(to1.O1Tables(rows, t.row_off, t.n_rows,
+                                        t.ctx_start))
+
+
+def test_replicate_copies_every_o1_stream():
+    """The batch sweep's replicated Nx16 order-1 batch decodes, copy by
+    copy, as the batch it was made from (plain version)."""
+    from htslib_tpu_torch.bench_rans import replicate
+    datas = [CASES["ulen_mod32"], CASES["sub_round"], CASES["constant"]]
+    b = to1.frame_o1_streams(
+        [to1._parse_o1_header(compress(d, 0x05)) for d in datas], "cpu")
+    copies = replicate(b, 3)
+    assert copies.n_streams == 9
+    assert to1.rans_o1(copies)[0].numpy().tobytes() == b"".join(datas) * 3
+    for g, w in zip(to1.rans_o1(copies, qbins=64), to1.rans_o1(b, qbins=64)):
+        assert torch.equal(g, w.repeat(3, *([1] * (w.dim() - 1))))
 
 
 def test_hist_plain_counts_decoded_symbols():
