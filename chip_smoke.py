@@ -18,6 +18,9 @@ PyTorch version on the card and times both.  Phases:
      on the host with the port's rans4x16.compress(d, 0x04):
      qualstats_device must equal numpy.bincount of the raw qualities, and
      decode_nx16_o0_batch must give 8 of the streams back byte for byte;
+     its wall time is printed in parts (the histogram call's framing and
+     transfer, its launch and download, the checks, the decode call) and,
+     after phase 6, less its kernels' times: its host side;
   4b. leg 3, the quality lane on the other rANS wires: 40 x 1 MiB Nx16
      order-1 (0x05) bounded random walks and 40 x 1 MiB rANS 4x8 streams
      (20 order 0, 20 order 1), encoded on the host with the port's codecs:
@@ -46,9 +49,10 @@ PyTorch version on the card and times both.  Phases:
      of B4 and B10 run all 32,768 steps.  B5, B6 and B8 order 1 are also
      held over a whole 64 KiB wide-alphabet stream whose lookups meet slow
      buckets.  Each chain-bound row gives ns_per_round (ms over its longest
-     chain), the B5-B8 rows the streams one SM holds (streams_per_sm), and
-     the B5/B6 rows their shared memory a block and the share of rounds in
-     which some state's lookup met a slow bucket (slow_share).
+     chain), the B2, B3 and B5-B8 rows the streams one SM holds
+     (streams_per_sm), and the B5/B6 rows their shared memory a block and
+     the share of rounds in which some state's lookup met a slow bucket
+     (slow_share).
      Outputs are bytes and integers, so the tolerance is zero: kernel and
      plain version must be equal.
 
@@ -277,14 +281,24 @@ def main_path(device, batch, raws, encs, leg3, tile_len=TILE_LEN,
     require(np.array_equal(cov.cpu().numpy(), cov_np), "leg 1 coverage")
     secs["leg1"] = time.time() - t0
 
+    # leg 2, its parts timed apart: the histogram call (its framing and
+    # transfer, then its launch and download, `decode_s`), the checks
+    # against the raw streams, and the decode call with its check
     t0 = time.time()
-    hist, _ = qualstats_device(encs, device=device)
+    hist, timing = qualstats_device(encs, device=device)
+    t1 = time.time()
     for i, raw in enumerate(raws):
         require(np.array_equal(hist[i], hist_of(raw, QBINS)),
                 f"leg 2 histogram of stream {i}")
+    t2 = time.time()
     out = decode_nx16_o0_batch(encs[:n_decode], device=device)
+    t3 = time.time()
     require(out == raws[:n_decode], "leg 2 decoded bytes")
     secs["leg2"] = time.time() - t0
+    leg2 = {"hist_call_s": t1 - t0, "hist_launch_download_s":
+            timing["decode_s"], "hist_framing_s": t1 - t0
+            - timing["decode_s"], "hist_checks_s": t2 - t1,
+            "decode_call_s": t3 - t2, "decode_check_s": time.time() - t3}
 
     t0 = time.time()
     for wire, run in (
@@ -325,7 +339,7 @@ def main_path(device, batch, raws, encs, leg3, tile_len=TILE_LEN,
     require(decode_nx16_o0_batch(out[:n_decode], device=device)
             == raws[:n_decode], "leg 4 round trip through B2")
     secs["leg4"] = time.time() - t0
-    notes = {"leg4_timing": enc_timing}
+    notes = {"leg4_timing": enc_timing, "leg2": leg2}
 
     t0 = time.time()
     fn, fargs, ref_chain = make_resolve_bench(G=CHAINS, rounds=CHAIN_ROUNDS,
@@ -381,6 +395,7 @@ def kernels_vs_plain(seq4_d, encs, launches):
     import torch
 
     from htslib_tpu_torch.ops.device_stats import QBINS
+    from htslib_tpu_torch.ops import rans_nx16
     from htslib_tpu_torch.ops.rans_nx16 import (frame_streams, rans_o0_cuda,
                                                 rans_o0_plain)
     from htslib_tpu_torch.ops.seqfmt import (nibble_to_base_cuda,
@@ -439,7 +454,10 @@ def kernels_vs_plain(seq4_d, encs, launches):
             "ms": cuda_ms(lambda: rans_o0_cuda(b, offs=offs, qbins=qb), 5),
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "streams": b.n_streams, "symbols": n_sym,
-            "chain_rounds": -(-int(b.ulen.max()) // 32), "match": True})
+            "chain_rounds": -(-int(b.ulen.max()) // 32),
+            # a checkout older than the kernels' blocks_per_sm gives None
+            "streams_per_sm": (rans_nx16.blocks_per_sm(qb) if hasattr(
+                rans_nx16, "blocks_per_sm") else None), "match": True})
     return rows
 
 
@@ -723,6 +741,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"main path ok: {secs}, launches {launches}", flush=True)
+    print(f"leg 2 wall: {secs['leg2']:.3f} s, parts {notes['leg2']}",
+          flush=True)
     print(f"leg 3 wall: {secs['leg3']:.3f} s", flush=True)
     print(f"leg 4 wall: {secs['leg4']:.3f} s, timing "
           f"{notes['leg4_timing']}", flush=True)
@@ -745,6 +765,12 @@ def main() -> int:
     for row in rows:
         if "chain_rounds" in row:
             row["ns_per_round"] = row["ms"] / row["chain_rounds"] * 1e6
+    # leg 2's host side: its wall time less its two kernels' times
+    kern_s = sum(r["ms"] for r in rows if r["name"] in (
+        "rans_nx16_o0_hist", "rans_nx16_o0_decode")) / 1e3
+    print(f"leg 2 host side: {secs['leg2'] - kern_s:.4f} s of "
+          f"{secs['leg2']:.4f} s (kernels B3 + B2 {kern_s * 1e3:.3f} ms)",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

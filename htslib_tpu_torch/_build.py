@@ -46,6 +46,7 @@ _SIGNATURES = {
     "rans_nx16_o0": {
         "rans_nx16_o0_launch": [ctypes.c_void_p] * 12
         + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "rans_nx16_o0_blocks_per_sm": [ctypes.c_int] * 2,
     },
     "rans_nx16_o1": {
         "rans_nx16_o1_launch": [ctypes.c_void_p] * 17

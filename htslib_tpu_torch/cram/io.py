@@ -1,10 +1,11 @@
 """CRAM container/block I/O (reference cram/cram_io.c).
 
 Host-side framing: file definition, container headers, blocks, and block
-decompression for the methods the port has codecs for (RAW, GZIP, BZIP2,
-LZMA, RANS, the rANS 4x8 coder, and RANSPR, the rANS Nx16 coder;
-cram_uncompress_block, cram_io.c:1576-1750).  Blocks under ARITH, FQZ or
-TOK3 raise NotImplementedError until their codecs are ported.
+decompression for every method of CRAM 3.1 (cram_uncompress_block,
+cram_io.c:1576-1750): RAW, GZIP, BZIP2, LZMA; RANS, the rANS 4x8 coder;
+RANSPR, the rANS Nx16 coder; ARITH, the adaptive arithmetic coder; FQZ,
+fqzcomp; TOK3, the name tokeniser.  The last five are the port's own
+pure-Python codecs.
 """
 from __future__ import annotations
 
@@ -18,9 +19,6 @@ from typing import List, Optional, Tuple
 from htslib_tpu_torch.cram.structs import (ARITH, BZIP2, FQZ, GZIP, LZMA,
                                            RANS, RANSPR, RAW, TOK3)
 from htslib_tpu_torch.cram.v4 import varint_vec
-
-_UNPORTED = {ARITH: "arithmetic coder", FQZ: "fqzcomp",
-             TOK3: "name tokeniser (tok3)"}
 
 
 @dataclass
@@ -54,13 +52,18 @@ class CramBlock:
         elif m == RANSPR:
             from htslib_tpu_torch.codecs import rans4x16
             out = rans4x16.uncompress(self.data)
-        elif m in _UNPORTED:
-            raise NotImplementedError(
-                f"CRAM block method {m}: the {_UNPORTED[m]} codec is not "
-                "ported yet")
+        elif m == ARITH:
+            from htslib_tpu_torch.codecs import arith
+            out = arith.uncompress(self.data)
+        elif m == FQZ:
+            from htslib_tpu_torch.codecs import fqzcomp
+            out = fqzcomp.decompress(self.data)
+        elif m == TOK3:
+            from htslib_tpu_torch.codecs import tok3
+            out = tok3.decode_names(self.data)
         else:
             raise IOError(f"unknown CRAM compression method {m}")
-        if len(out) != self.raw_size:
+        if m != TOK3 and len(out) != self.raw_size:
             raise IOError(f"CRAM block inflated to {len(out)}, expected "
                           f"{self.raw_size}")
         self._uncompressed = out

@@ -18,8 +18,7 @@ the host.
 (`qs_route`): STRIPE streams split into their plain sub-streams, PACK
 streams send their core to B3/B6 with 256 bins and remap the histogram on
 the host, and blocks the JAX package decodes on the host are decoded here
-with the port's own codecs (cram/io.py), which raise NotImplementedError
-for codecs not yet ported (ARITH, FQZ, TOK3).
+with the port's own codecs (cram/io.py), ARITH, FQZ and TOK3 included.
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ payload columns, 2048 rounds per call.  The port keeps the wire and the
 outputs, not that layout: a batch holds each stream's payload words back
 to back (`Nx16Batch`), its 256 frequencies and its 32 initial states, and
 one launch decodes every stream of the batch to its end
-(csrc/rans_nx16_o0.cu, one warp per stream).
+(csrc/rans_nx16_o0.cu, one warp per stream; `blocks_per_sm` gives the
+streams one SM holds).
 
 `rans_o0` launches the kernel for tensors on the card and takes the plain
 PyTorch version (`rans_o0_plain`, the same rounds as tensor ops over all
@@ -179,6 +180,16 @@ def refill16(x, need, cur, words, wo, nw):
     word = torch.where(inb, words[torch.where(inb, wo + idx, 0)], 0)
     x = torch.where(need, ((x << 16) | word) & _U32, x)
     return x, torch.minimum(cur + needi.sum(1, keepdim=True), nw)
+
+
+def blocks_per_sm(qbins: Optional[int] = None) -> int:
+    """Streams that one SM of the card decodes at once in kernel B2 (or,
+    with `qbins`, B3 at that many bins): the blocks its shared memory
+    holds."""
+    lib = _build.load("rans_nx16_o0")
+    n = lib.rans_nx16_o0_blocks_per_sm(int(qbins is not None), qbins or 0)
+    _build.check(lib, max(-n, 0), "rans_nx16_o0 occupancy")
+    return n
 
 
 def rans_o0_cuda(b: Nx16Batch, max_rounds: int = -1,

@@ -246,8 +246,11 @@ def test_committed_fixture(tmp_path):
 
 def test_cram_qual_hist_4x8_raises(tmp_path):
     """CRAM 3.0 QS blocks (rANS 4x8) no longer raise: they count on the
-    device lane (kernel B8), and the lane raises only where a host codec
-    is still unported (ARITH here)."""
+    device lane (kernel B8), and a QS block under ARITH, which the lane
+    leaves on the host, decodes with the port's codec to the JAX codec's
+    bytes (no host codec raises any more)."""
+    from htslib_tpu.codecs import arith as jarith
+    from htslib_tpu.cram.io import CramBlock
     path = str(tmp_path / "v30.cram")
     write_qual_cram(path, n=300, seqs_per_slice=200, version=(3, 0),
                     device_profile=False)
@@ -255,9 +258,11 @@ def test_cram_qual_hist_4x8_raises(tmp_path):
     got = tds.cram_qual_hist(path, device="cpu", stats=stats)
     assert np.array_equal(got, per_record_hist(path))
     assert stats["device_blocks"] > 0
-    blk = TBlock(ARITH, CT_EXT, tds.QS_CONTENT_ID, 4, 4, bytes(4))
-    with pytest.raises(NotImplementedError, match="arithmetic coder"):
-        blk.uncompress()
+    d = read_walks(np.random.default_rng(4), 3000)
+    comp = jarith.compress(d, 0)
+    args = (ARITH, CT_EXT, tds.QS_CONTENT_ID, len(comp), len(d), comp)
+    assert tds.qs_route(ARITH, comp) == (None, None)
+    assert TBlock(*args).uncompress() == CramBlock(*args).uncompress() == d
 
 
 def jax_route(method, raw):

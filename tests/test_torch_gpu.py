@@ -91,6 +91,118 @@ def test_rans_kernel_rejects_inconsistent_batch(card, field):
         tr.rans_o0(b)
 
 
+def _o0_edge_streams(rng):
+    """Streams of every length edge of the order-0 kernels' loop: one
+    symbol (twice: the test cuts the first to none), 31, 32, 33 (a lone
+    tail round), 32 * k + 17 (blocks of 32 rounds, then 17 single rounds
+    with the tail); a 64 KiB stream the payload ring wraps around many
+    times."""
+    lens = [1, 1, 31, 32, 33, 32 * 32 * 5 + 17, 32 * 7 + 17, 1 << 16]
+    return [rng.integers(20, 41, n, dtype=np.uint8).tobytes() for n in lens]
+
+
+@pytest.mark.parametrize("qbins", [None, 64, 256])
+def test_o0_kernels_match_plain_edge_lengths(card, qbins):
+    encs = [compress(d, 0x04) for d in _o0_edge_streams(
+        np.random.default_rng(21))]
+    b = tr.frame_streams(encs, card)
+    b.ulen[0] = 0   # a stream of no symbol: states and cursor stay
+    b.out_off = torch.cumsum(b.ulen.long(), 0) - b.ulen.long()
+    offs = torch.arange(b.n_streams, dtype=torch.int32, device=card)
+    got = tr.rans_o0(b, offs=offs, qbins=qbins)
+    want = tr.rans_o0_plain(b, offs=offs, qbins=qbins)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("rounds", [45, 64, 65, 0])
+def test_o0_kernels_stop_inside_and_on_block_edges(card, rounds):
+    """A max_rounds stop inside a block of 32 rounds (45), on its edge
+    (64), one past it (65) or before any round leaves the plain
+    version's states, cursors and symbols (zero past the stop) in B2,
+    and its states, cursors and counts in B3."""
+    encs = [compress(d, 0x04) for d in _streams()]
+    b = tr.frame_streams(encs, card)
+    for qbins in (None, 64):
+        got = tr.rans_o0(b, max_rounds=rounds, qbins=qbins)
+        want = tr.rans_o0_plain(b, max_rounds=rounds, qbins=qbins)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("qbins,off", [(64, 0), (256, 0), (64, 9),
+                                       (256, 40)])
+def test_o0_hist_constant_runs(card, qbins, off):
+    """Every lane in one bin for thousands of rounds (constant runs, a
+    one-symbol stream, walks clipped at 0 and 44), with and without an
+    offset: B3's counts equal the plain version's."""
+    rng = np.random.default_rng(22)
+    walk = np.clip(np.cumsum(rng.integers(-2, 3, 200000)) + 20, 0, 44)
+    datas = [walk.astype(np.uint8).tobytes(), bytes([44]) * 70000,
+             bytes(50000) + bytes([7]) * 30001]
+    b = tr.frame_streams([compress(d, 0x04) for d in datas], card)
+    offs = torch.full((b.n_streams,), off, dtype=torch.int32, device=card)
+    got = tr.rans_o0(b, offs=offs, qbins=qbins)
+    want = tr.rans_o0_plain(b, offs=offs, qbins=qbins)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("qbins", [None, 64])
+def test_o0_kernels_match_plain_many_streams(card, qbins):
+    """B2/B3 over a batch of twice the streams the card holds at once
+    (blocks_per_sm): every SM full, then a second wave.  The copies are
+    the base batch's streams, so the plain version runs on the base batch
+    and is repeated."""
+    from htslib_tpu_torch.bench_rans import replicate
+    rng = np.random.default_rng(23)
+    base = tr.frame_streams([compress(rng.integers(
+        20, 41, 3000 + 7 * i, dtype=np.uint8).tobytes(), 0x04)
+        for i in range(4)], card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    k = -(-2 * sms * tr.blocks_per_sm(qbins) // 4)
+    b = replicate(base, k)
+    offs = torch.zeros(b.n_streams, dtype=torch.int32, device=card)
+    got = tr.rans_o0(b, offs=offs, qbins=qbins)
+    want = tr.rans_o0_plain(base, offs=offs[:4], qbins=qbins)
+    assert torch.equal(got[0], want[0].repeat(k) if qbins is None
+                       else want[0].repeat(k, 1))
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w.repeat(k, *([1] * (w.dim() - 1))))
+
+
+def test_o0_streams_per_sm(card):
+    """A leg-2 batch (64 bins) runs 8 or more B2 and B3 streams on an SM,
+    so 1,056 streams fit the 132 SMs in one wave."""
+    assert tr.blocks_per_sm(None) >= 8
+    assert tr.blocks_per_sm(64) >= 8
+    assert tr.blocks_per_sm(256) >= 1
+
+
+def test_o0_kernels_clamp_a_frame_that_refills_every_round(card):
+    """A frame whose states and words are all 0 refills every state in
+    every round (32 words a round, faster than the ring is staged ahead)
+    until the cursor clamps at the payload's end; the stream starts off a
+    4-byte boundary."""
+    n_words, ulen = 5001, 32 * 32 * 7 + 9
+    f = np.random.default_rng(24).multinomial(
+        4096 - 256, np.ones(256) / 256).astype(np.int32) + 1
+    payload = torch.zeros(2 * n_words + 2, dtype=torch.uint8, device=card)
+    b = tr.Nx16Batch(
+        payload, torch.ones(1, dtype=torch.int64, device=card),
+        torch.tensor([n_words], dtype=torch.int32, device=card),
+        torch.from_numpy(f[None].copy()).to(card),
+        torch.zeros((1, 32), dtype=torch.int32, device=card),
+        torch.tensor([ulen], dtype=torch.int32, device=card),
+        torch.zeros(1, dtype=torch.int64, device=card))
+    for qbins in (None, 64):
+        got = tr.rans_o0(b, qbins=qbins)
+        want = tr.rans_o0_plain(b, qbins=qbins)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert int(got[2][0]) == n_words
+
+
 def test_decode_and_hist_match_host_truth(card):
     datas = _streams()
     encs = [compress(d, 0x04) for d in datas]
