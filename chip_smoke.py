@@ -34,7 +34,10 @@ PyTorch version on the card and times both.  Phases:
   5b. leg 4, the encode lane: encode_nx16_o0_batch on the card over leg
      2's 40 raw 1 MiB streams must give leg 2's host encodings byte for
      byte, and 8 of the device-encoded streams must decode (B2) back to
-     their raw bytes;
+     their raw bytes; after the main path its host side is printed in
+     parts (a second pass through the entry point's steps, each ended by a
+     synchronise: the framing, the wrapper's checks, the launch and
+     kernel, the payload gather and download, the headers);
   5c. leg 5, the resolve chains: make_resolve_bench (G=128 chains, 32,768
      steps, the JAX package's bench shape) and make_huffman_resolve_bench
      (L=128 chains, the same depth) must equal their numpy chains; their
@@ -48,11 +51,14 @@ PyTorch version on the card and times both.  Phases:
      symbols or counts), and over whole streams on a 64 KiB batch; those
      of B4 and B10 run all 32,768 steps.  B5, B6 and B8 order 1 are also
      held over a whole 64 KiB wide-alphabet stream whose lookups meet slow
-     buckets.  Each chain-bound row gives ns_per_round (ms over its longest
-     chain), the B2, B3 and B5-B8 rows the streams one SM holds
-     (streams_per_sm), and the B5/B6 rows their shared memory a block and
-     the share of rounds in which some state's lookup met a slow bucket
-     (slow_share).
+     buckets.  B9 is also held, whole and against the host codec, on its
+     edge streams (lengths 1, 31, 32, 33 and about its 32-round window,
+     one-symbol streams, f = 1 symbols).  Each chain-bound row gives
+     ns_per_round (ms over its longest chain), the B2, B3 and B5-B9 rows
+     the streams one SM holds (streams_per_sm; B10 chains_per_sm), and the
+     B5, B6, B9 and B10 rows their shared memory a block (smem_bytes); the
+     B5/B6 rows the share of rounds in which some state's lookup met a slow
+     bucket (slow_share).
      Outputs are bytes and integers, so the tolerance is zero: kernel and
      plain version must be equal.
 
@@ -194,6 +200,20 @@ def wide_stream(rng, size: int) -> bytes:
     d = np.zeros(size, np.uint8)
     d[1::2] = rng.integers(0, 256, size // 2)
     return d.tobytes()
+
+
+def enc_edge_streams(seed: int = 31):
+    """B9's edge cases: lengths 1, 31, 32 and 33 (the all-live rounds and
+    the last round's predicate), one-symbol streams (f = 4096, whose
+    threshold f << 19 is 2^31), a stream whose rare symbols have f = 1
+    (the reciprocal's bias case), and lengths about the kernel's 32-round
+    window (1,023, 1,024, 2,049 and 3,000 symbols)."""
+    rng = np.random.default_rng(seed)
+    rare = np.full(20000, 40, np.uint8)
+    rare[rng.choice(20000, 30, replace=False)] = np.arange(30, dtype=np.uint8)
+    return [rng.integers(0, 40, n, dtype=np.uint8).tobytes()
+            for n in (1, 31, 32, 33, 1023, 1024, 2049, 3000)] + [
+        bytes([7]) * 5000, bytes([200]) * 33, rare.tobytes()]
 
 
 def fallback_buckets(tables) -> int:
@@ -616,7 +636,9 @@ def new_kernels_vs_plain(device, raws, leg3, launches):
     from htslib_tpu_torch.ops.huffman import (huffman_resolve_cuda,
                                               huffman_resolve_plain,
                                               make_huffman_resolve_bench)
-    from htslib_tpu_torch.ops.rans_enc import (frame_enc, rans_enc_cuda,
+    from htslib_tpu_torch.ops import huffman, rans_enc
+    from htslib_tpu_torch.ops.rans_enc import (encode_nx16_o0_batch,
+                                               frame_enc, rans_enc_cuda,
                                                rans_enc_plain)
     from htslib_tpu_torch.ops.rans_nx16 import (make_resolve_bench,
                                                 rans_resolve_cuda,
@@ -642,11 +664,27 @@ def new_kernels_vs_plain(device, raws, leg3, launches):
                           ("words", "states", "counts")):
         require(torch.equal(g, r), "rans_nx16_o0_encode kernel != plain "
                 f"on whole 64 KiB streams ({what})")
+    edge_raw = enc_edge_streams()
+    edge = frame_enc(edge_raw, device)
+    for g, r, what in zip(rans_enc_cuda(edge), rans_enc_plain(edge),
+                          ("words", "states", "counts")):
+        require(torch.equal(g, r), "rans_nx16_o0_encode kernel != plain "
+                f"on the edge streams ({what})")
+    require(encode_nx16_o0_batch(edge_raw, device=device)
+            == [_encode(d) for d in edge_raw],
+            "rans_nx16_o0_encode edge streams != host codec")
+    f = edge.freqs
+    edge_note = {"lengths": [len(d) for d in edge_raw],
+                 "f1_symbols": int((f == 1).sum()),
+                 "one_symbol_streams": int((f == 4096).sum()),
+                 "match": True}
     full = rans_enc_cuda(b)
     n_sym = sum(len(r) for r in raws)
     # bytes: the symbols in, the emitted words and final states out; per
     # symbol: table load, compare, select, shift, divide, remainder,
-    # shift, two adds, ballot, popcount and store (12 operations)
+    # shift, two adds, ballot, popcount and store (12 operations: the
+    # step's work, counted as the division form does it whatever the
+    # kernel does it with)
     b_ms, b_by = bound_ms(n_sym + 2 * int(full[2].long().sum())
                           + 4 * full[1].numel(), 12 * n_sym)
     rows.append({
@@ -660,7 +698,11 @@ def new_kernels_vs_plain(device, raws, leg3, launches):
                                       3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "streams": b.n_streams, "symbols": n_sym,
-        "chain_rounds": -(-max(len(r) for r in raws) // 32), "match": True})
+        "chain_rounds": -(-max(len(r) for r in raws) // 32),
+        # a checkout older than these exports gives None
+        "smem_bytes": _export(rans_enc, "smem_bytes"),
+        "streams_per_sm": _export(rans_enc, "blocks_per_sm"),
+        "edge_streams": edge_note, "match": True})
 
     # (launch key, bench, kernel, plain, source, TPU kernel, operations
     #  per step: B4 mask, table load, two field extracts, shift,
@@ -697,7 +739,64 @@ def new_kernels_vs_plain(device, raws, leg3, launches):
             "chain_rounds": CHAIN_ROUNDS,
             "lookups_per_s": CHAINS * CHAIN_ROUNDS / (ms / 1e3),
             "match": True})
+    rows[-1].update({
+        "smem_bytes": _export(huffman, "smem_bytes"),
+        "chains_per_sm": _export(huffman, "chains_per_sm"),
+        "bound_note": "47 operations a step: the canonical resolve's work, "
+                      "counted so whatever implements it"})
     return rows
+
+
+def _export(module, fn: str):
+    """module.fn(), or None where the checkout's module lacks it."""
+    f = getattr(module, fn, None)
+    return f() if f else None
+
+
+def leg4_parts(raws, encs, device):
+    """Leg 4's host side in parts: encode_nx16_o0_batch's steps run one by
+    one over leg 2's raw streams, each ended by a synchronise (a second
+    pass, after the main path's): the framing (bincounts, _norm_freqs and
+    the upload), the wrapper's checks and allocation, the launch and
+    kernel, payload_tails' gather and download, and the headers.  Returns
+    seconds by part; the output must be leg 2's host encodings."""
+    import torch
+
+    from htslib_tpu_torch import _build
+    from htslib_tpu_torch.codecs.rans4x16 import _write_freq_table, u7_put
+    from htslib_tpu_torch.ops import rans_enc as te
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    b = te.frame_enc(raws, device)
+    sync()
+    t1 = time.perf_counter()
+    words, x_f, n_emit = te.rans_enc_cuda(b)
+    sync()
+    t2 = time.perf_counter()
+    lib = _build.load("rans_nx16_enc")
+    rc = lib.rans_nx16_enc_launch(
+        b.syms.data_ptr(), b.off.data_ptr(), b.ulen.data_ptr(),
+        b.freqs.data_ptr(), b.cum.data_ptr(), words.data_ptr(),
+        x_f.data_ptr(), n_emit.data_ptr(), b.n_streams, -1,
+        _build.stream_handle(b.syms))
+    _build.check(lib, rc, "rans_nx16_o0_encode")
+    sync()
+    t3 = time.perf_counter()
+    bodies = te.payload_tails(b, words, n_emit)
+    t4 = time.perf_counter()
+    x_fin = x_f.cpu().numpy().view(np.uint32).astype("<u4")
+    freqs = b.freqs.cpu().numpy()
+    out = []
+    for i, d in enumerate(raws):
+        head = bytearray([0x04])
+        u7_put(head, len(d))
+        _write_freq_table(head, freqs[i])
+        out.append(bytes(head) + x_fin[i].tobytes() + bodies[i])
+    t5 = time.perf_counter()
+    require(out == encs, "leg 4 parts: encodings != host codec")
+    return {"frame_s": t1 - t0, "checks_alloc_s": (t2 - t1) - (t3 - t2),
+            "launch_kernel_s": t3 - t2, "tails_s": t4 - t3,
+            "headers_s": t5 - t4, "total_s": t5 - t0}
 
 
 def main() -> int:
@@ -751,6 +850,8 @@ def main() -> int:
           f"{notes['huffman_resolve_lookups_per_s']:.6g}", flush=True)
     for k, v in launches.items():
         require(v >= 1, f"kernel {k} not launched on the main path")
+    print(f"leg 4 host side in parts: {leg4_parts(raws, encs, 'cuda')}",
+          flush=True)
 
     t0 = time.time()
     rows = kernels_vs_plain(args[1], encs, launches)

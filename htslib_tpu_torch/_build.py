@@ -62,6 +62,8 @@ _SIGNATURES = {
     "rans_nx16_enc": {
         "rans_nx16_enc_launch": [ctypes.c_void_p] * 8
         + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "rans_nx16_enc_smem_bytes": [],
+        "rans_nx16_enc_blocks_per_sm": [],
     },
     "rans_resolve_bench": {
         "rans_resolve_bench_launch": [ctypes.c_void_p] * 3
@@ -70,6 +72,8 @@ _SIGNATURES = {
     "huffman_resolve": {
         "huffman_resolve_launch": [ctypes.c_void_p] * 6
         + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+        "huffman_resolve_smem_bytes": [],
+        "huffman_resolve_chains_per_sm": [],
     },
 }
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Batch-size sweep of the chain-bound rANS decode kernels on one card:
-Nx16 order 0 (B2, B3), Nx16 order 1 (B5, B6) and 4x8 (B7, and B8 of both
-orders).
+"""Batch-size sweep of the chain-bound kernels on one card: the rANS
+decodes, Nx16 order 0 (B2, B3), Nx16 order 1 (B5, B6) and 4x8 (B7, and B8
+of both orders), the Nx16 order-0 encode (B9) and the Huffman resolve
+chain (B10).
 
     python3 -m htslib_tpu_torch.bench_rans [--label NAME] [--out FILE]
         [--kernels KEY,...] [--sizes S,...] [--iters N]
@@ -22,6 +23,11 @@ host-clock time of one synchronised call of the wrapper (its checks and
 sizing, the launch and the kernel: wall_ms; first_wall_ms for the checked
 first call, the process's first use of the kernel at the first size)
 and, where the checkout's kernel reports it, the streams one SM holds.
+B9 encodes the raw `uniform` and `walk` streams, each batch checked
+against the host codec's final states and words (ns a round over 32,768
+rounds, encoded MB/s); B10 runs the device bench's chains
+(`make_huffman_resolve_bench`, 32,768 steps) at 128 to 1,056 chains,
+each checked against a numpy chain (ns a step, lookups/s, chains an SM).
 """
 from __future__ import annotations
 
@@ -41,6 +47,9 @@ STREAM_BYTES = 1 << 20
 N_BASE = 4
 QBINS = 64
 SIZES = (4, 8, 20, 132, 264, 528, 1056)
+HUFF_SIZES = (128, 264, 528, 1056)   # B10 chains
+CHAIN_ROUNDS = 32768                 # B10 steps (the device bench's depth)
+ENC_KIND = ("uniform", "walk")       # B9's streams
 # (launch key, wire, kind of stream, qbins, rounds of one stream)
 KERNELS = (("rans_nx16_o0_decode", "nx16_o0", "uniform", None,
             STREAM_BYTES // 32),
@@ -122,6 +131,67 @@ def replicate(b, k: int):
         **common)
 
 
+def replicate_enc(b, k: int):
+    """EncBatch b repeated k times on its device, every copy with its own
+    symbols, region and tables."""
+    import torch
+
+    from htslib_tpu_torch.ops.rans_enc import EncBatch
+    total = b.syms.numel() - 1   # the spare byte
+    rep = torch.arange(k, device=b.syms.device)[:, None]
+    return EncBatch(
+        torch.cat([b.syms[:total].repeat(k), b.syms[total:]]),
+        (b.off[None, :] + total * rep).reshape(-1), b.ulen.repeat(k),
+        b.freqs.repeat(k, 1), b.cum.repeat(k, 1))
+
+
+def enc_truth(data: bytes, freqs: np.ndarray) -> bytes:
+    """The host codec's Nx16 order-0 32-way encode of data with the
+    frequencies freqs [256]: its 32 final states (128 bytes), then its
+    payload."""
+    from htslib_tpu_torch.codecs.rans4x16 import _enc_core
+    f = freqs.astype(np.int64)
+    return _enc_core(np.frombuffer(data, np.uint8), f, np.cumsum(f) - f, 32)
+
+
+def enc_want(b, cores):
+    """Kernel B9's outputs for EncBatch b, from the host codec's encodings
+    of its streams (enc_truth): (words int16, final states int32 [S, 32],
+    words emitted int32 [S]) on b's device."""
+    import torch
+    dev = b.syms.device
+    x = torch.from_numpy(np.stack([np.frombuffer(c[:128], "<u4").view(
+        np.int32) for c in cores])).to(dev)
+    words = torch.zeros(b.syms.numel(), dtype=torch.int16, device=dev)
+    ends = (b.off + b.ulen.long()).tolist()
+    n_emit = []
+    for end, c in zip(ends, cores):
+        body = np.frombuffer(c[128:], "<u2").view(np.int16)
+        words[end - body.size:end] = torch.from_numpy(body.copy()).to(dev)
+        n_emit.append(body.size)
+    return words, x, torch.tensor(n_emit, dtype=torch.int32, device=dev)
+
+
+def huff_truth(args, rounds: int) -> np.ndarray:
+    """The Huffman resolve chain in numpy: `rounds` canonical resolves of
+    every chain of the bench's tables args (limits, firsts, bases, order,
+    v0); the last windows int32 [L]."""
+    from htslib_tpu_torch.ops.huffman import MAXBITS, NSYM_PAD, next_window
+    lim, first, base, order, v = [a.cpu().numpy().astype(np.int64)
+                                  for a in args]
+    cols = np.arange(v.size)
+    bmf = base - first
+    for _ in range(rounds):
+        lstar = 1 + (v[None, :] >= lim).sum(0)
+        code = np.where(lstar <= MAXBITS,
+                        v >> np.clip(MAXBITS - lstar, 0, None), 0)
+        idx = bmf[lstar - 1, cols] + code
+        inside = (idx >= 0) & (idx < NSYM_PAD)
+        sym = np.where(inside, order[np.where(inside, idx, 0), cols], 0)
+        v = next_window(v, sym & 0xFFFFFFFF) & 0xFFFFFFFF
+    return v.astype(np.int32)
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of fn over `iters` calls, from CUDA events."""
     import torch
@@ -172,14 +242,86 @@ def _kernel(key: str, wire: str, dev):
             per_sm and (lambda b: per_sm(hist, o1)))
 
 
+def sweep_enc(raws, sizes, args, dev, card, sms):
+    """B9 through its wrapper at each batch size, on each ENC_KIND."""
+    import torch
+
+    from htslib_tpu_torch.ops import rans_enc as te
+    per_sm = getattr(te, "blocks_per_sm", None)
+    bases = {kind: te.frame_enc(raws[kind], dev) for kind in ENC_KIND}
+    jobs = [(d, bases[kind].freqs[i].cpu().numpy()) for kind in ENC_KIND
+            for i, d in enumerate(raws[kind])]
+    with ProcessPoolExecutor(max_workers=min(8, len(jobs)),
+                             mp_context=multiprocessing.get_context("spawn")
+                             ) as pool:
+        cores = list(pool.map(enc_truth, *zip(*jobs)))
+    lines = []
+    for ki, kind in enumerate(ENC_KIND):
+        want = enc_want(bases[kind], cores[ki * N_BASE:(ki + 1) * N_BASE])
+        for n_streams in sizes:
+            k = n_streams // N_BASE
+            b = replicate_enc(bases[kind], k)
+            first_ms, got = wall_ms(lambda: te.rans_enc_cuda(b))
+            if not (torch.equal(got[0][:-1], want[0][:-1].repeat(k))
+                    and torch.equal(got[1], want[1].repeat(k, 1))
+                    and torch.equal(got[2], want[2].repeat(k))):
+                raise RuntimeError(f"rans_nx16_o0_encode on {kind} at "
+                                   f"{n_streams} streams: != host codec")
+            ms = cuda_ms(lambda: te.rans_enc_cuda(b), args.iters)
+            line = {"label": args.label, "kernel": "rans_nx16_o0_encode",
+                    "kind": kind, "streams": b.n_streams, "ms": ms,
+                    "ns_per_round": ms / (STREAM_BYTES // 32) * 1e6,
+                    "MBps": (b.syms.numel() - 1) / ms / 1e3,
+                    "wall_ms": wall_ms(lambda: te.rans_enc_cuda(b))[0],
+                    "first_wall_ms": first_ms,
+                    "streams_per_sm": per_sm() if per_sm else None,
+                    "sms": sms, "card": card}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            del b, got
+    return lines
+
+
+def sweep_huff(args, dev, card, sms):
+    """B10 through its wrapper at each of HUFF_SIZES chains."""
+    import torch
+
+    from htslib_tpu_torch.ops import huffman as th
+    per_sm = getattr(th, "chains_per_sm", None)
+    lines = []
+    for L in HUFF_SIZES:
+        targs = th.make_huffman_resolve_bench(L=L, rounds=CHAIN_ROUNDS,
+                                              device=dev)[1]
+        first_ms, got = wall_ms(lambda: th.huffman_resolve_cuda(
+            *targs, CHAIN_ROUNDS))
+        if not np.array_equal(got.cpu().numpy(),
+                              huff_truth(targs, CHAIN_ROUNDS)):
+            raise RuntimeError(f"huffman_resolve_bench at L={L}: != numpy")
+        ms = cuda_ms(lambda: th.huffman_resolve_cuda(*targs, CHAIN_ROUNDS),
+                     args.iters)
+        line = {"label": args.label, "kernel": "huffman_resolve_bench",
+                "chains": L, "ms": ms,
+                "ns_per_step": ms / CHAIN_ROUNDS * 1e6,
+                "lookups_per_s": L * CHAIN_ROUNDS / (ms / 1e3),
+                "wall_ms": wall_ms(lambda: th.huffman_resolve_cuda(
+                    *targs, CHAIN_ROUNDS))[0], "first_wall_ms": first_ms,
+                "chains_per_sm": per_sm() if per_sm else None,
+                "sms": sms, "card": card}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        del got
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", default=None)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)))
-    ap.add_argument("--kernels",
-                    default=",".join(dict.fromkeys(k[0] for k in KERNELS)))
+    ap.add_argument("--kernels", default=",".join(
+        list(dict.fromkeys(k[0] for k in KERNELS))
+        + ["rans_nx16_o0_encode", "huffman_resolve_bench"]))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -199,10 +341,12 @@ def main() -> int:
     pairs = sorted({(k[1], k[2]) for k in kernels})
     raws = base_streams()
     jobs = [(d, w) for w, kind in pairs for d in raws[kind]]
-    with ProcessPoolExecutor(max_workers=min(8, len(jobs)),
-                             mp_context=multiprocessing.get_context("spawn")
-                             ) as pool:
-        encs = list(pool.map(_encode, *zip(*jobs)))
+    encs = []
+    if jobs:
+        with ProcessPoolExecutor(
+                max_workers=min(8, len(jobs)),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            encs = list(pool.map(_encode, *zip(*jobs)))
     encs = {p: encs[i * N_BASE:(i + 1) * N_BASE] for i, p in enumerate(pairs)}
     truth = {o: torch.from_numpy(np.frombuffer(b"".join(raws[o]), np.uint8)
                                  .reshape(N_BASE, -1).copy()).to(dev)
@@ -237,6 +381,10 @@ def main() -> int:
             print(json.dumps(line), flush=True)
             lines.append(line)
             del b, got
+    if "rans_nx16_o0_encode" in keys:
+        lines += sweep_enc(raws, sizes, args, dev, card, sms)
+    if "huffman_resolve_bench" in keys:
+        lines += sweep_huff(args, dev, card, sms)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "a") as fp:

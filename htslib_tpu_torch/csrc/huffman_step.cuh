@@ -40,7 +40,66 @@ HUFF_HD uint32_t huff_resolve(uint32_t v, const int32_t* limits,
                                          : 0u;
 }
 
+// The same resolve, lean: the 16 limits held by the caller (registers on
+// the card), their compares summed as a tree, and one word a length,
+// bmf[r * stride] = bases[r] - firsts[r] (mod 2^32), in place of two.
+HUFF_HD uint32_t huff_resolve_lean(uint32_t v, const int32_t* lim,
+                                   const int32_t* bmf, const int32_t* order,
+                                   int stride) {
+  int c[HUFF_ROWS];
+  for (int r = 0; r < HUFF_ROWS; ++r) c[r] = (int32_t)v >= lim[r];
+  for (int w = 1; w < HUFF_ROWS; w *= 2)
+    for (int r = 0; r < HUFF_ROWS; r += 2 * w) c[r] += c[r + w];
+  const int l = 1 + c[0];
+  const uint32_t code = l <= HUFF_MAXBITS ? v >> (HUFF_MAXBITS - l) : 0u;
+  const uint32_t idx = (uint32_t)bmf[(l - 1) * stride] + code;
+  return idx < HUFF_NSYM_PAD ? (uint32_t)order[idx * stride] : 0u;
+}
+
+// The prefix table: entry p stands for the 2^(15 - kbits) windows whose
+// top kbits bits are p.  It holds their symbol where the resolve gives
+// one symbol for all of them, and `sent` where it does not (a length
+// limit falls inside the range, or the code length exceeds kbits) or
+// where the symbol is `sent` itself or does not fit the entry; a step
+// that reads `sent` resolves its window with huff_resolve_lean, so the
+// table gives the canonical resolve of every window by construction.
+// With kbits = 15 it is the whole window table.
+HUFF_HD uint32_t huff_prefix_entry(uint32_t p, int kbits,
+                                   const int32_t* limits,
+                                   const int32_t* firsts,
+                                   const int32_t* bases,
+                                   const int32_t* order, int stride,
+                                   uint32_t sent) {
+  const int32_t lo = (int32_t)(p << (HUFF_MAXBITS - kbits));
+  const int32_t hi = lo + (1 << (HUFF_MAXBITS - kbits)) - 1;
+  int l = 1;
+  bool split = false;
+  for (int r = 0; r < HUFF_ROWS; ++r) {
+    const int32_t lim = limits[r * stride];
+    l += lo >= lim;
+    split |= lo < lim && lim <= hi;
+  }
+  if (split || (l > kbits && l <= HUFF_MAXBITS)) return sent;
+  const uint32_t sym =
+      huff_resolve((uint32_t)lo, limits, firsts, bases, order, stride);
+  return sym < sent ? sym : sent;
+}
+
+// The byte offset of the prefix-table entry of window v = (x >> 7) &
+// 0x7fff, taken from the unmasked mix x (huff_mix) with one shift and one
+// mask: (v >> (15 - kbits)) << row_shift, where 2^row_shift bytes part a
+// chain's consecutive entries (kbits + row_shift <= 22).
+HUFF_HD uint32_t huff_prefix_offset(uint32_t x, int kbits, int row_shift) {
+  return (x >> (22 - kbits - row_shift)) &
+         (((1u << kbits) - 1u) << row_shift);
+}
+
+// The mix of window v and its symbol, before its shift and mask.
+HUFF_HD uint32_t huff_mix(uint32_t v, uint32_t sym) {
+  return v * 5u + sym * 40503u;
+}
+
 // The chain's next window: the symbol mixed back into the window.
 HUFF_HD uint32_t huff_next(uint32_t v, uint32_t sym) {
-  return ((v * 5u + sym * 40503u) >> 7) & ((1u << HUFF_MAXBITS) - 1u);
+  return (huff_mix(v, sym) >> 7) & ((1u << HUFF_MAXBITS) - 1u);
 }

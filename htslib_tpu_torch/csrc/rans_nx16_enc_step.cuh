@@ -14,6 +14,14 @@
 // round the states go r0, r0 - 1, ..., 0, 31, ..., r0 + 1 with
 // r0 = (n - 1) % 32, and states above r0 hold one symbol fewer when
 // n % 32 != 0.
+//
+// The step divides by a reciprocal (RansEncSym, htscodecs' RansEncSymbol
+// and the JAX kernel's _enc_tables): with s = ceil(log2 f), rcp =
+// ceil(2^(s+31) / f) and q = mulhi32(x, rcp) >> (s - 1), q = x / f for
+// every x < 2^31, and the new state is x + cum + q * (4096 - f).  For
+// f = 1, rcp = 2^32 - 1 and shift 0 give q = x - 1 (x >= 1), which the
+// bias cum + 4095 makes up for.  The division form (rans_enc_put_div) is
+// kept beside it as the yardstick of the CPU harness.
 #pragma once
 
 #include <stdint.h>
@@ -26,34 +34,94 @@
 
 #define RANS_ENC_L (1u << 15)
 #define RANS_ENC_TF_SHIFT 12
+#define RANS_ENC_TOTFREQ (1u << RANS_ENC_TF_SHIFT)
 #define RANS_ENC_NWAY 32
 
-// A symbol's frequency f (1..4096) and cumulative frequency (0..4095)
-// packed in one word, so a step needs one table load.
-RANS_ENC_HD uint32_t rans_enc_pack(uint32_t f, uint32_t cum) {
-  return f | (cum << 16);
+// One symbol's encode entry, read by one 16-byte shared load.  cs holds
+// the shift in bits 0-4 (read through a funnel shift, which masks the
+// amount to 5 bits, so it needs no extract) and 4096 - f from bit 16.
+struct alignas(16) RansEncSym {
+  uint32_t rcp;    // ceil(2^(s+31) / f); 2^32 - 1 for f = 1
+  uint32_t x_max;  // f << 19: a state at or above it emits first
+  uint32_t bias;   // cum, or cum + 4095 for f = 1
+  uint32_t cs;     // s - 1 (0 for f = 1) | (4096 - f) << 16
+};
+
+// The entry of a symbol of frequency f (0..4096; 0 for a symbol the
+// stream lacks, whose entry is never read) and cumulative frequency cum.
+RANS_ENC_HD RansEncSym rans_enc_sym(uint32_t f, uint32_t cum) {
+  RansEncSym e;
+  e.x_max = f << 19;
+  if (f < 2) {
+    e.rcp = 0xFFFFFFFFu;
+    e.bias = cum + RANS_ENC_TOTFREQ - 1;
+    e.cs = (RANS_ENC_TOTFREQ - f) << 16;
+  } else {
+    uint32_t s = 0;
+    while (f > (1u << s)) ++s;
+    e.rcp = (uint32_t)(((1ull << (s + 31)) + f - 1) / f);
+    e.bias = cum;
+    e.cs = (s - 1) | (RANS_ENC_TOTFREQ - f) << 16;
+  }
+  return e;
+}
+
+RANS_ENC_HD uint32_t rans_enc_mulhi(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  return __umulhi(a, b);
+#else
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+#endif
+}
+
+// q >> (cs & 31)
+RANS_ENC_HD uint32_t rans_enc_shr(uint32_t q, uint32_t cs) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_r(q, 0u, cs);
+#else
+  return q >> (cs & 31u);
+#endif
+}
+
+// x / f for x < 2^31 (for f = 1: x - 1, x >= 1), as the step computes it.
+RANS_ENC_HD uint32_t rans_enc_quot(uint32_t x, const RansEncSym& e) {
+  return rans_enc_shr(rans_enc_mulhi(x, e.rcp), e.cs);
 }
 
 // Symbols that state j encodes in a stream of n.
-RANS_ENC_HD int64_t rans_enc_count(int64_t n, int j) {
-  return n > j ? (n - j + RANS_ENC_NWAY - 1) / RANS_ENC_NWAY : 0;
+RANS_ENC_HD uint32_t rans_enc_count(uint32_t n, int j) {
+  return n > (uint32_t)j ? (n - j + RANS_ENC_NWAY - 1) / RANS_ENC_NWAY : 0u;
 }
 
 // Stream position of state j's t-th symbol from its end (t < count).
-RANS_ENC_HD int64_t rans_enc_pos(int64_t count, int j, int64_t t) {
-  return j + (int64_t)RANS_ENC_NWAY * (count - 1 - t);
+RANS_ENC_HD uint32_t rans_enc_pos(uint32_t count, int j, uint32_t t) {
+  return j + RANS_ENC_NWAY * (count - 1 - t);
 }
 
-// Encode one symbol (packed f, cum) into *x.  Returns 1 when x emitted
-// a word first, with the word in *word.  f << 19 reaches 2^31 for
-// f = 4096, so the compare is unsigned.
-RANS_ENC_HD int rans_enc_put(uint32_t* x, uint32_t fc, uint32_t* word) {
-  const uint32_t f = fc & 0xFFFFu;
+// Encode one symbol into *x.  Returns 1 when x emitted a word first,
+// with the state before the step in *word (its low 16 bits are the
+// word).  f << 19 reaches 2^31 for f = 4096, so the compare is unsigned.
+// The chain: compare, select of the shifted state, mulhi, shift,
+// multiply-add (the add of the bias runs beside the mulhi).
+RANS_ENC_HD int rans_enc_put(uint32_t* x, const RansEncSym& e,
+                             uint32_t* word) {
+  uint32_t v = *x;
+  const int emit = v >= e.x_max;
+  *word = v;
+  if (emit) v >>= 16;
+  *x = v + e.bias + rans_enc_quot(v, e) * (e.cs >> 16);
+  return emit;
+}
+
+// The same step by exact division: the form the reciprocal replaces,
+// kept as the CPU harness's yardstick.
+RANS_ENC_HD int rans_enc_put_div(uint32_t* x, uint32_t f, uint32_t cum,
+                                 uint32_t* word) {
   uint32_t v = *x;
   const int emit = v >= (f << 19);
-  *word = v & 0xFFFFu;
+  *word = v;
   if (emit) v >>= 16;
-  *x = ((v / f) << RANS_ENC_TF_SHIFT) + v % f + (fc >> 16);
+  *x = ((v / f) << RANS_ENC_TF_SHIFT) + v % f + cum;
   return emit;
 }
 

@@ -12,10 +12,13 @@ MSB-justified code prefix):
 The Pallas kernel resolves without gathers (one-hot selects and a
 telescoping sum over the order table's deltas `dord`, because the TPU
 has no fast gather); the port keeps the tables' values and looks them up:
-its tables hold `order` itself, the prefix sum of `dord`, and the kernel
-reads every table from shared memory.  `huffman_resolve` launches the
-kernel for tensors on the card and takes the plain PyTorch version for
-tensors on the CPU.
+its tables hold `order` itself, the prefix sum of `dord`.  The kernel
+builds from them, in shared memory, a table of the symbol of each 9-bit
+window prefix where that prefix decides it, so a step is one shared load;
+the other windows resolve canonically (csrc/huffman_resolve.cu).  Every
+int32 table value is taken.  `huffman_resolve` launches the kernel for
+tensors on the card and takes the plain PyTorch version for tensors on
+the CPU.
 """
 from __future__ import annotations
 
@@ -119,6 +122,19 @@ def huffman_resolve_plain(limits: torch.Tensor, firsts: torch.Tensor,
             order, 0, torch.where(inside, idx, 0)), 0)
         v = next_window(v, sym & _U32) & _U32
     return v[0].to(torch.int32)
+
+
+def smem_bytes() -> int:
+    """Shared memory one block of kernel B10 takes."""
+    return _build.load("huffman_resolve").huffman_resolve_smem_bytes()
+
+
+def chains_per_sm() -> int:
+    """Chains that one SM of the card runs at once in kernel B10."""
+    lib = _build.load("huffman_resolve")
+    n = lib.huffman_resolve_chains_per_sm()
+    _build.check(lib, max(-n, 0), "huffman_resolve occupancy")
+    return n
 
 
 def huffman_resolve_cuda(limits: torch.Tensor, firsts: torch.Tensor,

@@ -10,10 +10,11 @@ writes packed word and mask planes that the host compacts.  The port
 keeps the wire, not that layout: a batch holds every stream's symbols
 back to back (`EncBatch`) with its normalised frequencies and cumulative
 frequencies, and one launch encodes every stream of the batch
-(csrc/rans_nx16_enc.cu, one warp per stream).  Stream i's emitted words
-land, in wire order, at the tail of its region [off[i], off[i] + n) of
-the word buffer; the host slices the tails in one download and writes the
-headers, as the JAX host code does.
+(csrc/rans_nx16_enc.cu, one warp per stream, each symbol's reciprocal
+entry in shared memory, so a round divides by a multiply-high).  Stream
+i's emitted words land, in wire order, at the tail of its region
+[off[i], off[i] + n) of the word buffer; the host slices the tails in one
+download and writes the headers, as the JAX host code does.
 
 `rans_enc` launches the kernel for tensors on the card and takes the
 plain PyTorch version (`rans_enc_plain`, the same rounds as tensor ops
@@ -120,6 +121,22 @@ def rans_enc_plain(b: EncBatch, max_rounds: int = -1
     return (torch.where(words >= 1 << 15, words - (1 << 16), words)
             .to(torch.int16), x.to(torch.int32),
             emitted[:, 0].to(torch.int32))
+
+
+def smem_bytes() -> int:
+    """Shared memory one block (one stream) of kernel B9 takes."""
+    lib = _build.load("rans_nx16_enc")
+    n = lib.rans_nx16_enc_smem_bytes()
+    _build.check(lib, max(-n, 0), "rans_nx16_enc shared memory")
+    return n
+
+
+def blocks_per_sm() -> int:
+    """Streams that one SM of the card encodes at once in kernel B9."""
+    lib = _build.load("rans_nx16_enc")
+    n = lib.rans_nx16_enc_blocks_per_sm()
+    _build.check(lib, max(-n, 0), "rans_nx16_enc occupancy")
+    return n
 
 
 def rans_enc_cuda(b: EncBatch, max_rounds: int = -1

@@ -31,8 +31,9 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def build_variant(name: str, spec: str) -> ctypes.CDLL:
-    """Compile `SOURCE[:D=V,...]` into build/probe/<name>.so and load it."""
+def compile_variant(name: str, spec: str) -> str:
+    """Compile `SOURCE[:D=V,...]` into build/probe/<name>.so; returns the
+    library's path."""
     from htslib_tpu_torch import _build
     src, _, defs = spec.partition(":")
     out_dir = os.path.join(_build.BUILD, "probe")
@@ -47,7 +48,13 @@ def build_variant(name: str, spec: str) -> ctypes.CDLL:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr[-3000:]}")
     print(f"built {name}: {' | '.join(regs)}", flush=True)
-    h = ctypes.CDLL(lib)
+    return lib
+
+
+def build_variant(name: str, spec: str) -> ctypes.CDLL:
+    """Compile `SOURCE[:D=V,...]` and load it with the B2/B3 entry
+    point's argument types."""
+    h = ctypes.CDLL(compile_variant(name, spec))
     h.rans_nx16_o0_launch.argtypes = [ctypes.c_void_p] * 12 \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     h.rans_nx16_o0_launch.restype = ctypes.c_int

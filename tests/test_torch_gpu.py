@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import wide_stream
+from chip_smoke import enc_edge_streams, wide_stream
 from htslib_tpu_torch.codecs import rans4x8 as r8
 from htslib_tpu_torch.codecs.rans4x16 import compress
 from htslib_tpu_torch.entry import entry
@@ -520,3 +520,99 @@ def test_resolve_chain_kernels_match_plain_and_numpy(card):
     for _ in range(200):
         v, _sym = ref_step(v)
     assert np.array_equal(got[0].cpu().numpy(), v)
+
+
+@pytest.mark.parametrize("max_rounds", [-1, 1, 31, 32, 33, 64, 65, 100])
+def test_enc_kernel_matches_plain_many_streams(card, max_rounds):
+    """B9 over 1,056 streams (the edge streams copied, every copy its own
+    symbols and region), whole and stopped before, on and after the
+    window's edges, against its plain version on the base batch."""
+    from htslib_tpu_torch.bench_rans import replicate_enc
+    base = te.frame_enc(enc_edge_streams(), card)
+    k = -(-1056 // base.n_streams)
+    got = te.rans_enc(replicate_enc(base, k), max_rounds=max_rounds)
+    want = te.rans_enc_plain(base, max_rounds=max_rounds)
+    assert torch.equal(got[0][:-1], want[0][:-1].repeat(k))
+    assert torch.equal(got[1], want[1].repeat(k, 1))
+    assert torch.equal(got[2], want[2].repeat(k))
+
+
+def test_enc_edge_streams_match_host_codec(card):
+    datas = enc_edge_streams()
+    f = te.frame_enc(datas, "cpu").freqs
+    assert (f == 1).sum() >= 29 and (f == tr.TOTFREQ).sum() == 3
+    encs = te.encode_nx16_o0_batch(datas, device=card)
+    assert encs == [compress(d, 0x04) for d in datas]
+    assert tr.decode_nx16_o0_batch(encs, device=card) == datas
+
+
+def test_enc_smem_and_streams_per_sm(card):
+    """B9 takes 4 KiB of entries a block and runs 1,056 streams in one
+    wave (8 or more an SM)."""
+    assert te.smem_bytes() == 4096
+    assert te.blocks_per_sm() >= 8
+
+
+def _huff_args(lens, card, seed=0, order_add=0):
+    """The chain's kernel arguments for code lengths lens [L, 288]: the
+    port's tables, every order value moved by order_add, and seeded start
+    windows."""
+    limits, firsts, bases, dord = th.build_tables(lens)
+    order = th.order_of(dord).astype(np.int64) + order_add
+    order = ((order + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+    v0 = np.random.default_rng(seed).integers(
+        0, 1 << 15, lens.shape[0]).astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(card)
+                 for a in (limits, firsts, bases, order, v0))
+
+
+@pytest.mark.parametrize("L", [1056, 1000, 33])
+def test_huffman_kernel_many_chains(card, L):
+    """B10 at 1,056 chains, and at L that leave a ragged last block of 32,
+    against its plain version and the numpy chain, over 1,100 steps (two
+    whole check blocks of 512 and a ragged one)."""
+    from htslib_tpu_torch.bench_rans import huff_truth
+    args = th.make_huffman_resolve_bench(L=L, rounds=1100, unroll=1,
+                                         device=card)[1]
+    got = th.huffman_resolve(*args, 1100)
+    assert torch.equal(got, th.huffman_resolve_plain(*args, 1100))
+    assert np.array_equal(got.cpu().numpy(), huff_truth(args, 1100))
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 2, 513, 1500])
+def test_huffman_kernel_long_codes(card, rounds):
+    """Codes of every length to 15 bits, whose windows under codes longer
+    than the 9-bit prefix table meet its sentinel and are run again
+    canonically, against the plain version; 0 steps give the start
+    windows back."""
+    rng = np.random.default_rng(9)
+    lens = np.zeros((40, 288), np.int64)
+    for s in range(40):
+        lens[s, rng.choice(288, 16, replace=False)] = list(range(1, 16)) + [15]
+    lens[:8, :144] = 8        # and some codes with 10-bit ones
+    lens[:8, 144:] = 10
+    args = _huff_args(lens, card, seed=rounds)
+    got = th.huffman_resolve(*args, rounds)
+    assert torch.equal(got, th.huffman_resolve_plain(*args, rounds))
+
+
+@pytest.mark.parametrize("order_add", [70000, -1, -(1 << 20)])
+def test_huffman_kernel_takes_any_order_value(card, order_add):
+    """Order values a u16 table could not hold, and -1 (the prefix
+    table's sentinel, 0xFFFFFFFF), resolve exactly: the kernel refuses no
+    table."""
+    lens = np.zeros((64, 288), np.int64)
+    lens[:, :144] = 8
+    lens[:, 144:256] = 9
+    lens[:, 256:280] = 7
+    lens[:, 280:] = 8
+    args = _huff_args(lens, card, order_add=order_add)
+    got = th.huffman_resolve(*args, 700)
+    assert torch.equal(got, th.huffman_resolve_plain(*args, 700))
+
+
+def test_huffman_smem_and_chains_per_sm(card):
+    """B10 takes 108,544 bytes a block of 32 chains and runs 64 chains an
+    SM, so 1,056 chains run in one wave."""
+    assert th.smem_bytes() == 108544
+    assert th.chains_per_sm() >= 64

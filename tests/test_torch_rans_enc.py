@@ -132,28 +132,29 @@ def test_plain_stops_after_max_rounds():
 _HARNESS = r"""
 #include "rans_nx16_enc_step.cuh"
 
-// One stream through the kernel's step code, the 32 lanes of a warp run
-// in order: a round's emitters are ranked in the round's rotation and
-// emission e lands at word n - 1 - e.  Returns the words emitted.
+// One stream through the kernel's step code and its table of reciprocal
+// entries, the 32 lanes of a warp run in order: a round's emitters are
+// ranked in the round's rotation and emission e lands at word n - 1 - e.
+// Returns the words emitted.
 extern "C" int64_t encode_stream(const uint8_t* d, int64_t n,
                                  const int32_t* freq, uint16_t* words,
                                  uint32_t* x_out) {
-  uint32_t fc[256];
+  RansEncSym tab[256];
   uint32_t c = 0;
   for (int s = 0; s < 256; ++s) {
-    fc[s] = rans_enc_pack((uint32_t)freq[s], c);
+    tab[s] = rans_enc_sym((uint32_t)freq[s], c);
     c += (uint32_t)freq[s];
   }
   uint32_t x[RANS_ENC_NWAY];
   for (int j = 0; j < RANS_ENC_NWAY; ++j) x[j] = RANS_ENC_L;
   const int r0 = (int)((n - 1) % RANS_ENC_NWAY);
   int64_t emitted = 0;
-  for (int64_t t = 0; t * RANS_ENC_NWAY < n; ++t) {
+  for (uint32_t t = 0; (int64_t)t * RANS_ENC_NWAY < n; ++t) {
     uint32_t mask = 0, word[RANS_ENC_NWAY];
     for (int j = 0; j < RANS_ENC_NWAY; ++j) {
-      const int64_t cnt = rans_enc_count(n, j);
+      const uint32_t cnt = rans_enc_count((uint32_t)n, j);
       if (t < cnt &&
-          rans_enc_put(&x[j], fc[d[rans_enc_pos(cnt, j, t)]], &word[j]))
+          rans_enc_put(&x[j], tab[d[rans_enc_pos(cnt, j, t)]], &word[j]))
         mask |= 1u << j;
     }
     for (int j = 0; j < RANS_ENC_NWAY; ++j)
@@ -165,6 +166,21 @@ extern "C" int64_t encode_stream(const uint8_t* d, int64_t n,
   }
   for (int j = 0; j < RANS_ENC_NWAY; ++j) x_out[j] = x[j];
   return emitted;
+}
+
+// The reciprocal step (rans_enc_put on rans_enc_sym(f, cum)) against the
+// division step on each of the n states xs: the index of the first state
+// on which the new state, the emit flag or the word differ, or -1.
+extern "C" int64_t step_mismatch(uint32_t f, uint32_t cum,
+                                 const uint32_t* xs, int64_t n) {
+  const RansEncSym e = rans_enc_sym(f, cum);
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t a = xs[i], b = xs[i], wa, wb;
+    const int ea = rans_enc_put(&a, e, &wa);
+    const int eb = rans_enc_put_div(&b, f, cum, &wb);
+    if (a != b || ea != eb || (ea && (uint16_t)wa != (uint16_t)wb)) return i;
+  }
+  return -1;
 }
 """
 
@@ -184,6 +200,9 @@ def step_lib(tmp_path_factory):
     h.encode_stream.restype = ctypes.c_int64
     h.encode_stream.argtypes = [ctypes.c_void_p, ctypes.c_int64] \
         + [ctypes.c_void_p] * 3
+    h.step_mismatch.restype = ctypes.c_int64
+    h.step_mismatch.argtypes = [ctypes.c_uint32] * 2 + [ctypes.c_void_p,
+                                                        ctypes.c_int64]
     return h
 
 
@@ -191,8 +210,9 @@ def step_lib(tmp_path_factory):
                                   "len4097", "one_symbol", "skewed",
                                   "full_alphabet"])
 def test_step_header_on_cpu(step_lib, name):
-    """The CUDA step code, compiled for the host with the ballot ranking
-    run in order, emits the host codec's words and final states."""
+    """The CUDA step code and its reciprocal table, compiled for the host
+    with the ballot ranking run in order, emit the host codec's words and
+    final states."""
     d = FULL_ALPHABET if name == "full_alphabet" else CASES[name]
     n = len(d)
     freq = trans._norm_freqs(np.bincount(np.frombuffer(d, np.uint8),
@@ -207,3 +227,46 @@ def test_step_header_on_cpu(step_lib, name):
     core = trans._enc_core(data, freq.astype(np.int64), cum, 32)
     assert x_out.astype("<u4").tobytes() == core[:128]
     assert words[n - k:].astype("<u2").tobytes() == core[128:]
+
+
+def _step_states(f: int, rng) -> np.ndarray:
+    """The states the step divides for frequency f (all below f << 19,
+    the largest f * 2^19 - 1 <= 2^31 - 1): 0 and 1, f - 1 and f, the
+    multiples of f near 0, near the middle and at the top, each +- 1, and
+    seeded random states.  For f = 1 the reciprocal gives x - 1 for x >= 1
+    only (the bias makes up the 1), so 0 is left out there: a state is
+    never below 8 when it is divided (2^15 without an emit, f << 3 after
+    one)."""
+    top = f << 19
+    mid = (top // f) // 2 + np.arange(-32, 32)
+    ks = np.concatenate([np.arange(1, 64), mid, top // f - np.arange(1, 64)])
+    xs = np.concatenate([[0, 1, f - 1, f, top - 1], ks * f - 1, ks * f,
+                         ks * f + 1, rng.integers(0, top, 256)])
+    xs = xs[(xs >= (1 if f == 1 else 0)) & (xs < top)]
+    return np.unique(xs).astype(np.uint32)
+
+
+@pytest.mark.parametrize("lo", range(1, 4097, 512))
+def test_reciprocal_step_is_exact_division(step_lib, lo):
+    """The reciprocal step equals division and remainder for every f in
+    1..4096 (in eight cases of 512 frequencies), on the states of
+    _step_states, with the cumulative frequency at its extremes."""
+    rng = np.random.default_rng(lo)
+    for f in range(lo, lo + 512):
+        xs = _step_states(f, rng)
+        for cum in (0, 4096 - f):
+            at = step_lib.step_mismatch(f, cum, xs.ctypes.data, xs.size)
+            assert at == -1, (f, cum, int(xs[at]))
+
+
+def test_reciprocal_step_emits_as_division(step_lib):
+    """States at and above f << 19 emit first, as the division step does,
+    f = 4096 (a one-symbol stream, f << 19 = 2^31) included."""
+    rng = np.random.default_rng(7)
+    for f in (1, 2, 3, 5, 7, 255, 1000, 2047, 2048, 2049, 4095, 4096):
+        top = min(f << 19, 1 << 31)
+        xs = np.unique(np.concatenate([
+            [top, top + 1, (1 << 31) - 1],
+            rng.integers(top, 1 << 31, 64) if top < 1 << 31 else []]))
+        xs = xs[xs < 1 << 31].astype(np.uint32)
+        assert step_lib.step_mismatch(f, 0, xs.ctypes.data, xs.size) == -1
