@@ -42,27 +42,35 @@ PyTorch version on the card and times both.  Phases:
      steps, the JAX package's bench shape) and make_huffman_resolve_bench
      (L=128 chains, the same depth) must equal their numpy chains; their
      lookups per second are printed;
-  6. each kernel (B1, B2, B3, B5, B6, B7, B8 in both orders, B9, B4, B10)
-     against its plain version at the main path's shapes, and one JSON
-     line with launches, error and times.  The plain versions of B5-B9
+  5d. leg 6, whole-stream rANS batches (ops/rans.py): one
+     uncompress_batch call over leg 3's 20 + 20 x 1 MiB 4x8 streams of
+     both orders, mixed, and one uncompress_nx16_batch call over 8 x 1 MiB
+     streams of each plain Nx16 wire, mixed: 32-way order 0 (leg 2's) and
+     order 1 (leg 3's walks), 4-way order 0 (leg 2's raws) and order 1
+     (leg 3's walks), encoded on the host; every output must equal its raw
+     bytes;
+  6. each kernel (B1, B2, B3, B5, B6, B7, B8 in both orders, X1-X3, B9,
+     B4, B10) against its plain version at the main path's shapes, and one
+     JSON line with launches, error and times.  The plain versions of B5-B9
      take half a millisecond to a millisecond per round on the card, so
-     they are held against their kernels at full size over the first 4096
-     rounds (states, cursors, contexts, emitted words and those rounds'
+     they are held against their kernels at full size (X1 at leg 6's 20
+     order-1 streams, the other decode rows at the 8 streams of legs 2
+     and 3) over the first 4096 rounds (states, cursors, contexts, emitted words and those rounds'
      symbols or counts), and over whole streams on a 64 KiB batch; those
-     of B4 and B10 run all 32,768 steps.  B5, B6 and B8 order 1 are also
-     held over a whole 64 KiB wide-alphabet stream whose lookups meet slow
-     buckets.  B9 is also held, whole and against the host codec, on its
-     edge streams (lengths 1, 31, 32, 33 and about its 32-round window,
-     one-symbol streams, f = 1 symbols).  Each chain-bound row gives
-     ns_per_round (ms over its longest chain), the B2, B3 and B5-B9 rows
-     the streams one SM holds (streams_per_sm; B10 chains_per_sm), and the
-     B5, B6, B9 and B10 rows their shared memory a block (smem_bytes); the
-     B5/B6 rows the share of rounds in which some state's lookup met a slow
-     bucket (slow_share).
+     of B4 and B10 run all 32,768 steps.  B5, B6, B8 order 1, X1 and X3
+     are also held over a whole 64 KiB wide-alphabet stream whose lookups
+     meet slow buckets.  B9 is also held, whole and against the host
+     codec, on its edge streams (lengths 1, 31, 32, 33 and about its
+     32-round window, one-symbol streams, f = 1 symbols).  Each chain-bound row gives
+     ns_per_round (ms over its longest chain), the B2, B3, B5-B9 and X1-X3
+     rows the streams one SM holds (streams_per_sm; B4 and B10
+     chains_per_sm), and the B5, B6, X1-X3, B9, B4 and B10 rows their
+     shared memory a block (smem_bytes); the B5/B6 rows the share of rounds
+     in which some state's lookup met a slow bucket (slow_share).
      Outputs are bytes and integers, so the tolerance is zero: kernel and
      plain version must be equal.
 
-Launch counts are reset just before phase 3 and read just after phase 5c.
+Launch counts are reset just before phase 3 and read just after phase 5d.
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -103,10 +111,8 @@ SCALAR_OPS_S = 67e12
 
 def _encode(data: bytes, wire: str = "nx16_o0") -> bytes:
     """One stream on one rANS wire, with the port's own host codecs."""
-    from htslib_tpu_torch.codecs import rans4x8, rans4x16
-    if wire.startswith("4x8"):
-        return rans4x8.compress(data, int(wire[-1]))
-    return rans4x16.compress(data, 0x05 if wire == "nx16_o1" else 0x04)
+    from htslib_tpu_torch.bench_rans import encode
+    return encode(data, wire)
 
 
 def _encode_all(raws, wires):
@@ -192,6 +198,25 @@ def leg3_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
     return out
 
 
+def leg6_streams(raws2, leg3, n: int = N_DECODE):
+    """The 4-way Nx16 wires in leg 3's form: {"nx16_4way_o0": [raws,
+    encs, small raws, small encs] (n of leg 2's raws, leg 3's uniform
+    64 KiB streams), "nx16_4way_o1": the same of leg 3's walks, and
+    "nx16_4way_o1_wide": leg 3's wide-alphabet stream (raw, encoded)}."""
+    sets = {"nx16_4way_o0": (raws2[:n], leg3["4x8_o0"][2]),
+            "nx16_4way_o1": (leg3["nx16_o1"][0][:n], leg3["nx16_o1"][2])}
+    jobs = [(w, d) for w, (big, small) in sets.items() for d in big + small]
+    jobs.append(("nx16_4way_o1", leg3["nx16_o1_wide"][0]))
+    encs = _encode_all([d for _, d in jobs], [w for w, _ in jobs])
+    out, k = {}, 0
+    for w, (big, small) in sets.items():
+        out[w] = [big, encs[k:k + len(big)], small,
+                  encs[k + len(big):k + len(big) + len(small)]]
+        k += len(big) + len(small)
+    out["nx16_4way_o1_wide"] = (jobs[-1][1], encs[-1])
+    return out
+
+
 def wide_stream(rng, size: int) -> bytes:
     """Every other byte 0 and then a random one: order-1 context 0 has
     ~256 successors of frequency ~16, so a 64-slot bucket of its table
@@ -269,6 +294,8 @@ def main_path(device, batch, raws, encs, leg3, tile_len=TILE_LEN,
                                                    qualstats_device_o1)
     from htslib_tpu_torch.ops.huffman import make_huffman_resolve_bench
     from htslib_tpu_torch.ops.pileup_kernel import coverage_tile
+    from htslib_tpu_torch.ops.rans import (uncompress_batch,
+                                           uncompress_nx16_batch)
     from htslib_tpu_torch.ops.rans4x8 import decode_4x8_o0_batch
     from htslib_tpu_torch.ops.rans_enc import encode_nx16_o0_batch
     from htslib_tpu_torch.ops.rans_nx16 import (decode_nx16_o0_batch,
@@ -382,7 +409,34 @@ def main_path(device, batch, raws, encs, leg3, tile_len=TILE_LEN,
     require(np.array_equal(got, np.broadcast_to(v, got.shape)),
             "leg 5 Huffman resolve chain")
     secs["leg5"] = time.time() - t0
+
+    # leg 6: each call's streams interleaved across their wires, so every
+    # group's outputs must land back in the input order
+    t0 = time.time()
+    pairs = _interleave([list(zip(*leg3[w][:2])) for w in ("4x8_o0",
+                                                           "4x8_o1")])
+    out = uncompress_batch([e for _, e in pairs], device=device)
+    require(out == [r for r, _ in pairs], "leg 6 uncompress_batch bytes")
+    t1 = time.time()
+    pairs = _interleave([
+        list(zip(raws, encs))[:n_decode],
+        list(zip(*leg3["nx16_o1"][:2]))[:n_decode],
+        list(zip(*leg3["nx16_4way_o0"][:2]))[:n_decode],
+        list(zip(*leg3["nx16_4way_o1"][:2]))[:n_decode]])
+    out = uncompress_nx16_batch([e for _, e in pairs], device=device)
+    require(out == [r for r, _ in pairs], "leg 6 uncompress_nx16_batch bytes")
+    secs["leg6"] = time.time() - t0
+    notes["leg6"] = {"uncompress_batch_s": t1 - t0,
+                     "uncompress_nx16_batch_s": time.time() - t1}
     return args, secs, notes
+
+
+def _interleave(lists):
+    """The items of several lists taken in turns: a0, b0, c0, a1, ..."""
+    out = []
+    for i in range(max(len(x) for x in lists)):
+        out += [x[i] for x in lists if i < len(x)]
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -482,22 +536,23 @@ def kernels_vs_plain(seq4_d, encs, launches):
 
 
 def leg3_kernels_vs_plain(device, leg3, launches):
-    """Phase 6 for kernels B5-B8: each kernel against its plain version on
-    the same card tensors, at full size over the first PLAIN_ROUNDS
-    rounds and over whole streams on the 64 KiB batch, with times.
-    Returns the rows of the kernels line."""
+    """Phase 6 for kernels B5-B8 and X1-X3: each kernel against its plain
+    version on the same card tensors, at full size over the first
+    PLAIN_ROUNDS rounds and over whole streams on the 64 KiB batch, with
+    times.  Returns the rows of the kernels line."""
     import torch
 
+    from htslib_tpu_torch.ops import rans4x8 as t8
     from htslib_tpu_torch.ops.device_stats import QBINS
-    from htslib_tpu_torch.ops.rans4x8 import (blocks_per_sm, frame_4x8,
+    from htslib_tpu_torch.ops.rans4x8 import (frame_4x8, frame_nx16_4way,
                                               rans4x8_cuda, rans4x8_plain)
-    from htslib_tpu_torch.ops.rans_nx16_o1 import (_parse_o1_header,
+    from htslib_tpu_torch.ops.rans_nx16_o1 import (_parse_nx16_header,
                                                    frame_o1_streams,
                                                    rans_o1_cuda,
                                                    rans_o1_plain)
 
     def o1_batch(blocks):
-        return frame_o1_streams([_parse_o1_header(e) for e in blocks],
+        return frame_o1_streams([_parse_nx16_header(e) for e in blocks],
                                 device)
 
     def chain_o1(n, nway):   # the last state's length (order 1)
@@ -525,6 +580,18 @@ def leg3_kernels_vs_plain(device, leg3, launches):
          lambda e: frame_4x8(e, True, device), rans4x8_cuda, rans4x8_plain,
          "rans4x8.cu", "rans4x8_pallas.py:120", lambda n: chain_o1(n, 4),
          12),
+        # X1-X3 replace XLA loops of ops/rans.py, not Pallas kernels
+        ("rans4x8_o1_decode", "4x8_o1", None, None,
+         lambda e: frame_4x8(e, True, device), rans4x8_cuda, rans4x8_plain,
+         "rans4x8.cu", "rans.py:96", lambda n: chain_o1(n, 4), 12),
+        ("rans_nx16_4way_o0_decode", "nx16_4way_o0", N_DECODE, None,
+         lambda e: frame_nx16_4way(e, False, device), rans4x8_cuda,
+         rans4x8_plain, "rans4x8.cu", "rans.py:230", lambda n: -(-n // 4),
+         10),
+        ("rans_nx16_4way_o1_decode", "nx16_4way_o1", N_DECODE, None,
+         lambda e: frame_nx16_4way(e, True, device), rans4x8_cuda,
+         rans4x8_plain, "rans4x8.cu", "rans.py:230",
+         lambda n: chain_o1(n, 4), 12),
     ]
     rows = []
     for (key, wire, n_streams, qb, frame, kern, plain, src, line, chain,
@@ -568,10 +635,15 @@ def leg3_kernels_vs_plain(device, leg3, launches):
             "streams": b.n_streams, "symbols": n_sym,
             "chain_rounds": max(chain(int(n)) for n in b.ulen.tolist()),
             "match": True})
-        if key.startswith("rans4x8"):
-            rows[-1]["streams_per_sm"] = blocks_per_sm(qb is not None, b.o1)
-        else:
+        if key.startswith("rans_nx16_o1"):
             rows[-1].update(o1_table_notes(b, offs, qb))
+        else:
+            rows[-1]["streams_per_sm"] = t8.blocks_per_sm(
+                qb is not None, b.o1, b.w16)
+            rows[-1]["smem_bytes"] = t8.smem_bytes(qb is not None, b.o1)
+        if line.startswith("rans.py"):
+            rows[-1]["note"] = ("XLA code of the JAX package (no Pallas "
+                                "kernel) that the port hand-writes")
     # B5, B6 and B8 order 1 over a whole wide-alphabet stream, whose
     # lookups meet slow buckets (B5/B6: their maps; B8: the walk)
     wide = o1_batch([leg3["nx16_o1_wide"][1]])
@@ -592,18 +664,28 @@ def leg3_kernels_vs_plain(device, leg3, launches):
                               "fallback_buckets": n_fall,
                               "slow_share": int(slow[0]) / rounds,
                               "match": True}
-    wide = frame_4x8([leg3["4x8_o1_wide"][1]], True, device)
-    n_fall = fallback_buckets(wide.tables)
-    require(n_fall > 0, "wide 4x8 order-1 stream: no bucket reaches the "
-            "lookup's loop")
-    woffs = torch.zeros(1, dtype=torch.int32, device=device)
-    for g, r, what in zip(rans4x8_cuda(wide, -1, woffs, QBINS),
-                          rans4x8_plain(wide, -1, woffs, QBINS),
-                          ("output", "states", "cursors", "contexts")):
-        require(torch.equal(g, r), "rans4x8_o1_hist kernel != plain on the "
-                f"whole wide-alphabet stream ({what})")
-    rows[-1]["wide_stream"] = {"bytes": int(wide.ulen[0]),
-                               "fallback_buckets": n_fall, "match": True}
+    # B8 order 1, X1 and X3 over the same bytes on their wires
+    by_name = {row["name"]: row for row in rows}
+    for key, wire, frame, qb in (
+            ("rans4x8_o1_hist", "4x8_o1_wide",
+             lambda e: frame_4x8(e, True, device), QBINS),
+            ("rans4x8_o1_decode", "4x8_o1_wide",
+             lambda e: frame_4x8(e, True, device), None),
+            ("rans_nx16_4way_o1_decode", "nx16_4way_o1_wide",
+             lambda e: frame_nx16_4way(e, True, device), None)):
+        wide = frame([leg3[wire][1]])
+        n_fall = fallback_buckets(wide.tables)
+        require(n_fall > 0, f"wide {wire} stream: no bucket reaches the "
+                "lookup's loop")
+        woffs = torch.zeros(1, dtype=torch.int32, device=device)
+        for g, r, what in zip(rans4x8_cuda(wide, -1, woffs, qb),
+                              rans4x8_plain(wide, -1, woffs, qb),
+                              ("output", "states", "cursors", "contexts")):
+            require(torch.equal(g, r), f"{key} kernel != plain on the whole "
+                    f"wide-alphabet stream ({what})")
+        by_name[key]["wide_stream"] = {"bytes": int(wide.ulen[0]),
+                                       "fallback_buckets": n_fall,
+                                       "match": True}
     return rows
 
 
@@ -640,6 +722,7 @@ def new_kernels_vs_plain(device, raws, leg3, launches):
     from htslib_tpu_torch.ops.rans_enc import (encode_nx16_o0_batch,
                                                frame_enc, rans_enc_cuda,
                                                rans_enc_plain)
+    from htslib_tpu_torch.ops import rans_nx16
     from htslib_tpu_torch.ops.rans_nx16 import (make_resolve_bench,
                                                 rans_resolve_cuda,
                                                 rans_resolve_plain)
@@ -739,6 +822,11 @@ def new_kernels_vs_plain(device, raws, leg3, launches):
             "chain_rounds": CHAIN_ROUNDS,
             "lookups_per_s": CHAINS * CHAIN_ROUNDS / (ms / 1e3),
             "match": True})
+    rows[-2].update({
+        "smem_bytes": _export(rans_nx16, "resolve_smem_bytes"),
+        "chains_per_sm": _export(rans_nx16, "resolve_chains_per_sm"),
+        "bound_note": "8 operations a step: the canonical step's work, "
+                      "counted so whatever implements it"})
     rows[-1].update({
         "smem_bytes": _export(huffman, "smem_bytes"),
         "chains_per_sm": _export(huffman, "chains_per_sm"),
@@ -833,6 +921,7 @@ def main() -> int:
     batch = leg1_batch()
     raws, encs = leg2_streams()
     leg3 = leg3_streams()
+    leg3.update(leg6_streams(raws, leg3))
     print(f"inputs: {time.time() - t0:.1f} s", flush=True)
 
     _build.reset_launches()
@@ -848,6 +937,8 @@ def main() -> int:
     print(f"leg 5 wall: {secs['leg5']:.3f} s, lookups/s: rANS "
           f"{notes['rans_resolve_lookups_per_s']:.6g}, Huffman "
           f"{notes['huffman_resolve_lookups_per_s']:.6g}", flush=True)
+    print(f"leg 6 wall: {secs['leg6']:.3f} s, parts {notes['leg6']}",
+          flush=True)
     for k, v in launches.items():
         require(v >= 1, f"kernel {k} not launched on the main path")
     print(f"leg 4 host side in parts: {leg4_parts(raws, encs, 'cuda')}",
@@ -858,7 +949,7 @@ def main() -> int:
     print(f"phase 6, B1-B3: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     rows += leg3_kernels_vs_plain(args[1].device, leg3, launches)
-    print(f"phase 6, B5-B8: {time.time() - t0:.1f} s", flush=True)
+    print(f"phase 6, B5-B8, X1-X3: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     rows += new_kernels_vs_plain(args[1].device, raws, leg3, launches)
     print(f"phase 6, B9, B4, B10: {time.time() - t0:.1f} s", flush=True)

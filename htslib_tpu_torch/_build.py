@@ -34,7 +34,8 @@ LAUNCHES: Dict[str, int] = {
     "rans_nx16_o1_decode": 0, "rans_nx16_o1_hist": 0,
     "rans4x8_o0_decode": 0, "rans4x8_o0_hist": 0, "rans4x8_o1_hist": 0,
     "rans_nx16_o0_encode": 0, "rans_resolve_bench": 0,
-    "huffman_resolve_bench": 0}
+    "huffman_resolve_bench": 0, "rans4x8_o1_decode": 0,
+    "rans_nx16_4way_o0_decode": 0, "rans_nx16_4way_o1_decode": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # (function, argtypes) per library: every pointer and the stream are
 # c_void_p, so ctypes never narrows them to 32-bit ints
@@ -56,8 +57,9 @@ _SIGNATURES = {
     },
     "rans4x8": {
         "rans4x8_launch": [ctypes.c_void_p] * 17
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        "rans4x8_blocks_per_sm": [ctypes.c_int] * 2,
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "rans4x8_blocks_per_sm": [ctypes.c_int] * 3,
+        "rans4x8_smem_bytes": [ctypes.c_int] * 2,
     },
     "rans_nx16_enc": {
         "rans_nx16_enc_launch": [ctypes.c_void_p] * 8
@@ -68,6 +70,8 @@ _SIGNATURES = {
     "rans_resolve_bench": {
         "rans_resolve_bench_launch": [ctypes.c_void_p] * 3
         + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+        "rans_resolve_bench_smem_bytes": [],
+        "rans_resolve_bench_chains_per_sm": [],
     },
     "huffman_resolve": {
         "huffman_resolve_launch": [ctypes.c_void_p] * 6

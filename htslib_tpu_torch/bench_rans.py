@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Batch-size sweep of the chain-bound kernels on one card: the rANS
-decodes, Nx16 order 0 (B2, B3), Nx16 order 1 (B5, B6) and 4x8 (B7, and B8
-of both orders), the Nx16 order-0 encode (B9) and the Huffman resolve
-chain (B10).
+decodes, Nx16 order 0 (B2, B3), Nx16 order 1 (B5, B6), 4x8 (B7, and B8
+of both orders, X1 order-1 symbols) and 4-way Nx16 (X2, X3), the Nx16
+order-0 encode (B9) and the two resolve chains (B4 rANS, B10 Huffman).
 
     python3 -m htslib_tpu_torch.bench_rans [--label NAME] [--out FILE]
         [--kernels KEY,...] [--sizes S,...] [--iters N]
@@ -14,20 +14,24 @@ tables.  The kinds: `uniform` over 20..40 (leg 2 of chip_smoke.py, and
 4x8 order 0), `walk` (leg 2's random walks over 0..44: long constant runs
 at 0 and 44), and `reads` (bounded random walks restarted every 100-bp
 read, as leg 3, for the order-1 wires); B2 and B3 run on both leg-2
-kinds.  For each kernel, kind and S: one launch checked against the host
-truth (every stream's histogram or bytes), then the mean of `--iters`
+kinds, X2 (4-way Nx16 order 0) on `uniform`, X1 and X3 on `reads`.  For
+each kernel, kind and S: one launch checked against the host truth
+(every stream's histogram or bytes), then the mean of `--iters`
 launches from CUDA events.  Each line printed (and appended to --out) is
 one JSON object: kernel, kind, streams, ms, ns a round (ms over one
-stream's rounds: 32,768 for Nx16, 262,144 for 4x8), decoded MB/s, the
+stream's rounds: 32,768 for 32-way Nx16, 262,144 for 4x8 and 4-way
+Nx16), decoded MB/s, the
 host-clock time of one synchronised call of the wrapper (its checks and
 sizing, the launch and the kernel: wall_ms; first_wall_ms for the checked
 first call, the process's first use of the kernel at the first size)
 and, where the checkout's kernel reports it, the streams one SM holds.
 B9 encodes the raw `uniform` and `walk` streams, each batch checked
 against the host codec's final states and words (ns a round over 32,768
-rounds, encoded MB/s); B10 runs the device bench's chains
-(`make_huffman_resolve_bench`, 32,768 steps) at 128 to 1,056 chains,
-each checked against a numpy chain (ns a step, lookups/s, chains an SM).
+rounds, encoded MB/s); B4 and B10 run the device bench's chains
+(`make_resolve_bench`, `make_huffman_resolve_bench`, 32,768 steps) at 128
+to 1,056 chains, each checked against a numpy chain (ns a step,
+lookups/s, chains an SM and, where the checkout's kernel reports it, its
+shared memory a chain).
 """
 from __future__ import annotations
 
@@ -47,8 +51,8 @@ STREAM_BYTES = 1 << 20
 N_BASE = 4
 QBINS = 64
 SIZES = (4, 8, 20, 132, 264, 528, 1056)
-HUFF_SIZES = (128, 264, 528, 1056)   # B10 chains
-CHAIN_ROUNDS = 32768                 # B10 steps (the device bench's depth)
+HUFF_SIZES = (128, 264, 528, 1056)   # B4 and B10 chains
+CHAIN_ROUNDS = 32768                 # their steps (the device bench's depth)
 ENC_KIND = ("uniform", "walk")       # B9's streams
 # (launch key, wire, kind of stream, qbins, rounds of one stream)
 KERNELS = (("rans_nx16_o0_decode", "nx16_o0", "uniform", None,
@@ -67,7 +71,12 @@ KERNELS = (("rans_nx16_o0_decode", "nx16_o0", "uniform", None,
             STREAM_BYTES // 4),
            ("rans4x8_o0_hist", "4x8_o0", "uniform", QBINS,
             STREAM_BYTES // 4),
-           ("rans4x8_o1_hist", "4x8_o1", "reads", QBINS, STREAM_BYTES // 4))
+           ("rans4x8_o1_hist", "4x8_o1", "reads", QBINS, STREAM_BYTES // 4),
+           ("rans4x8_o1_decode", "4x8_o1", "reads", None, STREAM_BYTES // 4),
+           ("rans_nx16_4way_o0_decode", "nx16_4way_o0", "uniform", None,
+            STREAM_BYTES // 4),
+           ("rans_nx16_4way_o1_decode", "nx16_4way_o1", "reads", None,
+            STREAM_BYTES // 4))
 
 
 def base_streams(seed: int = 3):
@@ -87,11 +96,15 @@ def base_streams(seed: int = 3):
     return {"uniform": uniform, "walk": walk, "reads": reads}
 
 
-def _encode(data: bytes, wire: str) -> bytes:
+def encode(data: bytes, wire: str) -> bytes:
+    """One stream on one rANS wire with the port's host codecs: "4x8_o0",
+    "4x8_o1", the 32-way Nx16 "nx16_o0"/"nx16_o1" (X32 flag 0x04) or the
+    4-way "nx16_4way_o0"/"nx16_4way_o1"; the last digit is the order."""
     from htslib_tpu_torch.codecs import rans4x8, rans4x16
-    if wire.startswith("nx16"):
-        return rans4x16.compress(data, 0x05 if wire == "nx16_o1" else 0x04)
-    return rans4x8.compress(data, int(wire[-1]))
+    order = int(wire[-1])
+    if wire.startswith("4x8"):
+        return rans4x8.compress(data, order)
+    return rans4x16.compress(data, (0 if "4way" in wire else 0x04) | order)
 
 
 def replicate(b, k: int):
@@ -232,11 +245,15 @@ def _kernel(key: str, wire: str, dev):
     if wire == "nx16_o1":
         per_sm = getattr(to1, "blocks_per_sm", None)
         return (lambda e: to1.frame_o1_streams(
-                    [to1._parse_o1_header(x) for x in e], dev),
+                    [to1._parse_nx16_header(x) for x in e], dev),
                 lambda b, offs, qb: to1.rans_o1_cuda(b, -1, offs, qb),
                 per_sm and (lambda b: per_sm(b.tables, hist)))
     per_sm = getattr(t8, "blocks_per_sm", None)
-    o1 = wire == "4x8_o1"
+    o1 = wire.endswith("o1")
+    if wire.startswith("nx16_4way"):
+        return (lambda e: t8.frame_nx16_4way(e, o1, dev),
+                lambda b, offs, qb: t8.rans4x8_cuda(b, -1, offs, qb),
+                lambda b: per_sm(hist, o1, True))
     return (lambda e: t8.frame_4x8(e, o1, dev),
             lambda b, offs, qb: t8.rans4x8_cuda(b, -1, offs, qb),
             per_sm and (lambda b: per_sm(hist, o1)))
@@ -282,6 +299,37 @@ def sweep_enc(raws, sizes, args, dev, card, sms):
     return lines
 
 
+def sweep_resolve(args, dev, card, sms):
+    """B4 through its wrapper at each of HUFF_SIZES chains."""
+    from htslib_tpu_torch.ops import rans_nx16 as tr
+    per_sm = getattr(tr, "resolve_chains_per_sm", None)
+    smem = getattr(tr, "resolve_smem_bytes", None)
+    lines = []
+    for G in HUFF_SIZES:
+        _, targs, ref_chain = tr.make_resolve_bench(G=G, rounds=CHAIN_ROUNDS,
+                                                    device=dev)
+        first_ms, got = wall_ms(lambda: tr.rans_resolve_cuda(
+            *targs, CHAIN_ROUNDS))
+        if not np.array_equal(got.cpu().numpy(),
+                              ref_chain()[0].view(np.int32)):
+            raise RuntimeError(f"rans_resolve_bench at G={G}: != numpy")
+        ms = cuda_ms(lambda: tr.rans_resolve_cuda(*targs, CHAIN_ROUNDS),
+                     args.iters)
+        line = {"label": args.label, "kernel": "rans_resolve_bench",
+                "chains": G, "ms": ms,
+                "ns_per_step": ms / CHAIN_ROUNDS * 1e6,
+                "lookups_per_s": G * CHAIN_ROUNDS / (ms / 1e3),
+                "wall_ms": wall_ms(lambda: tr.rans_resolve_cuda(
+                    *targs, CHAIN_ROUNDS))[0], "first_wall_ms": first_ms,
+                "chains_per_sm": per_sm() if per_sm else None,
+                "smem_bytes": smem() if smem else None,
+                "sms": sms, "card": card}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        del got
+    return lines
+
+
 def sweep_huff(args, dev, card, sms):
     """B10 through its wrapper at each of HUFF_SIZES chains."""
     import torch
@@ -321,7 +369,8 @@ def main() -> int:
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)))
     ap.add_argument("--kernels", default=",".join(
         list(dict.fromkeys(k[0] for k in KERNELS))
-        + ["rans_nx16_o0_encode", "huffman_resolve_bench"]))
+        + ["rans_nx16_o0_encode", "rans_resolve_bench",
+           "huffman_resolve_bench"]))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -346,7 +395,7 @@ def main() -> int:
         with ProcessPoolExecutor(
                 max_workers=min(8, len(jobs)),
                 mp_context=multiprocessing.get_context("spawn")) as pool:
-            encs = list(pool.map(_encode, *zip(*jobs)))
+            encs = list(pool.map(encode, *zip(*jobs)))
     encs = {p: encs[i * N_BASE:(i + 1) * N_BASE] for i, p in enumerate(pairs)}
     truth = {o: torch.from_numpy(np.frombuffer(b"".join(raws[o]), np.uint8)
                                  .reshape(N_BASE, -1).copy()).to(dev)
@@ -383,6 +432,8 @@ def main() -> int:
             del b, got
     if "rans_nx16_o0_encode" in keys:
         lines += sweep_enc(raws, sizes, args, dev, card, sms)
+    if "rans_resolve_bench" in keys:
+        lines += sweep_resolve(args, dev, card, sms)
     if "huffman_resolve_bench" in keys:
         lines += sweep_huff(args, dev, card, sms)
     if args.out:

@@ -1,12 +1,17 @@
 // rANS 4x8 decode on Hopper (the CRAM 3.0 wire): order-0 symbols (kernel
 // B7) or a per-stream histogram of order-0 or order-1 symbols (kernel B8,
-// the order chosen at compile time), one launch for the whole batch.
+// the order chosen at compile time), one launch for the whole batch; and
+// the symbols of three more wires on the same round: 4x8 order 1 (X1),
+// and the 4-way rANS Nx16 wire of order 0 (X2) and order 1 (X3), whose
+// states refill 16-bit words (rans4x8_step.cuh).
 //
 // Replaces: htslib_tpu/ops/rans4x8_pallas.py:_seg4_kernel (decode, driven
 // by decode_4x8_o0_batch) and :_seg4_hist_kernel (decode + histogram,
 // driven by ops/device_stats.py:qualstats_device_4x8).  Unlike those, the
 // odd tail (order 0: states 0..n%4-1; order 1: state 3) runs here too, so
-// no stream is finished on the host.
+// no stream is finished on the host.  X1-X3 are the cases of
+// htslib_tpu/ops/rans.py (uncompress_batch, uncompress_nx16_batch: XLA
+// loops, no Pallas kernel) that no other kernel of the port decodes.
 //
 // What bounds it: round latency, not bytes or operations.  A stream is one
 // chain of about n/4 dependent rounds, 262,144 for a 1 MiB stream: the four
@@ -33,14 +38,15 @@
 // cursor, and between blocks the warp waits for the chunks copied a block
 // earlier and byte-swaps them, so no global load sits on the chain.  Lane
 // 0 stores each round's four symbols as one word; after the block lane L
-// writes round L's four bytes out (B7) or counts them into histogram row
-// L % 4 with shared atomics (B8).
+// writes round L's four bytes out (B7, X1-X3: order 1 puts state j's
+// symbols at j * (n / 4) + r, so each state's 32 bytes of a block lie in
+// a row) or counts them into histogram row L % 4 with shared atomics (B8).
 //
 // Streams per SM: with one warp a stream, a batch of more streams than
 // the card has SMs is bound by how many blocks an SM holds, which the
-// shared memory sets.  A block takes 17 KB (B7), 21 KB (B8 order 0) or
-// 55 KB (B8 order 1: dynamic shared memory, past the 48 KB static limit),
-// so an SM holds 12, 10 or 4 streams.
+// shared memory sets.  A block takes 17 KB (B7, X2), 21 KB (B8 order 0)
+// or 51-55 KB (X1, X3, B8 order 1: dynamic shared memory, past the 48 KB
+// static limit), so an SM holds 12, 10 or 4 streams.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -119,14 +125,16 @@ struct Args {
 // One stream's decode state: the four states and contexts, the window at
 // the cursor, and the ring's staging counters.  `round` is one round of
 // the warp (every lane the same), forced inline so the state stays in
-// registers; it returns the round's four symbols packed in a word.
-template <bool kHist, bool kO1>
+// registers; it returns the round's four symbols packed in a word.  kW16:
+// the Nx16 wire's refill.
+template <bool kHist, bool kO1, bool kW16>
 struct Stream {
   Tables<kHist, kO1>& t;
   const uint32_t* words;
   uint8_t* out;
   uint32_t nb, cap;
   int lane, off, qbins;
+  int64_t quarter;  // n / 4: where order-1 symbols put state j's
   uint32_t x[RANS8_NWAY], ctx7[RANS8_NWAY];  // contexts times 128
   Rans8Window w;
   uint32_t issued, swapped;  // chunks copied in, and byte-swapped
@@ -173,21 +181,23 @@ struct Stream {
     rans8_window(w.w0, w.w1, w.w2, w.pos, &hi, &lo);
     uint32_t k;
     if constexpr (kO1)
-      k = rans8_round<true>(x, ctx7, &syms, live, hi, lo, t.lut.tab,
-                            t.lut.bucket);
+      k = rans8_round<true, kW16>(x, ctx7, &syms, live, hi, lo, t.lut.tab,
+                                  t.lut.bucket);
     else
-      k = rans8_round<false>(x, ctx7, &syms, live, hi, lo, t.lut.tab,
-                             nullptr);
+      k = rans8_round<false, kW16>(x, ctx7, &syms, live, hi, lo, t.lut.tab,
+                                   nullptr);
     rans8_advance(&w, k, t.ring, kRingMask);
     return syms;
   }
 
   // Symbol j (< 4) of round r: counted in this lane's histogram row, or
-  // written to its order-0 position.
+  // written to its position (rans8_live's).
   __device__ __forceinline__ void keep(uint32_t r, int j, uint32_t s) {
     if constexpr (kHist)
       atomicAdd(&t.emit.hist[lane % kHistRows][rans_hist_bin(s, off, qbins)],
                 1);
+    else if constexpr (kO1)
+      out[j * quarter + r] = (uint8_t)s;
     else
       out[(int64_t)r * RANS8_NWAY + j] = (uint8_t)s;
   }
@@ -204,7 +214,7 @@ struct Stream {
   }
 };
 
-template <bool kHist, bool kO1>
+template <bool kHist, bool kO1, bool kW16>
 __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto& t = *reinterpret_cast<Tables<kHist, kO1>*>(smem);
@@ -213,7 +223,7 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
   const uint32_t nb = (uint32_t)a.n_bytes[st];
   // past the payload's last word every byte reads 0; the cap keeps the
   // cursor (and the ring's chunks) a few words beyond it
-  Stream<kHist, kO1> s = {
+  Stream<kHist, kO1, kW16> s = {
       t, reinterpret_cast<const uint32_t*>(a.payload + a.byte_off[st]),
       kHist ? nullptr : a.out + a.out_off[st], nb, 4u * ((nb + 3u) / 4u) + 32u,
       lane, kHist ? a.offs[st] : 0, a.qbins};
@@ -243,6 +253,7 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
   s.stage();
 
   const int64_t n = a.ulen[st];
+  if constexpr (kO1 && !kHist) s.quarter = n / RANS8_NWAY;
   int64_t rounds = rans8_rounds(kO1, n);
   if (a.max_rounds >= 0 && rounds > a.max_rounds) rounds = a.max_rounds;
   // rounds in which all four states decode, then the tail
@@ -301,9 +312,9 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
 // Set the variant up for its tables in dynamic shared memory, with the
 // largest shared-memory carveout so that as many blocks share an SM as the
 // tables allow; returns a CUDA error code.
-template <bool kHist, bool kO1>
+template <bool kHist, bool kO1, bool kW16>
 cudaError_t configure() {
-  auto* fn = rans4x8_kernel<kHist, kO1>;
+  auto* fn = rans4x8_kernel<kHist, kO1, kW16>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sizeof(Tables<kHist, kO1>));
@@ -315,44 +326,46 @@ cudaError_t configure() {
 
 // One launch of the variant; returns a CUDA error code (an attribute's, or
 // the launch's).
-template <bool kHist, bool kO1>
+template <bool kHist, bool kO1, bool kW16>
 int launch(const Args& a, int n_streams, cudaStream_t s) {
-  const cudaError_t e = configure<kHist, kO1>();
+  const cudaError_t e = configure<kHist, kO1, kW16>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  rans4x8_kernel<kHist, kO1>
+  rans4x8_kernel<kHist, kO1, kW16>
       <<<n_streams, kWarp, sizeof(Tables<kHist, kO1>), s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks (streams) of the variant one SM holds at once, or minus a CUDA
 // error code.
-template <bool kHist, bool kO1>
+template <bool kHist, bool kO1, bool kW16>
 int blocks_per_sm() {
-  cudaError_t e = configure<kHist, kO1>();
+  cudaError_t e = configure<kHist, kO1, kW16>();
   int n = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, rans4x8_kernel<kHist, kO1>, kWarp, sizeof(Tables<kHist, kO1>));
+        &n, rans4x8_kernel<kHist, kO1, kW16>, kWarp,
+        sizeof(Tables<kHist, kO1>));
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // namespace
 
-// Order-0 decode (out != NULL, o1 == 0) or order-0/1 histogram
-// (hist != NULL) of n_streams streams on `stream`; n_rows is not read
-// (a stream's ctx_start[256] is its row count).  Returns
-// cudaGetLastError() after the launch, the error of the shared-memory
-// attribute when it is refused, or cudaErrorInvalidValue for an order-1
-// decode, which has no kernel.
+// Symbols (out != NULL) or an order-0/1 histogram (hist != NULL) of
+// n_streams streams on `stream`: order o1, and with w16 the 4-way Nx16
+// wire's refill (symbols only); n_rows is not read (a stream's
+// ctx_start[256] is its row count).  Returns cudaGetLastError() after the
+// launch, the error of the shared-memory attribute when it is refused, or
+// cudaErrorInvalidValue for a combination with no kernel (an Nx16
+// histogram).
 extern "C" int rans4x8_launch(
     const void* payload, const void* byte_off, const void* n_bytes,
     const void* freqs, const void* rows, const void* row_off,
     const void* n_rows, const void* ctx_start, const void* x0,
     const void* ulen, const void* out_off, void* out, const void* offs,
     void* hist, void* x_out, void* cur_out, void* ctx_out, int n_streams,
-    int qbins, int max_rounds, int o1, void* stream) {
+    int qbins, int max_rounds, int o1, int w16, void* stream) {
   if (n_streams <= 0) return 0;
-  if (hist == nullptr && o1) return static_cast<int>(cudaErrorInvalidValue);
+  if (hist != nullptr && w16) return static_cast<int>(cudaErrorInvalidValue);
   const Args a = {static_cast<const uint8_t*>(payload),
                   static_cast<const int64_t*>(byte_off),
                   static_cast<const int32_t*>(n_bytes),
@@ -372,16 +385,39 @@ extern "C" int rans4x8_launch(
                   qbins,
                   max_rounds};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hist == nullptr) return launch<false, false>(a, n_streams, s);
-  if (o1) return launch<true, true>(a, n_streams, s);
-  return launch<true, false>(a, n_streams, s);
+  if (hist != nullptr)
+    return o1 ? launch<true, true, false>(a, n_streams, s)
+              : launch<true, false, false>(a, n_streams, s);
+  if (w16)
+    return o1 ? launch<false, true, true>(a, n_streams, s)
+              : launch<false, false, true>(a, n_streams, s);
+  return o1 ? launch<false, true, false>(a, n_streams, s)
+            : launch<false, false, false>(a, n_streams, s);
 }
 
-// Streams of a launch that one SM decodes at once: B7 (hist == 0) or B8
-// of order o1; minus a CUDA error code on failure.
-extern "C" int rans4x8_blocks_per_sm(int hist, int o1) {
-  if (!hist) return blocks_per_sm<false, false>();
-  return o1 ? blocks_per_sm<true, true>() : blocks_per_sm<true, false>();
+// Streams of a launch that one SM decodes at once: symbols (hist == 0: B7,
+// X1-X3) or a histogram (B8) of order o1, w16 the Nx16 refill; minus a
+// CUDA error code on failure.
+extern "C" int rans4x8_blocks_per_sm(int hist, int o1, int w16) {
+  if (hist && w16) return -static_cast<int>(cudaErrorInvalidValue);
+  if (hist)
+    return o1 ? blocks_per_sm<true, true, false>()
+              : blocks_per_sm<true, false, false>();
+  if (w16)
+    return o1 ? blocks_per_sm<false, true, true>()
+              : blocks_per_sm<false, false, true>();
+  return o1 ? blocks_per_sm<false, true, false>()
+            : blocks_per_sm<false, false, false>();
+}
+
+// Bytes of shared memory a block (a stream) takes: symbols or a histogram
+// (hist) of order o1 (the refill does not change it).
+extern "C" int rans4x8_smem_bytes(int hist, int o1) {
+  if (hist)
+    return o1 ? (int)sizeof(Tables<true, true>)
+              : (int)sizeof(Tables<true, false>);
+  return o1 ? (int)sizeof(Tables<false, true>)
+            : (int)sizeof(Tables<false, false>);
 }
 
 extern "C" const char* kernel_error_string(int rc) {

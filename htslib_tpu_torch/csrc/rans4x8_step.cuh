@@ -11,6 +11,12 @@
 // 2^15 a second (from a state >= 2^23 a decode step leaves x >= 2^11, so
 // two bytes always lift it back above 2^23).
 //
+// The 4-way rANS Nx16 wire (CRAM 3.1 without the X32 flag) has the same
+// four states, layouts and tables and differs only in its refill: a state
+// below 2^15 shifts in one little-endian 16-bit word (`rans16_refill_bits`,
+// `rans8_swap16`).  `rans8_round` takes the refill as a template argument,
+// so the 4x8 rounds compile as they did without it.
+//
 // One thread runs a whole round (`rans8_round`): the four states, their
 // contexts and the payload bytes at the cursor all sit in its registers.
 // A round takes at most 8 bytes, so the bytes come from a 64-bit window of
@@ -60,6 +66,23 @@ RANS_HD uint32_t rans8_funnel(uint32_t lo, uint32_t hi, uint32_t s) {
 // Bits a state takes after its decode step: 0, 8 or 16.
 RANS_HD uint32_t rans8_refill_bits(uint32_t x) {
   return x >= (1u << 15) ? (x >= RANS8_L ? 0u : 8u) : 16u;
+}
+
+// Bits a state of the 4-way Nx16 wire takes after its decode step: 0 or 16.
+RANS_HD uint32_t rans16_refill_bits(uint32_t x) {
+  return x < RANS16_L ? 16u : 0u;
+}
+
+// The window's top two bytes b0 (first), b1 as one little-endian word in
+// the top half: (b1 << 24) | (b0 << 16), the low half kept.  A funnel
+// shift by 16 then takes the word b0 | b1 << 8 the Nx16 wire refills.
+RANS_HD uint32_t rans8_swap16(uint32_t v) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(v, 0, 0x2310);
+#else
+  return ((v << 8) & 0xFF000000u) | ((v >> 8) & 0x00FF0000u) |
+         (v & 0xFFFFu);
+#endif
 }
 
 // Whether state j decodes in round r, and at which output position.
@@ -115,9 +138,10 @@ RANS_HD uint32_t rans8_pack(const uint32_t* e) {
 // of `live` is set (order 0 through the slot table `tab`; order 1 through
 // the records `tab` and `bucket`, its context held as ctx7 = ctx * 128,
 // the four lookups issued together and any loop after them), and shifts
-// in its refill bytes from the window hi:lo.  Leaves the four symbols in
-// *syms (state j's in byte j) and returns the bytes the round took.
-template <bool kO1>
+// in its refill bytes from the window hi:lo (kW16: the Nx16 wire's words).
+// Leaves the four symbols in *syms (state j's in byte j) and returns the
+// bytes the round took.
+template <bool kO1, bool kW16 = false>
 RANS_HD uint32_t rans8_round(uint32_t* x, uint32_t* ctx7, uint32_t* syms,
                              unsigned live, uint32_t hi, uint32_t lo,
                              const uint32_t* tab, const uint16_t* bucket) {
@@ -149,13 +173,17 @@ RANS_HD uint32_t rans8_round(uint32_t* x, uint32_t* ctx7, uint32_t* syms,
       x[j] = xs[j];
       if (kO1) ctx7[j] = (e[j] >> 17) & 0x7F80u;  // the symbol * 128
     }
-    bits[j] = on ? rans8_refill_bits(xs[j]) : 0u;
+    bits[j] = on ? (kW16 ? rans16_refill_bits(xs[j])
+                         : rans8_refill_bits(xs[j]))
+                 : 0u;
   }
   const uint64_t win = ((uint64_t)hi << 32) | lo;
   const uint32_t at[RANS8_NWAY] = {0u, bits[0], bits[0] + bits[1],
                                    bits[0] + bits[1] + bits[2]};
-  for (int j = 0; j < RANS8_NWAY; ++j)
-    x[j] = rans8_funnel((uint32_t)((win << at[j]) >> 32), x[j], bits[j]);
+  for (int j = 0; j < RANS8_NWAY; ++j) {
+    const uint32_t w = (uint32_t)((win << at[j]) >> 32);
+    x[j] = rans8_funnel(kW16 ? rans8_swap16(w) : w, x[j], bits[j]);
+  }
   return (at[3] + bits[3]) >> 3;
 }
 

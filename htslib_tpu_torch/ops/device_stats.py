@@ -36,7 +36,7 @@ from htslib_tpu_torch.cram.structs import CT_EXTERNAL, RANS, RANSPR
 from htslib_tpu_torch.ops.rans4x8 import (_parse_4x8_o1, frame_4x8,
                                           o1_gate_4x8, rans4x8)
 from htslib_tpu_torch.ops.rans_nx16 import frame_streams, rans_o0
-from htslib_tpu_torch.ops.rans_nx16_o1 import (_parse_o1_header,
+from htslib_tpu_torch.ops.rans_nx16_o1 import (_parse_nx16_header,
                                                frame_o1_streams, o1_pads,
                                                rans_o1)
 
@@ -119,7 +119,7 @@ def qualstats_device_o1(blocks: List[bytes], device="cuda", reps: int = 1,
     tails included.  Raises as the JAX function does for streams that are
     not plain O1 32-way or whose tables pass the A2_MAX gate."""
     dev = _build.resolve_device(device)
-    parsed = [_parse_o1_header(d) for d in blocks]
+    parsed = [_parse_nx16_header(d) for d in blocks]
     o1_pads(parsed)
     _check_qbins(qbins)
     timing = _timing(blocks)
@@ -258,18 +258,18 @@ def qs_route(method: int, raw: bytes):
             if f == 0x04:
                 return "nx16_o0", raw
             if f == 0x05:
-                o1_pads([_parse_o1_header(raw)])
+                o1_pads([_parse_nx16_header(raw)])
                 return "nx16_o1", raw
             if f & 0x08 and not f & 0xF0:
                 subs = _stripe_rewrap(raw)
                 for sub, is_o1 in subs:
                     if is_o1:
-                        o1_pads([_parse_o1_header(sub)])
+                        o1_pads([_parse_nx16_header(sub)])
                 return "stripe", subs
             if f in (0x84, 0x85):
                 pk = _pack_rewrap(raw)
                 if f == 0x85:
-                    o1_pads([_parse_o1_header(pk[4])])
+                    o1_pads([_parse_nx16_header(pk[4])])
                 return "pack", pk + (f == 0x85,)
         except ValueError:
             pass

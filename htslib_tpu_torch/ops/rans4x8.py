@@ -1,9 +1,14 @@
-"""rANS 4x8 decode on the card (kernels B7 and B8), the CRAM 3.0 wire.
+"""rANS 4x8 decode on the card (kernels B7 and B8), the CRAM 3.0 wire,
+and the symbols of the wires that share its round (X1-X3).
 
 Port of htslib_tpu/ops/rans4x8_pallas.py: `decode_4x8_o0_batch` (its
 `_seg4_kernel`) here, and the order-0 or order-1 histogram variant (its
 `_seg4_hist_kernel`) through `rans4x8(..., qbins=...)`, which
-ops/device_stats.py drives.
+ops/device_stats.py drives.  The same kernel source decodes 4x8 order-1
+symbols (X1) and the 4-way rANS Nx16 wire of both orders (X2, X3: a
+batch framed by `frame_nx16_4way`, whose states refill 16-bit
+little-endian words against 2^15), the cases of htslib_tpu/ops/rans.py
+that ops/rans.py sends here.
 
 Layout.  The Pallas kernels decode 64 streams per call in state-major
 [8, 256] lanes over byte-packed [W, 64] windows, 1024 rounds per call,
@@ -17,6 +22,11 @@ tail included (csrc/rans4x8.cu, one warp per stream).
 `rans4x8` launches the kernel for tensors on the card and takes the plain
 PyTorch version (`rans4x8_plain`, the same rounds as tensor ops over all
 streams and states at once) for tensors on the CPU.
+
+Past a payload's end the kernels and the plain version read zero bytes,
+where the host codecs stop refilling; a valid stream never refills there,
+so the symbols are the same, and the cursor each returns is clamped at
+the payload's end.
 """
 from __future__ import annotations
 
@@ -32,17 +42,20 @@ from htslib_tpu_torch.codecs.rans4x8 import _read_freqs, _read_freqs_o1
 from htslib_tpu_torch.ops.rans_nx16 import (TOTFREQ, _U32, exclusive_cumsum,
                                             pack_payloads)
 from htslib_tpu_torch.ops.rans_nx16_o1 import (A2_MAX, O1Tables,
+                                               _parse_nx16_header,
                                                check_o1_tables,
-                                               frame_o1_tables,
+                                               frame_o1_tables, o1_pads,
                                                o1_slot_table, slot_step)
 
 RANS8_L = 1 << 23
+RANS16_L = 1 << 15
 NWAY4 = 4
 
 
 @dataclass
 class Rans4x8Batch:
-    """4x8 streams of one order framed for decode, on one device."""
+    """4x8 streams (with `w16`, 4-way Nx16 streams) of one order framed
+    for decode, on one device."""
     payload: torch.Tensor   # u8: payloads back to back, 4-byte aligned
     byte_off: torch.Tensor  # int64 [S]: first byte of each payload
     n_bytes: torch.Tensor   # int32 [S]: bytes in each payload
@@ -52,6 +65,8 @@ class Rans4x8Batch:
     x0: torch.Tensor        # int32 [S, 4]: initial states (u32 bits)
     ulen: torch.Tensor      # int32 [S]: symbols in each stream
     out_off: torch.Tensor   # int64 [S]: each stream's first output byte
+    w16: bool = False       # the 4-way Nx16 wire's refill (16-bit words
+    #                         against 2^15) in place of 4x8's bytes
 
     @property
     def o1(self) -> bool:
@@ -121,11 +136,42 @@ def frame_4x8(blocks: List[bytes], o1: bool, device) -> Rans4x8Batch:
         else:
             ulen[i], freqs[i], states[i], pl = _parse_4x8_o0(data)
             payloads.append(pl)
-    if (ulen >= 1 << 31).any():
-        raise ValueError("stream too long for the 4x8 kernel")
     if o1:
         for F in Fs:
             o1_gate_4x8(F)
+    return _batch(payloads, freqs, Fs if o1 else None, states, ulen, False,
+                  device)
+
+
+def frame_nx16_4way(blocks: List[bytes], o1: bool, device) -> Rans4x8Batch:
+    """Parse plain 4-way rANS Nx16 streams of one order (flags 0x00 or
+    0x01; none of zero length: such a stream has no table) into a
+    `Rans4x8Batch` with the Nx16 refill (`w16`).  Raises ValueError on
+    other flags, frequencies past 4096 or (order 1) tables past the
+    kernels' A2_MAX rows, as the 32-way framings do."""
+    parsed = [_parse_nx16_header(d, NWAY4, o1) for d in blocks]
+    ulen = np.array([p[0] for p in parsed], np.int64)
+    if (ulen == 0).any():
+        raise ValueError("a zero-length Nx16 stream has no table to frame")
+    freqs = np.zeros((len(blocks), 256), np.int32)
+    if o1:
+        o1_pads(parsed)
+    else:
+        for i, p in enumerate(parsed):
+            if p[1].sum() > TOTFREQ:
+                raise ValueError("rANS Nx16: frequencies exceed 4096")
+            freqs[i] = p[1]
+    states = np.array([p[2] for p in parsed], np.int64).reshape(-1, NWAY4)
+    return _batch([p[3] for p in parsed], freqs,
+                  [p[1] for p in parsed] if o1 else None, states, ulen, True,
+                  device)
+
+
+def _batch(payloads, freqs, Fs, states, ulen, w16, device) -> Rans4x8Batch:
+    """A `Rans4x8Batch` of parsed streams on `device`: order 1 where the
+    per-context frequencies Fs are given."""
+    if (ulen >= 1 << 31).any():
+        raise ValueError("stream too long for the 4x8 kernel")
     payload, word_off, _ = pack_payloads(payloads, 4)
 
     def dev(a):
@@ -134,9 +180,9 @@ def frame_4x8(blocks: List[bytes], o1: bool, device) -> Rans4x8Batch:
     return Rans4x8Batch(
         dev(payload), dev(4 * word_off),
         dev(np.array([len(p) for p in payloads], np.int32)), dev(freqs),
-        frame_o1_tables(Fs, device) if o1 else None,
+        frame_o1_tables(Fs, device) if Fs is not None else None,
         dev(states.astype(np.uint32).view(np.int32)),
-        dev(ulen.astype(np.int32)), dev(exclusive_cumsum(ulen)))
+        dev(ulen.astype(np.int32)), dev(exclusive_cumsum(ulen)), w16)
 
 
 def o0_slot_table(freqs: torch.Tensor) -> torch.Tensor:
@@ -159,11 +205,12 @@ def rans4x8_plain(b: Rans4x8Batch, max_rounds: int = -1,
                   qbins: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
-    """Plain PyTorch version of kernels B7/B8: the same rounds as tensor
-    ops over [streams, 4 states].  Returns (symbols u8 [total_out], or
-    with `qbins` the histogram int32 [S, qbins] of clip(sym - offs, 0,
-    qbins - 1); final states int32 [S, 4]; final byte cursors int32 [S];
-    final contexts int32 [S, 4], 0 for order 0)."""
+    """Plain PyTorch version of kernels B7/B8 and X1-X3: the same rounds
+    as tensor ops over [streams, 4 states], refilling as `b.w16` says.
+    Returns (symbols u8 [total_out], or with `qbins` the histogram int32
+    [S, qbins] of clip(sym - offs, 0, qbins - 1); final states int32
+    [S, 4]; final byte cursors int32 [S]; final contexts int32 [S, 4], 0
+    for order 0)."""
     dev = b.payload.device
     S = b.n_streams
     table = o1_slot_table(b.tables) if b.o1 else o0_slot_table(b.freqs)
@@ -212,10 +259,19 @@ def rans4x8_plain(b: Rans4x8Batch, max_rounds: int = -1,
             out[at.reshape(-1)] = s.reshape(-1).to(torch.uint8)
         else:
             out.scatter_add_(1, (s - off).clamp(0, qbins - 1), act.long())
-        need = act.long() * ((x < RANS8_L).long() + (x < (1 << 15)).long())
-        first = cur + torch.cumsum(need, 1) - need
-        x = torch.where(need >= 1, ((x << 8) | byte(first)) & _U32, x)
-        x = torch.where(need == 2, ((x << 8) | byte(first + 1)) & _U32, x)
+        if b.w16:
+            # one little-endian word below 2^15
+            need = 2 * (act & (x < RANS16_L)).long()
+            first = cur + torch.cumsum(need, 1) - need
+            word = byte(first) | (byte(first + 1) << 8)
+            x = torch.where(need == 2, ((x << 16) | word) & _U32, x)
+        else:
+            need = act.long() * ((x < RANS8_L).long()
+                                 + (x < RANS16_L).long())
+            first = cur + torch.cumsum(need, 1) - need
+            x = torch.where(need >= 1, ((x << 8) | byte(first)) & _U32, x)
+            x = torch.where(need == 2, ((x << 8) | byte(first + 1)) & _U32,
+                            x)
         cur = torch.minimum(cur + need.sum(1, keepdim=True), nb)
     res = out[:total] if qbins is None else out.to(torch.int32)
     return (res, x.to(torch.int32), cur[:, 0].to(torch.int32),
@@ -227,9 +283,10 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
                  qbins: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
-    """Kernel B7 (order-0 symbols) or, with `qbins`, kernel B8 (order-0
-    or order-1 histogram) over the whole batch in one launch; same
-    results as `rans4x8_plain`."""
+    """Kernel B7 (order-0 symbols), X1 (order-1 symbols), X2/X3 (the
+    4-way Nx16 wire's symbols, `b.w16`) or, with `qbins`, kernel B8
+    (order-0 or order-1 4x8 histogram) over the whole batch in one
+    launch; same results as `rans4x8_plain`."""
     S = b.n_streams
     req = _build.require_cuda
     req(b.payload, torch.uint8, "payload")
@@ -261,16 +318,17 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
     ctx_out = torch.empty((S, NWAY4), dtype=torch.int32, device=dev)
     cur_out = torch.empty(S, dtype=torch.int32, device=dev)
     if qbins is None:
-        if b.o1:
-            raise ValueError("rANS 4x8 order-1 symbols: no kernel (the "
-                             "order-1 lane is histogram only)")
         # positions a max_rounds stop leaves undecoded hold 0, as in
         # the plain version
         res = (torch.empty if max_rounds < 0 else torch.zeros)(
             b.total_out, dtype=torch.uint8, device=dev)
-        out_ptr, hist_ptr, offs_ptr, key = res.data_ptr(), None, None, \
-            "rans4x8_o0_decode"
+        out_ptr, hist_ptr, offs_ptr = res.data_ptr(), None, None
+        key = ("rans_nx16_4way_o%d_decode" if b.w16
+               else "rans4x8_o%d_decode") % int(b.o1)
     else:
+        if b.w16:
+            raise ValueError("4-way rANS Nx16 histogram: no kernel (the "
+                             "wire is decoded to symbols only)")
         if not 1 <= qbins <= 256:
             raise ValueError("qbins must be in 1..256")
         if offs is None:
@@ -285,18 +343,25 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
         b.freqs.data_ptr(), *t_ptrs, b.x0.data_ptr(),
         b.ulen.data_ptr(), b.out_off.data_ptr(), out_ptr, offs_ptr,
         hist_ptr, x_out.data_ptr(), cur_out.data_ptr(), ctx_out.data_ptr(),
-        S, qbins or 0, max_rounds, int(b.o1),
+        S, qbins or 0, max_rounds, int(b.o1), int(b.w16),
         _build.stream_handle(b.payload))
     _build.check(lib, rc, key)
     _build.LAUNCHES[key] += 1
     return res, x_out, cur_out, ctx_out
 
 
-def blocks_per_sm(hist: bool, o1: bool = False) -> int:
-    """Streams one SM of the card decodes at once in kernel B7 (`hist`
-    false) or B8 of order `o1`: the blocks its shared memory holds."""
+def smem_bytes(hist: bool, o1: bool = False) -> int:
+    """Bytes of shared memory a block (a stream) of kernel B7, X1-X3
+    (`hist` false) or B8 of order `o1` takes."""
+    return _build.load("rans4x8").rans4x8_smem_bytes(int(hist), int(o1))
+
+
+def blocks_per_sm(hist: bool, o1: bool = False, w16: bool = False) -> int:
+    """Streams one SM of the card decodes at once in kernel B7 or X1
+    (`hist` false, order `o1`), X2/X3 (`w16`) or B8 of order `o1`: the
+    blocks its shared memory holds."""
     lib = _build.load("rans4x8")
-    n = lib.rans4x8_blocks_per_sm(int(hist), int(o1))
+    n = lib.rans4x8_blocks_per_sm(int(hist), int(o1), int(w16))
     _build.check(lib, max(-n, 0), "rans4x8 occupancy")
     return n
 
@@ -322,7 +387,11 @@ def decode_4x8_o0_batch(blocks: List[bytes], device="cuda") -> List[bytes]:
     dev = _build.resolve_device(device)
     if not blocks:
         return []
-    b = frame_4x8(blocks, False, dev)
+    return decode_streams(frame_4x8(blocks, False, dev))
+
+
+def decode_streams(b: Rans4x8Batch) -> List[bytes]:
+    """The symbols of every stream of a batch, one launch on the card."""
     syms = rans4x8(b)[0].cpu().numpy()
     offs = b.out_off.cpu().numpy()
     lens = b.ulen.cpu().numpy()

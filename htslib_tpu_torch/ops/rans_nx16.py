@@ -1,5 +1,5 @@
 """rANS Nx16 order-0 32-way decode on the card (kernels B2 and B3), and
-the rANS resolve chain (kernel B4).
+the rANS resolve chain (kernel B4, its step in csrc/rans_resolve_step.cuh).
 
 Port of htslib_tpu/ops/rans_pallas.py: `decode_nx16_o0_batch` (its
 `_seg_kernel`) here, the histogram variant (its `_seg_hist_kernel`)
@@ -300,6 +300,19 @@ def rans_resolve_plain(freqs: torch.Tensor, x0: torch.Tensor,
              - torch.gather(cum, 1, s)) & _U32
         x = torch.where(x < RANS16_L, ((x << 16) | 1) & _U32, x)
     return x[:, 0].to(torch.int32)
+
+
+def resolve_smem_bytes() -> int:
+    """Bytes of shared memory a chain (a block) of kernel B4 takes."""
+    return _build.load("rans_resolve_bench").rans_resolve_bench_smem_bytes()
+
+
+def resolve_chains_per_sm() -> int:
+    """Chains of kernel B4 that one SM of the card runs at once."""
+    lib = _build.load("rans_resolve_bench")
+    n = lib.rans_resolve_bench_chains_per_sm()
+    _build.check(lib, max(-n, 0), "rans_resolve_bench occupancy")
+    return n
 
 
 def rans_resolve_cuda(freqs: torch.Tensor, x0: torch.Tensor,

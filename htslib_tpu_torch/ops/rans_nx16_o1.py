@@ -71,24 +71,32 @@ class Nx16O1Batch:
         return int(self.ulen.sum())
 
 
-def _parse_o1_header(data: bytes):
-    """Parse an Nx16 ORDER-1 32-way stream (flags already checked):
-    returns (n_out, F [256,256], states [32], payload ndarray)."""
+def _parse_nx16_header(data: bytes, nway: int = NWAY, o1: bool = True):
+    """Parse a plain Nx16 stream of `nway` (32 or 4) states, order 1 or,
+    with `o1` false, order 0: returns (n_out, F [256,256] (order 0: f
+    [256]), states [nway], payload ndarray).  Raises ValueError unless
+    the flags are exactly that wire's."""
     flags = data[0]
-    if flags & ~0x05 or not (flags & 0x04) or not (flags & 0x01):
-        raise ValueError("device O1 kernel: plain 32-way O1 only")
+    if flags != (0x04 if nway == NWAY else 0) | int(o1):
+        if nway == NWAY and o1:
+            raise ValueError("device O1 kernel: plain 32-way O1 only")
+        raise ValueError(f"device Nx16 kernel: plain {nway}-way "
+                         f"O{int(o1)} only")
     p = 1
     ulen, p = u7_get(data, p)
-    tlen, p = u7_get(data, p)
-    tab = data[p:p + tlen]
-    p += tlen
-    tp = 0
-    ctxs, tp = _read_alphabet(tab, tp)
-    F = np.zeros((256, 256), np.int64)
-    for ctx in ctxs:
-        F[ctx], tp = _read_freq_table(tab, tp)
-    states = np.zeros(NWAY, np.int64)
-    for j in range(NWAY):
+    if o1:
+        tlen, p = u7_get(data, p)
+        tab = data[p:p + tlen]
+        p += tlen
+        tp = 0
+        ctxs, tp = _read_alphabet(tab, tp)
+        F = np.zeros((256, 256), np.int64)
+        for ctx in ctxs:
+            F[ctx], tp = _read_freq_table(tab, tp)
+    else:
+        F, p = _read_freq_table(data, p)
+    states = np.zeros(nway, np.int64)
+    for j in range(nway):
         states[j] = int.from_bytes(data[p:p + 4], "little")
         p += 4
     payload = np.frombuffer(data, np.uint8, len(data) - p, p)
@@ -148,7 +156,7 @@ def frame_o1_tables(Fs: List[np.ndarray], device) -> O1Tables:
 
 
 def frame_o1_streams(parsed, device) -> Nx16O1Batch:
-    """Parsed O1 streams (`_parse_o1_header`) -> an `Nx16O1Batch`."""
+    """Parsed O1 streams (`_parse_nx16_header`) -> an `Nx16O1Batch`."""
     ulen = np.array([p[0] for p in parsed], np.int64)
     if (ulen >= 1 << 31).any():
         raise ValueError("stream too long for the Nx16 kernel")
@@ -411,7 +419,7 @@ def decode_nx16_o1_batch(blocks: List[bytes],
     model: codecs/rans4x16._dec_core_o1), every stream of the list in
     one kernel launch, the <= 31-symbol tail included."""
     dev = _build.resolve_device(device)
-    parsed = [_parse_o1_header(d) for d in blocks]
+    parsed = [_parse_nx16_header(d) for d in blocks]
     o1_pads(parsed)
     if not blocks:
         return []

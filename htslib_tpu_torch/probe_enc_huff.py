@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Same-call comparison of builds of the rANS Nx16 order-0 encode (B9) and
-of the Huffman resolve chain (B10) on one card.
+"""Same-call comparison of builds of the rANS Nx16 order-0 encode (B9), of
+the Huffman resolve chain (B10) and of the rANS resolve chain (B4) on one
+card.
 
     python3 -m htslib_tpu_torch.probe_enc_huff [--enc NAME=SOURCE[:D=V,...]]
-        [--huff NAME=SOURCE[:D=V,...]] [--enc-sizes S,...]
-        [--huff-sizes L,...] [--iters N] [--out FILE] [--sass DIR]
+        [--huff NAME=SOURCE[:D=V,...]] [--resolve NAME=SOURCE[:D=V,...]]
+        [--enc-sizes S,...] [--huff-sizes L,...] [--iters N] [--out FILE]
+        [--sass DIR]
 
 Each variant is a `.cu` file with B9's C entry point `rans_nx16_enc_launch`
-(--enc) or B10's `huffman_resolve_launch` (--huff): this checkout's
-`csrc/rans_nx16_enc.cu` or `csrc/huffman_resolve.cu`, a parent
-checkout's, or either with `-D` defines.  All variants are compiled at
+(--enc), B10's `huffman_resolve_launch` (--huff) or B4's
+`rans_resolve_bench_launch` (--resolve): this checkout's
+`csrc/rans_nx16_enc.cu`, `csrc/huffman_resolve.cu` or
+`csrc/rans_resolve_bench.cu`, a parent checkout's, or any with `-D`
+defines.  All variants are compiled at
 once (`probe_rans_o0.compile_variant`, `_build.py`'s nvcc flags), each
 into a library of its own under `build/probe/`; with --sass each one's
 `cuobjdump -sass` is written to DIR/<name>.sass.
 
 B9: `bench_rans.py`'s four 1 MiB `uniform` and four `walk` streams (leg
-2's kinds), copied into batches of S streams.  B10: the device bench's
-chains (`make_huffman_resolve_bench`, 32,768 steps) at L chains.  For each
-size every variant's launch is checked against the host truth (B9: the
-host codec's final states and words, `bench_rans.enc_truth`; B10: the
-numpy chain `bench_rans.huff_truth`), then the variants are timed in
+2's kinds), copied into batches of S streams.  B10 and B4: the device
+bench's chains (`make_huffman_resolve_bench`, `make_resolve_bench`, 32,768
+steps) at L chains (--huff-sizes).  For each size every variant's launch is
+checked against the host truth (B9: the host codec's final states and
+words, `bench_rans.enc_truth`; B10: the numpy chain
+`bench_rans.huff_truth`; B4: the bench's numpy `ref_chain`), then the
+variants are timed in
 turns, forwards and back (A B C C B A), each the mean of `--iters`
 launches from CUDA events.
 Each line printed (and appended to --out) is one JSON object: variant,
@@ -94,6 +100,19 @@ def huff_launch(lib, args, rounds: int):
     return v_out
 
 
+def resolve_launch(lib, args, rounds: int):
+    import torch
+
+    from htslib_tpu_torch import _build
+    x_out = torch.empty_like(args[1])
+    rc = lib.rans_resolve_bench_launch(args[0].data_ptr(), args[1].data_ptr(),
+                                       x_out.data_ptr(), int(args[1].numel()),
+                                       rounds, _build.stream_handle(x_out))
+    if rc != 0:
+        raise RuntimeError(f"launch failed: CUDA error {rc}")
+    return x_out
+
+
 def turns_ms(fns: dict, iters: int) -> dict:
     """Each fn timed in turns forwards and back: {name: [ms, ms]}."""
     from htslib_tpu_torch.bench_rans import cuda_ms
@@ -107,6 +126,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--enc", action="append", default=[])
     ap.add_argument("--huff", action="append", default=[])
+    ap.add_argument("--resolve", action="append", default=[])
     ap.add_argument("--enc-sizes", default="8,40,1056")
     ap.add_argument("--huff-sizes", default="128,1056")
     ap.add_argument("--kinds", default="uniform,walk")
@@ -125,6 +145,7 @@ def main() -> int:
                                              huff_truth, replicate_enc)
     from htslib_tpu_torch.ops.huffman import make_huffman_resolve_bench
     from htslib_tpu_torch.ops.rans_enc import frame_enc
+    from htslib_tpu_torch.ops.rans_nx16 import make_resolve_bench
     from htslib_tpu_torch.probe_rans_o0 import compile_variant
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -135,6 +156,8 @@ def main() -> int:
     specs = {f"enc:{k}": v for k, v in (e.split("=", 1) for e in args.enc)}
     specs.update({f"huff:{k}": v for k, v in (e.split("=", 1)
                                                for e in args.huff)})
+    specs.update({f"resolve:{k}": v for k, v in (e.split("=", 1)
+                                                  for e in args.resolve)})
     with ThreadPoolExecutor(max_workers=max(1, len(specs))) as pool:
         paths = dict(zip(specs, pool.map(
             lambda kv: compile_variant(kv[0].replace(":", "_"), kv[1]),
@@ -155,6 +178,10 @@ def main() -> int:
             h.rans_nx16_enc_launch.argtypes = [ctypes.c_void_p] * 8 \
                 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
             h.rans_nx16_enc_launch.restype = ctypes.c_int
+        elif name.startswith("resolve:"):
+            h.rans_resolve_bench_launch.argtypes = [ctypes.c_void_p] * 3 \
+                + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+            h.rans_resolve_bench_launch.restype = ctypes.c_int
         else:
             h.huffman_resolve_launch.argtypes = [ctypes.c_void_p] * 6 \
                 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
@@ -229,6 +256,27 @@ def main() -> int:
                   "smem_bytes": _export(lib, "huffman_resolve_smem_bytes"),
                   "chains_per_sm": _export(
                       lib, "huffman_resolve_chains_per_sm")})
+
+    res = {k[8:]: v for k, v in libs.items() if k.startswith("resolve:")}
+    for G in ([int(s) for s in args.huff_sizes.split(",")] if res else []):
+        _, targs, ref_chain = make_resolve_bench(G=G, rounds=CHAIN_ROUNDS,
+                                                 device=dev)
+        want = torch.from_numpy(ref_chain()[0].view(np.int32)).to(dev)
+        for name, lib in res.items():
+            if not torch.equal(resolve_launch(lib, targs, CHAIN_ROUNDS),
+                               want):
+                raise RuntimeError(f"{name} rANS chain at G={G}: != numpy")
+        turns = turns_ms({name: (lambda lib=lib: resolve_launch(
+            lib, targs, CHAIN_ROUNDS)) for name, lib in res.items()},
+            args.iters)
+        for name, lib in res.items():
+            ms = sum(turns[name]) / 2
+            emit({"variant": name, "kernel": "rans_resolve_bench",
+                  "chains": G, "ms": ms, "turns_ms": turns[name],
+                  "ns_per_step": ms / CHAIN_ROUNDS * 1e6,
+                  "smem_bytes": _export(lib, "rans_resolve_bench_smem_bytes"),
+                  "chains_per_sm": _export(
+                      lib, "rans_resolve_bench_chains_per_sm")})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "a") as fp:

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from chip_smoke import enc_edge_streams, wide_stream
+from htslib_tpu_torch import _build
 from htslib_tpu_torch.codecs import rans4x8 as r8
 from htslib_tpu_torch.codecs.rans4x16 import compress
 from htslib_tpu_torch.entry import entry
@@ -257,7 +258,7 @@ def _4x8_streams(seed=4):
 @pytest.mark.parametrize("qbins", [None, 64, 256])
 def test_o1_kernels_match_plain(card, qbins):
     encs = [compress(d, 0x05) for d in _o1_streams()]
-    b = o1.frame_o1_streams([o1._parse_o1_header(e) for e in encs], card)
+    b = o1.frame_o1_streams([o1._parse_nx16_header(e) for e in encs], card)
     offs = torch.arange(b.n_streams, dtype=torch.int32, device=card)
     for mr in (-1, 700):
         got = o1.rans_o1(b, max_rounds=mr, offs=offs, qbins=qbins)
@@ -268,7 +269,7 @@ def test_o1_kernels_match_plain(card, qbins):
 
 def _o1_batch(datas, dev):
     return o1.frame_o1_streams(
-        [o1._parse_o1_header(compress(d, 0x05)) for d in datas], dev)
+        [o1._parse_nx16_header(compress(d, 0x05)) for d in datas], dev)
 
 
 @pytest.mark.parametrize("qbins", [None, 64])
@@ -423,10 +424,142 @@ def test_4x8_kernels_match_plain_many_streams(card, order, qbins):
 
 
 def test_4x8_o1_decode_has_no_kernel(card):
-    b = t8.frame_4x8([r8.compress(_walk(np.random.default_rng(1), 99), 1)],
-                     True, card)
+    """The order-1 symbol decode that had no kernel now launches X1
+    (before, the wrapper raised): equal to its plain version, its launch
+    counted; an Nx16 4-way histogram still has none."""
+    data = _walk(np.random.default_rng(1), 99)
+    b = t8.frame_4x8([r8.compress(data, 1)], True, card)
+    before = _build.LAUNCHES["rans4x8_o1_decode"]
+    got = t8.rans4x8(b)
+    assert _build.LAUNCHES["rans4x8_o1_decode"] == before + 1
+    assert got[0].cpu().numpy().tobytes() == data
+    for g, w in zip(got, t8.rans4x8_plain(b)):
+        assert torch.equal(g, w)
+    b = t8.frame_nx16_4way([compress(data, 0x01)], True, card)
     with pytest.raises(ValueError, match="no kernel"):
-        t8.rans4x8(b)
+        t8.rans4x8(b, qbins=64)
+
+
+def _x_streams(wire, dev, seed=15):
+    """Streams at the X kernels' edges on `wire` (4x8_o1, nx16_4way_o0 or
+    nx16_4way_o1): lengths 1-3 (not on 4x8 order 1, which the encoder
+    writes as order 0), 4k + 0..3 about a 32-round block, a long
+    walk, a constant run, and the wide-alphabet stream (order 1: its
+    lookups walk)."""
+    rng = np.random.default_rng(seed)
+    datas = [_walk(rng, n) for n in (1, 2, 3, 127, 128, 129, 130, 131,
+                                     4 * 32 * 40 + 3, 20001)]
+    datas += [bytes([33]) * 5000, wide_stream(rng, 6000)]
+    if wire == "4x8_o1":
+        # the encoder writes streams under 4 symbols as order 0
+        datas = [d for d in datas if len(d) >= 4]
+        return datas, t8.frame_4x8([r8.compress(d, 1) for d in datas], True,
+                                   dev)
+    o1 = wire.endswith("o1")
+    return datas, t8.frame_nx16_4way([compress(d, int(o1)) for d in datas],
+                                     o1, dev)
+
+
+X_KEYS = {"4x8_o1": "rans4x8_o1_decode",
+          "nx16_4way_o0": "rans_nx16_4way_o0_decode",
+          "nx16_4way_o1": "rans_nx16_4way_o1_decode"}
+
+
+@pytest.mark.parametrize("wire", list(X_KEYS))
+def test_x_kernels_match_plain(card, wire):
+    """X1-X3 against their plain versions, whole and stopped inside, on
+    and after a 32-round block's edges, and against the raw bytes."""
+    datas, b = _x_streams(wire, card)
+    before = _build.LAUNCHES[X_KEYS[wire]]
+    for mr in (-1, 1, 31, 32, 33, 1500):
+        got = t8.rans4x8(b, max_rounds=mr)
+        want = t8.rans4x8_plain(b, max_rounds=mr)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if mr < 0:
+            assert got[0].cpu().numpy().tobytes() == b"".join(datas)
+    assert _build.LAUNCHES[X_KEYS[wire]] == before + 6
+
+
+@pytest.mark.parametrize("wire", list(X_KEYS))
+def test_x_kernels_match_plain_many_streams(card, wire):
+    """A batch of twice the streams the card holds at once."""
+    from htslib_tpu_torch.bench_rans import replicate
+    datas, base = _x_streams(wire, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    k = -(-2 * sms * t8.blocks_per_sm(False, base.o1, base.w16)
+          // base.n_streams)
+    got = t8.rans4x8(replicate(base, k))
+    want = t8.rans4x8_plain(base)
+    assert got[0].cpu().numpy().tobytes() == b"".join(datas) * k
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w.repeat(k, *([1] * (w.dim() - 1))))
+
+
+def test_x_streams_per_sm(card):
+    """X2 takes B7's 17 KB and X1/X3 B8 order 1's order-1 table: 12 and 4
+    streams an SM."""
+    assert t8.blocks_per_sm(False, True) >= 4
+    assert t8.blocks_per_sm(False, False, True) >= 12
+    assert t8.blocks_per_sm(False, True, True) >= 4
+    assert t8.smem_bytes(False, False) < 18 * 1024
+    assert t8.smem_bytes(False, True) < 54 * 1024
+
+
+def test_uncompress_on_card_matches_cpu(card, monkeypatch):
+    """Both batch entry points on the card: the CPU's bytes (the plain
+    versions'), the raw bytes, and every group through its kernel (the
+    launch counters rise; the plain versions are made to raise)."""
+    from htslib_tpu_torch.ops import rans as trans
+    rng = np.random.default_rng(16)
+    datas = [_walk(rng, n) for n in (1, 2, 3, 4001, 4002, 70003)]
+    b48 = [r8.compress(d, i % 2) for i, d in enumerate(datas)]
+    b16 = [compress(d, fl) for d in datas for fl in (0x00, 0x01, 0x04, 0x05)]
+    b16 += [compress(b"", 0x01), compress(b"", 0x04)]
+    want48 = trans.uncompress_batch(b48, device="cpu")
+    want16 = trans.uncompress_nx16_batch(b16, device="cpu")
+    assert want48 == datas
+    assert want16 == [d for d in datas for _ in range(4)] + [b"", b""]
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card's path")
+
+    for mod, fn in ((t8, "rans4x8_plain"), (tr, "rans_o0_plain"),
+                    (o1, "rans_o1_plain")):
+        monkeypatch.setattr(mod, fn, refuse)
+    keys = ["rans4x8_o0_decode", "rans4x8_o1_decode", "rans_nx16_o0_decode",
+            "rans_nx16_o1_decode", "rans_nx16_4way_o0_decode",
+            "rans_nx16_4way_o1_decode"]
+    before = {k: _build.LAUNCHES[k] for k in keys}
+    assert trans.uncompress_batch(b48, device=card) == want48
+    assert trans.uncompress_nx16_batch(b16, device=card) == want16
+    assert all(_build.LAUNCHES[k] == before[k] + 1 for k in keys)
+
+
+def test_resolve_kernel_matches_plain_on_edge_states(card):
+    """B4 from the starts its doubled form leaves to the canonical step
+    (0, below 2^15, 2^31 and above, a one-symbol table), every step count
+    about its unroll."""
+    from test_torch_resolve_step import _edge_tables
+    freqs, x0 = _edge_tables()
+    f = torch.from_numpy(freqs.astype(np.int32)).to(card)
+    x = torch.from_numpy(x0.astype(np.uint32).view(np.int32)).to(card)
+    for rounds in (0, 1, 3, 8, 9, 333, 4099):
+        assert torch.equal(tr.rans_resolve_cuda(f, x, rounds).cpu(),
+                           tr.rans_resolve_plain(f.cpu(), x.cpu(), rounds))
+
+
+def test_resolve_kernel_many_chains(card):
+    """B4 at 1,056 chains (8 an SM, one wave) against the numpy chain."""
+    fn, args, ref_chain = tr.make_resolve_bench(G=1056, rounds=2048,
+                                                device=card)
+    assert np.array_equal(fn(*args).cpu().numpy(),
+                          ref_chain().view(np.int32))
+
+
+def test_resolve_smem_and_chains_per_sm(card):
+    assert tr.resolve_smem_bytes() == 16896
+    assert tr.resolve_chains_per_sm() >= 8
 
 
 def test_new_lanes_match_host_truth(card):

@@ -34,6 +34,7 @@ def test_sources_found():
                  "htslib_tpu_torch/ops/rans_nx16.py",
                  "htslib_tpu_torch/ops/rans_nx16_o1.py",
                  "htslib_tpu_torch/ops/rans4x8.py",
+                 "htslib_tpu_torch/ops/rans.py",
                  "htslib_tpu_torch/ops/rans_enc.py",
                  "htslib_tpu_torch/ops/huffman.py",
                  "htslib_tpu_torch/carry.py",

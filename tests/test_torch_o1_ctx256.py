@@ -23,7 +23,7 @@ def _jax_32bit():
 
 
 def test_table_has_256_contexts_under_the_gate():
-    F = to1._parse_o1_header(compress(CTX256, 0x05))[1]
+    F = to1._parse_nx16_header(compress(CTX256, 0x05))[1]
     assert (F.sum(axis=1) > 0).sum() == 256
     assert (F > 0).sum() <= to1.A2_MAX
 

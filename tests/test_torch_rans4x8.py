@@ -160,6 +160,12 @@ _HARNESS = r"""
 
 #include "rans4x8_step.cuh"
 
+// the refill of the wire the harness decodes: 4x8 unless built with
+// -DRANS_W16=true (the 4-way Nx16 wire)
+#ifndef RANS_W16
+#define RANS_W16 false
+#endif
+
 static uint32_t tab[RANS_TOTFREQ];
 static uint32_t rec[RANS_O1_RECORDS];
 static uint16_t bucket[256 * RANS_O1_BUCKETS];
@@ -225,8 +231,10 @@ extern "C" int64_t decode_stream(int o1, const int32_t* freq,
     uint32_t hi, lo;
     rans8_window(w.w0, w.w1, w.w2, w.pos, &hi, &lo);
     const uint32_t k =
-        o1 ? rans8_round<true>(x, ctx7, &syms, live, hi, lo, rec, bucket)
-           : rans8_round<false>(x, ctx7, &syms, live, hi, lo, tab, nullptr);
+        o1 ? rans8_round<true, RANS_W16>(x, ctx7, &syms, live, hi, lo, rec,
+                                         bucket)
+           : rans8_round<false, RANS_W16>(x, ctx7, &syms, live, hi, lo, tab,
+                                          nullptr);
     for (int j = 0; j < RANS8_NWAY; ++j)
       if ((live >> j) & 1u) out[at[j]] = (uint8_t)(syms >> (8 * j));
     rans8_advance(&w, k, words.data(), 0xFFFFFFFFu);

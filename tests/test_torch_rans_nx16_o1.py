@@ -80,10 +80,10 @@ def decoded():
 
 
 def test_cases_cover_the_edges():
-    parsed = [to1._parse_o1_header(compress(CASES[k], 0x05)) for k in NAMES]
+    parsed = [to1._parse_nx16_header(compress(CASES[k], 0x05)) for k in NAMES]
     a2_pad, _ = to1.o1_pads(parsed)
     assert jo1.pick_width(a2_pad) < len(NAMES)       # two JAX groups
-    F = to1._parse_o1_header(compress(CTX256, 0x05))[1]
+    F = to1._parse_nx16_header(compress(CTX256, 0x05))[1]
     assert (F.sum(axis=1) > 0).sum() == 256          # every context used
     assert (F > 0).sum() <= to1.A2_MAX
 
@@ -112,7 +112,7 @@ def test_dense_table_raises_as_jax():
     rng = np.random.default_rng(2)
     enc = compress(rng.integers(0, 256, 20000, dtype=np.uint8).tobytes(),
                    0x05)
-    assert (to1._parse_o1_header(enc)[1] > 0).sum() > to1.A2_MAX
+    assert (to1._parse_nx16_header(enc)[1] > 0).sum() > to1.A2_MAX
     with pytest.raises(ValueError) as port_err:
         to1.decode_nx16_o1_batch([enc], device="cpu")
     with pytest.raises(ValueError) as jax_err:
@@ -364,7 +364,7 @@ def test_step_header_on_cpu(step_lib, name):
     do."""
     data = _step_data(name)
     enc = compress(data, 0x05)
-    b = to1.frame_o1_streams([to1._parse_o1_header(enc)], "cpu")
+    b = to1.frame_o1_streams([to1._parse_nx16_header(enc)], "cpu")
     rows = b.tables.rows.numpy().view(np.uint32).copy()
     cs = b.tables.ctx_start.numpy()[0].copy()
     words = b.payload.numpy()
@@ -406,7 +406,7 @@ def test_o1_lookup_matches_brute_force(step_lib, name, path):
     finds the row a scan of the context's rows finds, unreachable slots
     included."""
     b = to1.frame_o1_streams(
-        [to1._parse_o1_header(compress(_step_data(name), 0x05))], "cpu")
+        [to1._parse_nx16_header(compress(_step_data(name), 0x05))], "cpu")
     rows = b.tables.rows.numpy().view(np.uint32).copy()
     cs = b.tables.ctx_start.numpy()[0].copy()
     assert step_lib.lookup_mismatches(rows.ctypes.data, cs.ctypes.data,
@@ -420,7 +420,7 @@ def test_table_sizes_of_a_batch():
     tables whose cums do not rise within a context are refused."""
     datas = (CASES["constant"], CTX256, STEP_EXTRA["spread"], bytes([200]))
     b = to1.frame_o1_streams(
-        [to1._parse_o1_header(compress(d, 0x05)) for d in datas], "cpu")
+        [to1._parse_nx16_header(compress(d, 0x05)) for d in datas], "cpu")
     want = [len(set(np.frombuffer(d, np.uint8).tolist()) | {0})
             for d in datas]
     t = b.tables
@@ -432,7 +432,7 @@ def test_table_sizes_of_a_batch():
         assert n_slow[2] >= 64 and n_slow[3] == 0
     for i in range(4):
         one = to1.frame_o1_streams(
-            [to1._parse_o1_header(compress(datas[i], 0x05))], "cpu").tables
+            [to1._parse_nx16_header(compress(datas[i], 0x05))], "cpu").tables
         assert int(n_slow[i]) == fallback_buckets(one)
     rows = t.rows.clone()
     lo = int(t.row_off[2]) + int(t.ctx_start[2, 1])   # context 1's rows
@@ -448,7 +448,7 @@ def test_replicate_copies_every_o1_stream():
     from htslib_tpu_torch.bench_rans import replicate
     datas = [CASES["ulen_mod32"], CASES["sub_round"], CASES["constant"]]
     b = to1.frame_o1_streams(
-        [to1._parse_o1_header(compress(d, 0x05)) for d in datas], "cpu")
+        [to1._parse_nx16_header(compress(d, 0x05)) for d in datas], "cpu")
     copies = replicate(b, 3)
     assert copies.n_streams == 9
     assert to1.rans_o1(copies)[0].numpy().tobytes() == b"".join(datas) * 3
@@ -459,7 +459,7 @@ def test_replicate_copies_every_o1_stream():
 def test_hist_plain_counts_decoded_symbols():
     encs = [compress(CASES[k], 0x05) for k in NAMES[:6]] \
         + [compress(CTX256, 0x05)]
-    b = to1.frame_o1_streams([to1._parse_o1_header(e) for e in encs], "cpu")
+    b = to1.frame_o1_streams([to1._parse_nx16_header(e) for e in encs], "cpu")
     offs = torch.tensor([0, 1, 2, 3, 4, 5, 200], dtype=torch.int32)
     hist, x_h, cur_h, ctx_h = to1.rans_o1(b, offs=offs, qbins=256)
     syms, x_d, cur_d, ctx_d = to1.rans_o1(b)
