@@ -47,11 +47,30 @@ PyTorch version on the card and times both.  Phases:
      both orders, mixed, and one uncompress_nx16_batch call over 8 x 1 MiB
      streams of each plain Nx16 wire, mixed: 32-way order 0 (leg 2's) and
      order 1 (leg 3's walks), 4-way order 0 (leg 2's raws) and order 1
-     (leg 3's walks), encoded on the host; every output must equal its raw
-     bytes;
-  6. each kernel (B1, B2, B3, B5, B6, B7, B8 in both orders, X1-X3, B9,
-     B4, B10) against its plain version at the main path's shapes, and one
-     JSON line with launches, error and times.  The plain versions of B5-B9
+     (leg 3's walks), encoded on the host, and with them 2 x 256 KiB
+     streams of uniform random bytes on each order-1 wire (4x8, Nx16
+     4-way and 32-way), whose ~65,000-row tables go to the dense variants
+     of X1, X3 and B5; every output must equal its raw bytes; each launch
+     group's framing (with the dense tables' build on the card within it)
+     and decode, and the order-1 tables' routing parse, are printed from
+     the entry points' `timing` dicts;
+  5e. leg 7, the BGZF layer (ops/inflate.py, ops/bgzf_device.py).  Read
+     side: leg 1's 400,000 records serialised as a BAM record stream (100
+     bp, 201 bytes a record, 80.4 MB), cut into 65,280-byte members and
+     deflated on the host with zlib at level 6 (1,232 members):
+     inflate_batch on the card must give every member's bytes.  Write
+     side: bgzf_stored_device over leg 2's 40 MiB of raw qualities (642
+     full blocks and a tail): every block's CRC must equal zlib.crc32 of
+     its payload and gzip.decompress must give the input back;
+     crc_device_rate(n_blocks=128, reps=3) must report exact; and
+     deflate_uniform_device over the first 8 MiB must gzip-decompress to
+     them (its ratio and stats printed).  The read side's wall time is
+     printed in parts from inflate_batch's `timing` dict: framing,
+     transfer, launch and kernel, check and download, slicing;
+  6. each kernel (B1, B2, B3, B5, B6, B7, B8 in both orders, X1-X3 and the
+     dense variants of X1, X3 and B5, B9, B4, B10, X4) against its plain
+     version at the main path's shapes, and one JSON line with launches,
+     error and times.  The plain versions of B5-B9
      take half a millisecond to a millisecond per round on the card, so
      they are held against their kernels at full size (X1 at leg 6's 20
      order-1 streams, the other decode rows at the 8 streams of legs 2
@@ -66,23 +85,35 @@ PyTorch version on the card and times both.  Phases:
      rows the streams one SM holds (streams_per_sm; B4 and B10
      chains_per_sm), and the B5, B6, X1-X3, B9, B4 and B10 rows their
      shared memory a block (smem_bytes); the B5/B6 rows the share of rounds
-     in which some state's lookup met a slow bucket (slow_share).
+     in which some state's lookup met a slow bucket (slow_share).  The
+     dense variants are held over leg 6's dense streams' first 4096 rounds.
+     X4 (inflate) is held against its plain version (the JAX function's two
+     passes as tensor ops, about a millisecond a step on the card) over
+     chip_smoke's small members (stored, fixed, dynamic, long matches,
+     multi-block, and hand-built members at the JAX decoder's edges, the
+     corrupt ones refused by both) and over three of leg 7's own members at
+     their full size (the first two and the one whose decode takes the
+     most steps, each also equal to its raw bytes), and timed over leg 7's
+     1,232 members, with its ns per token and MB/s.
      Outputs are bytes and integers, so the tolerance is zero: kernel and
      plain version must be equal.
 
-Launch counts are reset just before phase 3 and read just after phase 5d.
+Launch counts are reset just before phase 3 and read just after phase 5e.
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
 from __future__ import annotations
 
+import gzip
 import json
 import multiprocessing
 import os
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
@@ -103,6 +134,12 @@ N_SMALL = 4
 PLAIN_ROUNDS = 4096     # prefix of the full-size kernel/plain comparisons
 CHAINS = 128            # resolve chains (the JAX package's bench: G=128)
 CHAIN_ROUNDS = 32768    # steps of each resolve chain (its bench depth)
+DENSE_BYTES = 1 << 18   # leg 6's order-1 streams past A2_MAX rows
+N_DENSE = 2             # of them per order-1 wire
+BAM_READ_LEN = 100      # leg 7's BAM records: leg 1's, 100 bp
+BGZF_BLOCK = 0xff00     # uncompressed bytes per BGZF member (bgzf.h)
+BGZF_LEVEL = 6          # bgzip's default zlib level
+DEFLATE_BYTES = 8 << 20  # leg 7's deflate_uniform_device input
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s; 32-bit scalar
 # operations are held to the non-tensor fp32 rate, the nearest listed one
 HBM_BYTES_S = 3.35e12
@@ -198,23 +235,215 @@ def leg3_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
     return out
 
 
-def leg6_streams(raws2, leg3, n: int = N_DECODE):
+def leg6_streams(raws2, leg3, n: int = N_DECODE, seed: int = 6):
     """The 4-way Nx16 wires in leg 3's form: {"nx16_4way_o0": [raws,
     encs, small raws, small encs] (n of leg 2's raws, leg 3's uniform
     64 KiB streams), "nx16_4way_o1": the same of leg 3's walks, and
-    "nx16_4way_o1_wide": leg 3's wide-alphabet stream (raw, encoded)}."""
+    "nx16_4way_o1_wide": leg 3's wide-alphabet stream (raw, encoded)};
+    and for each order-1 wire W in 4x8_o1, nx16_o1 and nx16_4way_o1, under
+    "W_dense", N_DENSE streams of DENSE_BYTES uniform random bytes (raws,
+    encs): order-1 tables of ~65,000 rows, past the record kernels'
+    A2_MAX, which go to the dense variants."""
     sets = {"nx16_4way_o0": (raws2[:n], leg3["4x8_o0"][2]),
             "nx16_4way_o1": (leg3["nx16_o1"][0][:n], leg3["nx16_o1"][2])}
     jobs = [(w, d) for w, (big, small) in sets.items() for d in big + small]
     jobs.append(("nx16_4way_o1", leg3["nx16_o1_wide"][0]))
+    rng = np.random.default_rng(seed)
+    dense = {w: [rng.integers(0, 256, DENSE_BYTES, dtype=np.uint8).tobytes()
+                 for _ in range(N_DENSE)]
+             for w in ("4x8_o1", "nx16_o1", "nx16_4way_o1")}
+    jobs += [(w, d) for w, ds in dense.items() for d in ds]
     encs = _encode_all([d for _, d in jobs], [w for w, _ in jobs])
     out, k = {}, 0
     for w, (big, small) in sets.items():
         out[w] = [big, encs[k:k + len(big)], small,
                   encs[k + len(big):k + len(big) + len(small)]]
         k += len(big) + len(small)
-    out["nx16_4way_o1_wide"] = (jobs[-1][1], encs[-1])
+    out["nx16_4way_o1_wide"] = (jobs[k][1], encs[k])
+    k += 1
+    for w, ds in dense.items():
+        out[f"{w}_dense"] = (ds, encs[k:k + len(ds)])
+        k += len(ds)
     return out
+
+
+def reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
+    """The BAI bin of [beg, end) (SAM spec 5.3), vectorised."""
+    end = end - 1
+    out = np.zeros(len(beg), np.int64)
+    done = np.zeros(len(beg), bool)
+    for shift, first in ((14, 4681), (17, 585), (20, 73), (23, 9), (26, 1)):
+        hit = ~done & ((beg >> shift) == (end >> shift))
+        out[hit] = first + (beg[hit] >> shift)
+        done |= hit
+    return out
+
+
+def bam_record_stream(batch, read_len: int = BAM_READ_LEN,
+                      seed: int = 7) -> bytes:
+    """Leg 1's records as an uncompressed BAM record stream (SAM spec
+    4.2), built in numpy: per record the u32 block size, the 32-byte core
+    (reference 0, leg 1's start, mapq, bin, one CIGAR op, leg 1's flag,
+    read_len bases, no mate), the name r000000001.., the CIGAR read_len M,
+    the first read_len bases of leg 1's packed sequence, and phred
+    qualities as bounded random walks: 201 bytes a 100-bp record."""
+    cores, seq4, starts, _ends, _valid = batch
+    n = len(starts)
+    rng = np.random.default_rng(seed)
+    l_name = 11                      # "r%09d" and its NUL
+    l_seq4 = (read_len + 1) // 2
+    body = 32 + l_name + 4 + l_seq4 + read_len
+    rec = np.zeros((n, 4 + body), np.uint8)
+
+    def put(col, values, dtype):
+        a = np.ascontiguousarray(np.asarray(values).astype(dtype))
+        rec[:, col:col + a.itemsize] = a.reshape(n, 1).view(np.uint8)
+
+    put(0, np.full(n, body), "<u4")
+    put(4, np.zeros(n), "<i4")                       # refID
+    put(8, starts, "<i4")                            # pos
+    rec[:, 12] = l_name
+    rec[:, 13] = rng.integers(0, 61, n)              # mapq
+    put(14, reg2bin(starts.astype(np.int64), starts.astype(np.int64)
+                    + read_len), "<u2")
+    put(16, np.ones(n), "<u2")                       # n_cigar_op
+    put(18, cores[:, 14].astype(np.int64)
+        | (cores[:, 15].astype(np.int64) << 8), "<u2")  # flag
+    put(20, np.full(n, read_len), "<i4")             # l_seq
+    put(24, np.full(n, -1), "<i4")                   # next refID
+    put(28, np.full(n, -1), "<i4")                   # next pos
+    put(32, np.zeros(n), "<i4")                      # tlen
+    rec[:, 36] = ord("r")
+    idx = np.arange(1, n + 1)
+    for k in range(9):
+        rec[:, 37 + k] = ord("0") + (idx // 10 ** (8 - k)) % 10
+    at = 36 + l_name
+    put(at, np.full(n, read_len << 4), "<u4")       # CIGAR: read_len M
+    at += 4
+    rec[:, at:at + l_seq4] = seq4[:, :l_seq4]
+    at += l_seq4
+    rec[:, at:] = np.clip(rng.integers(25, 38, (n, 1))
+                          + np.cumsum(rng.integers(-2, 3, (n, read_len)), 1),
+                          2, 41)
+    return rec.tobytes()
+
+
+def deflate_raw(data: bytes, level: int = BGZF_LEVEL,
+                strategy: int = zlib.Z_DEFAULT_STRATEGY) -> bytes:
+    """A raw DEFLATE stream (no zlib header), as a BGZF member holds."""
+    co = zlib.compressobj(level, zlib.DEFLATED, -15, 8, strategy)
+    return co.compress(data) + co.flush()
+
+
+def bgzf_members(stream: bytes, block: int = BGZF_BLOCK):
+    """The stream cut into BGZF-sized pieces, each deflated on the host at
+    bgzip's default level: (payloads, raw pieces)."""
+    raws = [stream[i:i + block] for i in range(0, len(stream), block)]
+    return [deflate_raw(r) for r in raws], raws
+
+
+def _fixed(w, sym: int):
+    """A literal/length symbol of the fixed code (RFC 1951 3.2.6) onto
+    bit writer w (the port's `bgzf_device._BitWriter`)."""
+    if sym < 144:
+        w.put_code(0x30 + sym, 8)
+    elif sym < 256:
+        w.put_code(0x190 + sym - 144, 9)
+    elif sym < 280:
+        w.put_code(sym - 256, 7)
+    else:
+        w.put_code(0xC0 + sym - 280, 8)
+
+
+def _fixed_block(items, final: bool = True):
+    """One fixed-code block: items are literal bytes (ints) or (length
+    symbol, distance symbol) pairs with no extra bits; then EOB."""
+    from htslib_tpu_torch.ops.bgzf_device import _BitWriter
+    w = _BitWriter()
+    w.put(int(final), 1)
+    w.put(1, 2)
+    for it in items:
+        if isinstance(it, tuple):
+            _fixed(w, it[0])
+            w.put_code(it[1], 5)
+        else:
+            _fixed(w, it)
+    _fixed(w, 256)
+    return w
+
+
+def inflate_members(seed: int = 8):
+    """Small members for holding kernel X4 against its plain version and
+    zlib: (name, payload, ISIZE, expected bytes or None where the JAX
+    function refuses the member; a refused member's ISIZE is what it
+    would give were it accepted).  zlib streams: stored, fixed, dynamic,
+    long matches, multi-block (full flushes between parts), level 1 and
+    empty; hand-built ones at the JAX decoder's edges: distance code 30
+    (one 0xFF byte), a match reaching before the output's start, one
+    copying position 0 from itself, 600 empty fixed blocks (the step
+    cap), stored blocks reaching past the payload (final: zeros; not
+    final: a step begins past the end), block type 3, a corrupt first
+    byte and a wrong ISIZE."""
+    from htslib_tpu_torch.ops.bgzf_device import _BitWriter
+
+    def tobytes(w):
+        return w.tobytes_and_len()[0]
+
+    def align(w):
+        w.put(0, -len(w.bits) % 8)
+
+    rng = np.random.default_rng(seed)
+    walk = np.clip(np.cumsum(rng.integers(-2, 3, 3000)) + 30, 2, 41)
+    text = b"the quick brown fox jumps over the lazy dog " * 70
+    mixed = (b"ACGT" * 500) + rng.integers(0, 256, 2000,
+                                           dtype=np.uint8).tobytes()
+    rand = rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
+    out = [("stored", deflate_raw(rand, 0), rand),
+           ("fixed", deflate_raw(text, 6, zlib.Z_FIXED), text),
+           ("dynamic", deflate_raw(walk.astype(np.uint8).tobytes()),
+            walk.astype(np.uint8).tobytes()),
+           ("long_matches", deflate_raw(b"A" * 20000, 9), b"A" * 20000),
+           ("level1", deflate_raw(mixed, 1), mixed),
+           ("empty", deflate_raw(b""), b"")]
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    parts = [text[:800], rand[:800], walk.astype(np.uint8).tobytes()[:800],
+             mixed[:800]]
+    multi = b"".join(co.compress(x) + co.flush(zlib.Z_FULL_FLUSH)
+                     for x in parts) + co.flush()
+    out.append(("multi_block", multi, b"".join(parts)))
+    out.append(("dist_code_30", tobytes(_fixed_block([97, (257, 30)])),
+                b"a\xff"))
+    out.append(("match_before_start", tobytes(_fixed_block([98, (257, 4)])),
+                b"bbbb"))
+    out.append(("match_at_start", tobytes(_fixed_block([(257, 0), 99])),
+                b"\x00\x00\x00c"))
+    w = _BitWriter()
+    for _ in range(600):
+        w.put(0, 1)
+        w.put(1, 2)
+        _fixed(w, 256)
+    w.bits += _fixed_block([122]).bits
+    out.append(("step_cap", tobytes(w), 1))
+    for final in (1, 0):
+        w = _BitWriter()
+        w.put(final, 1)
+        w.put(0, 2)
+        align(w)
+        w.put(100, 16)
+        w.put(0xFFFF ^ 100, 16)
+        pl = tobytes(w) + rand[:50]
+        out.append((f"stored_past_end_{'final' if final else 'more'}",
+                    pl, rand[:50] + bytes(50) if final else 100))
+    w = _BitWriter()
+    w.put(1, 1)
+    w.put(3, 2)
+    out.append(("btype_3", tobytes(w), 0))
+    good = deflate_raw(b"hello world" * 50)
+    out += [("corrupt", bytes([good[0] ^ 0xFF]) + good[1:], 550),
+            ("wrong_isize", good, 551)]
+    # an int in place of the bytes: a refused member's ISIZE
+    return [(name, pl, want, None) if isinstance(want, int)
+            else (name, pl, len(want), want) for name, pl, want in out]
 
 
 def wide_stream(rng, size: int) -> bytes:
@@ -281,12 +510,12 @@ def hist_of(raw: bytes, qbins: int) -> np.ndarray:
                        minlength=qbins)
 
 
-def main_path(device, batch, raws, encs, leg3, tile_len=TILE_LEN,
+def main_path(device, batch, raws, encs, leg3, bgzf, tile_len=TILE_LEN,
               n_decode=N_DECODE):
-    """Phases 3-5c through the port's entry points on `device`, each
+    """Phases 3-5e through the port's entry points on `device`, each
     result held against its host truth.  Returns (leg-1 args on the
-    device, seconds of each phase, leg 4's timing dict and leg 5's
-    lookups per second)."""
+    device, seconds of each phase, notes: leg 4's timing dict, leg 5's
+    lookups per second, legs 6 and 7's parts)."""
     from htslib_tpu_torch.entry import entry
     from htslib_tpu_torch.ops.device_stats import (QBINS, cram_qual_hist,
                                                    qualstats_device,
@@ -411,24 +640,103 @@ def main_path(device, batch, raws, encs, leg3, tile_len=TILE_LEN,
     secs["leg5"] = time.time() - t0
 
     # leg 6: each call's streams interleaved across their wires, so every
-    # group's outputs must land back in the input order
+    # group's outputs must land back in the input order; each launch
+    # group's framing (the dense tables' build within it) and decode, and
+    # the routing parse, timed
     t0 = time.time()
-    pairs = _interleave([list(zip(*leg3[w][:2])) for w in ("4x8_o0",
-                                                           "4x8_o1")])
-    out = uncompress_batch([e for _, e in pairs], device=device)
+    groups_4x8, groups_nx16 = {}, {}
+    pairs = _interleave([list(zip(*leg3[w][:2])) for w in (
+        "4x8_o0", "4x8_o1", "4x8_o1_dense")])
+    out = uncompress_batch([e for _, e in pairs], device=device,
+                           timing=groups_4x8)
     require(out == [r for r, _ in pairs], "leg 6 uncompress_batch bytes")
     t1 = time.time()
     pairs = _interleave([
         list(zip(raws, encs))[:n_decode],
         list(zip(*leg3["nx16_o1"][:2]))[:n_decode],
         list(zip(*leg3["nx16_4way_o0"][:2]))[:n_decode],
-        list(zip(*leg3["nx16_4way_o1"][:2]))[:n_decode]])
-    out = uncompress_nx16_batch([e for _, e in pairs], device=device)
+        list(zip(*leg3["nx16_4way_o1"][:2]))[:n_decode],
+        list(zip(*leg3["nx16_o1_dense"][:2])),
+        list(zip(*leg3["nx16_4way_o1_dense"][:2]))])
+    out = uncompress_nx16_batch([e for _, e in pairs], device=device,
+                                timing=groups_nx16)
     require(out == [r for r, _ in pairs], "leg 6 uncompress_nx16_batch bytes")
     secs["leg6"] = time.time() - t0
     notes["leg6"] = {"uncompress_batch_s": t1 - t0,
-                     "uncompress_nx16_batch_s": time.time() - t1}
+                     "uncompress_nx16_batch_s": time.time() - t1,
+                     "uncompress_batch": groups_4x8,
+                     "uncompress_nx16_batch": groups_nx16}
+
+    t0 = time.time()
+    notes["leg7"] = leg7(device, bgzf, raws)
+    secs["leg7"] = time.time() - t0
     return args, secs, notes
+
+
+def bgzf_blocks(blob: bytes):
+    """(CRC, ISIZE, payload) of each block of a stored-block BGZF file."""
+    off = 0
+    while off < len(blob):
+        bsize = struct.unpack_from("<H", blob, off + 16)[0] + 1
+        crc, isize = struct.unpack_from("<II", blob, off + bsize - 8)
+        yield crc, isize, blob[off + 23:off + bsize - 8]
+        off += bsize
+
+
+def leg7(device, bgzf, raws):
+    """Leg 7, the BGZF layer: bgzf = (payloads, raw pieces) of leg 1's
+    BAM record stream, inflated on the card; leg 2's raw qualities
+    written as stored and as uniform-Huffman BGZF.  Returns its notes."""
+    from htslib_tpu_torch.ops.bgzf_device import (bgzf_stored_device,
+                                                  crc_device_rate,
+                                                  deflate_uniform_device)
+    from htslib_tpu_torch.ops.inflate import inflate_batch
+    payloads, pieces = bgzf
+    notes = {"members": len(payloads), "in_bytes": sum(map(len, payloads)),
+             "out_bytes": sum(map(len, pieces))}
+    parts = {}
+    t0 = time.time()
+    out = inflate_batch(payloads, [len(p) for p in pieces], device=device,
+                        timing=parts)
+    notes["inflate_batch_s"] = time.time() - t0
+    notes["inflate_parts"] = parts
+    require(out == pieces, "leg 7 inflated members")
+    notes["inflate_MBps"] = notes["out_bytes"] / notes["inflate_batch_s"] / 1e6
+
+    qual = b"".join(raws)
+    timing = {}
+    t0 = time.time()
+    blob = bgzf_stored_device(qual, device=device, timing=timing)
+    notes["stored_s"] = time.time() - t0
+    notes["stored_timing"] = timing
+    t0 = time.time()
+    blocks = list(bgzf_blocks(blob))
+    require(len(blocks) == len(qual) // 0xff00 + 2,
+            f"leg 7 stored block count {len(blocks)}")
+    for i, (crc, isize, pl) in enumerate(blocks):
+        require(crc == zlib.crc32(pl) and isize == len(pl),
+                f"leg 7 stored block {i}: CRC or ISIZE")
+    # gzip.decompress copies the data left after each member, so this
+    # check of a 644-member file takes seconds: timed apart
+    require(gzip.decompress(blob) == qual, "leg 7 stored BGZF round trip")
+    notes["stored_check_s"] = time.time() - t0
+    notes["stored_blocks"] = len(blocks) - 1
+    t0 = time.time()
+    notes["crc_rate"] = crc_device_rate(n_blocks=128, reps=3, device=device)
+    notes["crc_rate_call_s"] = time.time() - t0
+    require(notes["crc_rate"]["exact"], "leg 7 crc_device_rate not exact")
+    stats = {}
+    t0 = time.time()
+    dblob = deflate_uniform_device(qual[:DEFLATE_BYTES], device=device,
+                                   stats=stats)
+    notes["deflate_s"] = time.time() - t0
+    t0 = time.time()
+    require(gzip.decompress(dblob) == qual[:DEFLATE_BYTES],
+            "leg 7 deflate_uniform_device round trip")
+    notes["deflate_check_s"] = time.time() - t0
+    notes["deflate_stats"] = stats
+    notes["deflate_ratio"] = len(dblob) / DEFLATE_BYTES
+    return notes
 
 
 def _interleave(lists):
@@ -689,6 +997,173 @@ def leg3_kernels_vs_plain(device, leg3, launches):
     return rows
 
 
+def dense_vs_plain(device, leg3, launches):
+    """Phase 6 for the dense variants of X1, X3 and B5: each against its
+    plain version (a gather from the same dense table) on leg 6's dense
+    streams over their first PLAIN_ROUNDS rounds, with times.  Returns
+    the rows of the kernels line."""
+    import torch
+
+    from htslib_tpu_torch.ops import rans4x8 as t8
+    from htslib_tpu_torch.ops import rans_nx16_o1 as to1
+    from htslib_tpu_torch.ops.rans4x8 import (frame_4x8, frame_nx16_4way,
+                                              rans4x8_cuda, rans4x8_plain)
+    from htslib_tpu_torch.ops.rans_nx16_o1 import (_parse_nx16_header,
+                                                   frame_o1_streams,
+                                                   rans_o1_cuda,
+                                                   rans_o1_plain)
+
+    def chain_o1(n, nway):
+        return n - (nway - 1) * (n // nway)
+
+    # (launch key, wire, framing, kernel, plain, source, XLA loop, states)
+    specs = [
+        ("rans4x8_o1_dense_decode", "4x8_o1_dense",
+         lambda e: frame_4x8(e, True, device, True), rans4x8_cuda,
+         rans4x8_plain, "rans4x8.cu", "rans.py:96", 4),
+        ("rans_nx16_4way_o1_dense_decode", "nx16_4way_o1_dense",
+         lambda e: frame_nx16_4way(e, True, device, True), rans4x8_cuda,
+         rans4x8_plain, "rans4x8.cu", "rans.py:230", 4),
+        ("rans_nx16_o1_dense_decode", "nx16_o1_dense",
+         lambda e: frame_o1_streams([_parse_nx16_header(x) for x in e],
+                                    device, True), rans_o1_cuda,
+         rans_o1_plain, "rans_nx16_o1.cu", "rans.py:230", 32),
+    ]
+    rows = []
+    for key, wire, frame, kern, plain, src, line, nway in specs:
+        raws, blocks = leg3[wire]
+        b = frame(blocks)
+        require(b.dense is not None and b.tables is None,
+                f"{key}: the batch carries no dense table")
+        got = kern(b, PLAIN_ROUNDS)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = plain(b, PLAIN_ROUNDS)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        for g, r, what in zip(got, ref, ("output", "states", "cursors",
+                                         "contexts")):
+            require(torch.equal(g, r), f"{key} kernel != plain over "
+                    f"{PLAIN_ROUNDS} rounds ({what})")
+        full = kern(b)[0].cpu().numpy().tobytes()
+        require(full == b"".join(raws), f"{key}: whole streams != raw")
+        n_sym = b.total_out
+        # bytes: the payloads and the dense tables in, the symbols out;
+        # per symbol: mask, table load, three field extracts,
+        # multiply-add, subtract, compare, refill select and the store
+        b_ms, b_by = bound_ms(sum(len(x) for x in blocks)
+                              + b.dense.numel() * 4 + n_sym, 10 * n_sym)
+        row = {
+            "name": key, "route": "cuda",
+            "source": f"htslib_tpu_torch/csrc/{src}",
+            "replaces": f"htslib_tpu/ops/{line}",
+            "launches": launches[key],
+            "max_abs_err": int((got[0].long() - ref[0].long()).abs().max()),
+            "ms": cuda_ms(lambda: kern(b), 3), "plain_ms": plain_ms,
+            "plain_rounds": PLAIN_ROUNDS,
+            "ms_at_plain_rounds": cuda_ms(lambda: kern(b, PLAIN_ROUNDS), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "streams": b.n_streams, "symbols": n_sym,
+            "chain_rounds": max(chain_o1(int(n), nway)
+                                for n in b.ulen.tolist()),
+            "note": "dense-table variant for order-1 tables past A2_MAX "
+                    "rows: XLA code of the JAX package, no Pallas kernel",
+            "match": True}
+        if nway == 4:
+            row["smem_bytes"] = t8.smem_bytes(False, True, True)
+            row["streams_per_sm"] = t8.blocks_per_sm(False, True, b.w16,
+                                                     True)
+        else:
+            row["smem_bytes"] = to1.dense_smem_bytes()
+        rows.append(row)
+    return rows
+
+
+def _inflate_vs_plain(ti, b, what):
+    """Kernel X4 and its plain version on batch b: the same refusals, and
+    where both accept, the same bytes produced, tokens and bytes.
+    Returns (the kernel's refusals, the plain version's host-clock ms,
+    the largest byte difference over the accepted members)."""
+    import torch
+    got, gst = ti.inflate_cuda(b)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref, rst = ti.inflate_plain(b)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    gerr, rerr = ti.corrupt(b, gst), ti.corrupt(b, rst)
+    require(torch.equal(gerr, rerr), f"inflate kernel != plain ({what}: "
+            "refusals)")
+    ok = ~gerr
+    require(torch.equal(gst[ok, 1:3], rst[ok, 1:3]), f"inflate kernel != "
+            f"plain ({what}: bytes produced, tokens)")
+    k = torch.arange(b.total_out, device=got.device)
+    member = torch.searchsorted(b.out_off, k, right=True) - 1
+    keep = ok[member]
+    require(torch.equal(got[keep], ref[keep]), f"inflate kernel != plain "
+            f"({what}: bytes)")
+    err = (int((got[keep].long() - ref[keep].long()).abs().max())
+           if bool(keep.any()) else 0)
+    return gerr.cpu().tolist(), plain_ms, err, got.cpu().numpy()
+
+
+def inflate_vs_plain(device, bgzf, launches, n_first: int = 2):
+    """Phase 6 for X4: the kernel against its plain version on
+    inflate_members() (the refused ones refused by both, the others
+    byte-equal, with their bytes produced and tokens), and on leg 7's own
+    members at their full size: the first n_first and the one whose
+    decode takes the most steps (each also equal to its raw bytes); then
+    timed over all of leg 7's members.  Returns the kernels line's row."""
+    from htslib_tpu_torch.ops import inflate as ti
+    small = inflate_members()
+    b = ti.frame_members([m[1] for m in small], [m[2] for m in small], device)
+    gerr, plain_ms, err, gh = _inflate_vs_plain(ti, b, "small members")
+    require(gerr == [m[3] is None for m in small], "inflate: refused members")
+    offs = b.out_off.cpu().numpy()
+    for (name, _, size, want), o in zip(small, offs):
+        if want is not None:
+            require(gh[o:o + size].tobytes() == want, f"inflate {name}")
+
+    payloads, pieces = bgzf
+    big = ti.frame_members(payloads, [len(p) for p in pieces], device)
+    out, st = ti.inflate_cuda(big)
+    require(not bool(ti.corrupt(big, st).any()), "inflate: leg 7 refused")
+    ms = cuda_ms(lambda: ti.inflate_cuda(big), 3)
+    st = st.cpu().numpy()
+    pick = list(range(n_first))
+    pick.append(int(np.argmax(st[:, 3])))
+    sub = ti.frame_members([payloads[i] for i in pick],
+                           [len(pieces[i]) for i in pick], device)
+    serr, plain_big_ms, err_big, sh = _inflate_vs_plain(ti, sub,
+                                                        "leg 7 members")
+    require(not any(serr), "inflate: leg 7 members refused")
+    for i, o in zip(pick, sub.out_off.cpu().numpy()):
+        require(sh[o:o + len(pieces[i])].tobytes() == pieces[i],
+                f"inflate: leg 7 member {i}")
+    n_in, n_out = sum(map(len, payloads)), sum(map(len, pieces))
+    b_ms, b_by = bound_ms(n_in + n_out, 0)
+    return {
+        "name": "inflate", "route": "cuda",
+        "source": "htslib_tpu_torch/csrc/inflate.cu",
+        "replaces": "htslib_tpu/ops/inflate.py:429",
+        "launches": launches["inflate"],
+        "max_abs_err": max(err, err_big),
+        "ms": ms, "plain_ms": plain_ms, "plain_members": len(small),
+        "plain_leg7_members": pick,
+        "plain_leg7_steps": [int(st[i, 3]) for i in pick],
+        "plain_leg7_ms": plain_big_ms,
+        "ms_at_plain_members": cuda_ms(lambda: ti.inflate_cuda(b), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "members": big.n_members, "in_bytes": n_in, "out_bytes": n_out,
+        "tokens": int(st[:, 2].sum()),
+        "ns_per_token": ms * 1e6 / int(st[:, 2].sum()),
+        "MBps": n_out / ms / 1e3, "chain_rounds": int(st[:, 3].max()),
+        "smem_bytes": ti.smem_bytes(), "streams_per_sm": ti.blocks_per_sm(),
+        "note": "XLA code of the JAX package (no Pallas kernel) that the "
+                "port hand-writes; chain_rounds is the longest member's "
+                "steps", "match": True}
+
+
 def o1_table_notes(b, offs, qb):
     """Of kernel B5 (qb None) or B6 on batch b: its shared memory a block,
     the streams one SM holds, the slow buckets of stream 0 and the share
@@ -922,10 +1397,11 @@ def main() -> int:
     raws, encs = leg2_streams()
     leg3 = leg3_streams()
     leg3.update(leg6_streams(raws, leg3))
+    bgzf = bgzf_members(bam_record_stream(batch))
     print(f"inputs: {time.time() - t0:.1f} s", flush=True)
 
     _build.reset_launches()
-    args, secs, notes = main_path("cuda", batch, raws, encs, leg3)
+    args, secs, notes = main_path("cuda", batch, raws, encs, leg3, bgzf)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"main path ok: {secs}, launches {launches}", flush=True)
@@ -939,6 +1415,7 @@ def main() -> int:
           f"{notes['huffman_resolve_lookups_per_s']:.6g}", flush=True)
     print(f"leg 6 wall: {secs['leg6']:.3f} s, parts {notes['leg6']}",
           flush=True)
+    print(f"leg 7 wall: {secs['leg7']:.3f} s, {notes['leg7']}", flush=True)
     for k, v in launches.items():
         require(v >= 1, f"kernel {k} not launched on the main path")
     print(f"leg 4 host side in parts: {leg4_parts(raws, encs, 'cuda')}",
@@ -953,6 +1430,12 @@ def main() -> int:
     t0 = time.time()
     rows += new_kernels_vs_plain(args[1].device, raws, leg3, launches)
     print(f"phase 6, B9, B4, B10: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    rows += dense_vs_plain(args[1].device, leg3, launches)
+    print(f"phase 6, dense X1, X3, B5: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    rows.append(inflate_vs_plain(args[1].device, bgzf, launches))
+    print(f"phase 6, X4: {time.time() - t0:.1f} s", flush=True)
     # the figure the chain-bound kernels are designed against
     for row in rows:
         if "chain_rounds" in row:

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable
 
@@ -35,7 +36,9 @@ LAUNCHES: Dict[str, int] = {
     "rans4x8_o0_decode": 0, "rans4x8_o0_hist": 0, "rans4x8_o1_hist": 0,
     "rans_nx16_o0_encode": 0, "rans_resolve_bench": 0,
     "huffman_resolve_bench": 0, "rans4x8_o1_decode": 0,
-    "rans_nx16_4way_o0_decode": 0, "rans_nx16_4way_o1_decode": 0}
+    "rans_nx16_4way_o0_decode": 0, "rans_nx16_4way_o1_decode": 0,
+    "rans4x8_o1_dense_decode": 0, "rans_nx16_4way_o1_dense_decode": 0,
+    "rans_nx16_o1_dense_decode": 0, "inflate": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # (function, argtypes) per library: every pointer and the stream are
 # c_void_p, so ctypes never narrows them to 32-bit ints
@@ -50,16 +53,16 @@ _SIGNATURES = {
         "rans_nx16_o0_blocks_per_sm": [ctypes.c_int] * 2,
     },
     "rans_nx16_o1": {
-        "rans_nx16_o1_launch": [ctypes.c_void_p] * 17
+        "rans_nx16_o1_launch": [ctypes.c_void_p] * 18
         + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "rans_nx16_o1_smem_bytes": [ctypes.c_int] * 4,
         "rans_nx16_o1_blocks_per_sm": [ctypes.c_int] * 2,
     },
     "rans4x8": {
-        "rans4x8_launch": [ctypes.c_void_p] * 17
+        "rans4x8_launch": [ctypes.c_void_p] * 18
         + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-        "rans4x8_blocks_per_sm": [ctypes.c_int] * 3,
-        "rans4x8_smem_bytes": [ctypes.c_int] * 2,
+        "rans4x8_blocks_per_sm": [ctypes.c_int] * 4,
+        "rans4x8_smem_bytes": [ctypes.c_int] * 3,
     },
     "rans_nx16_enc": {
         "rans_nx16_enc_launch": [ctypes.c_void_p] * 8
@@ -78,6 +81,12 @@ _SIGNATURES = {
         + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
         "huffman_resolve_smem_bytes": [],
         "huffman_resolve_chains_per_sm": [],
+    },
+    "inflate": {
+        "inflate_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int,
+                                                   ctypes.c_void_p],
+        "inflate_smem_bytes": [],
+        "inflate_blocks_per_sm": [],
     },
 }
 
@@ -193,3 +202,12 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def clock(device) -> float:
+    """Host seconds once `device`'s queued work has ended: the clock of
+    the entry points' `timing` dicts."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()

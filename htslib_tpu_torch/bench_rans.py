@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Batch-size sweep of the chain-bound kernels on one card: the rANS
 decodes, Nx16 order 0 (B2, B3), Nx16 order 1 (B5, B6), 4x8 (B7, and B8
-of both orders, X1 order-1 symbols) and 4-way Nx16 (X2, X3), the Nx16
-order-0 encode (B9) and the two resolve chains (B4 rANS, B10 Huffman).
+of both orders, X1 order-1 symbols) and 4-way Nx16 (X2, X3), the dense
+variants of X1, X3 and B5, the Nx16 order-0 encode (B9) and the two
+resolve chains (B4 rANS, B10 Huffman).
 
     python3 -m htslib_tpu_torch.bench_rans [--label NAME] [--out FILE]
         [--kernels KEY,...] [--sizes S,...] [--iters N]
@@ -13,8 +14,10 @@ the card into batches of S streams, each stream with its own payload and
 tables.  The kinds: `uniform` over 20..40 (leg 2 of chip_smoke.py, and
 4x8 order 0), `walk` (leg 2's random walks over 0..44: long constant runs
 at 0 and 44), and `reads` (bounded random walks restarted every 100-bp
-read, as leg 3, for the order-1 wires); B2 and B3 run on both leg-2
-kinds, X2 (4-way Nx16 order 0) on `uniform`, X1 and X3 on `reads`.  For
+read, as leg 3, for the order-1 wires) and `wide` (uniform random bytes:
+order-1 tables of ~65,000 rows, past A2_MAX, for the dense variants, each
+stream with its own 4 MiB table); B2 and B3 run on both leg-2 kinds, X2
+(4-way Nx16 order 0) on `uniform`, X1 and X3 on `reads`.  For
 each kernel, kind and S: one launch checked against the host truth
 (every stream's histogram or bytes), then the mean of `--iters`
 launches from CUDA events.  Each line printed (and appended to --out) is
@@ -76,12 +79,18 @@ KERNELS = (("rans_nx16_o0_decode", "nx16_o0", "uniform", None,
            ("rans_nx16_4way_o0_decode", "nx16_4way_o0", "uniform", None,
             STREAM_BYTES // 4),
            ("rans_nx16_4way_o1_decode", "nx16_4way_o1", "reads", None,
-            STREAM_BYTES // 4))
+            STREAM_BYTES // 4),
+           ("rans4x8_o1_dense_decode", "4x8_o1_dense", "wide", None,
+            STREAM_BYTES // 4),
+           ("rans_nx16_4way_o1_dense_decode", "nx16_4way_o1_dense", "wide",
+            None, STREAM_BYTES // 4),
+           ("rans_nx16_o1_dense_decode", "nx16_o1_dense", "wide", None,
+            STREAM_BYTES // 32))
 
 
 def base_streams(seed: int = 3):
     """N_BASE raw streams per kind: {"uniform": [...], "walk": [...],
-    "reads": [...]}."""
+    "reads": [...], "wide": [...]}."""
     rng = np.random.default_rng(seed)
     uniform = [rng.integers(20, 41, STREAM_BYTES, dtype=np.uint8).tobytes()
                for _ in range(N_BASE)]
@@ -93,14 +102,18 @@ def base_streams(seed: int = 3):
         reads.append(q.reshape(-1)[:STREAM_BYTES].astype(np.uint8).tobytes())
     walk = [np.clip(np.cumsum(rng.integers(-2, 3, STREAM_BYTES)) + 20, 0, 44)
             .astype(np.uint8).tobytes() for _ in range(N_BASE)]
-    return {"uniform": uniform, "walk": walk, "reads": reads}
+    wide = [rng.integers(0, 256, STREAM_BYTES, dtype=np.uint8).tobytes()
+            for _ in range(N_BASE)]
+    return {"uniform": uniform, "walk": walk, "reads": reads, "wide": wide}
 
 
 def encode(data: bytes, wire: str) -> bytes:
     """One stream on one rANS wire with the port's host codecs: "4x8_o0",
     "4x8_o1", the 32-way Nx16 "nx16_o0"/"nx16_o1" (X32 flag 0x04) or the
-    4-way "nx16_4way_o0"/"nx16_4way_o1"; the last digit is the order."""
+    4-way "nx16_4way_o0"/"nx16_4way_o1"; the last digit is the order (a
+    "_dense" suffix, the decode's route, left aside)."""
     from htslib_tpu_torch.codecs import rans4x8, rans4x16
+    wire = wire.removesuffix("_dense")
     order = int(wire[-1])
     if wire.startswith("4x8"):
         return rans4x8.compress(data, order)
@@ -130,6 +143,7 @@ def replicate(b, k: int):
             b, word_off=(b.word_off[None, :] + width // 2 * rep).reshape(-1),
             n_words=b.n_words.repeat(k), freqs=b.freqs.repeat(k, 1), **common)
     t = b.tables
+    dense = None if b.dense is None else b.dense.repeat(k, 1)
     if t is not None:
         t = O1Tables(
             t.rows.repeat(k), (t.row_off[None, :] + t.rows.numel() * rep)
@@ -137,11 +151,11 @@ def replicate(b, k: int):
     if isinstance(b, Nx16O1Batch):
         return dataclasses.replace(
             b, word_off=(b.word_off[None, :] + width // 2 * rep).reshape(-1),
-            n_words=b.n_words.repeat(k), tables=t, **common)
+            n_words=b.n_words.repeat(k), tables=t, dense=dense, **common)
     return dataclasses.replace(
         b, byte_off=(b.byte_off[None, :] + width * rep).reshape(-1),
         n_bytes=b.n_bytes.repeat(k), freqs=b.freqs.repeat(k, 1), tables=t,
-        **common)
+        dense=dense, **common)
 
 
 def replicate_enc(b, k: int):
@@ -233,10 +247,13 @@ def wall_ms(fn):
 def _kernel(key: str, wire: str, dev):
     """(framing of encoded blocks, launch (batch, offs, qbins), streams an
     SM holds for a batch or None) of one kernel of the checkout."""
+    from htslib_tpu_torch import _build
     from htslib_tpu_torch.ops import rans4x8 as t8
     from htslib_tpu_torch.ops import rans_nx16 as t0
     from htslib_tpu_torch.ops import rans_nx16_o1 as to1
     hist = key.endswith("hist")
+    dense = wire.endswith("_dense")
+    wire = wire.removesuffix("_dense")
     if wire == "nx16_o0":
         per_sm = getattr(t0, "blocks_per_sm", None)
         return (lambda e: t0.frame_streams(e, dev),
@@ -244,6 +261,13 @@ def _kernel(key: str, wire: str, dev):
                 per_sm and (lambda b: per_sm(QBINS if hist else None)))
     if wire == "nx16_o1":
         per_sm = getattr(to1, "blocks_per_sm", None)
+        if dense:
+            lib = _build.load("rans_nx16_o1")
+            return (lambda e: to1.frame_o1_streams(
+                        [to1._parse_nx16_header(x) for x in e], dev, True),
+                    lambda b, offs, qb: to1.rans_o1_cuda(b, -1, offs, qb),
+                    lambda b: lib.rans_nx16_o1_blocks_per_sm(
+                        0, to1.dense_smem_bytes()))
         return (lambda e: to1.frame_o1_streams(
                     [to1._parse_nx16_header(x) for x in e], dev),
                 lambda b, offs, qb: to1.rans_o1_cuda(b, -1, offs, qb),
@@ -251,12 +275,12 @@ def _kernel(key: str, wire: str, dev):
     per_sm = getattr(t8, "blocks_per_sm", None)
     o1 = wire.endswith("o1")
     if wire.startswith("nx16_4way"):
-        return (lambda e: t8.frame_nx16_4way(e, o1, dev),
+        return (lambda e: t8.frame_nx16_4way(e, o1, dev, dense),
                 lambda b, offs, qb: t8.rans4x8_cuda(b, -1, offs, qb),
-                lambda b: per_sm(hist, o1, True))
-    return (lambda e: t8.frame_4x8(e, o1, dev),
+                lambda b: per_sm(hist, o1, True, dense))
+    return (lambda e: t8.frame_4x8(e, o1, dev, dense),
             lambda b, offs, qb: t8.rans4x8_cuda(b, -1, offs, qb),
-            per_sm and (lambda b: per_sm(hist, o1)))
+            per_sm and (lambda b: per_sm(hist, o1, False, dense)))
 
 
 def sweep_enc(raws, sizes, args, dev, card, sms):

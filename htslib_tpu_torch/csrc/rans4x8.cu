@@ -3,7 +3,9 @@
 // the order chosen at compile time), one launch for the whole batch; and
 // the symbols of three more wires on the same round: 4x8 order 1 (X1),
 // and the 4-way rANS Nx16 wire of order 0 (X2) and order 1 (X3), whose
-// states refill 16-bit words (rans4x8_step.cuh).
+// states refill 16-bit words (rans4x8_step.cuh); and X1 and X3 over dense
+// [256, 4096] tables in device memory (rans_o1_dense), for the order-1
+// streams whose tables pass the records' RANS_O1_MAX_ROWS rows.
 //
 // Replaces: htslib_tpu/ops/rans4x8_pallas.py:_seg4_kernel (decode, driven
 // by decode_4x8_o0_batch) and :_seg4_hist_kernel (decode + histogram,
@@ -47,6 +49,11 @@
 // shared memory sets.  A block takes 17 KB (B7, X2), 21 KB (B8 order 0)
 // or 51-55 KB (X1, X3, B8 order 1: dynamic shared memory, past the 48 KB
 // static limit), so an SM holds 12, 10 or 4 streams.
+//
+// The dense variants swap only the lookup: each state's entry is one load
+// from its stream's 4 MiB table in device memory (an L2 or memory latency
+// on the round's chain where the records' pick was a shared-memory one),
+// and their blocks take the ring and the symbol buffer only.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,10 +94,13 @@ struct O1Lookup {
   uint32_t tab[RANS_O1_RECORDS];
   uint16_t bucket[256 * RANS_O1_BUCKETS];
 };
+struct DenseLookup {};  // the dense table lies in device memory
 
-template <bool kHist, bool kO1>
+template <bool kHist, bool kO1, bool kDense = false>
 struct Tables {
-  typename std::conditional<kO1, O1Lookup, O0Lookup>::type lut;
+  typename std::conditional<
+      kDense, DenseLookup,
+      typename std::conditional<kO1, O1Lookup, O0Lookup>::type>::type lut;
   union {
     // the ring of payload chunks, and copies of its first two words
     uint32_t ring[kRingWords + 2];
@@ -109,6 +119,7 @@ struct Args {
   const uint32_t* rows;
   const int64_t* row_off;
   const int32_t* ctx_start;
+  const uint32_t* dense;
   const uint32_t* x0;
   const int32_t* ulen;
   const int64_t* out_off;
@@ -126,10 +137,11 @@ struct Args {
 // the cursor, and the ring's staging counters.  `round` is one round of
 // the warp (every lane the same), forced inline so the state stays in
 // registers; it returns the round's four symbols packed in a word.  kW16:
-// the Nx16 wire's refill.
-template <bool kHist, bool kO1, bool kW16>
+// the Nx16 wire's refill; kDense: order 1 through the stream's dense table.
+template <bool kHist, bool kO1, bool kW16, bool kDense = false>
 struct Stream {
-  Tables<kHist, kO1>& t;
+  Tables<kHist, kO1, kDense>& t;
+  const uint32_t* dense;
   const uint32_t* words;
   uint8_t* out;
   uint32_t nb, cap;
@@ -180,7 +192,10 @@ struct Stream {
     uint32_t syms, hi, lo;
     rans8_window(w.w0, w.w1, w.w2, w.pos, &hi, &lo);
     uint32_t k;
-    if constexpr (kO1)
+    if constexpr (kDense)
+      k = rans8_round<true, kW16, true>(x, ctx7, &syms, live, hi, lo, dense,
+                                        nullptr);
+    else if constexpr (kO1)
       k = rans8_round<true, kW16>(x, ctx7, &syms, live, hi, lo, t.lut.tab,
                                   t.lut.bucket);
     else
@@ -214,27 +229,29 @@ struct Stream {
   }
 };
 
-template <bool kHist, bool kO1, bool kW16>
+template <bool kHist, bool kO1, bool kW16, bool kDense = false>
 __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  auto& t = *reinterpret_cast<Tables<kHist, kO1>*>(smem);
+  auto& t = *reinterpret_cast<Tables<kHist, kO1, kDense>*>(smem);
   const int lane = threadIdx.x;
   const int st = blockIdx.x;
   const uint32_t nb = (uint32_t)a.n_bytes[st];
   // past the payload's last word every byte reads 0; the cap keeps the
   // cursor (and the ring's chunks) a few words beyond it
-  Stream<kHist, kO1, kW16> s = {
-      t, reinterpret_cast<const uint32_t*>(a.payload + a.byte_off[st]),
+  Stream<kHist, kO1, kW16, kDense> s = {
+      t, kDense ? a.dense + (int64_t)st * (256 * RANS_TOTFREQ) : nullptr,
+      reinterpret_cast<const uint32_t*>(a.payload + a.byte_off[st]),
       kHist ? nullptr : a.out + a.out_off[st], nb, 4u * ((nb + 3u) / 4u) + 32u,
       lane, kHist ? a.offs[st] : 0, a.qbins};
 
-  if constexpr (kO1) {
+  // the lookup tables (a dense table lies in device memory as it is)
+  if constexpr (kO1 && !kDense) {
     for (int c = lane; c < 257; c += kWarp)
       t.setup[c] = (uint16_t)a.ctx_start[(int64_t)st * 257 + c];
     __syncwarp();
     rans_o1_build(a.rows + a.row_off[st], t.setup, t.lut.tab, t.lut.bucket,
                    lane, kWarp);
-  } else {
+  } else if constexpr (!kO1) {
     for (int i = lane; i < 256; i += kWarp)
       t.setup[i] = (uint16_t)a.freqs[(int64_t)st * 256 + i];
     __syncwarp();
@@ -312,12 +329,12 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
 // Set the variant up for its tables in dynamic shared memory, with the
 // largest shared-memory carveout so that as many blocks share an SM as the
 // tables allow; returns a CUDA error code.
-template <bool kHist, bool kO1, bool kW16>
+template <bool kHist, bool kO1, bool kW16, bool kDense>
 cudaError_t configure() {
-  auto* fn = rans4x8_kernel<kHist, kO1, kW16>;
+  auto* fn = rans4x8_kernel<kHist, kO1, kW16, kDense>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(Tables<kHist, kO1>));
+      (int)sizeof(Tables<kHist, kO1, kDense>));
   if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(fn,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -326,25 +343,25 @@ cudaError_t configure() {
 
 // One launch of the variant; returns a CUDA error code (an attribute's, or
 // the launch's).
-template <bool kHist, bool kO1, bool kW16>
+template <bool kHist, bool kO1, bool kW16, bool kDense = false>
 int launch(const Args& a, int n_streams, cudaStream_t s) {
-  const cudaError_t e = configure<kHist, kO1, kW16>();
+  const cudaError_t e = configure<kHist, kO1, kW16, kDense>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  rans4x8_kernel<kHist, kO1, kW16>
-      <<<n_streams, kWarp, sizeof(Tables<kHist, kO1>), s>>>(a);
+  rans4x8_kernel<kHist, kO1, kW16, kDense>
+      <<<n_streams, kWarp, sizeof(Tables<kHist, kO1, kDense>), s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks (streams) of the variant one SM holds at once, or minus a CUDA
 // error code.
-template <bool kHist, bool kO1, bool kW16>
+template <bool kHist, bool kO1, bool kW16, bool kDense = false>
 int blocks_per_sm() {
-  cudaError_t e = configure<kHist, kO1, kW16>();
+  cudaError_t e = configure<kHist, kO1, kW16, kDense>();
   int n = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, rans4x8_kernel<kHist, kO1, kW16>, kWarp,
-        sizeof(Tables<kHist, kO1>));
+        &n, rans4x8_kernel<kHist, kO1, kW16, kDense>, kWarp,
+        sizeof(Tables<kHist, kO1, kDense>));
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
@@ -353,19 +370,24 @@ int blocks_per_sm() {
 // Symbols (out != NULL) or an order-0/1 histogram (hist != NULL) of
 // n_streams streams on `stream`: order o1, and with w16 the 4-way Nx16
 // wire's refill (symbols only); n_rows is not read (a stream's
-// ctx_start[256] is its row count).  Returns cudaGetLastError() after the
+// ctx_start[256] is its row count).  With `dense` (order-1 symbols only),
+// stream s's table is dense[s * 256 * 4096 ...] (rans_o1_dense) and the
+// record tables are not read.  Returns cudaGetLastError() after the
 // launch, the error of the shared-memory attribute when it is refused, or
 // cudaErrorInvalidValue for a combination with no kernel (an Nx16
-// histogram).
+// histogram, a dense histogram or dense order 0).
 extern "C" int rans4x8_launch(
     const void* payload, const void* byte_off, const void* n_bytes,
     const void* freqs, const void* rows, const void* row_off,
-    const void* n_rows, const void* ctx_start, const void* x0,
+    const void* n_rows, const void* ctx_start, const void* dense,
+    const void* x0,
     const void* ulen, const void* out_off, void* out, const void* offs,
     void* hist, void* x_out, void* cur_out, void* ctx_out, int n_streams,
     int qbins, int max_rounds, int o1, int w16, void* stream) {
   if (n_streams <= 0) return 0;
-  if (hist != nullptr && w16) return static_cast<int>(cudaErrorInvalidValue);
+  if ((hist != nullptr && (w16 || dense != nullptr)) ||
+      (dense != nullptr && !o1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a = {static_cast<const uint8_t*>(payload),
                   static_cast<const int64_t*>(byte_off),
                   static_cast<const int32_t*>(n_bytes),
@@ -373,6 +395,7 @@ extern "C" int rans4x8_launch(
                   static_cast<const uint32_t*>(rows),
                   static_cast<const int64_t*>(row_off),
                   static_cast<const int32_t*>(ctx_start),
+                  static_cast<const uint32_t*>(dense),
                   static_cast<const uint32_t*>(x0),
                   static_cast<const int32_t*>(ulen),
                   static_cast<const int64_t*>(out_off),
@@ -388,6 +411,9 @@ extern "C" int rans4x8_launch(
   if (hist != nullptr)
     return o1 ? launch<true, true, false>(a, n_streams, s)
               : launch<true, false, false>(a, n_streams, s);
+  if (dense != nullptr)
+    return w16 ? launch<false, true, true, true>(a, n_streams, s)
+               : launch<false, true, false, true>(a, n_streams, s);
   if (w16)
     return o1 ? launch<false, true, true>(a, n_streams, s)
               : launch<false, false, true>(a, n_streams, s);
@@ -396,10 +422,14 @@ extern "C" int rans4x8_launch(
 }
 
 // Streams of a launch that one SM decodes at once: symbols (hist == 0: B7,
-// X1-X3) or a histogram (B8) of order o1, w16 the Nx16 refill; minus a
-// CUDA error code on failure.
-extern "C" int rans4x8_blocks_per_sm(int hist, int o1, int w16) {
-  if (hist && w16) return -static_cast<int>(cudaErrorInvalidValue);
+// X1-X3, with `dense` X1/X3 over dense tables) or a histogram (B8) of
+// order o1, w16 the Nx16 refill; minus a CUDA error code on failure.
+extern "C" int rans4x8_blocks_per_sm(int hist, int o1, int w16, int dense) {
+  if ((hist && (w16 || dense)) || (dense && !o1))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (dense)
+    return w16 ? blocks_per_sm<false, true, true, true>()
+               : blocks_per_sm<false, true, false, true>();
   if (hist)
     return o1 ? blocks_per_sm<true, true, false>()
               : blocks_per_sm<true, false, false>();
@@ -411,8 +441,10 @@ extern "C" int rans4x8_blocks_per_sm(int hist, int o1, int w16) {
 }
 
 // Bytes of shared memory a block (a stream) takes: symbols or a histogram
-// (hist) of order o1 (the refill does not change it).
-extern "C" int rans4x8_smem_bytes(int hist, int o1) {
+// (hist) of order o1, or (dense) order-1 symbols over a dense table (the
+// refill does not change it).
+extern "C" int rans4x8_smem_bytes(int hist, int o1, int dense) {
+  if (dense) return (int)sizeof(Tables<false, true, true>);
   if (hist)
     return o1 ? (int)sizeof(Tables<true, true>)
               : (int)sizeof(Tables<true, false>);

@@ -140,19 +140,26 @@ RANS_HD uint32_t rans8_pack(const uint32_t* e) {
 // the four lookups issued together and any loop after them), and shifts
 // in its refill bytes from the window hi:lo (kW16: the Nx16 wire's words).
 // Leaves the four symbols in *syms (state j's in byte j) and returns the
-// bytes the round took.
-template <bool kO1, bool kW16 = false>
+// bytes the round took.  kDense (order 1 only): `tab` is the stream's dense
+// [256, 4096] table of rans_o1_dense in place of the records and buckets.
+template <bool kO1, bool kW16 = false, bool kDense = false>
 RANS_HD uint32_t rans8_round(uint32_t* x, uint32_t* ctx7, uint32_t* syms,
                              unsigned live, uint32_t hi, uint32_t lo,
                              const uint32_t* tab, const uint16_t* bucket) {
+  static_assert(kO1 || !kDense, "the dense table is an order-1 table");
   uint32_t e[RANS8_NWAY], xs[RANS8_NWAY];
-  if (kO1) {
+  if (kDense) {
+    for (int j = 0; j < RANS8_NWAY; ++j)
+      e[j] = rans_o1_dense(tab, ctx7[j], x[j]);
+  } else if (kO1) {
     bool slow[RANS8_NWAY];
     for (int j = 0; j < RANS8_NWAY; ++j)
       e[j] = rans_o1_pick(tab, bucket, ctx7[j], x[j], &slow[j]);
     if (slow[0] || slow[1] || slow[2] || slow[3])
       for (int j = 0; j < RANS8_NWAY; ++j)
         if (slow[j]) e[j] = rans_o1_walk(tab, bucket, ctx7[j], x[j]);
+  }
+  if (kO1) {
     // x = f * (x >> 12) + (x & 4095) - cum
     for (int j = 0; j < RANS8_NWAY; ++j)
       xs[j] = ((e[j] & 0xFFFu) + 1u) * (x[j] >> RANS_TF_SHIFT) +

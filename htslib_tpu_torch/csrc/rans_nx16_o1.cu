@@ -48,6 +48,12 @@
 // buckets), 13-14 streams an SM; at most 200 KB, one stream an SM, for
 // the 4,096-row, 256-context limit with every possible bucket slow.
 // ptxas (-Xptxas -v, sm_90a): see PERF.md, from the chip run's build log.
+//
+// The dense variant (B5 over a dense table) decodes the streams whose
+// tables pass RANS_O1_MAX_ROWS rows: each lane's entry is one load from
+// its stream's [256, 4096] table in device memory (rans_o1_dense, an L2 or
+// memory latency on the round's chain), no table is built, and its block
+// takes the fixed part of shared memory only.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -100,6 +106,7 @@ struct Args {
   const uint32_t* rows;
   const int64_t* row_off;
   const int32_t* ctx_start;
+  const uint32_t* dense;
   const uint32_t* x0;
   const int32_t* ulen;
   const int64_t* out_off;
@@ -126,20 +133,26 @@ struct State {
 
 // One round of the warp; the lane's state decodes where `live` (always in
 // a full block).  Returns the lane's record, its symbol's dense index in
-// bits 24-31.
-template <bool kAllLive>
+// bits 24-31.  kDense: `rec` is the stream's dense table (rans_o1_dense),
+// whose records carry the symbol itself.
+template <bool kAllLive, bool kDense>
 __device__ __forceinline__ uint32_t o1_round(State& s, bool live,
                                              const uint32_t* rec,
                                              const uint16_t* bucket,
                                              const uint8_t* maps,
                                              const uint16_t* words,
                                              uint32_t nw, int lane) {
-  bool slow;
-  uint32_t v;
-  uint32_t e = rans_o1_pick(rec, bucket, s.ctx7, s.x, &slow, &v);
-  if (__any_sync(kFull, slow)) {
-    ++s.slow;
-    if (slow) e = rans_o1_mapped(rec, maps, v, s.x);
+  uint32_t e;
+  if constexpr (kDense) {
+    e = rans_o1_dense(rec, s.ctx7, s.x);
+  } else {
+    bool slow;
+    uint32_t v;
+    e = rans_o1_pick(rec, bucket, s.ctx7, s.x, &slow, &v);
+    if (__any_sync(kFull, slow)) {
+      ++s.slow;
+      if (slow) e = rans_o1_mapped(rec, maps, v, s.x);
+    }
   }
   if (kAllLive || live) {
     s.x = rans_o1_advance(s.x, e);
@@ -189,51 +202,68 @@ __device__ __forceinline__ void store32(uint8_t* p, const uint32_t* W) {
       if (i >= 28 + h) p[i] = (uint8_t)(W[7] >> (8 * (i - 28)));
 }
 
-template <bool kHist>
+template <bool kHist, bool kDense = false>
 __global__ void __launch_bounds__(kWarp) rans_nx16_o1_kernel(const Args a) {
+  static_assert(!(kHist && kDense), "the dense variant decodes symbols");
   extern __shared__ __align__(16) unsigned char smem[];
   Head& h = *reinterpret_cast<Head*>(smem);
   const int lane = threadIdx.x;
   const int st = blockIdx.x;
+  const uint32_t* rec;
+  const uint16_t* bucket = nullptr;
+  const uint8_t* maps = nullptr;
+  int32_t* hrow = nullptr;
+  int n_ctx = 256, stride = 0;
+  Layout l = {};
 
-  // the stream's alphabet, then its tables
-  for (int c = lane; c < 257; c += kWarp)
-    h.setup[c] = (uint16_t)a.ctx_start[(int64_t)st * 257 + c];
-  for (int v = lane; v < 256; v += kWarp) h.present[v] = 0;
-  __syncwarp();
-  const uint32_t* rows = a.rows + a.row_off[st];
-  rans_o1_mark(rows, h.setup, h.present, lane, kWarp);
-  __syncwarp();
-  const int n_ctx = rans_o1_index(h.present, h.index_of, h.ctx_of, lane,
-                                  kWarp);
-  __syncwarp();
-  const int n_rows = h.setup[256];
-  Layout l = o1_layout(n_rows, n_ctx, 0, kHist);
-  uint32_t smem_bytes;
-  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(smem_bytes));
-  if ((uint32_t)l.end > smem_bytes) __trap();  // the launch sized it wrong
-  int32_t* hrow = reinterpret_cast<int32_t*>(smem + l.hist);
-  uint32_t* rec = reinterpret_cast<uint32_t*>(smem + l.rec);
-  uint16_t* bucket = reinterpret_cast<uint16_t*>(smem + l.bucket);
-  uint8_t* maps = smem + l.maps;
-  rans_o1_build(rows, h.setup, rec, bucket, lane, kWarp, n_ctx, h.ctx_of,
-                h.index_of);
-  __syncwarp();
-  // the slow buckets' maps, numbered lane by lane
-  const int n_mine = rans_o1_count_slow(bucket, n_ctx, lane, kWarp);
-  int first = n_mine;
-  for (int d = 1; d < kWarp; d <<= 1) {
-    const int up = __shfl_up_sync(kFull, first, d);
-    if (lane >= d) first += up;
-  }
-  l = o1_layout(n_rows, n_ctx, __shfl_sync(kFull, first, kWarp - 1), kHist);
-  if ((uint32_t)l.end > smem_bytes) __trap();
-  rans_o1_maps(rec, bucket, maps, n_ctx, first - n_mine, lane, kWarp);
-  const int stride = n_ctx | 1;
-  if (kHist) {
-    hrow += (lane % kHistRows) * stride;
-    for (int i = lane; i < kHistRows * stride; i += kWarp)
-      reinterpret_cast<int32_t*>(smem + l.hist)[i] = 0;
+  if constexpr (kDense) {
+    // contexts and symbols are values: each is its own dense index
+    for (int v = lane; v < 256; v += kWarp) h.ctx_of[v] = (uint8_t)v;
+    rec = a.dense + (int64_t)st * (256 * RANS_TOTFREQ);
+  } else {
+    // the stream's alphabet, then its tables
+    for (int c = lane; c < 257; c += kWarp)
+      h.setup[c] = (uint16_t)a.ctx_start[(int64_t)st * 257 + c];
+    for (int v = lane; v < 256; v += kWarp) h.present[v] = 0;
+    __syncwarp();
+    const uint32_t* rows = a.rows + a.row_off[st];
+    rans_o1_mark(rows, h.setup, h.present, lane, kWarp);
+    __syncwarp();
+    n_ctx = rans_o1_index(h.present, h.index_of, h.ctx_of, lane, kWarp);
+    __syncwarp();
+    const int n_rows = h.setup[256];
+    l = o1_layout(n_rows, n_ctx, 0, kHist);
+    uint32_t smem_bytes;
+    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(smem_bytes));
+    if ((uint32_t)l.end > smem_bytes) __trap();  // the launch sized it wrong
+    uint32_t* rec_w = reinterpret_cast<uint32_t*>(smem + l.rec);
+    uint16_t* bucket_w = reinterpret_cast<uint16_t*>(smem + l.bucket);
+    uint8_t* maps_w = smem + l.maps;
+    rans_o1_build(rows, h.setup, rec_w, bucket_w, lane, kWarp, n_ctx,
+                  h.ctx_of, h.index_of);
+    __syncwarp();
+    // the slow buckets' maps, numbered lane by lane
+    const int n_mine = rans_o1_count_slow(bucket_w, n_ctx, lane, kWarp);
+    int first = n_mine;
+    for (int d = 1; d < kWarp; d <<= 1) {
+      const int up = __shfl_up_sync(kFull, first, d);
+      if (lane >= d) first += up;
+    }
+    l = o1_layout(n_rows, n_ctx, __shfl_sync(kFull, first, kWarp - 1),
+                  kHist);
+    if ((uint32_t)l.end > smem_bytes) __trap();
+    rans_o1_maps(rec_w, bucket_w, maps_w, n_ctx, first - n_mine, lane,
+                 kWarp);
+    rec = rec_w;
+    bucket = bucket_w;
+    maps = maps_w;
+    stride = n_ctx | 1;
+    if (kHist) {
+      hrow = reinterpret_cast<int32_t*>(smem + l.hist) +
+             (lane % kHistRows) * stride;
+      for (int i = lane; i < kHistRows * stride; i += kWarp)
+        reinterpret_cast<int32_t*>(smem + l.hist)[i] = 0;
+    }
   }
   // the symbol buffer takes the place of the context starts: every lane
   // is done with them
@@ -265,7 +295,8 @@ __global__ void __launch_bounds__(kWarp) rans_nx16_o1_kernel(const Args a) {
 #pragma unroll kUnroll
     for (int i = 0; i < kBlock; ++i) {
       const uint32_t d =
-          o1_round<true>(s, true, rec, bucket, maps, words, nw, lane) >> 24;
+          o1_round<true, kDense>(s, true, rec, bucket, maps, words, nw,
+                                 lane) >> 24;
       buf[4 * buf_word(lane, i >> 2) + (i & 3)] =
           kHist ? (uint8_t)d : h.ctx_of[d];
     }
@@ -284,7 +315,8 @@ __global__ void __launch_bounds__(kWarp) rans_nx16_o1_kernel(const Args a) {
   for (; r < rounds; ++r) {
     const bool live = r < len;
     const uint32_t d =
-        o1_round<false>(s, live, rec, bucket, maps, words, nw, lane) >> 24;
+        o1_round<false, kDense>(s, live, rec, bucket, maps, words, nw,
+                                lane) >> 24;
     if (live) {
       if (kHist)
         atomicAdd(&hrow[d], 1);
@@ -320,9 +352,9 @@ __global__ void __launch_bounds__(kWarp) rans_nx16_o1_kernel(const Args a) {
 // Set the variant up for `smem` bytes of dynamic shared memory, with the
 // largest shared-memory carveout so that as many blocks share an SM as
 // their tables allow; returns a CUDA error code.
-template <bool kHist>
+template <bool kHist, bool kDense = false>
 cudaError_t configure(int smem) {
-  auto* fn = rans_nx16_o1_kernel<kHist>;
+  auto* fn = rans_nx16_o1_kernel<kHist, kDense>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -352,7 +384,9 @@ extern "C" int rans_nx16_o1_smem_bytes(int n_rows, int n_ctx, int n_slow,
 }
 
 // Decode (out != NULL) or histogram (hist != NULL) n_streams streams on
-// `stream`, every block with smem_bytes of dynamic shared memory;
+// `stream`, every block with smem_bytes of dynamic shared memory (with
+// `dense`, symbols only: stream s's table is dense[s * 256 * 4096 ...],
+// rans_o1_dense, and the record tables are not read);
 // slow_rounds (may be NULL) gets, per stream, the rounds in which some
 // state's bucket was slow (its lookup went through the bucket's map).  n_rows is not read (a stream's ctx_start[256] is its row
 // count).  Returns cudaGetLastError() after the launch, or the error of
@@ -360,18 +394,22 @@ extern "C" int rans_nx16_o1_smem_bytes(int n_rows, int n_ctx, int n_slow,
 extern "C" int rans_nx16_o1_launch(
     const void* payload, const void* word_off, const void* n_words,
     const void* rows, const void* row_off, const void* n_rows,
-    const void* ctx_start, const void* x0, const void* ulen,
+    const void* ctx_start, const void* dense, const void* x0,
+    const void* ulen,
     const void* out_off, void* out, const void* offs, void* hist,
     void* x_out, void* cur_out, void* ctx_out, void* slow_rounds,
     int n_streams, int qbins, int max_rounds, int smem_bytes, void* stream) {
   (void)n_rows;
   if (n_streams <= 0) return 0;
+  if (hist != nullptr && dense != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a = {static_cast<const uint8_t*>(payload),
                   static_cast<const int64_t*>(word_off),
                   static_cast<const int32_t*>(n_words),
                   static_cast<const uint32_t*>(rows),
                   static_cast<const int64_t*>(row_off),
                   static_cast<const int32_t*>(ctx_start),
+                  static_cast<const uint32_t*>(dense),
                   static_cast<const uint32_t*>(x0),
                   static_cast<const int32_t*>(ulen),
                   static_cast<const int64_t*>(out_off),
@@ -390,6 +428,10 @@ extern "C" int rans_nx16_o1_launch(
     e = configure<true>(smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     rans_nx16_o1_kernel<true><<<n_streams, kWarp, smem_bytes, s>>>(a);
+  } else if (dense != nullptr) {
+    e = configure<false, true>(smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rans_nx16_o1_kernel<false, true><<<n_streams, kWarp, smem_bytes, s>>>(a);
   } else {
     e = configure<false>(smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);

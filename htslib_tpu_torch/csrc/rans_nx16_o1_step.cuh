@@ -244,3 +244,20 @@ RANS_HD uint32_t rans_o1_advance(uint32_t x, uint32_t e) {
 
 // The next context of a state, ctx7 = index * 128, from its record.
 RANS_HD uint32_t rans_o1_ctx7(uint32_t e) { return (e >> 17) & 0x7F80u; }
+
+// The dense lookup, for tables past RANS_O1_MAX_ROWS rows: a stream's
+// [256, 4096] table in device memory (4 MiB) holds at ctx * 4096 + slot the
+// JAX package's packed entry sym | (f-1) << 8 | cum << 20 of the row owning
+// the slot (htslib_tpu/ops/rans.py _pack_table), 0 past the context's sum
+// (symbol 0, f = 1, cum 0, as the JAX decode reads it).  The lookup returns
+// it as a row record, its symbol in place of a dense index, so the round's
+// step, context and output stay those of the record kernels: contexts are
+// symbol values, ctx7 = ctx * 128.
+RANS_HD uint32_t rans_o1_dense_row(uint32_t d) {
+  return ((d >> 8) & 0xFFFu) | ((d >> 20) << 12) | (d << 24);
+}
+
+RANS_HD uint32_t rans_o1_dense(const uint32_t* dense, uint32_t ctx7,
+                               uint32_t x) {
+  return rans_o1_dense_row(dense[(ctx7 << 5) | (x & (RANS_TOTFREQ - 1))]);
+}

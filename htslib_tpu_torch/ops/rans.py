@@ -15,50 +15,114 @@ its own end:
     Nx16 4-way order 0   X2 (csrc/rans4x8.cu, the Nx16 refill)
     Nx16 4-way order 1   X3 (csrc/rans4x8.cu, the Nx16 refill)
 
+The order-1 kernels' record tables hold at most A2_MAX (4,096) (context,
+symbol) rows; an order-1 stream with more goes, in a launch of its own
+group, to the same kernel's dense variant (X1, X3 or B5 over the JAX
+function's own [256, 4096] table of packed entries, 4 MiB a stream in
+device memory), so every order-1 stream the JAX functions decode decodes
+here too.
+
 The outputs are the JAX functions' bytes, in the input order: the JAX
 4-way order-0 loop runs every stream to the batch's longest and cuts it
 after, the port stops each stream at its length.  Errors are the JAX
 functions' where the kernels take what JAX takes: ValueError on any
 Nx16 transform flag and on frequencies past 4096, and on a zero-length
 4x8 stream, whose empty table the JAX function's parse (as the port's
-`_read_freqs`) reads past.  The kernels' order-1 tables hold at most
-A2_MAX (4,096) (context, symbol) rows, so an order-1 stream with more
-raises ValueError, where the JAX functions decode it; and a 32-way
-order-0 table must sum to 4096 (B2), as every encoder's does.  With
+`_read_freqs`) reads past.  A 32-way order-0 table must sum to 4096 (B2),
+as every encoder's does; one that sums below raises ValueError, where the
+JAX function reads the slots past its sum as symbol 0 (and the host codec
+reads them otherwise: tests/test_torch_rans_dense.py).  With
 `device="cpu"` the kernels' plain PyTorch versions run.
 """
 from __future__ import annotations
 
-from typing import List
+import time
+from typing import Callable, List, Optional, Tuple
 
 from htslib_tpu_torch import _build
 from htslib_tpu_torch.codecs.rans4x16 import u7_get
-from htslib_tpu_torch.ops.rans4x8 import (decode_streams, frame_4x8,
-                                          frame_nx16_4way)
+from htslib_tpu_torch.ops.rans4x8 import (_parse_4x8_o1, decode_streams,
+                                          frame_4x8, frame_nx16_4way)
 from htslib_tpu_torch.ops.rans_nx16 import decode_nx16_o0_batch
-from htslib_tpu_torch.ops.rans_nx16_o1 import decode_nx16_o1_batch
+from htslib_tpu_torch.ops.rans_nx16_o1 import (A2_MAX, _parse_nx16_header,
+                                               decode_o1_streams,
+                                               frame_o1_streams, o1_row_count)
 
 
-def uncompress_batch(blocks: List[bytes], device="cuda") -> List[bytes]:
+def _by_rows(idx: List[int], blocks: List[bytes], parse: Callable,
+             timing: Optional[dict]) -> Tuple[List[List[int]], dict]:
+    """Order-1 streams split by their tables: ([within A2_MAX rows, past
+    it], each stream's parse(block), its table second, by index, which
+    the framing takes in place of a second parse).  The host seconds
+    this takes add to timing["route_s"] where `timing` is given."""
+    t0 = time.perf_counter()
+    groups: List[List[int]] = [[], []]
+    parsed = {}
+    for i in idx:
+        parsed[i] = parse(blocks[i])
+        groups[o1_row_count(parsed[i][1]) > A2_MAX].append(i)
+    if timing is not None:
+        timing["route_s"] = (timing.get("route_s", 0.0)
+                             + time.perf_counter() - t0)
+    return groups, parsed
+
+
+def _group(dev, timing: Optional[dict], name: str, n: int, frame, decode):
+    """One launch group: decode(frame(part)), where `timing` is given
+    noted under `name` as its streams, frame_s (parse, tables, upload;
+    with dense tables their build on the device, dense_table_s, within
+    it) and decode_s (launch, kernel, download and slicing)."""
+    if timing is None:
+        return decode(frame(None))
+    part = {"streams": n}
+    t0 = _build.clock(dev)
+    b = frame(part)
+    t1 = _build.clock(dev)
+    outs = decode(b)
+    part.update(frame_s=t1 - t0, decode_s=_build.clock(dev) - t1)
+    timing[name] = part
+    return outs
+
+
+def uncompress_batch(blocks: List[bytes], device="cuda",
+                     timing: Optional[dict] = None) -> List[bytes]:
     """Decode rANS 4x8 streams of order 0 and 1, mixed (the order byte
-    first, as the JAX function takes them), one launch an order.  A
-    stream of another order byte gives b"", as in JAX."""
+    first, as the JAX function takes them), one launch an order (order-1
+    streams past A2_MAX rows in one more).  A stream of another order
+    byte gives b"", as in JAX.  `timing`, where given, gets each launch
+    group's parts (`_group`) under 4x8_o0, 4x8_o1 and 4x8_o1_dense, and
+    the order-1 tables' parse that routes them under route_s."""
     dev = _build.resolve_device(device)
     res = [b""] * len(blocks)
     for order in (0, 1):
         idx = [i for i, data in enumerate(blocks) if data[0] == order]
-        if idx:
-            b = frame_4x8([blocks[i] for i in idx], bool(order), dev)
-            for i, out in zip(idx, decode_streams(b)):
-                res[i] = out
+        groups, parsed = (_by_rows(idx, blocks, _parse_4x8_o1, timing)
+                          if order else ([idx, []], {}))
+        for dense, g in enumerate(groups):
+            if g:
+                outs = _group(
+                    dev, timing, f"4x8_o{order}" + "_dense" * dense, len(g),
+                    lambda t: frame_4x8([blocks[i] for i in g], bool(order),
+                                        dev, bool(dense), t,
+                                        [parsed[i] for i in g] if order
+                                        else None),
+                    decode_streams)
+                for i, out in zip(g, outs):
+                    res[i] = out
     return res
 
 
-def uncompress_nx16_batch(blocks: List[bytes], device="cuda") -> List[bytes]:
+def uncompress_nx16_batch(blocks: List[bytes], device="cuda",
+                          timing: Optional[dict] = None) -> List[bytes]:
     """Decode plain rANS Nx16 streams of order 0 and 1, 4-way and 32-way,
     mixed (flags 0x00, 0x01, 0x04, 0x05), one launch a (width, order)
-    group; a zero-length stream gives b"".  Raises ValueError, before any
-    decode, on a transform flag."""
+    group (order-1 streams past A2_MAX rows in one more); a zero-length
+    stream gives b"".  Raises ValueError, before any decode, on a
+    transform flag.  `timing`, where given, gets each launch group's
+    parts (`_group`) under nx16_{4,32}way_o{0,1}[_dense] (a 32-way
+    order-0 group goes through its lane function, whose call is decode_s,
+    frame_s 0), and the order-1 tables' parse that routes them under
+    route_s."""
     dev = _build.resolve_device(device)
     groups: dict = {}
     for i, data in enumerate(blocks):
@@ -70,14 +134,29 @@ def uncompress_nx16_batch(blocks: List[bytes], device="cuda") -> List[bytes]:
     res = [b""] * len(blocks)
     for (n32, o1), idxs in groups.items():
         idxs = [i for i in idxs if u7_get(blocks[i], 1)[0]]
-        if not idxs:
-            continue
-        datas = [blocks[i] for i in idxs]
-        if n32:
-            outs = (decode_nx16_o1_batch if o1 else decode_nx16_o0_batch)(
-                datas, device=dev)
-        else:
-            outs = decode_streams(frame_nx16_4way(datas, bool(o1), dev))
-        for i, out in zip(idxs, outs):
-            res[i] = out
+        nway = 32 if n32 else 4
+        parts, parsed = (_by_rows(idxs, blocks,
+                                  lambda d: _parse_nx16_header(d, nway),
+                                  timing)
+                         if o1 else ([idxs, []], {}))
+        for dense, part in enumerate(parts):
+            if not part:
+                continue
+            datas = [blocks[i] for i in part]
+            ps = [parsed[i] for i in part] if o1 else None
+            if n32 and o1:
+                # decode_nx16_o1_batch's body, on the streams' parses
+                frame, decode = (lambda t: frame_o1_streams(
+                    ps, dev, bool(dense), t), decode_o1_streams)
+            elif n32:
+                frame, decode = (lambda t: datas, lambda d: (
+                    decode_nx16_o0_batch(d, device=dev)))
+            else:
+                frame, decode = (lambda t: frame_nx16_4way(
+                    datas, bool(o1), dev, bool(dense), t, ps),
+                    decode_streams)
+            outs = _group(dev, timing, f"nx16_{nway}way_o{int(bool(o1))}"
+                          + "_dense" * dense, len(part), frame, decode)
+            for i, out in zip(part, outs):
+                res[i] = out
     return res

@@ -23,6 +23,11 @@ tail included (csrc/rans4x8.cu, one warp per stream).
 PyTorch version (`rans4x8_plain`, the same rounds as tensor ops over all
 streams and states at once) for tensors on the CPU.
 
+An order-1 batch may carry dense [256 x 4096] tables in place of rows
+(`Rans4x8Batch.dense`, `frame_4x8` / `frame_nx16_4way` with `dense`): the
+streams whose tables pass the rows' A2_MAX, which ops/rans.py decodes as
+its JAX twin does, through the dense variants of X1 and X3.
+
 Past a payload's end the kernels and the plain version read zero bytes,
 where the host codecs stop refilling; a valid stream never refills there,
 so the symbols are the same, and the cursor each returns is clamped at
@@ -43,9 +48,10 @@ from htslib_tpu_torch.ops.rans_nx16 import (TOTFREQ, _U32, exclusive_cumsum,
                                             pack_payloads)
 from htslib_tpu_torch.ops.rans_nx16_o1 import (A2_MAX, O1Tables,
                                                _parse_nx16_header,
-                                               check_o1_tables,
-                                               frame_o1_tables, o1_pads,
-                                               o1_slot_table, slot_step)
+                                               check_dense, check_o1_tables,
+                                               dense_tables, frame_o1_tables,
+                                               o1_lookup, o1_pads,
+                                               o1_row_count, slot_step)
 
 RANS8_L = 1 << 23
 RANS16_L = 1 << 15
@@ -67,10 +73,12 @@ class Rans4x8Batch:
     out_off: torch.Tensor   # int64 [S]: each stream's first output byte
     w16: bool = False       # the 4-way Nx16 wire's refill (16-bit words
     #                         against 2^15) in place of 4x8's bytes
+    dense: Optional[torch.Tensor] = None  # int32 [S, 256 * 4096]: order-1
+    #                         dense tables (`dense_tables`) in place of rows
 
     @property
     def o1(self) -> bool:
-        return self.tables is not None
+        return self.tables is not None or self.dense is not None
 
     @property
     def n_streams(self) -> int:
@@ -111,7 +119,7 @@ def _parse_4x8_o1(data: bytes):
 def o1_gate_4x8(F: np.ndarray) -> None:
     """The JAX routing gate of 4x8 order-1 streams: raise ValueError when
     the stacked rows pad past A2_MAX."""
-    nrows = int((np.asarray(F) > 0).sum())
+    nrows = o1_row_count(F)
     a2 = 8
     while a2 < nrows:
         a2 <<= 1
@@ -119,9 +127,14 @@ def o1_gate_4x8(F: np.ndarray) -> None:
         raise ValueError("alphabet too large for the device O1 kernel")
 
 
-def frame_4x8(blocks: List[bytes], o1: bool, device) -> Rans4x8Batch:
+def frame_4x8(blocks: List[bytes], o1: bool, device, dense: bool = False,
+              timing: Optional[dict] = None,
+              parsed: Optional[list] = None) -> Rans4x8Batch:
     """Parse 4x8 streams of one order (flag byte included) into a
-    `Rans4x8Batch`; raises as the JAX front ends do."""
+    `Rans4x8Batch`; raises as the JAX front ends do.  `dense` (order 1):
+    dense tables in place of rows, for any row count, their build timed
+    into `timing` as `dense_tables` times it.  `parsed` (order 1): the
+    streams' `_parse_4x8_o1` results, where the caller has them."""
     S = len(blocks)
     freqs = np.zeros((S, 256), np.int32)
     states = np.zeros((S, NWAY4), np.int64)
@@ -129,33 +142,40 @@ def frame_4x8(blocks: List[bytes], o1: bool, device) -> Rans4x8Batch:
     payloads, Fs = [], []
     for i, data in enumerate(blocks):
         if o1:
-            ulen[i], F, states[i], poff = _parse_4x8_o1(data)
+            ulen[i], F, states[i], poff = (parsed[i] if parsed
+                                           else _parse_4x8_o1(data))
             Fs.append(F)
             payloads.append(np.frombuffer(data, np.uint8, len(data) - poff,
                                           poff))
         else:
             ulen[i], freqs[i], states[i], pl = _parse_4x8_o0(data)
             payloads.append(pl)
-    if o1:
+    if o1 and not dense:
         for F in Fs:
             o1_gate_4x8(F)
     return _batch(payloads, freqs, Fs if o1 else None, states, ulen, False,
-                  device)
+                  device, dense, timing)
 
 
-def frame_nx16_4way(blocks: List[bytes], o1: bool, device) -> Rans4x8Batch:
+def frame_nx16_4way(blocks: List[bytes], o1: bool, device,
+                    dense: bool = False, timing: Optional[dict] = None,
+                    parsed: Optional[list] = None) -> Rans4x8Batch:
     """Parse plain 4-way rANS Nx16 streams of one order (flags 0x00 or
     0x01; none of zero length: such a stream has no table) into a
     `Rans4x8Batch` with the Nx16 refill (`w16`).  Raises ValueError on
-    other flags, frequencies past 4096 or (order 1) tables past the
-    kernels' A2_MAX rows, as the 32-way framings do."""
-    parsed = [_parse_nx16_header(d, NWAY4, o1) for d in blocks]
+    other flags, frequencies past 4096 or (order 1, without `dense`)
+    tables past the kernels' A2_MAX rows, as the 32-way framings do;
+    `dense` and `timing` as in `frame_4x8`; `parsed`: the streams'
+    `_parse_nx16_header` results, where the caller has them."""
+    if parsed is None:
+        parsed = [_parse_nx16_header(d, NWAY4, o1) for d in blocks]
     ulen = np.array([p[0] for p in parsed], np.int64)
     if (ulen == 0).any():
         raise ValueError("a zero-length Nx16 stream has no table to frame")
     freqs = np.zeros((len(blocks), 256), np.int32)
     if o1:
-        o1_pads(parsed)
+        if not dense:
+            o1_pads(parsed)
     else:
         for i, p in enumerate(parsed):
             if p[1].sum() > TOTFREQ:
@@ -164,12 +184,14 @@ def frame_nx16_4way(blocks: List[bytes], o1: bool, device) -> Rans4x8Batch:
     states = np.array([p[2] for p in parsed], np.int64).reshape(-1, NWAY4)
     return _batch([p[3] for p in parsed], freqs,
                   [p[1] for p in parsed] if o1 else None, states, ulen, True,
-                  device)
+                  device, dense, timing)
 
 
-def _batch(payloads, freqs, Fs, states, ulen, w16, device) -> Rans4x8Batch:
+def _batch(payloads, freqs, Fs, states, ulen, w16, device,
+           dense=False, timing=None) -> Rans4x8Batch:
     """A `Rans4x8Batch` of parsed streams on `device`: order 1 where the
-    per-context frequencies Fs are given."""
+    per-context frequencies Fs are given, through dense tables with
+    `dense`."""
     if (ulen >= 1 << 31).any():
         raise ValueError("stream too long for the 4x8 kernel")
     payload, word_off, _ = pack_payloads(payloads, 4)
@@ -180,9 +202,11 @@ def _batch(payloads, freqs, Fs, states, ulen, w16, device) -> Rans4x8Batch:
     return Rans4x8Batch(
         dev(payload), dev(4 * word_off),
         dev(np.array([len(p) for p in payloads], np.int32)), dev(freqs),
-        frame_o1_tables(Fs, device) if Fs is not None else None,
+        frame_o1_tables(Fs, device) if Fs is not None and not dense
+        else None,
         dev(states.astype(np.uint32).view(np.int32)),
-        dev(ulen.astype(np.int32)), dev(exclusive_cumsum(ulen)), w16)
+        dev(ulen.astype(np.int32)), dev(exclusive_cumsum(ulen)), w16,
+        dense_tables(Fs, device, timing) if dense else None)
 
 
 def o0_slot_table(freqs: torch.Tensor) -> torch.Tensor:
@@ -205,15 +229,17 @@ def rans4x8_plain(b: Rans4x8Batch, max_rounds: int = -1,
                   qbins: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
-    """Plain PyTorch version of kernels B7/B8 and X1-X3: the same rounds
-    as tensor ops over [streams, 4 states], refilling as `b.w16` says.
+    """Plain PyTorch version of kernels B7/B8 and X1-X3 (with `b.dense`,
+    of X1/X3's dense variants): the same rounds as tensor ops over
+    [streams, 4 states], refilling as `b.w16` says.
     Returns (symbols u8 [total_out], or with `qbins` the histogram int32
     [S, qbins] of clip(sym - offs, 0, qbins - 1); final states int32
     [S, 4]; final byte cursors int32 [S]; final contexts int32 [S, 4], 0
     for order 0)."""
     dev = b.payload.device
     S = b.n_streams
-    table = o1_slot_table(b.tables) if b.o1 else o0_slot_table(b.freqs)
+    step_fn, table = o1_lookup(b) if b.o1 else (slot_step,
+                                                o0_slot_table(b.freqs))
     data = b.payload.long()
     nb = b.n_bytes.long()[:, None]
     bo = b.byte_off[:, None]
@@ -250,7 +276,7 @@ def rans4x8_plain(b: Rans4x8Batch, max_rounds: int = -1,
             pos = r * NWAY4 + lanes
             act = pos < n
         act = act & (r < rounds)[:, None]
-        s, step = slot_step(x, ctx * TOTFREQ + (x & (TOTFREQ - 1)), table)
+        s, step = step_fn(x, ctx * TOTFREQ + (x & (TOTFREQ - 1)), table)
         x = torch.where(act, step, x)
         if b.o1:
             ctx = torch.where(act, s, ctx)
@@ -284,9 +310,10 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
     """Kernel B7 (order-0 symbols), X1 (order-1 symbols), X2/X3 (the
-    4-way Nx16 wire's symbols, `b.w16`) or, with `qbins`, kernel B8
-    (order-0 or order-1 4x8 histogram) over the whole batch in one
-    launch; same results as `rans4x8_plain`."""
+    4-way Nx16 wire's symbols, `b.w16`), X1/X3's dense variants (a batch
+    with `b.dense`) or, with `qbins`, kernel B8 (order-0 or order-1 4x8
+    histogram) over the whole batch in one launch; same results as
+    `rans4x8_plain`."""
     S = b.n_streams
     req = _build.require_cuda
     req(b.payload, torch.uint8, "payload")
@@ -307,12 +334,15 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
     if bool(bad):
         raise ValueError("batch: a stream lies outside its buffers or has "
                          "a frequency table past 4096")
-    if b.o1:
+    dense = b.dense is not None
+    if dense:
+        check_dense(b.dense, S)
+    elif b.o1:
         check_o1_tables(b.tables, S)
-    # the order-0 kernel reads no order-1 table: null pointers
+    # the order-0 and dense kernels read no order-1 rows: null pointers
     t_ptrs = ([x.data_ptr() for x in (b.tables.rows, b.tables.row_off,
                                       b.tables.n_rows, b.tables.ctx_start)]
-              if b.o1 else [None] * 4)
+              if b.tables is not None else [None] * 4)
     dev = b.payload.device
     x_out = torch.empty((S, NWAY4), dtype=torch.int32, device=dev)
     ctx_out = torch.empty((S, NWAY4), dtype=torch.int32, device=dev)
@@ -323,12 +353,16 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
         res = (torch.empty if max_rounds < 0 else torch.zeros)(
             b.total_out, dtype=torch.uint8, device=dev)
         out_ptr, hist_ptr, offs_ptr = res.data_ptr(), None, None
-        key = ("rans_nx16_4way_o%d_decode" if b.w16
-               else "rans4x8_o%d_decode") % int(b.o1)
+        key = ("rans_nx16_4way_o%d%s_decode" if b.w16
+               else "rans4x8_o%d%s_decode") % (int(b.o1),
+                                              "_dense" if dense else "")
     else:
         if b.w16:
             raise ValueError("4-way rANS Nx16 histogram: no kernel (the "
                              "wire is decoded to symbols only)")
+        if dense:
+            raise ValueError("dense order-1 tables: symbols only (the "
+                             "histogram lane refuses such streams)")
         if not 1 <= qbins <= 256:
             raise ValueError("qbins must be in 1..256")
         if offs is None:
@@ -340,7 +374,8 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
     lib = _build.load("rans4x8")
     rc = lib.rans4x8_launch(
         b.payload.data_ptr(), b.byte_off.data_ptr(), b.n_bytes.data_ptr(),
-        b.freqs.data_ptr(), *t_ptrs, b.x0.data_ptr(),
+        b.freqs.data_ptr(), *t_ptrs, b.dense.data_ptr() if dense else None,
+        b.x0.data_ptr(),
         b.ulen.data_ptr(), b.out_off.data_ptr(), out_ptr, offs_ptr,
         hist_ptr, x_out.data_ptr(), cur_out.data_ptr(), ctx_out.data_ptr(),
         S, qbins or 0, max_rounds, int(b.o1), int(b.w16),
@@ -350,18 +385,22 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
     return res, x_out, cur_out, ctx_out
 
 
-def smem_bytes(hist: bool, o1: bool = False) -> int:
+def smem_bytes(hist: bool, o1: bool = False, dense: bool = False) -> int:
     """Bytes of shared memory a block (a stream) of kernel B7, X1-X3
-    (`hist` false) or B8 of order `o1` takes."""
-    return _build.load("rans4x8").rans4x8_smem_bytes(int(hist), int(o1))
+    (`hist` false), their dense variants (`dense`) or B8 of order `o1`
+    takes."""
+    return _build.load("rans4x8").rans4x8_smem_bytes(int(hist), int(o1),
+                                                     int(dense))
 
 
-def blocks_per_sm(hist: bool, o1: bool = False, w16: bool = False) -> int:
+def blocks_per_sm(hist: bool, o1: bool = False, w16: bool = False,
+                  dense: bool = False) -> int:
     """Streams one SM of the card decodes at once in kernel B7 or X1
-    (`hist` false, order `o1`), X2/X3 (`w16`) or B8 of order `o1`: the
-    blocks its shared memory holds."""
+    (`hist` false, order `o1`), X2/X3 (`w16`), the dense variants of X1
+    and X3 (`dense`) or B8 of order `o1`: the blocks its shared memory
+    holds."""
     lib = _build.load("rans4x8")
-    n = lib.rans4x8_blocks_per_sm(int(hist), int(o1), int(w16))
+    n = lib.rans4x8_blocks_per_sm(int(hist), int(o1), int(w16), int(dense))
     _build.check(lib, max(-n, 0), "rans4x8 occupancy")
     return n
 

@@ -23,6 +23,17 @@ launch to the batch's largest (`o1_smem_bytes`).
 PyTorch version (`rans_o1_plain`, the same rounds as tensor ops over all
 streams and states at once, through a dense [ctx, slot] table) for
 tensors on the CPU.
+
+Dense tables.  The kernels' records hold at most A2_MAX (context, symbol)
+rows a stream, the JAX kernels' budget, and `decode_nx16_o1_batch` and the
+histogram lane refuse a stream with more, as their JAX twins do.  For the
+whole-stream decode of ops/rans.py, whose JAX function decodes such a
+stream through a dense [256 x 4096] table, a batch may carry that table
+instead (`Nx16O1Batch.dense`, `frame_o1_streams(..., dense=True)`): the
+JAX function's own packed entries (`dense_tables`), 4 MiB a stream, built
+on the batch's device from the 256 KiB of frequencies a stream, which
+the dense variant of B5 reads in device memory and the plain version
+gathers (`dense_step`).
 """
 from __future__ import annotations
 
@@ -57,10 +68,12 @@ class Nx16O1Batch:
     payload: torch.Tensor   # u8: payloads back to back, each padded to even
     word_off: torch.Tensor  # int64 [S]: first 16-bit word of each stream
     n_words: torch.Tensor   # int32 [S]: words in each (padded) payload
-    tables: O1Tables
+    tables: Optional[O1Tables]  # the rows (None with `dense`)
     x0: torch.Tensor        # int32 [S, 32]: initial states (u32 bits)
     ulen: torch.Tensor      # int32 [S]: symbols in each stream
     out_off: torch.Tensor   # int64 [S]: each stream's first output byte
+    dense: Optional[torch.Tensor] = None  # int32 [S, 256 * 4096]: the
+    #                         dense tables (`dense_tables`) in place of rows
 
     @property
     def n_streams(self) -> int:
@@ -103,6 +116,12 @@ def _parse_nx16_header(data: bytes, nway: int = NWAY, o1: bool = True):
     return ulen, F, states, payload
 
 
+def o1_row_count(F: np.ndarray) -> int:
+    """(context, symbol) rows of a table: past A2_MAX, only a dense table
+    holds it."""
+    return int((np.asarray(F) > 0).sum())
+
+
 def o1_pads(parsed) -> Tuple[int, int]:
     """(a2_pad, a_pad) covering a list of parsed O1 streams: the JAX
     kernels' table heights, whose A2_MAX gate is the routing rule."""
@@ -114,7 +133,7 @@ def o1_pads(parsed) -> Tuple[int, int]:
         A = len(np.union1d(used_ctx, syms))
         while a_pad < A:
             a_pad <<= 1
-        nrows = int((F > 0).sum())
+        nrows = o1_row_count(F)
         while a2_pad < nrows:
             a2_pad <<= 1
     if a2_pad > A2_MAX:
@@ -155,8 +174,51 @@ def frame_o1_tables(Fs: List[np.ndarray], device) -> O1Tables:
                     dev(n_rows.astype(np.int32)), dev(ctx_start))
 
 
-def frame_o1_streams(parsed, device) -> Nx16O1Batch:
-    """Parsed O1 streams (`_parse_nx16_header`) -> an `Nx16O1Batch`."""
+DENSE_CHUNK = 16   # streams a pass of the dense table build takes
+
+
+def dense_tables(Fs: List[np.ndarray], device,
+                 timing: Optional[dict] = None) -> torch.Tensor:
+    """Per-context frequencies of S streams -> their dense tables, int32
+    (u32 bits) [S, 256 * 4096] on `device`, built there from the [S, 256,
+    256] frequencies: slot m of context ctx holds sym | (f-1)<<8 | c<<20
+    for the symbol whose range [c, c + f) holds m, and 0 past the
+    context's sum, as the JAX package's ops/rans.py _pack_table packs it.
+    Raises ValueError when a context's frequencies exceed 4096.  `timing`,
+    where given, gains the build's seconds (upload included) under
+    dense_table_s."""
+    t0 = _build.clock(device) if timing is not None else 0.0
+    S = len(Fs)
+    F = np.stack([np.asarray(f, np.int32) for f in Fs]) if S \
+        else np.zeros((0, 256, 256), np.int32)
+    if (F.sum(axis=2, dtype=np.int64) > TOTFREQ).any():
+        raise ValueError("order-1 context frequencies exceed 4096")
+    F = torch.from_numpy(F).to(device)
+    out = torch.empty((S, 256 * TOTFREQ), dtype=torch.int32,
+                      device=F.device)
+    slots = torch.arange(TOTFREQ, device=F.device)
+    for lo in range(0, S, DENSE_CHUNK):
+        f = F[lo:lo + DENSE_CHUNK].reshape(-1, 256).long()
+        inc = torch.cumsum(f, 1)
+        sym = torch.searchsorted(inc, slots.expand(len(f), TOTFREQ)
+                                 .contiguous(), right=True)
+        sc = sym.clamp(max=255)
+        fs = torch.gather(f, 1, sc)
+        e = sc | ((fs - 1) << 8) | ((torch.gather(inc, 1, sc) - fs) << 20)
+        e = torch.where(sym < 256, e, 0)
+        out[lo:lo + DENSE_CHUNK] = torch.where(
+            e >= 1 << 31, e - (1 << 32), e).reshape(-1, 256 * TOTFREQ)
+    if timing is not None:
+        timing["dense_table_s"] = (timing.get("dense_table_s", 0.0)
+                                   + _build.clock(device) - t0)
+    return out
+
+
+def frame_o1_streams(parsed, device, dense: bool = False,
+                     timing: Optional[dict] = None) -> Nx16O1Batch:
+    """Parsed O1 streams (`_parse_nx16_header`) -> an `Nx16O1Batch`, with
+    `dense` carrying dense tables in place of rows (any row count; their
+    build timed into `timing` as `dense_tables` times it)."""
     ulen = np.array([p[0] for p in parsed], np.int64)
     if (ulen >= 1 << 31).any():
         raise ValueError("stream too long for the Nx16 kernel")
@@ -166,11 +228,13 @@ def frame_o1_streams(parsed, device) -> Nx16O1Batch:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    Fs = [p[1] for p in parsed]
     return Nx16O1Batch(
         dev(payload), dev(word_off), dev(n_words.astype(np.int32)),
-        frame_o1_tables([p[1] for p in parsed], device),
+        None if dense else frame_o1_tables(Fs, device),
         dev(states.astype(np.uint32).view(np.int32)),
-        dev(ulen.astype(np.int32)), dev(exclusive_cumsum(ulen)))
+        dev(ulen.astype(np.int32)), dev(exclusive_cumsum(ulen)),
+        dense_tables(Fs, device, timing) if dense else None)
 
 
 def o1_slot_table(t: O1Tables) -> torch.Tensor:
@@ -209,6 +273,26 @@ def slot_step(x, idx, table):
     return e >> 24, step
 
 
+def dense_step(x, idx, dense):
+    """One decode step of states x [S, k] through dense tables [S, 256 *
+    4096] of JAX entries sym | (f-1)<<8 | c<<20 (int64) at entries idx:
+    x = f * (x >> 12) + (x & 4095) - c, as the JAX decode computes it.
+    Returns (symbols, advanced states)."""
+    e = torch.gather(dense, 1, idx)
+    step = ((((e >> 8) & 0xFFF) + 1) * (x >> TF_SHIFT)
+            + (x & (TOTFREQ - 1)) - (e >> 20)) & _U32
+    return e & 0xFF, step
+
+
+def o1_lookup(b):
+    """(step function, table) of an order-1 batch's plain version: the
+    dense tables where it carries them, else the slot table of its
+    rows."""
+    if b.dense is not None:
+        return dense_step, b.dense.long() & _U32
+    return slot_step, o1_slot_table(b.tables)
+
+
 def rans_o1_plain(b: Nx16O1Batch, max_rounds: int = -1,
                   offs: Optional[torch.Tensor] = None,
                   qbins: Optional[int] = None
@@ -221,7 +305,7 @@ def rans_o1_plain(b: Nx16O1Batch, max_rounds: int = -1,
     final contexts int32 [S, 32])."""
     dev = b.payload.device
     S = b.n_streams
-    table = o1_slot_table(b.tables)
+    step_fn, table = o1_lookup(b)
     words = b.payload.view(torch.int16).long() & 0xFFFF
     nw = b.n_words.long()[:, None]
     wo = b.word_off[:, None]
@@ -244,7 +328,7 @@ def rans_o1_plain(b: Nx16O1Batch, max_rounds: int = -1,
                else torch.zeros(S, dtype=torch.long, device=dev))[:, None]
     for r in range(int(rounds.max()) if S else 0):
         act = (r < lens) & (r < rounds)[:, None]
-        s, step = slot_step(x, ctx * TOTFREQ + (x & (TOTFREQ - 1)), table)
+        s, step = step_fn(x, ctx * TOTFREQ + (x & (TOTFREQ - 1)), table)
         x = torch.where(act, step, x)
         ctx = torch.where(act, s, ctx)
         if qbins is None:
@@ -256,6 +340,12 @@ def rans_o1_plain(b: Nx16O1Batch, max_rounds: int = -1,
     res = out[:total] if qbins is None else out.to(torch.int32)
     return (res, x.to(torch.int32), cur[:, 0].to(torch.int32),
             ctx.to(torch.int32))
+
+
+def check_dense(dense: torch.Tensor, S: int) -> None:
+    """Validate dense tables the kernels trust: on the card, int32 [S, 256 *
+    4096]."""
+    _build.require_cuda(dense, torch.int32, "dense", (S, 256 * TOTFREQ))
 
 
 def check_o1_tables(t: O1Tables, S: int) -> None:
@@ -325,6 +415,12 @@ def o1_smem_bytes(t: O1Tables, hist: bool) -> int:
     return lib.rans_nx16_o1_smem_bytes(rows, ctxs, slow, int(hist))
 
 
+def dense_smem_bytes() -> int:
+    """Bytes of shared memory a block of B5's dense variant takes: the
+    fixed part only, as it builds no table."""
+    return _build.load("rans_nx16_o1").rans_nx16_o1_smem_bytes(0, 0, 0, 0)
+
+
 def blocks_per_sm(t: O1Tables, hist: bool) -> int:
     """Streams with tables `t` that one SM of the card decodes at once in
     kernel B5 (or, with `hist`, B6): the blocks its shared memory holds."""
@@ -341,10 +437,11 @@ def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
     """Kernel B5 (symbols) or, with `qbins`, kernel B6 (histogram) over
-    the whole batch in one launch; same results as `rans_o1_plain`.
+    the whole batch in one launch, or B5's dense variant for a batch with
+    dense tables (symbols only); same results as `rans_o1_plain`.
     `slow_rounds` (int32 [S] on the card), where given, gets each
     stream's rounds in which some state's bucket was slow (its lookup
-    took the bucket's map)."""
+    took the bucket's map; 0 with dense tables)."""
     S = b.n_streams
     req = _build.require_cuda
     req(b.payload, torch.uint8, "payload")
@@ -353,7 +450,14 @@ def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
     req(b.x0, torch.int32, "x0", (S, NWAY))
     req(b.ulen, torch.int32, "ulen", (S,))
     req(b.out_off, torch.int64, "out_off", (S,))
-    check_o1_tables(b.tables, S)
+    dense = b.dense is not None
+    if dense:
+        check_dense(b.dense, S)
+        if qbins is not None:
+            raise ValueError("dense order-1 tables: symbols only (the "
+                             "histogram lane refuses such streams)")
+    else:
+        check_o1_tables(b.tables, S)
     if b.payload.numel() % 2 or b.payload.data_ptr() % 2:
         raise ValueError("payload: expected whole, aligned 16-bit words")
     bad = (((b.word_off + b.n_words) * 2 > b.payload.numel())
@@ -371,7 +475,7 @@ def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
         res = (torch.empty if max_rounds < 0 else torch.zeros)(
             b.total_out, dtype=torch.uint8, device=dev)
         out_ptr, hist_ptr, offs_ptr, key = res.data_ptr(), None, None, \
-            "rans_nx16_o1_decode"
+            "rans_nx16_o1_dense_decode" if dense else "rans_nx16_o1_decode"
     else:
         if not 1 <= qbins <= 256:
             raise ValueError("qbins must be in 1..256")
@@ -383,13 +487,19 @@ def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
             offs.data_ptr(), "rans_nx16_o1_hist"
     if slow_rounds is not None:
         req(slow_rounds, torch.int32, "slow_rounds", (S,))
-    t = b.tables
-    smem = o1_smem_bytes(t, qbins is not None)
     lib = _build.load("rans_nx16_o1")
+    t = b.tables
+    if dense:
+        smem = dense_smem_bytes()
+        t_ptrs = [None] * 4
+    else:
+        smem = o1_smem_bytes(t, qbins is not None)
+        t_ptrs = [t.rows.data_ptr(), t.row_off.data_ptr(),
+                  t.n_rows.data_ptr(), t.ctx_start.data_ptr()]
     rc = lib.rans_nx16_o1_launch(
         b.payload.data_ptr(), b.word_off.data_ptr(), b.n_words.data_ptr(),
-        t.rows.data_ptr(), t.row_off.data_ptr(), t.n_rows.data_ptr(),
-        t.ctx_start.data_ptr(), b.x0.data_ptr(), b.ulen.data_ptr(),
+        *t_ptrs, b.dense.data_ptr() if dense else None,
+        b.x0.data_ptr(), b.ulen.data_ptr(),
         b.out_off.data_ptr(), out_ptr, offs_ptr, hist_ptr, x_out.data_ptr(),
         cur_out.data_ptr(), ctx_out.data_ptr(),
         None if slow_rounds is None else slow_rounds.data_ptr(), S,
@@ -423,7 +533,11 @@ def decode_nx16_o1_batch(blocks: List[bytes],
     o1_pads(parsed)
     if not blocks:
         return []
-    b = frame_o1_streams(parsed, dev)
+    return decode_o1_streams(frame_o1_streams(parsed, dev))
+
+
+def decode_o1_streams(b: Nx16O1Batch) -> List[bytes]:
+    """The symbols of every stream of a batch, one launch on the card."""
     syms = rans_o1(b)[0].cpu().numpy()
     offs = b.out_off.cpu().numpy()
     lens = b.ulen.cpu().numpy()

@@ -11,13 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import enc_edge_streams, wide_stream
+from chip_smoke import (bam_record_stream, deflate_raw, enc_edge_streams,
+                        inflate_members, leg1_batch, wide_stream)
 from htslib_tpu_torch import _build
 from htslib_tpu_torch.codecs import rans4x8 as r8
 from htslib_tpu_torch.codecs.rans4x16 import compress
 from htslib_tpu_torch.entry import entry
 from htslib_tpu_torch.ops import device_stats as tds
+from htslib_tpu_torch.ops import bgzf_device as tb
 from htslib_tpu_torch.ops import huffman as th
+from htslib_tpu_torch.ops import inflate as ti
 from htslib_tpu_torch.ops import rans4x8 as t8
 from htslib_tpu_torch.ops import rans_enc as te
 from htslib_tpu_torch.ops import rans_nx16 as tr
@@ -749,3 +752,250 @@ def test_huffman_smem_and_chains_per_sm(card):
     SM, so 1,056 chains run in one wave."""
     assert th.smem_bytes() == 108544
     assert th.chains_per_sm() >= 64
+
+
+# ---------------------------------------------------------------------------
+# X4 (inflate), the dense order-1 variants and the BGZF write side
+# ---------------------------------------------------------------------------
+
+def _members_out(b, out):
+    """A framed batch's flat output cut into its members' bytes."""
+    flat = out.cpu().numpy()
+    return [flat[o:o + c].tobytes() for o, c in
+            zip(b.out_off.cpu().numpy(), b.out_cap.cpu().numpy())]
+
+
+def test_inflate_kernel_matches_plain(card):
+    """X4 against its plain version on chip_smoke's small members: the
+    same refusals, and where both accept the same bytes, bytes produced
+    and tokens; the accepted members' bytes are the expected ones."""
+    members = inflate_members()
+    b = ti.frame_members([m[1] for m in members], [m[2] for m in members],
+                         card)
+    before = _build.LAUNCHES["inflate"]
+    got, gst = ti.inflate(b)
+    assert _build.LAUNCHES["inflate"] == before + 1
+    ref, rst = ti.inflate_plain(b)
+    gerr = ti.corrupt(b, gst)
+    assert torch.equal(gerr, ti.corrupt(b, rst))
+    assert gerr.tolist() == [m[3] is None for m in members]
+    ok = ~gerr
+    assert torch.equal(gst[ok, 1:3], rst[ok, 1:3])
+    for m, g, r, bad in zip(members, _members_out(b, got),
+                            _members_out(b, ref), gerr.tolist()):
+        if not bad:
+            assert g == r == m[3], m[0]
+
+
+def _full_size_datas():
+    """64 KiB members: BAM records, bytes(range(256)) * 256, random, one
+    byte repeated, text-like and 2-bit symbols."""
+    rng = np.random.default_rng(9)
+    bam = bam_record_stream(leg1_batch(n=700))[:ti.OUT_MAX]
+    return [bam, bytes(range(256)) * 256,
+            rng.integers(0, 256, ti.OUT_MAX, dtype=np.uint8).tobytes(),
+            b"A" * ti.OUT_MAX,
+            rng.integers(65, 91, ti.OUT_MAX, dtype=np.uint8).tobytes(),
+            rng.integers(0, 4, ti.OUT_MAX, dtype=np.uint8).tobytes()]
+
+
+@pytest.mark.parametrize("level", [0, 1, 6, 9])
+def test_inflate_kernel_full_size_members_match_zlib(card, level):
+    """Full-size members under every zlib strategy, many more members
+    than the card holds at once."""
+    import zlib
+    datas = _full_size_datas()
+    payloads = [deflate_raw(d, level, s) for d in datas
+                for s in (zlib.Z_DEFAULT_STRATEGY, zlib.Z_FIXED,
+                          zlib.Z_HUFFMAN_ONLY, zlib.Z_RLE)]
+    want = [d for d in datas for _ in range(4)]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    k = -(-(sms * ti.blocks_per_sm() + 1) // len(payloads))
+    got = ti.inflate_batch(payloads * k, [len(d) for d in want] * k,
+                           device=card)
+    assert got == want * k
+
+
+def test_inflate_kernel_token_cap(card):
+    """70,000 Huffman-coded literals reach the JAX function's 65,552-token
+    refusal; 65,536 of them do not."""
+    import zlib
+    rng = np.random.default_rng(13)
+    lits = rng.integers(0, 16, 70000, dtype=np.uint8).tobytes()
+    datas = [lits, lits[:ti.OUT_MAX]]
+    b = ti.frame_members([deflate_raw(d, 6, zlib.Z_HUFFMAN_ONLY)
+                          for d in datas], [len(d) for d in datas], card)
+    out, st = ti.inflate(b)
+    assert ti.corrupt(b, st).tolist() == [True, False]
+    assert st[0, 0].item() == 7 and st[0, 2].item() == ti.MAX_TOK
+    assert _members_out(b, out)[1] == datas[1]
+
+
+def test_inflate_batch_on_card_matches_cpu(card, monkeypatch):
+    """inflate_batch on the card: the CPU's bytes, the same ValueError,
+    and never the plain version."""
+    members = [m for m in inflate_members() if m[3] is not None]
+    payloads = [m[1] for m in members]
+    sizes = [m[2] for m in members]
+    want = ti.inflate_batch(payloads, sizes, device="cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card's path")
+
+    monkeypatch.setattr(ti, "inflate_plain", refuse)
+    assert ti.inflate_batch(payloads, sizes, device=card) == want
+    bad = [m for m in inflate_members() if m[0] == "corrupt"][0]
+    with pytest.raises(ValueError, match="corrupt stream 2"):
+        ti.inflate_batch(payloads[:2] + [bad[1]], sizes[:2] + [bad[2]],
+                         device=card)
+
+
+def test_inflate_smem_and_blocks_per_sm(card):
+    """X4's tables take under 6 KB a member: 32 members an SM (the
+    blocks an SM runs at most)."""
+    assert ti.smem_bytes() < 6 * 1024
+    assert ti.blocks_per_sm() >= 16
+
+
+DENSE_KEYS = {"4x8_o1": "rans4x8_o1_dense_decode",
+              "nx16_4way_o1": "rans_nx16_4way_o1_dense_decode",
+              "nx16_o1": "rans_nx16_o1_dense_decode"}
+
+
+def _dense_batch(wire, dev, seed=21):
+    """Order-1 streams past A2_MAX rows on `wire`, with dense tables:
+    uniform random bytes of lengths about the rounds' blocks, and one
+    walk (few rows, through the dense table all the same)."""
+    rng = np.random.default_rng(seed)
+    datas = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+             for n in (20000, 20003, 4 * 32 * 40 + 1, 33333)]
+    datas.append(_walk(rng, 5001))
+    if wire == "4x8_o1":
+        return datas, t8.frame_4x8([r8.compress(d, 1) for d in datas], True,
+                                   dev, True)
+    if wire == "nx16_4way_o1":
+        return datas, t8.frame_nx16_4way([compress(d, 0x01) for d in datas],
+                                         True, dev, True)
+    return datas, o1.frame_o1_streams(
+        [o1._parse_nx16_header(compress(d, 0x05)) for d in datas], dev, True)
+
+
+@pytest.mark.parametrize("wire", list(DENSE_KEYS))
+def test_dense_kernels_match_plain(card, wire):
+    """The dense variants against their plain versions (a gather from the
+    same table), whole and stopped inside and on a block's edges, and
+    against the raw bytes; each launch counted under its own name."""
+    datas, b = _dense_batch(wire, card)
+    kern, plain = ((t8.rans4x8, t8.rans4x8_plain) if wire != "nx16_o1"
+                   else (o1.rans_o1, o1.rans_o1_plain))
+    before = _build.LAUNCHES[DENSE_KEYS[wire]]
+    for mr in (-1, 1, 31, 32, 33, 1500):
+        got = kern(b, max_rounds=mr)
+        want = plain(b, max_rounds=mr)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if mr < 0:
+            assert got[0].cpu().numpy().tobytes() == b"".join(datas)
+    assert _build.LAUNCHES[DENSE_KEYS[wire]] == before + 6
+
+
+def test_dense_kernels_refuse_a_histogram(card):
+    _, b = _dense_batch("4x8_o1", card)
+    with pytest.raises(ValueError, match="symbols only"):
+        t8.rans4x8(b, qbins=64)
+    _, b = _dense_batch("nx16_o1", card)
+    with pytest.raises(ValueError, match="symbols only"):
+        o1.rans_o1(b, qbins=64)
+
+
+def test_dense_smem_and_streams_per_sm(card):
+    """The dense variants build no table: the 4x8 and 4-way ones keep the
+    ring and the symbol buffer, B5's its fixed part, under 2 KB a block;
+    an SM holds 16 or more streams."""
+    assert t8.smem_bytes(False, True, True) < 2 * 1024
+    assert o1.dense_smem_bytes() < 2 * 1024
+    assert t8.blocks_per_sm(False, True, False, True) >= 16
+    assert t8.blocks_per_sm(False, True, True, True) >= 16
+
+
+def test_uncompress_dense_on_card_matches_cpu(card, monkeypatch):
+    """Order-1 streams past A2_MAX beside ones within it, on every order-1
+    wire: the CPU's bytes, each group through its kernel, never a plain
+    version."""
+    from htslib_tpu_torch.ops import rans as trans
+    rng = np.random.default_rng(22)
+    wide = [rng.integers(0, 256, 20000, dtype=np.uint8).tobytes()
+            for _ in range(2)]
+    walks = [_walk(rng, 7001), _walk(rng, 3)]
+    b48 = [r8.compress(d, 1) for d in wide + walks[:1]]
+    b16 = [compress(d, fl) for d in wide + walks for fl in (0x01, 0x05)]
+    want48 = trans.uncompress_batch(b48, device="cpu")
+    want16 = trans.uncompress_nx16_batch(b16, device="cpu")
+    assert want48 == wide + walks[:1]
+    assert want16 == [d for d in wide + walks for _ in range(2)]
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card's path")
+
+    for mod, fn in ((t8, "rans4x8_plain"), (o1, "rans_o1_plain")):
+        monkeypatch.setattr(mod, fn, refuse)
+    keys = ["rans4x8_o1_decode", "rans_nx16_o1_decode",
+            "rans_nx16_4way_o1_decode"] + list(DENSE_KEYS.values())
+    before = {k: _build.LAUNCHES[k] for k in keys}
+    assert trans.uncompress_batch(b48, device=card) == want48
+    assert trans.uncompress_nx16_batch(b16, device=card) == want16
+    assert all(_build.LAUNCHES[k] == before[k] + 1 for k in keys)
+
+
+def test_dense_tables_built_on_card_equal_cpu(card):
+    """dense_tables on the card, over more streams than one pass of its
+    build takes: the CPU's entries, timed into `timing`."""
+    rng = np.random.default_rng(24)
+    Fs = []
+    for _ in range(o1.DENSE_CHUNK + 1):
+        F = np.zeros((256, 256), np.int64)
+        used = rng.random(256) < 0.8
+        F[used] = rng.multinomial(4096, np.full(256, 1 / 256), used.sum())
+        Fs.append(F)
+    timing = {}
+    got = o1.dense_tables(Fs, card, timing)
+    assert got.is_cuda and timing["dense_table_s"] > 0
+    assert torch.equal(got.cpu(), o1.dense_tables(Fs, "cpu"))
+
+
+def test_inflate_batch_timing_on_card(card):
+    """inflate_batch's `timing` parts on the card, beside its bytes."""
+    members = [m for m in inflate_members() if m[3] is not None]
+    timing = {}
+    got = ti.inflate_batch([m[1] for m in members], [m[2] for m in members],
+                           device=card, timing=timing)
+    assert got == [m[3] for m in members]
+    assert set(timing) == {"frame_s", "transfer_s", "decode_s",
+                           "check_download_s", "slice_s"}
+    assert timing["decode_s"] > 0
+
+
+def test_bgzf_write_side_on_card(card):
+    """bgzf_stored_device: every full block's CRC (on the card) is
+    zlib's, and the file gzip-decodes to its input; deflate_uniform_device
+    gives the CPU's bytes and stats; crc_device_rate is exact."""
+    import gzip
+    import zlib
+    from chip_smoke import bgzf_blocks
+    rng = np.random.default_rng(23)
+    data = rng.integers(20, 41, 5 * tb.CHUNK + 999, dtype=np.uint8).tobytes()
+    timing = {}
+    blob = tb.bgzf_stored_device(data, device=card, timing=timing)
+    assert timing["crc_blocks"] == 5
+    blocks = list(bgzf_blocks(blob))
+    assert len(blocks) == 7
+    assert all(crc == zlib.crc32(pl) for crc, _, pl in blocks)
+    assert gzip.decompress(blob) == data
+    assert blob == tb.bgzf_stored_device(data, device="cpu")
+    for d in (data, bytes(range(200)) * 500, b"", b"Q"):
+        st, st_cpu = {}, {}
+        out = tb.deflate_uniform_device(d, device=card, stats=st)
+        assert out == tb.deflate_uniform_device(d, device="cpu",
+                                                stats=st_cpu)
+        assert st == st_cpu and gzip.decompress(out) == d
+    assert tb.crc_device_rate(n_blocks=70, reps=1, device=card)["exact"]

@@ -35,6 +35,8 @@ def test_sources_found():
                  "htslib_tpu_torch/ops/rans_nx16_o1.py",
                  "htslib_tpu_torch/ops/rans4x8.py",
                  "htslib_tpu_torch/ops/rans.py",
+                 "htslib_tpu_torch/ops/bgzf_device.py",
+                 "htslib_tpu_torch/ops/inflate.py",
                  "htslib_tpu_torch/ops/rans_enc.py",
                  "htslib_tpu_torch/ops/huffman.py",
                  "htslib_tpu_torch/carry.py",
