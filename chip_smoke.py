@@ -67,10 +67,28 @@ PyTorch version on the card and times both.  Phases:
      them (its ratio and stats printed).  The read side's wall time is
      printed in parts from inflate_batch's `timing` dict: framing,
      transfer, launch and kernel, check and download, slicing;
+  5f. leg 8, BAM -> SAM (ops/bam2sam.py): leg 7's inflated record stream
+     (X4's output: 400,000 records of 100 bp, 80.4 MB) and a varied
+     stream of 50,000 records on two references (pairs with "=", other-
+     reference and no mates, negative TLENs, 1-8 CIGAR ops of M/I/D/N/S/=/X,
+     2% unmapped, records without quality or SEQ, aligner aux tags with f
+     and d values and B arrays), each through bam_payload_to_sam_device:
+     every line must be the port's host formatter's (sam/record.py
+     to_sam, in 8 processes, timed apart); each call's parts (framing, X5,
+     format, download, aux, splice) from its `timing` dict, and SAM MB/s;
+  5g. leg 9, BAQ (realn.py, ops/probaln.py): a seeded 1 Mbp reference and
+     100,000 reads sampled from it (100 bp at 10x; 200 of 1,200-2,000 bp,
+     the d = 1e-7 group; 1% substitutions, 5% with a 1-12 bp indel, 3%
+     soft-clipped, 1% unmapped, 1% with BQ/ZQ tags): sam_prob_realn_batch
+     with BAQ_APPLY over all of them, then over 2,000 reads for each other
+     flag combination; the truth of each pass is the same pass with the
+     HMM's plain version on the card: Pr, states and q of every read and
+     every record after must be equal; the APPLY pass's parts (setup,
+     padding, upload, X6, download, apply) from its `timing` dict;
   6. each kernel (B1, B2, B3, B5, B6, B7, B8 in both orders, X1-X3 and the
-     dense variants of X1, X3 and B5, B9, B4, B10, X4) against its plain
-     version at the main path's shapes, and one JSON line with launches,
-     error and times.  The plain versions of B5-B9
+     dense variants of X1, X3 and B5, B9, B4, B10, X4, X5, X6) against its
+     plain version at the main path's shapes, and one JSON line with
+     launches, error and times.  The plain versions of B5-B9
      take half a millisecond to a millisecond per round on the card, so
      they are held against their kernels at full size (X1 at leg 6's 20
      order-1 streams, the other decode rows at the 8 streams of legs 2
@@ -94,11 +112,21 @@ PyTorch version on the card and times both.  Phases:
      corrupt ones refused by both) and over three of leg 7's own members at
      their full size (the first two and the one whose decode takes the
      most steps, each also equal to its raw bytes), and timed over leg 7's
-     1,232 members, with its ns per token and MB/s.
+     1,232 members, with its ns per token and MB/s.  X5 (record scan) is
+     held against its plain version (the JAX loop walked by the host) on
+     leg 8's two payloads and on edge streams made from them (truncated,
+     overrunning, a length with bit 31 set, a chain that stands still or
+     jumps past the next window), and timed over the 80.4 MB chain with
+     its ns per record.  X6 (probaln) is held against its plain version on
+     the card over each of leg 9's HMM calls in float64 and in float32
+     (the float32 run within +/-1 phred of the float64 one), with its ns
+     per band cell.
      Outputs are bytes and integers, so the tolerance is zero: kernel and
      plain version must be equal.
 
-Launch counts are reset just before phase 3 and read just after phase 5e.
+Launch counts are reset just before phase 3 and read just after phase 5g;
+legs 7, 8 and 9 are also counted alone (reset just before each, read just
+after) and each must have launched its kernels (X4; X5 and B1; X6).
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -144,6 +172,11 @@ DEFLATE_BYTES = 8 << 20  # leg 7's deflate_uniform_device input
 # operations are held to the non-tensor fp32 rate, the nearest listed one
 HBM_BYTES_S = 3.35e12
 SCALAR_OPS_S = 67e12
+FP64_OPS_S = 34e12      # float64 outside the tensor cores (data sheet)
+N_VARIED = 50_000       # leg 8's varied records
+N_BAQ = 100_000         # leg 9's reads, a 1 Mbp region at 10x
+N_BAQ_FLAG = 2_000      # leg 9's reads for each other flag combination
+BAQ_OPS_PER_CELL = 40   # X6's work a band cell (forward, backward, MAP)
 
 
 def _encode(data: bytes, wire: str = "nx16_o0") -> bytes:
@@ -157,6 +190,35 @@ def _encode_all(raws, wires):
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                              mp_context=ctx) as pool:
         return list(pool.map(_encode, raws, wires, chunksize=1))
+
+
+def _host_sam(payload: bytes, refs) -> bytes:
+    """The port's host formatter (sam/record.py to_sam) over every record
+    of a u32-framed stream: the truth of leg 8."""
+    from htslib_tpu_torch.sam.header import SamHeader
+    from htslib_tpu_torch.sam.record import BamRecord
+    hdr = SamHeader(ref_names=refs)
+    mv = memoryview(payload)
+    out, p = [], 0
+    while p < len(payload):
+        n = int.from_bytes(payload[p:p + 4], "little")
+        out.append(BamRecord.from_bam_buffer(mv, p + 4, n).to_sam(hdr))
+        p += 4 + n
+    return ("\n".join(out) + "\n").encode() if out else b""
+
+
+def host_sam_parallel(payload: bytes, refs, parts: int = 8) -> bytes:
+    """_host_sam over record-aligned pieces of the stream, in processes."""
+    cuts, p, step = [0], 0, max(1, len(payload) // parts)
+    while p < len(payload):
+        p += 4 + int.from_bytes(payload[p:p + 4], "little")
+        if p - cuts[-1] >= step or p >= len(payload):
+            cuts.append(p)
+    pieces = [payload[a:b] for a, b in zip(cuts, cuts[1:])]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(parts, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        return b"".join(pool.map(_host_sam, pieces, [refs] * len(pieces)))
 
 
 def _walks(rng, n: int, size: int, read: int = 100):
@@ -326,6 +388,175 @@ def bam_record_stream(batch, read_len: int = BAM_READ_LEN,
                           + np.cumsum(rng.integers(-2, 3, (n, read_len)), 1),
                           2, 41)
     return rec.tobytes()
+
+
+LEG8_REFS = ["chr1", "chrUn_KI270302v1"]
+
+
+def varied_bam_stream(n: int = 50_000, seed: int = 9):
+    """Leg 8's varied BAM record stream, built with the port's record
+    model: n records on LEG8_REFS, paired (mates on the same reference,
+    "=", on the other, or none; negative TLENs), 1-8 CIGAR ops of
+    M/I/D/N/S/=/X around the query, 2% unmapped (every "*" field), a few
+    with no quality (0xFF) and a few with an empty SEQ, and aligner-style
+    aux tags (NM:i, MD:Z, AS:i, XS:i, RG:Z) with some f and d values and B
+    arrays of f, s and C (the %g boundary).  Returns the u32-framed
+    payload."""
+    from htslib_tpu_torch.sam.record import BamRecord, encode_aux
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        b = BamRecord()
+        b.qname = b"q%d:%s" % (i, b"x" * int(rng.integers(0, 24)))
+        unmapped = rng.random() < 0.02
+        paired = rng.random() < 0.7
+        ops = []
+        if not unmapped:
+            k = int(rng.integers(1, 9))
+            codes = rng.choice([0, 0, 0, 1, 2, 3, 4, 7, 8], k)
+            codes[0] = rng.choice([0, 4, 7])
+            codes[-1] = rng.choice([0, 4, 8])
+            ops = [(int(rng.integers(1, 60)) << 4) | int(c) for c in codes]
+        qlen = sum(int(c) >> 4 for c in ops if (int(c) & 15) in (0, 1, 4, 7,
+                                                                 8))
+        if unmapped:
+            qlen = int(rng.integers(20, 120))
+        b.cigar = np.array(ops, np.uint32)
+        b.flag = (4 if unmapped else 0) | (1 if paired else 0) | int(
+            rng.choice([0, 16, 256, 1024, 2048]))
+        b.tid = -1 if unmapped else int(rng.integers(0, 2))
+        b.pos = -1 if unmapped else int(rng.integers(0, 250_000_000))
+        b.mapq = 0 if unmapped else int(rng.integers(0, 61))
+        if paired:
+            b.mtid = int(rng.choice([b.tid, 0, 1, -1]))
+            b.mpos = -1 if b.mtid < 0 else int(rng.integers(0, 1 << 28))
+            b.isize = int(rng.integers(-800, 800))
+        empty_seq = rng.random() < 0.01
+        if empty_seq or qlen == 0:
+            b.set_seq("*")
+        else:
+            b.set_seq("".join(rng.choice(list("ACGTN"), qlen)))
+            if rng.random() > 0.01:
+                b.qual = rng.integers(2, 42, qlen, dtype=np.uint8).tobytes()
+        aux = b""
+        if not unmapped:
+            aux += encode_aux(b"NM", "i", int(rng.integers(0, 9)))
+            aux += encode_aux(b"MD", "Z", "%dA%d" % (rng.integers(0, 50),
+                                                     rng.integers(0, 50)))
+            aux += encode_aux(b"AS", "i", int(rng.integers(-10, 150)))
+            if rng.random() < 0.5:
+                aux += encode_aux(b"XS", "i", int(rng.integers(0, 70000)))
+        if rng.random() < 0.8:
+            aux += encode_aux(b"RG", "Z", "grp%d" % rng.integers(0, 3))
+        if rng.random() < 0.1:
+            aux += encode_aux(b"XF", "f", float(rng.normal() * 10 ** int(
+                rng.integers(-8, 8))))
+        if rng.random() < 0.03:
+            aux += encode_aux(b"XD", "d", float(rng.exponential(1e5)))
+        if rng.random() < 0.05:
+            sub = str(rng.choice(["f", "s", "C"]))
+            vals = (rng.normal(size=int(rng.integers(0, 6))) * 100
+                    if sub == "f" else rng.integers(0, 200, int(
+                        rng.integers(1, 6))))
+            aux += encode_aux(b"ZB", "B", (sub, vals))
+        b.aux = aux
+        body = b.to_bam_buffer()
+        out.append(struct.pack("<I", len(body)) + body)
+    return b"".join(out)
+
+
+def baq_case(n: int = 100_000, seed: int = 10, ref_len: int = 1_000_000,
+             n_long: int = 200, read_len: int = BAM_READ_LEN):
+    """Leg 9's BAQ input: a seeded reference of ref_len bases (ACGT with a
+    few N runs) and n mapped-looking records sampled from it: read_len bp
+    (n_long of them 1,200-2,000 bp, the d = 1e-7 group), 1% substitutions
+    and qualities as leg 7's walks; 5% with one 1-12 bp insertion or
+    deletion (bands up to 15), 3% soft-clipped, 1% unmapped, and 1% with
+    BQ or ZQ tags that reach sam_prob_realn's tag exits (a BQ of the
+    read's length, one a base short, a ZQ, a ZQ a base short, both).
+    Returns (reference str, records)."""
+    from htslib_tpu_torch.sam.record import BamRecord
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ref = rng.choice(acgt, ref_len)
+    for _ in range(max(1, ref_len // 200_000)):
+        at = int(rng.integers(0, ref_len - 200))
+        ref[at:at + int(rng.integers(5, 150))] = ord("N")
+    long_at = set(rng.choice(n, min(n_long, n), replace=False).tolist())
+    recs = []
+    for i in range(n):
+        L = int(rng.integers(1200, 2001)) if i in long_at else read_len
+        b = BamRecord()
+        b.qname = b"baq%d" % i
+        kind = rng.random()
+        pos = int(rng.integers(0, ref_len - L - 40))
+        seg = ref[pos:pos + L + 20].copy()
+        if kind < 0.01:                                   # unmapped
+            q, ops = seg[:L], []
+        elif kind < 0.035:                                # insertion
+            k = int(rng.integers(1, 13))
+            a = int(rng.integers(10, L - k - 10))
+            q = np.concatenate([seg[:a], rng.choice(acgt, k),
+                                seg[a:L - k]])
+            ops = [(a, 0), (k, 1), (L - k - a, 0)]
+        elif kind < 0.06:                                 # deletion
+            k = int(rng.integers(1, 13))
+            a = int(rng.integers(10, L - 10))
+            q = np.concatenate([seg[:a], seg[a + k:L + k]])
+            ops = [(a, 0), (k, 2), (L - a, 0)]
+        elif kind < 0.09:                                 # soft clip
+            c = int(rng.integers(3, 20))
+            q = np.concatenate([rng.choice(acgt, c), seg[:L - c]])
+            ops = [(c, 4), (L - c, 0)]
+        else:
+            q, ops = seg[:L], [(L, 0)]
+        q = q.copy()
+        sub = rng.random(L) < 0.01
+        q[sub] = rng.choice(acgt, int(sub.sum()))
+        b.set_seq(q.tobytes().decode())
+        b.qual = np.clip(rng.integers(25, 38) + np.cumsum(
+            rng.integers(-2, 3, L)), 2, 41).astype(np.uint8).tobytes()
+        if ops:
+            b.tid, b.pos, b.flag, b.mapq = 0, pos, 0, 60
+            b.cigar = np.array([(ln << 4) | op for ln, op in ops], np.uint32)
+        if rng.random() < 0.01:
+            tag = int(rng.integers(0, 5))
+            txt = rng.integers(64, 90, L, dtype=np.uint8).tobytes()
+            if tag in (0, 4):
+                b.set_aux("BQ", "Z", txt)
+            if tag == 1:
+                b.set_aux("BQ", "Z", txt[:-1])
+            if tag in (2, 4):
+                b.set_aux("ZQ", "Z", txt)
+            if tag == 3:
+                b.set_aux("ZQ", "Z", txt[:-1])
+        recs.append(b)
+    return ref.tobytes().decode(), recs
+
+
+def scan_streams(good: bytes, n_good: int, big: bytes, n_big: int):
+    """name -> (payload, max_records): record streams at X5's edges, made
+    from a well-framed stream `good` of n_good records and a larger one
+    `big` of n_big: each whole, with max_records short and long of the
+    count, truncated, a length with bit 31 set (the chain moves back), a
+    length of -4 (the chain stands still), a length that overruns the
+    payload, a first length that jumps 700,000 bytes (past the kernel's
+    next window), payloads under 4 bytes and of one empty record, and
+    max_records 0."""
+    neg = bytearray(good[:400])
+    neg[0:4] = (0x80000010).to_bytes(4, "little")
+    stuck = bytearray(good[:64])
+    stuck[0:4] = (0xFFFFFFFC).to_bytes(4, "little")
+    over = bytearray(good)
+    over[-300:-296] = (10 ** 6).to_bytes(4, "little")
+    jump = bytearray(big)
+    jump[0:4] = (700_000).to_bytes(4, "little")
+    return {"varied": (good, n_good), "varied_short": (good, n_good // 17),
+            "varied_long": (good, n_good + 33), "big": (big, n_big),
+            "truncated": (good[:-5], n_good), "bit31": (bytes(neg), 50),
+            "stuck": (bytes(stuck), 40), "overrun": (bytes(over), n_good),
+            "jump": (bytes(jump), n_big), "tiny": (b"\x01\x00", 3),
+            "empty4": (b"\x00" * 4, 5), "none": (good, 0)}
 
 
 def deflate_raw(data: bytes, level: int = BGZF_LEVEL,
@@ -510,12 +741,12 @@ def hist_of(raw: bytes, qbins: int) -> np.ndarray:
                        minlength=qbins)
 
 
-def main_path(device, batch, raws, encs, leg3, bgzf, tile_len=TILE_LEN,
-              n_decode=N_DECODE):
-    """Phases 3-5e through the port's entry points on `device`, each
+def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
+              tile_len=TILE_LEN, n_decode=N_DECODE):
+    """Phases 3-5g through the port's entry points on `device`, each
     result held against its host truth.  Returns (leg-1 args on the
     device, seconds of each phase, notes: leg 4's timing dict, leg 5's
-    lookups per second, legs 6 and 7's parts)."""
+    lookups per second, legs 6-9's parts)."""
     from htslib_tpu_torch.entry import entry
     from htslib_tpu_torch.ops.device_stats import (QBINS, cram_qual_hist,
                                                    qualstats_device,
@@ -667,10 +898,144 @@ def main_path(device, batch, raws, encs, leg3, bgzf, tile_len=TILE_LEN,
                      "uncompress_batch": groups_4x8,
                      "uncompress_nx16_batch": groups_nx16}
 
-    t0 = time.time()
-    notes["leg7"] = leg7(device, bgzf, raws)
-    secs["leg7"] = time.time() - t0
+    for leg, run in (("leg7", lambda: leg7(device, bgzf, raws)),
+                     ("leg8", lambda: leg8(device, inflated, varied)),
+                     ("leg9", lambda: leg9(device, baq))):
+        t0 = time.time()
+        notes[leg], notes["launches_" + leg] = _counted(run)
+        secs[leg] = time.time() - t0
+        if leg == "leg7":
+            inflated = notes["leg7"].pop("inflated")
     return args, secs, notes
+
+
+def _counted(run):
+    """run() with the launch counts set to 0 just before it and read just
+    after; the counts before it are added back.  Returns (its result, its
+    launches by kernel)."""
+    from htslib_tpu_torch import _build
+    before = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    out = run()
+    mine = dict(_build.LAUNCHES)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = before.get(k, 0) + mine[k]
+    return out, {k: v for k, v in mine.items() if v}
+
+
+def leg8(device, chain, varied):
+    """Leg 8, BAM -> SAM on the card: `chain`, leg 7's inflated record
+    stream (X4's output), and `varied`, leg 8's varied stream, each
+    through bam_payload_to_sam_device; every line must be the port's host
+    formatter's (timed apart, in processes).  Returns its notes: each
+    call's wall time, its parts from the entry point's `timing` dict, and
+    SAM MB/s."""
+    from htslib_tpu_torch.ops.bam2sam import bam_payload_to_sam_device
+    from htslib_tpu_torch.sam.header import SamHeader
+    hdr = SamHeader(ref_names=LEG8_REFS)
+    notes = {}
+    for name, payload in (("chain", chain), ("varied", varied)):
+        timing = {}
+        t0 = time.time()
+        text = bam_payload_to_sam_device(payload, hdr, device=device,
+                                         timing=timing)
+        wall = time.time() - t0
+        t1 = time.time()
+        require(text == host_sam_parallel(payload, LEG8_REFS),
+                f"leg 8 {name}: SAM text != host formatter")
+        notes[name] = {"wall_s": wall, "parts": timing,
+                       "in_bytes": len(payload), "sam_bytes": len(text),
+                       "sam_MBps": len(text) / wall / 1e6,
+                       "check_s": time.time() - t1}
+    return notes
+
+
+class _Recording:
+    """Within the block, module.name records each call's arguments and
+    result into `calls`."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def rec(*a, **k):
+            out = self.orig(*a, **k)
+            self.calls.append((a, k, out))
+            return out
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _baq_pass(device, ref, recs, flag, timing=None):
+    """sam_prob_realn_batch over copies of recs: (codes, the records'
+    BAM bytes after, each HMM call's (args, kwargs, results))."""
+    from htslib_tpu_torch import realn
+    mine = [r.copy() for r in recs]
+    with _Recording(realn, "probaln_arrays") as rec:
+        codes = realn.sam_prob_realn_batch(mine, ref, flag, device=device,
+                                           timing=timing)
+    return codes, [r.to_bam_buffer() for r in mine], rec.calls
+
+
+def baq_truth(device, ref, recs, flag):
+    """_baq_pass with the HMM's plain version on the card (X6's place in
+    ops/probaln.probaln_batch taken by probaln_plain)."""
+    from htslib_tpu_torch.ops import probaln
+    kernel = probaln.probaln_cuda
+    probaln.probaln_cuda = probaln.probaln_plain
+    try:
+        return _baq_pass(device, ref, recs, flag)
+    finally:
+        probaln.probaln_cuda = kernel
+
+
+def _same_hmm(calls, others) -> bool:
+    """Whether two passes' HMM calls gave the same arrays."""
+    return len(calls) == len(others) and all(
+        np.array_equal(x, y) for (_, _, a), (_, _, b) in zip(calls, others)
+        for x, y in zip(a, b))
+
+
+def leg9(device, baq):
+    """Leg 9, BAQ on the card: sam_prob_realn_batch with BAQ_APPLY over
+    leg 9's reads, then over N_BAQ_FLAG reads of at most 1,000 bp for each
+    other flag combination; the truth of each pass is the same pass with
+    the HMM's plain version on the card, whose Pr, states and q, and every
+    record after, must be equal.  Returns its notes: the APPLY pass's
+    parts from the entry point's `timing` dict, each pass's codes, the
+    truth's wall time; and the HMM calls' arguments for phase 6."""
+    from htslib_tpu_torch.realn import BAQ_APPLY
+    ref, recs = baq
+    notes = {"reads": len(recs)}
+    timing = {}
+    t0 = time.time()
+    codes, after, calls = _baq_pass(device, ref, recs, BAQ_APPLY, timing)
+    notes["apply_wall_s"] = time.time() - t0
+    notes["apply_parts"] = timing
+    t0 = time.time()
+    t_codes, t_after, t_calls = baq_truth(device, ref, recs, BAQ_APPLY)
+    notes["truth_wall_s"] = time.time() - t0
+    require(_same_hmm(calls, t_calls),
+            "leg 9: X6's Pr, states or q != plain version")
+    require(codes == t_codes and after == t_after,
+            "leg 9: BAQ_APPLY records != plain version's")
+    notes["apply_codes"] = {str(c): codes.count(c) for c in set(codes)}
+    short = [r for r in recs if r.l_qseq <= 1000][:N_BAQ_FLAG]
+    notes["flags"] = {}
+    for flag in (0, 2, 3, 4, 5, 6, 7):
+        got = _baq_pass(device, ref, short, flag)
+        want = baq_truth(device, ref, short, flag)
+        require(_same_hmm(got[2], want[2]) and got[:2] == want[:2],
+                f"leg 9: flag {flag} != plain version's")
+        notes["flags"][flag] = {str(c): got[0].count(c)
+                                for c in set(got[0])}
+    notes["hmm_calls"] = [(a, k) for a, k, _ in calls]
+    return notes
 
 
 def bgzf_blocks(blob: bytes):
@@ -702,6 +1067,7 @@ def leg7(device, bgzf, raws):
     notes["inflate_parts"] = parts
     require(out == pieces, "leg 7 inflated members")
     notes["inflate_MBps"] = notes["out_bytes"] / notes["inflate_batch_s"] / 1e6
+    notes["inflated"] = b"".join(out)
 
     qual = b"".join(raws)
     timing = {}
@@ -1164,6 +1530,113 @@ def inflate_vs_plain(device, bgzf, launches, n_first: int = 2):
                 "steps", "match": True}
 
 
+def record_scan_vs_plain(device, chain, n_chain, varied, launches):
+    """Phase 6 for X5: the kernel against its plain version (the JAX loop
+    walked by the host) on leg 8's two payloads and on scan_streams' edge
+    streams made from them; timed over leg 8's chain payload.  Returns the
+    kernels line's row."""
+    import torch
+
+    from htslib_tpu_torch.ops import bam2sam as tb
+    streams = scan_streams(varied, N_VARIED, chain, n_chain)
+    for name, (payload, n) in streams.items():
+        t = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).to(
+            device)
+        got = tb.record_scan_cuda(t, n)
+        want = tb.record_scan_plain(t, n)
+        for g, w, what in zip(got, want, ("offsets", "sizes", "n")):
+            require(torch.equal(g, w), f"record_scan kernel != plain "
+                    f"({name}: {what})")
+    t = torch.from_numpy(np.frombuffer(chain, np.uint8).copy()).to(device)
+    ms = cuda_ms(lambda: tb.record_scan_cuda(t, n_chain), 5)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tb.record_scan_plain(t, n_chain)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    b_ms, b_by = bound_ms(len(chain) + 8 * n_chain + 4, 6 * n_chain)
+    return {
+        "name": "record_scan", "route": "cuda",
+        "source": "htslib_tpu_torch/csrc/record_scan.cu",
+        "replaces": "htslib_tpu/ops/bam2sam.py:34",
+        "launches": launches["record_scan"], "max_abs_err": 0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "records": n_chain, "bytes": len(chain),
+        "ns_per_record": ms * 1e6 / n_chain,
+        "edge_streams": sorted(streams),
+        "window_bytes": _export(tb, "window_bytes"),
+        "note": "XLA code of the JAX package (no Pallas kernel) that the "
+                "port hand-writes; plain_ms is the host's walk",
+        "match": True}
+
+
+def probaln_vs_plain(device, hmm_calls, launches):
+    """Phase 6 for X6: over each of leg 9's HMM calls (its (d, e)
+    groups), the kernel against its plain version on the card in float64
+    and in float32, equal; the float32 run within +/-1 phred of the
+    float64 one (Pr and q).  Times and the bound are summed over the
+    groups.  Returns the kernels line's row."""
+    import torch
+
+    from htslib_tpu_torch.ops import probaln as tp
+    row = {"ms": 0.0, "ms_f32": 0.0, "plain_ms": 0.0, "cells": 0,
+           "reads": 0, "bytes": 0, "groups": []}
+    for args, kw in hmm_calls:
+        refs, queries, quals = args
+        outs = {}
+        for dt in (np.float64, np.float32):
+            arrays, J = tp.pad_batch(refs, queries, quals, dtype=dt,
+                                     bws=kw["bws"])
+            a = [torch.from_numpy(x).to(device) for x in arrays]
+            got = tp.probaln_cuda(*a, J, d=kw["d"], e=kw["e"])
+            torch.cuda.synchronize()
+            t0 = time.time()
+            want = tp.probaln_plain(*a, J, d=kw["d"], e=kw["e"])
+            torch.cuda.synchronize()
+            key = "f64" if dt == np.float64 else "f32"
+            for g, w, what in zip(got, want, ("Pr", "states", "q")):
+                require(torch.equal(g, w), f"probaln kernel != plain ({key} "
+                        f"{what}, d={kw['d']:g})")
+            outs[key] = got
+            ms = cuda_ms(lambda: tp.probaln_cuda(*a, J, d=kw["d"],
+                                                 e=kw["e"]), 3)
+            if dt == np.float64:
+                row["plain_ms"] += (time.time() - t0) * 1e3
+                row["ms"] += ms
+                rlen, qlen, bw = arrays[1], arrays[3], arrays[5]
+                cells = int((qlen.astype(np.int64) * (2 * bw + 2)).sum())
+                row["cells"] += cells
+                row["reads"] += len(qlen)
+                row["bytes"] += int(rlen.sum() + 14 * qlen.sum()
+                                    + 16 * len(qlen))
+                row["groups"].append({"d": kw["d"], "reads": len(qlen),
+                                      "J": J, "Q": int(qlen.max()),
+                                      "cells": cells, "ms": ms})
+            else:
+                row["ms_f32"] += ms
+        d_pr = (outs["f64"][0] - outs["f32"][0]).abs().max()
+        d_q = (outs["f64"][2].int() - outs["f32"][2].int()).abs().max()
+        require(int(d_pr) <= 1 and int(d_q) <= 1,
+                f"probaln float32 beyond 1 phred of float64 (Pr {int(d_pr)}"
+                f", q {int(d_q)})")
+    tb_ms = row["bytes"] / HBM_BYTES_S * 1e3
+    to_ms = BAQ_OPS_PER_CELL * row["cells"] / FP64_OPS_S * 1e3
+    row.update({
+        "name": "probaln", "route": "cuda",
+        "source": "htslib_tpu_torch/csrc/probaln.cu",
+        "replaces": "htslib_tpu/ops/probaln.py:50",
+        "launches": launches["probaln"], "max_abs_err": 0,
+        "bound_ms": max(tb_ms, to_ms),
+        "bound_by": "bytes" if tb_ms >= to_ms else "operations",
+        "library_ms": None, "ns_per_cell": row["ms"] * 1e6 / row["cells"],
+        "bound_note": f"{BAQ_OPS_PER_CELL} float64 operations a band cell "
+                      "at the data sheet's 34 TFLOP/s",
+        "note": "XLA code of the JAX package (no Pallas kernel) that the "
+                "port hand-writes; float64 (ms_f32: float32)",
+        "match": True})
+    return row
+
+
 def o1_table_notes(b, offs, qb):
     """Of kernel B5 (qb None) or B6 on batch b: its shared memory a block,
     the streams one SM holds, the slow buckets of stream 0 and the share
@@ -1397,13 +1870,24 @@ def main() -> int:
     raws, encs = leg2_streams()
     leg3 = leg3_streams()
     leg3.update(leg6_streams(raws, leg3))
-    bgzf = bgzf_members(bam_record_stream(batch))
+    stream = bam_record_stream(batch)
+    bgzf = bgzf_members(stream)
+    varied = varied_bam_stream(N_VARIED)
+    baq = baq_case(N_BAQ)
     print(f"inputs: {time.time() - t0:.1f} s", flush=True)
 
     _build.reset_launches()
-    args, secs, notes = main_path("cuda", batch, raws, encs, leg3, bgzf)
+    args, secs, notes = main_path("cuda", batch, raws, encs, leg3, bgzf,
+                                  varied, baq)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    hmm_calls = notes["leg9"].pop("hmm_calls")
+    for leg, need in (("leg7", ["inflate"]),
+                      ("leg8", ["record_scan", "nibble_to_base"]),
+                      ("leg9", ["probaln"])):
+        got = notes["launches_" + leg]
+        for k in need:
+            require(got.get(k, 0) >= 1, f"kernel {k} not launched in {leg}")
     print(f"main path ok: {secs}, launches {launches}", flush=True)
     print(f"leg 2 wall: {secs['leg2']:.3f} s, parts {notes['leg2']}",
           flush=True)
@@ -1416,6 +1900,11 @@ def main() -> int:
     print(f"leg 6 wall: {secs['leg6']:.3f} s, parts {notes['leg6']}",
           flush=True)
     print(f"leg 7 wall: {secs['leg7']:.3f} s, {notes['leg7']}", flush=True)
+    print(f"leg 8 wall: {secs['leg8']:.3f} s, {notes['leg8']}", flush=True)
+    print(f"leg 9 wall: {secs['leg9']:.3f} s, {notes['leg9']}", flush=True)
+    print("launches by leg: " + json.dumps({k: v for k, v in notes.items()
+                                            if k.startswith("launches_")}),
+          flush=True)
     for k, v in launches.items():
         require(v >= 1, f"kernel {k} not launched on the main path")
     print(f"leg 4 host side in parts: {leg4_parts(raws, encs, 'cuda')}",
@@ -1436,6 +1925,13 @@ def main() -> int:
     t0 = time.time()
     rows.append(inflate_vs_plain(args[1].device, bgzf, launches))
     print(f"phase 6, X4: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    rows.append(record_scan_vs_plain(args[1].device, stream, N_RECORDS,
+                                     varied, launches))
+    print(f"phase 6, X5: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    rows.append(probaln_vs_plain(args[1].device, hmm_calls, launches))
+    print(f"phase 6, X6: {time.time() - t0:.1f} s", flush=True)
     # the figure the chain-bound kernels are designed against
     for row in rows:
         if "chain_rounds" in row:

@@ -38,7 +38,8 @@ LAUNCHES: Dict[str, int] = {
     "huffman_resolve_bench": 0, "rans4x8_o1_decode": 0,
     "rans_nx16_4way_o0_decode": 0, "rans_nx16_4way_o1_decode": 0,
     "rans4x8_o1_dense_decode": 0, "rans_nx16_4way_o1_dense_decode": 0,
-    "rans_nx16_o1_dense_decode": 0, "inflate": 0}
+    "rans_nx16_o1_dense_decode": 0, "inflate": 0, "record_scan": 0,
+    "probaln": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # (function, argtypes) per library: every pointer and the stream are
 # c_void_p, so ctypes never narrows them to 32-bit ints
@@ -88,7 +89,19 @@ _SIGNATURES = {
         "inflate_smem_bytes": [],
         "inflate_blocks_per_sm": [],
     },
+    "record_scan": {
+        "record_scan_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 4,
+        "record_scan_window_bytes": [],
+    },
+    "probaln": {
+        "probaln_launch": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+        + [ctypes.c_double] * 2 + [ctypes.c_int, ctypes.c_void_p],
+    },
 }
+# flags of one source beyond NVCC_FLAGS: X6 must not contract a * b + c
+# into a fused multiply-add, so its float64 integers are the JAX function's
+SOURCE_FLAGS = {"probaln": ["-fmad=false"]}
 
 
 def reset_launches() -> None:
@@ -110,7 +123,7 @@ def _source_hash(name: str) -> str:
     for f in [f"{name}.cu"] + headers:
         with open(os.path.join(CSRC, f), "rb") as fp:
             h.update(f.encode() + b"\0" + fp.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, [])).encode())
     return h.hexdigest()[:16]
 
 
@@ -125,7 +138,8 @@ def _compile(name: str) -> str:
         try:
             if not os.path.exists(lib):
                 tmp = f"{lib}.{os.getpid()}.tmp"
-                cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+                cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, []),
+                       "-I", CSRC, "-o", tmp,
                        os.path.join(CSRC, f"{name}.cu")]
                 res = subprocess.run(cmd, capture_output=True, text=True)
                 with open(f"{lib}.log", "w") as log:

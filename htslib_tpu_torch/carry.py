@@ -15,7 +15,8 @@ into the port's per-stream states, cursors and (order 1) contexts, so
 both can be held equal.  `from_jax_enc_tables` recovers the frequencies
 from the encoder's telescoped tables, and `from_jax_resolve_bench` and
 `from_jax_huffman_bench` turn the resolve benchmarks' arguments into the
-port's.
+port's; `from_jax_names_table` and `from_jax_probaln` carry the BAM -> SAM
+chain's names table and the BAQ HMM's outputs.
 """
 from __future__ import annotations
 
@@ -192,6 +193,21 @@ def from_jax_resolve_bench(lo_T, dfc_T, x0, device="cpu"):
     x = np.asarray(x0)[0].astype(np.int64) & 0xFFFFFFFF
     return (_dev(_freqs_from_tables(lo_T, dfc_T, G), device),
             _dev(x.astype(np.uint32).view(np.int32), device))
+
+
+def from_jax_names_table(tbl, device="cpu") -> torch.Tensor:
+    """The names table of the JAX `device_format_records` (uint8
+    [n_ref + 1, name_w], names NUL-padded, row n_ref "*") -> the port's
+    tensor."""
+    return _dev(np.array(tbl, np.uint8), device)
+
+
+def from_jax_probaln(pr, states, qs, device="cpu"):
+    """The JAX `probaln_batch` outputs (Pr [B], states [B, Q], q [B, Q])
+    -> the port's (int32, int32, uint8) tensors."""
+    return (_dev(np.array(pr, np.int32), device),
+            _dev(np.array(states, np.int32), device),
+            _dev(np.array(qs, np.uint8), device))
 
 
 def from_jax_huffman_bench(limits, firsts, bases, dord, v0, device="cpu"):

@@ -26,9 +26,11 @@
 // Slot table of one stream from its 256 frequencies f (which sum to at
 // most 4096): entry m packs, for the symbol s owning slot m, (f[s] - 1) in
 // bits 0-11, m - cum[s] (the slot's offset within s) in bits 12-23 and s
-// in bits 24-31, so a decode step needs one table load.  Slots past the
-// sum (a rANS 4x8 table may sum to less than 4096; no valid stream reaches
-// them) hold 0.  Lane `lane` of `nlanes` fills the symbols s with
+// in bits 24-31, so a decode step needs one table load.  A slot m past
+// the sum (a table may sum to less than 4096; no encoder's stream reaches
+// one) holds the JAX package's packed entry 0 there (ops/rans.py
+// `_pack_table`): symbol 0 with f = 1 and offset m, so x = (x >> 12) + m.
+// Lane `lane` of `nlanes` fills the symbols s with
 // s % nlanes == lane and the spare slots k with k % nlanes == lane; each
 // lane sums cum itself, so the lanes need no scan between them.
 RANS_HD void rans_o0_build_slots(const uint16_t* f, uint32_t* slot, int lane,
@@ -42,7 +44,7 @@ RANS_HD void rans_o0_build_slots(const uint16_t* f, uint32_t* slot, int lane,
     c += fs;
   }
   for (uint32_t k = c; k < RANS_TOTFREQ; ++k)
-    if (k % nlanes == (uint32_t)lane) slot[k] = 0;
+    if (k % nlanes == (uint32_t)lane) slot[k] = k << 12;
 }
 
 // Resolve slot x & 4095 to its symbol s and advance the state:
@@ -88,8 +90,9 @@ RANS_HD uint32_t rans_advance32(uint32_t cur, uint32_t used, uint32_t end) {
 // bits 12-19 and m - cum[s] in bits 20-31, so a step is one load, a mask
 // and a multiply-add (rans_o0_fstep), the offset's shift beside the mask.
 // f[s] mod 4096 is 0 only where s owns every slot: such a table leaves
-// every state as it is (rans_o0_mono).  Slots past the sum hold 0; lane
-// `lane` of `nlanes` fills what rans_o0_build_slots's lane fills.
+// every state as it is (rans_o0_mono).  A slot m past the sum holds
+// symbol 0 with f = 1 and offset m, as rans_o0_build_slots's; lane `lane`
+// of `nlanes` fills what rans_o0_build_slots's lane fills.
 RANS_HD void rans_o0_build_fslots(const uint16_t* f, uint32_t* slot,
                                   int lane, int nlanes) {
   uint32_t c = 0;
@@ -101,7 +104,7 @@ RANS_HD void rans_o0_build_fslots(const uint16_t* f, uint32_t* slot,
     c += fs;
   }
   for (uint32_t k = c; k < RANS_TOTFREQ; ++k)
-    if (k % nlanes == (uint32_t)lane) slot[k] = 0;
+    if (k % nlanes == (uint32_t)lane) slot[k] = 1u | (k << 20);
 }
 
 // Whether a table of frequencies f gives one symbol every slot; lane

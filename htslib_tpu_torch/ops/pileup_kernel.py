@@ -44,6 +44,29 @@ def basecount_tile(ref_positions: torch.Tensor, base_codes: torch.Tensor,
     return out.reshape(tile_len, 16)
 
 
+def expand_cigar_events(cigar: np.ndarray, pos: int):
+    """Host helper: packed CIGAR -> (ref_pos, qpos) int64 event arrays for
+    the M/=/X bases of one record (the feature stream the accumulation
+    consumes); I/S advance the query, D/N the reference, H/P/B neither."""
+    ref_pos, qpos = [], []
+    r, q = pos, 0
+    for c in np.asarray(cigar).tolist():
+        op, ln = c & 0xF, c >> 4
+        if op in (0, 7, 8):
+            ref_pos.append(np.arange(r, r + ln))
+            qpos.append(np.arange(q, q + ln))
+            r += ln
+            q += ln
+        elif op in (1, 4):
+            q += ln
+        elif op in (2, 3):
+            r += ln
+    if not ref_pos:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    return (np.concatenate(ref_pos).astype(np.int64),
+            np.concatenate(qpos).astype(np.int64))
+
+
 def _batch_cigar_events(cigars, n_ops, poss):
     """Vectorised CIGAR -> (ref_pos, global_qpos) expansion for M/=/X
     bases across a whole record batch (the resolve_cigar2 reformulation,

@@ -28,11 +28,12 @@ after, the port stops each stream at its length.  Errors are the JAX
 functions' where the kernels take what JAX takes: ValueError on any
 Nx16 transform flag and on frequencies past 4096, and on a zero-length
 4x8 stream, whose empty table the JAX function's parse (as the port's
-`_read_freqs`) reads past.  A 32-way order-0 table must sum to 4096 (B2),
-as every encoder's does; one that sums below raises ValueError, where the
-JAX function reads the slots past its sum as symbol 0 (and the host codec
-reads them otherwise: tests/test_torch_rans_dense.py).  With
-`device="cpu"` the kernels' plain PyTorch versions run.
+`_read_freqs`) reads past.  An order-0 table that sums below 4096 (no
+encoder writes one) decodes as the JAX function decodes it, on both Nx16
+widths: a slot past the sum is the JAX packed entry 0, symbol 0 with f = 1
+and cum 0 (the host codec reads it otherwise:
+tests/test_torch_rans_dense.py).  With `device="cpu"` the kernels' plain
+PyTorch versions run.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from htslib_tpu_torch import _build
 from htslib_tpu_torch.codecs.rans4x16 import u7_get
 from htslib_tpu_torch.ops.rans4x8 import (_parse_4x8_o1, decode_streams,
                                           frame_4x8, frame_nx16_4way)
-from htslib_tpu_torch.ops.rans_nx16 import decode_nx16_o0_batch
+from htslib_tpu_torch.ops.rans_nx16 import decode_o0_streams, frame_streams
 from htslib_tpu_torch.ops.rans_nx16_o1 import (A2_MAX, _parse_nx16_header,
                                                decode_o1_streams,
                                                frame_o1_streams, o1_row_count)
@@ -119,10 +120,8 @@ def uncompress_nx16_batch(blocks: List[bytes], device="cuda",
     group (order-1 streams past A2_MAX rows in one more); a zero-length
     stream gives b"".  Raises ValueError, before any decode, on a
     transform flag.  `timing`, where given, gets each launch group's
-    parts (`_group`) under nx16_{4,32}way_o{0,1}[_dense] (a 32-way
-    order-0 group goes through its lane function, whose call is decode_s,
-    frame_s 0), and the order-1 tables' parse that routes them under
-    route_s."""
+    parts (`_group`) under nx16_{4,32}way_o{0,1}[_dense], and the
+    order-1 tables' parse that routes them under route_s."""
     dev = _build.resolve_device(device)
     groups: dict = {}
     for i, data in enumerate(blocks):
@@ -149,8 +148,8 @@ def uncompress_nx16_batch(blocks: List[bytes], device="cuda",
                 frame, decode = (lambda t: frame_o1_streams(
                     ps, dev, bool(dense), t), decode_o1_streams)
             elif n32:
-                frame, decode = (lambda t: datas, lambda d: (
-                    decode_nx16_o0_batch(d, device=dev)))
+                frame, decode = (lambda t: frame_streams(
+                    datas, dev, normalised=False), decode_o0_streams)
             else:
                 frame, decode = (lambda t: frame_nx16_4way(
                     datas, bool(o1), dev, bool(dense), t, ps),

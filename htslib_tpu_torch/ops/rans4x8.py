@@ -211,7 +211,8 @@ def _batch(payloads, freqs, Fs, states, ulen, w16, device,
 
 def o0_slot_table(freqs: torch.Tensor) -> torch.Tensor:
     """Packed order-0 slot tables int64 [S, 4096] (rans_o0_build_slots):
-    (f-1) | (m - cum)<<12 | sym<<24 per slot m, 0 past the sum."""
+    (f-1) | (m - cum)<<12 | sym<<24 per slot m; past the sum symbol 0
+    with f = 1 and offset m (the JAX package's packed entry 0)."""
     f = freqs.long()
     cum_incl = torch.cumsum(f, 1)
     slots = torch.arange(TOTFREQ, device=f.device).expand(
@@ -221,7 +222,7 @@ def o0_slot_table(freqs: torch.Tensor) -> torch.Tensor:
     fs = torch.gather(f, 1, sc)
     cs = torch.gather(cum_incl, 1, sc) - fs
     return torch.where(s < 256, (fs - 1) | ((slots - cs) << 12) | (sc << 24),
-                       0)
+                       slots << 12)
 
 
 def rans4x8_plain(b: Rans4x8Batch, max_rounds: int = -1,

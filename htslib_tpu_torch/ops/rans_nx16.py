@@ -81,9 +81,13 @@ def exclusive_cumsum(a: np.ndarray) -> np.ndarray:
     return out
 
 
-def frame_streams(blocks: List[bytes], device) -> Nx16Batch:
+def frame_streams(blocks: List[bytes], device,
+                  normalised: bool = True) -> Nx16Batch:
     """Parse the headers of plain Nx16 O0 32-way streams (flag byte
-    included; flags checked by the caller) into an `Nx16Batch`."""
+    included; flags checked by the caller) into an `Nx16Batch`.  A table
+    that sums below 4096 raises ValueError unless `normalised` is False
+    (the JAX ops/rans.py decode reads its slots past the sum as symbol 0;
+    the JAX Pallas front ends refuse it); one past 4096 always raises."""
     S = len(blocks)
     freqs = np.zeros((S, 256), np.int32)
     states = np.zeros((S, NWAY), np.uint32)
@@ -95,7 +99,7 @@ def frame_streams(blocks: List[bytes], device) -> Nx16Batch:
         if ulen[i] >= 1 << 31:
             raise ValueError("stream too long for the Nx16 kernel")
         f, p = _read_freq_table(data, p)
-        if f.sum() != TOTFREQ:
+        if f.sum() > TOTFREQ or (normalised and f.sum() != TOTFREQ):
             raise ValueError("unnormalised frequency table")
         freqs[i] = f
         states[i] = np.frombuffer(data, "<u4", NWAY, p)
@@ -114,7 +118,7 @@ def frame_streams(blocks: List[bytes], device) -> Nx16Batch:
 
 def _slot_symbols(f: torch.Tensor) -> torch.Tensor:
     """Frequencies int64 [G, 256] -> the symbol owning each of the 4096
-    slots, int64 [G, 4096]."""
+    slots, int64 [G, 4096]; 256 for a slot past the sum."""
     slots = torch.arange(TOTFREQ, device=f.device).expand(
         f.shape[0], TOTFREQ).contiguous()
     return torch.searchsorted(torch.cumsum(f, 1), slots, right=True)
@@ -127,12 +131,18 @@ def rans_o0_plain(b: Nx16Batch, max_rounds: int = -1,
     """Plain PyTorch version of kernels B2/B3: the same rounds as tensor
     ops over [streams, 32 states].  Returns (symbols u8 [total_out], or
     with `qbins` the histogram int32 [S, qbins] of clip(sym - offs, 0,
-    qbins - 1); final states int32 [S, 32]; final word cursors int32 [S])."""
+    qbins - 1); final states int32 [S, 32]; final word cursors int32 [S]).
+    A slot past a table's sum decodes as symbol 0 with f = 1 and cum 0,
+    as the JAX package's packed entry 0 does."""
     dev = b.freqs.device
     S = b.n_streams
-    f = b.freqs.long()
+    # a 257th symbol of f = 1 and cum 0 owns the slots past the sum, and
+    # is emitted as symbol 0
+    f = torch.cat([b.freqs.long(), torch.ones((S, 1), dtype=torch.long,
+                                              device=dev)], 1)
     cum = torch.cumsum(f, 1) - f
-    sym_of = _slot_symbols(f)
+    cum[:, 256] = 0
+    sym_of = _slot_symbols(f[:, :256])
     words = b.payload.view(torch.int16).long() & 0xFFFF
     nw = b.n_words.long()[:, None]
     wo = b.word_off[:, None]
@@ -158,6 +168,7 @@ def rans_o0_plain(b: Nx16Batch, max_rounds: int = -1,
         step = (torch.gather(f, 1, s) * (x >> TF_SHIFT) + m
                 - torch.gather(cum, 1, s)) & _U32
         x = torch.where(act, step, x)
+        s = torch.where(s == 256, 0, s)
         if qbins is None:
             # inactive lanes write to the spare last byte
             at = torch.where(act, b.out_off[:, None] + pos, total)
@@ -213,10 +224,10 @@ def rans_o0_cuda(b: Nx16Batch, max_rounds: int = -1,
     bad = (((b.word_off + b.n_words) * 2 > b.payload.numel())
            | (b.word_off < 0) | (b.n_words < 0) | (b.ulen < 0)
            | (b.out_off < 0) | (b.out_off + b.ulen > b.total_out)).any() \
-        | (b.freqs < 0).any() | (b.freqs.sum(1) != TOTFREQ).any()
+        | (b.freqs < 0).any() | (b.freqs.sum(1) > TOTFREQ).any()
     if bool(bad):
         raise ValueError("batch: a stream lies outside its buffers or has "
-                         "an unnormalised frequency table")
+                         "frequencies past 4096")
     dev = b.payload.device
     x_out = torch.empty((S, NWAY), dtype=torch.int32, device=dev)
     cur_out = torch.empty(S, dtype=torch.int32, device=dev)
@@ -274,7 +285,11 @@ def decode_nx16_o0_batch(blocks: List[bytes],
             raise ValueError("device Nx16 kernel: 32-way only")
     if not blocks:
         return []
-    b = frame_streams(blocks, dev)
+    return decode_o0_streams(frame_streams(blocks, dev))
+
+
+def decode_o0_streams(b: Nx16Batch) -> List[bytes]:
+    """Each stream of a framed batch decoded (B2 on the card), as bytes."""
     syms = rans_o0(b)[0].cpu().numpy()
     offs = b.out_off.cpu().numpy()
     lens = b.ulen.cpu().numpy()

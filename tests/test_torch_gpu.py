@@ -14,13 +14,19 @@ import torch
 from chip_smoke import (bam_record_stream, deflate_raw, enc_edge_streams,
                         inflate_members, leg1_batch, wide_stream)
 from htslib_tpu_torch import _build
+from chip_smoke import baq_case, scan_streams, varied_bam_stream
+from htslib_tpu_torch import realn as trl
 from htslib_tpu_torch.codecs import rans4x8 as r8
+from htslib_tpu_torch.codecs import rans4x16 as r16
 from htslib_tpu_torch.codecs.rans4x16 import compress
 from htslib_tpu_torch.entry import entry
 from htslib_tpu_torch.ops import device_stats as tds
+from htslib_tpu_torch.ops import bam2sam as tbs
 from htslib_tpu_torch.ops import bgzf_device as tb
 from htslib_tpu_torch.ops import huffman as th
 from htslib_tpu_torch.ops import inflate as ti
+from htslib_tpu_torch.ops import probaln as tpb
+from htslib_tpu_torch.ops import rans as trans
 from htslib_tpu_torch.ops import rans4x8 as t8
 from htslib_tpu_torch.ops import rans_enc as te
 from htslib_tpu_torch.ops import rans_nx16 as tr
@@ -999,3 +1005,128 @@ def test_bgzf_write_side_on_card(card):
                                                 stats=st_cpu)
         assert st == st_cpu and gzip.decompress(out) == d
     assert tb.crc_device_rate(n_blocks=70, reps=1, device=card)["exact"]
+
+
+# ---------------------------------------------------------------------------
+# the unnormalised Nx16 order-0 table (ROADMAP queue C, repaired)
+# ---------------------------------------------------------------------------
+
+def unnormalised_stream(nway: int, seed: int = 3) -> bytes:
+    """A plain Nx16 order-0 stream (32-way: flags 0x04; 4-way: 0x00)
+    whose table sums to 3,000 with f[0] = 0 (f[1] = 2000, f[2] = 1000),
+    12 symbols a state, states with random slots (some past the sum) and
+    a payload of random words long enough that no refill reads past it.
+    No encoder writes such a table; it is the smallest input on which a
+    slot past the sum is decoded."""
+    rng = np.random.default_rng(seed)
+    f = np.zeros(256, np.int64)
+    f[1], f[2] = 2000, 1000
+    ulen = 12 * nway
+    head = bytearray([0x04 if nway == 32 else 0x00])
+    r16.u7_put(head, ulen)
+    r16._write_freq_table(head, f)
+    x = (rng.integers(1 << 7, 1 << 19, nway) << 12) | rng.integers(0, 4096,
+                                                                    nway)
+    for v in x:
+        head += int(v).to_bytes(4, "little")
+    return bytes(head) + rng.integers(0, 256, 4 * ulen + 64,
+                                      dtype=np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("nway", [32, 4])
+def test_unnormalised_nx16_o0_on_card_matches_cpu(card, nway):
+    """B2 (32-way) and X2 (4-way) read a slot past the table's sum as the
+    plain versions do, which tests/test_torch_rans_dense.py holds to the
+    JAX function."""
+    enc = unnormalised_stream(nway)
+    _build.reset_launches()
+    got = trans.uncompress_nx16_batch([enc], device=card)
+    key = "rans_nx16_o0_decode" if nway == 32 else "rans_nx16_4way_o0_decode"
+    assert _build.LAUNCHES[key] == 1
+    assert got == trans.uncompress_nx16_batch([enc], device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# X5 (record scan) and the BAM -> SAM chain
+# ---------------------------------------------------------------------------
+
+def scan_payloads():
+    """name -> (payload bytes, max_records): streams at X5's edges."""
+    return scan_streams(varied_bam_stream(300, 4), 300,
+                        bam_record_stream(leg1_batch(6000, seed=3)), 6000)
+
+
+@pytest.mark.parametrize("name", list(scan_payloads()))
+def test_record_scan_kernel_matches_plain(card, name):
+    payload, n = scan_payloads()[name]
+    t = torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
+    want = tbs.record_scan_plain(t, n)
+    got = tbs.record_scan_cuda(t.to(card), n)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_record_scan_unaligned_payload(card):
+    payload, n = scan_payloads()["varied"]
+    t = torch.from_numpy(np.frombuffer(b"\x00" + payload, np.uint8).copy())
+    got = tbs.record_scan_cuda(t.to(card)[1:], n)
+    for g, w in zip(got, tbs.record_scan_plain(t[1:], n)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_bam2sam_on_card_matches_cpu(card):
+    payload = varied_bam_stream(500, 6)
+    hdr = type("H", (), {"ref_names": ["chr1", "chrUn_KI270302v1"]})()
+    _build.reset_launches()
+    timing = {}
+    got = tbs.bam_payload_to_sam_device(payload, hdr, device=card,
+                                        timing=timing)
+    assert _build.LAUNCHES["record_scan"] == 1
+    assert _build.LAUNCHES["nibble_to_base"] == 1
+    assert got == tbs.bam_payload_to_sam_device(payload, hdr, device="cpu")
+    assert timing["records"] == 500
+
+
+# ---------------------------------------------------------------------------
+# X6 (probaln) and BAQ
+# ---------------------------------------------------------------------------
+
+def probaln_batch_args(n=300, seed=5, dtype=np.float64, long_every=0):
+    """A padded batch of random reads with mixed bands and lengths."""
+    rng = np.random.default_rng(seed)
+    refs, qs, quals, bws = [], [], [], []
+    for i in range(n):
+        lq = int(rng.integers(1, 90))
+        if long_every and i % long_every == 0:
+            lq = int(rng.integers(300, 600))
+        lr = max(1, lq + int(rng.integers(-20, 30)))
+        refs.append(rng.integers(0, 5, lr).astype(np.uint8).tobytes())
+        qs.append(rng.integers(0, 5, lq).astype(np.uint8).tobytes())
+        quals.append(rng.integers(0, 45, lq).astype(np.uint8).tobytes())
+        bws.append(int(rng.integers(0, 16)))
+    arrays, J = tpb.pad_batch(refs, qs, quals, dtype=dtype, bws=bws)
+    return arrays, J + int(rng.integers(0, 7))
+
+
+@pytest.mark.parametrize("dtype,long_every", [(np.float64, 0),
+                                              (np.float32, 0),
+                                              (np.float64, 37)])
+def test_probaln_kernel_matches_plain(card, dtype, long_every):
+    arrays, J = probaln_batch_args(dtype=dtype, long_every=long_every)
+    cpu = [torch.from_numpy(a) for a in arrays]
+    want = tpb.probaln_plain(*[a.to(card) for a in cpu], J)
+    got = tpb.probaln_cuda(*[a.to(card) for a in cpu], J)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("flag", [0, 1, 2, 3, 5])
+def test_realn_on_card_matches_cpu(card, flag):
+    ref, recs = baq_case(120, seed=11, ref_len=30_000, n_long=3)
+    a = [r.copy() for r in recs]
+    b = [r.copy() for r in recs]
+    _build.reset_launches()
+    got = trl.sam_prob_realn_batch(a, ref, flag, device=card)
+    assert _build.LAUNCHES["probaln"] >= 1
+    assert got == trl.sam_prob_realn_batch(b, ref, flag, device="cpu")
+    assert [r.to_bam_buffer() for r in a] == [r.to_bam_buffer() for r in b]

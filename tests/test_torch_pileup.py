@@ -130,3 +130,19 @@ def test_device_pileup_counts_needs_a_card_unless_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpk.device_pileup_counts(_records(), 0, 128)
 
+
+
+@pytest.mark.parametrize("op", range(10))
+def test_expand_cigar_events_matches_jax(op):
+    """Every CIGAR op code, alone and between match runs, at two
+    positions."""
+    for ops in ([(7, op)], [(5, 0), (4, op), (3, 8)], [(3, 4), (6, op),
+                                                       (2, 1), (5, 7)]):
+        cigar = np.array([(ln << 4) | o for ln, o in ops], np.uint32)
+        for pos in (0, 1234):
+            want = jpk.expand_cigar_events(cigar, pos)
+            got = tpk.expand_cigar_events(cigar, pos)
+            assert len(got) == 2
+            for g, w in zip(got, want):
+                assert g.dtype == np.int64
+                assert np.array_equal(g, w)

@@ -24,7 +24,7 @@ from htslib_tpu_torch.ops import rans as trans
 from htslib_tpu_torch.ops import rans4x8 as t8
 from htslib_tpu_torch.ops import rans_nx16_o1 as to1
 from test_torch_device_stats import read_walks as _walk
-from test_torch_gpu import short_table_compress
+from test_torch_gpu import short_table_compress, unnormalised_stream
 from test_torch_rans4x8 import CSRC, _HARNESS
 
 
@@ -335,48 +335,39 @@ def test_mutated_dense_lookup_fails(tmp_path):
 # ROADMAP queue C's unnormalised order-0 table: the references disagree
 # ---------------------------------------------------------------------------
 
-def unnormalised_stream(nway: int, seed: int = 3) -> bytes:
-    """A plain Nx16 order-0 stream (32-way: flags 0x04; 4-way: 0x00)
-    whose table sums to 3,000 with f[0] = 0 (f[1] = 2000, f[2] = 1000),
-    12 symbols a state, states with random slots (some past the sum) and
-    a payload of random words long enough that no refill reads past it.
-    No encoder writes such a table; it is the smallest input on which a
-    slot past the sum is decoded."""
-    rng = np.random.default_rng(seed)
-    f = np.zeros(256, np.int64)
-    f[1], f[2] = 2000, 1000
-    ulen = 12 * nway
-    head = bytearray([0x04 if nway == 32 else 0x00])
-    r16.u7_put(head, ulen)
-    r16._write_freq_table(head, f)
-    x = (rng.integers(1 << 7, 1 << 19, nway) << 12) | rng.integers(0, 4096,
-                                                                    nway)
-    for v in x:
-        head += int(v).to_bytes(4, "little")
-    return bytes(head) + rng.integers(0, 256, 4 * ulen + 64,
-                                      dtype=np.uint8).tobytes()
-
-
 @pytest.mark.parametrize("nway", [32, 4])
 def test_unnormalised_table_references_disagree(nway):
     """On a slot past a table's sum the JAX function reads packed entry
     0 (symbol 0, f = 1, cum 0: x = (x >> 12) + slot) and the host codec
     symbol 0 with its own f[0] = 0 and cum[0] = 0 (x = slot, then a
-    refill): both emit symbol 0 there, and their states part.  The port
-    follows neither: 32-way its framing refuses the table (B2 takes
-    tables that sum to 4096), 4-way its slot table reads 0 there (f = 1,
-    offset 0: x = x >> 12), a third answer.  ROADMAP queue C files this
-    under the reference-side conditions."""
+    refill): both emit symbol 0 there, and their states part.  The port's
+    `uncompress_nx16_batch` follows its JAX twin on both widths: its slot
+    tables (rans_o0_build_fslots for B2, rans_o0_build_slots for X2, and
+    the plain versions') hold that entry past the sum.  ROADMAP queue C
+    files the disagreement of the references under the reference-side
+    conditions."""
     enc = unnormalised_stream(nway)
     jaxd = jrans.uncompress_nx16_batch([enc])[0]
     host = host16.uncompress(enc)
     assert host == r16.uncompress(enc)       # the port's copy agrees
     assert len(jaxd) == len(host) == 12 * nway
     assert jaxd != host
-    if nway == 32:
+    port = trans.uncompress_nx16_batch([enc], device="cpu")[0]
+    assert port == jaxd
+
+
+def test_unnormalised_table_lane_functions_refuse():
+    """The lane functions keep their JAX twins' refusal: the JAX
+    `qualstats_device` and Pallas `decode_nx16_o0_batch` front ends
+    raise on a 32-way table that sums below 4096, and so do the port's."""
+    from htslib_tpu.ops import device_stats as jds
+    from htslib_tpu.ops import rans_pallas as jrp
+    from htslib_tpu_torch.ops import device_stats as tds
+    from htslib_tpu_torch.ops import rans_nx16 as tr
+    enc = unnormalised_stream(32)
+    for run in (lambda: jds.qualstats_device([enc], interpret=True),
+                lambda: jrp.decode_nx16_o0_batch([enc], interpret=True),
+                lambda: tds.qualstats_device([enc], device="cpu"),
+                lambda: tr.decode_nx16_o0_batch([enc], device="cpu")):
         with pytest.raises(ValueError, match="unnormalised frequency table"):
-            trans.uncompress_nx16_batch([enc], device="cpu")
-    else:
-        port = trans.uncompress_nx16_batch([enc], device="cpu")[0]
-        assert len(port) == len(host)
-        assert port != jaxd and port != host
+            run()
