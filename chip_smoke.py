@@ -122,11 +122,32 @@ PyTorch version on the card and times both.  Phases:
      (the float32 run within +/-1 phred of the float64 one), with its ns
      per band cell.
      Outputs are bytes and integers, so the tolerance is zero: kernel and
-     plain version must be equal.
+     plain version must be equal;
+  5h. leg 10, the mesh (parallel/mesh.py, parallel/distributed.py,
+     entry.dryrun_multichip), run after leg 9.  10a: this process as a
+     world of one under NCCL (initialize over tcp on localhost), then
+     dryrun_multichip(1) and the full-size steps below; the group is torn
+     down after.  10b: 4 gloo ranks, spawned processes whose compute runs
+     on cuda:0 (gloo takes host tensors, so the collectives copy through
+     the host, timed apart), each running dryrun_multichip(4), the
+     full-size steps and its shard of a BAM file: the decode-pileup step
+     over leg 1's 400,000 records (100,000 a rank; coverage of the 1 Mbp
+     tile whole on every rank, bases and flags gathered), the flagstat
+     step over their flags, the halo ring over 4 tiles of 1 << 18 (halo
+     1,024; each read with the rank its start falls to), and leg 7's
+     stream written as a BAM file (a header member, leg 7's 1,232
+     members, the EOF member) planned once into 4 shards, each rank
+     decoding its shard to SAM (X4, X5, B1) and counting its flags.
+     Every output is held against numpy, the shards' SAM text against leg
+     8's, their summed counters against the flagstat step's; each rank's
+     times, collectives (all-reduce, ring, staging) and launches are
+     printed, and the sharded decode's SAM MB/s;
 
-Launch counts are reset just before phase 3 and read just after phase 5g;
-legs 7, 8 and 9 are also counted alone (reset just before each, read just
-after) and each must have launched its kernels (X4; X5 and B1; X6).
+Launch counts are reset just before phase 3 and read just after phase 5h,
+with leg 10b's ranks' counts added; legs 7-10 are also counted alone
+(reset just before each, read just after; 10b's in its ranks) and each
+must have launched its kernels (X4; X5 and B1; X6; B1, X4 and X5 in 10a
+and in 10b).
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -134,6 +155,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import gzip
+import io
 import json
 import multiprocessing
 import os
@@ -177,6 +199,10 @@ N_VARIED = 50_000       # leg 8's varied records
 N_BAQ = 100_000         # leg 9's reads, a 1 Mbp region at 10x
 N_BAQ_FLAG = 2_000      # leg 9's reads for each other flag combination
 BAQ_OPS_PER_CELL = 40   # X6's work a band cell (forward, backward, MAP)
+N_RANKS = 4             # leg 10b's gloo ranks
+HALO_TILE = 1 << 18     # leg 10's coordinate tiles: 4 over 1 Mbp
+HALO = 1024             # and their halo (a read spans at most 150 bp)
+LEG10_TIMEOUT = 300     # seconds leg 10b's ranks may take together
 
 
 def _encode(data: bytes, wire: str = "nx16_o0") -> bytes:
@@ -900,12 +926,19 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
 
     for leg, run in (("leg7", lambda: leg7(device, bgzf, raws)),
                      ("leg8", lambda: leg8(device, inflated, varied)),
-                     ("leg9", lambda: leg9(device, baq))):
+                     ("leg9", lambda: leg9(device, baq)),
+                     ("leg10a", lambda: leg10a(batch)),
+                     ("leg10b", lambda: leg10b(device, batch, bgzf,
+                                               chain_sam))):
         t0 = time.time()
         notes[leg], notes["launches_" + leg] = _counted(run)
         secs[leg] = time.time() - t0
         if leg == "leg7":
             inflated = notes["leg7"].pop("inflated")
+        if leg == "leg8":
+            chain_sam = notes["leg8"].pop("chain_sam")
+    # leg 10b's kernels ran in its rank processes: their counts
+    notes["launches_leg10b"] = notes["leg10b"].pop("rank_launches")
     return args, secs, notes
 
 
@@ -943,6 +976,8 @@ def leg8(device, chain, varied):
         t1 = time.time()
         require(text == host_sam_parallel(payload, LEG8_REFS),
                 f"leg 8 {name}: SAM text != host formatter")
+        if name == "chain":
+            notes["chain_sam"] = text
         notes[name] = {"wall_s": wall, "parts": timing,
                        "in_bytes": len(payload), "sam_bytes": len(text),
                        "sam_MBps": len(text) / wall / 1e6,
@@ -1035,6 +1070,232 @@ def leg9(device, baq):
         notes["flags"][flag] = {str(c): got[0].count(c)
                                 for c in set(got[0])}
     notes["hmm_calls"] = [(a, k) for a, k, _ in calls]
+    return notes
+
+
+def halo_layout(starts, ends, n: int = N_RANKS, tile: int = HALO_TILE):
+    """Leg 10's halo-ring input: each read in a slot of the rank whose tile
+    [d * tile, (d + 1) * tile) holds its start, every rank's slots padded
+    with invalid reads to the fullest rank's count.  Returns global
+    (starts, ends, valid), rank d's reads at rows [d * per, (d + 1) *
+    per)."""
+    owner = starts // tile
+    per = int(np.bincount(owner, minlength=n).max())
+    s = np.zeros(n * per, np.int32)
+    e = np.zeros(n * per, np.int32)
+    v = np.zeros(n * per, bool)
+    for d in range(n):
+        mine = np.flatnonzero(owner == d)
+        at = d * per + np.arange(len(mine))
+        s[at], e[at], v[at] = starts[mine], ends[mine], True
+    return s, e, v
+
+
+def leg10_steps(rank: int, n: int, batch, halo, device,
+                tile: int = HALO_TILE):
+    """The mesh steps at full size on one rank of a world of n: the
+    decode-pileup step over its share of leg 1's batch (tile 1 << 20),
+    the flagstat step over the same records' flags, and the halo ring
+    over n tiles of `tile` (halo 1,024).  Each step runs twice, the
+    second run timed; returns the outputs (coverage whole, bases and
+    flags this rank's rows, counts, this rank's halo tile) and times."""
+    from htslib_tpu_torch._build import clock
+    from htslib_tpu_torch.parallel.mesh import (make_coord_sharded_pileup,
+                                                make_decode_pileup_step,
+                                                make_flagstat_step,
+                                                make_mesh, shard_batch)
+    cores, seq4, starts, ends, valid = batch
+    flags = (cores[:, 14].astype(np.int32)
+             | (cores[:, 15].astype(np.int32) << 8))
+    mesh = make_mesh(n=n, device=device)
+    t0 = clock(device)
+    shards = shard_batch(mesh, cores, seq4, starts, ends, valid)
+    fshards = shard_batch(mesh, flags, valid)
+    hshards = shard_batch(mesh, *halo)
+    out = {"shard_s": clock(device) - t0}
+    steps = (("decode_pileup", make_decode_pileup_step(mesh, TILE_LEN),
+              shards + (0,)),
+             ("flagstat", make_flagstat_step(mesh), fshards),
+             ("halo", make_coord_sharded_pileup(mesh, tile, HALO),
+              hshards))
+    for name, step, args in steps:
+        step(*args)
+        before = dict(mesh.timing)
+        t0 = clock(device)
+        res = step(*args)
+        out[name + "_s"] = clock(device) - t0
+        out[name + "_collective"] = {k: mesh.timing[k] - before[k]
+                                     for k in mesh.timing}
+        out[name] = (tuple(r.cpu().numpy() for r in res)
+                     if isinstance(res, tuple) else res.cpu().numpy())
+    out["backend"] = mesh.backend
+    return out
+
+
+def leg10a(batch):
+    """Leg 10a: a world of one under NCCL on the card (initialize with
+    tcp on localhost), dryrun_multichip(1), then the full-size steps;
+    the process group is torn down before leg 10b."""
+    import socket
+
+    import torch.distributed as dist
+
+    from htslib_tpu_torch.entry import dryrun_multichip
+    from htslib_tpu_torch.parallel.distributed import initialize
+    cores, _seq4, starts, ends, _valid = batch
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.time()
+    initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        notes = {"init_s": time.time() - t0}
+        t0 = time.time()
+        dryrun_multichip(1, device="cuda")
+        notes["dryrun_s"] = time.time() - t0
+        out = leg10_steps(0, 1, batch, halo_layout(starts, ends, 1, 1 << 20),
+                          "cuda", tile=1 << 20)
+    finally:
+        dist.destroy_process_group()
+    require(out["backend"] == "nccl", f"leg 10a backend {out['backend']}")
+    check_leg10(batch, [out], 1, 1 << 20)
+    notes.update({k: v for k, v in out.items()
+                  if k.endswith("_s") or k.endswith("_collective")})
+    return notes
+
+
+def check_leg10(batch, outs, n: int, tile: int):
+    """The full-size steps' outputs of n ranks against numpy: coverage on
+    every rank, the gathered bases and flags, the counts on every rank,
+    the gathered halo tiles."""
+    cores, seq4, starts, ends, _valid = batch
+    flags = cores[:, 14].astype(np.int64) | (cores[:, 15].astype(np.int64)
+                                             << 8)
+    cov_np = coverage_numpy(starts, ends, TILE_LEN)
+    for r, out in enumerate(outs):
+        require(np.array_equal(out["decode_pileup"][0], cov_np),
+                f"leg 10 rank {r}: mesh coverage")
+        require(np.array_equal(out["flagstat"], flag_counts_numpy(flags)),
+                f"leg 10 rank {r}: mesh flagstat")
+    require(np.array_equal(np.concatenate(
+        [o["decode_pileup"][1] for o in outs]), nt16_numpy(seq4)),
+        "leg 10 gathered bases")
+    require(np.array_equal(np.concatenate(
+        [o["decode_pileup"][2] for o in outs]), flags), "leg 10 flags")
+    require(np.array_equal(np.concatenate([o["halo"] for o in outs]),
+                           coverage_numpy(starts, ends, n * tile)),
+            "leg 10 halo ring")
+
+
+def flag_counts_numpy(f):
+    """The 11 flagstat counters of flags f (all records valid)."""
+    pm = ((f & 1) != 0) & ((f & 4) == 0)
+    return np.array([len(f), ((f & 0x100) != 0).sum(),
+                     ((f & 0x800) != 0).sum(), ((f & 0x400) != 0).sum(),
+                     ((f & 4) == 0).sum(), ((f & 1) != 0).sum(),
+                     ((f & 0x40) != 0).sum(), ((f & 0x80) != 0).sum(),
+                     ((f & 2) != 0).sum(), (pm & ((f & 8) == 0)).sum(),
+                     (pm & ((f & 8) != 0)).sum()], np.int64)
+
+
+def leg10_rank(rank: int, n: int, device, batch, halo, plan, refs):
+    """One of leg 10b's gloo ranks, its work on `device` (cuda:0): the
+    dryrun, the full-size steps, then its shard of the BAM file (decode,
+    X4, X5 and B1; flagstat).  Returns its outputs, times and kernel
+    launches."""
+    import torch
+
+    from htslib_tpu_torch import _build
+    from htslib_tpu_torch.entry import dryrun_multichip
+    from htslib_tpu_torch.parallel.distributed import (decode_shard_to_sam,
+                                                       flagstat_shard)
+    from htslib_tpu_torch.sam.header import SamHeader
+    _build.reset_launches()
+    t0 = _build.clock(device)
+    torch.zeros(1, device=device)
+    out = {"device_init_s": _build.clock(device) - t0}
+    t0 = _build.clock(device)
+    dryrun_multichip(n, device=device)
+    out["dryrun_s"] = _build.clock(device) - t0
+    out.update(leg10_steps(rank, n, batch, halo, device))
+    shard = plan.shards[rank]
+    t0 = _build.clock(device)
+    out["sam"] = decode_shard_to_sam(plan, shard, SamHeader(ref_names=refs),
+                                     device=device)
+    out["decode_s"] = _build.clock(device) - t0
+    t0 = _build.clock(device)
+    out["shard_counts"] = flagstat_shard(plan, shard, device=device)
+    out["shard_flagstat_s"] = _build.clock(device) - t0
+    out["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+    return out
+
+
+def leg10b(device, batch, bgzf, chain_sam):
+    """Leg 10b: N_RANKS gloo ranks (spawned processes, compute on device)
+    run dryrun_multichip(N_RANKS), the full-size steps and a shard each of
+    leg 7's stream written as a BAM file (a header member, leg 7's 1,232
+    members, the EOF member), planned once here.  Every output is held
+    against numpy, the shards' SAM text against leg 8's single-process
+    text, their counters against the flagstat step's.  Returns its notes
+    with each rank's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from htslib_tpu_torch.bgzf import BGZF_EOF, bgzf_member, compress_block
+    from htslib_tpu_torch.parallel.distributed import plan_bam_shards
+    from htslib_tpu_torch.parallel.launch import run_ranks
+    from htslib_tpu_torch.sam.bam import write_bam_header
+    from htslib_tpu_torch.sam.header import SamHeader
+    _cores, _seq4, starts, ends, _valid = batch
+    tmp = tempfile.mkdtemp(prefix="leg10_")
+    try:
+        t0 = time.time()
+        path = os.path.join(tmp, "leg10.bam")
+        head = io.BytesIO()
+        write_bam_header(head, SamHeader("".join(
+            f"@SQ\tSN:{r}\tLN:300000000\n" for r in LEG8_REFS)))
+        with open(path, "wb") as fp:
+            fp.write(compress_block(head.getvalue()))
+            for deflated, piece in zip(*bgzf):
+                fp.write(bgzf_member(deflated, piece))
+            fp.write(BGZF_EOF)
+        plan = plan_bam_shards(path, N_RANKS)
+        require(len(plan.shards) == N_RANKS, "leg 10 plan's shards")
+        notes = {"bam_bytes": os.path.getsize(path),
+                 "members": len(plan.coffsets), "setup_s": time.time() - t0}
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        ranks = {}
+        outs = run_ranks(leg10_rank, N_RANKS, (
+            device, batch, halo_layout(starts, ends), plan, LEG8_REFS),
+            backend="gloo", timeout=LEG10_TIMEOUT, timing=ranks)
+        notes["ranks_s"] = ranks.pop("wall_s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.time()
+    check_leg10(batch, outs, N_RANKS, HALO_TILE)
+    require(all(o["backend"] == "gloo" for o in outs), "leg 10b backend")
+    sam = b"".join(o.pop("sam") for o in outs)
+    require(sam == chain_sam, "leg 10 sharded decode != single-host SAM")
+    counts = sum(o["shard_counts"] for o in outs)
+    require(np.array_equal(counts, outs[0]["flagstat"]),
+            "leg 10 shard flagstat != mesh flagstat step")
+    notes["check_s"] = time.time() - t0
+    decode = max(o["decode_s"] for o in outs)
+    notes["sam_bytes"] = len(sam)
+    notes["sharded_decode_s"] = decode
+    notes["sharded_decode_MBps"] = len(sam) / decode / 1e6
+    notes["rank_launches"] = {}
+    for o in outs:
+        for k, v in o["launches"].items():
+            notes["rank_launches"][k] = notes["rank_launches"].get(k, 0) + v
+    notes["ranks"] = [{k: v for k, v in o.items() if k.endswith("_s")
+                       or k.endswith("_collective") or k == "launches"}
+                      for o in outs]
+    for r, rank in enumerate(notes["ranks"]):
+        rank.update({k: v[r] for k, v in ranks.items()})
     return notes
 
 
@@ -1882,9 +2143,16 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     hmm_calls = notes["leg9"].pop("hmm_calls")
+    # leg 10b's kernels ran in its rank processes: add their launches
+    for k, v in notes["launches_leg10b"].items():
+        launches[k] += v
     for leg, need in (("leg7", ["inflate"]),
                       ("leg8", ["record_scan", "nibble_to_base"]),
-                      ("leg9", ["probaln"])):
+                      ("leg9", ["probaln"]),
+                      ("leg10a", ["nibble_to_base", "inflate",
+                                  "record_scan"]),
+                      ("leg10b", ["nibble_to_base", "inflate",
+                                  "record_scan"])):
         got = notes["launches_" + leg]
         for k in need:
             require(got.get(k, 0) >= 1, f"kernel {k} not launched in {leg}")
@@ -1902,6 +2170,13 @@ def main() -> int:
     print(f"leg 7 wall: {secs['leg7']:.3f} s, {notes['leg7']}", flush=True)
     print(f"leg 8 wall: {secs['leg8']:.3f} s, {notes['leg8']}", flush=True)
     print(f"leg 9 wall: {secs['leg9']:.3f} s, {notes['leg9']}", flush=True)
+    print(f"leg 10a wall (NCCL, a world of one): {secs['leg10a']:.3f} s, "
+          f"{notes['leg10a']}", flush=True)
+    ranks = notes["leg10b"].pop("ranks")
+    print(f"leg 10b wall ({N_RANKS} gloo ranks on cuda:0): "
+          f"{secs['leg10b']:.3f} s, {notes['leg10b']}", flush=True)
+    for r, rank in enumerate(ranks):
+        print(f"leg 10b rank {r}: {rank}", flush=True)
     print("launches by leg: " + json.dumps({k: v for k, v in notes.items()
                                             if k.startswith("launches_")}),
           flush=True)

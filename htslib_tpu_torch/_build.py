@@ -5,8 +5,12 @@ shared library with a plain C interface, `build/<name>-<hash>.so`, and
 loaded with `ctypes`.  The hash covers the `.cu` source and every `.cuh`
 header beside it, so an edited source builds anew and an unchanged one is
 loaded from disk.  A file lock keeps concurrent processes from building
-the same library twice.  Nothing is built on a host without CUDA: `load`
-raises there, and callers only reach it for tensors that lie on the card.
+the same library twice, and a library is written under a temporary name
+and renamed into place, so a process that finds it finds it whole: rank
+processes started together load what their parent built, and build it
+once between them when it did not.  Nothing is built on a host without
+CUDA: `load` raises there, and callers only reach it for tensors that lie
+on the card.
 
 `LAUNCHES` counts, per kernel, the launches each wrapper made; a wrapper
 adds one where it launches its kernel and nowhere else.
@@ -133,6 +137,8 @@ def _compile(name: str) -> str:
     memory, spills) is written beside the library as <lib>.log."""
     os.makedirs(BUILD, exist_ok=True)
     lib = os.path.join(BUILD, f"{name}-{_source_hash(name)}.so")
+    if os.path.exists(lib):
+        return lib    # whole: a library appears only by an atomic rename
     with open(os.path.join(BUILD, f"{name}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:

@@ -16,7 +16,9 @@ both can be held equal.  `from_jax_enc_tables` recovers the frequencies
 from the encoder's telescoped tables, and `from_jax_resolve_bench` and
 `from_jax_huffman_bench` turn the resolve benchmarks' arguments into the
 port's; `from_jax_names_table` and `from_jax_probaln` carry the BAM -> SAM
-chain's names table and the BAQ HMM's outputs.
+chain's names table and the BAQ HMM's outputs, and
+`from_jax_bam_shard_plan` a BAM shard plan (its member arrays and
+shards), so the two packages' plans can be compared field by field.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from htslib_tpu_torch.ops.rans4x8 import NWAY4, Rans4x8Batch
 from htslib_tpu_torch.ops.rans_nx16 import (NWAY, TOTFREQ, Nx16Batch,
                                             exclusive_cumsum)
 from htslib_tpu_torch.ops.rans_nx16_o1 import Nx16O1Batch, frame_o1_tables
+from htslib_tpu_torch.parallel.distributed import BamShard, BamShardPlan
 
 BLOCKS = 32  # streams per JAX order-0 Nx16 group
 
@@ -216,3 +219,17 @@ def from_jax_huffman_bench(limits, firsts, bases, dord, v0, device="cpu"):
     v0 int32 [L])."""
     return tuple(_dev(np.array(a, np.int32), device) for a in (
         limits, firsts, bases, order_of(dord), np.asarray(v0)[0]))
+
+
+def from_jax_bam_shard_plan(plan):
+    """A JAX `BamShardPlan` (htslib_tpu/parallel/distributed.py) as the
+    port's (parallel/distributed.py): the member arrays in the port's
+    dtypes (uint64 offsets and starts, uint32 sizes) and each shard's
+    fields as Python ints."""
+    return BamShardPlan(
+        plan.path, np.asarray(plan.coffsets, np.uint64),
+        np.asarray(plan.csizes, np.uint32),
+        np.asarray(plan.ustarts, np.uint64),
+        np.asarray(plan.usizes, np.uint32),
+        [BamShard(int(s.index), int(s.ustart), int(s.uend),
+                  int(s.n_records)) for s in plan.shards])

@@ -25,6 +25,7 @@ from htslib_tpu_torch import _build
 from htslib_tpu_torch.ops.seqfmt import (dec_len_device, itoa_fixed,
                                          nibble_to_base, qual_to_ascii,
                                          unpack_core_fields)
+from htslib_tpu_torch.sam.header import SamHeader
 from htslib_tpu_torch.sam.record import BamRecord, format_aux_blob
 
 CIG_CHARS = np.frombuffer(b"MIDNSHP=XB??????", np.uint8)
@@ -261,47 +262,123 @@ def _names_table(header) -> np.ndarray:
     return tbl
 
 
-def _check_records(pl: np.ndarray, offs: np.ndarray, sizes: np.ndarray):
-    """The errors `BamRecord.from_bam_buffer` raises, for the first record
-    that has one; returns each record's aux blob start."""
+def _lengths(c: torch.Tensor):
+    """l_read_name, n_cigar_op and the signed l_seq of core fields c
+    int64 [N, 32]."""
+    l_seq = c[:, 16] | (c[:, 17] << 8) | (c[:, 18] << 16) | (c[:, 19] << 24)
+    l_seq = torch.where(l_seq >= 1 << 31, l_seq - (1 << 32), l_seq)
+    return c[:, 8], c[:, 12] | (c[:, 13] << 8), l_seq
+
+
+def _u32(c: torch.Tensor, at: int) -> torch.Tensor:
+    """The little-endian u32 at byte `at` of core fields c, as int64."""
+    return (c[:, at] | (c[:, at + 1] << 8) | (c[:, at + 2] << 16)
+            | (c[:, at + 3] << 24))
+
+
+def _check_records(pl_t: torch.Tensor, offs: torch.Tensor,
+                   sizes: torch.Tensor):
+    """The size checks of `BamRecord.from_bam_buffer`, vectorised on the
+    payload's device.  Returns (the first record that fails one, or N;
+    each record's core fields int64 [N, 32]; each record's aux blob
+    start)."""
     base = offs + 4
     ok_size = sizes >= 32
-    core = np.where(ok_size[:, None], base[:, None] + np.arange(32), 0)
-    c = pl[core].astype(np.int64)
-    l_name = c[:, 8]
-    n_cig = c[:, 12] | (c[:, 13] << 8)
-    l_seq = (c[:, 16] | (c[:, 17] << 8) | (c[:, 18] << 16)
-             | (c[:, 19] << 24)).astype(np.uint32).astype(np.int32)
-    l_seq = l_seq.astype(np.int64)
+    core = torch.where(ok_size[:, None],
+                       base[:, None] + torch.arange(32, device=base.device),
+                       0)
+    c = pl_t[core].long()
+    l_name, n_cig, l_seq = _lengths(c)
     need = l_name + 4 * n_cig + (l_seq + 1) // 2 + l_seq
-    first = np.flatnonzero(~ok_size | (l_name == 0) | (32 + need > sizes))
-    if len(first):
-        i = first[0]
-        if not ok_size[i]:
-            raise ValueError("BAM record too short")
-        if l_name[i] == 0:
-            raise ValueError("BAM record: empty query name")
-        raise ValueError("BAM record: corrupt variable-length data")
-    return base + 32 + need
+    bad = torch.nonzero(~ok_size | (l_name == 0) | (32 + need > sizes))
+    first = int(bad[0, 0]) if bad.numel() else len(offs)
+    return first, c, base + 32 + need
+
+
+def _text_faults(pl_t: torch.Tensor, offs: torch.Tensor, c: torch.Tensor
+                 ) -> Tuple[int, np.ndarray]:
+    """What the host formatter (`BamRecord.to_sam`) refuses, or must do
+    its own way, in records whose sizes passed, vectorised on the
+    payload's device.  It raises UnicodeDecodeError on a QNAME byte past
+    0x7F, IndexError on a CIGAR op code past 9 (`format_cigar`), and
+    ValueError or UnicodeDecodeError on a quality past 94 (its text, q +
+    33, is no ASCII byte) unless the first quality is 0xFF.  A QNAME
+    holding a tab shifts the JAX wrapper's split of the host line, and a
+    record whose first CIGAR op is a soft clip of the whole query may
+    carry its CIGAR in a CG tag (bam_tag2cigar): both take the host
+    formatter's path.  Returns (the first refused record, or N; the
+    records for the host path)."""
+    dev = pl_t.device
+    n = len(offs)
+    if n == 0:
+        return 0, np.empty(0, np.int64)
+    u = pl_t.numel()
+    l_name, n_cig, l_seq = _lengths(c)
+    name_at = offs + 36
+    cig_at = name_at + l_name
+    qual_at = cig_at + 4 * n_cig + (l_seq + 1) // 2
+
+    # one region code a byte: 1 inside a QNAME's text, 2 inside a QUAL
+    # whose first byte is not 0xFF (the records' ranges are disjoint)
+    has_qual = (l_seq > 0) & (pl_t[qual_at.clamp(0, u - 1)] != 0xFF)
+    mark = torch.zeros(u + 1, dtype=torch.int32, device=dev)
+    for lo, hi, code in ((name_at, name_at + l_name - 1,
+                          torch.ones(n, dtype=torch.int32, device=dev)),
+                         (qual_at, qual_at + l_seq, 2 * has_qual.int())):
+        mark.index_add_(0, lo.clamp(0, u), code)
+        mark.index_add_(0, torch.where(code != 0, hi, lo).clamp(0, u), -code)
+    region = torch.cumsum(mark[:-1], 0, dtype=torch.int32)
+    refused = (((region == 1) & (pl_t >= 0x80))
+               | ((region == 2) & (pl_t >= 95)))
+    tabbed = (region == 1) & (pl_t == ord("\t"))
+
+    def rec_of(byte_mask):
+        at = torch.nonzero(byte_mask).flatten()
+        return torch.searchsorted(offs, at, right=True) - 1
+
+    op_rec = torch.repeat_interleave(torch.arange(n, device=dev), n_cig)
+    op_at = cig_at[op_rec] + 4 * (
+        torch.arange(len(op_rec), device=dev)
+        - (torch.cumsum(n_cig, 0) - n_cig)[op_rec])
+    bad_rec = torch.cat([rec_of(refused),
+                         op_rec[(pl_t[op_at] & 0xF) >= 10]])
+    first = int(bad_rec.min()) if bad_rec.numel() else n
+    cig0 = sum(pl_t[(cig_at + k).clamp(0, u - 1)].long() << (8 * k)
+               for k in range(4))
+    cg = ((n_cig > 0) & (cig0 == (4 | (l_seq << 4)))
+          & (_u32(c, 0) < 1 << 31) & (_u32(c, 4) < 1 << 31))
+    host = torch.unique(torch.cat([torch.nonzero(cg).flatten(),
+                                   rec_of(tabbed)]))
+    return first, host.cpu().numpy()
+
+
+def _host_tail(payload: bytes, off: int, size: int, header) -> str:
+    """A record's aux tail as the JAX wrapper takes it from the host
+    formatter: its line split on tabs, the fields past the eleventh."""
+    rec = BamRecord.from_bam_buffer(memoryview(payload), off + 4, size)
+    parts = rec.to_sam(SamHeader(ref_names=header.ref_names)).split("\t")
+    return "\t" + "\t".join(parts[11:]) if len(parts) > 11 else ""
 
 
 def _aux_texts(payload: bytes, offs: np.ndarray, sizes: np.ndarray,
-               aux_at: np.ndarray) -> dict:
+               aux_at: np.ndarray, host: np.ndarray, header) -> dict:
     """Record index -> its aux tail ("\\t" and the tags' SAM text) for the
-    records with a non-empty aux blob.  A blob holding a CG tag goes
-    through the whole record, whose parse moves a long CIGAR out of it
-    (bam_tag2cigar), as the JAX wrapper's host formatter does."""
+    records with a non-empty aux blob, in record order, so the first
+    record the host formatter refuses raises.  The records in `host`
+    (`_text_faults`) go through the whole host formatter, which moves a
+    long CIGAR out of a CG tag (bam_tag2cigar), as the JAX wrapper's
+    does."""
     out = {}
     ends = offs + 4 + sizes
-    mv = memoryview(payload)
-    for i in np.flatnonzero(ends > aux_at):
-        blob = payload[aux_at[i]:ends[i]]
-        if b"CG" in blob:
-            blob = BamRecord.from_bam_buffer(mv, int(offs[i]) + 4,
-                                             int(sizes[i])).aux
-        text = format_aux_blob(blob)
+    host_rows = set(host.tolist())
+    for i in np.union1d(np.flatnonzero(ends > aux_at), host):
+        if i in host_rows:
+            text = _host_tail(payload, int(offs[i]), int(sizes[i]), header)
+        else:
+            text = format_aux_blob(payload[aux_at[i]:ends[i]])
+            text = "\t" + text if text else ""
         if text:
-            out[int(i)] = "\t" + text
+            out[int(i)] = text
     return out
 
 
@@ -313,10 +390,13 @@ def bam_payload_to_sam_device(payload: bytes, header,
     the line prefixes (X5, B1 and torch ops), the aux tails rendered on
     the host (or `aux_texts`, one per record, as the JAX function takes
     them) and spliced in.  Byte-exact against the host formatter.
-    `header` is any object with `ref_names`.  Raises IOError on a
-    truncated stream.  `timing`, where given, gets seconds by part:
-    framing_s (the host framing scan, maxima and names table), upload_s,
-    scan_s (X5), format_s, download_s, aux_s (the tails) and splice_s."""
+    `header` is any object with `ref_names`.  Raises
+    IOError on a truncated stream and, with `aux_texts` None, what the
+    JAX function's host formatter raises, for the first record it
+    refuses.  `timing`, where given, gets seconds by part: framing_s (the
+    host framing scan, maxima and names table), upload_s, check_s (the
+    record checks), scan_s (X5), format_s, download_s, aux_s (the tails)
+    and splice_s."""
     dev = _build.resolve_device(device)
     clock = _build.clock
     t0 = clock(dev)
@@ -343,27 +423,42 @@ def bam_payload_to_sam_device(payload: bytes, header,
     tbl = _names_table(header)
     out_w = (max_qname + 11 * 4 + tbl.shape[1] * 2 + max_ops * (DIG_W + 1)
              + max_len * 2 + 16)
-    aux_at = _check_records(pl, o, sizes) if aux_texts is None else None
     t1 = clock(dev)
     pl_t = torch.from_numpy(pl.copy()).to(dev)
     tbl_t = torch.from_numpy(tbl).to(dev)
     t2 = clock(dev)
-    d_offs, _sizes, _n = device_record_scan(pl_t, N)
+    if aux_texts is None:
+        # the JAX wrapper formats every record on the host first: raise
+        # what it raises, for the first record it refuses
+        o_t = torch.from_numpy(o).to(dev)
+        first, c, aux_at = _check_records(pl_t, o_t,
+                                          torch.from_numpy(sizes).to(dev))
+        text_bad, host = _text_faults(pl_t, o_t[:first], c[:first])
+        aux_at = aux_at.cpu().numpy()
+        if min(first, text_bad) < N:
+            first = min(first, text_bad)
+            _aux_texts(payload, o[:first], sizes[:first], aux_at[:first],
+                       host[host < first], header)
+            _host_tail(payload, int(o[first]), int(sizes[first]), header)
+            raise RuntimeError(f"record {first}: refused by the record "
+                               "checks but not by the host formatter")
     t3 = clock(dev)
+    d_offs, _sizes, _n = device_record_scan(pl_t, N)
+    t4 = clock(dev)
     line, total = _format(pl_t, tbl_t, d_offs, max_qname, max_ops, max_len,
                           out_w)
-    t4 = clock(dev)
+    t5 = clock(dev)
     # out_w leaves room past the longest line for its newline
     line[torch.arange(N, device=dev), total.long()] = ord("\n")
     keep = torch.arange(out_w, device=dev)[None, :] <= total[:, None]
     text = line[keep].cpu().numpy().tobytes()
     ends = np.cumsum(total.cpu().numpy().astype(np.int64) + 1) - 1
-    t5 = clock(dev)
+    t6 = clock(dev)
     if aux_texts is None:
-        tails = _aux_texts(payload, o, sizes, aux_at)
+        tails = _aux_texts(payload, o, sizes, aux_at, host, header)
     else:
         tails = {i: s for i, s in enumerate(aux_texts) if s}
-    t6 = clock(dev)
+    t7 = clock(dev)
     if tails:
         pieces, prev = [], 0
         for i in sorted(tails):
@@ -372,8 +467,8 @@ def bam_payload_to_sam_device(payload: bytes, header,
         pieces.append(text[prev:])
         text = b"".join(pieces)
     if timing is not None:
-        timing.update(framing_s=t1 - t0, upload_s=t2 - t1, scan_s=t3 - t2,
-                      format_s=t4 - t3, download_s=t5 - t4, aux_s=t6 - t5,
-                      splice_s=clock(dev) - t6,
+        timing.update(framing_s=t1 - t0, upload_s=t2 - t1, check_s=t3 - t2,
+                      scan_s=t4 - t3, format_s=t5 - t4, download_s=t6 - t5,
+                      aux_s=t7 - t6, splice_s=clock(dev) - t7,
                       records=N, aux_records=len(tails))
     return text

@@ -26,6 +26,7 @@ from htslib_tpu_torch import carry
 from htslib_tpu_torch.ops import bam2sam as tb
 from htslib_tpu_torch.ops import inflate as tinf
 from htslib_tpu_torch.sam.header import SamHeader
+from htslib_tpu_torch.sam.record import BamRecord
 from test_torch_gpu import scan_payloads
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -99,8 +100,8 @@ def test_bam_payload_to_sam_matches_jax():
                                        timing=timing)
     assert got == want
     assert timing["records"] == 300 and timing["aux_records"] > 200
-    assert set(timing) >= {"framing_s", "upload_s", "scan_s", "format_s",
-                           "download_s", "aux_s", "splice_s"}
+    assert set(timing) >= {"framing_s", "upload_s", "check_s", "scan_s",
+                           "format_s", "download_s", "aux_s", "splice_s"}
     # aux tails handed in, one a record, as the JAX function takes them
     tails = ["\tXX:i:%d" % i if i % 3 else "" for i in range(300)]
     assert (tb.bam_payload_to_sam_device(payload, JHDR, aux_texts=tails,
@@ -122,6 +123,80 @@ def test_bam_payload_to_sam_errors_match_jax():
                                                      device="cpu")):
         with pytest.raises(ValueError, match="BAM record too short"):
             run()
+
+
+def _record(i, **fields) -> bytes:
+    """A framed BAM record: r<i> at 10 * i on the first reference, 5M,
+    ACGTA at quality 30, with `fields` set on the port's record model."""
+    b = BamRecord()
+    b.qname, b.tid, b.pos, b.flag = b"r%d" % i, 0, 10 * i, 0
+    b.cigar = np.array([(5 << 4) | 0], np.uint32)
+    b.set_seq("ACGTA", bytes([30] * 5))
+    for k, v in fields.items():
+        setattr(b, k, v)
+    body = b.to_bam_buffer()
+    return len(body).to_bytes(4, "little") + body
+
+
+def _outcome(run):
+    try:
+        return "text", run()
+    except Exception as e:          # the exception is what is compared
+        return type(e).__name__, str(e)
+
+
+BAD_AUX = b"XXq\x01"                # an aux type no formatter knows
+C1_CASES = {
+    "cigar_op_12": [_record(0), _record(1, cigar=np.array(
+        [(5 << 4) | 12], np.uint32)), _record(2)],
+    "qname_byte_0x80": [_record(0), _record(1, qname=b"ab\xc3\xa9"),
+                        _record(2)],
+    "aux_before_qname": [_record(0), _record(1, aux=BAD_AUX),
+                         _record(2, qname=b"\x80x")],
+    "qname_before_aux": [_record(0), _record(1, qname=b"\x80x"),
+                         _record(2, aux=BAD_AUX)],
+    "cigar_before_size": [_record(0, cigar=np.array([(3 << 4) | 15],
+                                                    np.uint32)),
+                          (12).to_bytes(4, "little") + bytes(12)],
+    "quality_95": [_record(0, qual=bytes([30, 30, 95, 30, 30]))],
+    "quality_223": [_record(0, qual=bytes([30, 30, 223, 30, 30]))],
+    "quality_missing": [_record(0, qual=bytes([255, 30, 240, 30, 30]))],
+    "qname_tab": [_record(0, qname=b"a\tb", aux=b"NMC\x03"), _record(1)],
+}
+C1_RAISES = {"cigar_op_12": "IndexError",
+             "qname_byte_0x80": "UnicodeDecodeError",
+             "aux_before_qname": "ValueError",
+             "qname_before_aux": "UnicodeDecodeError",
+             "cigar_before_size": "IndexError",
+             "quality_95": "UnicodeDecodeError",
+             "quality_223": "ValueError"}
+
+
+@pytest.mark.parametrize("name", list(C1_CASES))
+def test_bam_payload_to_sam_refuses_what_jax_refuses(name):
+    """With aux_texts None the JAX wrapper formats every record on the
+    host, so the port raises its exception, with its message, for the
+    record it fails on first (size, QNAME, CIGAR, quality, then aux, in
+    record order), and returns its text where it returns."""
+    payload = b"".join(C1_CASES[name])
+    want = _outcome(lambda: jb.bam_payload_to_sam_device(payload, JHDR))
+    got = _outcome(lambda: tb.bam_payload_to_sam_device(payload, JHDR,
+                                                        device="cpu"))
+    assert got == want
+    assert got[0] == C1_RAISES.get(name, "text")
+
+
+def test_bam_payload_to_sam_with_aux_texts_returns_text():
+    """With aux_texts given neither side runs the host formatter: both
+    return the device's text, "?" for op code 12 and the QNAME's raw
+    bytes."""
+    payload = b"".join(C1_CASES["cigar_op_12"] + C1_CASES["qname_byte_0x80"])
+    tails = ["\tXX:i:%d" % i for i in range(6)]
+    got = tb.bam_payload_to_sam_device(payload, JHDR, aux_texts=tails,
+                                       device="cpu")
+    assert got == jb.bam_payload_to_sam_device(payload, JHDR,
+                                               aux_texts=tails)
+    assert b"\t5?\t" in got and b"ab\xc3\xa9\t" in got
 
 
 def test_zlib_inflate_bam2sam_chain():

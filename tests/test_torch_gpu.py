@@ -1130,3 +1130,26 @@ def test_realn_on_card_matches_cpu(card, flag):
     assert _build.LAUNCHES["probaln"] >= 1
     assert got == trl.sam_prob_realn_batch(b, ref, flag, device="cpu")
     assert [r.to_bam_buffer() for r in a] == [r.to_bam_buffer() for r in b]
+
+
+def test_mesh_steps_nccl_world_of_one(card):
+    """The mesh steps (parallel/mesh.py, B1 inside the decode step) on
+    cuda:0 as a world of one under NCCL, and as two gloo ranks whose
+    compute runs on the card: the outputs of a gloo world of one on the
+    CPU."""
+    import torch_ranks
+    from htslib_tpu_torch.parallel.launch import run_ranks
+    x = torch_ranks.mesh_inputs(1)
+    (want,) = run_ranks(torch_ranks.mesh_steps, 1, (x, "cpu"), timeout=240)
+    (got,) = run_ranks(torch_ranks.mesh_steps, 1, (x, "cuda"),
+                       backend="nccl", timeout=240)
+    assert got["backend"] == "nccl" and got["device"].startswith("cuda")
+    for key in ("cov", "bases", "flags", "counts", "halo"):
+        assert np.array_equal(got[key], want[key]), key
+    x2 = torch_ranks.mesh_inputs(2)
+    cpu = run_ranks(torch_ranks.mesh_steps, 2, (x2, "cpu"), timeout=240)
+    gpu = run_ranks(torch_ranks.mesh_steps, 2, (x2, "cuda"), timeout=240)
+    for c, g in zip(cpu, gpu):
+        assert g["device"].startswith("cuda") and g["timing"]["staging_s"] > 0
+        for key in ("cov", "bases", "flags", "counts", "halo"):
+            assert np.array_equal(g[key], c[key]), key
