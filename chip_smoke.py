@@ -142,12 +142,33 @@ PyTorch version on the card and times both.  Phases:
      8's, their summed counters against the flagstat step's; each rank's
      times, collectives (all-reduce, ring, staging) and launches are
      printed, and the sharded decode's SAM MB/s;
+  5i. leg 11, CRAM -> SAM (cram/batch.py, parallel/distributed.py), run
+     after leg 9, its shards in leg 10b's ranks: a seeded 2 Mbp FASTA of
+     leg 8's two references, leg 8's varied records (with reads starting
+     within 2 Mbp, sorted, their M/=/X bases from the FASTA with 2%
+     substituted) written as BAM files.  11a: 40,000 records written by
+     bam_to_cram_file as a reference-based CRAM 3.0 at 10,000 records a
+     slice (4 containers), decoded whole by cram_file_to_sam on the card
+     (rANS blocks through uncompress_batch / uncompress_nx16_batch, the
+     records on the host, the SAM through X5 and B1), then planned into 4
+     shards, each of leg 10b's ranks decoding its own.  11b: 10,000
+     records as a CRAM 3.1 without a reference (rANS Nx16 4-way blocks,
+     X2 and X3; names by the host TOK3 codec), decoded whole.  Blocks by
+     wire are counted in a host pass first.  Truths: every data block
+     decoded on the card (decode_blocks, its launches not counted) equals
+     the host codec's bytes; each file's SAM text equals the host chain's
+     (host codecs, the record decode, sam/record.py to_sam; a process a
+     container); the shards' text in order equals 11a's.  Printed: the
+     encode s, the decode s whole and in parts (blocks on the card, host
+     blocks, record decode, formatting), SAM MB/s whole and over the 4
+     shards, each rank's shard decode s, blocks by wire and launches;
 
-Launch counts are reset just before phase 3 and read just after phase 5h,
-with leg 10b's ranks' counts added; legs 7-10 are also counted alone
-(reset just before each, read just after; 10b's in its ranks) and each
-must have launched its kernels (X4; X5 and B1; X6; B1, X4 and X5 in 10a
-and in 10b).
+Launch counts are reset just before phase 3 and read just after phase 5i,
+with leg 10b's ranks' counts added; legs 7-11 are also counted alone
+(reset just before each, read just after; 10b's and 11a's shards' in the
+ranks) and each must have launched its kernels (X4; X5 and B1; X6; B1,
+X4 and X5 in 10a and in 10b; X5, B1 and the kernel of every rANS wire
+its files hold, in leg 11 and in its shards).
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -203,6 +224,10 @@ N_RANKS = 4             # leg 10b's gloo ranks
 HALO_TILE = 1 << 18     # leg 10's coordinate tiles: 4 over 1 Mbp
 HALO = 1024             # and their halo (a read spans at most 150 bp)
 LEG10_TIMEOUT = 300     # seconds leg 10b's ranks may take together
+N_CRAM = 40_000         # leg 11a's records, 4 slices
+N_CRAM31 = 10_000       # leg 11b's records, one slice
+CRAM_SLICE = 10_000     # records a slice: htslib's default
+CRAM_SPAN = 2_000_000   # leg 11's reads start within 2 Mbp of a reference
 
 
 def _encode(data: bytes, wire: str = "nx16_o0") -> bytes:
@@ -419,9 +444,10 @@ def bam_record_stream(batch, read_len: int = BAM_READ_LEN,
 LEG8_REFS = ["chr1", "chrUn_KI270302v1"]
 
 
-def varied_bam_stream(n: int = 50_000, seed: int = 9):
+def varied_bam_stream(n: int = 50_000, seed: int = 9,
+                      pos_span: int = 250_000_000):
     """Leg 8's varied BAM record stream, built with the port's record
-    model: n records on LEG8_REFS, paired (mates on the same reference,
+    model: n records on LEG8_REFS, starting below `pos_span`, paired (mates on the same reference,
     "=", on the other, or none; negative TLENs), 1-8 CIGAR ops of
     M/I/D/N/S/=/X around the query, 2% unmapped (every "*" field), a few
     with no quality (0xFF) and a few with an empty SEQ, and aligner-style
@@ -451,7 +477,7 @@ def varied_bam_stream(n: int = 50_000, seed: int = 9):
         b.flag = (4 if unmapped else 0) | (1 if paired else 0) | int(
             rng.choice([0, 16, 256, 1024, 2048]))
         b.tid = -1 if unmapped else int(rng.integers(0, 2))
-        b.pos = -1 if unmapped else int(rng.integers(0, 250_000_000))
+        b.pos = -1 if unmapped else int(rng.integers(0, pos_span))
         b.mapq = 0 if unmapped else int(rng.integers(0, 61))
         if paired:
             b.mtid = int(rng.choice([b.tid, 0, 1, -1]))
@@ -924,21 +950,35 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                      "uncompress_batch": groups_4x8,
                      "uncompress_nx16_batch": groups_nx16}
 
-    for leg, run in (("leg7", lambda: leg7(device, bgzf, raws)),
-                     ("leg8", lambda: leg8(device, inflated, varied)),
-                     ("leg9", lambda: leg9(device, baq)),
-                     ("leg10a", lambda: leg10a(batch)),
-                     ("leg10b", lambda: leg10b(device, batch, bgzf,
-                                               chain_sam))):
-        t0 = time.time()
-        notes[leg], notes["launches_" + leg] = _counted(run)
-        secs[leg] = time.time() - t0
-        if leg == "leg7":
-            inflated = notes["leg7"].pop("inflated")
-        if leg == "leg8":
-            chain_sam = notes["leg8"].pop("chain_sam")
-    # leg 10b's kernels ran in its rank processes: their counts
-    notes["launches_leg10b"] = notes["leg10b"].pop("rank_launches")
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="leg11_")
+    try:
+        for leg, run in (("leg7", lambda: leg7(device, bgzf, raws)),
+                         ("leg8", lambda: leg8(device, inflated, varied)),
+                         ("leg9", lambda: leg9(device, baq)),
+                         ("leg11", lambda: leg11(device, tmp)),
+                         ("leg10a", lambda: leg10a(batch)),
+                         ("leg10b", lambda: leg10b(device, batch, bgzf,
+                                                   chain_sam, cram_plan))):
+            t0 = time.time()
+            notes[leg], notes["launches_" + leg] = _counted(run)
+            secs[leg] = time.time() - t0
+            if leg == "leg7":
+                inflated = notes["leg7"].pop("inflated")
+            if leg == "leg8":
+                chain_sam = notes["leg8"].pop("chain_sam")
+            if leg == "leg11":
+                cram_plan = notes["leg11"].pop("plan")
+        # leg 10b's kernels ran in its rank processes: their counts, with
+        # those of 11a's shard decodes apart
+        notes["launches_leg10b"] = notes["leg10b"].pop("rank_launches")
+        notes["launches_leg11_ranks"] = notes["leg10b"].pop(
+            "rank_cram_launches")
+        notes["leg11"]["check"] = leg11_check(
+            device, notes["leg11"], notes["leg10b"].pop("outs"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return args, secs, notes
 
 
@@ -1198,17 +1238,19 @@ def flag_counts_numpy(f):
                      (pm & ((f & 8) != 0)).sum()], np.int64)
 
 
-def leg10_rank(rank: int, n: int, device, batch, halo, plan, refs):
+def leg10_rank(rank: int, n: int, device, batch, halo, plan, refs,
+               cram_plan):
     """One of leg 10b's gloo ranks, its work on `device` (cuda:0): the
     dryrun, the full-size steps, then its shard of the BAM file (decode,
-    X4, X5 and B1; flagstat).  Returns its outputs, times and kernel
-    launches."""
+    X4, X5 and B1; flagstat) and its shard of leg 11a's CRAM file (rANS
+    blocks on the card, records on the host, X5 and B1).  Returns its
+    outputs, times and kernel launches (the CRAM shard's apart)."""
     import torch
 
     from htslib_tpu_torch import _build
     from htslib_tpu_torch.entry import dryrun_multichip
-    from htslib_tpu_torch.parallel.distributed import (decode_shard_to_sam,
-                                                       flagstat_shard)
+    from htslib_tpu_torch.parallel.distributed import (
+        decode_cram_shard_to_sam, decode_shard_to_sam, flagstat_shard)
     from htslib_tpu_torch.sam.header import SamHeader
     _build.reset_launches()
     t0 = _build.clock(device)
@@ -1226,18 +1268,30 @@ def leg10_rank(rank: int, n: int, device, batch, halo, plan, refs):
     t0 = _build.clock(device)
     out["shard_counts"] = flagstat_shard(plan, shard, device=device)
     out["shard_flagstat_s"] = _build.clock(device) - t0
+    before = dict(_build.LAUNCHES)
+    timing = {}
+    t0 = _build.clock(device)
+    out["cram_sam"] = decode_cram_shard_to_sam(
+        cram_plan, cram_plan.shards[rank], device=device, timing=timing)
+    out["cram_decode_s"] = _build.clock(device) - t0
+    out["cram_parts_s"] = {k: v for k, v in timing.items()
+                           if k.endswith("_s")}
+    out["cram_launches"] = {k: v - before[k] for k, v in
+                            _build.LAUNCHES.items() if v > before[k]}
     out["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
     return out
 
 
-def leg10b(device, batch, bgzf, chain_sam):
+def leg10b(device, batch, bgzf, chain_sam, cram_plan):
     """Leg 10b: N_RANKS gloo ranks (spawned processes, compute on device)
     run dryrun_multichip(N_RANKS), the full-size steps and a shard each of
     leg 7's stream written as a BAM file (a header member, leg 7's 1,232
-    members, the EOF member), planned once here.  Every output is held
-    against numpy, the shards' SAM text against leg 8's single-process
-    text, their counters against the flagstat step's.  Returns its notes
-    with each rank's launches."""
+    members, the EOF member), planned once here, and a shard each of leg
+    11a's CRAM file (`cram_plan`).  Every output is held against numpy,
+    the shards' SAM text against leg 8's single-process text, their
+    counters against the flagstat step's (the CRAM shards are held by
+    leg11_check).  Returns its notes with each rank's launches, the CRAM
+    shards' apart, and the ranks' outputs."""
     import shutil
     import tempfile
 
@@ -1269,7 +1323,8 @@ def leg10b(device, batch, bgzf, chain_sam):
             torch.cuda.empty_cache()
         ranks = {}
         outs = run_ranks(leg10_rank, N_RANKS, (
-            device, batch, halo_layout(starts, ends), plan, LEG8_REFS),
+            device, batch, halo_layout(starts, ends), plan, LEG8_REFS,
+            cram_plan),
             backend="gloo", timeout=LEG10_TIMEOUT, timing=ranks)
         notes["ranks_s"] = ranks.pop("wall_s")
     finally:
@@ -1288,15 +1343,226 @@ def leg10b(device, batch, bgzf, chain_sam):
     notes["sharded_decode_s"] = decode
     notes["sharded_decode_MBps"] = len(sam) / decode / 1e6
     notes["rank_launches"] = {}
+    notes["rank_cram_launches"] = {}
     for o in outs:
-        for k, v in o["launches"].items():
-            notes["rank_launches"][k] = notes["rank_launches"].get(k, 0) + v
+        for key, sub in (("rank_launches", "launches"),
+                         ("rank_cram_launches", "cram_launches")):
+            for k, v in o[sub].items():
+                notes[key][k] = notes[key].get(k, 0) + v
     notes["ranks"] = [{k: v for k, v in o.items() if k.endswith("_s")
                        or k.endswith("_collective") or k == "launches"}
                       for o in outs]
+    notes["outs"] = outs
     for r, rank in enumerate(notes["ranks"]):
         rank.update({k: v[r] for k, v in ranks.items()})
     return notes
+
+
+def leg11_records(n: int, seed: int, seqs):
+    """Leg 11's records: varied_bam_stream(n, seed) with reads starting
+    within CRAM_SPAN of their reference, sorted by reference and position
+    (unmapped last), their M/=/X bases copied from `seqs` (name -> uint8
+    bases) with 2% substituted.  Returns the u32-framed payload."""
+    from htslib_tpu_torch.sam.record import BamRecord
+    rng = np.random.default_rng(seed)
+    payload = varied_bam_stream(n, seed, pos_span=CRAM_SPAN)
+    mv, recs, p = memoryview(payload), [], 0
+    while p < len(payload):
+        size = int.from_bytes(payload[p:p + 4], "little")
+        recs.append(BamRecord.from_bam_buffer(mv, p + 4, size))
+        p += 4 + size
+    recs.sort(key=lambda r: (r.tid < 0, r.tid, r.pos))
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for b in recs:
+        if b.tid >= 0 and b.l_qseq:
+            ref = seqs[LEG8_REFS[b.tid]]
+            seq = np.frombuffer(b.seq.encode(), np.uint8).copy()
+            q, rp = 0, b.pos
+            for c in b.cigar.tolist():
+                op, ln = c & 15, c >> 4
+                if op in (0, 7, 8):
+                    seq[q:q + ln] = np.where(rng.random(ln) < 0.02,
+                                             acgt[rng.integers(0, 4, ln)],
+                                             ref[rp:rp + ln])
+                q += ln if op in (0, 1, 4, 7, 8) else 0
+                rp += ln if op in (0, 2, 3, 7, 8) else 0
+            b.set_seq(seq.tobytes().decode(), b.qual)
+        body = b.to_bam_buffer()
+        out.append(struct.pack("<I", len(body)) + body)
+    return b"".join(out)
+
+
+def leg11_inputs(tmp: str, seed: int = 11):
+    """Leg 11's files in `tmp`: a seeded FASTA of LEG8_REFS, each
+    CRAM_SPAN + 1,000 bases (longer than any read's end), with its .fai
+    built here once; leg11_records over it written as a BAM for 11a
+    (N_CRAM records) and 11b (N_CRAM31).  Returns (fasta, bam_a, bam_b)."""
+    from htslib_tpu_torch.faidx import Faidx
+    from htslib_tpu_torch.sam.bam import write_bam_header
+    from htslib_tpu_torch.sam.header import SamHeader
+    from htslib_tpu_torch.bgzf import BgzfWriter
+    rng = np.random.default_rng(seed)
+    length = CRAM_SPAN + 1000
+    fasta = os.path.join(tmp, "leg11.fa")
+    seqs = {}
+    with open(fasta, "wb") as fp:
+        for name in LEG8_REFS:
+            seqs[name] = np.frombuffer(b"ACGT", np.uint8)[
+                rng.integers(0, 4, length)]
+            lines = seqs[name].tobytes()
+            fp.write(b">" + name.encode() + b"\n" + b"".join(
+                lines[i:i + 60] + b"\n" for i in range(0, length, 60)))
+    Faidx.load(fasta)
+    hdr = SamHeader("@HD\tVN:1.6\tSO:coordinate\n" + "".join(
+        f"@SQ\tSN:{name}\tLN:{length}\n" for name in LEG8_REFS))
+    bams = []
+    for tag, n in (("a", N_CRAM), ("b", N_CRAM31)):
+        path = os.path.join(tmp, f"leg11{tag}.bam")
+        with BgzfWriter(path, level=1) as w:
+            write_bam_header(w, hdr)
+            w.write(leg11_records(n, seed + len(bams) + 1, seqs))
+        bams.append(path)
+    return fasta, bams[0], bams[1]
+
+
+def cram_blocks(path: str):
+    """(container offset, the container's CORE and EXTERNAL blocks) of
+    every data container of a CRAM file, read on the host."""
+    from htslib_tpu_torch.cram import CRAM_EOF_START
+    from htslib_tpu_torch.cram.io import CramIO, read_file_definition
+    from htslib_tpu_torch.cram.structs import CT_CORE, CT_EXTERNAL
+    out = []
+    with open(path, "rb") as fp:
+        version, _ = read_file_definition(fp)
+        io_ = CramIO(fp, version)
+        c = io_.read_container_header()
+        fp.seek(c.data_offset + c.length)
+        while True:
+            c = io_.read_container_header()
+            if c is None or (c.ref_seq_id == -1
+                             and c.ref_seq_start == CRAM_EOF_START):
+                break
+            end = c.data_offset + c.length
+            blocks = []
+            while fp.tell() < end:
+                b = io_.read_block()
+                if b.content_type in (CT_CORE, CT_EXTERNAL):
+                    blocks.append(b)
+            if c.num_records:
+                out.append((c.offset, blocks))
+    return out
+
+
+def _host_cram_truth(path: str, ref, offset: int):
+    """The host chain over the container at `offset`: each data block
+    decoded by the port's host codec (its MD5, in file order), each slice
+    decoded by cram/decode.py and every record formatted by sam/record.py
+    to_sam.  Returns (digests, SAM text)."""
+    import hashlib
+    from htslib_tpu_torch.cram import CramReader
+    from htslib_tpu_torch.cram.batch import _slice_jobs
+    from htslib_tpu_torch.cram.decode import decode_slice
+    from htslib_tpu_torch.cram.structs import CT_CORE, CT_EXTERNAL
+    digests, lines = [], []
+    with CramReader(path, ref=ref) as r:
+        r.fp.seek(offset)
+        for chdr, sh, blocks in _slice_jobs(r, offset + 1):
+            digests += [hashlib.md5(b.uncompress()).digest() for b in blocks
+                        if b.content_type in (CT_CORE, CT_EXTERNAL)]
+            lines += [rec.to_sam(r.header) for rec in decode_slice(
+                chdr, sh, blocks, r.header, r.refs.get, r.version[0])]
+    return digests, ("\n".join(lines) + "\n").encode() if lines else b""
+
+
+def leg11(device, tmp: str):
+    """Leg 11's work in this process: 11a's BAM written as a reference-
+    based CRAM 3.0 (CRAM_SLICE records a slice) and decoded whole by
+    cram_file_to_sam on the card, then planned into N_RANKS shards for
+    leg 10b's ranks; 11b's BAM written as a CRAM 3.1 without a reference
+    and decoded whole.  Returns its notes (times, the texts, the plan,
+    blocks by wire from a host pass over each file)."""
+    from htslib_tpu_torch.cram.batch import (bam_to_cram_file, block_wire,
+                                             cram_file_to_sam)
+    from htslib_tpu_torch.parallel.distributed import plan_cram_shards
+    t0 = time.time()
+    fasta, bam_a, bam_b = leg11_inputs(tmp)
+    notes = {"inputs_s": time.time() - t0}
+    for tag, bam, ref, version in (("11a", bam_a, fasta, (3, 0)),
+                                   ("11b", bam_b, None, (3, 1))):
+        cram = os.path.join(tmp, f"leg{tag}.cram")
+        t0 = time.time()
+        n = bam_to_cram_file(bam, cram, ref=ref, version=version,
+                             seqs_per_slice=CRAM_SLICE)
+        leg = {"records": n, "encode_s": time.time() - t0,
+               "cram_bytes": os.path.getsize(cram), "path": cram,
+               "ref": ref}
+        leg["wires"] = {}
+        for _, blocks in cram_blocks(cram):
+            for b in blocks:
+                w = block_wire(b) or "host"
+                leg["wires"][w] = leg["wires"].get(w, 0) + 1
+        timing = {}
+        t0 = time.time()
+        _, sam = cram_file_to_sam(cram, ref=ref, device=device,
+                                  timing=timing)
+        leg["decode_s"] = time.time() - t0
+        leg["sam"] = sam.tobytes()
+        leg["sam_MBps"] = len(sam) / leg["decode_s"] / 1e6
+        leg["parts"] = {k: v for k, v in timing.items()
+                        if k not in ("wires", "format")}
+        leg["format_parts"] = timing["format"]
+        require(timing["records"] == n, f"leg {tag} records")
+        notes[tag] = leg
+    plan = plan_cram_shards(notes["11a"]["path"], N_RANKS, ref=fasta)
+    require(len(plan.shards) == N_RANKS, "leg 11a plan's shards")
+    notes["plan"] = plan
+    return notes
+
+
+def leg11_check(device, notes, rank_outs):
+    """Leg 11's truths, after leg 10b's ranks decoded 11a's shards: every
+    data block of both files decoded by decode_blocks on the card (its
+    launches not counted) equals the host codec's bytes; each whole-file
+    text equals the host chain's (_host_cram_truth, a process a
+    container); the ranks' shards in order equal 11a's whole text.
+    Returns the notes of the check."""
+    import hashlib
+
+    from htslib_tpu_torch import _build
+    from htslib_tpu_torch.cram.batch import decode_blocks
+    t0 = time.time()
+    jobs = [(tag, notes[tag]["path"], notes[tag]["ref"], off, blocks)
+            for tag in ("11a", "11b")
+            for off, blocks in cram_blocks(notes[tag]["path"])]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        futs = [pool.submit(_host_cram_truth, path, ref, off)
+                for _, path, ref, off, _ in jobs]
+        before = dict(_build.LAUNCHES)
+        n_dev = 0
+        for *_, blocks in jobs:
+            counts = decode_blocks(blocks, device=device)
+            n_dev += sum(v for k, v in counts.items() if k != "host")
+        _build.LAUNCHES.update(before)
+        truths = [f.result() for f in futs]
+    for (tag, _, _, off, blocks), (digests, _) in zip(jobs, truths):
+        got = [hashlib.md5(b._uncompressed).digest() for b in blocks]
+        require(got == digests, f"leg {tag} container at {off}: a block "
+                "decoded on the card != the host codec's bytes")
+    for tag in ("11a", "11b"):
+        text = b"".join(t for (g, *_), (_, t) in zip(jobs, truths)
+                        if g == tag)
+        require(notes[tag]["sam"] == text,
+                f"leg {tag} SAM != the host chain's")
+    shards = b"".join(o.pop("cram_sam") for o in rank_outs)
+    require(shards == notes["11a"]["sam"],
+            "leg 11a sharded CRAM decode != single-process SAM")
+    return {"check_s": time.time() - t0, "blocks_checked":
+            sum(len(j[4]) for j in jobs), "device_blocks_checked": n_dev,
+            "shards_sam_MBps": len(shards) / max(
+                o["cram_decode_s"] for o in rank_outs) / 1e6}
 
 
 def bgzf_blocks(blob: bytes):
@@ -2152,10 +2418,25 @@ def main() -> int:
                       ("leg10a", ["nibble_to_base", "inflate",
                                   "record_scan"]),
                       ("leg10b", ["nibble_to_base", "inflate",
-                                  "record_scan"])):
+                                  "record_scan"]),
+                      ("leg11", ["nibble_to_base", "record_scan"]),
+                      ("leg11_ranks", ["nibble_to_base", "record_scan"])):
         got = notes["launches_" + leg]
         for k in need:
             require(got.get(k, 0) >= 1, f"kernel {k} not launched in {leg}")
+    # every wire of leg 11's files launched its kernel (or, for an order-1
+    # table past A2_MAX rows, its dense variant): the whole files in this
+    # process, 11a's shards in the ranks
+    from htslib_tpu_torch.cram.batch import WIRE_KERNELS
+    for tag, leg in (("11a", "leg11"), ("11b", "leg11"),
+                     ("11a", "leg11_ranks")):
+        got = notes["launches_" + leg]
+        for wire in notes["leg11"][tag]["wires"]:
+            if wire != "host":
+                k = WIRE_KERNELS[wire]
+                require(got.get(k, 0) + got.get(k.replace(
+                    "_decode", "_dense_decode"), 0) >= 1,
+                    f"leg {tag}: wire {wire} launched no kernel in {leg}")
     print(f"main path ok: {secs}, launches {launches}", flush=True)
     print(f"leg 2 wall: {secs['leg2']:.3f} s, parts {notes['leg2']}",
           flush=True)
@@ -2177,6 +2458,20 @@ def main() -> int:
           f"{secs['leg10b']:.3f} s, {notes['leg10b']}", flush=True)
     for r, rank in enumerate(ranks):
         print(f"leg 10b rank {r}: {rank}", flush=True)
+    l11 = notes["leg11"]
+    print(f"leg 11 wall (this process): {secs['leg11']:.3f} s, inputs "
+          f"{l11['inputs_s']:.3f} s", flush=True)
+    for tag, what in (("11a", "CRAM 3.0 with a reference"),
+                      ("11b", "CRAM 3.1, no reference")):
+        leg = {k: v for k, v in l11[tag].items()
+               if k not in ("sam", "path", "ref")}
+        print(f"leg {tag} ({what}): {leg}", flush=True)
+    print(f"leg 11a over {N_RANKS} shards in leg 10b's ranks: SAM "
+          f"{l11['check']['shards_sam_MBps']:.6g} MB/s; each rank's "
+          "cram_decode_s " + json.dumps([r["cram_decode_s"] for r in ranks])
+          + ", parts " + json.dumps([r["cram_parts_s"] for r in ranks]),
+          flush=True)
+    print(f"leg 11 check: {l11['check']}", flush=True)
     print("launches by leg: " + json.dumps({k: v for k, v in notes.items()
                                             if k.startswith("launches_")}),
           flush=True)

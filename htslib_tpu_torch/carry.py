@@ -18,7 +18,9 @@ from the encoder's telescoped tables, and `from_jax_resolve_bench` and
 port's; `from_jax_names_table` and `from_jax_probaln` carry the BAM -> SAM
 chain's names table and the BAQ HMM's outputs, and
 `from_jax_bam_shard_plan` a BAM shard plan (its member arrays and
-shards), so the two packages' plans can be compared field by field.
+shards) and `from_jax_cram_shard_plan` a CRAM shard plan (its container
+arrays and shards), so the two packages' plans can be compared field by
+field.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from htslib_tpu_torch.ops.rans4x8 import NWAY4, Rans4x8Batch
 from htslib_tpu_torch.ops.rans_nx16 import (NWAY, TOTFREQ, Nx16Batch,
                                             exclusive_cumsum)
 from htslib_tpu_torch.ops.rans_nx16_o1 import Nx16O1Batch, frame_o1_tables
-from htslib_tpu_torch.parallel.distributed import BamShard, BamShardPlan
+from htslib_tpu_torch.parallel.distributed import (BamShard, BamShardPlan,
+                                                   CramShard, CramShardPlan)
 
 BLOCKS = 32  # streams per JAX order-0 Nx16 group
 
@@ -233,3 +236,14 @@ def from_jax_bam_shard_plan(plan):
         np.asarray(plan.usizes, np.uint32),
         [BamShard(int(s.index), int(s.ustart), int(s.uend),
                   int(s.n_records)) for s in plan.shards])
+
+
+def from_jax_cram_shard_plan(plan):
+    """A JAX `CramShardPlan` (htslib_tpu/parallel/distributed.py) as the
+    port's: its path and reference, the container arrays as int64 and
+    each shard's fields as Python ints."""
+    return CramShardPlan(
+        plan.path, plan.ref, np.asarray(plan.offsets, np.int64),
+        np.asarray(plan.ends, np.int64), np.asarray(plan.nrecs, np.int64),
+        [CramShard(int(s.index), int(s.offset), int(s.end),
+                   int(s.n_records)) for s in plan.shards])

@@ -4,10 +4,10 @@
 entry():             the BAM record-batch step: core-field unpack ->
                      nibble sequence expansion (kernel B1) -> pileup
                      coverage tile.
-dryrun_multichip(n): an n-rank dryrun on torch.distributed: BAM shard
-                     plans, per-rank decode and flagstat, the mesh's
-                     decode-pileup, flagstat and halo-ring steps, each
-                     against its single-process truth.
+dryrun_multichip(n): an n-rank dryrun on torch.distributed: BAM and
+                     CRAM shard plans, per-rank decode and flagstat, the
+                     mesh's decode-pileup, flagstat and halo-ring steps,
+                     each against its single-process truth.
 
     forward, args = entry()          # on the card
     total = forward(*args)           # int32 scalar tensor
@@ -147,20 +147,28 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
 
       1. the shard plan's decode (rank d formats shard d: X4, X5, B1) is
          the single-process SAM text, byte for byte;
-      2. `distributed_flagstat` equals the mesh flagstat step;
-      3. the mesh decode-pileup step's coverage equals the brute force;
-      4. the coordinate-sharded halo ring equals the brute force over the
+      2. the CRAM gate: the BAM written as a CRAM (100 records a slice, a
+         slice a container, no reference) and planned into container
+         shards, which must be more than one; each rank's shards decoded
+         (rANS blocks on the device, records on the host, X5 and B1) are
+         the single-process `cram_file_to_sam` text, byte for byte.  The
+         plan has max(n, 2) shards, rank d taking those whose index i has
+         i * n // max(n, 2) == d: at n = 1 the JAX function plans one
+         shard and fails its own check, here rank 0 decodes both;
+      3. `distributed_flagstat` equals the mesh flagstat step;
+      4. the mesh decode-pileup step's coverage equals the brute force;
+      5. the coordinate-sharded halo ring equals the brute force over the
          file's read spans (each rank's reads in its own slots).
 
-    The JAX function's CRAM gate (sharded CRAM -> SAM) is not run: it
-    waits for the port's host CRAM writer and reader (ROADMAP queue A)."""
+    Every range's blocks go to the device in one call (window 16)."""
     import shutil
     import tempfile
 
+    from htslib_tpu_torch.cram.batch import bam_to_cram_file, cram_file_to_sam
     from htslib_tpu_torch.ops.bam2sam import bam_payload_to_sam_device
-    from htslib_tpu_torch.parallel.distributed import (decode_shard_to_sam,
-                                                       distributed_flagstat,
-                                                       plan_bam_shards)
+    from htslib_tpu_torch.parallel.distributed import (
+        decode_cram_shard_to_sam, decode_shard_to_sam, distributed_flagstat,
+        plan_bam_shards, plan_cram_shards)
     from htslib_tpu_torch.parallel.mesh import (make_coord_sharded_pileup,
                                                 make_decode_pileup_step,
                                                 make_flagstat_step,
@@ -189,6 +197,22 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         single = bam_payload_to_sam_device(stream, hdr, device=dev)
         if not _same_concat(mesh, part, single):
             raise AssertionError("sharded decode != single-host output")
+
+        # 2b. CRAM container shards: sharded CRAM -> SAM == single-process
+        cram = os.path.join(tmp, "dry.cram")
+        bam_to_cram_file(bam, cram, seqs_per_slice=100,
+                         slices_per_container=1)
+        n_planned = max(n_devices, 2)
+        cplan = plan_cram_shards(cram, n_planned)
+        if len(cplan.shards) <= 1:
+            raise AssertionError("CRAM plan produced a single shard")
+        cpart = b"".join(
+            decode_cram_shard_to_sam(cplan, sh, window=16, device=dev)
+            for sh in cplan.shards if sh.index * n_devices // n_planned
+            == rank)
+        _, csingle = cram_file_to_sam(cram, window=16, device=dev)
+        if not _same_concat(mesh, cpart, csingle.tobytes()):
+            raise AssertionError("sharded CRAM decode != single-host output")
 
         # 2c. shard-merged flagstat == the mesh all-reduce step
         fs = distributed_flagstat(bam, n_devices, device=dev)

@@ -1,13 +1,16 @@
-"""Multi-process scale-out: port of the BAM part of
+"""Multi-process scale-out: port of the BAM and CRAM parts of
 htslib_tpu/parallel/distributed.py.
 
-The file-level unit of distribution is a shard plan: record-aligned
-ranges of a BAM file's uncompressed stream and the BGZF members that
-cover them.  A plan is computed once on the host and handed to every
-rank; each rank inflates only its covering members on the device
+The file-level unit of distribution is a shard plan, computed once on the
+host and handed to every rank; the shards' outputs concatenated in shard
+order are the single-process output.  A BAM plan holds record-aligned
+ranges of the file's uncompressed stream and the BGZF members that cover
+them: each rank inflates only its covering members on the device
 (ops/inflate.py, kernel X4) and formats or counts only its records
-(ops/bam2sam.py, kernel X5 and B1), so the shards' outputs concatenated
-in shard order are the single-process output.
+(ops/bam2sam.py, kernel X5 and B1).  A CRAM plan holds ranges of whole
+containers balanced by their bytes: each rank decodes only its
+containers (cram/batch.py `cram_range_to_sam`: rANS blocks on the
+device, records on the host, SAM formatting on the device).
 
 `initialize` joins this process to a torch.distributed world (the JAX
 package's wraps jax.distributed.initialize).
@@ -24,6 +27,8 @@ import torch.distributed as dist
 
 from htslib_tpu_torch import _build
 from htslib_tpu_torch.bgzf import check_member, member_payload, scan_blocks
+from htslib_tpu_torch.cram import CRAM_EOF_START, CramReader
+from htslib_tpu_torch.cram.batch import cram_range_to_sam
 from htslib_tpu_torch.ops.bam2sam import (bam_payload_to_sam_device,
                                           device_record_scan)
 from htslib_tpu_torch.ops.inflate import inflate_batch
@@ -182,3 +187,87 @@ def distributed_flagstat(path: str, n_shards: int,
     for sh in plan.shards:
         total += flagstat_shard(plan, sh, device=device)
     return total
+
+
+# ---------------------------------------------------------------------------
+# CRAM container shard plans: the container walk of cram_index.c:851-1021
+# ---------------------------------------------------------------------------
+
+@dataclass
+class CramShard:
+    index: int
+    offset: int          # absolute byte offset of the first container
+    end: int             # past-end byte offset of the last container
+    n_records: int
+
+
+@dataclass
+class CramShardPlan:
+    path: str
+    ref: Optional[str]
+    offsets: np.ndarray  # int64 per data container: its byte offset
+    ends: np.ndarray     # int64 per data container: its past-end offset
+    nrecs: np.ndarray    # int64 per data container: its records
+    shards: List[CramShard] = field(default_factory=list)
+
+
+def plan_cram_shards(path: str, n_shards: int,
+                     ref: Optional[str] = None) -> CramShardPlan:
+    """Split a CRAM into at most n_shards container-aligned shards
+    balanced by container bytes: one walk over the container headers
+    (the EOF container ends it, containers without records are skipped),
+    then shard k ends after the first container whose cumulative bytes
+    reach (k + 1) x ceil(total / n_shards)."""
+    offsets: List[int] = []
+    ends: List[int] = []
+    nrecs: List[int] = []
+    with CramReader(path, ref=ref) as r:
+        while True:
+            pos = r.fp.tell()
+            c = r.io.read_container_header()
+            if c is None:
+                break
+            if c.ref_seq_id == -1 and c.ref_seq_start == CRAM_EOF_START:
+                break
+            r.io.skip_container_data(c)
+            if c.length == 0 or c.num_records == 0:
+                continue
+            offsets.append(pos)
+            ends.append(c.data_offset + c.length)
+            nrecs.append(c.num_records)
+
+    plan = CramShardPlan(path, ref, np.asarray(offsets, np.int64),
+                         np.asarray(ends, np.int64),
+                         np.asarray(nrecs, np.int64))
+    nc = len(offsets)
+    if nc == 0:
+        return plan
+    csum = np.cumsum(plan.ends - plan.offsets)
+    per = (int(csum[-1]) + max(n_shards, 1) - 1) // max(n_shards, 1)
+    lo = 0
+    for si in range(n_shards):
+        if lo >= nc:
+            break
+        hi = int(np.searchsorted(csum, (si + 1) * per, side="left")) + 1
+        hi = max(hi, lo + 1)
+        if si == n_shards - 1:
+            hi = nc
+        hi = min(hi, nc)
+        plan.shards.append(CramShard(
+            si, int(plan.offsets[lo]), int(plan.ends[hi - 1]),
+            int(plan.nrecs[lo:hi].sum())))
+        lo = hi
+    return plan
+
+
+def decode_cram_shard_to_sam(plan: CramShardPlan, shard: CramShard,
+                             window: int = 4, device="cuda",
+                             timing: Optional[dict] = None) -> bytes:
+    """One rank's work: decode only this shard's containers
+    (cram/batch.py `cram_range_to_sam`, `window` slices a device call).
+    Concatenating the results in shard order gives the single-process
+    `cram_file_to_sam` text.  `timing` is cram_range_to_sam's."""
+    _, sam = cram_range_to_sam(plan.path, shard.offset, shard.end,
+                               ref=plan.ref, window=window, device=device,
+                               timing=timing)
+    return sam.tobytes()

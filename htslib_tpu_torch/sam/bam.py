@@ -46,9 +46,7 @@ def read_bam_header(fp: BinaryIO) -> SamHeader:
         (l_name,) = struct.unpack("<i", _take(fp, 4))
         names.append(_take(fp, l_name).rstrip(b"\0").decode("utf-8"))
         lens.append(struct.unpack("<i", _take(fp, 4))[0])
-    hdr = SamHeader(ref_names=names, ref_lens=lens)
-    hdr.text = text
-    return hdr
+    return SamHeader(text, ref_names=names, ref_lens=lens)
 
 
 def write_bam_header(fp, hdr) -> None:

@@ -1153,3 +1153,54 @@ def test_mesh_steps_nccl_world_of_one(card):
         assert g["device"].startswith("cuda") and g["timing"]["staging_s"] > 0
         for key in ("cov", "bases", "flags", "counts", "halo"):
             assert np.array_equal(g[key], c[key]), key
+
+
+@pytest.mark.parametrize("version", [(3, 0), (3, 1)], ids=["3.0", "3.1"])
+def test_cram_file_to_sam_on_card_matches_cpu(card, tmp_path, version):
+    """CRAM -> SAM (cram/batch.py) with the rANS blocks decoded and the
+    SAM formatted on the card: the CPU's text, each of the file's rANS
+    wires launching its kernel."""
+    from htslib_tpu_torch.cram import batch as tcb
+    from htslib_tpu_torch.entry import dryrun_records
+    from htslib_tpu_torch.sam.bam import BamWriter
+    hdr, recs = dryrun_records(600, seed=8)
+    bam, cram = str(tmp_path / "in.bam"), str(tmp_path / "x.cram")
+    with BamWriter(bam, hdr, level=1) as w:
+        for r in recs:
+            w.write(r)
+    tcb.bam_to_cram_file(bam, cram, version=version, seqs_per_slice=200)
+    _build.reset_launches()
+    timing = {}
+    _, got = tcb.cram_file_to_sam(cram, device=card, timing=timing)
+    wires = [w for w in timing["wires"] if w != "host"]
+    assert wires
+    for w in wires:
+        k = tcb.WIRE_KERNELS[w]
+        assert (_build.LAUNCHES[k] + _build.LAUNCHES.get(
+            k.replace("_decode", "_dense_decode"), 0)) >= 1, w
+    assert _build.LAUNCHES["record_scan"] >= 1
+    assert _build.LAUNCHES["nibble_to_base"] >= 1
+    _, want = tcb.cram_file_to_sam(cram, device="cpu")
+    assert got.tobytes() == want.tobytes()
+
+
+def test_cram_decode_blocks_on_card_every_wire(card):
+    """decode_blocks on the card over a block of every rANS wire (32-way
+    Nx16 too, which the port's encoder does not write) and a PACK block
+    that stays on the host: the host codec's bytes."""
+    from htslib_tpu_torch.cram import batch as tcb
+    from htslib_tpu_torch.cram.io import CramBlock
+    from htslib_tpu_torch.cram.structs import CT_EXTERNAL, RANS, RANSPR
+    rng = np.random.default_rng(13)
+    qual = rng.integers(2, 42, 20000, dtype=np.uint8).tobytes()
+    few = rng.integers(0, 4, 5000, dtype=np.uint8).tobytes()
+    datas = [(RANS, qual, r8.compress(qual, 0)),
+             (RANS, qual, r8.compress(qual, 1))]
+    datas += [(RANSPR, qual, compress(qual, f)) for f in (0, 1, 4, 5)]
+    datas.append((RANSPR, few, compress(few, 0x80)))
+    blocks = [CramBlock(m, CT_EXTERNAL, i, len(d), len(raw), d)
+              for i, (m, raw, d) in enumerate(datas)]
+    counts = tcb.decode_blocks(blocks, device=card)
+    assert counts["host"] == 1 and sum(counts.values()) == len(blocks)
+    for b, (_, raw, _) in zip(blocks, datas):
+        assert b._uncompressed == raw

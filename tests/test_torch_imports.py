@@ -46,6 +46,13 @@ def test_sources_found():
                  "htslib_tpu_torch/codecs/fqzcomp.py",
                  "htslib_tpu_torch/codecs/tok3.py",
                  "htslib_tpu_torch/cram/io.py",
+                 "htslib_tpu_torch/cram/__init__.py",
+                 "htslib_tpu_torch/cram/batch.py",
+                 "htslib_tpu_torch/cram/codecs.py",
+                 "htslib_tpu_torch/cram/decode.py",
+                 "htslib_tpu_torch/cram/encode.py",
+                 "htslib_tpu_torch/cram/refs.py",
+                 "htslib_tpu_torch/faidx.py",
                  "htslib_tpu_torch/ops/bam2sam.py",
                  "htslib_tpu_torch/ops/probaln.py",
                  "htslib_tpu_torch/realn.py",
