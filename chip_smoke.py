@@ -162,13 +162,32 @@ PyTorch version on the card and times both.  Phases:
      encode s, the decode s whole and in parts (blocks on the card, host
      blocks, record decode, formatting), SAM MB/s whole and over the 4
      shards, each rank's shard decode s, blocks by wire and launches;
+  5j. leg 12, BCF -> VCF (vcf/io.py, parallel/distributed.py), run after
+     leg 11, its shards in leg 10b's ranks: a seeded VCF in the layout of
+     a GATK joint-genotyping call set (20,000 records on 2 contigs, 32
+     samples; INFO DP, AC/AF (Number=A), AN, the DB flag and a short
+     String; FORMAT GT:AD:DP:GQ:PL with AD Number=R and PL Number=G; 10%
+     multi-allelic, 20% phased GTs, 2% missing values; FILTER PASS,
+     LowQual or q10) written to BCF by vcf_file_to_bcf (host).  12a:
+     bcf_file_to_vcf on the card (the file's members through X4, records
+     framed and formatted on the host), then plan_bcf_shards into 4 shards
+     on the card.  12b: each of leg 10b's ranks decodes its own shard
+     (decode_bcf_shard_to_vcf: only its members through X4).  Truths:
+     12a's text equals the host path's (zlib, the same formatter, in 8
+     processes); 12a's header and records re-encoded by to_bcf (8
+     processes) equal the file's inflated header and body; the shards'
+     text in order equals 12a's.  Printed: the encode s, each part's time
+     by the `timing` keys (read_s, inflate_s, frame_s, format_s), VCF MB/s
+     whole and over the 4 shards, X4's launches in leg 12;
 
-Launch counts are reset just before phase 3 and read just after phase 5i,
-with leg 10b's ranks' counts added; legs 7-11 are also counted alone
-(reset just before each, read just after; 10b's and 11a's shards' in the
-ranks) and each must have launched its kernels (X4; X5 and B1; X6; B1,
-X4 and X5 in 10a and in 10b; X5, B1 and the kernel of every rANS wire
-its files hold, in leg 11 and in its shards).
+Launch counts are reset just before phase 3 and read just after phase 5j,
+with leg 10b's ranks' counts added; legs 7-12 are also counted alone
+(reset just before each, read just after; 10b's, 11a's and 12b's shards'
+in the ranks) and each must have launched its kernels (X4; X5 and B1; X6;
+B1, X4 and X5 in 10a and in 10b; X5, B1 and the kernel of every rANS wire
+its files hold, in leg 11 and in its shards; X4 in leg 12 and in its
+shards).  The kernels line's X4 row gives leg 12's launches apart
+(launches_leg12).
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -228,6 +247,9 @@ N_CRAM = 40_000         # leg 11a's records, 4 slices
 N_CRAM31 = 10_000       # leg 11b's records, one slice
 CRAM_SLICE = 10_000     # records a slice: htslib's default
 CRAM_SPAN = 2_000_000   # leg 11's reads start within 2 Mbp of a reference
+N_VCF = 20_000          # leg 12's VCF records, on LEG12_CONTIGS
+N_SAMPLES = 32          # and their samples
+LEG12_CONTIGS = [("chr1", 248956422), ("chr2", 242193529)]
 
 
 def _encode(data: bytes, wire: str = "nx16_o0") -> bytes:
@@ -442,6 +464,99 @@ def bam_record_stream(batch, read_len: int = BAM_READ_LEN,
 
 
 LEG8_REFS = ["chr1", "chrUn_KI270302v1"]
+
+
+# leg 12's INFO and FORMAT fields, in the layout of a GATK joint-genotyping
+# (1000 Genomes style) call set
+LEG12_HEADER = [
+    "##fileformat=VCFv4.2",
+    '##FILTER=<ID=PASS,Description="All filters passed">',
+    '##FILTER=<ID=LowQual,Description="Low quality">',
+    '##FILTER=<ID=q10,Description="Quality below 10">',
+    '##INFO=<ID=DP,Number=1,Type=Integer,Description="Approximate read '
+    'depth">',
+    '##INFO=<ID=AC,Number=A,Type=Integer,Description="Allele count in '
+    'genotypes">',
+    '##INFO=<ID=AF,Number=A,Type=Float,Description="Allele frequency">',
+    '##INFO=<ID=AN,Number=1,Type=Integer,Description="Total number of '
+    'alleles in called genotypes">',
+    '##INFO=<ID=DB,Number=0,Type=Flag,Description="dbSNP membership">',
+    '##INFO=<ID=CSQ,Number=1,Type=String,Description="Consequence">',
+    '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+    '##FORMAT=<ID=AD,Number=R,Type=Integer,Description="Allelic depths">',
+    '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Read depth">',
+    '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="Genotype '
+    'quality">',
+    '##FORMAT=<ID=PL,Number=G,Type=Integer,Description="Phred-scaled '
+    'genotype likelihoods">']
+LEG12_CSQ = ["missense", "synonymous", "intron", "UTR3", "stop_gained"]
+
+
+def leg12_vcf(n: int = N_VCF, samples: int = N_SAMPLES,
+              seed: int = 12) -> bytes:
+    """Leg 12's VCF text: n sorted records over LEG12_CONTIGS (half on
+    each), `samples` samples, the fields of LEG12_HEADER.  10% of the
+    records multi-allelic (2-3 ALTs), 5% with a longer REF and 10% of the
+    ALTs insertions; 30% with an rs ID and the DB flag; FILTER PASS,
+    LowQual or q10 (80/12/8%); 20% of the GTs phased; 2% of the samples
+    missing whole, 2% of the AD vectors and QUALs missing."""
+    rng = np.random.default_rng(seed)
+    head = LEG12_HEADER + [f"##contig=<ID={c},length={ln}>"
+                           for c, ln in LEG12_CONTIGS]
+    head.append("\t".join(["#CHROM", "POS", "ID", "REF", "ALT", "QUAL",
+                           "FILTER", "INFO", "FORMAT"]
+                          + [f"S{i}" for i in range(samples)]))
+    acgt = "ACGT"
+    filters = ["PASS", "LowQual", "q10"]
+    lines = []
+    for (contig, _), m in zip(LEG12_CONTIGS, (n // 2, n - n // 2)):
+        for p in (np.cumsum(rng.integers(1, 2000, m)) + 10_000).tolist():
+            n_alt = 1 if rng.random() >= 0.1 else int(rng.integers(2, 4))
+            ref = acgt[rng.integers(4)]
+            if rng.random() < 0.05:
+                ref += "".join(acgt[i] for i in rng.integers(
+                    0, 4, rng.integers(1, 6)))
+            alts = []
+            while len(alts) < n_alt:
+                a = acgt[rng.integers(4)]
+                if rng.random() < 0.1:
+                    a += "".join(acgt[i] for i in rng.integers(
+                        0, 4, rng.integers(1, 4)))
+                if a != ref and a not in alts:
+                    alts.append(a)
+            na, db = n_alt + 1, rng.random() < 0.3
+            ng = na * (na + 1) // 2
+            gts = rng.integers(0, na, (samples, 2))
+            sep = np.where(rng.random(samples) < 0.2, "|", "/")
+            ad = rng.integers(0, 60, (samples, na))
+            dp = ad.sum(1)
+            gq = rng.integers(0, 100, samples)
+            pl = rng.integers(0, 3000, (samples, ng))
+            pl[np.arange(samples), rng.integers(0, ng, samples)] = 0
+            gone = rng.random(samples) < 0.02
+            no_ad = rng.random(samples) < 0.02
+            ad_s = [",".join(map(str, r)) for r in ad.tolist()]
+            pl_s = [",".join(map(str, r)) for r in pl.tolist()]
+            cols = ["./.:.:.:.:." if gone[s] else
+                    f"{gts[s, 0]}{sep[s]}{gts[s, 1]}:"
+                    f"{'.' if no_ad[s] else ad_s[s]}:{dp[s]}:{gq[s]}:"
+                    f"{pl_s[s]}" for s in range(samples)]
+            ac = [int((gts[~gone] == k + 1).sum()) for k in range(n_alt)]
+            an = 2 * int((~gone).sum())
+            info = [f"DP={int(dp[~gone].sum())}",
+                    "AC=" + ",".join(map(str, ac)),
+                    "AF=" + ",".join(f"{a / max(an, 1):.3f}" for a in ac),
+                    f"AN={an}"] + (["DB"] if db else []) + [
+                    "CSQ=" + LEG12_CSQ[int(rng.integers(len(LEG12_CSQ)))]]
+            lines.append("\t".join([
+                contig, str(p),
+                f"rs{int(rng.integers(1, 10**9))}" if db else ".",
+                ref, ",".join(alts),
+                f"{rng.random() * 5000:.2f}" if rng.random() >= 0.02
+                else ".",
+                filters[int(rng.choice(3, p=[0.8, 0.12, 0.08]))],
+                ";".join(info), "GT:AD:DP:GQ:PL"] + cols))
+    return ("\n".join(head) + "\n" + "\n".join(lines) + "\n").encode()
 
 
 def varied_bam_stream(n: int = 50_000, seed: int = 9,
@@ -952,15 +1067,17 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
 
     import shutil
     import tempfile
-    tmp = tempfile.mkdtemp(prefix="leg11_")
+    tmp = tempfile.mkdtemp(prefix="leg11_12_")
     try:
         for leg, run in (("leg7", lambda: leg7(device, bgzf, raws)),
                          ("leg8", lambda: leg8(device, inflated, varied)),
                          ("leg9", lambda: leg9(device, baq)),
                          ("leg11", lambda: leg11(device, tmp)),
+                         ("leg12", lambda: leg12(device, tmp)),
                          ("leg10a", lambda: leg10a(batch)),
                          ("leg10b", lambda: leg10b(device, batch, bgzf,
-                                                   chain_sam, cram_plan))):
+                                                   chain_sam, cram_plan,
+                                                   bcf_plan))):
             t0 = time.time()
             notes[leg], notes["launches_" + leg] = _counted(run)
             secs[leg] = time.time() - t0
@@ -970,13 +1087,24 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                 chain_sam = notes["leg8"].pop("chain_sam")
             if leg == "leg11":
                 cram_plan = notes["leg11"].pop("plan")
+            if leg == "leg12":
+                bcf_plan = notes["leg12"].pop("plan")
         # leg 10b's kernels ran in its rank processes: their counts, with
-        # those of 11a's shard decodes apart
+        # those of 11a's and 12b's shard decodes apart
         notes["launches_leg10b"] = notes["leg10b"].pop("rank_launches")
         notes["launches_leg11_ranks"] = notes["leg10b"].pop(
             "rank_cram_launches")
-        notes["leg11"]["check"] = leg11_check(
-            device, notes["leg11"], notes["leg10b"].pop("outs"))
+        notes["launches_leg12_ranks"] = notes["leg10b"].pop(
+            "rank_bcf_launches")
+        outs = notes["leg10b"].pop("outs")
+        # the host truths of legs 11 and 12 in one pool of processes
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                                 mp_context=ctx) as pool:
+            notes["leg11"]["check"] = leg11_check(device, notes["leg11"],
+                                                  outs, pool)
+            notes["leg12"]["check"] = leg12_check(notes["leg12"], outs,
+                                                  pool)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return args, secs, notes
@@ -1239,18 +1367,21 @@ def flag_counts_numpy(f):
 
 
 def leg10_rank(rank: int, n: int, device, batch, halo, plan, refs,
-               cram_plan):
+               cram_plan, bcf_plan):
     """One of leg 10b's gloo ranks, its work on `device` (cuda:0): the
     dryrun, the full-size steps, then its shard of the BAM file (decode,
-    X4, X5 and B1; flagstat) and its shard of leg 11a's CRAM file (rANS
-    blocks on the card, records on the host, X5 and B1).  Returns its
-    outputs, times and kernel launches (the CRAM shard's apart)."""
+    X4, X5 and B1; flagstat), its shard of leg 11a's CRAM file (rANS
+    blocks on the card, records on the host, X5 and B1) and its shard of
+    leg 12's BCF file (its members through X4, records on the host).
+    Returns its outputs, times and kernel launches (the CRAM and BCF
+    shards' apart)."""
     import torch
 
     from htslib_tpu_torch import _build
     from htslib_tpu_torch.entry import dryrun_multichip
     from htslib_tpu_torch.parallel.distributed import (
-        decode_cram_shard_to_sam, decode_shard_to_sam, flagstat_shard)
+        decode_bcf_shard_to_vcf, decode_cram_shard_to_sam,
+        decode_shard_to_sam, flagstat_shard)
     from htslib_tpu_torch.sam.header import SamHeader
     _build.reset_launches()
     t0 = _build.clock(device)
@@ -1278,20 +1409,30 @@ def leg10_rank(rank: int, n: int, device, batch, halo, plan, refs,
                            if k.endswith("_s")}
     out["cram_launches"] = {k: v - before[k] for k, v in
                             _build.LAUNCHES.items() if v > before[k]}
+    before = dict(_build.LAUNCHES)
+    timing = {}
+    t0 = _build.clock(device)
+    out["vcf"] = decode_bcf_shard_to_vcf(bcf_plan, bcf_plan.shards[rank],
+                                         device=device, timing=timing)
+    out["bcf_decode_s"] = _build.clock(device) - t0
+    out["bcf_parts_s"] = timing
+    out["bcf_launches"] = {k: v - before[k] for k, v in
+                           _build.LAUNCHES.items() if v > before[k]}
     out["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
     return out
 
 
-def leg10b(device, batch, bgzf, chain_sam, cram_plan):
+def leg10b(device, batch, bgzf, chain_sam, cram_plan, bcf_plan):
     """Leg 10b: N_RANKS gloo ranks (spawned processes, compute on device)
     run dryrun_multichip(N_RANKS), the full-size steps and a shard each of
     leg 7's stream written as a BAM file (a header member, leg 7's 1,232
-    members, the EOF member), planned once here, and a shard each of leg
-    11a's CRAM file (`cram_plan`).  Every output is held against numpy,
-    the shards' SAM text against leg 8's single-process text, their
-    counters against the flagstat step's (the CRAM shards are held by
-    leg11_check).  Returns its notes with each rank's launches, the CRAM
-    shards' apart, and the ranks' outputs."""
+    members, the EOF member), planned once here, a shard each of leg
+    11a's CRAM file (`cram_plan`) and a shard each of leg 12's BCF file
+    (`bcf_plan`).  Every output is held against numpy, the shards' SAM
+    text against leg 8's single-process text, their counters against the
+    flagstat step's (the CRAM and BCF shards are held by leg11_check and
+    leg12_check).  Returns its notes with each rank's launches, the CRAM
+    and BCF shards' apart, and the ranks' outputs."""
     import shutil
     import tempfile
 
@@ -1324,7 +1465,7 @@ def leg10b(device, batch, bgzf, chain_sam, cram_plan):
         ranks = {}
         outs = run_ranks(leg10_rank, N_RANKS, (
             device, batch, halo_layout(starts, ends), plan, LEG8_REFS,
-            cram_plan),
+            cram_plan, bcf_plan),
             backend="gloo", timeout=LEG10_TIMEOUT, timing=ranks)
         notes["ranks_s"] = ranks.pop("wall_s")
     finally:
@@ -1344,9 +1485,11 @@ def leg10b(device, batch, bgzf, chain_sam, cram_plan):
     notes["sharded_decode_MBps"] = len(sam) / decode / 1e6
     notes["rank_launches"] = {}
     notes["rank_cram_launches"] = {}
+    notes["rank_bcf_launches"] = {}
     for o in outs:
         for key, sub in (("rank_launches", "launches"),
-                         ("rank_cram_launches", "cram_launches")):
+                         ("rank_cram_launches", "cram_launches"),
+                         ("rank_bcf_launches", "bcf_launches")):
             for k, v in o[sub].items():
                 notes[key][k] = notes[key].get(k, 0) + v
     notes["ranks"] = [{k: v for k, v in o.items() if k.endswith("_s")
@@ -1520,11 +1663,11 @@ def leg11(device, tmp: str):
     return notes
 
 
-def leg11_check(device, notes, rank_outs):
+def leg11_check(device, notes, rank_outs, pool):
     """Leg 11's truths, after leg 10b's ranks decoded 11a's shards: every
     data block of both files decoded by decode_blocks on the card (its
     launches not counted) equals the host codec's bytes; each whole-file
-    text equals the host chain's (_host_cram_truth, a process a
+    text equals the host chain's (_host_cram_truth, a task of `pool` a
     container); the ranks' shards in order equal 11a's whole text.
     Returns the notes of the check."""
     import hashlib
@@ -1535,18 +1678,15 @@ def leg11_check(device, notes, rank_outs):
     jobs = [(tag, notes[tag]["path"], notes[tag]["ref"], off, blocks)
             for tag in ("11a", "11b")
             for off, blocks in cram_blocks(notes[tag]["path"])]
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
-                             mp_context=ctx) as pool:
-        futs = [pool.submit(_host_cram_truth, path, ref, off)
-                for _, path, ref, off, _ in jobs]
-        before = dict(_build.LAUNCHES)
-        n_dev = 0
-        for *_, blocks in jobs:
-            counts = decode_blocks(blocks, device=device)
-            n_dev += sum(v for k, v in counts.items() if k != "host")
-        _build.LAUNCHES.update(before)
-        truths = [f.result() for f in futs]
+    futs = [pool.submit(_host_cram_truth, path, ref, off)
+            for _, path, ref, off, _ in jobs]
+    before = dict(_build.LAUNCHES)
+    n_dev = 0
+    for *_, blocks in jobs:
+        counts = decode_blocks(blocks, device=device)
+        n_dev += sum(v for k, v in counts.items() if k != "host")
+    _build.LAUNCHES.update(before)
+    truths = [f.result() for f in futs]
     for (tag, _, _, off, blocks), (digests, _) in zip(jobs, truths):
         got = [hashlib.md5(b._uncompressed).digest() for b in blocks]
         require(got == digests, f"leg {tag} container at {off}: a block "
@@ -1563,6 +1703,100 @@ def leg11_check(device, notes, rank_outs):
             sum(len(j[4]) for j in jobs), "device_blocks_checked": n_dev,
             "shards_sam_MBps": len(shards) / max(
                 o["cram_decode_s"] for o in rank_outs) / 1e6}
+
+
+def leg12(device, tmp: str):
+    """Leg 12's work in this process (12a): leg12_vcf written to `tmp`
+    and encoded by vcf_file_to_bcf (host), then bcf_file_to_vcf on the
+    card (the body's members through X4, records framed and formatted on
+    the host), then plan_bcf_shards(N_RANKS) on the card for leg 10b's
+    ranks (12b).  Returns its notes (times, the text, the plan, the BCF's
+    path)."""
+    from htslib_tpu_torch.parallel.distributed import plan_bcf_shards
+    from htslib_tpu_torch.vcf.io import bcf_file_to_vcf, vcf_file_to_bcf
+    t0 = time.time()
+    vcf, bcf = os.path.join(tmp, "leg12.vcf"), os.path.join(tmp,
+                                                            "leg12.bcf")
+    with open(vcf, "wb") as fp:
+        fp.write(leg12_vcf(N_VCF))
+    notes = {"inputs_s": time.time() - t0, "vcf_bytes": os.path.getsize(vcf)}
+    t0 = time.time()
+    n = vcf_file_to_bcf(vcf, bcf)
+    notes.update(encode_s=time.time() - t0, bcf_bytes=os.path.getsize(bcf),
+                 path=bcf)
+    require(n == N_VCF, f"leg 12 records {n}")
+    timing = {}
+    t0 = time.time()
+    header, text = bcf_file_to_vcf(bcf, device=device, timing=timing)
+    notes["decode_s"] = time.time() - t0
+    notes.update(parts=timing, text=text, text_bytes=len(text),
+                 header=header.text(with_idx=True),
+                 vcf_MBps=len(text) / notes["decode_s"] / 1e6)
+    t0 = time.time()
+    plan = plan_bcf_shards(bcf, N_RANKS, device=device)
+    notes["plan_s"] = time.time() - t0
+    require(len(plan.shards) == N_RANKS, "leg 12 plan's shards")
+    require(sum(sh.rec_hi - sh.rec_lo for sh in plan.shards) == N_VCF,
+            "leg 12 plan's records")
+    notes.update(plan=plan, members=len(plan.coffsets))
+    return notes
+
+
+def _leg12_format(path: str, lo: int, hi: int) -> bytes:
+    """The host path over records [lo, hi) of a BCF file: the port's
+    BcfReader (zlib on the host), its frames formatted by
+    BcfRecord.from_bcf(...).to_vcf."""
+    from htslib_tpu_torch.vcf.io import BcfReader, format_frames, split_frames
+    with BcfReader(path) as r:
+        shared, indiv = split_frames(r.fp.read_all().tobytes())
+        return format_frames(shared[lo:hi], indiv[lo:hi], r.header)
+
+
+def _leg12_encode(header_text: str, body: bytes) -> bytes:
+    """VCF body text re-encoded by the port's from_vcf and to_bcf."""
+    from htslib_tpu_torch.vcf.header import BcfHeader
+    from htslib_tpu_torch.vcf.io import vcf_body_to_bcf_frames
+    return vcf_body_to_bcf_frames(body, BcfHeader(header_text))
+
+
+def leg12_check(notes, rank_outs, pool, parts: int = 8):
+    """Leg 12's truths, after leg 10b's ranks decoded 12b's shards: 12a's
+    text equals the host path's (zlib, BcfRecord.from_bcf(...).to_vcf;
+    `parts` tasks of `pool`, a range of records each); the header and the
+    records of 12a's text re-encoded by the port's to_bcf (`parts` tasks,
+    a range of lines each) give the file's inflated header and body byte
+    for byte; the ranks' shards in order equal 12a's text.  Returns the
+    notes of the check."""
+    import struct as _st
+
+    from htslib_tpu_torch.bgzf import BgzfReader
+    from htslib_tpu_torch.vcf.io import BCF_MAGIC
+    t0 = time.time()
+    path, text = notes["path"], notes["text"]
+    with BgzfReader(path) as r:
+        stream = r.read_all().tobytes()
+    hdr = notes["header"].encode() + b"\0"
+    require(stream[:len(BCF_MAGIC) + 4 + len(hdr)] == BCF_MAGIC
+            + _st.pack("<I", len(hdr)) + hdr, "leg 12 header re-encoded "
+            "!= the file's")
+    body = stream[len(BCF_MAGIC) + 4 + len(hdr):]
+    lines = text.split(b"\n")[:-1]
+    cuts = [len(lines) * k // parts for k in range(parts + 1)]
+    host = [pool.submit(_leg12_format, path, a, b)
+            for a, b in zip(cuts, cuts[1:])]
+    frames = [pool.submit(_leg12_encode, notes["header"],
+                          b"\n".join(lines[a:b]) + b"\n")
+              for a, b in zip(cuts, cuts[1:])]
+    require(b"".join(f.result() for f in host) == text,
+            "leg 12a VCF != the host path's")
+    require(b"".join(f.result() for f in frames) == body,
+            "leg 12a records re-encoded by to_bcf != the file's body")
+    shards = b"".join(o.pop("vcf") for o in rank_outs)
+    require(shards == text, "leg 12b sharded BCF decode != single-process "
+            "VCF")
+    decode = max(o["bcf_decode_s"] for o in rank_outs)
+    return {"check_s": time.time() - t0, "shards_decode_s": decode,
+            "shards_vcf_MBps": len(shards) / decode / 1e6}
 
 
 def bgzf_blocks(blob: bytes):
@@ -2420,7 +2654,8 @@ def main() -> int:
                       ("leg10b", ["nibble_to_base", "inflate",
                                   "record_scan"]),
                       ("leg11", ["nibble_to_base", "record_scan"]),
-                      ("leg11_ranks", ["nibble_to_base", "record_scan"])):
+                      ("leg11_ranks", ["nibble_to_base", "record_scan"]),
+                      ("leg12", ["inflate"]), ("leg12_ranks", ["inflate"])):
         got = notes["launches_" + leg]
         for k in need:
             require(got.get(k, 0) >= 1, f"kernel {k} not launched in {leg}")
@@ -2472,6 +2707,18 @@ def main() -> int:
           + ", parts " + json.dumps([r["cram_parts_s"] for r in ranks]),
           flush=True)
     print(f"leg 11 check: {l11['check']}", flush=True)
+    l12 = notes["leg12"]
+    print(f"leg 12 wall (this process): {secs['leg12']:.3f} s, "
+          + json.dumps({k: v for k, v in l12.items()
+                        if k not in ("text", "header", "path")}), flush=True)
+    print(f"leg 12a BCF -> VCF on the card ({N_VCF} records, {N_SAMPLES} "
+          f"samples): {l12['decode_s']:.3f} s, {l12['vcf_MBps']:.6g} MB/s "
+          f"of VCF, parts {json.dumps(l12['parts'])}", flush=True)
+    print(f"leg 12b over {N_RANKS} shards in leg 10b's ranks: VCF "
+          f"{l12['check']['shards_vcf_MBps']:.6g} MB/s; each rank's "
+          "bcf_decode_s " + json.dumps([r["bcf_decode_s"] for r in ranks])
+          + ", parts " + json.dumps([r["bcf_parts_s"] for r in ranks]),
+          flush=True)
     print("launches by leg: " + json.dumps({k: v for k, v in notes.items()
                                             if k.startswith("launches_")}),
           flush=True)
@@ -2494,6 +2741,8 @@ def main() -> int:
     print(f"phase 6, dense X1, X3, B5: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     rows.append(inflate_vs_plain(args[1].device, bgzf, launches))
+    rows[-1]["launches_leg12"] = sum(notes[k].get("inflate", 0) for k in (
+        "launches_leg12", "launches_leg12_ranks"))
     print(f"phase 6, X4: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     rows.append(record_scan_vs_plain(args[1].device, stream, N_RECORDS,

@@ -4,18 +4,27 @@ htslib_tpu/bgzf.py (reference bgzf.c, htslib/bgzf.h).
 A BGZF file is a run of gzip members, each one raw DEFLATE stream of at
 most 64 KiB of data with its compressed size in a "BC" extra subfield
 (bgzf.c:70-90), and an empty member at the end (BGZF_EOF).  This module
-writes members (`compress_block`, `bgzf_member`, `BgzfWriter`) and walks
-their sizes (`scan_blocks`); the port inflates their payloads on the
-device (ops/inflate.py).  It holds no seekable reader.
+writes members (`compress_block`, `bgzf_member`, `BgzfWriter`), walks
+their sizes (`scan_blocks`), reads BGZF, plain gzip or uncompressed input
+as a stream with virtual offsets (`BgzfReader`, zlib on the host), and
+inflates the members that cover a range of a file's uncompressed stream
+on the device (`inflate_range`: ops/inflate.py, kernel X4 on the card).
+The JAX package's `HFile` back ends, its `.gzi` index and `bgzf_useek`
+are not ported.
 """
 from __future__ import annotations
 
+import io
+import os
 import struct
 import zlib
 from dataclasses import dataclass
-from typing import BinaryIO, List, Union
+from typing import BinaryIO, List, Optional, Tuple, Union
 
 import numpy as np
+
+from htslib_tpu_torch import _build
+from htslib_tpu_torch.ops.inflate import inflate_batch
 
 BGZF_BLOCK_SIZE = 0xFF00        # htslib/bgzf.h:50
 BGZF_MAX_BLOCK_SIZE = 0x10000   # htslib/bgzf.h:51
@@ -146,6 +155,284 @@ def check_member(raw: np.ndarray, coffset: int, csize: int,
         raise IOError("BGZF CRC32 mismatch")
 
 
+def inflate_range(src: Union[str, np.ndarray], coffsets: np.ndarray,
+                  csizes: np.ndarray, ustarts: np.ndarray,
+                  usizes: np.ndarray, u0: int, u1: int, device="cuda",
+                  timing: Optional[dict] = None) -> bytes:
+    """Bytes [u0, u1) of a BGZF file's uncompressed stream.  `src` is the
+    file's path or its bytes (uint8); the members (compressed offset,
+    whole size, uncompressed start and ISIZE of each) are those of
+    `scan_blocks`.  Only the members that cover the range are read, and
+    they are inflated in one `inflate_batch` call on `device` (kernel X4
+    on the card, its plain version on the CPU), each CRC32 and ISIZE
+    checked on the host.  A file with no members (an uncompressed one) is
+    its own stream: its bytes [u0, u1) are read and nothing is launched.
+    `timing`, where given, gets read_s (the file's bytes) and inflate_s
+    (the call and the checks) added."""
+    dev = _build.resolve_device(device)
+    if u1 <= u0:
+        return b""
+    t0 = _build.clock(dev)
+    if len(coffsets) == 0:
+        out = _file_bytes(src, u0, u1 - u0).tobytes()
+        _add(timing, "read_s", _build.clock(dev) - t0)
+        return out
+    b_lo = max(int(np.searchsorted(ustarts, u0, side="right")) - 1, 0)
+    b_hi = max(int(np.searchsorted(ustarts, u1, side="left")), b_lo + 1)
+    first = int(coffsets[b_lo])
+    co = coffsets[b_lo:b_hi].astype(np.int64) - first
+    cs = csizes[b_lo:b_hi].astype(np.int64)
+    raw = _file_bytes(src, first, int(co[-1] + cs[-1]))
+    t1 = _build.clock(dev)
+    pieces = inflate_batch([member_payload(raw, o, s) for o, s in zip(co, cs)],
+                           [int(u) for u in usizes[b_lo:b_hi]], device=dev)
+    for o, s, piece in zip(co, cs, pieces):
+        check_member(raw, int(o), int(s), piece)
+    base = int(ustarts[b_lo])
+    out = b"".join(pieces)[u0 - base:u1 - base]
+    _add(timing, "read_s", t1 - t0)
+    _add(timing, "inflate_s", _build.clock(dev) - t1)
+    return out
+
+
+def _file_bytes(src: Union[str, np.ndarray], offset: int,
+                count: int) -> np.ndarray:
+    if isinstance(src, np.ndarray):
+        return src[offset:offset + count]
+    return np.fromfile(src, np.uint8, count=count, offset=offset)
+
+
+def _add(timing: Optional[dict], key: str, seconds: float) -> None:
+    if timing is not None:
+        timing[key] = timing.get(key, 0.0) + seconds
+
+
+# ---------------------------------------------------------------------------
+# Streaming reader and writer
+# ---------------------------------------------------------------------------
+
+def make_virtual_offset(coffset: int, uoffset: int) -> int:
+    return (coffset << 16) | uoffset
+
+
+def split_virtual_offset(voffset: int) -> Tuple[int, int]:
+    return voffset >> 16, voffset & 0xFFFF
+
+
+def decompress_block(comp: bytes) -> bytes:
+    """Inflate one whole BGZF member on the host, its CRC32 and ISIZE
+    checked (bgzf_uncompress, bgzf.c:730-806)."""
+    total = parse_block_header(comp)
+    raw = np.frombuffer(comp, np.uint8)
+    data = zlib.decompress(member_payload(raw, 0, total), -15,
+                           BGZF_MAX_BLOCK_SIZE)
+    check_member(raw, 0, total, data)
+    return data
+
+
+class BgzfReader:
+    """Streaming BGZF (or plain gzip, or uncompressed) reader with
+    virtual-offset seek/tell (bgzf_seek/bgzf_tell, bgzf.c:2175-2258), over
+    a path or a binary file object; the JAX package's `BGZFReader`, its
+    members inflated on the host by zlib."""
+
+    def __init__(self, src: Union[str, os.PathLike, BinaryIO],
+                 cache_blocks: int = 8):
+        if isinstance(src, (str, os.PathLike)):
+            self._fp = open(src, "rb")
+            self.name = os.fspath(src)
+        else:
+            self._fp = src if hasattr(src, "peek") else io.BufferedReader(src)
+            self.name = getattr(src, "name", "?")
+        head = self._fp.peek(BLOCK_HEADER_LENGTH)
+        self.is_gzip = len(head) >= 2 and head[0] == 0x1F and head[1] == 0x8B
+        self.is_bgzf = False
+        if self.is_gzip:
+            try:
+                parse_block_header(head)
+                self.is_bgzf = True
+            except ValueError:
+                self.is_bgzf = False
+        self.is_compressed = self.is_gzip
+        self._block: bytes = b""
+        self._block_offset = 0          # within-block read position
+        self._block_address = 0         # compressed offset of current block
+        self._next_address = 0          # compressed offset after current block
+        self._gz = None                 # plain-gzip streaming decompressor
+        self._uncompressed_pos = 0
+        self._cache: dict = {}
+        self._cache_order: List[int] = []
+        self._cache_blocks = cache_blocks
+
+    def _read_block_at(self, caddr: int) -> bool:
+        """Load the block at compressed offset caddr; False at EOF."""
+        if self.is_bgzf and caddr in self._cache:
+            self._block, self._next_address = self._cache[caddr]
+            self._block_address = caddr
+            self._block_offset = 0
+            # keep the file cursor in sync so a sequential read that
+            # exhausts the cached block continues at the right offset
+            self._fp.seek(self._next_address)
+            return True
+        self._fp.seek(caddr)
+        return self._read_next_block()
+
+    def _read_next_block(self) -> bool:
+        caddr = self._fp.tell()
+        if self.is_bgzf:
+            hdr = self._fp.read(BLOCK_HEADER_LENGTH)
+            if len(hdr) == 0:
+                self._block = b""
+                self._block_offset = 0
+                self._block_address = caddr
+                return False
+            total = parse_block_header(hdr)
+            rest = self._fp.read(total - BLOCK_HEADER_LENGTH)
+            if len(rest) != total - BLOCK_HEADER_LENGTH:
+                raise IOError("truncated BGZF block")
+            self._block = decompress_block(hdr + rest)
+            self._block_offset = 0
+            self._block_address = caddr
+            self._next_address = caddr + total
+            if self._cache_blocks:
+                self._cache[caddr] = (self._block, self._next_address)
+                self._cache_order.append(caddr)
+                if len(self._cache_order) > self._cache_blocks:
+                    del self._cache[self._cache_order.pop(0)]
+            return True
+        elif self.is_gzip:
+            if self._gz is None:
+                self._gz = zlib.decompressobj(wbits=31)
+            chunks = []
+            while True:
+                raw = self._gz.unconsumed_tail or self._fp.read(1 << 16)
+                if not raw:
+                    if self._gz.eof and self._gz.unused_data:
+                        # concatenated gzip members
+                        tail = self._gz.unused_data
+                        self._gz = zlib.decompressobj(wbits=31)
+                        raw = tail
+                    else:
+                        break
+                chunk = self._gz.decompress(raw, BGZF_MAX_BLOCK_SIZE)
+                if chunk:
+                    chunks.append(chunk)
+                    break
+                if self._gz.eof and not self._gz.unused_data:
+                    nxt = self._fp.read(1 << 16)
+                    if not nxt:
+                        break
+                    self._gz = zlib.decompressobj(wbits=31)
+                    chunk = self._gz.decompress(nxt, BGZF_MAX_BLOCK_SIZE)
+                    if chunk:
+                        chunks.append(chunk)
+                        break
+            self._block = b"".join(chunks)
+            self._block_offset = 0
+            self._block_address = caddr
+            return len(self._block) > 0
+        else:
+            self._block = self._fp.read(BGZF_MAX_BLOCK_SIZE)
+            self._block_offset = 0
+            self._block_address = caddr
+            return len(self._block) > 0
+
+    def read(self, n: int = -1) -> bytes:
+        if n < 0:
+            chunks = []
+            while True:
+                c = self.read(1 << 20)
+                if not c:
+                    break
+                chunks.append(c)
+            return b"".join(chunks)
+        out = bytearray()
+        while n > 0:
+            avail = len(self._block) - self._block_offset
+            if avail == 0:
+                if not self._read_next_block():
+                    break
+                continue
+            take = min(avail, n)
+            out += self._block[self._block_offset:self._block_offset + take]
+            self._block_offset += take
+            self._uncompressed_pos += take
+            n -= take
+        return bytes(out)
+
+    def peek(self, n: int) -> bytes:
+        """Up to n upcoming bytes, not consumed."""
+        if len(self._block) - self._block_offset == 0:
+            if not self._read_next_block():
+                return b""
+        return self._block[self._block_offset:self._block_offset + n]
+
+    def readline(self, delim: bytes = b"\n") -> bytes:
+        out = bytearray()
+        while True:
+            idx = self._block.find(delim, self._block_offset)
+            if idx >= 0:
+                out += self._block[self._block_offset:idx + 1]
+                self._block_offset = idx + 1
+                self._uncompressed_pos += len(out)
+                return bytes(out)
+            out += self._block[self._block_offset:]
+            self._block_offset = len(self._block)
+            if not self._read_next_block():
+                self._uncompressed_pos += len(out)
+                return bytes(out)
+
+    def tell(self) -> int:
+        """Virtual offset of the next read (bgzf_tell, htslib/bgzf.h:222);
+        the uncompressed offset of a file that is not BGZF."""
+        if not self.is_bgzf:
+            return self._uncompressed_pos
+        if self._block_offset == len(self._block) and self._block:
+            return make_virtual_offset(self._next_address, 0)
+        return make_virtual_offset(self._block_address, self._block_offset)
+
+    def seek(self, voffset: int) -> None:
+        """Seek to a virtual offset (bgzf_seek, bgzf.c:2175)."""
+        if not self.is_bgzf:
+            if self.is_gzip:
+                raise IOError("cannot seek in plain gzip stream")
+            self._fp.seek(voffset)
+            self._block = b""
+            self._block_offset = 0
+            self._uncompressed_pos = voffset
+            return
+        caddr, uoff = split_virtual_offset(voffset)
+        if not self._read_block_at(caddr):
+            if uoff != 0:
+                raise IOError("seek beyond EOF")
+            return
+        if uoff > len(self._block):
+            raise IOError("invalid virtual offset (uoffset beyond block)")
+        self._block_offset = uoff
+
+    def read_all(self) -> np.ndarray:
+        """The rest of the stream as uint8: the unread tail of the current
+        block, then the remaining members inflated on the host."""
+        if self.is_bgzf:
+            tail = self._block[self._block_offset:]
+            self._block_offset = len(self._block)
+            raw = np.frombuffer(self._fp.read(-1), np.uint8)
+            out = np.frombuffer(inflate_host(raw, scan_blocks(raw)), np.uint8)
+            if tail:
+                out = np.concatenate([np.frombuffer(tail, np.uint8), out])
+            return out
+        return np.frombuffer(self.read(-1), dtype=np.uint8)
+
+    def close(self) -> None:
+        self._fp.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 class BgzfWriter:
     """Buffers what is written and emits one member for each
     BGZF_BLOCK_SIZE bytes, as bgzf_write does; `flush` ends the current
@@ -156,18 +443,27 @@ class BgzfWriter:
         self._fp = open(dst, "wb") if self._own else dst
         self._level = level
         self._buf = bytearray()
+        self._caddr = 0                 # compressed bytes written
+
+    def _emit(self, data: bytes) -> None:
+        member = compress_block(data, self._level)
+        self._fp.write(member)
+        self._caddr += len(member)
 
     def write(self, data: bytes) -> int:
         self._buf += data
         while len(self._buf) >= BGZF_BLOCK_SIZE:
-            self._fp.write(compress_block(bytes(self._buf[:BGZF_BLOCK_SIZE]),
-                                          self._level))
+            self._emit(bytes(self._buf[:BGZF_BLOCK_SIZE]))
             del self._buf[:BGZF_BLOCK_SIZE]
         return len(data)
 
+    def tell(self) -> int:
+        """Virtual offset of the next write (bgzf_tell)."""
+        return make_virtual_offset(self._caddr, len(self._buf))
+
     def flush(self) -> None:
         if self._buf:
-            self._fp.write(compress_block(bytes(self._buf), self._level))
+            self._emit(bytes(self._buf))
             self._buf.clear()
 
     def close(self) -> None:

@@ -16,11 +16,13 @@ both can be held equal.  `from_jax_enc_tables` recovers the frequencies
 from the encoder's telescoped tables, and `from_jax_resolve_bench` and
 `from_jax_huffman_bench` turn the resolve benchmarks' arguments into the
 port's; `from_jax_names_table` and `from_jax_probaln` carry the BAM -> SAM
-chain's names table and the BAQ HMM's outputs, and
+chain's names table and the BAQ HMM's outputs,
 `from_jax_bam_shard_plan` a BAM shard plan (its member arrays and
-shards) and `from_jax_cram_shard_plan` a CRAM shard plan (its container
-arrays and shards), so the two packages' plans can be compared field by
-field.
+shards), `from_jax_cram_shard_plan` a CRAM shard plan (its container
+arrays and shards) and `from_jax_bcf_plan` a BCF shard plan (its record
+arrays and shards, with the file's members read from the file), so the two
+packages' plans can be compared field by field and one plan decoded by
+both.
 """
 from __future__ import annotations
 
@@ -35,7 +37,9 @@ from htslib_tpu_torch.ops.rans_nx16 import (NWAY, TOTFREQ, Nx16Batch,
                                             exclusive_cumsum)
 from htslib_tpu_torch.ops.rans_nx16_o1 import Nx16O1Batch, frame_o1_tables
 from htslib_tpu_torch.parallel.distributed import (BamShard, BamShardPlan,
-                                                   CramShard, CramShardPlan)
+                                                   BcfShard, BcfShardPlan,
+                                                   CramShard, CramShardPlan,
+                                                   bcf_layout)
 
 BLOCKS = 32  # streams per JAX order-0 Nx16 group
 
@@ -247,3 +251,16 @@ def from_jax_cram_shard_plan(plan):
         np.asarray(plan.ends, np.int64), np.asarray(plan.nrecs, np.int64),
         [CramShard(int(s.index), int(s.offset), int(s.end),
                    int(s.n_records)) for s in plan.shards])
+
+
+def from_jax_bcf_plan(plan):
+    """A JAX `BcfShardPlan` (htslib_tpu/parallel/distributed.py) as the
+    port's: its record offsets and sizes as int64, each shard's fields as
+    Python ints, and the member table and body start that the port's plan
+    also holds, read from the file at plan.path (`bcf_layout`)."""
+    co, cs, ustarts, us, _total, body = bcf_layout(plan.path)
+    return BcfShardPlan(
+        plan.path, np.asarray(plan.offs, np.int64),
+        np.asarray(plan.sizes, np.int64), co, cs, ustarts, us, body,
+        [BcfShard(int(s.index), int(s.rec_lo), int(s.rec_hi),
+                  int(s.ustart), int(s.uend)) for s in plan.shards])

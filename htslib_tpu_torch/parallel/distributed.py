@@ -1,5 +1,4 @@
-"""Multi-process scale-out: port of the BAM and CRAM parts of
-htslib_tpu/parallel/distributed.py.
+"""Multi-process scale-out: port of htslib_tpu/parallel/distributed.py.
 
 The file-level unit of distribution is a shard plan, computed once on the
 host and handed to every rank; the shards' outputs concatenated in shard
@@ -10,7 +9,11 @@ them: each rank inflates only its covering members on the device
 (ops/bam2sam.py, kernel X5 and B1).  A CRAM plan holds ranges of whole
 containers balanced by their bytes: each rank decodes only its
 containers (cram/batch.py `cram_range_to_sam`: rANS blocks on the
-device, records on the host, SAM formatting on the device).
+device, records on the host, SAM formatting on the device).  A BCF plan
+holds record-aligned ranges of the body, balanced by record bytes, and
+the BGZF members of the file: each rank inflates only the members that
+cover its range on the device (X4) and frames and formats its records on
+the host (vcf/record.py).
 
 `initialize` joins this process to a torch.distributed world (the JAX
 package's wraps jax.distributed.initialize).
@@ -18,6 +21,8 @@ package's wraps jax.distributed.initialize).
 from __future__ import annotations
 
 import os
+import struct
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -26,15 +31,16 @@ import torch
 import torch.distributed as dist
 
 from htslib_tpu_torch import _build
-from htslib_tpu_torch.bgzf import check_member, member_payload, scan_blocks
+from htslib_tpu_torch.bgzf import BgzfReader, inflate_range, scan_blocks
 from htslib_tpu_torch.cram import CRAM_EOF_START, CramReader
 from htslib_tpu_torch.cram.batch import cram_range_to_sam
 from htslib_tpu_torch.ops.bam2sam import (bam_payload_to_sam_device,
                                           device_record_scan)
-from htslib_tpu_torch.ops.inflate import inflate_batch
 from htslib_tpu_torch.ops.seqfmt import unpack_core_fields
 from htslib_tpu_torch.parallel.mesh import flag_counts
 from htslib_tpu_torch.sam.bam import BamReader, read_header
+from htslib_tpu_torch.vcf.io import (BcfReader, bcf_members, format_frames,
+                                     split_frames)
 
 
 def initialize(coordinator: Optional[str] = None,
@@ -125,25 +131,12 @@ def plan_bam_shards(path: str, n_shards: int) -> BamShardPlan:
 
 
 def _shard_stream(plan: BamShardPlan, shard: BamShard, dev) -> bytes:
-    """The shard's record bytes: its covering members read from the file
-    and inflated on `dev` (X4 on the card), each CRC32 and ISIZE checked
-    on the host, sliced to [ustart, uend)."""
-    b_lo = max(int(np.searchsorted(plan.ustarts, shard.ustart,
-                                   side="right")) - 1, 0)
-    b_hi = max(int(np.searchsorted(plan.ustarts, shard.uend, side="left")),
-               b_lo + 1)
-    first = int(plan.coffsets[b_lo])
-    co = plan.coffsets[b_lo:b_hi].astype(np.int64) - first
-    cs = plan.csizes[b_lo:b_hi].astype(np.int64)
-    raw = np.fromfile(plan.path, np.uint8, count=int(co[-1] + cs[-1]),
-                      offset=first)
-    pieces = inflate_batch([member_payload(raw, o, s) for o, s in zip(co, cs)],
-                           [int(u) for u in plan.usizes[b_lo:b_hi]],
-                           device=dev)
-    for o, s, piece in zip(co, cs, pieces):
-        check_member(raw, int(o), int(s), piece)
-    base = int(plan.ustarts[b_lo])
-    return b"".join(pieces)[shard.ustart - base:shard.uend - base]
+    """The shard's record bytes: its covering members inflated on `dev`
+    (bgzf.py `inflate_range`: X4 on the card, each CRC32 and ISIZE
+    checked on the host)."""
+    return inflate_range(plan.path, plan.coffsets, plan.csizes,
+                         plan.ustarts, plan.usizes, shard.ustart, shard.uend,
+                         dev)
 
 
 def decode_shard_to_sam(plan: BamShardPlan, shard: BamShard, header=None,
@@ -271,3 +264,114 @@ def decode_cram_shard_to_sam(plan: CramShardPlan, shard: CramShard,
                                ref=plan.ref, window=window, device=device,
                                timing=timing)
     return sam.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# BCF record shard plans
+# ---------------------------------------------------------------------------
+
+@dataclass
+class BcfShard:
+    index: int
+    rec_lo: int          # first record ordinal
+    rec_hi: int          # past-end ordinal
+    ustart: int          # body-relative uncompressed byte offset
+    uend: int
+
+
+@dataclass
+class BcfShardPlan:
+    path: str
+    offs: np.ndarray     # int64 per record: body-relative byte offset
+    sizes: np.ndarray    # int64 per record: 8 + l_shared + l_indiv
+    coffsets: np.ndarray  # uint64 per BGZF member (none: uncompressed)
+    csizes: np.ndarray    # uint32
+    ustarts: np.ndarray   # uint64 uncompressed start per member
+    usizes: np.ndarray    # uint32
+    body: int             # uncompressed offset of the body (past the header)
+    shards: List[BcfShard] = field(default_factory=list)
+
+
+def bcf_layout(path: str):
+    """A BCF file's members (vcf/io.py `bcf_members`) and its body's
+    uncompressed start, 9 + l_text, from the header's length word read on
+    the host.  Returns (coffsets, csizes, ustarts, usizes, total, body)."""
+    co, cs, ustarts, us, total = bcf_members(np.fromfile(path, np.uint8))
+    with BgzfReader(path) as r:
+        head = r.read(9)
+    if len(head) < 9 or head[:3] != b"BCF" or head[3] != 2:
+        raise IOError("invalid BCF2 magic")
+    l_text = struct.unpack_from("<I", head, 5)[0]
+    return co, cs, ustarts, us, total, 9 + l_text
+
+
+def plan_bcf_shards(path: str, n_shards: int, device="cuda") -> BcfShardPlan:
+    """Split a BCF into at most n_shards record-aligned shards balanced by
+    uncompressed record bytes: the body inflated on `device` (X4 on the
+    card) and one frame walk over it on the host; shard k ends after the
+    last record that ends by (k + 1) x ceil(body / n_shards).  Raises
+    IOError on bytes after the last record."""
+    dev = _build.resolve_device(device)
+    co, cs, ustarts, us, total, body = bcf_layout(path)
+    buf = inflate_range(path, co, cs, ustarts, us, body, total, dev)
+    offs: List[int] = []
+    sizes: List[int] = []
+    p = 0
+    n = len(buf)
+    while p + 8 <= n:
+        l_shared, l_indiv = struct.unpack_from("<II", buf, p)
+        offs.append(p)
+        sizes.append(8 + l_shared + l_indiv)
+        p += 8 + l_shared + l_indiv
+    if p != n:
+        raise IOError("BCF body: trailing bytes after the last record")
+    plan = BcfShardPlan(path, np.asarray(offs, np.int64),
+                        np.asarray(sizes, np.int64), co, cs, ustarts, us,
+                        body)
+    nr = len(offs)
+    if nr == 0:
+        return plan
+    ends = plan.offs + plan.sizes
+    per = (int(ends[-1]) + max(n_shards, 1) - 1) // max(n_shards, 1)
+    lo = 0
+    for si in range(n_shards):
+        if lo >= nr:
+            break
+        hi = int(np.searchsorted(ends, (si + 1) * per, side="right"))
+        hi = max(hi, lo + 1)
+        if si == n_shards - 1:
+            hi = nr
+        hi = min(hi, nr)
+        plan.shards.append(BcfShard(si, lo, hi, int(plan.offs[lo]),
+                                    int(ends[hi - 1])))
+        lo = hi
+    return plan
+
+
+def decode_bcf_shard_to_vcf(plan: BcfShardPlan, shard: BcfShard,
+                            header=None, device="cuda",
+                            timing: Optional[dict] = None) -> bytes:
+    """One rank's work: inflate only the members that cover this shard's
+    body range on `device` (X4 on the card), frame its records and format
+    them as VCF text on the host.  Concatenating the results in shard
+    order gives the single-process `bcf_file_to_vcf` body.  `timing`,
+    where given, gets read_s (the header, where none is given, and the
+    members' bytes), inflate_s, frame_s and format_s."""
+    dev = _build.resolve_device(device)
+    timing = {} if timing is None else timing
+    timing.update(read_s=0.0, inflate_s=0.0)
+    if header is None:
+        t0 = time.perf_counter()
+        with BcfReader(plan.path) as r:
+            header = r.header
+        timing["read_s"] = time.perf_counter() - t0
+    buf = inflate_range(plan.path, plan.coffsets, plan.csizes, plan.ustarts,
+                        plan.usizes, plan.body + shard.ustart,
+                        plan.body + shard.uend, dev, timing)
+    t0 = time.perf_counter()
+    shared, indiv = split_frames(buf)
+    t1 = time.perf_counter()
+    text = format_frames(shared, indiv, header)
+    timing["frame_s"] = t1 - t0
+    timing["format_s"] = time.perf_counter() - t1
+    return text

@@ -1204,3 +1204,84 @@ def test_cram_decode_blocks_on_card_every_wire(card):
     assert counts["host"] == 1 and sum(counts.values()) == len(blocks)
     for b, (_, raw, _) in zip(blocks, datas):
         assert b._uncompressed == raw
+
+
+def _leg12_bcf(tmp_path, n, samples, level, name):
+    """chip_smoke.leg12_vcf(n, samples) as a BCF: written by the port's
+    BcfWriter at `level`, or, at level None, without BGZF (the magic, the
+    header and the record frames as they are)."""
+    import struct
+
+    from chip_smoke import leg12_vcf
+    from htslib_tpu_torch.vcf import io as tio
+    vcf = str(tmp_path / f"{name}.vcf")
+    with open(vcf, "wb") as fp:
+        fp.write(leg12_vcf(n, samples, seed=n))
+    path = str(tmp_path / f"{name}.bcf")
+    with tio.VcfReader(vcf) as r:
+        recs = list(r)
+        header = r.header
+    if level is not None:
+        with tio.BcfWriter(path, header, level=level) as w:
+            for rec in recs:
+                w.write(rec)
+        return path
+    head = header.text(with_idx=True).encode() + b"\0"
+    with open(path, "wb") as fp:
+        fp.write(tio.BCF_MAGIC + struct.pack("<I", len(head)) + head)
+        for rec in recs:
+            shared, indiv = rec.to_bcf()
+            fp.write(struct.pack("<II", len(shared), len(indiv)) + shared
+                     + indiv)
+    return path
+
+
+@pytest.mark.parametrize("level", [6, 0])
+def test_bcf_file_to_vcf_on_card_matches_cpu(card, tmp_path, level):
+    """BCF -> VCF with the members inflated on the card (X4): the CPU's
+    header and text.  Level 6 has deflated members (small, for the CPU's
+    plain inflate), level 0 stored ones over several members."""
+    from htslib_tpu_torch.vcf.io import bcf_file_to_vcf
+    path = _leg12_bcf(tmp_path, 60 if level else 600, 8, level, "f")
+    _build.reset_launches()
+    timing = {}
+    header, got = bcf_file_to_vcf(path, device=card, timing=timing)
+    assert _build.LAUNCHES["inflate"] == 1
+    assert set(timing) == {"read_s", "inflate_s", "frame_s", "format_s"}
+    want_h, want = bcf_file_to_vcf(path, device="cpu")
+    assert got == want and got.count(b"\n") == (60 if level else 600)
+    assert header.text(with_idx=True) == want_h.text(with_idx=True)
+
+
+def test_bcf_shards_on_card_match_cpu(card, tmp_path):
+    """plan_bcf_shards and each shard's decode on the card: the CPU's
+    plan and text, and the shards in order the whole file's."""
+    from htslib_tpu_torch.parallel import distributed as td
+    from htslib_tpu_torch.vcf.io import bcf_file_to_vcf
+    path = _leg12_bcf(tmp_path, 600, 8, 0, "s")
+    plan = td.plan_bcf_shards(path, 3, device=card)
+    cpu = td.plan_bcf_shards(path, 3, device="cpu")
+    assert plan.shards == cpu.shards and len(plan.coffsets) > 2
+    assert np.array_equal(plan.offs, cpu.offs)
+    _build.reset_launches()
+    parts = [td.decode_bcf_shard_to_vcf(plan, sh, device=card)
+             for sh in plan.shards]
+    assert _build.LAUNCHES["inflate"] == 3
+    assert parts == [td.decode_bcf_shard_to_vcf(cpu, sh, device="cpu")
+                     for sh in cpu.shards]
+    assert b"".join(parts) == bcf_file_to_vcf(path, device="cpu")[1]
+
+
+def test_uncompressed_bcf_on_card_launches_nothing(card, tmp_path):
+    """A BCF without BGZF: the card's text is the CPU's, and neither the
+    whole-file decode nor the plan and its shards launch X4."""
+    from htslib_tpu_torch.parallel import distributed as td
+    from htslib_tpu_torch.vcf.io import bcf_file_to_vcf
+    path = _leg12_bcf(tmp_path, 300, 8, None, "u")
+    _build.reset_launches()
+    got = bcf_file_to_vcf(path, device=card)[1]
+    plan = td.plan_bcf_shards(path, 2, device=card)
+    parts = [td.decode_bcf_shard_to_vcf(plan, sh, device=card)
+             for sh in plan.shards]
+    assert _build.LAUNCHES["inflate"] == 0
+    assert got == bcf_file_to_vcf(path, device="cpu")[1] == b"".join(parts)

@@ -1,5 +1,6 @@
 """Rank functions for the port's multi-process tests
-(tests/test_torch_mesh.py, tests/test_torch_distributed.py), run by
+(tests/test_torch_mesh.py, tests/test_torch_distributed.py,
+tests/test_torch_bcf_shards.py), run by
 htslib_tpu_torch/parallel/launch.py `run_ranks` in spawned processes.
 This module imports neither JAX nor the JAX package, so a rank process
 loads torch alone."""
@@ -100,3 +101,13 @@ def fail_on_rank_one(rank, n):
         raise ValueError("rank one fails")
     dist.barrier()          # rank 0 waits here until it is killed
     return rank
+
+
+def bcf_shard(rank, n, path):
+    """This rank's shard of a BCF file as VCF text: the plan made on
+    every rank, its own shard decoded on the CPU."""
+    from htslib_tpu_torch.parallel.distributed import (
+        decode_bcf_shard_to_vcf, plan_bcf_shards)
+    torch.set_num_threads(1)
+    plan = plan_bcf_shards(path, n, device="cpu")
+    return decode_bcf_shard_to_vcf(plan, plan.shards[rank], device="cpu")
