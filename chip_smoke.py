@@ -105,14 +105,19 @@ PyTorch version on the card and times both.  Phases:
      shared memory a block (smem_bytes); the B5/B6 rows the share of rounds
      in which some state's lookup met a slow bucket (slow_share).  The
      dense variants are held over leg 6's dense streams' first 4096 rounds.
-     X4 (inflate) is held against its plain version (the JAX function's two
-     passes as tensor ops, about a millisecond a step on the card) over
-     chip_smoke's small members (stored, fixed, dynamic, long matches,
-     multi-block, and hand-built members at the JAX decoder's edges, the
-     corrupt ones refused by both) and over three of leg 7's own members at
-     their full size (the first two and the one whose decode takes the
-     most steps, each also equal to its raw bytes), and timed over leg 7's
-     1,232 members, with its ns per token and MB/s.  X5 (record scan) is
+     X4 (inflate), in both variants (the output window in a shared ring
+     or in the member's slot), is held against its plain version (the
+     JAX function's two passes as tensor ops, about a millisecond a step
+     on the card) over chip_smoke's small members (stored, fixed,
+     dynamic, long matches, multi-block, and hand-built members at the
+     JAX decoder's edges, the corrupt ones refused by both), over the
+     ring-edge members and over three of leg 7's own members at their
+     full size (the first two and the one whose decode takes the most
+     steps, each also equal to its raw bytes); both are timed over leg
+     7's 1,232 members (the slot variant's side of ring_fits), over the
+     first of them that fit one wave of the ring and over leg 12's
+     members (the ring's side), with ns per step, blocks an SM and
+     waves.  X5 (record scan) is
      held against its plain version (the JAX loop walked by the host) on
      leg 8's two payloads and on edge streams made from them (truncated,
      overrunning, a length with bit 31 set, a chain that stands still or
@@ -120,7 +125,9 @@ PyTorch version on the card and times both.  Phases:
      its ns per record.  X6 (probaln) is held against its plain version on
      the card over each of leg 9's HMM calls in float64 and in float32
      (the float32 run within +/-1 phred of the float64 one), with its ns
-     per band cell.
+     per band cell; leg 9's groups lie on both sides of its split (the
+     short group a thread a read, the long group a warp a read), and each
+     is also timed with every read a thread.
      Outputs are bytes and integers, so the tolerance is zero: kernel and
      plain version must be equal;
   5h. leg 10, the mesh (parallel/mesh.py, parallel/distributed.py,
@@ -632,6 +639,32 @@ def varied_bam_stream(n: int = 50_000, seed: int = 9,
     return b"".join(out)
 
 
+def hmm_reads(n: int, length: int, seed: int):
+    """n reads of `length` bases, about as leg 9's: 1% substitutions, a
+    1-12 bp deletion in one read of 20, each its reference window and band
+    as realn sets them.  Returns pad_batch's (refs, queries, quals,
+    bws)."""
+    rng = np.random.default_rng(seed)
+    refs, qs, quals, bws = [], [], [], []
+    for k in range(n):
+        ref = rng.integers(0, 4, length + 40).astype(np.uint8)
+        q = ref[10:10 + length].copy()
+        diff = 0
+        if k % 20 == 0:
+            at, m = int(rng.integers(5, length - 5)), int(rng.integers(1, 13))
+            q = np.concatenate([q[:at], ref[10 + at + m:10 + length + m]])
+            diff = m
+        sub = rng.random(length) < 0.01
+        q[sub] = rng.integers(0, 4, int(sub.sum()))
+        bw = 7 if diff <= 7 else diff + 3
+        refs.append(ref[10 - bw // 2:10 + length + diff + bw // 2].tobytes())
+        qs.append(q[:length].tobytes())
+        quals.append(np.clip(rng.integers(25, 38) + np.cumsum(
+            rng.integers(-2, 3, length)), 2, 41).astype(np.uint8).tobytes())
+        bws.append(bw)
+    return refs, qs, quals, bws
+
+
 def baq_case(n: int = 100_000, seed: int = 10, ref_len: int = 1_000_000,
              n_long: int = 200, read_len: int = BAM_READ_LEN):
     """Leg 9's BAQ input: a seeded reference of ref_len bases (ACGT with a
@@ -842,6 +875,87 @@ def inflate_members(seed: int = 8):
     # an int in place of the bytes: a refused member's ISIZE
     return [(name, pl, want, None) if isinstance(want, int)
             else (name, pl, len(want), want) for name, pl, want in out]
+
+
+def _fixed_match(w, length: int, dist: int):
+    """A match of the fixed code onto bit writer w, with its extra bits."""
+    from htslib_tpu_torch.ops.inflate import (DIST_BASE, DIST_EXTRA,
+                                              LENGTH_BASE, LENGTH_EXTRA)
+    lc = 28 if length == 258 else max(
+        c for c in range(28) if LENGTH_BASE[c] <= length)
+    dc = max(c for c in range(30) if DIST_BASE[c] <= dist)
+    _fixed(w, 257 + lc)
+    w.put(length - LENGTH_BASE[lc], LENGTH_EXTRA[lc])
+    w.put_code(dc, 5)
+    w.put(dist - DIST_BASE[dc], DIST_EXTRA[dc])
+
+
+def _stored(data: bytes, final: bool = False) -> bytes:
+    """A stored block that starts on a byte boundary."""
+    n = len(data)
+    return bytes([int(final)]) + struct.pack("<HH", n, 0xFFFF ^ n) + data
+
+
+def _copy(out: bytearray, length: int, dist: int) -> None:
+    """The JAX decoder's match: each byte q reads byte max(q - dist, 0),
+    byte 0 copying itself reads dist - 1."""
+    for _ in range(length):
+        q = len(out)
+        out.append((dist - 1) & 0xFF if q == 0
+                   else out[q - dist if q >= dist else 0])
+
+
+def ring_edge_members(seed: int = 14):
+    """Members at the edges of X4's 32 KiB output ring, in
+    inflate_members()'s form: stored blocks then one fixed-code block of
+    matches with their extra bits (few steps, so the JAX function and the
+    plain version take them at once).  dist_32768: 32,768 stored bytes
+    copied again at distance 32,768, 65,536 bytes; wrap_long_matches:
+    random long matches over the ring's wraps up to 65,536 bytes;
+    stored_blocks: stored blocks of 10,000, 35,000 and 12,000 bytes (one
+    past the ring) read back at distances up to 32,768; clamp_at_wrap: a
+    match reaching before the output's start that crosses position
+    32,768; cap_in_match: 70,186 bytes whose 64 KiB capacity ends inside
+    a match (the JAX function gives the first 65,536)."""
+    from htslib_tpu_torch.ops.bgzf_device import _BitWriter
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def member(name, blocks, matches, size=None, tail=b""):
+        out = bytearray(b"".join(blocks))
+        w = _BitWriter()
+        w.put(1, 1)
+        w.put(1, 2)
+        for length, dist in matches:
+            _fixed_match(w, length, dist)
+            _copy(out, length, dist)
+        for b in tail:
+            _fixed(w, b)
+            out.append(b)
+        _fixed(w, 256)
+        pl = b"".join(_stored(b) for b in blocks) + w.tobytes_and_len()[0]
+        isize = len(out) if size is None else size
+        return name, pl, isize, bytes(out[:min(isize, 65536)])
+
+    res = [member("dist_32768", [rand(32768)], [(258, 32768)] * 127,
+                  tail=b"zz")]
+    pos, matches = 30000, []
+    while pos < 65536 - 258:
+        m = (int(rng.integers(3, 259)),
+             int(rng.integers(1, min(pos, 32768) + 1)))
+        matches.append(m)
+        pos += m[0]
+    res.append(member("wrap_long_matches", [rand(20000), rand(10000)],
+                      matches, tail=rand(65536 - pos)))
+    res.append(member("stored_blocks",
+                      [rand(10000), rand(35000), rand(12000)],
+                      [(258, 32768), (200, 20000), (258, 1), (100, 32000)]
+                      * 10))
+    res.append(member("clamp_at_wrap", [rand(32700)], [(258, 32768)] * 2))
+    res.append(member("cap_in_match", [rand(40000)], [(258, 30000)] * 117))
+    return res
 
 
 def wide_stream(rng, size: int) -> bytes:
@@ -1739,6 +1853,14 @@ def leg12(device, tmp: str):
     require(sum(sh.rec_hi - sh.rec_lo for sh in plan.shards) == N_VCF,
             "leg 12 plan's records")
     notes.update(plan=plan, members=len(plan.coffsets))
+    # the body's members and their bytes, for phase 6's X4 case
+    from htslib_tpu_torch.bgzf import member_payload
+    from htslib_tpu_torch.vcf.io import bcf_members
+    raw = np.fromfile(bcf, np.uint8)
+    co, cs = bcf_members(raw)[:2]
+    payloads = [member_payload(raw, int(o), int(c)) for o, c in zip(co, cs)]
+    notes["x4_members"] = (payloads, [zlib.decompress(p, -15)
+                                      for p in payloads])
     return notes
 
 
@@ -2206,41 +2328,85 @@ def dense_vs_plain(device, leg3, launches):
     return rows
 
 
+X4_VARIANTS = {"ring": True, "slot": False}   # X4's output windows
+
+
 def _inflate_vs_plain(ti, b, what):
-    """Kernel X4 and its plain version on batch b: the same refusals, and
-    where both accept, the same bytes produced, tokens and bytes.
-    Returns (the kernel's refusals, the plain version's host-clock ms,
-    the largest byte difference over the accepted members)."""
+    """Both variants of kernel X4 and its plain version on batch b: the
+    same refusals, and where they accept, the same bytes produced, tokens
+    and bytes.  Returns (the refusals, the plain version's host-clock ms,
+    the largest byte difference over the accepted members, the ring
+    variant's output on the host)."""
     import torch
-    got, gst = ti.inflate_cuda(b)
     torch.cuda.synchronize()
     t0 = time.time()
     ref, rst = ti.inflate_plain(b)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
-    gerr, rerr = ti.corrupt(b, gst), ti.corrupt(b, rst)
-    require(torch.equal(gerr, rerr), f"inflate kernel != plain ({what}: "
-            "refusals)")
-    ok = ~gerr
-    require(torch.equal(gst[ok, 1:3], rst[ok, 1:3]), f"inflate kernel != "
-            f"plain ({what}: bytes produced, tokens)")
-    k = torch.arange(b.total_out, device=got.device)
-    member = torch.searchsorted(b.out_off, k, right=True) - 1
-    keep = ok[member]
-    require(torch.equal(got[keep], ref[keep]), f"inflate kernel != plain "
-            f"({what}: bytes)")
-    err = (int((got[keep].long() - ref[keep].long()).abs().max())
-           if bool(keep.any()) else 0)
-    return gerr.cpu().tolist(), plain_ms, err, got.cpu().numpy()
+    rerr = ti.corrupt(b, rst)
+    ok = ~rerr
+    k = torch.arange(b.total_out, device=ref.device)
+    keep = ok[torch.searchsorted(b.out_off, k, right=True) - 1]
+    err, outs = 0, {}
+    for name, ring in X4_VARIANTS.items():
+        got, gst = ti.inflate_cuda(b, ring=ring)
+        require(torch.equal(ti.corrupt(b, gst), rerr),
+                f"inflate {name} != plain ({what}: refusals)")
+        require(torch.equal(gst[ok, 1:3], rst[ok, 1:3]), f"inflate {name} "
+                f"!= plain ({what}: bytes produced, tokens)")
+        require(torch.equal(got[keep], ref[keep]), f"inflate {name} != "
+                f"plain ({what}: bytes)")
+        if bool(keep.any()):
+            err = max(err, int((got[keep].long() - ref[keep].long()).abs()
+                               .max()))
+        outs[name] = got
+    return rerr.cpu().tolist(), plain_ms, err, outs["ring"].cpu().numpy()
 
 
-def inflate_vs_plain(device, bgzf, launches, n_first: int = 2):
-    """Phase 6 for X4: the kernel against its plain version on
+def _x4_case(ti, what, b, want, device):
+    """Both X4 variants over batch b, whose members' bytes are `want`:
+    each output equal to them, then each timed in turns.  Returns the
+    case's notes: the variant ring_fits chooses, and each variant's ms,
+    ns a step of the longest member, blocks an SM and waves."""
+    sms = torch_sms(device)
+    offs = b.out_off.cpu().numpy()
+    steps = 0
+    for name, ring in X4_VARIANTS.items():
+        out, st = ti.inflate_cuda(b, ring=ring)
+        require(not bool(ti.corrupt(b, st).any()),
+                f"inflate {name}: {b.n_members} members refused")
+        h = out.cpu().numpy()
+        require(all(h[o:o + len(w)].tobytes() == w
+                    for o, w in zip(offs, want)),
+                f"inflate {name}: {b.n_members} members != their bytes")
+        steps = int(st[:, 3].max())
+    ms, turns = in_turns({k: (lambda r=r: ti.inflate_cuda(b, ring=r))
+                          for k, r in X4_VARIANTS.items()}, 3)
+    case = {"batch": what, "members": b.n_members, "longest_steps": steps,
+            "chosen": "ring" if ti.ring_fits(b.n_members, device)
+            else "slot", "ms": ms, "turns_ms": turns}
+    for k, r in X4_VARIANTS.items():
+        per_sm = ti.blocks_per_sm(ring=r)
+        case[k] = {"ms": ms[k], "ns_per_step": ms[k] * 1e6 / steps,
+                   "blocks_per_sm": per_sm,
+                   "waves": -(-b.n_members // (per_sm * sms))}
+    return case
+
+
+def inflate_vs_plain(device, bgzf, leg12_members, launches,
+                     n_first: int = 2):
+    """Phase 6 for X4, both variants (the output window in a shared-memory
+    ring, and in the member's slot): each against the plain version on
     inflate_members() (the refused ones refused by both, the others
-    byte-equal, with their bytes produced and tokens), and on leg 7's own
-    members at their full size: the first n_first and the one whose
-    decode takes the most steps (each also equal to its raw bytes); then
-    timed over all of leg 7's members.  Returns the kernels line's row."""
+    byte-equal, with their bytes produced and tokens), on
+    ring_edge_members() and on leg 7's members at their full size (the
+    first n_first and the one whose decode takes the most steps), each
+    also equal to its bytes; then each equal to the raw bytes and timed,
+    in turns, over leg 7's members (which ring_fits gives the slot
+    variant), over the first of them that fit one wave of the ring and
+    over leg 12's members (`leg12_members`: payloads and bytes; both
+    given the ring).  Returns the kernels line's row: ms and the rest
+    for leg 7's batch in the variant chosen for it."""
     from htslib_tpu_torch.ops import inflate as ti
     small = inflate_members()
     b = ti.frame_members([m[1] for m in small], [m[2] for m in small], device)
@@ -2250,12 +2416,17 @@ def inflate_vs_plain(device, bgzf, launches, n_first: int = 2):
     for (name, _, size, want), o in zip(small, offs):
         if want is not None:
             require(gh[o:o + size].tobytes() == want, f"inflate {name}")
+    edge = ring_edge_members()
+    eb = ti.frame_members([m[1] for m in edge], [m[2] for m in edge], device)
+    eerr, _, err_edge, eh = _inflate_vs_plain(ti, eb, "ring-edge members")
+    require(not any(eerr), "inflate: ring-edge members refused")
+    for (name, _, _, want), o in zip(edge, eb.out_off.cpu().numpy()):
+        require(eh[o:o + len(want)].tobytes() == want, f"inflate {name}")
 
     payloads, pieces = bgzf
     big = ti.frame_members(payloads, [len(p) for p in pieces], device)
     out, st = ti.inflate_cuda(big)
     require(not bool(ti.corrupt(big, st).any()), "inflate: leg 7 refused")
-    ms = cuda_ms(lambda: ti.inflate_cuda(big), 3)
     st = st.cpu().numpy()
     pick = list(range(n_first))
     pick.append(int(np.argmax(st[:, 3])))
@@ -2267,14 +2438,31 @@ def inflate_vs_plain(device, bgzf, launches, n_first: int = 2):
     for i, o in zip(pick, sub.out_off.cpu().numpy()):
         require(sh[o:o + len(pieces[i])].tobytes() == pieces[i],
                 f"inflate: leg 7 member {i}")
+    wave = ti.blocks_per_sm(ring=True) * torch_sms(device)
+    cases = [_x4_case(ti, "leg 7", big, pieces, device)]
+    if wave < big.n_members:
+        one = ti.frame_members(payloads[:wave],
+                               [len(p) for p in pieces[:wave]], device)
+        cases.append(_x4_case(ti, f"leg 7's first {wave}", one,
+                              pieces[:wave], device))
+    pl12, want12 = leg12_members
+    cases.append(_x4_case(ti, "leg 12", ti.frame_members(
+        pl12, [len(w) for w in want12], device), want12, device))
+    require(len({c["chosen"] for c in cases}) == 2,
+            "inflate: the phase's cases do not lie on both sides of "
+            "ring_fits")
+    chosen = cases[0][cases[0]["chosen"]]
+    ms = chosen["ms"]
     n_in, n_out = sum(map(len, payloads)), sum(map(len, pieces))
     b_ms, b_by = bound_ms(n_in + n_out, 0)
     return {
         "name": "inflate", "route": "cuda",
         "source": "htslib_tpu_torch/csrc/inflate.cu",
         "replaces": "htslib_tpu/ops/inflate.py:429",
-        "launches": launches["inflate"],
-        "max_abs_err": max(err, err_big),
+        "launches": launches["inflate"] + launches["inflate_slot"],
+        "launches_ring": launches["inflate"],
+        "launches_slot": launches["inflate_slot"],
+        "max_abs_err": max(err, err_big, err_edge),
         "ms": ms, "plain_ms": plain_ms, "plain_members": len(small),
         "plain_leg7_members": pick,
         "plain_leg7_steps": [int(st[i, 3]) for i in pick],
@@ -2285,10 +2473,27 @@ def inflate_vs_plain(device, bgzf, launches, n_first: int = 2):
         "tokens": int(st[:, 2].sum()),
         "ns_per_token": ms * 1e6 / int(st[:, 2].sum()),
         "MBps": n_out / ms / 1e3, "chain_rounds": int(st[:, 3].max()),
-        "smem_bytes": ti.smem_bytes(), "streams_per_sm": ti.blocks_per_sm(),
+        "variant": cases[0]["chosen"], "ns_per_step": chosen["ns_per_step"],
+        "smem_bytes": ti.smem_bytes(ring=cases[0]["chosen"] == "ring"),
+        "smem_bytes_ring": ti.smem_bytes(ring=True),
+        "smem_bytes_slot": ti.smem_bytes(ring=False),
+        "blocks_per_sm": chosen["blocks_per_sm"],
+        "streams_per_sm": chosen["blocks_per_sm"], "waves": chosen["waves"],
+        "cases": cases, "ring_edge_members": [m[0] for m in edge],
         "note": "XLA code of the JAX package (no Pallas kernel) that the "
-                "port hand-writes; chain_rounds is the longest member's "
-                "steps", "match": True}
+                "port hand-writes; two variants (ring: the output window "
+                "in shared memory; slot: in the member's slot), ring_fits "
+                "choosing the ring while a batch fits one wave of it; ms "
+                "and the rest are leg 7's batch in its variant, cases each "
+                "side of the choice in both; chain_rounds is the longest "
+                "member's steps, ns_per_step the launch's time over them "
+                "(its waves included)", "match": True}
+
+
+def torch_sms(device) -> int:
+    """The card's SMs."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def record_scan_vs_plain(device, chain, n_chain, varied, launches):
@@ -2335,67 +2540,103 @@ def probaln_vs_plain(device, hmm_calls, launches):
     """Phase 6 for X6: over each of leg 9's HMM calls (its (d, e)
     groups), the kernel against its plain version on the card in float64
     and in float32, equal; the float32 run within +/-1 phred of the
-    float64 one (Pr and q).  Times and the bound are summed over the
-    groups.  Returns the kernels line's row."""
+    float64 one (Pr and q).  Each group's time in both types, with how
+    many of its reads ran a warp each and a thread each, beside the same
+    reads all run a thread each (the design before the warp variant: the
+    same thread kernel), in turns.  Times and the bound are summed over
+    the groups.  Returns the kernels line's row."""
     import torch
 
     from htslib_tpu_torch.ops import probaln as tp
-    row = {"ms": 0.0, "ms_f32": 0.0, "plain_ms": 0.0, "cells": 0,
+    row = {"ms": 0.0, "ms_f32": 0.0, "ms_all_thread": 0.0,
+           "ms_f32_all_thread": 0.0, "plain_ms": 0.0, "cells": 0,
            "reads": 0, "bytes": 0, "groups": []}
     for args, kw in hmm_calls:
         refs, queries, quals = args
         outs = {}
+        group = {"d": kw["d"]}
         for dt in (np.float64, np.float32):
             arrays, J = tp.pad_batch(refs, queries, quals, dtype=dt,
                                      bws=kw["bws"])
             a = [torch.from_numpy(x).to(device) for x in arrays]
-            got = tp.probaln_cuda(*a, J, d=kw["d"], e=kw["e"])
+            layout = {}
+            got = tp.probaln_cuda(*a, J, d=kw["d"], e=kw["e"],
+                                  layout=layout)
             torch.cuda.synchronize()
             t0 = time.time()
             want = tp.probaln_plain(*a, J, d=kw["d"], e=kw["e"])
             torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
             key = "f64" if dt == np.float64 else "f32"
             for g, w, what in zip(got, want, ("Pr", "states", "q")):
                 require(torch.equal(g, w), f"probaln kernel != plain ({key} "
                         f"{what}, d={kw['d']:g})")
             outs[key] = got
-            ms = cuda_ms(lambda: tp.probaln_cuda(*a, J, d=kw["d"],
-                                                 e=kw["e"]), 3)
+            no_warp = torch.zeros(len(arrays[3]), dtype=torch.bool,
+                                  device=device)
+            ms, _ = in_turns({
+                "new": lambda: tp.probaln_cuda(*a, J, d=kw["d"], e=kw["e"]),
+                "all_thread": lambda: tp.launch(*a, kw["d"], kw["e"],
+                                                no_warp)}, 3)
+            sfx = "" if dt == np.float64 else "_f32"
+            row["ms" + sfx] += ms["new"]
+            row["ms" + sfx + "_all_thread"] += ms["all_thread"]
+            group.update({"ms" + sfx: ms["new"],
+                          "ms" + sfx + "_all_thread": ms["all_thread"]})
             if dt == np.float64:
-                row["plain_ms"] += (time.time() - t0) * 1e3
-                row["ms"] += ms
+                row["plain_ms"] += plain_ms
                 rlen, qlen, bw = arrays[1], arrays[3], arrays[5]
                 cells = int((qlen.astype(np.int64) * (2 * bw + 2)).sum())
                 row["cells"] += cells
                 row["reads"] += len(qlen)
                 row["bytes"] += int(rlen.sum() + 14 * qlen.sum()
                                     + 16 * len(qlen))
-                row["groups"].append({"d": kw["d"], "reads": len(qlen),
-                                      "J": J, "Q": int(qlen.max()),
-                                      "cells": cells, "ms": ms})
-            else:
-                row["ms_f32"] += ms
+                group.update({"reads": len(qlen), "J": J,
+                              "Q": int(qlen.max()), "cells": cells,
+                              "thread_reads": layout["thread_reads"],
+                              "warp_reads": layout["warp_reads"],
+                              "ns_per_cell": ms["new"] * 1e6 / cells})
+        row["groups"].append(group)
         d_pr = (outs["f64"][0] - outs["f32"][0]).abs().max()
         d_q = (outs["f64"][2].int() - outs["f32"][2].int()).abs().max()
         require(int(d_pr) <= 1 and int(d_q) <= 1,
                 f"probaln float32 beyond 1 phred of float64 (Pr {int(d_pr)}"
                 f", q {int(d_q)})")
+    require(any(g["warp_reads"] for g in row["groups"])
+            and any(g["thread_reads"] for g in row["groups"]),
+            "probaln: the groups do not lie on both sides of split_reads")
     tb_ms = row["bytes"] / HBM_BYTES_S * 1e3
     to_ms = BAQ_OPS_PER_CELL * row["cells"] / FP64_OPS_S * 1e3
     row.update({
         "name": "probaln", "route": "cuda",
         "source": "htslib_tpu_torch/csrc/probaln.cu",
         "replaces": "htslib_tpu/ops/probaln.py:50",
-        "launches": launches["probaln"], "max_abs_err": 0,
+        "launches": launches["probaln"] + launches["probaln_warp"],
+        "launches_thread": launches["probaln"],
+        "launches_warp": launches["probaln_warp"], "max_abs_err": 0,
         "bound_ms": max(tb_ms, to_ms),
         "bound_by": "bytes" if tb_ms >= to_ms else "operations",
         "library_ms": None, "ns_per_cell": row["ms"] * 1e6 / row["cells"],
         "bound_note": f"{BAQ_OPS_PER_CELL} float64 operations a band cell "
                       "at the data sheet's 34 TFLOP/s",
+        "warp_qlen": tp.WARP_QLEN, "thread_min_reads": tp.THREAD_MIN_READS,
         "note": "XLA code of the JAX package (no Pallas kernel) that the "
-                "port hand-writes; float64 (ms_f32: float32)",
+                "port hand-writes; float64 (ms_f32: float32); reads shorter "
+                "than warp_qlen run a thread each where a call holds "
+                "thread_min_reads of them, every other read a warp "
+                "(probaln_warp_kernel); *_all_thread: every read a thread",
         "match": True})
     return row
+
+
+def in_turns(fns: dict, iters: int):
+    """({name: mean ms}, {name: [ms of each turn]}) of each callable,
+    timed in turns forwards and back (A B .. B A)."""
+    order = list(fns) + list(fns)[::-1]
+    turns = {k: [] for k in fns}
+    for k in order:
+        turns[k].append(cuda_ms(fns[k], iters))
+    return {k: sum(v) / len(v) for k, v in turns.items()}, turns
 
 
 def o1_table_notes(b, offs, qb):
@@ -2646,17 +2887,17 @@ def main() -> int:
     # leg 10b's kernels ran in its rank processes: add their launches
     for k, v in notes["launches_leg10b"].items():
         launches[k] += v
-    for leg, need in (("leg7", ["inflate"]),
+    # "X4": either variant of kernel X4
+    for leg, need in (("leg7", ["X4"]),
                       ("leg8", ["record_scan", "nibble_to_base"]),
-                      ("leg9", ["probaln"]),
-                      ("leg10a", ["nibble_to_base", "inflate",
-                                  "record_scan"]),
-                      ("leg10b", ["nibble_to_base", "inflate",
-                                  "record_scan"]),
+                      ("leg9", ["probaln", "probaln_warp"]),
+                      ("leg10a", ["nibble_to_base", "X4", "record_scan"]),
+                      ("leg10b", ["nibble_to_base", "X4", "record_scan"]),
                       ("leg11", ["nibble_to_base", "record_scan"]),
                       ("leg11_ranks", ["nibble_to_base", "record_scan"]),
-                      ("leg12", ["inflate"]), ("leg12_ranks", ["inflate"])):
-        got = notes["launches_" + leg]
+                      ("leg12", ["X4"]), ("leg12_ranks", ["X4"])):
+        got = dict(notes["launches_" + leg])
+        got["X4"] = got.get("inflate", 0) + got.get("inflate_slot", 0)
         for k in need:
             require(got.get(k, 0) >= 1, f"kernel {k} not launched in {leg}")
     # every wire of leg 11's files launched its kernel (or, for an order-1
@@ -2708,6 +2949,7 @@ def main() -> int:
           flush=True)
     print(f"leg 11 check: {l11['check']}", flush=True)
     l12 = notes["leg12"]
+    leg12_members = l12.pop("x4_members")
     print(f"leg 12 wall (this process): {secs['leg12']:.3f} s, "
           + json.dumps({k: v for k, v in l12.items()
                         if k not in ("text", "header", "path")}), flush=True)
@@ -2740,9 +2982,11 @@ def main() -> int:
     rows += dense_vs_plain(args[1].device, leg3, launches)
     print(f"phase 6, dense X1, X3, B5: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
-    rows.append(inflate_vs_plain(args[1].device, bgzf, launches))
-    rows[-1]["launches_leg12"] = sum(notes[k].get("inflate", 0) for k in (
-        "launches_leg12", "launches_leg12_ranks"))
+    rows.append(inflate_vs_plain(args[1].device, bgzf, leg12_members,
+                                 launches))
+    rows[-1]["launches_leg12"] = sum(
+        notes[k].get(x4, 0) for k in ("launches_leg12", "launches_leg12_ranks")
+        for x4 in ("inflate", "inflate_slot"))
     print(f"phase 6, X4: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     rows.append(record_scan_vs_plain(args[1].device, stream, N_RECORDS,

@@ -42,8 +42,8 @@ LAUNCHES: Dict[str, int] = {
     "huffman_resolve_bench": 0, "rans4x8_o1_decode": 0,
     "rans_nx16_4way_o0_decode": 0, "rans_nx16_4way_o1_decode": 0,
     "rans4x8_o1_dense_decode": 0, "rans_nx16_4way_o1_dense_decode": 0,
-    "rans_nx16_o1_dense_decode": 0, "inflate": 0, "record_scan": 0,
-    "probaln": 0}
+    "rans_nx16_o1_dense_decode": 0, "inflate": 0, "inflate_slot": 0,
+    "record_scan": 0, "probaln": 0, "probaln_warp": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # (function, argtypes) per library: every pointer and the stream are
 # c_void_p, so ctypes never narrows them to 32-bit ints
@@ -90,8 +90,12 @@ _SIGNATURES = {
     "inflate": {
         "inflate_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int,
                                                    ctypes.c_void_p],
+        "inflate_slot_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int,
+                                                        ctypes.c_void_p],
         "inflate_smem_bytes": [],
         "inflate_blocks_per_sm": [],
+        "inflate_slot_smem_bytes": [],
+        "inflate_slot_blocks_per_sm": [],
     },
     "record_scan": {
         "record_scan_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
@@ -101,6 +105,9 @@ _SIGNATURES = {
     "probaln": {
         "probaln_launch": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
         + [ctypes.c_double] * 2 + [ctypes.c_int, ctypes.c_void_p],
+        "probaln_warp_launch": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+        + [ctypes.c_double] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "probaln_warp_j_max": [],
     },
 }
 # flags of one source beyond NVCC_FLAGS: X6 must not contract a * b + c

@@ -29,9 +29,31 @@
 // them reads as one literal 0xFF byte) and a distance past the output's
 // start (a byte reads output byte max(pos - dist, 0); position 0 copying
 // itself reads the low byte of dist - 1).  Bytes past the payload read 0.
+//
+// Memory (InflSmem, one per member, shared memory on the card): the
+// payload's words are staged ahead of the bit cursor into a ring of
+// INFL_NSEG segments (cp.async on the card, each lane a word of a
+// segment), and the stream's next bits wait in a 64-bit register
+// reservoir (InflIn) that a step refills from the ring with words it
+// loaded at its start, so no step reads its input bits from device
+// memory.  The output window, which matches copy from, is one of two
+// (infl_member's RING):
+//   - a 32 KiB ring in shared memory, DEFLATE's farthest distance, flushed
+//     to the member's slot in device memory a 4 KiB chunk at a time
+//     (16-byte stores where the slot is 16-byte aligned), positions at or
+//     past the capacity never.  A match before the output's start happens
+//     before the ring has wrapped, so ring byte 0 is still output byte 0.
+//     No step touches device memory, but a member takes 37 KB of shared
+//     memory;
+//   - the member's slot itself, positions at or past the capacity never
+//     written: matches read device memory (mostly L2), and a member takes
+//     under 5 KB.
+// Stored blocks copy straight from the payload in device memory, a chunk
+// a step across the lanes, and the reservoir seeks past them.
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 #if defined(__CUDACC__)
 #define INFL_HD __host__ __device__ __forceinline__
@@ -55,6 +77,12 @@
 #define INFL_DST_BITS 8   // the distance lookup
 #define INFL_PRE_BITS 7   // the precode lookup (precode lengths are <= 7)
 #define INFL_NLENS 320    // 288 literal/length + 32 distance code lengths
+#define INFL_RING 32768   // the output window: DEFLATE's farthest distance
+#define INFL_RING_MASK (INFL_RING - 1)
+#define INFL_FLUSH 4096   // output bytes flushed to device memory at once
+#define INFL_SEG 32       // payload words a staged segment (a word a lane)
+#define INFL_NSEG 4       // segments in the payload ring
+#define INFL_IN_WORDS (INFL_SEG * INFL_NSEG)
 
 // Error codes (InflResult.err); any nonzero one makes the member corrupt.
 enum {
@@ -90,6 +118,30 @@ struct InflTables {
   uint16_t dst_order[32];
   uint16_t pre_order[19];
   uint8_t lens[INFL_NLENS];
+};
+
+// A member's shared memory: the payload ring and the code tables (and,
+// beside them, the output ring where the member keeps one).
+struct InflSmem {
+  uint32_t in[INFL_IN_WORDS];
+  InflTables t;
+};
+
+// Output position q's byte in the window: the ring's slot q % INFL_RING,
+// or the slot's byte q.
+template <bool RING>
+INFL_HD uint32_t infl_at(uint32_t q) {
+  return RING ? q & INFL_RING_MASK : q;
+}
+
+// The bit reader: the stream's next nb bits in bb (LSB first, the bits
+// above them 0), the next payload word w to enter bb, the bits consumed p
+// (the JAX decoder's cursor), and the payload ring's segments: [base,
+// base + INFL_NSEG) staged or in flight, those up to `ready` landed.
+struct InflIn {
+  uint64_t bb;
+  uint32_t nb, w, p;
+  uint32_t base, ready;
 };
 
 // What a member's decode leaves: its error code, the bytes its tokens
@@ -139,13 +191,126 @@ INFL_HD uint32_t infl_word(const uint32_t* words, uint32_t n, uint32_t i) {
   return n - at >= 4u ? v : v & ((1u << (8u * (n - at))) - 1u);
 }
 
-// The 64 bits of the stream from bit p on (LSB-first); 0 past the end.
-INFL_HD uint64_t infl_peek(const uint32_t* words, uint32_t n, uint32_t p) {
-  const uint32_t w = p >> 5, o = p & 31u;
-  const uint64_t a = ((uint64_t)infl_word(words, n, w + 1) << 32) |
-                     infl_word(words, n, w);
-  if (o == 0) return a;
-  return (a >> o) | ((uint64_t)infl_word(words, n, w + 2) << (64 - o));
+// Stage segment `seg` of the payload (words seg * INFL_SEG on) into its
+// slot of the payload ring: lane `lane` of `nlanes` copies words lane,
+// lane + nlanes, ...; bytes past the payload's n read 0.  On the card a
+// cp.async group of the lane's, which infl_wait_segments lands.
+INFL_HD void infl_stage(uint32_t* in_ring, const uint32_t* words, uint32_t n,
+                        uint32_t seg, int lane, int nlanes) {
+  uint32_t* dst = in_ring + (seg % INFL_NSEG) * INFL_SEG;
+  for (int k = lane; k < INFL_SEG; k += nlanes) {
+    const uint32_t i = seg * INFL_SEG + (uint32_t)k;
+#if defined(__CUDA_ARCH__)
+    const uint32_t at = 4u * i;
+    const uint32_t avail = at >= n ? 0u : (n - at >= 4u ? 4u : n - at);
+    const uint32_t sa = (uint32_t)__cvta_generic_to_shared(dst + k);
+    const uint32_t* src = avail ? words + i : words;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa),
+                 "l"(src), "r"(avail)
+                 : "memory");
+#else
+    dst[k] = infl_word(words, n, i);
+#endif
+  }
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Land the lane's staged segments but the `pending` newest (0 .. 3), then
+// order the warp: every lane's words of those segments are visible.
+INFL_HD void infl_wait_segments(uint32_t pending) {
+#if defined(__CUDA_ARCH__)
+  if (pending == 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else if (pending == 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+#else
+  (void)pending;
+#endif
+  INFL_SYNC();
+}
+
+// After in->w moved: stage the segments that slots freed below w make
+// room for (all of them anew after a move outside the staged ones, as a
+// seek back past a stored block's header can make), and land the
+// segments of words w and w + 1, the words a step may read.
+INFL_HD void infl_advance(InflIn* in, uint32_t* in_ring, const uint32_t* words,
+                          uint32_t n, int lane, int nlanes) {
+  const uint32_t lo = in->w / INFL_SEG, need = (in->w + 1) / INFL_SEG;
+  if (lo < in->base || lo >= in->base + INFL_NSEG) {
+    infl_wait_segments(0);  // nothing in flight; every lane past its reads
+    for (uint32_t sg = lo; sg < lo + INFL_NSEG; ++sg)
+      infl_stage(in_ring, words, n, sg, lane, nlanes);
+    in->base = lo;
+    infl_wait_segments(lo + INFL_NSEG - 1 - need);
+    in->ready = need;
+    return;
+  }
+  if (lo != in->base) {
+    INFL_SYNC();  // every lane has read the slots being refilled
+    for (uint32_t sg = in->base + INFL_NSEG; sg < lo + INFL_NSEG; ++sg)
+      infl_stage(in_ring, words, n, sg, lane, nlanes);
+    in->base = lo;
+  }
+  if (need > in->ready) {
+    infl_wait_segments(in->base + INFL_NSEG - 1 - need);
+    in->ready = need;
+  }
+}
+
+// The reader at bit 0 of a payload: the first segments staged, the
+// reservoir filled.
+INFL_HD void infl_in_start(InflIn* in, uint32_t* in_ring,
+                           const uint32_t* words, uint32_t n, int lane,
+                           int nlanes) {
+  for (uint32_t sg = 0; sg < INFL_NSEG; ++sg)
+    infl_stage(in_ring, words, n, sg, lane, nlanes);
+  infl_wait_segments(INFL_NSEG - 2);
+  in->base = 0;
+  in->ready = 1;
+  in->bb = (uint64_t)in_ring[0] | ((uint64_t)in_ring[1] << 32);
+  in->nb = 64;
+  in->w = 2;
+  in->p = 0;
+  infl_advance(in, in_ring, words, n, lane, nlanes);
+}
+
+// Drop k bits (k <= nb, k < 64) of the reservoir.
+INFL_HD void infl_drop(InflIn* in, uint32_t k) {
+  in->bb >>= k;
+  in->nb -= k;
+  in->p += k;
+}
+
+// Top the reservoir up to at least 33 bits with word w, staging and
+// landing what that takes (the slow paths: headers, code lengths).
+INFL_HD void infl_fill(InflIn* in, uint32_t* in_ring, const uint32_t* words,
+                       uint32_t n, int lane, int nlanes) {
+  if (in->nb > 32) return;
+  in->bb |= (uint64_t)in_ring[in->w % INFL_IN_WORDS] << in->nb;
+  in->nb += 32;
+  ++in->w;
+  infl_advance(in, in_ring, words, n, lane, nlanes);
+}
+
+// Move the reader to bit p (past a stored block), the reservoir filled.
+INFL_HD void infl_seek(InflIn* in, uint32_t p, uint32_t* in_ring,
+                       const uint32_t* words, uint32_t n, int lane,
+                       int nlanes) {
+  in->w = p >> 5;
+  infl_advance(in, in_ring, words, n, lane, nlanes);
+  const uint32_t o = p & 31u;
+  in->bb = (uint64_t)(in_ring[in->w % INFL_IN_WORDS] >> o);
+  in->nb = 32u - o;
+  in->p = p;
+  ++in->w;
+  infl_advance(in, in_ring, words, n, lane, nlanes);
+  infl_fill(in, in_ring, words, n, lane, nlanes);
 }
 
 INFL_HD uint32_t infl_byte(const uint8_t* bytes, uint32_t n, uint32_t q) {
@@ -238,95 +403,256 @@ INFL_HD void infl_build_block(InflTables* t, int nlit, int ndist, int lane,
              nlanes);
 }
 
-// Copy `len` bytes at output position pos from max(q - dist, 0) for each q,
-// positions at or past `cap` not written.  Lanes copy in parallel where
-// the source lies wholly before pos; else lane 0 copies byte by byte.
-INFL_HD void infl_match(uint8_t* out, uint32_t cap, uint32_t pos,
+// Copy `len` bytes at output position pos from max(q - dist, 0) for each
+// q, in the output window `win`.  Lanes copy in parallel where the source
+// lies wholly before pos (where a ring slot written may be another lane's
+// source, dist + len past the ring, every lane loads before any stores);
+// else lane 0 copies byte by byte the match that reaches before the
+// output's start (JAX's clamp).  Positions at or past `cap` are not
+// written to a slot, nor, by the clamp, to the ring.
+template <bool RING>
+INFL_HD void infl_match(uint8_t* win, uint32_t cap, uint32_t pos,
                         uint32_t len, uint32_t dist, int lane, int nlanes) {
   INFL_SYNC();  // the bytes before pos, written by any lane, are visible
   if (pos >= dist) {
     const uint32_t src = pos - dist;
-    for (uint32_t i = (uint32_t)lane; i < len; i += (uint32_t)nlanes) {
-      const uint32_t q = pos + i;
-      if (q < cap) out[q] = out[src + i % dist];
+    const bool wraps = RING && dist + len > INFL_RING;
+    // i % dist for i < len <= 258 by a float reciprocal, corrected once
+    // (an overlapping match only: the rest read i)
+    float rcp = 0.0f;
+    if (dist < len) rcp = 1.0f / (float)dist;
+    for (uint32_t i0 = 0; i0 < len; i0 += (uint32_t)nlanes) {
+      const uint32_t i = i0 + (uint32_t)lane;
+      uint32_t k = i;
+      if (k >= dist) {
+        k = i - (uint32_t)((float)i * rcp) * dist;
+        if ((int32_t)k < 0) k += dist;
+        if (k >= dist) k -= dist;
+      }
+      const bool put = i < len && (RING || pos + i < cap);
+      uint8_t v = 0;
+      if (put) v = win[infl_at<RING>(src + k)];
+      if (wraps) INFL_SYNC();
+      if (put) win[infl_at<RING>(pos + i)] = v;
     }
   } else if (lane == 0) {
+    // pos < dist <= 32,768: a ring has not wrapped before pos, so slot 0
+    // is byte 0 until position 32,768, which reads it first
     for (uint32_t i = 0; i < len; ++i) {
       const uint32_t q = pos + i;
       if (q >= cap) break;
-      out[q] = q == 0 ? (uint8_t)(dist - 1u)
-                      : out[q >= dist ? q - dist : 0u];
+      win[infl_at<RING>(q)] =
+          q == 0 ? (uint8_t)(dist - 1u) : win[q >= dist ? q - dist : 0u];
     }
   }
 }
 
+// 16 bytes from src to dst, both 16-byte aligned.
+INFL_HD void infl_copy16(uint8_t* dst, const uint8_t* src) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+// Output positions [lo, min(hi, cap)) from the ring to out, lo a multiple
+// of 16: 16-byte stores across the lanes where out + lo is 16-byte
+// aligned, bytes for the rest.
+INFL_HD void infl_flush(const uint8_t* ring, uint8_t* out, uint32_t lo,
+                        uint32_t hi, uint32_t cap, int lane, int nlanes) {
+  if (hi > cap) hi = cap;
+  if (lo >= hi) return;
+  INFL_SYNC();  // the ring's bytes, written by any lane, are visible
+  uint32_t vend = lo;
+  if (((uintptr_t)(out + lo) & 15u) == 0) {
+    vend = lo + ((hi - lo) & ~15u);
+    for (uint32_t a = lo + 16u * (uint32_t)lane; a < vend;
+         a += 16u * (uint32_t)nlanes)
+      infl_copy16(out + a, ring + (a & INFL_RING_MASK));
+  }
+  for (uint32_t a = vend + (uint32_t)lane; a < hi; a += (uint32_t)nlanes)
+    out[a] = ring[a & INFL_RING_MASK];
+}
+
 // Decode one member: its payload (`words`, 4-byte aligned, `n` bytes) into
-// out[0 .. cap), cap <= INFL_OUT_MAX, with the tables `t`.  Every lane runs
-// the same decode (the branches are uniform); the writes are split across
-// lanes.  Returns the same result on every lane.
+// out[0 .. cap), cap <= INFL_OUT_MAX, with the shared memory `sm` and,
+// where RING, the output ring `ring` (INFL_RING bytes, 16-byte aligned;
+// else unused).  Every lane runs the same decode (the branches are
+// uniform); the writes are split across lanes.  Returns the same result
+// on every lane.
+template <bool RING>
 INFL_HD InflResult infl_member(const uint32_t* words, uint32_t n, uint8_t* out,
-                               uint32_t cap, InflTables* t, int lane,
-                               int nlanes) {
+                               uint32_t cap, uint8_t* ring, InflSmem* sm,
+                               int lane, int nlanes) {
   enum { HDR, LENS, STORED, SYM, BUILD, DONE };
   const uint8_t* bytes = reinterpret_cast<const uint8_t*>(words);
+  InflTables* t = &sm->t;
+  uint8_t* win = RING ? ring : out;  // the window matches copy from
+  uint32_t* in_ring = sm->in;
   const uint32_t end_bits = 8u * n;
   InflResult r = {INFL_OK, 0, 0, 0};
-  uint32_t p = 0, step = 0, pos = 0, tokens = 0;
+  InflIn in;
+  infl_in_start(&in, in_ring, words, n, lane, nlanes);
+  uint32_t step = 0, pos = 0, tokens = 0, flushed = 0;
   uint32_t stored_off = 0, stored_rem = 0;
   int phase = HDR, bfinal = 0, nlit = 0, ndist = 0, nlens = 0, filled = 0;
   int last = 0;  // the last code length a non-16 code-length symbol gave
   for (;;) {
+    if (phase == SYM) {
+      // The literal and length steps, a step a pass; a step that is not
+      // one (the caps or the payload's end reached, end of block, a code
+      // with no entry, symbol 286 or 287) leaves the loop at its start,
+      // having changed nothing, and runs below.
+      bool stop = false;
+      for (;;) {
+        // a run of literals, a step each, whose steps need nothing more: the
+        // code in the lookup, 33 bits left in the reservoir after it, no
+        // flush due, the caps and the payload's end not reached; it leaves
+        // with the lookup of the next step's code in le
+        uint32_t le;
+        for (;;) {
+          le = t->lit[(uint32_t)in.bb & ((1u << INFL_LIT_BITS) - 1u)];
+          const uint32_t lb = le >> 9;
+          if (le == 0 || (le & 511u) >= 256u || in.nb - lb <= 32u ||
+              step >= INFL_STEP_CAP || in.p > end_bits ||
+              tokens + 1u >= INFL_MAX_TOK ||
+              (RING && ((pos + 1u) & (uint32_t)(INFL_FLUSH - 1)) == 0))
+            break;
+          if (RING || pos < cap)
+            win[infl_at<RING>(pos)] = (uint8_t)le;  // every lane, one byte
+          ++pos;
+          ++tokens;
+          ++step;
+          infl_drop(&in, lb);
+        }
+        if (step >= INFL_STEP_CAP || in.p > end_bits) break;
+        const uint32_t wa = in_ring[in.w % INFL_IN_WORDS];
+        const uint32_t wb = in_ring[(in.w + 1) % INFL_IN_WORDS];
+        if (le == 0)  // a code past the lookup's 10 bits
+          le = infl_decode(t->lit, INFL_LIT_BITS, &t->lit_c, t->lit_order,
+                           (uint32_t)in.bb);
+        const uint32_t ls = le & 511u;
+        if (le == 0 || ls == 256 || ls >= 286) break;
+        const uint32_t lb = le >> 9;
+        uint32_t took = 0;
+        if (ls < 256) {
+          if (RING || pos < cap)
+            win[infl_at<RING>(pos)] = (uint8_t)ls;  // every lane, one byte
+          ++pos;
+          ++tokens;
+          infl_drop(&in, lb);
+        } else {
+          const uint32_t lc = ls - 257u, lx = infl_length_extra(lc);
+          const uint32_t length =
+              infl_length_base(lc) +
+              ((uint32_t)(in.bb >> lb) & ((1u << lx) - 1u));
+          infl_drop(&in, lb + lx);
+          if (in.nb <= 32) {
+            in.bb |= (uint64_t)wa << in.nb;
+            in.nb += 32;
+            took = 1;
+          }
+          const uint32_t de = infl_decode(t->dst, INFL_DST_BITS, &t->dst_c,
+                                          t->dst_order, (uint32_t)in.bb);
+          if (de == 0) {
+            r.err = INFL_E_DIST;
+            stop = true;
+            break;
+          }
+          const uint32_t db = de >> 9, ds = de & 31u,
+                         dx = infl_dist_extra(ds);
+          const uint32_t dist =
+              infl_dist_base(ds) +
+              ((uint32_t)(in.bb >> db) & ((1u << dx) - 1u));
+          infl_drop(&in, db + dx);
+          ++tokens;
+          if (ds >= 30) {
+            if (RING || pos < cap) win[infl_at<RING>(pos)] = 0xFFu;
+            ++pos;
+          } else {
+            infl_match<RING>(win, cap, pos, length, dist, lane, nlanes);
+            pos += length;
+          }
+        }
+        if (in.nb <= 32) {
+          in.bb |= (uint64_t)(took ? wb : wa) << in.nb;
+          in.nb += 32;
+          ++took;
+        }
+        if (took) {
+          in.w += took;
+          if (in.w / INFL_SEG != in.base || (in.w + 1) / INFL_SEG > in.ready)
+            infl_advance(&in, in_ring, words, n, lane, nlanes);
+        }
+        if (RING && (pos & ~(uint32_t)(INFL_FLUSH - 1)) > flushed) {
+          const uint32_t to = pos & ~(uint32_t)(INFL_FLUSH - 1);
+          infl_flush(ring, out, flushed, to, cap, lane, nlanes);
+          flushed = to;
+        }
+        if (tokens >= INFL_MAX_TOK) {
+          r.err = INFL_E_TOKENS;
+          stop = true;
+          break;
+        }
+        ++step;
+      }
+      if (stop) break;
+    }
     if (step >= INFL_STEP_CAP) {
       r.err = INFL_E_STEPS;
       break;
     }
-    if (p > end_bits) {
+    if (in.p > end_bits) {
       r.err = INFL_E_OVERRUN;
       break;
     }
     if (phase == HDR) {
-      const uint64_t w = infl_peek(words, n, p);
-      bfinal = (int)(w & 1u);
-      const uint32_t btype = (uint32_t)(w >> 1) & 3u;
+      bfinal = (int)(in.bb & 1u);
+      const uint32_t btype = (uint32_t)(in.bb >> 1) & 3u;
       if (btype == 3) {
         r.err = INFL_E_BTYPE;
         break;
       }
+      infl_drop(&in, 3u);
       if (btype == 0) {
-        const uint32_t pb = (p + 3u + 7u) & ~7u;
-        stored_rem = (uint32_t)infl_peek(words, n, pb) & 0xFFFFu;
-        stored_off = (pb + 32u) >> 3;
-        p = pb + 32u;
+        // LEN at the next byte boundary; NLEN is not checked
+        infl_drop(&in, (8u - (in.p & 7u)) & 7u);
+        infl_fill(&in, in_ring, words, n, lane, nlanes);
+        stored_rem = (uint32_t)in.bb & 0xFFFFu;
+        stored_off = (in.p + 32u) >> 3;
+        in.p += 32u;  // the reservoir seeks past the block at its end
         phase = STORED;
       } else if (btype == 1) {
-        p += 3u;
         infl_fixed_lens(t->lens, lane, nlanes);
+        infl_fill(&in, in_ring, words, n, lane, nlanes);
         nlit = 288;
         ndist = 32;
         phase = BUILD;
       } else {
-        nlit = (int)((w >> 3) & 31u) + 257;
-        ndist = (int)((w >> 8) & 31u) + 1;
-        const int hclen4 = (int)((w >> 13) & 15u) + 4;
-        p += 17u;
+        nlit = (int)(in.bb & 31u) + 257;
+        ndist = (int)((in.bb >> 5) & 31u) + 1;
+        const int hclen4 = (int)((in.bb >> 10) & 15u) + 4;
+        infl_drop(&in, 14u);
         // the precode's lengths, in the order of RFC 1951 section 3.2.7
-        const uint64_t pw = infl_peek(words, n, p);
         const uint8_t perm[19] = {16, 17, 18, 0, 8,  7, 9,  6, 10, 5,
                                   11, 4,  12, 3, 13, 2, 14, 1, 15};
-        if (lane == 0) {
-          uint8_t plens[19];
-          for (int j = 0; j < 19; ++j) plens[j] = 0;
-          for (int j = 0; j < hclen4; ++j)
-            plens[perm[j]] = (uint8_t)((pw >> (3 * j)) & 7u);
-          for (int j = 0; j < 19; ++j) t->lens[j] = plens[j];
+        uint8_t plens[19];
+        for (int j = 0; j < 19; ++j) plens[j] = 0;
+        for (int j = 0; j < hclen4; ++j) {
+          infl_fill(&in, in_ring, words, n, lane, nlanes);
+          plens[perm[j]] = (uint8_t)(in.bb & 7u);
+          infl_drop(&in, 3u);
         }
+        if (lane == 0)
+          for (int j = 0; j < 19; ++j) t->lens[j] = plens[j];
         INFL_SYNC();
         infl_build(t->lens, 19, &t->pre_c, t->pre_order, t->pre,
                    INFL_PRE_BITS, lane, nlanes);
-        p += 3u * (uint32_t)hclen4;
         if (lane == 0)
           for (int i = 0; i < INFL_NLENS; ++i) t->lens[i] = 0;
         INFL_SYNC();
+        infl_fill(&in, in_ring, words, n, lane, nlanes);
         nlens = nlit + ndist;
         filled = 0;
         last = 0;
@@ -336,7 +662,7 @@ INFL_HD InflResult infl_member(const uint32_t* words, uint32_t n, uint8_t* out,
     if (phase == LENS) {
       // one code-length symbol (a step of its own, or the dynamic
       // header's step's last item)
-      const uint64_t w = infl_peek(words, n, p);
+      const uint64_t w = in.bb;
       const uint32_t pe = t->pre[w & ((1u << INFL_PRE_BITS) - 1u)];
       if (pe == 0) {
         r.err = INFL_E_PRECODE;
@@ -364,7 +690,8 @@ INFL_HD InflResult infl_member(const uint32_t* words, uint32_t n, uint8_t* out,
         for (uint32_t i = 0; i < rep; ++i)
           if (filled + (int)i < nlens) t->lens[filled + i] = (uint8_t)val;
       filled += (int)rep;
-      p += bits + extra;
+      infl_drop(&in, bits + extra);
+      infl_fill(&in, in_ring, words, n, lane, nlanes);
       if (filled >= nlens) {
         INFL_SYNC();
         phase = BUILD;
@@ -374,64 +701,41 @@ INFL_HD InflResult infl_member(const uint32_t* words, uint32_t n, uint8_t* out,
       const uint32_t chunk =
           stored_rem < INFL_STORED_CHUNK ? stored_rem : INFL_STORED_CHUNK;
       if (chunk) {
-        for (uint32_t i = (uint32_t)lane; i < chunk; i += (uint32_t)nlanes) {
-          const uint32_t q = pos + i;
-          if (q < cap) out[q] = (uint8_t)infl_byte(bytes, n, stored_off + i);
-        }
+        for (uint32_t i = (uint32_t)lane; i < chunk; i += (uint32_t)nlanes)
+          if (RING || pos + i < cap)
+            win[infl_at<RING>(pos + i)] =
+                (uint8_t)infl_byte(bytes, n, stored_off + i);
         pos += chunk;
         ++tokens;
       }
       stored_off += chunk;
       stored_rem -= chunk;
-      p += chunk << 3;
-      if (stored_rem == 0) phase = bfinal ? DONE : HDR;
+      in.p += chunk << 3;
+      if (stored_rem == 0) {
+        phase = bfinal ? DONE : HDR;
+        if (phase == HDR) infl_seek(&in, in.p, in_ring, words, n, lane, nlanes);
+      }
     }
     if (phase == SYM) {
-      const uint64_t w = infl_peek(words, n, p);
+      // what the loop above leaves: end of block, or a symbol in error
       const uint32_t le = infl_decode(t->lit, INFL_LIT_BITS, &t->lit_c,
-                                      t->lit_order, (uint32_t)w);
+                                      t->lit_order, (uint32_t)in.bb);
       if (le == 0) {
         r.err = INFL_E_LITLEN;
         break;
       }
-      const uint32_t lb = le >> 9, ls = le & 511u;
-      if (ls < 256) {
-        if (lane == 0 && pos < cap) out[pos] = (uint8_t)ls;
-        ++pos;
-        ++tokens;
-        p += lb;
-      } else if (ls == 256) {
-        p += lb;
-        phase = bfinal ? DONE : HDR;
-      } else if (ls >= 286) {
+      if ((le & 511u) != 256) {
         r.err = INFL_E_SYMBOL;
         break;
-      } else {
-        const uint32_t lc = ls - 257u, lx = infl_length_extra(lc);
-        const uint32_t length =
-            infl_length_base(lc) + ((uint32_t)(w >> lb) & ((1u << lx) - 1u));
-        const uint32_t at = lb + lx;
-        const uint32_t de = infl_decode(t->dst, INFL_DST_BITS, &t->dst_c,
-                                        t->dst_order, (uint32_t)(w >> at));
-        if (de == 0) {
-          r.err = INFL_E_DIST;
-          break;
-        }
-        const uint32_t db = de >> 9, ds = de & 31u, dx = infl_dist_extra(ds);
-        const uint32_t dist =
-            infl_dist_base(ds) +
-            ((uint32_t)(w >> (at + db)) & ((1u << dx) - 1u));
-        p += at + db + dx;
-        ++tokens;
-        if (ds >= 30) {
-          // JAX's token for distance 0 reads as one literal byte 0xFF
-          if (lane == 0 && pos < cap) out[pos] = 0xFFu;
-          ++pos;
-        } else {
-          infl_match(out, cap, pos, length, dist, lane, nlanes);
-          pos += length;
-        }
       }
+      infl_drop(&in, le >> 9);
+      infl_fill(&in, in_ring, words, n, lane, nlanes);
+      phase = bfinal ? DONE : HDR;
+    }
+    if (RING && (pos & ~(uint32_t)(INFL_FLUSH - 1)) > flushed) {
+      const uint32_t to = pos & ~(uint32_t)(INFL_FLUSH - 1);
+      infl_flush(ring, out, flushed, to, cap, lane, nlanes);
+      flushed = to;
     }
     if (tokens >= INFL_MAX_TOK) {
       r.err = INFL_E_TOKENS;
@@ -455,6 +759,10 @@ INFL_HD InflResult infl_member(const uint32_t* words, uint32_t n, uint8_t* out,
       ++step;
     }
   }
+  if (RING) infl_flush(ring, out, flushed, pos, cap, lane, nlanes);
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
   INFL_SYNC();
   r.produced = (int32_t)pos;
   r.tokens = (int32_t)tokens;

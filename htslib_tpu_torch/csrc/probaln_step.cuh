@@ -14,6 +14,11 @@
 // A read's band row i holds cells j = 0 .. J-1 (J = 2 * bw + 2), cell j
 // standing for reference position k = x + j - 1 with x = max(i - bw, 0),
 // active for max(1, i - bw) <= k <= min(lr, i + bw).
+//
+// Two routines run a read: probaln_read, one thread a read (the short
+// reads), and probaln_read_warp, one warp a read (the long reads), whose
+// lanes split each row's cells and whose serial chains and sums one lane
+// walks in probaln_read's order, so both give the same bits.
 #pragma once
 
 #include <math.h>
@@ -282,5 +287,270 @@ PB_HD int32_t probaln_read(const PbRead<T>& r, const PbScratch<T>& s,
     pb_map<T>(s.fM + (int64_t)(i - 1) * s.row, s.fI + (int64_t)(i - 1) * s.row,
               cM, cI, cell, J, x, s_i, state, q, i);
   }
+  return pr;
+}
+
+// ---------------------------------------------------------------------------
+// One warp a read (the long-read variant of kernel X6)
+// ---------------------------------------------------------------------------
+//
+// probaln_read's arithmetic with a row's cells split over the warp's 32
+// lanes, lane l taking cells l, l + 32, ... (J may pass 32).  What needs
+// only the row before runs on every lane at once: the emissions and the
+// M and I terms of the forward rows, the emissions and M and I terms of
+// the backward rows.  What XLA runs serially stays serial, in the same
+// order, walked by lane 0: the forward D chain with the row sum from cell
+// 0, the likelihood's two sums, the backward D chain from cell J - 1.  A
+// warp scan or tree reduction would round float64 in another order and is
+// not used.  The MAP of a row needs only that row's forward and backward
+// cells, so the backward rows are kept beside the forward ones and the
+// MAP runs after the backward pass, a row a lane, each with probaln_read's
+// serial ssum / argmax / rest (pb_map).
+//
+// Memory: the lanes pass a row to each other through an exchange of six
+// rows of Jp = J rounded up to 8 cells (M, I and D, two of each) and four
+// scalars, in shared memory on the card; the forward and backward M and I
+// rows (lq x J each, cell stride 1, so a warp's row is one coalesced
+// access), the row sums and their logs in the warp's scratch.
+//
+// PB_LANES(body) runs body as every lane and then orders the lanes'
+// memory: on the card each lane runs it and the warp synchronises; on the
+// host (the g++ harness) the 32 lanes run it in turn.  Values one lane
+// gives another pass through memory, never through registers.
+
+#define PB_WARP 32
+
+#if defined(__CUDA_ARCH__)
+#define PB_LANES(...)                            \
+  do {                                           \
+    const int lane = (int)(threadIdx.x & 31u);   \
+    __VA_ARGS__;                                 \
+    __syncwarp();                                \
+  } while (0)
+#else
+#define PB_LANES(...)                                      \
+  do {                                                     \
+    for (int lane = 0; lane < PB_WARP; ++lane) {           \
+      __VA_ARGS__;                                         \
+    }                                                      \
+  } while (0)
+#endif
+
+// Row stride of the exchange: J rounded up to 8 cells, so lane 0 reads a
+// row 8 cells at a time without a bound check.
+PB_HD int32_t pb_xstride(int32_t J) { return (J + 7) & ~7; }
+
+// Elements of the exchange of a read of band J.
+PB_HD int64_t pb_xsize(int32_t J) { return 6 * (int64_t)pb_xstride(J) + 4; }
+
+// Elements of a read's scratch (lq rows of J cells): fM, fI, bM, bI, then
+// ss and lg (lq each).
+PB_HD int64_t pb_warp_scratch(int32_t lq, int32_t J) {
+  return (4 * (int64_t)J + 2) * lq;
+}
+
+template <typename T>
+struct PbWarpScratch {
+  T* fM;  // forward rows 1..lq (row r at (r - 1) * J)
+  T* fI;
+  T* bM;  // backward rows 1..lq, scaled as the MAP reads them
+  T* bI;
+  T* ss;  // s[1..lq]
+  T* lg;  // log(max(s, 1e-300)) of each row
+  T* x;   // the exchange: pb_xsize(J) elements
+};
+
+// The whole read, as probaln_read.  Returns Pr (on the card, on lane 0);
+// writes state[0..lq) and q[0..lq).
+template <typename T>
+PB_HD int32_t probaln_read_warp(const PbRead<T>& r, const PbWarpScratch<T>& s,
+                                int32_t* state, uint8_t* q) {
+  const int32_t lr = r.lr, lq = r.lq, bw = r.bw, J = 2 * bw + 2;
+  const int32_t Jp = pb_xstride(J);
+  const PbTerms<T> t = pb_terms<T>(lr, lq, r.d, r.e);
+  T* const XM[2] = {s.x, s.x + Jp};
+  T* const XI[2] = {s.x + 2 * Jp, s.x + 3 * Jp};
+  T* const XD[2] = {s.x + 4 * Jp, s.x + 5 * Jp};
+  T* const sc = s.x + 6 * Jp;  // [0] the last row's sum, [1] s_end
+  int32_t pr = 0;
+  int32_t jb, je;
+
+  // forward row 1 (probaln.c:141-150)
+  {
+    const int32_t x = pb_x(1, bw);
+    pb_active(1, bw, lr, &jb, &je);
+    PB_LANES(for (int32_t j = lane; j < J; j += PB_WARP) {
+      const bool act = j >= jb && j <= je;
+      const T m =
+          act ? pb_emis<T>(r.query[0], r.qp[0], pb_rc(r.ref, lr, x, j)) * t.bM
+              : T(0);
+      const T ins = act ? T(PB_EI) * t.bI : T(0);
+      s.fM[j] = m;
+      s.fI[j] = ins;
+      XM[1][j] = m;
+      XI[1][j] = ins;
+      XD[1][j] = T(0);
+    });
+    PB_LANES(if (lane == 0) {
+      T sum = T(0);
+      for (int32_t j = 0; j < J; ++j) sum = sum + (XM[1][j] + XI[1][j]);
+      s.ss[0] = sum;
+      sc[0] = sum;
+    });
+  }
+  // forward rows 2..lq (probaln.c:151-170): the M and I terms by the
+  // lanes, then the D chain and the row sum by lane 0
+  for (int32_t i = 2; i <= lq; ++i) {
+    const int32_t x = pb_x(i, bw), sh = x - pb_x(i - 1, bw);
+    pb_active(i, bw, lr, &jb, &je);
+    const int qc = r.query[i - 1];
+    const T qpi = r.qp[i - 1];
+    const T *pM = XM[(i - 1) & 1], *pI = XI[(i - 1) & 1],
+            *pD = XD[(i - 1) & 1];
+    T *cM = XM[i & 1], *cI = XI[i & 1], *cD = XD[i & 1];
+    T* const gM = s.fM + (int64_t)(i - 1) * J;
+    T* const gI = s.fI + (int64_t)(i - 1) * J;
+    PB_LANES(
+        const T minv = T(1) / sc[0];
+        for (int32_t j = lane; j < J; j += PB_WARP) {
+          const bool act = j >= jb && j <= je;
+          T m11, i11, d11, m10, i10;
+          if (sh == 1) {
+            m11 = pM[j];
+            i11 = pI[j];
+            d11 = pD[j];
+            m10 = j + 1 < J ? pM[j + 1] : T(0);
+            i10 = j + 1 < J ? pI[j + 1] : T(0);
+          } else {
+            m11 = j ? pM[j - 1] : T(0);
+            i11 = j ? pI[j - 1] : T(0);
+            d11 = j ? pD[j - 1] : T(0);
+            m10 = pM[j];
+            i10 = pI[j];
+          }
+          const T ev = pb_emis<T>(qc, qpi, pb_rc(r.ref, lr, x, j));
+          T m = ev * (t.m0 * minv * m11 + t.m3 * minv * i11 +
+                      t.m6 * minv * d11);
+          T ins = T(PB_EI) * (t.m1 * minv * m10 + t.m4 * minv * i10);
+          if (!act) m = ins = T(0);
+          cM[j] = m;
+          cI[j] = ins;
+          gM[j] = m;
+          gI[j] = ins;
+        });
+    PB_LANES(if (lane == 0) {
+      T rsum = T(0), dprev = T(0), mprev = T(0);
+      for (int32_t j0 = 0; j0 < J; j0 += 8) {
+        T mv[8], iv[8];
+        for (int u = 0; u < 8; ++u) {
+          mv[u] = cM[j0 + u];
+          iv[u] = cI[j0 + u];
+        }
+        for (int u = 0; u < 8 && j0 + u < J; ++u) {
+          const int32_t j = j0 + u;
+          const bool act = j >= jb && j <= je;
+          const T dd = (t.m2 * mprev + t.m8 * dprev) * (act ? T(1) : T(0));
+          cD[j] = dd;
+          rsum = rsum + (mv[u] + iv[u] + dd);
+          dprev = dd;
+          mprev = mv[u];
+        }
+      }
+      s.ss[i - 1] = rsum;
+      sc[0] = rsum;
+    });
+  }
+
+  // likelihood (probaln.c:171-186, as a sum of logs): the logs by the
+  // lanes, both sums by lane 0
+  const T s_lq = s.ss[lq - 1];
+  PB_LANES(
+      for (int32_t i = lane; i < lq; i += PB_WARP) s.lg[i] =
+          pb_log(pb_max(s.ss[i], (T)1e-300));
+      if (lane == 0) {
+        const T *lM = XM[lq & 1], *lI = XI[lq & 1];
+        T s_end = T(0);
+        for (int32_t j = 0; j < J; ++j)
+          s_end = s_end + (lM[j] * t.sM + lI[j] * t.sI);
+        sc[1] = s_end / s_lq;
+      });
+  PB_LANES(if (lane == 0) {
+    T logs = T(0);
+    for (int32_t i = 0; i < lq; ++i) logs = logs + s.lg[i];
+    const T pr1 =
+        T(-4.343) * (logs + pb_log(sc[1]) + pb_log((T)lr * (T)lq));
+    pr = (int32_t)(pr1 + T(0.499));
+  });
+
+  // backward (probaln.c:192-241): row lq from the end state, then rows
+  // lq-1 .. 1, each from the row below it
+  {
+    const T s_end = sc[1];
+    const T a0 = t.sM / (s_lq * s_end), a1 = t.sI / (s_lq * s_end);
+    pb_active(lq, bw, lr, &jb, &je);
+    T *cM = XM[lq & 1], *cI = XI[lq & 1];
+    T* const gM = s.bM + (int64_t)(lq - 1) * J;
+    T* const gI = s.bI + (int64_t)(lq - 1) * J;
+    PB_LANES(for (int32_t j = lane; j < J; j += PB_WARP) {
+      const bool act = j >= jb && j <= je;
+      cM[j] = gM[j] = act ? a0 : T(0);
+      cI[j] = gI[j] = act ? a1 : T(0);
+    });
+  }
+  T* const XE = XD[0];  // ev * m11 of the row's cells
+  T* const XB = XD[1];  // the row's D chain
+  for (int32_t i = lq - 1; i >= 1; --i) {
+    const int32_t x = pb_x(i, bw), sh = pb_x(i + 1, bw) - x;
+    pb_active(i, bw, lr, &jb, &je);
+    const int qc = r.query[i];
+    const T qpi = r.qp[i];
+    const T y = i > 1 ? T(1) : T(0);
+    const T yscale = T(1) / s.ss[i - 1];
+    const T *nM = XM[(i + 1) & 1], *nI = XI[(i + 1) & 1];
+    T *cM = XM[i & 1], *cI = XI[i & 1];
+    T* const gM = s.bM + (int64_t)(i - 1) * J;
+    T* const gI = s.bI + (int64_t)(i - 1) * J;
+    PB_LANES(for (int32_t j = lane; j < J; j += PB_WARP) {
+      const int32_t k = x + j - 1;
+      const T ev = k >= 0 && k < lr ? pb_emis<T>(qc, qpi, (int)r.ref[k])
+                                    : T(0);
+      const T m11 = sh == 1 ? nM[j] : (j + 1 < J ? nM[j + 1] : T(0));
+      XE[j] = ev * m11;
+    });
+    PB_LANES(if (lane == 0) {
+      T dnext = T(0);
+      for (int32_t j1 = J; j1 > 0; j1 -= 8) {  // cells j1 - 8 .. j1 - 1
+        T ev8[8];
+        for (int u = 0; u < 8; ++u) ev8[u] = j1 - 1 - u >= 0 ? XE[j1 - 1 - u]
+                                                              : T(0);
+        for (int u = 0; u < 8 && j1 - 1 - u >= 0; ++u) {
+          const int32_t j = j1 - 1 - u;
+          const bool act = j >= jb && j <= je;
+          const T dj =
+              (ev8[u] * t.m6 + t.m8 * dnext) * y * (act ? T(1) : T(0));
+          XB[j] = dj;
+          dnext = dj;
+        }
+      }
+    });
+    PB_LANES(for (int32_t j = lane; j < J; j += PB_WARP) {
+      const bool act = j >= jb && j <= je;
+      const T i10 = sh == 1 ? (j ? nI[j - 1] : T(0)) : nI[j];
+      const T ee = XE[j];
+      const T dnext = j + 1 < J ? XB[j + 1] : T(0);
+      T m = ee * t.m0 + t.ei_m1 * i10 + t.m2 * dnext;
+      T ins = ee * t.m3 + t.ei_m4 * i10;
+      if (!act) m = ins = T(0);
+      cM[j] = gM[j] = m * yscale;
+      cI[j] = gI[j] = ins * yscale;
+    });
+  }
+
+  // MAP (probaln.c:242-261), a row a lane, each row's sums serial
+  PB_LANES(for (int32_t i = 1 + lane; i <= lq; i += PB_WARP) {
+    const int64_t o = (int64_t)(i - 1) * J;
+    pb_map<T>(s.fM + o, s.fI + o, s.bM + o, s.bI + o, 1, J, pb_x(i, bw),
+              s.ss[i - 1], state, q, i);
+  });
   return pr;
 }

@@ -11,7 +11,8 @@ eagerly, each of pass A's ~100 elementwise ops a step would be a launch,
 tens of thousands of steps a member, so the port hand-writes the decoder
 instead: one launch decodes every member serially in one warp each
 (csrc/inflate.cu, csrc/inflate_step.cuh), with the JAX function's bytes
-and errors.
+and errors, in one of two variants that keep the output window that
+matches read in shared memory or in the member's slot (`ring_fits`).
 
 `inflate` launches the kernel for a batch on the card and takes the plain
 PyTorch version (`inflate_plain`: the JAX function's two passes as tensor
@@ -491,11 +492,33 @@ def inflate_plain(b: InflateBatch) -> Tuple[torch.Tensor, torch.Tensor]:
     return flat[:b.total_out], stats
 
 
-def inflate_cuda(b: InflateBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+_RING_WAVE: dict = {}  # members in one wave of the ring variant, a card
+
+
+def ring_fits(n_members: int, device) -> bool:
+    """Whether a batch of n_members runs kernel X4's ring variant: while
+    the batch fits one wave of it (its blocks an SM times the card's
+    SMs).  A launch lasts about its longest member's steps times a step's
+    time times its waves: the ring's step is about half the slot
+    variant's, but an SM holds a few members of it against the slot
+    variant's many."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _RING_WAVE:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _RING_WAVE[dev] = blocks_per_sm(ring=True) * sms
+    return n_members <= _RING_WAVE[dev]
+
+
+def inflate_cuda(b: InflateBatch, ring: Optional[bool] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel X4 over the whole batch in one launch; returns (output u8
     [total_out], stats int32 [B, 4]: error code (0: none), bytes
     produced, tokens, steps), the error flag and, where there is no
-    error, the rest as in `inflate_plain`."""
+    error, the rest as in `inflate_plain`.  `ring` picks the variant
+    (the output window in shared memory, or the member's slot), by
+    default `ring_fits`; both give the same results."""
     B = b.n_members
     req = _build.require_cuda
     req(b.payload, torch.uint8, "payload")
@@ -513,16 +536,18 @@ def inflate_cuda(b: InflateBatch) -> Tuple[torch.Tensor, torch.Tensor]:
     if bool(bad):
         raise ValueError("batch: a member lies outside its buffers")
     dev = b.payload.device
+    if ring is None:
+        ring = ring_fits(B, dev)
     out = torch.empty(b.total_out, dtype=torch.uint8, device=dev)
     stats = torch.empty((B, 4), dtype=torch.int32, device=dev)
     lib = _build.load("inflate")
-    rc = lib.inflate_launch(b.payload.data_ptr(), b.in_off.data_ptr(),
-                            b.in_len.data_ptr(), out.data_ptr(),
-                            b.out_off.data_ptr(), b.out_cap.data_ptr(),
-                            stats.data_ptr(), B,
-                            _build.stream_handle(b.payload))
-    _build.check(lib, rc, "inflate")
-    _build.LAUNCHES["inflate"] += 1
+    name = "inflate" if ring else "inflate_slot"
+    rc = getattr(lib, name + "_launch")(
+        b.payload.data_ptr(), b.in_off.data_ptr(), b.in_len.data_ptr(),
+        out.data_ptr(), b.out_off.data_ptr(), b.out_cap.data_ptr(),
+        stats.data_ptr(), B, _build.stream_handle(b.payload))
+    _build.check(lib, rc, name)
+    _build.LAUNCHES[name] += 1
     return out, stats
 
 
@@ -536,15 +561,19 @@ def inflate(b: InflateBatch) -> Tuple[torch.Tensor, torch.Tensor]:
     return inflate_plain(b)
 
 
-def smem_bytes() -> int:
-    """Bytes of shared memory a block (a member) of kernel X4 takes."""
-    return _build.load("inflate").inflate_smem_bytes()
-
-
-def blocks_per_sm() -> int:
-    """Members one SM of the card decodes at once in kernel X4."""
+def smem_bytes(ring: bool = True) -> int:
+    """Bytes of shared memory a block (a member) of kernel X4 takes, in
+    the ring variant or the slot one."""
     lib = _build.load("inflate")
-    n = lib.inflate_blocks_per_sm()
+    return lib.inflate_smem_bytes() if ring else lib.inflate_slot_smem_bytes()
+
+
+def blocks_per_sm(ring: bool = True) -> int:
+    """Members one SM of the card decodes at once in kernel X4, in the
+    ring variant or the slot one."""
+    lib = _build.load("inflate")
+    n = (lib.inflate_blocks_per_sm() if ring
+         else lib.inflate_slot_blocks_per_sm())
     _build.check(lib, max(-n, 0), "inflate occupancy")
     return n
 

@@ -5,9 +5,11 @@ Port of htslib_tpu/ops/probaln.py: `probaln_batch` (:50, kernel X6,
 csrc/probaln.cu with its arithmetic in csrc/probaln_step.cuh) and
 `probaln_batch_host` (:289).  The JAX function scans the query rows with
 the band and batch axes vectorised and a serial D-chain scan along the
-band; the kernel runs one read a thread, each over its own band of
-2 * bw + 2 cells.  The plain version is the JAX formulation in torch ops,
-the batch axis vectorised: a few ops per band cell per row.
+band; the kernel runs each read over its own band of 2 * bw + 2 cells,
+a read a warp, or a read a thread for the short reads of a batch that
+holds enough of them to fill the card (`split_reads`).  The plain version
+is the JAX formulation in torch ops, the batch axis vectorised: a few ops
+per band cell per row.
 
 Outputs mirror probaln_glocal(want_map=True): per-read phred score Pr,
 per-base MAP states ((k-1)<<2 | state) and BAQ qualities.  In float64 the
@@ -27,6 +29,19 @@ EI = 0.25
 EM = 0.33333333333
 
 _QUAL2PROB = np.power(10.0, -np.arange(256) / 10.0)
+
+# The split of a batch between the two kernels (`split_reads`), from
+# probe_x4_x6.py's sweep on an H100: a read a warp (probaln_warp_kernel)
+# is faster at every length from 100 bp in batches of up to 20,000 reads
+# (2.9x at 200 reads of 100 bp, 5.5x at 2,000 bp, 1.25x at 20,000 of
+# 100 bp); a read a thread (probaln_kernel) from about 30,000 reads of
+# 100-250 bp on (1.03x at 30,000, 1.35x at 100,000), which fill the
+# card's threads, while the warp kernel's 118 registers a lane hold 17
+# warps an SM.  At 400 bp a warp still wins at 20,000 reads (1.2x).  So
+# reads shorter than WARP_QLEN run a thread each where the batch holds
+# THREAD_MIN_READS of them or more, and every other read a warp.
+WARP_QLEN = 500
+THREAD_MIN_READS = 30_000
 
 
 def _check(ref, rlen, query, qlen, qprob, bw, J: int):
@@ -226,52 +241,107 @@ def probaln_plain(ref, rlen, query, qlen, qprob, bw, J: int, d=0.001,
     return pr, states, qs
 
 
-def _warp_layout(rlen, qlen, bw, Q: int):
-    """Reads sorted by (J, qlen) and the scratch of each warp of 32 of
-    them: (order int32 [B], warp_off int64, warp_j int32, warp_q int32,
-    scratch elements)."""
-    B = qlen.shape[0]
-    Jr = 2 * bw.long() + 2
-    order = torch.argsort(Jr * (Q + 1) + qlen.long(), stable=True)
+def split_reads(qlen, bw, j_max: int):
+    """The reads that run a warp each (a bool mask): those of WARP_QLEN
+    bases or more, and the shorter ones too where the batch holds fewer
+    than THREAD_MIN_READS of them; never one whose band passes j_max
+    cells (the warp kernel's shared exchange)."""
+    short = qlen.long() < WARP_QLEN
+    warp = ~short | (int(short.sum()) < THREAD_MIN_READS)
+    return warp & (2 * bw.long() + 2 <= j_max)
+
+
+def _warp_layout(qlen, bw, Q: int, sel):
+    """The reads `sel` (batch indices), a thread each, sorted by (J, qlen),
+    and the scratch of each warp of 32 of them: (order int32, warp_off
+    int64, warp_j int32, warp_q int32, scratch elements)."""
+    B = sel.shape[0]
+    Jr = 2 * bw.long()[sel] + 2
+    ql = qlen.long()[sel]
+    perm = torch.argsort(Jr * (Q + 1) + ql, stable=True)
     W = (B + 31) // 32
     pad = W * 32 - B
-    js = torch.nn.functional.pad(Jr[order], (0, pad)).reshape(W, 32)
-    qs = torch.nn.functional.pad(qlen.long()[order], (0, pad)).reshape(W, 32)
+    js = torch.nn.functional.pad(Jr[perm], (0, pad)).reshape(W, 32)
+    qs = torch.nn.functional.pad(ql[perm], (0, pad)).reshape(W, 32)
     wj, wq = js.max(1).values, qs.max(1).values
     size = ((2 * wq + 8) * wj + wq) * 32
     off = torch.cumsum(size, 0) - size
-    return (order.to(torch.int32), off, wj.to(torch.int32),
+    return (sel[perm].to(torch.int32), off, wj.to(torch.int32),
             wq.to(torch.int32), int(size.sum()))
 
 
+def _long_layout(qlen, bw, sel):
+    """The reads `sel`, a warp each, longest first: (order int32, scratch
+    offset int64 of each, scratch elements, the largest J)."""
+    ql = qlen.long()[sel]
+    perm = torch.argsort(-ql, stable=True)
+    Jr = 2 * bw.long()[sel][perm] + 2
+    size = (4 * Jr + 2) * ql[perm]
+    off = torch.cumsum(size, 0) - size
+    return (sel[perm].to(torch.int32), off, int(size.sum()),
+            int(Jr.max()) if len(Jr) else 0)
+
+
 def probaln_cuda(ref, rlen, query, qlen, qprob, bw, J: int, d=0.001,
-                 e=0.1):
-    """Kernel X6 over the batch, one launch; same results as
-    `probaln_plain`."""
+                 e=0.1, layout: Optional[dict] = None):
+    """Kernel X6 over the batch: the reads `split_reads` picks in one
+    launch of a warp a read, the others in one launch of a thread a read;
+    same results as `probaln_plain`.  `layout`, where given, gets the
+    reads of each launch (thread_reads, warp_reads)."""
     _check(ref, rlen, query, qlen, qprob, bw, J)
-    B, R = ref.shape
-    Q = query.shape[1]
+    B = ref.shape[0]
     req = _build.require_cuda
     req(ref, torch.uint8, "ref")
     req(query, torch.uint8, "query")
     req(qprob, qprob.dtype, "qprob")
     for t, name in ((rlen, "rlen"), (qlen, "qlen"), (bw, "bw")):
         req(t, torch.int32, name, (B,))
+    j_max = _build.load("probaln").probaln_warp_j_max()
+    warp = split_reads(qlen, bw, j_max)
+    return launch(ref, rlen, query, qlen, qprob, bw, d, e, warp, layout)
+
+
+def launch(ref, rlen, query, qlen, qprob, bw, d, e, warp,
+           layout: Optional[dict] = None):
+    """The launches of `probaln_cuda` on checked tensors, with the split
+    given: the reads of the bool mask `warp` (each band at most
+    `probaln_warp_j_max` cells) a warp each, the others a thread each."""
+    lib = _build.load("probaln")
+    B, R = ref.shape
+    Q = query.shape[1]
     dev = ref.device
-    order, woff, wj, wq, n_scratch = _warp_layout(rlen, qlen, bw, Q)
-    scratch = torch.empty(max(n_scratch, 1), dtype=qprob.dtype, device=dev)
+    sel_w = torch.nonzero(warp).flatten()
+    sel_t = torch.nonzero(~warp).flatten()
     pr = torch.empty(B, dtype=torch.int32, device=dev)
     state = torch.zeros((B, Q), dtype=torch.int32, device=dev)
     q = torch.zeros((B, Q), dtype=torch.uint8, device=dev)
-    lib = _build.load("probaln")
-    rc = lib.probaln_launch(
-        ref.data_ptr(), rlen.data_ptr(), query.data_ptr(), qlen.data_ptr(),
-        qprob.data_ptr(), bw.data_ptr(), order.data_ptr(), woff.data_ptr(),
-        wj.data_ptr(), wq.data_ptr(), scratch.data_ptr(), pr.data_ptr(),
-        state.data_ptr(), q.data_ptr(), B, R, Q, float(d), float(e),
-        int(qprob.dtype == torch.float64), _build.stream_handle(ref))
-    _build.check(lib, rc, "probaln")
-    _build.LAUNCHES["probaln"] += 1
+    dbl = int(qprob.dtype == torch.float64)
+    common = (ref.data_ptr(), rlen.data_ptr(), query.data_ptr(),
+              qlen.data_ptr(), qprob.data_ptr(), bw.data_ptr())
+    stream = _build.stream_handle(ref)
+    if len(sel_t):
+        order, woff, wj, wq, n_scratch = _warp_layout(qlen, bw, Q, sel_t)
+        scratch = torch.empty(max(n_scratch, 1), dtype=qprob.dtype,
+                              device=dev)
+        rc = lib.probaln_launch(
+            *common, order.data_ptr(), woff.data_ptr(), wj.data_ptr(),
+            wq.data_ptr(), scratch.data_ptr(), pr.data_ptr(),
+            state.data_ptr(), q.data_ptr(), len(sel_t), R, Q, float(d),
+            float(e), dbl, stream)
+        _build.check(lib, rc, "probaln")
+        _build.LAUNCHES["probaln"] += 1
+    if len(sel_w):
+        order, off, n_scratch, jmax = _long_layout(qlen, bw, sel_w)
+        scratch = torch.empty(max(n_scratch, 1), dtype=qprob.dtype,
+                              device=dev)
+        rc = lib.probaln_warp_launch(
+            *common, order.data_ptr(), off.data_ptr(), scratch.data_ptr(),
+            pr.data_ptr(), state.data_ptr(), q.data_ptr(), len(sel_w), R, Q,
+            float(d), float(e), jmax, dbl, stream)
+        _build.check(lib, rc, "probaln_warp")
+        _build.LAUNCHES["probaln_warp"] += 1
+    if layout is not None:
+        layout.update(thread_reads=len(sel_t), warp_reads=len(sel_w))
     return pr, state, q
 
 

@@ -12,9 +12,10 @@ import pytest
 import torch
 
 from chip_smoke import (bam_record_stream, deflate_raw, enc_edge_streams,
-                        inflate_members, leg1_batch, wide_stream)
+                        inflate_members, leg1_batch, ring_edge_members,
+                        wide_stream)
 from htslib_tpu_torch import _build
-from chip_smoke import baq_case, scan_streams, varied_bam_stream
+from chip_smoke import baq_case, hmm_reads, scan_streams, varied_bam_stream
 from htslib_tpu_torch import realn as trl
 from htslib_tpu_torch.codecs import rans4x8 as r8
 from htslib_tpu_torch.codecs import rans4x16 as r16
@@ -857,10 +858,37 @@ def test_inflate_batch_on_card_matches_cpu(card, monkeypatch):
 
 
 def test_inflate_smem_and_blocks_per_sm(card):
-    """X4's tables take under 6 KB a member: 32 members an SM (the
-    blocks an SM runs at most)."""
-    assert ti.smem_bytes() < 6 * 1024
-    assert ti.blocks_per_sm() >= 16
+    """X4's ring variant keeps a member's 32 KiB output ring, payload ring
+    and tables in shared memory, under 38 KB a member: 6 members an SM.
+    The slot variant keeps the payload ring and tables, under 6 KB, and
+    is held to 64 registers: 32 members an SM.  ring_fits gives the ring a batch that
+    fits one wave of it, the slot variant a larger one."""
+    assert 32 * 1024 < ti.smem_bytes(ring=True) < 38 * 1024
+    assert ti.blocks_per_sm(ring=True) == 6
+    assert ti.smem_bytes(ring=False) < 6 * 1024
+    assert ti.blocks_per_sm(ring=False) == 32
+    wave = 6 * torch.cuda.get_device_properties(card).multi_processor_count
+    assert ti.ring_fits(wave, card) and not ti.ring_fits(wave + 1, card)
+
+
+def test_inflate_kernel_ring_edge_members(card):
+    """X4 at its output ring's edges (distance 32,768, matches over the
+    ring's wraps, stored blocks past it, a match before the output's
+    start across position 32,768, a capacity inside a match): the plain
+    version's bytes, tokens and steps' refusals, and the expected
+    bytes."""
+    members = ring_edge_members()
+    b = ti.frame_members([m[1] for m in members], [m[2] for m in members],
+                         card)
+    ref, rst = ti.inflate_plain(b)
+    assert not ti.corrupt(b, rst).any()
+    for ring in (True, False):
+        got, gst = ti.inflate_cuda(b, ring=ring)
+        assert not ti.corrupt(b, gst).any()
+        assert torch.equal(gst[:, 1:3], rst[:, 1:3])
+        for m, g, r in zip(members, _members_out(b, got),
+                           _members_out(b, ref)):
+            assert g == r == m[3], m[0]
 
 
 DENSE_KEYS = {"4x8_o1": "rans4x8_o1_dense_decode",
@@ -1120,6 +1148,76 @@ def test_probaln_kernel_matches_plain(card, dtype, long_every):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("dtype,long_every", [(np.float64, 0),
+                                              (np.float32, 0),
+                                              (np.float64, 37)])
+def test_probaln_thread_kernel_matches_plain(card, dtype, long_every):
+    """Every read a thread (the split that a batch of THREAD_MIN_READS
+    short reads gets): the plain version's results."""
+    arrays, J = probaln_batch_args(dtype=dtype, long_every=long_every)
+    a = [torch.from_numpy(x).to(card) for x in arrays]
+    want = tpb.probaln_plain(*a, J)
+    _build.reset_launches()
+    got = tpb.launch(*a, 0.001, 0.1, torch.zeros(len(arrays[3]),
+                                                 dtype=torch.bool,
+                                                 device=card))
+    assert _build.LAUNCHES["probaln"] == 1
+    assert _build.LAUNCHES["probaln_warp"] == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_probaln_warp_kernel_matches_plain(card, dtype, monkeypatch):
+    """Leg-9-like long reads (1,000-2,000 bp) with short ones in the same
+    batch: with fewer short reads than THREAD_MIN_READS every read runs a
+    warp; with the threshold at 60 the long ones run a warp each and the
+    short a thread each.  Either way the results are the plain
+    version's."""
+    long_r = hmm_reads(24, 1500, 3)
+    short_r = hmm_reads(60, 100, 4)
+    refs, qs, quals, bws = [x + y for x, y in zip(long_r, short_r)]
+    arrays, J = tpb.pad_batch(refs, qs, quals, dtype=dtype, bws=bws)
+    a = [torch.from_numpy(x).to(card) for x in arrays]
+    want = tpb.probaln_plain(*a, J, d=1e-7)
+    for min_reads, warps, threads in ((tpb.THREAD_MIN_READS, 84, 0),
+                                      (60, 24, 60)):
+        monkeypatch.setattr(tpb, "THREAD_MIN_READS", min_reads)
+        _build.reset_launches()
+        layout = {}
+        got = tpb.probaln_cuda(*a, J, d=1e-7, layout=layout)
+        assert layout == {"warp_reads": warps, "thread_reads": threads}
+        assert _build.LAUNCHES["probaln_warp"] == 1
+        assert _build.LAUNCHES["probaln"] == int(threads > 0)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_probaln_warp_kernel_wide_bands(card):
+    """Long reads with bands past 64 cells (each lane takes three) run a
+    warp each and give the plain version's results."""
+    rng = np.random.default_rng(12)
+    refs, qs, quals, bws = [], [], [], []
+    for k in range(8):
+        lq = int(rng.integers(600, 900))
+        ref = rng.integers(0, 4, lq + 80).astype(np.uint8)
+        refs.append(ref.tobytes())
+        q = ref[30:30 + lq].copy()
+        q[rng.random(lq) < 0.02] = 1
+        qs.append(q.tobytes())
+        quals.append(rng.integers(5, 41, lq).astype(np.uint8).tobytes())
+        bws.append(int(rng.integers(30, 45)))
+    arrays, J = tpb.pad_batch(refs, qs, quals, bws=bws)
+    assert J > 64
+    a = [torch.from_numpy(x).to(card) for x in arrays]
+    layout = {}
+    got = tpb.probaln_cuda(*a, J + 3, d=1e-7, layout=layout)
+    assert layout["warp_reads"] == 8
+    want = tpb.probaln_plain(*a, J + 3, d=1e-7)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("flag", [0, 1, 2, 3, 5])
 def test_realn_on_card_matches_cpu(card, flag):
     ref, recs = baq_case(120, seed=11, ref_len=30_000, n_long=3)
@@ -1127,7 +1225,7 @@ def test_realn_on_card_matches_cpu(card, flag):
     b = [r.copy() for r in recs]
     _build.reset_launches()
     got = trl.sam_prob_realn_batch(a, ref, flag, device=card)
-    assert _build.LAUNCHES["probaln"] >= 1
+    assert _build.LAUNCHES["probaln"] + _build.LAUNCHES["probaln_warp"] >= 1
     assert got == trl.sam_prob_realn_batch(b, ref, flag, device="cpu")
     assert [r.to_bam_buffer() for r in a] == [r.to_bam_buffer() for r in b]
 

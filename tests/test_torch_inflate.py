@@ -22,7 +22,7 @@ import torch
 from htslib_tpu.ops import inflate as jinf
 from htslib_tpu_torch.ops import inflate as tinf
 from chip_smoke import (bam_record_stream, deflate_raw, inflate_members,
-                        leg1_batch)
+                        leg1_batch, ring_edge_members)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "htslib_tpu_torch", "csrc")
@@ -147,8 +147,9 @@ def test_step_cap_member_refused_as_jax(step_lib):
     (_, pl, size, _), = [m for m in inflate_members() if m[0] == "step_cap"]
     assert plain_lanes([pl], [size])[1].tolist() == [True]
     assert jax_lanes([pl], [size])[1].tolist() == [True]
-    _, err, stats = step_lanes(step_lib, [pl], [size])
-    assert err.tolist() == [True] and stats[0, 0] == 8   # INFL_E_STEPS
+    for ring in WINDOWS:
+        _, err, stats = step_lanes(step_lib, [pl], [size], ring=ring)
+        assert err.tolist() == [True] and stats[0, 0] == 8   # INFL_E_STEPS
 
 
 def test_member_past_64k_gives_its_first_64k_as_jax(step_lib):
@@ -159,7 +160,8 @@ def test_member_past_64k_gives_its_first_64k_as_jax(step_lib):
                                              dtype=np.uint8).tobytes()
     pl = deflate_raw(data, 0)
     for got, err in (jax_lanes([pl], [70000]), plain_lanes([pl], [70000]),
-                     step_lanes(step_lib, [pl], [70000])[:2]):
+                     step_lanes(step_lib, [pl], [70000])[:2],
+                     step_lanes(step_lib, [pl], [70000], ring=False)[:2]):
         assert err.tolist() == [False]
         assert got == [data[:tinf.OUT_MAX]]
 
@@ -206,23 +208,31 @@ _HARNESS = r"""
 #include "inflate_step.cuh"
 
 // n members, as the kernel takes them (one lane here): payloads 4-byte
-// aligned at in + in_off[m], outputs at out + out_off[m]; stats [n, 4].
+// aligned at in + in_off[m], outputs at out + out_off[m]; stats [n, 4];
+// the output window a shared-memory ring (ring != 0) or the slot.
 extern "C" void inflate_members(const uint8_t* in, const int64_t* in_off,
                                 const int32_t* in_len, uint8_t* out,
                                 const int64_t* out_off,
                                 const int32_t* out_cap, int32_t* stats,
-                                int n) {
-  InflTables* t = (InflTables*)malloc(sizeof(InflTables));
+                                int n, int ring) {
+  InflSmem* sm = (InflSmem*)malloc(sizeof(InflSmem));
+  uint8_t* win = (uint8_t*)aligned_alloc(16, INFL_RING);
   for (int m = 0; m < n; ++m) {
-    const InflResult r = infl_member(
-        (const uint32_t*)(in + in_off[m]), (uint32_t)in_len[m],
-        out + out_off[m], (uint32_t)out_cap[m], t, 0, 1);
+    const uint32_t* words = (const uint32_t*)(in + in_off[m]);
+    const InflResult r =
+        ring ? infl_member<true>(words, (uint32_t)in_len[m],
+                                 out + out_off[m], (uint32_t)out_cap[m],
+                                 win, sm, 0, 1)
+             : infl_member<false>(words, (uint32_t)in_len[m],
+                                  out + out_off[m], (uint32_t)out_cap[m],
+                                  win, sm, 0, 1);
     stats[4 * m] = r.err;
     stats[4 * m + 1] = r.produced;
     stats[4 * m + 2] = r.tokens;
     stats[4 * m + 3] = r.steps;
   }
-  free(t);
+  free(win);
+  free(sm);
 }
 """
 
@@ -238,7 +248,7 @@ def _compile(tmp_path, csrc):
                     "-I", str(csrc), "-o", str(lib), str(src)], check=True)
     h = ctypes.CDLL(str(lib))
     h.inflate_members.restype = None
-    h.inflate_members.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int]
+    h.inflate_members.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
     return h
 
 
@@ -247,21 +257,30 @@ def step_lib(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("inflate"), CSRC)
 
 
-def step_lanes(h, payloads, isizes):
-    """The decoder on each member, framed as the kernel takes them:
-    (outputs, per-member error flags, stats [n, 4])."""
+# the decoder's output windows: a shared-memory ring, the member's slot
+WINDOWS = (True, False)
+SLACK = 1 << 17   # bytes past the last slot, where nothing may be written
+
+
+def step_lanes(h, payloads, isizes, fill=0, with_flat=False, ring=True):
+    """The decoder on each member with the output window `ring` (else the
+    slot), framed as the kernel takes them: (outputs, per-member error
+    flags, stats [n, 4]) and with `with_flat` the whole output buffer,
+    which starts as `fill` bytes and runs SLACK bytes past the last
+    slot."""
     b = tinf.frame_members(payloads, isizes, "cpu")
-    out = np.zeros(b.total_out + 1, np.uint8)
+    out = np.full(b.total_out + SLACK, fill, np.uint8)
     stats = np.zeros((b.n_members, 4), np.int32)
     h.inflate_members(b.payload.numpy().ctypes.data,
                       b.in_off.numpy().ctypes.data,
                       b.in_len.numpy().ctypes.data, out.ctypes.data,
                       b.out_off.numpy().ctypes.data,
                       b.out_cap.numpy().ctypes.data, stats.ctypes.data,
-                      b.n_members)
+                      b.n_members, int(ring))
     offs, caps = b.out_off.numpy(), b.out_cap.numpy()
     err = tinf.corrupt(b, torch.from_numpy(stats)).numpy()
-    return [out[o:o + c].tobytes() for o, c in zip(offs, caps)], err, stats
+    res = [out[o:o + c].tobytes() for o, c in zip(offs, caps)], err, stats
+    return res + (out,) if with_flat else res
 
 
 def full_size_members():
@@ -284,9 +303,11 @@ def test_step_header_full_size_members_match_zlib(step_lib, level):
                 for s in (zlib.Z_DEFAULT_STRATEGY, zlib.Z_FIXED,
                           zlib.Z_HUFFMAN_ONLY, zlib.Z_RLE)]
     want = [d for d in datas for _ in range(4)]
-    got, err, _ = step_lanes(step_lib, payloads, [len(d) for d in want])
-    assert not err.any()
-    assert got == want
+    for ring in WINDOWS:
+        got, err, _ = step_lanes(step_lib, payloads, [len(d) for d in want],
+                                 ring=ring)
+        assert not err.any()
+        assert got == want
 
 
 def _fuzzed(n=30, seed=12):
@@ -331,13 +352,14 @@ def test_step_header_errors_match_jax(step_lib):
                if m[0] != "step_cap"] + _fuzzed()
     payloads = [p for p, _ in members]
     sizes = [s for _, s in members]
-    got, err, _ = step_lanes(step_lib, payloads, sizes)
     jgot, jerr = jax_lanes(payloads, sizes)
-    assert err.tolist() == jerr.tolist()
-    assert 0 < int(err.sum()) < len(members)
-    for g, jg, e in zip(got, jgot, err):
-        if not e:
-            assert g == jg
+    assert 0 < int(jerr.sum()) < len(members)
+    for ring in WINDOWS:
+        got, err, _ = step_lanes(step_lib, payloads, sizes, ring=ring)
+        assert err.tolist() == jerr.tolist()
+        for g, jg, e in zip(got, jgot, err):
+            if not e:
+                assert g == jg
 
 
 def test_step_header_token_cap(step_lib):
@@ -349,23 +371,84 @@ def test_step_header_token_cap(step_lib):
     # 16 symbols, no repeats worth a match: Huffman-coded literals
     lits = rng.integers(0, 16, 70000, dtype=np.uint8).tobytes()
     members = [lits, lits[:tinf.OUT_MAX]]
-    got, err, stats = step_lanes(
-        step_lib, [deflate_raw(d, 6, zlib.Z_HUFFMAN_ONLY) for d in members],
-        [len(d) for d in members])
-    assert err.tolist() == [True, False]
-    assert stats[0, 0] == 7 and stats[0, 2] == tinf.MAX_TOK   # INFL_E_TOKENS
-    assert got[1] == members[1]
+    for ring in WINDOWS:
+        got, err, stats = step_lanes(
+            step_lib, [deflate_raw(d, 6, zlib.Z_HUFFMAN_ONLY)
+                       for d in members], [len(d) for d in members],
+            ring=ring)
+        assert err.tolist() == [True, False]
+        assert stats[0, 0] == 7 and stats[0, 2] == tinf.MAX_TOK  # E_TOKENS
+        assert got[1] == members[1]
+
+
+def test_ring_edge_members_match_jax_and_plain(step_lib):
+    """The members at the output ring's edges (distance 32,768, long
+    matches over its wraps, stored blocks past it, a match before the
+    output's start that crosses position 32,768, a capacity inside a
+    match): the decoder, the plain version and the JAX function all give
+    the expected bytes, and accept them all."""
+    members = ring_edge_members()
+    payloads = [m[1] for m in members]
+    sizes = [m[2] for m in members]
+    want = [m[3] for m in members]
+    for ring in WINDOWS:
+        got, err, stats = step_lanes(step_lib, payloads, sizes, ring=ring)
+        assert not err.any()
+        assert got == want
+    pgot, perr = plain_lanes(payloads, sizes)
+    jgot, jerr = jax_lanes(payloads, sizes)
+    assert not perr.any() and not jerr.any()
+    assert pgot == want
+    assert [g[:len(w)] for g, w in zip(jgot, want)] == want
+
+
+def _cap_case(h, ring):
+    """Members past their 64 KiB capacity after a small one, in a buffer of
+    0xAB bytes: the capacity inside a match (cap_in_match), inside stored
+    blocks, and inside a run of long matches, the last in the buffer.
+    Returns (outputs, expected outputs, error flags, stats, whether the
+    SLACK bytes past the last slot are intact)."""
+    edge = {m[0]: m for m in ring_edge_members()}["cap_in_match"]
+    data = np.random.default_rng(3).integers(0, 256, 70000,
+                                             dtype=np.uint8).tobytes()
+    small = b"tail bytes " * 9
+    runs = b"ACGT" * 35000
+    got, err, stats, flat = step_lanes(
+        h, [deflate_raw(small), edge[1], deflate_raw(data, 0),
+            deflate_raw(runs, 6)], [len(small), edge[2], 70000, len(runs)],
+        fill=0xAB, with_flat=True, ring=ring)
+    want = [small, edge[3], data[:tinf.OUT_MAX], runs[:tinf.OUT_MAX]]
+    intact = bool((flat[len(flat) - SLACK:] == 0xAB).all())
+    return got, want, err, stats, intact
+
+
+@pytest.mark.parametrize("ring", WINDOWS, ids=["ring", "slot"])
+def test_step_header_cap_writes_nothing_past_the_slot(step_lib, ring):
+    """Members whose capacity (64 KiB) ends inside a match, in a stored
+    block or in a long match past the window, last in the buffer: each
+    gets its first 64 KiB, and nothing past the last slot is written, in
+    either output window."""
+    got, want, err, stats, intact = _cap_case(step_lib, ring)
+    assert not err.any()
+    assert got == want
+    assert stats[1, 1] > tinf.OUT_MAX and stats[3, 1] == 140000
+    assert intact
 
 
 # (name, text the copy replaces, replacement): the build's wait for the
-# next chunk dropped (the step cap is then out of reach), and the length
-# codes' extra bits off by one code
+# next chunk dropped (the step cap is then out of reach), the length
+# codes' extra bits off by one code, the output ring's index wrapped at
+# half its size, and the slot window's matches writing past the capacity
 _MUTATIONS = [
     ("no_build_wait",
      "step = (step / INFL_STEPS_A_CHUNK + 1u) * INFL_STEPS_A_CHUNK;",
      "step += 1u;"),
     ("length_extra", "c < 8 || c >= 28 ? 0u : (c - 4u) >> 2",
      "c < 8 || c >= 28 ? 0u : (c - 3u) >> 2"),
+    ("ring_index", "#define INFL_RING_MASK (INFL_RING - 1)",
+     "#define INFL_RING_MASK (INFL_RING / 2 - 1)"),
+    ("slot_cap", "const bool put = i < len && (RING || pos + i < cap);",
+     "const bool put = i < len;"),
 ]
 
 
@@ -382,6 +465,14 @@ def test_mutated_step_header_fails(tmp_path, name, old, new):
         (_, pl, size, _), = [m for m in inflate_members()
                              if m[0] == "step_cap"]
         assert step_lanes(h, [pl], [size])[1].tolist() == [False]
+    elif name == "ring_index":
+        members = ring_edge_members()
+        got, err, _ = step_lanes(h, [m[1] for m in members],
+                                 [m[2] for m in members])
+        assert err.any() or got != [m[3] for m in members]
+    elif name == "slot_cap":
+        assert _cap_case(h, True)[4]
+        assert not _cap_case(h, False)[4]
     else:
         datas = full_size_members()
         got, err, _ = step_lanes(h, [deflate_raw(d) for d in datas],

@@ -4,8 +4,10 @@ ops/probaln.py, XLA on the CPU in float64) and the scalar
 probaln_glocal (htslib_tpu/realn.py): Pr, MAP states and qualities are
 integers and must be equal, with mixed bands and a padded J; float32
 runs are held within +/-1 phred of float64 (the output contract of
-ops/probaln.py); and X6's per-read routine (csrc/probaln_step.cuh)
-compiled with g++ -ffp-contract=off against the same integers."""
+ops/probaln.py); and X6's per-read routines (csrc/probaln_step.cuh: a
+read a thread, and a read a warp with its 32 lanes run in turn) compiled
+with g++ -ffp-contract=off against the same integers, the warp routine's
+row sums bit-equal to the thread routine's."""
 import ctypes
 import os
 import shutil
@@ -125,27 +127,77 @@ def test_probaln_refuses_what_it_cannot_band():
 _HARNESS = r"""
 #include "probaln_step.cuh"
 
-// Each read of a padded batch through probaln_read<double>, its scratch
-// one read's rows (cell stride 1, row stride J).
-extern "C" void probaln_reads(const uint8_t* ref, const int32_t* rlen,
-                              const uint8_t* query, const int32_t* qlen,
-                              const double* qprob, const int32_t* bw, int B,
-                              int R, int Q, double d, double e, double* buf,
-                              int32_t* pr, int32_t* state, uint8_t* q) {
+// Each read of a padded batch through probaln_read<T>, its scratch one
+// read's rows (cell stride 1, row stride J); ss_out [B, Q] gets each
+// read's row sums.
+template <typename T>
+static void thread_reads(const uint8_t* ref, const int32_t* rlen,
+                         const uint8_t* query, const int32_t* qlen,
+                         const T* qprob, const int32_t* bw, int B, int R,
+                         int Q, double d, double e, T* buf, int32_t* pr,
+                         int32_t* state, uint8_t* q, T* ss_out) {
   for (int b = 0; b < B; ++b) {
     const int J = 2 * bw[b] + 2, lq = qlen[b];
-    PbScratch<double> s;
+    PbScratch<T> s;
     s.cell = 1;
     s.row = J;
     s.fM = buf;
     s.fI = buf + (int64_t)lq * J;
     s.ring = s.fI + (int64_t)lq * J;
     s.ss = s.ring + 8 * J;
-    PbRead<double> r = {ref + (int64_t)b * R, query + (int64_t)b * Q,
-                        qprob + (int64_t)b * Q, rlen[b], lq, bw[b], d, e};
-    pr[b] = probaln_read<double>(r, s, state + (int64_t)b * Q,
-                                 q + (int64_t)b * Q);
+    PbRead<T> r = {ref + (int64_t)b * R, query + (int64_t)b * Q,
+                   qprob + (int64_t)b * Q, rlen[b], lq, bw[b], d, e};
+    pr[b] = probaln_read<T>(r, s, state + (int64_t)b * Q,
+                            q + (int64_t)b * Q);
+    for (int i = 0; i < lq; ++i) ss_out[(int64_t)b * Q + i] = s.ss[i];
   }
+}
+
+// The same reads through probaln_read_warp<T>, the warp's 32 lanes run in
+// turn: scratch pb_warp_scratch(lq, J) elements at buf, the exchange at x.
+template <typename T>
+static void warp_reads(const uint8_t* ref, const int32_t* rlen,
+                       const uint8_t* query, const int32_t* qlen,
+                       const T* qprob, const int32_t* bw, int B, int R,
+                       int Q, double d, double e, T* buf, T* x, int32_t* pr,
+                       int32_t* state, uint8_t* q, T* ss_out) {
+  for (int b = 0; b < B; ++b) {
+    const int J = 2 * bw[b] + 2, lq = qlen[b];
+    const int64_t cells = (int64_t)lq * J;
+    PbWarpScratch<T> s;
+    s.fM = buf;
+    s.fI = s.fM + cells;
+    s.bM = s.fI + cells;
+    s.bI = s.bM + cells;
+    s.ss = s.bI + cells;
+    s.lg = s.ss + lq;
+    s.x = x;
+    PbRead<T> r = {ref + (int64_t)b * R, query + (int64_t)b * Q,
+                   qprob + (int64_t)b * Q, rlen[b], lq, bw[b], d, e};
+    pr[b] = probaln_read_warp<T>(r, s, state + (int64_t)b * Q,
+                                 q + (int64_t)b * Q);
+    for (int i = 0; i < lq; ++i) ss_out[(int64_t)b * Q + i] = s.ss[i];
+  }
+}
+
+#define PB_ARGS(T) const uint8_t *ref, const int32_t *rlen,               \
+    const uint8_t *query, const int32_t *qlen, const T *qprob,            \
+    const int32_t *bw, int B, int R, int Q, double d, double e, T *buf
+#define PB_OUTS int32_t *pr, int32_t *state, uint8_t *q
+#define PB_PASS ref, rlen, query, qlen, qprob, bw, B, R, Q, d, e, buf
+extern "C" void probaln_reads(PB_ARGS(double), PB_OUTS, double* ss) {
+  thread_reads<double>(PB_PASS, pr, state, q, ss);
+}
+extern "C" void probaln_reads_f32(PB_ARGS(float), PB_OUTS, float* ss) {
+  thread_reads<float>(PB_PASS, pr, state, q, ss);
+}
+extern "C" void probaln_warp_reads(PB_ARGS(double), double* x, PB_OUTS,
+                                   double* ss) {
+  warp_reads<double>(PB_PASS, x, pr, state, q, ss);
+}
+extern "C" void probaln_warp_reads_f32(PB_ARGS(float), float* x, PB_OUTS,
+                                       float* ss) {
+  warp_reads<float>(PB_PASS, x, pr, state, q, ss);
 }
 """
 
@@ -165,9 +217,13 @@ def _compile(tmp, header_text=None):
                     "-ffp-contract=off", "-I", inc, "-o", str(lib),
                     str(src)], check=True)
     h = ctypes.CDLL(str(lib))
-    h.probaln_reads.restype = None
-    h.probaln_reads.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-        + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 4
+    args = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+        + [ctypes.c_double] * 2
+    for name, n_ptr in (("probaln_reads", 5), ("probaln_reads_f32", 5),
+                        ("probaln_warp_reads", 6),
+                        ("probaln_warp_reads_f32", 6)):
+        getattr(h, name).restype = None
+        getattr(h, name).argtypes = args + [ctypes.c_void_p] * n_ptr
     return h
 
 
@@ -176,18 +232,28 @@ def step_lib(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("probaln"))
 
 
-def _step_run(h, arrays, J, d):
+def _step_run(h, arrays, J, d, warp=False, with_ss=False):
+    """The thread routine (or with `warp` the warp routine) over a padded
+    batch: (Pr, states, q) and with `with_ss` the row sums [B, Q]."""
     ref, rlen, qry, qlen, qpr, bw = arrays
     B, Q = qry.shape
-    buf = np.zeros((2 * Q + 8) * J + Q, np.float64)
+    dt = qpr.dtype
+    Jr = 2 * int(bw.max()) + 2
+    buf = np.zeros((4 * Jr + 8) * Q + 8 * Jr, dt)
     pr = np.zeros(B, np.int32)
     st = np.zeros((B, Q), np.int32)
     qq = np.zeros((B, Q), np.uint8)
-    h.probaln_reads(ref.ctypes.data, rlen.ctypes.data, qry.ctypes.data,
-                    qlen.ctypes.data, qpr.ctypes.data, bw.ctypes.data, B,
-                    ref.shape[1], Q, d, 0.1, buf.ctypes.data, pr.ctypes.data,
-                    st.ctypes.data, qq.ctypes.data)
-    return pr, st, qq
+    ss = np.zeros((B, Q), dt)
+    name = ("probaln_warp_reads" if warp else "probaln_reads") + (
+        "_f32" if dt == np.float32 else "")
+    xbuf = np.zeros(6 * ((Jr + 7) & ~7) + 4, dt)
+    x = [xbuf.ctypes.data] if warp else []
+    getattr(h, name)(ref.ctypes.data, rlen.ctypes.data, qry.ctypes.data,
+                     qlen.ctypes.data, qpr.ctypes.data, bw.ctypes.data, B,
+                     ref.shape[1], Q, d, 0.1, buf.ctypes.data, *x,
+                     pr.ctypes.data, st.ctypes.data, qq.ctypes.data,
+                     ss.ctypes.data)
+    return (pr, st, qq, ss) if with_ss else (pr, st, qq)
 
 
 @pytest.mark.parametrize("seed,d", [(7, 0.001), (8, 1e-7)])
@@ -226,3 +292,97 @@ def test_probaln_step_mutation_fails(tmp_path):
     got = _step_run(h, arrays, J, 0.001)
     want = tp.probaln_plain(*[torch.from_numpy(a) for a in arrays], J)
     assert not np.array_equal(got[2], want[2].numpy())
+
+
+def _long_reads(bws, seed, lq_range=(1000, 2001), dtype=np.float64):
+    """Long reads (lq in lq_range) for the warp routine: each its own
+    reference window, 1% substitutions, one 1-12 bp insertion or deletion
+    in every other read, qualities 2-41, ambiguous bases; one read a band
+    width of `bws` (J = 2 * bw + 2, past 32).  Returns pad_batch's
+    (arrays, J)."""
+    rng = np.random.default_rng(seed)
+    refs, qs, quals = [], [], []
+    for k in range(len(bws)):
+        lq = int(rng.integers(*lq_range))
+        ref = rng.integers(0, 4, lq + 40).astype(np.uint8)
+        q = ref[5:5 + lq].copy()
+        if k % 2:
+            at, n = int(rng.integers(50, lq - 50)), int(rng.integers(1, 13))
+            if k % 4 == 1:
+                q = np.concatenate([q[:at], rng.integers(0, 4, n).astype(
+                    np.uint8), q[at:lq - n]])
+            else:
+                q = np.concatenate([q[:at], ref[5 + at + n:5 + lq + n]])
+        sub = rng.random(lq) < 0.01
+        q[sub] = rng.integers(0, 5, int(sub.sum()))
+        ref[rng.random(len(ref)) < 0.002] = 4
+        refs.append(ref[:lq + int(rng.integers(0, 30))].tobytes())
+        qs.append(q[:lq].tobytes())
+        quals.append(np.clip(rng.integers(25, 38) + np.cumsum(
+            rng.integers(-2, 3, lq)), 2, 41).astype(np.uint8).tobytes())
+    return tp.pad_batch(refs, qs, quals, dtype=dtype, bws=list(bws))
+
+
+@pytest.mark.parametrize("d", [1e-7, 0.001])
+def test_probaln_warp_step_matches_plain_and_jax(step_lib, d):
+    """The warp routine on long reads (lq 1,000-2,000, J 34-40 with the
+    batch's J padded to an odd width): the plain version's and the JAX
+    function's Pr, states and q, and the thread routine's row sums bit
+    for bit."""
+    arrays, J = _long_reads([16, 17, 19, 18], seed=21)
+    got = _step_run(step_lib, arrays, J, d, warp=True, with_ss=True)
+    thread = _step_run(step_lib, arrays, J, d, with_ss=True)
+    want = tp.probaln_plain(*[torch.from_numpy(a) for a in arrays], J + 1,
+                            d=d)
+    jax_want = carry.from_jax_probaln(*jp.probaln_batch(
+        *[jnp.asarray(a) for a in arrays], J + 1, d=d))
+    for g, w, jw in zip(got[:3], want, jax_want):
+        assert np.array_equal(g, w.numpy())
+        assert np.array_equal(g, jw.numpy())
+    assert np.array_equal(got[3].view(np.uint64), thread[3].view(np.uint64))
+
+
+def test_probaln_warp_step_wide_bands_match_jax(step_lib):
+    """Bands past 64 cells (each lane takes three) and indels: the JAX
+    function's integers and the thread routine's row sums."""
+    arrays, J = _long_reads([40, 33, 31, 45], seed=22, lq_range=(1000, 1400))
+    assert J > 64
+    got = _step_run(step_lib, arrays, J, 1e-7, warp=True, with_ss=True)
+    thread = _step_run(step_lib, arrays, J, 1e-7, with_ss=True)
+    want = carry.from_jax_probaln(*jp.probaln_batch(
+        *[jnp.asarray(a) for a in arrays], J, d=1e-7))
+    for g, t, w in zip(got[:3], thread[:3], want):
+        assert np.array_equal(g, w.numpy())
+        assert np.array_equal(g, t)
+    assert np.array_equal(got[3].view(np.uint64), thread[3].view(np.uint64))
+
+
+def test_probaln_warp_step_float32(step_lib):
+    """In float32 the warp routine gives the thread routine's bits and
+    stays within +/-1 phred of float64."""
+    a64, J = _long_reads([16, 19, 21], seed=23)
+    a32, _ = _long_reads([16, 19, 21], seed=23, dtype=np.float32)
+    f64 = _step_run(step_lib, a64, J, 1e-7, warp=True)
+    f32 = _step_run(step_lib, a32, J, 1e-7, warp=True, with_ss=True)
+    t32 = _step_run(step_lib, a32, J, 1e-7, with_ss=True)
+    for g, t in zip(f32, t32):
+        assert np.array_equal(g, t)
+    assert np.abs(f64[0].astype(int) - f32[0]).max() <= 1
+    assert np.abs(f64[2].astype(int) - f32[2]).max() <= 1
+
+
+def test_probaln_warp_step_swapped_sum_fails(tmp_path):
+    """A warp routine whose row sum adds a cell's I and D terms before its
+    M term (a swapped summation order, as a scan would reorder it) must
+    not give the thread routine's row sums."""
+    with open(os.path.join(CSRC, "probaln_step.cuh")) as fp:
+        text = fp.read()
+    old = "rsum = rsum + (mv[u] + iv[u] + dd);"
+    assert text.count(old) == 1
+    h = _compile(tmp_path, text.replace(old,
+                                        "rsum = rsum + (mv[u] + (iv[u] + dd));"))
+    arrays, J = _long_reads([16, 17], seed=24)
+    got = _step_run(h, arrays, J, 1e-7, warp=True, with_ss=True)
+    thread = _step_run(h, arrays, J, 1e-7, with_ss=True)
+    assert not np.array_equal(got[3].view(np.uint64),
+                              thread[3].view(np.uint64))
