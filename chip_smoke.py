@@ -117,17 +117,30 @@ PyTorch version on the card and times both.  Phases:
      7's 1,232 members (the slot variant's side of ring_fits), over the
      first of them that fit one wave of the ring and over leg 12's
      members (the ring's side), with ns per step, blocks an SM and
-     waves.  X5 (record scan) is
-     held against its plain version (the JAX loop walked by the host) on
-     leg 8's two payloads and on edge streams made from them (truncated,
-     overrunning, a length with bit 31 set, a chain that stands still or
-     jumps past the next window), and timed over the 80.4 MB chain with
-     its ns per record.  X6 (probaln) is held against its plain version on
-     the card over each of leg 9's HMM calls in float64 and in float32
-     (the float32 run within +/-1 phred of the float64 one), with its ns
-     per band cell; leg 9's groups lie on both sides of its split (the
-     short group a thread a read, the long group a warp a read), and each
-     is also timed with every read a thread.
+     waves.  X5 (record scan), in both designs (one thread walking the
+     chain, and parallel segments whose guessed entries are verified
+     exactly), is held against its plain version (the JAX loop walked by
+     the host) on leg 8's two payloads, on edge streams made from them
+     (truncated, overrunning, a length with bit 31 set, a chain that
+     stands still or jumps past the next window) and on the segmented
+     walk's edges at its 64 KiB segments (crafted false entries, which
+     must be walked again, past 16 of them the serial tail; a record
+     longer than three segments; negative, -4 and wrapping lengths and
+     max_records in a segment's middle; 0-4 byte payloads; a length not a
+     multiple of 16), and timed over the 80.4 MB chain and the varied
+     payload with ns per record, segments, segments walked again and
+     serial-tail steps.  X1, X3 and B8 order 1 are held and timed through
+     both order-1 tables (wide and compact); their rows say which one the
+     row's batch takes, with ns a round, streams an SM and shared memory
+     of each.  The shapes of every launch of csrc/rans4x8.cu's kernels
+     (B7, B8, X1-X3) and of X5 in legs 7-12 (streams and the longest
+     stream's rounds; payload bytes) are printed, so that the launches
+     no timing covers can be reckoned.  X6 (probaln) is held against its
+     plain version on the card over each of leg 9's HMM calls in float64
+     and in float32 (the float32 run within +/-1 phred of the float64
+     one), with its ns per band cell; leg 9's groups lie on both sides of
+     its split (the short group a thread a read, the long group a warp a
+     read), and each is also timed with every read a thread.
      Outputs are bytes and integers, so the tolerance is zero: kernel and
      plain version must be equal;
   5h. leg 10, the mesh (parallel/mesh.py, parallel/distributed.py,
@@ -759,6 +772,87 @@ def scan_streams(good: bytes, n_good: int, big: bytes, n_big: int):
             "empty4": (b"\x00" * 4, 5), "none": (good, 0)}
 
 
+def record_starts(stream: bytes) -> list:
+    """The offsets of the records of a well-framed BAM record stream."""
+    out, pos = [], 0
+    while pos + 4 <= len(stream):
+        out.append(pos)
+        pos += 4 + int.from_bytes(stream[pos:pos + 4], "little")
+    return out
+
+
+def false_guesses(stream: bytes, seg_bytes: int, limit: int = 1 << 30
+                  ) -> bytes:
+    """The stream with a crafted record header at the start of each
+    segment (of seg_bytes) that a record crosses with 37 bytes or more
+    left, at most `limit` of them: a block_size that ends the false record
+    where the true next one starts, a read name of one NUL, no CIGAR or
+    SEQ.  The chain looks like BAM records from there, so a segment's
+    guess of its entry is the false position; the true chain passes it by
+    inside the crossing record."""
+    out = bytearray(stream)
+    starts = record_starts(stream)
+    is_start = set(starts)
+    nxt = iter(starts[1:] + [len(stream)])
+    a, q = 0, next(nxt)
+    done = 0
+    for lo in range(seg_bytes, len(stream), seg_bytes):
+        while q <= lo:
+            a, q = q, next(nxt)
+        # the crossing record's body holds [lo, lo + 37), not its length
+        if (q - lo >= 37 and lo >= a + 4 and done < limit
+                and lo not in is_start):
+            fake = struct.pack("<iiiBBHHHiiii", q - lo - 4, 0, 0, 1, 0, 0,
+                               0, 0, 0, -1, -1, 0) + b"\0"
+            out[lo:lo + len(fake)] = fake
+            done += 1
+    return bytes(out)
+
+
+def seg_edge_streams(good: bytes, n_good: int, seg_bytes: int):
+    """name -> (payload, max_records): record streams at the edges of
+    kernel X5's segmented walk, for segments of seg_bytes, made from the
+    well-framed stream `good` of n_good records: crafted false entries
+    (`false_guesses`, a few and one at every segment), a record longer
+    than three segments, a negative length, a length of -4 and a length
+    that wraps the int32 sum, each in the middle of a segment,
+    max_records in the middle of a segment, payloads of 0 to 4 bytes, and
+    one whose length is not a multiple of 16."""
+    starts = record_starts(good)
+
+    def mid(frac):
+        """A record start near `frac` of the stream, not on a segment's
+        first 16 bytes."""
+        i = int(len(starts) * frac)
+        while starts[i] % seg_bytes < 16:
+            i += 1
+        return starts[i]
+
+    def with_len(at, v):
+        b = bytearray(good)
+        b[at:at + 4] = (v & 0xFFFFFFFF).to_bytes(4, "little")
+        return bytes(b)
+
+    at = mid(0.5)
+    big = 3 * seg_bytes + 100
+    long_rec = (good[:at] + big.to_bytes(4, "little")
+                + bytes(range(256)) * (big // 256) + bytes(big % 256)
+                + good[at:])
+    return {
+        "false_few": (false_guesses(good, seg_bytes, 3), n_good),
+        "false_all": (false_guesses(good, seg_bytes), n_good + 7),
+        "long_record": (long_rec, n_good + 1),
+        "neg_mid": (with_len(at, -1000), n_good),
+        "minus4_mid": (with_len(at, -4), n_good),
+        "wrap_mid": (with_len(mid(0.6), 0x7FFFFFF0), n_good),
+        "max_mid": (good, starts.index(mid(0.4)) + 1),
+        "u0": (b"", 3), "u1": (good[:1], 3), "u2": (good[:2], 3),
+        "u3": (good[:3], 3), "u4": (good[:4], 3),
+        "u_odd": (good[:len(good) - (5 if (len(good) - 5) % 16 else 6)],
+                  n_good),
+    }
+
+
 def deflate_raw(data: bytes, level: int = BGZF_LEVEL,
                 strategy: int = zlib.Z_DEFAULT_STRATEGY) -> bytes:
     """A raw DEFLATE stream (no zlib header), as a BGZF member holds."""
@@ -1193,7 +1287,9 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                                                    chain_sam, cram_plan,
                                                    bcf_plan))):
             t0 = time.time()
-            notes[leg], notes["launches_" + leg] = _counted(run)
+            with Shapes() as shapes:
+                notes[leg], notes["launches_" + leg] = _counted(run)
+            notes["shapes_" + leg] = shapes.got
             secs[leg] = time.time() - t0
             if leg == "leg7":
                 inflated = notes["leg7"].pop("inflated")
@@ -1222,6 +1318,23 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return args, secs, notes
+
+
+class Shapes:
+    """Inside a with block, the shapes of the launches of csrc/rans4x8.cu
+    (B7, B8, X1-X3 and their dense variants: key, order-1 layout,
+    streams, rounds of the longest stream) and of X5 (key, payload bytes,
+    max_records), in `got` (_build.SHAPES), so that launches no timing
+    covers can be reckoned from their shapes."""
+
+    def __enter__(self):
+        from htslib_tpu_torch import _build
+        self.got = _build.SHAPES = []
+        return self
+
+    def __exit__(self, *exc):
+        from htslib_tpu_torch import _build
+        _build.SHAPES = None
 
 
 def _counted(run):
@@ -1498,9 +1611,10 @@ def leg10_rank(rank: int, n: int, device, batch, halo, plan, refs,
         decode_shard_to_sam, flagstat_shard)
     from htslib_tpu_torch.sam.header import SamHeader
     _build.reset_launches()
+    shapes = Shapes().__enter__()
     t0 = _build.clock(device)
     torch.zeros(1, device=device)
-    out = {"device_init_s": _build.clock(device) - t0}
+    out = {"device_init_s": _build.clock(device) - t0, "shapes": shapes.got}
     t0 = _build.clock(device)
     dryrun_multichip(n, device=device)
     out["dryrun_s"] = _build.clock(device) - t0
@@ -1609,6 +1723,7 @@ def leg10b(device, batch, bgzf, chain_sam, cram_plan, bcf_plan):
     notes["ranks"] = [{k: v for k, v in o.items() if k.endswith("_s")
                        or k.endswith("_collective") or k == "launches"}
                       for o in outs]
+    notes["rank_shapes"] = [o.pop("shapes") for o in outs]
     notes["outs"] = outs
     for r, rank in enumerate(notes["ranks"]):
         rank.update({k: v[r] for k, v in ranks.items()})
@@ -2092,6 +2207,12 @@ def kernels_vs_plain(seq4_d, encs, launches):
     return rows
 
 
+# the order-1 kernels of csrc/rans4x8.cu with two table layouts
+O1_LAYOUT_KEYS = ("rans4x8_o1_hist", "rans4x8_o1_decode",
+                  "rans_nx16_4way_o1_decode")
+O1_LAYOUTS = ("wide", "compact")
+
+
 def leg3_kernels_vs_plain(device, leg3, launches):
     """Phase 6 for kernels B5-B8 and X1-X3: each kernel against its plain
     version on the same card tensors, at full size over the first
@@ -2156,44 +2277,82 @@ def leg3_kernels_vs_plain(device, leg3, launches):
         blocks = leg3[wire][1][:n_streams]
         b = frame(blocks)
         offs = torch.zeros(b.n_streams, dtype=torch.int32, device=device)
-        got = kern(b, PLAIN_ROUNDS, offs, qb)
+        # X1, X3 and B8 order 1: both order-1 tables, each held to the
+        # plain version; the row's ms is the layout the batch takes
+        lays = O1_LAYOUTS if key in O1_LAYOUT_KEYS else (None,)
+
+        def run(bb, mr, oo, lay, kern=kern, qb=qb):
+            if lay is None:
+                return kern(bb, mr, oo, qb)
+            return rans4x8_cuda(bb, mr, oo, qb, layout=lay)
+
+        got = run(b, PLAIN_ROUNDS, offs, lays[0])
         torch.cuda.synchronize()
         t0 = time.time()
         ref = plain(b, PLAIN_ROUNDS, offs, qb)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
-        for g, r, what in zip(got, ref, ("output", "states", "cursors",
-                                         "contexts")):
-            require(torch.equal(g, r),
-                    f"{key} kernel != plain over {PLAIN_ROUNDS} rounds "
-                    f"({what})")
         err = int((got[0].long() - ref[0].long()).abs().max())
         small = frame(leg3[wire][3])
         soffs = torch.zeros(small.n_streams, dtype=torch.int32, device=device)
-        for g, r, what in zip(kern(small, -1, soffs, qb),
-                              plain(small, -1, soffs, qb),
-                              ("output", "states", "cursors", "contexts")):
-            require(torch.equal(g, r),
-                    f"{key} kernel != plain on whole 64 KiB streams ({what})")
+        sref = plain(small, -1, soffs, qb)
+        for lay in lays:
+            for g, r, what in zip(run(b, PLAIN_ROUNDS, offs, lay), ref,
+                                  ("output", "states", "cursors",
+                                   "contexts")):
+                require(torch.equal(g, r),
+                        f"{key} kernel ({lay}) != plain over {PLAIN_ROUNDS} "
+                        f"rounds ({what})")
+            for g, r, what in zip(run(small, -1, soffs, lay), sref,
+                                  ("output", "states", "cursors",
+                                   "contexts")):
+                require(torch.equal(g, r), f"{key} kernel ({lay}) != plain "
+                        f"on whole 64 KiB streams ({what})")
         n_sym = b.total_out
         n_out = n_sym if qb is None else 4 * qb * b.n_streams
         b_ms, b_by = bound_ms(sum(len(x) for x in blocks) + n_out,
                               ops * n_sym)
+        rounds = max(chain(int(n)) for n in b.ulen.tolist())
+        ms = {lay: cuda_ms(lambda lay=lay: run(b, -1, offs, lay), 3)
+              for lay in lays}
+        chosen = None
+        if key in O1_LAYOUT_KEYS:
+            chosen = "wide" if t8.wide_fits(b, qb is not None) else "compact"
         rows.append({
             "name": key, "route": "cuda",
             "source": f"htslib_tpu_torch/csrc/{src}",
             "replaces": f"htslib_tpu/ops/{line}",
             "launches": launches[key], "max_abs_err": err,
-            "ms": cuda_ms(lambda: kern(b, -1, offs, qb), 3),
+            "ms": ms[chosen],
             "plain_ms": plain_ms, "plain_rounds": PLAIN_ROUNDS,
             "ms_at_plain_rounds": cuda_ms(
-                lambda: kern(b, PLAIN_ROUNDS, offs, qb), 3),
+                lambda: run(b, PLAIN_ROUNDS, offs, chosen), 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "streams": b.n_streams, "symbols": n_sym,
-            "chain_rounds": max(chain(int(n)) for n in b.ulen.tolist()),
-            "match": True})
+            "chain_rounds": rounds, "match": True})
         if key.startswith("rans_nx16_o1"):
             rows[-1].update(o1_table_notes(b, offs, qb))
+        elif chosen is not None:
+            hist = qb is not None
+            slow = t8.max_slow(b.tables)
+            rows[-1].update({
+                "layout": chosen,
+                "ms_by_layout": ms,
+                "ns_per_round_by_layout": {k: v / rounds * 1e6
+                                           for k, v in ms.items()},
+                "streams_per_sm_by_layout": {
+                    "wide": t8.wide_blocks_per_sm(hist, b.w16, slow),
+                    "compact": t8.blocks_per_sm(hist, True, b.w16)},
+                "smem_bytes_by_layout": {
+                    "wide": t8.wide_smem_bytes(hist, slow),
+                    "compact": t8.smem_bytes(hist, True)},
+                "max_slow_buckets": slow,
+                "streams_per_sm": (t8.wide_blocks_per_sm(hist, b.w16, slow)
+                                   if chosen == "wide" else
+                                   t8.blocks_per_sm(hist, True, b.w16)),
+                "smem_bytes": (t8.wide_smem_bytes(hist, slow)
+                               if chosen == "wide" else
+                               t8.smem_bytes(hist, True))})
         else:
             rows[-1]["streams_per_sm"] = t8.blocks_per_sm(
                 qb is not None, b.o1, b.w16)
@@ -2235,11 +2394,14 @@ def leg3_kernels_vs_plain(device, leg3, launches):
         require(n_fall > 0, f"wide {wire} stream: no bucket reaches the "
                 "lookup's loop")
         woffs = torch.zeros(1, dtype=torch.int32, device=device)
-        for g, r, what in zip(rans4x8_cuda(wide, -1, woffs, qb),
-                              rans4x8_plain(wide, -1, woffs, qb),
-                              ("output", "states", "cursors", "contexts")):
-            require(torch.equal(g, r), f"{key} kernel != plain on the whole "
-                    f"wide-alphabet stream ({what})")
+        wref = rans4x8_plain(wide, -1, woffs, qb)
+        for lay in O1_LAYOUTS:
+            for g, r, what in zip(rans4x8_cuda(wide, -1, woffs, qb,
+                                               layout=lay), wref,
+                                  ("output", "states", "cursors",
+                                   "contexts")):
+                require(torch.equal(g, r), f"{key} kernel ({lay}) != plain "
+                        f"on the whole wide-alphabet stream ({what})")
         by_name[key]["wide_stream"] = {"bytes": int(wide.ulen[0]),
                                        "fallback_buckets": n_fall,
                                        "match": True}
@@ -2497,43 +2659,90 @@ def torch_sms(device) -> int:
 
 
 def record_scan_vs_plain(device, chain, n_chain, varied, launches):
-    """Phase 6 for X5: the kernel against its plain version (the JAX loop
-    walked by the host) on leg 8's two payloads and on scan_streams' edge
-    streams made from them; timed over leg 8's chain payload.  Returns the
-    kernels line's row."""
+    """Phase 6 for X5: both designs (the serial kernel and the segmented
+    kernels) against the plain version (the JAX loop walked by the host)
+    on leg 8's two payloads, on scan_streams' edge streams made from them,
+    and on the segmented walk's edges at its segments made from the
+    varied stream (seg_edge_streams: crafted false entries, a record
+    longer than three segments, negative, -4 and wrapping lengths and
+    max_records in a segment's middle, 0-4 byte payloads, a length not a
+    multiple of 16); both timed over leg 8's chain and varied payloads.
+    Returns the kernels line's two rows."""
     import torch
 
     from htslib_tpu_torch.ops import bam2sam as tb
     streams = scan_streams(varied, N_VARIED, chain, n_chain)
+    seg_edges = seg_edge_streams(varied, N_VARIED, 1 << tb.SEG_SHIFT)
+    streams.update({"seg_" + k: v for k, v in seg_edges.items()})
+    edge_stats = {}
     for name, (payload, n) in streams.items():
-        t = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).to(
-            device)
-        got = tb.record_scan_cuda(t, n)
+        t = torch.from_numpy(np.frombuffer(payload + b"\0", np.uint8)
+                             [:len(payload)].copy()).to(device)
         want = tb.record_scan_plain(t, n)
-        for g, w, what in zip(got, want, ("offsets", "sizes", "n")):
-            require(torch.equal(g, w), f"record_scan kernel != plain "
-                    f"({name}: {what})")
-    t = torch.from_numpy(np.frombuffer(chain, np.uint8).copy()).to(device)
-    ms = cuda_ms(lambda: tb.record_scan_cuda(t, n_chain), 5)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    tb.record_scan_plain(t, n_chain)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
+        for seg in (False, True):
+            stats = torch.zeros(4, dtype=torch.int32, device=device)
+            got = tb.record_scan_cuda(t, n, segmented=seg, stats=stats)
+            for g, w, what in zip(got, want, ("offsets", "sizes", "n")):
+                require(torch.equal(g, w), f"record_scan kernel != plain "
+                        f"({name}, segmented {seg}: {what})")
+            if seg and name.startswith("seg_"):
+                edge_stats[name] = stats.tolist()
+    # the edges reach what they were made for (stats: segments, segments
+    # walked again, serial-tail steps, segments verified)
+    require(edge_stats["seg_false_few"][1:3] == [3, 0],
+            "record_scan: the three false entries were not walked again")
+    require(edge_stats["seg_false_all"][1] == 16
+            and edge_stats["seg_false_all"][2] > 0,
+            "record_scan: the false entries past the rewalks did not take "
+            "the serial tail")
+    for name in ("seg_neg_mid", "seg_minus4_mid", "seg_wrap_mid"):
+        require(edge_stats[name][2] > 0,
+                f"record_scan: {name} did not take the serial tail")
     b_ms, b_by = bound_ms(len(chain) + 8 * n_chain + 4, 6 * n_chain)
-    return {
-        "name": "record_scan", "route": "cuda",
-        "source": "htslib_tpu_torch/csrc/record_scan.cu",
-        "replaces": "htslib_tpu/ops/bam2sam.py:34",
-        "launches": launches["record_scan"], "max_abs_err": 0,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "records": n_chain, "bytes": len(chain),
-        "ns_per_record": ms * 1e6 / n_chain,
-        "edge_streams": sorted(streams),
-        "window_bytes": _export(tb, "window_bytes"),
-        "note": "XLA code of the JAX package (no Pallas kernel) that the "
-                "port hand-writes; plain_ms is the host's walk",
-        "match": True}
+    note = ("XLA code of the JAX package (no Pallas kernel) that the port "
+            "hand-writes; plain_ms is the host's walk")
+    rows = []
+    for key, seg in (("record_scan", False), ("record_scan_seg", True)):
+        timed = {}
+        for what, payload, n in (("chain", chain, n_chain),
+                                 ("varied", varied, N_VARIED)):
+            t = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()
+                                 ).to(device)
+            stats = torch.zeros(4, dtype=torch.int32, device=device)
+            ms = cuda_ms(lambda: tb.record_scan_cuda(t, n, segmented=seg,
+                                                     stats=stats),
+                         5 if not seg else 20)
+            timed[what] = (ms, stats.tolist(), t)
+        ms, stats, t = timed["chain"]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tb.record_scan_plain(t, n_chain)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        row = {
+            "name": key, "route": "cuda",
+            "source": "htslib_tpu_torch/csrc/record_scan.cu",
+            "replaces": "htslib_tpu/ops/bam2sam.py:34",
+            "launches": launches[key], "max_abs_err": 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "records": n_chain,
+            "bytes": len(chain), "ns_per_record": ms * 1e6 / n_chain,
+            "varied_ms": timed["varied"][0],
+            "varied_ns_per_record": timed["varied"][0] * 1e6 / N_VARIED,
+            "edge_streams": sorted(streams), "note": note, "match": True}
+        if seg:
+            row.update({
+                "design": "segmented: guessed entries, verified exactly",
+                "segment_bytes": 1 << tb.SEG_SHIFT,
+                "segments": stats[0], "rewalks": stats[1],
+                "serial_tail_steps": stats[2], "verified_segments": stats[3],
+                "varied_stats": timed["varied"][1], "edge_stats": edge_stats,
+                "seg_min_bytes": tb.SEG_MIN_BYTES})
+        else:
+            row.update({"design": "serial: one thread walks the chain",
+                        "window_bytes": _export(tb, "window_bytes")})
+        rows.append(row)
+    return rows
 
 
 def probaln_vs_plain(device, hmm_calls, launches):
@@ -2889,12 +3098,14 @@ def main() -> int:
         launches[k] += v
     # "X4": either variant of kernel X4
     for leg, need in (("leg7", ["X4"]),
-                      ("leg8", ["record_scan", "nibble_to_base"]),
+                      ("leg8", ["record_scan_seg", "nibble_to_base"]),
                       ("leg9", ["probaln", "probaln_warp"]),
                       ("leg10a", ["nibble_to_base", "X4", "record_scan"]),
-                      ("leg10b", ["nibble_to_base", "X4", "record_scan"]),
-                      ("leg11", ["nibble_to_base", "record_scan"]),
-                      ("leg11_ranks", ["nibble_to_base", "record_scan"]),
+                      ("leg10b", ["nibble_to_base", "X4", "record_scan",
+                                  "record_scan_seg"]),
+                      ("leg11", ["nibble_to_base", "record_scan_seg"]),
+                      ("leg11_ranks", ["nibble_to_base",
+                                       "record_scan_seg"]),
                       ("leg12", ["X4"]), ("leg12_ranks", ["X4"])):
         got = dict(notes["launches_" + leg])
         got["X4"] = got.get("inflate", 0) + got.get("inflate_slot", 0)
@@ -2930,6 +3141,7 @@ def main() -> int:
     print(f"leg 10a wall (NCCL, a world of one): {secs['leg10a']:.3f} s, "
           f"{notes['leg10a']}", flush=True)
     ranks = notes["leg10b"].pop("ranks")
+    rank_shapes = notes["leg10b"].pop("rank_shapes")
     print(f"leg 10b wall ({N_RANKS} gloo ranks on cuda:0): "
           f"{secs['leg10b']:.3f} s, {notes['leg10b']}", flush=True)
     for r, rank in enumerate(ranks):
@@ -2964,6 +3176,14 @@ def main() -> int:
     print("launches by leg: " + json.dumps({k: v for k, v in notes.items()
                                             if k.startswith("launches_")}),
           flush=True)
+    # each launch of csrc/rans4x8.cu's kernels (key, order-1 layout,
+    # streams, rounds of the longest stream) and of X5 (key, payload
+    # bytes, max_records) in legs 7-12, the ranks' apart: PERF.md reckons
+    # the launches no timing covers from these shapes
+    shapes = {k[len("shapes_"):]: v for k, v in notes.items()
+              if k.startswith("shapes_")}
+    shapes["leg10b_ranks"] = rank_shapes
+    print("launch shapes: " + json.dumps(shapes), flush=True)
     for k, v in launches.items():
         require(v >= 1, f"kernel {k} not launched on the main path")
     print(f"leg 4 host side in parts: {leg4_parts(raws, encs, 'cuda')}",
@@ -2989,8 +3209,8 @@ def main() -> int:
         for x4 in ("inflate", "inflate_slot"))
     print(f"phase 6, X4: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
-    rows.append(record_scan_vs_plain(args[1].device, stream, N_RECORDS,
-                                     varied, launches))
+    rows += record_scan_vs_plain(args[1].device, stream, N_RECORDS,
+                                 varied, launches)
     print(f"phase 6, X5: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     rows.append(probaln_vs_plain(args[1].device, hmm_calls, launches))

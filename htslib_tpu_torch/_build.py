@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -43,7 +43,13 @@ LAUNCHES: Dict[str, int] = {
     "rans_nx16_4way_o0_decode": 0, "rans_nx16_4way_o1_decode": 0,
     "rans4x8_o1_dense_decode": 0, "rans_nx16_4way_o1_dense_decode": 0,
     "rans_nx16_o1_dense_decode": 0, "inflate": 0, "inflate_slot": 0,
-    "record_scan": 0, "probaln": 0, "probaln_warp": 0}
+    "record_scan": 0, "record_scan_seg": 0, "probaln": 0,
+    "probaln_warp": 0}
+# where a list: each launch of the kernels whose wrappers record their
+# shapes (ops/rans4x8.py, ops/bam2sam.py) appends (launch key, ...its
+# shape), so a run can reckon launches that no timing covers
+# (chip_smoke.py); None costs nothing
+SHAPES: Optional[list] = None
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # (function, argtypes) per library: every pointer and the stream are
 # c_void_p, so ctypes never narrows them to 32-bit ints
@@ -68,6 +74,10 @@ _SIGNATURES = {
         + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "rans4x8_blocks_per_sm": [ctypes.c_int] * 4,
         "rans4x8_smem_bytes": [ctypes.c_int] * 3,
+        "rans4x8_wide_launch": [ctypes.c_void_p] * 17
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "rans4x8_wide_smem_bytes": [ctypes.c_int] * 2,
+        "rans4x8_wide_blocks_per_sm": [ctypes.c_int] * 3,
     },
     "rans_nx16_enc": {
         "rans_nx16_enc_launch": [ctypes.c_void_p] * 8
@@ -100,6 +110,9 @@ _SIGNATURES = {
     "record_scan": {
         "record_scan_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 4,
+        "record_scan_seg_launch": [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_void_p],
         "record_scan_window_bytes": [],
     },
     "probaln": {

@@ -50,6 +50,16 @@
 // or 51-55 KB (X1, X3, B8 order 1: dynamic shared memory, past the 48 KB
 // static limit), so an SM holds 12, 10 or 4 streams.
 //
+// The wide variants (X1, X3 and B8 order 1 on a batch of at most one
+// wave of them: ops/rans4x8.py `wide_fits`) swap the order-1 lookup for
+// the wide table of rans4x8_step.cuh: 16-byte records whose fields are
+// ready to use and u32 buckets that select the record by arithmetic, the
+// slow buckets through per-slot maps built at set-up, so the round has no
+// loop and no branch.  A block takes 129 KB (133 KB with B8's histogram
+// rows) and 128 bytes a slow bucket, sized per launch to the batch's
+// most slow buckets: one stream an SM, where the compact tables hold
+// four, so a batch past one wave keeps the compact tables.
+//
 // The dense variants swap only the lookup: each state's entry is one load
 // from its stream's 4 MiB table in device memory (an L2 or memory latency
 // on the round's chain where the records' pick was a shared-memory one),
@@ -95,12 +105,21 @@ struct O1Lookup {
   uint16_t bucket[256 * RANS_O1_BUCKETS];
 };
 struct DenseLookup {};  // the dense table lies in device memory
+// the wide order-1 table (rans4x8_step.cuh); the slow buckets' maps follow
+// the block's Tables in shared memory
+struct WideLookup {
+  Rans8Rec rec[RANS8_WIDE_RECORDS];
+  uint32_t bucket[256 * RANS_O1_BUCKETS];
+};
 
-template <bool kHist, bool kO1, bool kDense = false>
+template <bool kHist, bool kO1, bool kDense = false, bool kWide = false>
 struct Tables {
   typename std::conditional<
       kDense, DenseLookup,
-      typename std::conditional<kO1, O1Lookup, O0Lookup>::type>::type lut;
+      typename std::conditional<
+          kWide, WideLookup,
+          typename std::conditional<kO1, O1Lookup, O0Lookup>::type>::type>::
+      type lut;
   union {
     // the ring of payload chunks, and copies of its first two words
     uint32_t ring[kRingWords + 2];
@@ -131,16 +150,19 @@ struct Args {
   int32_t* ctx_out;
   int qbins;
   int max_rounds;
+  int max_slow;  // the wide table: slow buckets a block's maps hold
 };
 
 // One stream's decode state: the four states and contexts, the window at
 // the cursor, and the ring's staging counters.  `round` is one round of
 // the warp (every lane the same), forced inline so the state stays in
 // registers; it returns the round's four symbols packed in a word.  kW16:
-// the Nx16 wire's refill; kDense: order 1 through the stream's dense table.
-template <bool kHist, bool kO1, bool kW16, bool kDense = false>
+// the Nx16 wire's refill; kDense: order 1 through the stream's dense table;
+// kWide: order 1 through the wide table (contexts held as symbol * 256).
+template <bool kHist, bool kO1, bool kW16, bool kDense = false,
+          bool kWide = false>
 struct Stream {
-  Tables<kHist, kO1, kDense>& t;
+  Tables<kHist, kO1, kDense, kWide>& t;
   const uint32_t* dense;
   const uint32_t* words;
   uint8_t* out;
@@ -150,6 +172,7 @@ struct Stream {
   uint32_t x[RANS8_NWAY], ctx7[RANS8_NWAY];  // contexts times 128
   Rans8Window w;
   uint32_t issued, swapped;  // chunks copied in, and byte-swapped
+  const uint16_t* maps;      // the wide table's slow-bucket maps
 
   // Copy chunk q into its ring slot (cp.async, the bytes past the payload
   // zero-filled).
@@ -192,7 +215,10 @@ struct Stream {
     uint32_t syms, hi, lo;
     rans8_window(w.w0, w.w1, w.w2, w.pos, &hi, &lo);
     uint32_t k;
-    if constexpr (kDense)
+    if constexpr (kWide)
+      k = rans8_round_wide<kW16>(x, ctx7, &syms, live, hi, lo, t.lut.rec,
+                                 t.lut.bucket, maps);
+    else if constexpr (kDense)
       k = rans8_round<true, kW16, true>(x, ctx7, &syms, live, hi, lo, dense,
                                         nullptr);
     else if constexpr (kO1)
@@ -229,23 +255,47 @@ struct Stream {
   }
 };
 
-template <bool kHist, bool kO1, bool kW16, bool kDense = false>
+template <bool kHist, bool kO1, bool kW16, bool kDense = false,
+          bool kWide = false>
 __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
+  static_assert(!kWide || (kO1 && !kDense), "the wide table is order 1's");
   extern __shared__ __align__(16) unsigned char smem[];
-  auto& t = *reinterpret_cast<Tables<kHist, kO1, kDense>*>(smem);
+  auto& t = *reinterpret_cast<Tables<kHist, kO1, kDense, kWide>*>(smem);
   const int lane = threadIdx.x;
   const int st = blockIdx.x;
   const uint32_t nb = (uint32_t)a.n_bytes[st];
   // past the payload's last word every byte reads 0; the cap keeps the
   // cursor (and the ring's chunks) a few words beyond it
-  Stream<kHist, kO1, kW16, kDense> s = {
+  Stream<kHist, kO1, kW16, kDense, kWide> s = {
       t, kDense ? a.dense + (int64_t)st * (256 * RANS_TOTFREQ) : nullptr,
       reinterpret_cast<const uint32_t*>(a.payload + a.byte_off[st]),
       kHist ? nullptr : a.out + a.out_off[st], nb, 4u * ((nb + 3u) / 4u) + 32u,
       lane, kHist ? a.offs[st] : 0, a.qbins};
 
+  s.maps = reinterpret_cast<const uint16_t*>(smem + sizeof(t));
+
   // the lookup tables (a dense table lies in device memory as it is)
-  if constexpr (kO1 && !kDense) {
+  if constexpr (kWide) {
+    uint16_t* maps = reinterpret_cast<uint16_t*>(smem + sizeof(t));
+    const uint32_t* rows = a.rows + a.row_off[st];
+    for (int c = lane; c < 257; c += kWarp)
+      t.setup[c] = (uint16_t)a.ctx_start[(int64_t)st * 257 + c];
+    __syncwarp();
+    rans8_wide_build(rows, t.setup, t.lut.rec, t.lut.bucket, lane, kWarp);
+    // number the slow buckets lane by lane: an exclusive prefix of the
+    // lanes' counts (each lane counts and maps the contexts it built)
+    const int cnt = rans8_wide_count_slow(t.lut.bucket, lane, kWarp);
+    int incl = cnt;
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    // the host sized the maps for the batch's most slow buckets
+    if (__shfl_sync(0xffffffffu, incl, kWarp - 1) > a.max_slow) __trap();
+    rans8_wide_maps(rows, t.setup, t.lut.bucket, maps, incl - cnt, lane,
+                    kWarp);
+    __syncwarp();
+  } else if constexpr (kO1 && !kDense) {
     for (int c = lane; c < 257; c += kWarp)
       t.setup[c] = (uint16_t)a.ctx_start[(int64_t)st * 257 + c];
     __syncwarp();
@@ -311,7 +361,8 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
   if (lane == 0) {
     for (int j = 0; j < RANS8_NWAY; ++j) {
       a.x_out[(int64_t)st * RANS8_NWAY + j] = s.x[j];
-      a.ctx_out[(int64_t)st * RANS8_NWAY + j] = (int32_t)(s.ctx7[j] >> 7);
+      a.ctx_out[(int64_t)st * RANS8_NWAY + j] =
+          (int32_t)(s.ctx7[j] >> (kWide ? 8 : 7));
     }
     // the wire's cursor stops at the payload's end (rans_advance)
     a.cur_out[st] = (int32_t)(s.w.pos < nb ? s.w.pos : nb);
@@ -326,15 +377,22 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
   }
 }
 
+// Bytes of dynamic shared memory a block of the variant takes: its Tables
+// and, for the wide table, the maps of max_slow slow buckets.
+template <bool kHist, bool kO1, bool kDense, bool kWide>
+int smem_of(int max_slow) {
+  return (int)sizeof(Tables<kHist, kO1, kDense, kWide>) +
+         (kWide ? 2 * RANS8_WIDE_MAP * max_slow : 0);
+}
+
 // Set the variant up for its tables in dynamic shared memory, with the
 // largest shared-memory carveout so that as many blocks share an SM as the
 // tables allow; returns a CUDA error code.
-template <bool kHist, bool kO1, bool kW16, bool kDense>
-cudaError_t configure() {
-  auto* fn = rans4x8_kernel<kHist, kO1, kW16, kDense>;
+template <bool kHist, bool kO1, bool kW16, bool kDense, bool kWide>
+cudaError_t configure(int smem) {
+  auto* fn = rans4x8_kernel<kHist, kO1, kW16, kDense, kWide>;
   cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(Tables<kHist, kO1, kDense>));
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(fn,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -343,26 +401,60 @@ cudaError_t configure() {
 
 // One launch of the variant; returns a CUDA error code (an attribute's, or
 // the launch's).
-template <bool kHist, bool kO1, bool kW16, bool kDense = false>
+template <bool kHist, bool kO1, bool kW16, bool kDense = false,
+          bool kWide = false>
 int launch(const Args& a, int n_streams, cudaStream_t s) {
-  const cudaError_t e = configure<kHist, kO1, kW16, kDense>();
+  const int smem = smem_of<kHist, kO1, kDense, kWide>(a.max_slow);
+  const cudaError_t e = configure<kHist, kO1, kW16, kDense, kWide>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  rans4x8_kernel<kHist, kO1, kW16, kDense>
-      <<<n_streams, kWarp, sizeof(Tables<kHist, kO1, kDense>), s>>>(a);
+  rans4x8_kernel<kHist, kO1, kW16, kDense, kWide>
+      <<<n_streams, kWarp, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks (streams) of the variant one SM holds at once, or minus a CUDA
 // error code.
-template <bool kHist, bool kO1, bool kW16, bool kDense = false>
-int blocks_per_sm() {
-  cudaError_t e = configure<kHist, kO1, kW16, kDense>();
+template <bool kHist, bool kO1, bool kW16, bool kDense = false,
+          bool kWide = false>
+int blocks_per_sm(int max_slow = 0) {
+  const int smem = smem_of<kHist, kO1, kDense, kWide>(max_slow);
+  cudaError_t e = configure<kHist, kO1, kW16, kDense, kWide>(smem);
   int n = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, rans4x8_kernel<kHist, kO1, kW16, kDense>, kWarp,
-        sizeof(Tables<kHist, kO1, kDense>));
+        &n, rans4x8_kernel<kHist, kO1, kW16, kDense, kWide>, kWarp, smem);
+  // a refused size (the wide table's maps past a block's shared memory)
+  // must not stay behind as the next launch's error
+  if (e != cudaSuccess) cudaGetLastError();
   return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+Args make_args(const void* payload, const void* byte_off, const void* n_bytes,
+               const void* freqs, const void* rows, const void* row_off,
+               const void* ctx_start, const void* dense, const void* x0,
+               const void* ulen, const void* out_off, void* out,
+               const void* offs, void* hist, void* x_out, void* cur_out,
+               void* ctx_out, int qbins, int max_rounds, int max_slow) {
+  return {static_cast<const uint8_t*>(payload),
+          static_cast<const int64_t*>(byte_off),
+          static_cast<const int32_t*>(n_bytes),
+          static_cast<const int32_t*>(freqs),
+          static_cast<const uint32_t*>(rows),
+          static_cast<const int64_t*>(row_off),
+          static_cast<const int32_t*>(ctx_start),
+          static_cast<const uint32_t*>(dense),
+          static_cast<const uint32_t*>(x0),
+          static_cast<const int32_t*>(ulen),
+          static_cast<const int64_t*>(out_off),
+          static_cast<uint8_t*>(out),
+          static_cast<const int32_t*>(offs),
+          static_cast<int32_t*>(hist),
+          static_cast<uint32_t*>(x_out),
+          static_cast<int32_t*>(cur_out),
+          static_cast<int32_t*>(ctx_out),
+          qbins,
+          max_rounds,
+          max_slow};
 }
 
 }  // namespace
@@ -388,25 +480,10 @@ extern "C" int rans4x8_launch(
   if ((hist != nullptr && (w16 || dense != nullptr)) ||
       (dense != nullptr && !o1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = {static_cast<const uint8_t*>(payload),
-                  static_cast<const int64_t*>(byte_off),
-                  static_cast<const int32_t*>(n_bytes),
-                  static_cast<const int32_t*>(freqs),
-                  static_cast<const uint32_t*>(rows),
-                  static_cast<const int64_t*>(row_off),
-                  static_cast<const int32_t*>(ctx_start),
-                  static_cast<const uint32_t*>(dense),
-                  static_cast<const uint32_t*>(x0),
-                  static_cast<const int32_t*>(ulen),
-                  static_cast<const int64_t*>(out_off),
-                  static_cast<uint8_t*>(out),
-                  static_cast<const int32_t*>(offs),
-                  static_cast<int32_t*>(hist),
-                  static_cast<uint32_t*>(x_out),
-                  static_cast<int32_t*>(cur_out),
-                  static_cast<int32_t*>(ctx_out),
-                  qbins,
-                  max_rounds};
+  const Args a = make_args(payload, byte_off, n_bytes, freqs, rows, row_off,
+                           ctx_start, dense, x0, ulen, out_off, out, offs,
+                           hist, x_out, cur_out, ctx_out, qbins, max_rounds,
+                           0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hist != nullptr)
     return o1 ? launch<true, true, false>(a, n_streams, s)
@@ -450,6 +527,45 @@ extern "C" int rans4x8_smem_bytes(int hist, int o1, int dense) {
               : (int)sizeof(Tables<true, false>);
   return o1 ? (int)sizeof(Tables<false, true>)
             : (int)sizeof(Tables<false, false>);
+}
+
+// The wide order-1 table's variants (rans4x8_step.cuh): X1 (symbols), X3
+// (symbols, w16) or B8 order 1 (hist != NULL), the arguments of
+// rans4x8_launch (order 1, no dense table), with shared memory for the
+// maps of max_slow slow buckets a stream; a stream with more traps.
+extern "C" int rans4x8_wide_launch(
+    const void* payload, const void* byte_off, const void* n_bytes,
+    const void* freqs, const void* rows, const void* row_off,
+    const void* n_rows, const void* ctx_start, const void* x0,
+    const void* ulen, const void* out_off, void* out, const void* offs,
+    void* hist, void* x_out, void* cur_out, void* ctx_out, int n_streams,
+    int qbins, int max_rounds, int w16, int max_slow, void* stream) {
+  if (n_streams <= 0) return 0;
+  if ((hist != nullptr && w16) || max_slow < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(payload, byte_off, n_bytes, freqs, rows, row_off,
+                           ctx_start, nullptr, x0, ulen, out_off, out, offs,
+                           hist, x_out, cur_out, ctx_out, qbins, max_rounds,
+                           max_slow);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hist != nullptr)
+    return launch<true, true, false, false, true>(a, n_streams, s);
+  return w16 ? launch<false, true, true, false, true>(a, n_streams, s)
+             : launch<false, true, false, false, true>(a, n_streams, s);
+}
+
+// Shared memory a block of the wide variants takes, and the streams an SM
+// holds (or minus a CUDA error code), for max_slow slow buckets a stream.
+extern "C" int rans4x8_wide_smem_bytes(int hist, int max_slow) {
+  return hist ? smem_of<true, true, false, true>(max_slow)
+              : smem_of<false, true, false, true>(max_slow);
+}
+
+extern "C" int rans4x8_wide_blocks_per_sm(int hist, int w16, int max_slow) {
+  if (hist && w16) return -static_cast<int>(cudaErrorInvalidValue);
+  if (hist) return blocks_per_sm<true, true, false, false, true>(max_slow);
+  return w16 ? blocks_per_sm<false, true, true, false, true>(max_slow)
+             : blocks_per_sm<false, true, false, false, true>(max_slow);
 }
 
 extern "C" const char* kernel_error_string(int rc) {

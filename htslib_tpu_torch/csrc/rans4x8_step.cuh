@@ -134,6 +134,30 @@ RANS_HD uint32_t rans8_pack(const uint32_t* e) {
 #endif
 }
 
+// The end of a round: state j (where bit j of `live` is set) takes its
+// decoded value xs[j] and shifts in its refill bytes from the window hi:lo
+// (kW16: the Nx16 wire's words).  Returns the bytes the round took.
+template <bool kW16>
+RANS_HD uint32_t rans8_refill(uint32_t* x, const uint32_t* xs, unsigned live,
+                              uint32_t hi, uint32_t lo) {
+  uint32_t bits[RANS8_NWAY];
+  for (int j = 0; j < RANS8_NWAY; ++j) {
+    const bool on = (live >> j) & 1u;
+    if (on) x[j] = xs[j];
+    bits[j] = on ? (kW16 ? rans16_refill_bits(xs[j])
+                         : rans8_refill_bits(xs[j]))
+                 : 0u;
+  }
+  const uint64_t win = ((uint64_t)hi << 32) | lo;
+  const uint32_t at[RANS8_NWAY] = {0u, bits[0], bits[0] + bits[1],
+                                   bits[0] + bits[1] + bits[2]};
+  for (int j = 0; j < RANS8_NWAY; ++j) {
+    const uint32_t w = (uint32_t)((win << at[j]) >> 32);
+    x[j] = rans8_funnel(kW16 ? rans8_swap16(w) : w, x[j], bits[j]);
+  }
+  return (at[3] + bits[3]) >> 3;
+}
+
 // One round of the four states in order 0..3: state j decodes where bit j
 // of `live` is set (order 0 through the slot table `tab`; order 1 through
 // the records `tab` and `bucket`, its context held as ctx7 = ctx * 128,
@@ -173,25 +197,148 @@ RANS_HD uint32_t rans8_round(uint32_t* x, uint32_t* ctx7, uint32_t* syms,
     }
   }
   *syms = rans8_pack(e);
-  uint32_t bits[RANS8_NWAY];
-  for (int j = 0; j < RANS8_NWAY; ++j) {
-    const bool on = (live >> j) & 1u;
-    if (on) {
-      x[j] = xs[j];
-      if (kO1) ctx7[j] = (e[j] >> 17) & 0x7F80u;  // the symbol * 128
+  if (kO1)
+    for (int j = 0; j < RANS8_NWAY; ++j)
+      if ((live >> j) & 1u) ctx7[j] = (e[j] >> 17) & 0x7F80u;  // symbol*128
+  return rans8_refill<kW16>(x, xs, live, hi, lo);
+}
+
+// ---------------------------------------------------------------------------
+// The wide order-1 table (X1, X3 and B8 order 1 on a batch that fits one
+// wave of it, rans4x8.cu): ready-to-use records and a lookup with no loop
+// and no branch.
+//
+// A record is 16 bytes read by one load: f, -cum, the next context (its
+// symbol * 256, the byte offset of its buckets) and the symbol in bits
+// 24-31, so a decode step is a shift, a mask and a multiply-add, with no
+// field to extract.  rec[r] is row r, rec[n] a zero row (symbol 0, f = 1,
+// cum 0, as the compact table's).  A u32 bucket per 64 slots of each of
+// the 256 contexts (64 KB) decides the record from the slot by arithmetic:
+// where at most one row starts inside the bucket after its first slot,
+// the bucket holds (r << 6) | (64 - b), r the record owning its first
+// slot and b the offset of the row starting inside it (64 where none
+// does), so the record is (bucket + (x & 63)) >> 6; a context with no rows
+// holds the record at its start (the next context's first row, or the
+// zero row) with b = 64.  Where two or more rows start inside a bucket
+// (RANS8_WIDE_SLOW) the bucket holds the number m of its map, 64 u16
+// record indices, one a slot, built at set-up (`rans8_wide_maps`): the
+// lookup then takes one predicated load more, with no branch in the round.
+// 132 KB of records and buckets and 128 bytes a slow bucket hold one
+// stream an SM, where the compact tables hold four.
+
+#define RANS8_WIDE_SLOW 0x80000000u
+#define RANS8_WIDE_RECORDS (RANS_O1_MAX_ROWS + 1)
+#define RANS8_WIDE_MAP 64  // u16 record indices a slow bucket's map holds
+
+struct alignas(16) Rans8Rec {
+  uint32_t f, neg_cum, ctx, sym;
+};
+
+// The record of a packed row e ((f-1) | cum << 12 | sym << 24).
+RANS_HD Rans8Rec rans8_wide_record(uint32_t e) {
+  return {(e & 0xFFFu) + 1u, 0u - rans_row_cum(e), (e >> 24) << 8,
+          e & 0xFF000000u};
+}
+
+// The records and buckets of one stream from its n rows and context
+// starts (ctx_start[256] = n), as above, with every slow bucket set to
+// RANS8_WIDE_SLOW (its map comes from `rans8_wide_maps`).  Lane `lane` of
+// `nlanes` fills the rows r and the contexts c with r, c % nlanes == lane.
+RANS_HD void rans8_wide_build(const uint32_t* rows, const uint16_t* ctx_start,
+                              Rans8Rec* rec, uint32_t* bucket, int lane,
+                              int nlanes) {
+  const int n = ctx_start[256];
+  for (int r = lane; r < n; r += nlanes) rec[r] = rans8_wide_record(rows[r]);
+  if (lane == 0) rec[n] = rans8_wide_record(0u);
+  for (int c = lane; c < 256; c += nlanes) {
+    const int lo = ctx_start[c], hi = ctx_start[c + 1];
+    uint32_t* bk = bucket + c * RANS_O1_BUCKETS;
+    if (lo == hi) {
+      for (int j = 0; j < RANS_O1_BUCKETS; ++j) bk[j] = (uint32_t)lo << 6;
+      continue;
     }
-    bits[j] = on ? (kW16 ? rans16_refill_bits(xs[j])
-                         : rans8_refill_bits(xs[j]))
-                 : 0u;
+    int r = lo;
+    for (int j = 0; j < RANS_O1_BUCKETS; ++j) {
+      const uint32_t slot = (uint32_t)j << RANS_O1_BUCKET_SHIFT;
+      while (r + 1 < hi && rans_row_cum(rows[r + 1]) <= slot) ++r;
+      uint32_t b = 64u;
+      int inside = 0;
+      for (int q = r + 1; q < hi && rans_row_cum(rows[q]) < slot + 64u;
+           ++q, ++inside)
+        if (inside == 0) b = rans_row_cum(rows[q]) - slot;
+      bk[j] = inside >= 2 ? RANS8_WIDE_SLOW : ((uint32_t)r << 6) | (64u - b);
+    }
   }
-  const uint64_t win = ((uint64_t)hi << 32) | lo;
-  const uint32_t at[RANS8_NWAY] = {0u, bits[0], bits[0] + bits[1],
-                                   bits[0] + bits[1] + bits[2]};
+}
+
+// The slow buckets of the contexts c with c % nlanes == lane.
+RANS_HD int rans8_wide_count_slow(const uint32_t* bucket, int lane,
+                                  int nlanes) {
+  int n = 0;
+  for (int c = lane; c < 256; c += nlanes)
+    for (int j = 0; j < RANS_O1_BUCKETS; ++j)
+      n += bucket[c * RANS_O1_BUCKETS + j] == RANS8_WIDE_SLOW;
+  return n;
+}
+
+// The maps of the slow buckets of the contexts c % nlanes == lane,
+// numbered from `first` in order of (c, bucket): maps[m * 64 + t] is the
+// record owning slot t of the bucket (the last of its context's rows whose
+// cum is <= the slot), and the bucket becomes RANS8_WIDE_SLOW | m.
+RANS_HD void rans8_wide_maps(const uint32_t* rows, const uint16_t* ctx_start,
+                             uint32_t* bucket, uint16_t* maps, int first,
+                             int lane, int nlanes) {
+  int m = first;
+  for (int c = lane; c < 256; c += nlanes) {
+    const int lo = ctx_start[c], hi = ctx_start[c + 1];
+    uint32_t* bk = bucket + c * RANS_O1_BUCKETS;
+    int r = lo;
+    for (int j = 0; j < RANS_O1_BUCKETS && lo < hi; ++j) {
+      if (bk[j] != RANS8_WIDE_SLOW) continue;
+      for (uint32_t t = 0; t < RANS8_WIDE_MAP; ++t) {
+        const uint32_t slot = ((uint32_t)j << RANS_O1_BUCKET_SHIFT) + t;
+        while (r + 1 < hi && rans_row_cum(rows[r + 1]) <= slot) ++r;
+        maps[m * RANS8_WIDE_MAP + t] = (uint16_t)r;
+      }
+      bk[j] = RANS8_WIDE_SLOW | (uint32_t)m++;
+    }
+  }
+}
+
+// The record of slot x & 4095 of the context whose buckets start at byte
+// ctx of `bucket`.
+RANS_HD const Rans8Rec* rans8_wide_lookup(const Rans8Rec* rec,
+                                          const uint32_t* bucket,
+                                          const uint16_t* maps, uint32_t ctx,
+                                          uint32_t x) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<const uint8_t*>(bucket) + (ctx | ((x >> 4) & 0xFCu)));
+  const uint32_t t = x & (RANS8_WIDE_MAP - 1u);
+  uint32_t idx = (v + t) >> 6;
+  if (v & RANS8_WIDE_SLOW) idx = maps[((v & 0xFFFFu) << 6) | t];
+  return rec + idx;
+}
+
+// One order-1 round through the wide table: rans8_round's, the contexts
+// held as symbol * 256.
+template <bool kW16 = false>
+RANS_HD uint32_t rans8_round_wide(uint32_t* x, uint32_t* ctx, uint32_t* syms,
+                                  unsigned live, uint32_t hi, uint32_t lo,
+                                  const Rans8Rec* rec, const uint32_t* bucket,
+                                  const uint16_t* maps) {
+  Rans8Rec e[RANS8_NWAY];
+  uint32_t xs[RANS8_NWAY], sym[RANS8_NWAY];
+  for (int j = 0; j < RANS8_NWAY; ++j)
+    e[j] = *rans8_wide_lookup(rec, bucket, maps, ctx[j], x[j]);
   for (int j = 0; j < RANS8_NWAY; ++j) {
-    const uint32_t w = (uint32_t)((win << at[j]) >> 32);
-    x[j] = rans8_funnel(kW16 ? rans8_swap16(w) : w, x[j], bits[j]);
+    xs[j] = e[j].f * (x[j] >> RANS_TF_SHIFT) + (x[j] & (RANS_TOTFREQ - 1)) +
+            e[j].neg_cum;
+    sym[j] = e[j].sym;
   }
-  return (at[3] + bits[3]) >> 3;
+  *syms = rans8_pack(sym);
+  for (int j = 0; j < RANS8_NWAY; ++j)
+    if ((live >> j) & 1u) ctx[j] = e[j].ctx;
+  return rans8_refill<kW16>(x, xs, live, hi, lo);
 }
 
 // The byte cursor and the three (byte-swapped) words at it.  The cursor

@@ -61,28 +61,70 @@ def record_scan_plain(payload: torch.Tensor, max_records: int
             torch.tensor(n, dtype=torch.int32, device=dev))
 
 
-def record_scan_cuda(payload: torch.Tensor, max_records: int
+# Kernel X5's segmented design (csrc/record_scan.cu): segments of
+# 2^SEG_SHIFT bytes, taken for payloads of SEG_MIN_BYTES or more; smaller
+# ones take the serial kernel (both set by probe_x1_x5.py's sweep).
+SEG_SHIFT = 16
+SEG_MIN_BYTES = 1 << 17
+
+
+def seg_fits(u: int, max_records: int) -> bool:
+    """Whether kernel X5 walks a payload of u bytes in parallel segments
+    (the segmented kernels) rather than on one thread."""
+    return u >= SEG_MIN_BYTES and max_records > 0
+
+
+def record_scan_cuda(payload: torch.Tensor, max_records: int,
+                     segmented: Optional[bool] = None,
+                     shift: int = SEG_SHIFT,
+                     stats: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel X5 on a uint8 [U] payload on the card; same results as
-    `record_scan_plain`."""
+    `record_scan_plain`.  `segmented` forces the segmented kernels (True)
+    or the serial one (False); None takes `seg_fits`.  `stats` (int32 [4]
+    on the card), where given, gets the segmented scan's segments,
+    segments walked again, serial-tail steps and segments verified."""
     _build.require_cuda(payload, torch.uint8, "payload")
     if payload.dim() != 1 or payload.numel() >= 1 << 31:
         raise ValueError("payload: expected [U] bytes, U < 2^31")
     if max_records < 0 or max_records >= 1 << 31:
         raise ValueError("max_records: expected 0 <= max_records < 2^31")
+    if not 4 <= shift <= 16:
+        raise ValueError("shift: expected 4 <= shift <= 16")
     if payload.data_ptr() % 16:
         payload = payload.clone()      # the windows copy 16-byte chunks
+    u = payload.numel()
+    if segmented is None:
+        segmented = seg_fits(u, max_records)
     dev = payload.device
     offs = torch.empty(max_records, dtype=torch.int32, device=dev)
     sizes = torch.empty(max_records, dtype=torch.int32, device=dev)
     n = torch.empty((), dtype=torch.int32, device=dev)
     lib = _build.load("record_scan")
-    rc = lib.record_scan_launch(payload.data_ptr(), payload.numel(),
-                                max_records, offs.data_ptr(),
-                                sizes.data_ptr(), n.data_ptr(),
-                                _build.stream_handle(payload))
-    _build.check(lib, rc, "record_scan")
-    _build.LAUNCHES["record_scan"] += 1
+    if segmented and u > 0:
+        n_seg = -(-u >> shift)
+        summ = torch.empty(5 * n_seg, dtype=torch.int32, device=dev)
+        starts = torch.empty(n_seg << (shift - 2), dtype=torch.int16,
+                             device=dev)
+        if stats is None:
+            stats = torch.empty(4, dtype=torch.int32, device=dev)
+        _build.require_cuda(stats, torch.int32, "stats", (4,))
+        rc = lib.record_scan_seg_launch(
+            payload.data_ptr(), u, max_records, offs.data_ptr(),
+            sizes.data_ptr(), n.data_ptr(), summ.data_ptr(),
+            starts.data_ptr(), stats.data_ptr(), shift,
+            _build.stream_handle(payload))
+        key = "record_scan_seg"
+    else:
+        rc = lib.record_scan_launch(payload.data_ptr(), u, max_records,
+                                    offs.data_ptr(), sizes.data_ptr(),
+                                    n.data_ptr(),
+                                    _build.stream_handle(payload))
+        key = "record_scan"
+    _build.check(lib, rc, key)
+    _build.LAUNCHES[key] += 1
+    if _build.SHAPES is not None:
+        _build.SHAPES.append((key, u, max_records))
     return offs, sizes, n
 
 

@@ -23,6 +23,14 @@ tail included (csrc/rans4x8.cu, one warp per stream).
 PyTorch version (`rans4x8_plain`, the same rounds as tensor ops over all
 streams and states at once) for tensors on the CPU.
 
+An order-1 batch with row tables decodes through one of two tables of
+the same round (csrc/rans4x8_step.cuh): the wide table (16-byte ready
+records, u32 buckets, per-slot maps of the slow buckets: no loop or
+branch in the round, one stream an SM) for a batch of at most WIDE_WAVES
+waves of it, else the compact table (packed u32 records, u16 buckets, a
+walk of the slow buckets: four streams an SM); `wide_fits` decides from
+the batch and the device, `rans4x8_cuda(..., layout=...)` forces one.
+
 An order-1 batch may carry dense [256 x 4096] tables in place of rows
 (`Rans4x8Batch.dense`, `frame_4x8` / `frame_nx16_4way` with `dense`): the
 streams whose tables pass the rows' A2_MAX, which ops/rans.py decodes as
@@ -51,11 +59,17 @@ from htslib_tpu_torch.ops.rans_nx16_o1 import (A2_MAX, O1Tables,
                                                check_dense, check_o1_tables,
                                                dense_tables, frame_o1_tables,
                                                o1_lookup, o1_pads,
-                                               o1_row_count, slot_step)
+                                               o1_row_count, o1_table_sizes,
+                                               slot_step)
 
 RANS8_L = 1 << 23
 RANS16_L = 1 << 15
 NWAY4 = 4
+# waves of the wide order-1 table's blocks up to which an order-1 batch
+# takes it (`wide_fits`; set by probe_x1_x5.py's sweep)
+WIDE_WAVES = 1
+# launches of the order-1 kernels (X1, X3, B8 order 1) by table layout
+LAYOUT_LAUNCHES = {"wide": 0, "compact": 0}
 
 
 @dataclass
@@ -305,16 +319,53 @@ def rans4x8_plain(b: Rans4x8Batch, max_rounds: int = -1,
             ctx.to(torch.int32))
 
 
+def max_slow(t: O1Tables) -> int:
+    """The most slow buckets (two or more rows starting inside a 64-slot
+    bucket) of any stream's order-1 table: what the wide table's maps
+    must hold."""
+    return int(o1_table_sizes(t)[1].max()) if int(t.n_rows.shape[0]) else 0
+
+
+def wide_blocks_per_sm(hist: bool, w16: bool, slow: int) -> int:
+    """Streams one SM holds in the wide-table variant of X1 (X3 with w16,
+    B8 order 1 with hist) with maps for `slow` slow buckets; 0 where its
+    shared memory exceeds a block's."""
+    n = _build.load("rans4x8").rans4x8_wide_blocks_per_sm(int(hist),
+                                                          int(w16), slow)
+    return max(n, 0)
+
+
+def wide_smem_bytes(hist: bool, slow: int) -> int:
+    """Bytes of shared memory a block of the wide-table variants takes."""
+    return _build.load("rans4x8").rans4x8_wide_smem_bytes(int(hist), slow)
+
+
+def wide_fits(b: Rans4x8Batch, hist: bool = False) -> bool:
+    """Whether an order-1 batch with row tables decodes through the wide
+    table (ready records, no loop in the round) rather than the compact
+    one: its maps fit a block's shared memory and its streams fit
+    WIDE_WAVES waves of the wide blocks (one an SM)."""
+    if not b.o1 or b.dense is not None:
+        return False
+    per_sm = wide_blocks_per_sm(hist, b.w16, max_slow(b.tables))
+    sms = torch.cuda.get_device_properties(
+        b.payload.device).multi_processor_count
+    return per_sm > 0 and b.n_streams <= WIDE_WAVES * per_sm * sms
+
+
 def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
                  offs: Optional[torch.Tensor] = None,
-                 qbins: Optional[int] = None
+                 qbins: Optional[int] = None,
+                 layout: Optional[str] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
     """Kernel B7 (order-0 symbols), X1 (order-1 symbols), X2/X3 (the
     4-way Nx16 wire's symbols, `b.w16`), X1/X3's dense variants (a batch
     with `b.dense`) or, with `qbins`, kernel B8 (order-0 or order-1 4x8
     histogram) over the whole batch in one launch; same results as
-    `rans4x8_plain`."""
+    `rans4x8_plain`.  An order-1 batch with row tables decodes through
+    the wide table or the compact one (`layout` "wide" or "compact";
+    None takes `wide_fits`)."""
     S = b.n_streams
     req = _build.require_cuda
     req(b.payload, torch.uint8, "payload")
@@ -373,16 +424,44 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
         out_ptr, hist_ptr, offs_ptr = None, res.data_ptr(), offs.data_ptr()
         key = "rans4x8_o1_hist" if b.o1 else "rans4x8_o0_hist"
     lib = _build.load("rans4x8")
-    rc = lib.rans4x8_launch(
-        b.payload.data_ptr(), b.byte_off.data_ptr(), b.n_bytes.data_ptr(),
-        b.freqs.data_ptr(), *t_ptrs, b.dense.data_ptr() if dense else None,
-        b.x0.data_ptr(),
-        b.ulen.data_ptr(), b.out_off.data_ptr(), out_ptr, offs_ptr,
-        hist_ptr, x_out.data_ptr(), cur_out.data_ptr(), ctx_out.data_ptr(),
-        S, qbins or 0, max_rounds, int(b.o1), int(b.w16),
-        _build.stream_handle(b.payload))
+    if b.tables is None:
+        if layout is not None:
+            raise ValueError("layout: only order-1 row tables have one")
+    elif layout is None:
+        layout = "wide" if wide_fits(b, qbins is not None) else "compact"
+    elif layout not in ("wide", "compact"):
+        raise ValueError(f"layout: expected 'wide' or 'compact', got "
+                         f"{layout!r}")
+    if layout == "wide":
+        slow = max_slow(b.tables)
+        if wide_blocks_per_sm(qbins is not None, b.w16, slow) <= 0:
+            raise ValueError(f"wide order-1 table: the maps of {slow} slow "
+                             "buckets exceed a block's shared memory")
+        rc = lib.rans4x8_wide_launch(
+            b.payload.data_ptr(), b.byte_off.data_ptr(),
+            b.n_bytes.data_ptr(), b.freqs.data_ptr(), *t_ptrs,
+            b.x0.data_ptr(), b.ulen.data_ptr(), b.out_off.data_ptr(),
+            out_ptr, offs_ptr, hist_ptr, x_out.data_ptr(),
+            cur_out.data_ptr(), ctx_out.data_ptr(), S, qbins or 0,
+            max_rounds, int(b.w16), slow, _build.stream_handle(b.payload))
+    else:
+        rc = lib.rans4x8_launch(
+            b.payload.data_ptr(), b.byte_off.data_ptr(),
+            b.n_bytes.data_ptr(), b.freqs.data_ptr(), *t_ptrs,
+            b.dense.data_ptr() if dense else None, b.x0.data_ptr(),
+            b.ulen.data_ptr(), b.out_off.data_ptr(), out_ptr, offs_ptr,
+            hist_ptr, x_out.data_ptr(), cur_out.data_ptr(),
+            ctx_out.data_ptr(), S, qbins or 0, max_rounds, int(b.o1),
+            int(b.w16), _build.stream_handle(b.payload))
     _build.check(lib, rc, key)
     _build.LAUNCHES[key] += 1
+    if layout is not None:
+        LAYOUT_LAUNCHES[layout] += 1
+    if _build.SHAPES is not None:
+        # (key, order-1 layout, streams, rounds of the longest stream)
+        n = int(b.ulen.max())
+        _build.SHAPES.append((key, layout, S, n - 3 * (n // NWAY4) if b.o1
+                              else -(-n // NWAY4)))
     return res, x_out, cur_out, ctx_out
 
 

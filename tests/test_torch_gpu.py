@@ -15,7 +15,8 @@ from chip_smoke import (bam_record_stream, deflate_raw, enc_edge_streams,
                         inflate_members, leg1_batch, ring_edge_members,
                         wide_stream)
 from htslib_tpu_torch import _build
-from chip_smoke import baq_case, hmm_reads, scan_streams, varied_bam_stream
+from chip_smoke import (baq_case, hmm_reads, scan_streams, seg_edge_streams,
+                        varied_bam_stream)
 from htslib_tpu_torch import realn as trl
 from htslib_tpu_torch.codecs import rans4x8 as r8
 from htslib_tpu_torch.codecs import rans4x16 as r16
@@ -514,6 +515,83 @@ def test_x_streams_per_sm(card):
     assert t8.blocks_per_sm(False, True, True) >= 4
     assert t8.smem_bytes(False, False) < 18 * 1024
     assert t8.smem_bytes(False, True) < 54 * 1024
+
+
+O1_LAYOUT_CASES = {"4x8_o1": None, "nx16_4way_o1": None, "b8_o1": 64}
+
+
+@pytest.mark.parametrize("layout", ["wide", "compact"])
+@pytest.mark.parametrize("case", list(O1_LAYOUT_CASES))
+def test_o1_layouts_match_plain(card, case, layout):
+    """X1, X3 and B8 order 1 through either order-1 table (the wide
+    records with the slow buckets' maps, or the compact records with the
+    walk), whole and stopped inside, equal to their plain versions and
+    the raw bytes; each launch counted under its layout."""
+    wire = "4x8_o1" if case == "b8_o1" else case
+    qbins = O1_LAYOUT_CASES[case]
+    datas, b = _x_streams(wire, card)
+    offs = torch.arange(b.n_streams, dtype=torch.int32, device=card) % 5
+    before = t8.LAYOUT_LAUNCHES[layout]
+    for mr in (-1, 33, 1500):
+        got = t8.rans4x8_cuda(b, mr, offs, qbins, layout=layout)
+        want = t8.rans4x8_plain(b, mr, offs, qbins)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if mr < 0 and qbins is None:
+            assert got[0].cpu().numpy().tobytes() == b"".join(datas)
+    assert t8.LAYOUT_LAUNCHES[layout] == before + 3
+
+
+@pytest.mark.parametrize("hist,w16", [(False, False), (False, True),
+                                      (True, False)])
+def test_o1_layout_follows_the_wave(card, hist, w16):
+    """The wide table holds one stream an SM; a batch of one wave of it
+    takes the wide table, one stream more the compact one, and both
+    decode as the plain version."""
+    from htslib_tpu_torch.bench_rans import replicate
+    wire = "nx16_4way_o1" if w16 else "4x8_o1"
+    _, base = _x_streams(wire, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    per_sm = t8.wide_blocks_per_sm(hist, w16, t8.max_slow(base.tables))
+    assert per_sm == 1
+    qbins = 64 if hist else None
+    for n, layout in ((sms * per_sm, "wide"), (sms * per_sm + 1, "compact")):
+        b = _first(replicate(base, -(-n // base.n_streams)), n)
+        assert t8.wide_fits(b, hist) == (layout == "wide")
+        before = dict(t8.LAYOUT_LAUNCHES)
+        got = t8.rans4x8(b, qbins=qbins)
+        assert t8.LAYOUT_LAUNCHES[layout] == before[layout] + 1
+        want = t8.rans4x8_plain(b, qbins=qbins)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def _first(b, n):
+    """The batch of b's first n streams (their payloads and outputs keep
+    their offsets)."""
+    from dataclasses import replace
+    from htslib_tpu_torch.ops.rans_nx16_o1 import O1Tables
+    t = b.tables
+    return replace(
+        b, byte_off=b.byte_off[:n].contiguous(),
+        n_bytes=b.n_bytes[:n].contiguous(), freqs=b.freqs[:n].contiguous(),
+        tables=O1Tables(t.rows, t.row_off[:n].contiguous(),
+                        t.n_rows[:n].contiguous(),
+                        t.ctx_start[:n].contiguous()),
+        x0=b.x0[:n].contiguous(), ulen=b.ulen[:n].contiguous(),
+        out_off=b.out_off[:n].contiguous())
+
+
+def test_wide_smem_and_streams_per_sm(card):
+    """The wide table: records and buckets of about 132 KB (136 KB with
+    B8's histogram rows), one stream an SM, maps of 128 bytes a slow
+    bucket until a block's shared memory is full."""
+    assert 128 * 1024 < t8.wide_smem_bytes(False, 0) < 134 * 1024
+    assert t8.wide_smem_bytes(True, 10) - t8.wide_smem_bytes(True, 0) \
+        == 1280
+    assert t8.wide_blocks_per_sm(False, False, 0) == 1
+    assert t8.wide_blocks_per_sm(True, False, 700) == 1
+    assert t8.wide_blocks_per_sm(False, False, 2000) == 0
 
 
 def test_uncompress_on_card_matches_cpu(card, monkeypatch):
@@ -1094,6 +1172,82 @@ def test_record_scan_kernel_matches_plain(card, name):
         assert torch.equal(g.cpu(), w)
 
 
+def seg_payloads():
+    """name -> (payload, max_records): the segmented walk's edges at the
+    kernel's 64 KiB segments, made from a 1.2 MB stream of leg 1's
+    records (19 segments)."""
+    big = bam_record_stream(leg1_batch(6000, seed=3))
+    return seg_edge_streams(big, 6000, 1 << 16)
+
+
+@pytest.mark.parametrize("name", list(seg_payloads()))
+def test_record_scan_seg_kernel_matches_plain(card, name):
+    """X5's segmented kernels at 64 KiB segments on the segmented walk's
+    edges equal the plain version; so does the serial kernel."""
+    payload, n = seg_payloads()[name]
+    t = torch.from_numpy(np.frombuffer(payload + b"\0", np.uint8)
+                         [:len(payload)].copy())
+    want = tbs.record_scan_plain(t, n)
+    for seg in (True, False):
+        got = tbs.record_scan_cuda(t.to(card), n, segmented=seg)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (name, seg)
+
+
+@pytest.mark.parametrize("shift", [8, 12])
+def test_record_scan_seg_small_segments(card, shift):
+    """Segments of 256 bytes and 4 KiB (a payload spans hundreds of
+    them) on the edges made for them and on X5's older edges: equal to
+    the plain version; at 4 KiB the false entries are walked again and the
+    stopped walks take the serial tail."""
+    good = varied_bam_stream(300, 4)
+    cases = dict(seg_edge_streams(good, 300, 1 << shift))
+    cases.update(scan_payloads())
+    for name, (payload, n) in cases.items():
+        t = torch.from_numpy(np.frombuffer(payload + b"\0", np.uint8)
+                             [:len(payload)].copy())
+        stats = torch.zeros(4, dtype=torch.int32, device=card)
+        got = tbs.record_scan_cuda(t.to(card), n, segmented=True,
+                                   shift=shift, stats=stats)
+        for g, w in zip(got, tbs.record_scan_plain(t, n)):
+            assert torch.equal(g.cpu(), w), name
+        st = stats.tolist()
+        if shift == 12 and name == "false_few":
+            assert st[1] == 3 and st[2] == 0
+        if shift == 12 and name in ("neg_mid", "minus4_mid", "wrap_mid"):
+            assert st[2] > 0
+
+
+def test_record_scan_seg_tiles_of_summaries(card):
+    """2,356 segments of 1 KiB, more than pass 2 loads at once (a tile of
+    2,048 summaries): every segment verified across the tile's edge, the
+    plain version's result."""
+    payload = bam_record_stream(leg1_batch(12000, seed=5))
+    t = torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
+    stats = torch.zeros(4, dtype=torch.int32, device=card)
+    got = tbs.record_scan_cuda(t.to(card), 12000, segmented=True, shift=10,
+                               stats=stats)
+    for g, w in zip(got, tbs.record_scan_plain(t, 12000)):
+        assert torch.equal(g.cpu(), w)
+    assert stats.tolist() == [2356, 0, 0, 2356]
+
+
+def test_record_scan_takes_the_segmented_path(card):
+    """A payload of SEG_MIN_BYTES or more launches the segmented kernels,
+    a smaller one the serial kernel; a well-framed stream needs no
+    segment walked again and no serial tail."""
+    big = bam_record_stream(leg1_batch(6000, seed=3))
+    t = torch.from_numpy(np.frombuffer(big, np.uint8).copy()).to(card)
+    _build.reset_launches()
+    stats = torch.zeros(4, dtype=torch.int32, device=card)
+    got = tbs.record_scan_cuda(t, 6000, stats=stats)
+    assert _build.LAUNCHES["record_scan_seg"] == 1
+    assert int(got[2]) == 6000
+    assert stats.tolist() == [19, 0, 0, 19]
+    tbs.record_scan_cuda(t[:tbs.SEG_MIN_BYTES - 1], 6000)
+    assert _build.LAUNCHES["record_scan"] == 1
+
+
 def test_record_scan_unaligned_payload(card):
     payload, n = scan_payloads()["varied"]
     t = torch.from_numpy(np.frombuffer(b"\x00" + payload, np.uint8).copy())
@@ -1109,7 +1263,9 @@ def test_bam2sam_on_card_matches_cpu(card):
     timing = {}
     got = tbs.bam_payload_to_sam_device(payload, hdr, device=card,
                                         timing=timing)
-    assert _build.LAUNCHES["record_scan"] == 1
+    # X5 in either design (500 varied records: 135 KB, segmented)
+    assert _build.LAUNCHES["record_scan"] \
+        + _build.LAUNCHES["record_scan_seg"] == 1
     assert _build.LAUNCHES["nibble_to_base"] == 1
     assert got == tbs.bam_payload_to_sam_device(payload, hdr, device="cpu")
     assert timing["records"] == 500

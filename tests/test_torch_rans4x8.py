@@ -170,15 +170,37 @@ static uint32_t tab[RANS_TOTFREQ];
 static uint32_t rec[RANS_O1_RECORDS];
 static uint16_t bucket[256 * RANS_O1_BUCKETS];
 static uint16_t ctx_start[257];
+// the wide order-1 table (set_wide(1): order 1 decodes through it)
+static Rans8Rec wrec[RANS8_WIDE_RECORDS];
+static uint32_t wbucket[256 * RANS_O1_BUCKETS];
+static uint16_t wmaps[2048 * RANS8_WIDE_MAP];
+static int wide_mode = 0, n_slow = 0;
+extern "C" void set_wide(int on) { wide_mode = on; }
+extern "C" int wide_slow() { return n_slow; }
+
+// The wide table as a warp of 32 lanes builds it, lanes in turn: records
+// and buckets, each lane's slow buckets counted, numbered from the count
+// of the lanes before it, and mapped.
+static void wide_tables(const uint32_t* rows) {
+  for (int lane = 0; lane < 32; ++lane)
+    rans8_wide_build(rows, ctx_start, wrec, wbucket, lane, 32);
+  int first[33] = {0};
+  for (int lane = 0; lane < 32; ++lane)
+    first[lane + 1] = first[lane] + rans8_wide_count_slow(wbucket, lane, 32);
+  n_slow = first[32];
+  for (int lane = 0; lane < 32; ++lane)
+    rans8_wide_maps(rows, ctx_start, wbucket, wmaps, first[lane], lane, 32);
+}
 
 // The kernels' tables, built by 32 lanes in turn: order 0 the slot
-// table, order 1 the row records and buckets.
+// table, order 1 the row records and buckets (and the wide table).
 static void tables(int o1, const int32_t* freq, const uint32_t* rows,
                    const int32_t* cs) {
   if (o1) {
     for (int c = 0; c < 257; ++c) ctx_start[c] = (uint16_t)cs[c];
     for (int lane = 0; lane < 32; ++lane)
       rans_o1_build(rows, ctx_start, rec, bucket, lane, 32);
+    if (wide_mode) wide_tables(rows);
   } else {
     uint16_t f[256];
     for (int s = 0; s < 256; ++s) f[s] = (uint16_t)freq[s];
@@ -225,12 +247,19 @@ extern "C" int64_t decode_stream(int o1, const int32_t* freq,
     if (r < ulen / RANS8_NWAY && live != 0xFu) return *loops = -1;
     for (int j = 0; j < RANS8_NWAY && o1; ++j) {
       bool slow;
-      rans_o1_pick(rec, bucket, ctx7[j], x[j], &slow);
+      if (wide_mode)
+        slow = wbucket[(ctx7[j] >> 2) | ((x[j] >> 6) & 63u)] &
+               RANS8_WIDE_SLOW;
+      else
+        rans_o1_pick(rec, bucket, ctx7[j], x[j], &slow);
       if (((live >> j) & 1u) && slow) ++*loops;
     }
     uint32_t hi, lo;
     rans8_window(w.w0, w.w1, w.w2, w.pos, &hi, &lo);
     const uint32_t k =
+        o1 && wide_mode
+        ? rans8_round_wide<RANS_W16>(x, ctx7, &syms, live, hi, lo, wrec,
+                                     wbucket, wmaps) :
         o1 ? rans8_round<true, RANS_W16>(x, ctx7, &syms, live, hi, lo, rec,
                                          bucket)
            : rans8_round<false, RANS_W16>(x, ctx7, &syms, live, hi, lo, tab,
@@ -263,6 +292,12 @@ extern "C" int64_t lookup_mismatches(const uint32_t* rows,
       uint32_t got = rans_o1_pick(rec, bucket, c << 7, m, &slow);
       if (slow) got = rans_o1_walk(rec, bucket, c << 7, m);
       bad += got != want;
+      if (wide_mode) {
+        const Rans8Rec g = *rans8_wide_lookup(wrec, wbucket, wmaps, c << 8, m);
+        const Rans8Rec t = rans8_wide_record(want);
+        bad += g.f != t.f || g.neg_cum != t.neg_cum || g.ctx != t.ctx ||
+               g.sym != t.sym;
+      }
     }
   return bad;
 }
@@ -287,6 +322,10 @@ def step_lib(tmp_path_factory):
         + [ctypes.c_void_p] * 4
     h.lookup_mismatches.restype = ctypes.c_int64
     h.lookup_mismatches.argtypes = [ctypes.c_void_p] * 2
+    h.set_wide.restype = None
+    h.set_wide.argtypes = [ctypes.c_int]
+    h.wide_slow.restype = ctypes.c_int
+    h.wide_slow.argtypes = []
     return h
 
 
@@ -313,6 +352,8 @@ STEP_CASES = _step_cases()
 def _step_stream(name, order):
     if (name, order) in STEP_CASES:
         return STEP_CASES[name, order]
+    if name in WIDE_CASES:
+        return WIDE_CASES[name], r8.compress(WIDE_CASES[name], order)
     d = CASES[name]
     return d, (_enc(name) if order == 0 else r8.compress(d, 1))
 
@@ -355,7 +396,8 @@ def _run_step(step_lib, b):
     ("full_alphabet", 0), ("constant", 0), ("under_4", 0),
     ("two_segments", 1), ("tail3", 1), ("full_alphabet", 1),
     ("constant", 1), ("wide_o1", 1), ("short_table_o1", 1),
-    ("odd_payload", 0), ("truncated", 0)])
+    ("odd_payload", 0), ("truncated", 0), ("leg3_walk", 1),
+    ("every_slow", 1)])
 def test_step_header_on_cpu(step_lib, name, order):
     """The CUDA round code, compiled for the host with the kernels' word
     window, decodes byte for byte and leaves the plain version's final
@@ -374,7 +416,7 @@ def test_step_header_on_cpu(step_lib, name, order):
     _, px, pcur, _ = t8.rans4x8(b, qbins=64)
     assert np.array_equal(x_out, px.numpy()[0].view(np.uint32))
     assert cur == int(pcur[0])
-    if name == "wide_o1":
+    if name in ("wide_o1", "leg3_walk", "every_slow"):
         assert loops > 0
     if name == "odd_payload":
         assert nb % 4 and cur == nb
@@ -388,7 +430,8 @@ def test_step_header_on_cpu(step_lib, name, order):
 
 
 @pytest.mark.parametrize("name", ["two_segments", "full_alphabet",
-                                  "constant", "wide_o1", "short_table_o1"])
+                                  "constant", "wide_o1", "short_table_o1",
+                                  "leg3_walk", "every_slow"])
 def test_o1_lookup_matches_nx16_lookup(step_lib, name):
     """Over every (context, slot), the 4x8 order-1 lookup (the shared
     order-1 table over all 256 contexts) finds the row a scan of the
@@ -399,6 +442,135 @@ def test_o1_lookup_matches_nx16_lookup(step_lib, name):
     rows = t.rows.numpy().view(np.uint32).copy()
     cs = t.ctx_start.numpy()[0].copy()
     assert step_lib.lookup_mismatches(rows.ctypes.data, cs.ctypes.data) == 0
+
+
+def _every_slow(k=3):
+    """Context 0 followed by each of the 256 symbols k times (every other
+    context by 0): a context of 256 rows, 255 of f = 15 and one of 271 (the
+    encoder's rounding), so two or more rows start inside each of its 64
+    buckets but the four the large row covers."""
+    rng = np.random.default_rng(41)
+    out = bytearray()
+    for v in rng.permutation(np.repeat(np.arange(256), k)):
+        out += bytes([0, v])
+    return bytes(out)
+
+
+WIDE_CASES = {
+    "leg3_walk": _walk(np.random.default_rng(43), 1 << 16),
+    "every_slow": _every_slow(),
+}
+
+
+class _Wide:
+    """The harness's order-1 rounds through the wide table inside a with
+    block."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        self.lib.set_wide(1)
+        return self.lib
+
+    def __exit__(self, *exc):
+        self.lib.set_wide(0)
+
+
+WIDE_NAMES = ["two_segments", "tail3", "full_alphabet", "constant",
+              "wide_o1", "short_table_o1", "leg3_walk", "every_slow"]
+
+
+@pytest.fixture(scope="module")
+def jax_o1():
+    """The JAX package's 4x8 order-1 decode (ops/rans.py
+    `_dec4x8_o1_impl`, XLA on the CPU) of every wide case, in one call."""
+    from htslib_tpu.ops import rans as jrans
+    encs = [_step_stream(k, 1)[1] for k in WIDE_NAMES]
+    return dict(zip(WIDE_NAMES, jrans.uncompress_batch(encs)))
+
+
+@pytest.mark.parametrize("name", WIDE_NAMES)
+def test_wide_step_on_cpu(step_lib, jax_o1, name):
+    """The kernels' order-1 round through the wide table (ready records,
+    u32 buckets, the slow buckets' maps; no loop and no branch), compiled
+    for the host, decodes byte for byte as the host codec and the JAX
+    function do, and leaves the plain version's final states, cursor and
+    contexts; the wide stream's and the 256-row context's lookups meet
+    slow buckets."""
+    raw, enc = _step_stream(name, 1)
+    b = t8.frame_4x8([enc], True, "cpu")
+    with _Wide(step_lib):
+        out, x_out, cur, _pos, loops = _run_step(step_lib, b)
+        n_slow = step_lib.wide_slow()
+    assert out == raw == r8.uncompress(enc) == jax_o1[name]
+    _, px, pcur, _ = t8.rans4x8(b, qbins=64)
+    assert np.array_equal(x_out, px.numpy()[0].view(np.uint32))
+    assert cur == int(pcur[0])
+    # the slow buckets the kernel's shared memory is sized by
+    from htslib_tpu_torch.ops.rans_nx16_o1 import o1_table_sizes
+    assert n_slow == int(o1_table_sizes(b.tables)[1][0])
+    if name in ("wide_o1", "every_slow", "leg3_walk"):
+        assert loops > 0 and n_slow > 0
+    if name == "every_slow":
+        assert n_slow == 60
+    if name == "constant":
+        assert n_slow == 0
+
+
+@pytest.mark.parametrize("name", WIDE_NAMES)
+def test_wide_lookup_matches_scan(step_lib, name):
+    """Over every (context, slot), the wide lookup's record is the row a
+    scan of the context's rows finds (unreachable slots included), as the
+    compact lookup's is."""
+    _, enc = _step_stream(name, 1)
+    t = t8.frame_4x8([enc], True, "cpu").tables
+    rows = t.rows.numpy().view(np.uint32).copy()
+    cs = t.ctx_start.numpy()[0].copy()
+    with _Wide(step_lib):
+        assert step_lib.lookup_mismatches(rows.ctypes.data,
+                                          cs.ctypes.data) == 0
+
+
+@pytest.mark.parametrize("mutation", ["boundary", "map"])
+def test_wide_mutation_fails(tmp_path, mutation):
+    """A wide lookup that moves to the next record one slot early, or maps
+    that take a row one slot late, must disagree with the host codec."""
+    mut = tmp_path / "csrc"
+    mut.mkdir()
+    for f in os.listdir(CSRC):
+        if f.endswith(".cuh"):
+            shutil.copy(os.path.join(CSRC, f), mut / f)
+    hdr = mut / "rans4x8_step.cuh"
+    text = hdr.read_text()
+    old, new = {
+        "boundary": ("uint32_t idx = (v + t) >> 6;",
+                     "uint32_t idx = (v + t + 1) >> 6;"),
+        "map": ("<= slot) ++r;\n        maps[",
+                "< slot) ++r;\n        maps["),
+    }[mutation]
+    assert text.count(old) == 1
+    hdr.write_text(text.replace(old, new))
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not found: the step harness needs a C++ compiler")
+    src = tmp_path / "harness.cpp"
+    src.write_text(_HARNESS)
+    lib = tmp_path / "libmut.so"
+    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-shared", "-fPIC", "-O2",
+                    "-I", str(mut), "-o", str(lib), str(src)], check=True)
+    h = ctypes.CDLL(str(lib))
+    h.decode_stream.restype = ctypes.c_int64
+    h.decode_stream.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
+        + [ctypes.c_int64, ctypes.c_uint32, ctypes.c_int64] \
+        + [ctypes.c_void_p] * 4
+    h.set_wide.argtypes = [ctypes.c_int]
+    h.set_wide(1)
+    bad = 0
+    for name in ("wide_o1", "every_slow", "leg3_walk"):
+        raw, enc = _step_stream(name, 1)
+        bad += _run_step(h, t8.frame_4x8([enc], True, "cpu"))[0] != raw
+    assert bad > 0
 
 
 def test_bench_batches_copy_every_stream():

@@ -205,6 +205,8 @@ def _compile(tmp_path, csrc):
     h.decode_stream.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
         + [ctypes.c_int64, ctypes.c_uint32, ctypes.c_int64] \
         + [ctypes.c_void_p] * 4
+    h.set_wide.restype = None
+    h.set_wide.argtypes = [ctypes.c_int]
     return h
 
 
@@ -225,6 +227,28 @@ def test_nx16_refill_step_on_cpu(step16, name):
     raw, enc = CASES_NX16[name]
     b = t8.frame_nx16_4way([enc], bool(enc[0] & 1), "cpu")
     out, x_out, cur, _pos, loops = _run_step(step16, b)
+    assert out == raw == r16.uncompress(enc)
+    _, px, pcur, _ = t8.rans4x8(b)
+    assert np.array_equal(x_out, px.numpy()[0].view(np.uint32))
+    assert cur == int(pcur[0]) == int(b.n_bytes[0])
+    if name == "f1_wide":
+        assert loops > 0
+
+
+@pytest.mark.parametrize("name", [n for n in STEP_NAMES
+                                  if n.startswith("f1")])
+def test_nx16_wide_step_on_cpu(step16, name):
+    """X3's round through the wide order-1 table (csrc/rans4x8_step.cuh
+    `rans8_round_wide` with the Nx16 refill), compiled for the host,
+    decodes the 4-way order-1 wire byte for byte and leaves the plain
+    version's final states and cursor."""
+    raw, enc = CASES_NX16[name]
+    b = t8.frame_nx16_4way([enc], True, "cpu")
+    step16.set_wide(1)
+    try:
+        out, x_out, cur, _pos, loops = _run_step(step16, b)
+    finally:
+        step16.set_wide(0)
     assert out == raw == r16.uncompress(enc)
     _, px, pcur, _ = t8.rans4x8(b)
     assert np.array_equal(x_out, px.numpy()[0].view(np.uint32))
