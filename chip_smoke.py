@@ -49,11 +49,17 @@ PyTorch version on the card and times both.  Phases:
      order 1 (leg 3's walks), 4-way order 0 (leg 2's raws) and order 1
      (leg 3's walks), encoded on the host, and with them 2 x 256 KiB
      streams of uniform random bytes on each order-1 wire (4x8, Nx16
-     4-way and 32-way), whose ~65,000-row tables go to the dense variants
-     of X1, X3 and B5; every output must equal its raw bytes; each launch
-     group's framing (with the dense tables' build on the card within it)
-     and decode, and the order-1 tables' routing parse, are printed from
-     the entry points' `timing` dicts;
+     4-way and 32-way), whose ~65,000-row tables pass A2_MAX, and a
+     PacBio-HiFi-style quality block (1.16 MB of QVs 0-93 from a seeded
+     first-order Markov model, heavy at QV 93 with a long tail; its
+     ~7,300 rows printed and required past 4,096) a wire: these go to the
+     large-table variants of X1, X3 and B5; then each order-1 wire's 64
+     KiB random stream repeated one stream past LARGE_WAVES waves of its
+     large variant, a group the dense variants take; every output must
+     equal its raw bytes; each launch group's framing (with a dense
+     group's table build on the card within it) and decode, and the
+     order-1 tables' routing parse, are printed from the entry points'
+     `timing` dicts;
   5e. leg 7, the BGZF layer (ops/inflate.py, ops/bgzf_device.py).  Read
      side: leg 1's 400,000 records serialised as a BAM record stream (100
      bp, 201 bytes a record, 80.4 MB), cut into 65,280-byte members and
@@ -85,8 +91,9 @@ PyTorch version on the card and times both.  Phases:
      HMM's plain version on the card: Pr, states and q of every read and
      every record after must be equal; the APPLY pass's parts (setup,
      padding, upload, X6, download, apply) from its `timing` dict;
-  6. each kernel (B1, B2, B3, B5, B6, B7, B8 in both orders, X1-X3 and the
-     dense variants of X1, X3 and B5, B9, B4, B10, X4, X5, X6) against its
+  6. each kernel (B1, B2, B3, B5, B6, B7, B8 in both orders, X1-X3, the
+     dense and large-table variants of X1, X3 and B5, B9, B4, B10, X4, X5,
+     X6) against its
      plain version at the main path's shapes, and one JSON line with
      launches, error and times.  The plain versions of B5-B9
      take half a millisecond to a millisecond per round on the card, so
@@ -104,7 +111,12 @@ PyTorch version on the card and times both.  Phases:
      chains_per_sm), and the B5, B6, X1-X3, B9, B4 and B10 rows their
      shared memory a block (smem_bytes); the B5/B6 rows the share of rounds
      in which some state's lookup met a slow bucket (slow_share).  The
-     dense variants are held over leg 6's dense streams' first 4096 rounds.
+     dense variants are held over leg 6's dense streams' first 4096 rounds;
+     the large-table variants over the first 4096 rounds of leg 6's
+     random streams and of its HiFi-style block, and whole over a 64 KiB
+     random stream, each timed on both (ns a round, shared memory a
+     block, bucket slots, streams an SM; B5 the share of rounds in which
+     a lane walked).
      X4 (inflate), in both variants (the output window in a shared ring
      or in the member's slot), is held against its plain version (the
      JAX function's two passes as tensor ops, about a millisecond a step
@@ -246,6 +258,7 @@ CHAINS = 128            # resolve chains (the JAX package's bench: G=128)
 CHAIN_ROUNDS = 32768    # steps of each resolve chain (its bench depth)
 DENSE_BYTES = 1 << 18   # leg 6's order-1 streams past A2_MAX rows
 N_DENSE = 2             # of them per order-1 wire
+HIFI_BYTES = 1_160_000  # leg 6's HiFi-style quality block: a CRAM slice's QS
 BAM_READ_LEN = 100      # leg 7's BAM records: leg 1's, 100 bp
 BGZF_BLOCK = 0xff00     # uncompressed bytes per BGZF member (bgzf.h)
 BGZF_LEVEL = 6          # bgzip's default zlib level
@@ -398,7 +411,11 @@ def leg6_streams(raws2, leg3, n: int = N_DECODE, seed: int = 6):
     and for each order-1 wire W in 4x8_o1, nx16_o1 and nx16_4way_o1, under
     "W_dense", N_DENSE streams of DENSE_BYTES uniform random bytes (raws,
     encs): order-1 tables of ~65,000 rows, past the record kernels'
-    A2_MAX, which go to the dense variants."""
+    A2_MAX; under "W_hifi" the HiFi-style quality block (`hifi_qualities`,
+    about 7,300 rows; ([raw], [enc])); under "W_spill" one SMALL_BYTES
+    stream of uniform random bytes (raw, enc; about 41,000 rows), which
+    leg 6 repeats past the large variants' waves, so that its group goes
+    to the dense variants."""
     sets = {"nx16_4way_o0": (raws2[:n], leg3["4x8_o0"][2]),
             "nx16_4way_o1": (leg3["nx16_o1"][0][:n], leg3["nx16_o1"][2])}
     jobs = [(w, d) for w, (big, small) in sets.items() for d in big + small]
@@ -407,6 +424,10 @@ def leg6_streams(raws2, leg3, n: int = N_DECODE, seed: int = 6):
     dense = {w: [rng.integers(0, 256, DENSE_BYTES, dtype=np.uint8).tobytes()
                  for _ in range(N_DENSE)]
              for w in ("4x8_o1", "nx16_o1", "nx16_4way_o1")}
+    hifi = hifi_qualities()
+    spill = rng.integers(0, 256, SMALL_BYTES, dtype=np.uint8).tobytes()
+    for w in dense:
+        dense[w] += [hifi, spill]
     jobs += [(w, d) for w, ds in dense.items() for d in ds]
     encs = _encode_all([d for _, d in jobs], [w for w, _ in jobs])
     out, k = {}, 0
@@ -417,9 +438,40 @@ def leg6_streams(raws2, leg3, n: int = N_DECODE, seed: int = 6):
     out["nx16_4way_o1_wide"] = (jobs[k][1], encs[k])
     k += 1
     for w, ds in dense.items():
-        out[f"{w}_dense"] = (ds, encs[k:k + len(ds)])
+        out[f"{w}_dense"] = (ds[:N_DENSE], encs[k:k + N_DENSE])
+        out[f"{w}_hifi"] = ([hifi], [encs[k + N_DENSE]])
+        out[f"{w}_spill"] = (spill, encs[k + N_DENSE + 1])
         k += len(ds)
     return out
+
+
+def hifi_qualities(n: int = HIFI_BYTES, seed: int = 16, floor: float = 0.02,
+                   top: float = 0.55) -> bytes:
+    """n PacBio-HiFi-style base qualities, QV 0-93 as a CRAM QS block holds
+    them, from a seeded first-order Markov model: QV 93 (the SAM ceiling)
+    with probability `top`; a jump to the tail (QV 0-92, weighted
+    exp(-(92 - q) / 20) + floor, so heavier near the top) with 0.2; else a
+    step of a two-sided geometric size from the previous value, clipped to
+    0-93.  At 1.16 MB the order-1 table has about 7,300 (context, symbol)
+    rows of 94 x 94, past A2_MAX; a larger `floor` widens the tail (and a
+    smaller `top` thins the mode), so fewer bytes pass it."""
+    rng = np.random.default_rng(seed)
+    comp = rng.random(n)
+    q = np.arange(93)
+    tail = np.exp(-(92 - q) / 20.0) + floor
+    val = np.where(comp < top, 93, -1).astype(np.int64)
+    jump = comp >= 0.8
+    val[jump] = rng.choice(93, int(jump.sum()), p=tail / tail.sum())
+    step = rng.geometric(0.3, n) * np.where(rng.random(n) < 0.5, -1, 1)
+    # the steps in passes, each taking the positions whose previous value
+    # is known: as many passes as the longest run of steps
+    pending = np.nonzero(val < 0)[0]
+    while pending.size:
+        prev = np.where(pending > 0, val[pending - 1], 93)
+        ok = prev >= 0
+        val[pending[ok]] = np.clip(prev[ok] + step[pending[ok]], 0, 93)
+        pending = pending[~ok]
+    return val.astype(np.uint8).tobytes()
 
 
 def reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
@@ -1129,8 +1181,6 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                                                    qualstats_device_o1)
     from htslib_tpu_torch.ops.huffman import make_huffman_resolve_bench
     from htslib_tpu_torch.ops.pileup_kernel import coverage_tile
-    from htslib_tpu_torch.ops.rans import (uncompress_batch,
-                                           uncompress_nx16_batch)
     from htslib_tpu_torch.ops.rans4x8 import decode_4x8_o0_batch
     from htslib_tpu_torch.ops.rans_enc import encode_nx16_o0_batch
     from htslib_tpu_torch.ops.rans_nx16 import (decode_nx16_o0_batch,
@@ -1245,33 +1295,9 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
             "leg 5 Huffman resolve chain")
     secs["leg5"] = time.time() - t0
 
-    # leg 6: each call's streams interleaved across their wires, so every
-    # group's outputs must land back in the input order; each launch
-    # group's framing (the dense tables' build within it) and decode, and
-    # the routing parse, timed
     t0 = time.time()
-    groups_4x8, groups_nx16 = {}, {}
-    pairs = _interleave([list(zip(*leg3[w][:2])) for w in (
-        "4x8_o0", "4x8_o1", "4x8_o1_dense")])
-    out = uncompress_batch([e for _, e in pairs], device=device,
-                           timing=groups_4x8)
-    require(out == [r for r, _ in pairs], "leg 6 uncompress_batch bytes")
-    t1 = time.time()
-    pairs = _interleave([
-        list(zip(raws, encs))[:n_decode],
-        list(zip(*leg3["nx16_o1"][:2]))[:n_decode],
-        list(zip(*leg3["nx16_4way_o0"][:2]))[:n_decode],
-        list(zip(*leg3["nx16_4way_o1"][:2]))[:n_decode],
-        list(zip(*leg3["nx16_o1_dense"][:2])),
-        list(zip(*leg3["nx16_4way_o1_dense"][:2]))])
-    out = uncompress_nx16_batch([e for _, e in pairs], device=device,
-                                timing=groups_nx16)
-    require(out == [r for r, _ in pairs], "leg 6 uncompress_nx16_batch bytes")
+    notes["leg6"] = leg6(device, raws, encs, leg3, n_decode)
     secs["leg6"] = time.time() - t0
-    notes["leg6"] = {"uncompress_batch_s": t1 - t0,
-                     "uncompress_nx16_batch_s": time.time() - t1,
-                     "uncompress_batch": groups_4x8,
-                     "uncompress_nx16_batch": groups_nx16}
 
     import shutil
     import tempfile
@@ -1318,6 +1344,65 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return args, secs, notes
+
+
+def leg6(device, raws, encs, leg3, n_decode: int = N_DECODE) -> dict:
+    """Leg 6, whole-stream rANS batches through ops/rans.py, every output
+    held to its raw bytes; returns its parts (wall_s, each call's seconds
+    and `timing` groups, the HiFi blocks' rows, the spill calls')."""
+    # each call's streams interleaved across their wires, so every
+    # group's outputs must land back in the input order; each launch
+    # group's framing (the dense tables' build within it) and decode, and
+    # the routing parse, timed
+    from htslib_tpu_torch.ops.rans import (uncompress_batch,
+                                           uncompress_nx16_batch)
+    t0 = time.time()
+    groups_4x8, groups_nx16 = {}, {}
+    pairs = _interleave([list(zip(*leg3[w][:2])) for w in (
+        "4x8_o0", "4x8_o1", "4x8_o1_dense", "4x8_o1_hifi")])
+    out = uncompress_batch([e for _, e in pairs], device=device,
+                           timing=groups_4x8)
+    require(out == [r for r, _ in pairs], "leg 6 uncompress_batch bytes")
+    t1 = time.time()
+    pairs = _interleave([
+        list(zip(raws, encs))[:n_decode],
+        list(zip(*leg3["nx16_o1"][:2]))[:n_decode],
+        list(zip(*leg3["nx16_4way_o0"][:2]))[:n_decode],
+        list(zip(*leg3["nx16_4way_o1"][:2]))[:n_decode],
+        list(zip(*leg3["nx16_o1_dense"][:2])),
+        list(zip(*leg3["nx16_4way_o1_dense"][:2])),
+        list(zip(*leg3["nx16_o1_hifi"][:2])),
+        list(zip(*leg3["nx16_4way_o1_hifi"][:2]))])
+    out = uncompress_nx16_batch([e for _, e in pairs], device=device,
+                                timing=groups_nx16)
+    require(out == [r for r, _ in pairs], "leg 6 uncompress_nx16_batch bytes")
+    # each wire's spill stream repeated one stream past LARGE_WAVES waves
+    # of the large variant, so that its group goes to the dense variant
+    t2 = time.time()
+    copies = spill_copies(device, leg3)
+    spill_4x8, spill_nx16 = {}, {}
+    raw, enc = leg3["4x8_o1_spill"]
+    n = copies["4x8_o1"]
+    require(uncompress_batch([enc] * n, device=device, timing=spill_4x8)
+            == [raw] * n, "leg 6 spill uncompress_batch bytes")
+    raws_ = [leg3[w + "_spill"][0] for w in ("nx16_o1", "nx16_4way_o1")
+             for _ in range(copies[w])]
+    encs_ = [leg3[w + "_spill"][1] for w in ("nx16_o1", "nx16_4way_o1")
+             for _ in range(copies[w])]
+    require(uncompress_nx16_batch(encs_, device=device, timing=spill_nx16)
+            == raws_, "leg 6 spill uncompress_nx16_batch bytes")
+    notes = {"wall_s": time.time() - t0, "uncompress_batch_s": t1 - t0,
+             "uncompress_nx16_batch_s": t2 - t1,
+             "uncompress_batch": groups_4x8,
+             "uncompress_nx16_batch": groups_nx16,
+             "hifi_rows": {w: o1_rows_of(w, leg3[w + "_hifi"][1][0])
+                           for w in O1_WIRES},
+             "spill_s": time.time() - t2, "spill_copies": copies,
+             "spill_uncompress_batch": spill_4x8,
+             "spill_uncompress_nx16_batch": spill_nx16}
+    for w, rows in notes["hifi_rows"].items():
+        require(rows > 4096, f"leg 6 HiFi block on {w}: {rows} rows")
+    return notes
 
 
 class Shapes:
@@ -2103,6 +2188,42 @@ def leg7(device, bgzf, raws):
     return notes
 
 
+O1_WIRES = ("4x8_o1", "nx16_4way_o1", "nx16_o1")   # leg 6's order-1 wires
+
+
+def o1_rows_of(wire: str, enc: bytes) -> int:
+    """(context, symbol) rows of an encoded order-1 stream's table."""
+    from htslib_tpu_torch.ops.rans4x8 import _parse_4x8_o1
+    from htslib_tpu_torch.ops.rans_nx16_o1 import (_parse_nx16_header,
+                                                   o1_row_count)
+    if wire == "4x8_o1":
+        return o1_row_count(_parse_4x8_o1(enc)[1])
+    return o1_row_count(_parse_nx16_header(
+        enc, 32 if wire == "nx16_o1" else 4)[1])
+
+
+def spill_copies(device, leg3) -> dict:
+    """{order-1 wire: copies of its spill stream one past LARGE_WAVES waves
+    of its large variant on `device`} (1 where no wave bounds a group: the
+    CPU)."""
+    from htslib_tpu_torch.ops import rans4x8 as t8
+    from htslib_tpu_torch.ops import rans_nx16_o1 as to1
+    out = {}
+    for w in O1_WIRES:
+        enc = leg3[w + "_spill"][1]
+        if w == "nx16_o1":
+            F = to1._parse_nx16_header(enc)[1]
+            per = to1.large_per_wave(to1.o1_row_count(F),
+                                     to1.o1_alphabet(F), device)
+            waves = to1.LARGE_WAVES
+        else:
+            per = t8.large_per_wave(o1_rows_of(w, enc), w != "4x8_o1",
+                                    device)
+            waves = t8.LARGE_WAVES
+        out[w] = 1 if per is None else waves * per + 1
+    return out
+
+
 def _interleave(lists):
     """The items of several lists taken in turns: a0, b0, c0, a1, ..."""
     out = []
@@ -2459,11 +2580,12 @@ def dense_vs_plain(device, leg3, launches):
         full = kern(b)[0].cpu().numpy().tobytes()
         require(full == b"".join(raws), f"{key}: whole streams != raw")
         n_sym = b.total_out
-        # bytes: the payloads and the dense tables in, the symbols out;
-        # per symbol: mask, table load, three field extracts,
-        # multiply-add, subtract, compare, refill select and the store
-        b_ms, b_by = bound_ms(sum(len(x) for x in blocks)
-                              + b.dense.numel() * 4 + n_sym, 10 * n_sym)
+        # the function's own work, whatever table implements it: the
+        # streams (frequency headers included) in, the symbols out; per
+        # symbol: mask, table load, three field extracts, multiply-add,
+        # subtract, compare, refill select and the store
+        b_ms, b_by = bound_ms(sum(len(x) for x in blocks) + n_sym,
+                              10 * n_sym)
         row = {
             "name": key, "route": "cuda",
             "source": f"htslib_tpu_torch/csrc/{src}",
@@ -2486,6 +2608,126 @@ def dense_vs_plain(device, leg3, launches):
                                                      True)
         else:
             row["smem_bytes"] = to1.dense_smem_bytes()
+        rows.append(row)
+    return rows
+
+
+def large_vs_plain(device, leg3, launches):
+    """Phase 6 for the large-table variants of X1, X3 and B5 (order-1
+    tables past A2_MAX rows in shared memory): each against its plain
+    version (a gather from the JAX dense table of the same rows) on leg
+    6's 2 x 256 KiB random streams and on its HiFi-style block over their
+    first PLAIN_ROUNDS rounds (states, cursors, contexts, symbols) and
+    whole against the raw bytes, and on a whole 64 KiB random stream (the
+    spill stream) in every output; timed on both batches, with ns a round,
+    shared memory a block and streams an SM of each (B5: the share of
+    rounds in which a lane walked).  Returns the rows of the kernels
+    line."""
+    import torch
+
+    from htslib_tpu_torch.ops import rans4x8 as t8
+    from htslib_tpu_torch.ops import rans_nx16_o1 as to1
+
+    def frame(wire, blocks):
+        if wire == "nx16_o1":
+            return to1.frame_o1_streams([to1._parse_nx16_header(e)
+                                         for e in blocks], device,
+                                        large=True)
+        fr = t8.frame_4x8 if wire == "4x8_o1" else t8.frame_nx16_4way
+        return fr(blocks, True, device, large=True)
+
+    def held(key, kern, plain, b, rounds, what):
+        got = kern(b, rounds)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = plain(b, rounds)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        for g, r, part in zip(got, ref, ("output", "states", "cursors",
+                                         "contexts")):
+            require(torch.equal(g, r), f"{key} kernel != plain on {what} "
+                    f"over {rounds} rounds ({part})")
+        return got, ms, int((got[0].long() - ref[0].long()).abs().max())
+
+    rows = []
+    for key, wire, src, line in (
+            ("rans4x8_o1_large_decode", "4x8_o1", "rans4x8.cu", 96),
+            ("rans_nx16_4way_o1_large_decode", "nx16_4way_o1", "rans4x8.cu",
+             230),
+            ("rans_nx16_o1_large_decode", "nx16_o1", "rans_nx16_o1.cu",
+             230)):
+        nway = 32 if wire == "nx16_o1" else 4
+        slow = []   # B5: the last launch's walked rounds a stream
+        if nway == 32:
+            def kern(b, mr=-1):
+                slow[:] = [torch.zeros(b.n_streams, dtype=torch.int32,
+                                       device=device)]
+                return to1.rans_o1_cuda(b, mr, slow_rounds=slow[0])
+            plain = to1.rans_o1_plain
+        else:
+            kern, plain = t8.rans4x8_cuda, t8.rans4x8_plain
+        row = {"name": key, "route": "cuda",
+               "source": f"htslib_tpu_torch/csrc/{src}",
+               "replaces": f"htslib_tpu/ops/rans.py:{line}",
+               "launches": launches[key], "bound_by": None,
+               "library_ms": None, "plain_rounds": PLAIN_ROUNDS,
+               "note": "large-table variant for order-1 tables past A2_MAX "
+                       "rows: XLA code of the JAX package, no Pallas kernel",
+               "match": True}
+        err = 0
+        for tag, (raws, blocks) in (
+                ("", leg3[wire + "_dense"]), ("_hifi", leg3[wire + "_hifi"])):
+            b = frame(wire, blocks)
+            require(b.large and b.dense is None,
+                    f"{key}: the batch is not a large-table batch")
+            _, plain_ms, e = held(key, kern, plain, b, PLAIN_ROUNDS,
+                                  "leg 6's streams" if not tag else "HiFi")
+            err = max(err, e)
+            full = kern(b)
+            require(full[0].cpu().numpy().tobytes() == b"".join(raws),
+                    f"{key}{tag}: whole streams != raw")
+            n_sym = b.total_out
+            rows_max = int(b.tables.n_rows.max())
+            # the bucket shift and shared memory the wrappers chose
+            if nway == 32:
+                shift, smem = to1.large_shift(b.tables, device, b.alphabet)
+                per_sm = to1.large_blocks_per_sm(smem)
+                rounds = sum(u - 31 * (u // 32) for u in b.ulen.tolist())
+                row["slow_share" + tag] = int(slow[0].sum()) / rounds
+            else:
+                shift = to1.finest_shift(
+                    lambda k: t8.large_blocks_per_sm(b.w16, rows_max, k),
+                    b.n_streams, torch_sms(device))
+                smem = t8.large_smem_bytes(rows_max, shift)
+                per_sm = t8.large_blocks_per_sm(b.w16, rows_max, shift)
+            b_ms, b_by = bound_ms(sum(len(x) for x in blocks) + n_sym,
+                                  10 * n_sym)
+            n = max(b.ulen.tolist())
+            row.update({
+                "ms" + tag: cuda_ms(lambda: kern(b), 3),
+                "ms_at_plain_rounds" + tag: cuda_ms(
+                    lambda: kern(b, PLAIN_ROUNDS), 3),
+                "plain_ms" + tag: plain_ms,
+                "bound_ms" + tag: b_ms, "streams" + tag: b.n_streams,
+                "symbols" + tag: n_sym, "rows" + tag: rows_max,
+                "chain_rounds" + tag: n - (nway - 1) * (n // nway),
+                "smem_bytes" + tag: smem, "streams_per_sm" + tag: per_sm,
+                "bucket_slots" + tag: 1 << shift})
+            if not tag:
+                row["bound_by"] = b_by
+        row["ns_per_round_hifi"] = row["ms_hifi"] / row[
+            "chain_rounds_hifi"] * 1e6
+        # a whole 64 KiB stream, every output
+        raw, enc = leg3[wire + "_spill"]
+        b = frame(wire, [enc])
+        got, _, e = held(key, kern, plain, b, -1, "a whole 64 KiB stream")
+        err = max(err, e)
+        require(got[0].cpu().numpy().tobytes() == raw,
+                f"{key}: the 64 KiB stream != raw")
+        row["whole_stream"] = {"bytes": len(raw),
+                               "rows": int(b.tables.n_rows[0]),
+                               "match": True}
+        row["max_abs_err"] = err
         rows.append(row)
     return rows
 
@@ -3121,8 +3363,8 @@ def main() -> int:
         for wire in notes["leg11"][tag]["wires"]:
             if wire != "host":
                 k = WIRE_KERNELS[wire]
-                require(got.get(k, 0) + got.get(k.replace(
-                    "_decode", "_dense_decode"), 0) >= 1,
+                require(sum(got.get(k.replace("_decode", r + "_decode"), 0)
+                            for r in ("", "_large", "_dense")) >= 1,
                     f"leg {tag}: wire {wire} launched no kernel in {leg}")
     print(f"main path ok: {secs}, launches {launches}", flush=True)
     print(f"leg 2 wall: {secs['leg2']:.3f} s, parts {notes['leg2']}",
@@ -3201,6 +3443,9 @@ def main() -> int:
     t0 = time.time()
     rows += dense_vs_plain(args[1].device, leg3, launches)
     print(f"phase 6, dense X1, X3, B5: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    rows += large_vs_plain(args[1].device, leg3, launches)
+    print(f"phase 6, large X1, X3, B5: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     rows.append(inflate_vs_plain(args[1].device, bgzf, leg12_members,
                                  launches))

@@ -42,7 +42,9 @@ LAUNCHES: Dict[str, int] = {
     "huffman_resolve_bench": 0, "rans4x8_o1_decode": 0,
     "rans_nx16_4way_o0_decode": 0, "rans_nx16_4way_o1_decode": 0,
     "rans4x8_o1_dense_decode": 0, "rans_nx16_4way_o1_dense_decode": 0,
-    "rans_nx16_o1_dense_decode": 0, "inflate": 0, "inflate_slot": 0,
+    "rans_nx16_o1_dense_decode": 0, "rans4x8_o1_large_decode": 0,
+    "rans_nx16_4way_o1_large_decode": 0, "rans_nx16_o1_large_decode": 0,
+    "inflate": 0, "inflate_slot": 0,
     "record_scan": 0, "record_scan_seg": 0, "probaln": 0,
     "probaln_warp": 0}
 # where a list: each launch of the kernels whose wrappers record their
@@ -64,20 +66,26 @@ _SIGNATURES = {
         "rans_nx16_o0_blocks_per_sm": [ctypes.c_int] * 2,
     },
     "rans_nx16_o1": {
-        "rans_nx16_o1_launch": [ctypes.c_void_p] * 18
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "rans_nx16_o1_launch": [ctypes.c_void_p] * 19
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "rans_nx16_o1_smem_bytes": [ctypes.c_int] * 4,
         "rans_nx16_o1_blocks_per_sm": [ctypes.c_int] * 2,
+        "rans_nx16_o1_large_smem_bytes": [ctypes.c_int] * 3,
+        "rans_nx16_o1_large_blocks_per_sm": [ctypes.c_int],
     },
     "rans4x8": {
         "rans4x8_launch": [ctypes.c_void_p] * 18
         + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "rans4x8_blocks_per_sm": [ctypes.c_int] * 4,
         "rans4x8_smem_bytes": [ctypes.c_int] * 3,
-        "rans4x8_wide_launch": [ctypes.c_void_p] * 17
+        "rans4x8_wide_launch": [ctypes.c_void_p] * 18
         + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "rans4x8_wide_smem_bytes": [ctypes.c_int] * 2,
         "rans4x8_wide_blocks_per_sm": [ctypes.c_int] * 3,
+        "rans4x8_large_launch": [ctypes.c_void_p] * 16
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "rans4x8_large_smem_bytes": [ctypes.c_int] * 2,
+        "rans4x8_large_blocks_per_sm": [ctypes.c_int] * 3,
     },
     "rans_nx16_enc": {
         "rans_nx16_enc_launch": [ctypes.c_void_p] * 8
@@ -210,6 +218,28 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+# the codes of a kernel's error word (rans_nx16_o1_step.cuh RANS_REFUSE_*)
+REFUSALS = {1: "its tables outgrew the shared memory the launch was sized "
+               "for",
+            2: "its slow buckets outnumbered the maps the launch was sized "
+               "for"}
+
+
+def error_word(device) -> torch.Tensor:
+    """A zeroed int32 error word on `device` for a kernel that refuses a
+    stream by setting it (csrc rans_refuse) rather than trapping."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def check_word(word: torch.Tensor, what: str) -> None:
+    """Raise if a kernel set its error word: it refused a stream whose
+    layout outgrew its launch (waits for the launch to end)."""
+    code = int(word.item())
+    if code:
+        raise RuntimeError(f"{what}: a block refused its stream: "
+                           f"{REFUSALS.get(code, f'code {code}')}")
 
 
 def stream_handle(t: torch.Tensor) -> int:

@@ -12,8 +12,8 @@ two batchable stages to the device:
      (`block_wire`: rANS 4x8 of either order; rANS Nx16 without a
      transform, 4-way or 32-way, either order) goes through one call of
      ops/rans.py `uncompress_batch` or `uncompress_nx16_batch` (kernels
-     B7, X1; X2, X3, B2, B5; the dense variants for wide order-1
-     tables).  The routes are decided from the blocks' bytes before any
+     B7, X1; X2, X3, B2, B5; their large-table or dense variants for
+     order-1 tables past A2_MAX rows).  The routes are decided from the blocks' bytes before any
      launch; a device error raises and no block is decoded again on the
      host.  Every other block (RAW, GZIP, BZIP2, LZMA, ARITH, FQZ, TOK3,
      Nx16 with a transform) is decoded by the port's host codecs
@@ -52,7 +52,9 @@ from htslib_tpu_torch.sam.bam import BamReader
 from htslib_tpu_torch.sam.header import SamHeader
 
 # the launch key of the kernel that decodes each wire (ops/rans.py; an
-# order-1 table past A2_MAX rows takes the dense variant's key instead)
+# order-1 table past A2_MAX rows takes the large variant's key, "_large"
+# before "_decode", or past the large variant's waves the dense one's,
+# "_dense")
 WIRE_KERNELS = {
     "4x8_o0": "rans4x8_o0_decode",                   # B7
     "4x8_o1": "rans4x8_o1_decode",                   # X1

@@ -64,6 +64,24 @@
 // from its stream's 4 MiB table in device memory (an L2 or memory latency
 // on the round's chain where the records' pick was a shared-memory one),
 // and their blocks take the ring and the symbol buffer only.
+//
+// The large variants (X1 and X3 on the streams past RANS_O1_MAX_ROWS rows
+// of a batch of at most LARGE_WAVES waves of them: ops/rans4x8.py
+// `large_fits`) decode those streams from shared memory instead, through
+// the large table of rans_nx16_o1_step.cuh (u16 cum and u8 symbol planes,
+// a u32 word and 32 to 128 u8 buckets a context: 230,424 bytes at the
+// wire's 65,536 rows and 32-slot buckets), built by the warp after its
+// Tables and sized per launch to the batch's most rows, the buckets as
+// fine as the batch's waves allow, so the round's four lookups wait on
+// shared memory, not on L2 or HBM (a build by 256 threads, the other
+// warps leaving after it, made the round 15% slower: PERF.md, PR 16).  A
+// full table holds one stream an SM, which is why the device-memory
+// variants keep the batches past a few waves.
+//
+// A block whose tables outgrow what its launch was sized for (the wide
+// table's slow buckets past its maps, a large table past its rows) sets
+// the launch's error word and returns (rans_refuse), and the wrapper
+// raises.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,7 +122,9 @@ struct O1Lookup {
   uint32_t tab[RANS_O1_RECORDS];
   uint16_t bucket[256 * RANS_O1_BUCKETS];
 };
-struct DenseLookup {};  // the dense table lies in device memory
+// no table in the block's Tables: the dense table lies in device memory,
+// and the large table's planes follow the Tables in shared memory
+struct NoLookup {};
 // the wide order-1 table (rans4x8_step.cuh); the slow buckets' maps follow
 // the block's Tables in shared memory
 struct WideLookup {
@@ -112,14 +132,19 @@ struct WideLookup {
   uint32_t bucket[256 * RANS_O1_BUCKETS];
 };
 
-template <bool kHist, bool kO1, bool kDense = false, bool kWide = false>
+// The lookup table a variant keeps in its Tables.
+template <bool kO1, bool kDense, bool kWide, bool kLarge>
+using LutOf = typename std::conditional<
+    kDense || kLarge, NoLookup,
+    typename std::conditional<
+        kWide, WideLookup,
+        typename std::conditional<kO1, O1Lookup, O0Lookup>::type>::type>::
+    type;
+
+template <bool kHist, bool kO1, bool kDense = false, bool kWide = false,
+          bool kLarge = false>
 struct Tables {
-  typename std::conditional<
-      kDense, DenseLookup,
-      typename std::conditional<
-          kWide, WideLookup,
-          typename std::conditional<kO1, O1Lookup, O0Lookup>::type>::type>::
-      type lut;
+  LutOf<kO1, kDense, kWide, kLarge> lut;
   union {
     // the ring of payload chunks, and copies of its first two words
     uint32_t ring[kRingWords + 2];
@@ -148,9 +173,11 @@ struct Args {
   uint32_t* x_out;
   int32_t* cur_out;
   int32_t* ctx_out;
+  int32_t* err;  // the error word (rans_refuse); null where none refuses
   int qbins;
   int max_rounds;
   int max_slow;  // the wide table: slow buckets a block's maps hold
+  int shift;     // the large table: its buckets hold 1 << shift slots
 };
 
 // One stream's decode state: the four states and contexts, the window at
@@ -158,11 +185,12 @@ struct Args {
 // the warp (every lane the same), forced inline so the state stays in
 // registers; it returns the round's four symbols packed in a word.  kW16:
 // the Nx16 wire's refill; kDense: order 1 through the stream's dense table;
-// kWide: order 1 through the wide table (contexts held as symbol * 256).
+// kWide: order 1 through the wide table (contexts held as symbol * 256);
+// kLarge: order 1 through the large table.
 template <bool kHist, bool kO1, bool kW16, bool kDense = false,
-          bool kWide = false>
+          bool kWide = false, bool kLarge = false>
 struct Stream {
-  Tables<kHist, kO1, kDense, kWide>& t;
+  Tables<kHist, kO1, kDense, kWide, kLarge>& t;
   const uint32_t* dense;
   const uint32_t* words;
   uint8_t* out;
@@ -173,6 +201,7 @@ struct Stream {
   Rans8Window w;
   uint32_t issued, swapped;  // chunks copied in, and byte-swapped
   const uint16_t* maps;      // the wide table's slow-bucket maps
+  RansO1Large large;         // the large table's planes
 
   // Copy chunk q into its ring slot (cp.async, the bytes past the payload
   // zero-filled).
@@ -218,6 +247,8 @@ struct Stream {
     if constexpr (kWide)
       k = rans8_round_wide<kW16>(x, ctx7, &syms, live, hi, lo, t.lut.rec,
                                  t.lut.bucket, maps);
+    else if constexpr (kLarge)
+      k = rans8_round_large<kW16>(x, ctx7, &syms, live, hi, lo, large);
     else if constexpr (kDense)
       k = rans8_round<true, kW16, true>(x, ctx7, &syms, live, hi, lo, dense,
                                         nullptr);
@@ -256,17 +287,20 @@ struct Stream {
 };
 
 template <bool kHist, bool kO1, bool kW16, bool kDense = false,
-          bool kWide = false>
+          bool kWide = false, bool kLarge = false>
 __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
   static_assert(!kWide || (kO1 && !kDense), "the wide table is order 1's");
+  static_assert(!kLarge || (kO1 && !kHist && !kDense && !kWide),
+                "the large table decodes order-1 symbols");
   extern __shared__ __align__(16) unsigned char smem[];
-  auto& t = *reinterpret_cast<Tables<kHist, kO1, kDense, kWide>*>(smem);
+  auto& t =
+      *reinterpret_cast<Tables<kHist, kO1, kDense, kWide, kLarge>*>(smem);
   const int lane = threadIdx.x;
   const int st = blockIdx.x;
   const uint32_t nb = (uint32_t)a.n_bytes[st];
   // past the payload's last word every byte reads 0; the cap keeps the
   // cursor (and the ring's chunks) a few words beyond it
-  Stream<kHist, kO1, kW16, kDense, kWide> s = {
+  Stream<kHist, kO1, kW16, kDense, kWide, kLarge> s = {
       t, kDense ? a.dense + (int64_t)st * (256 * RANS_TOTFREQ) : nullptr,
       reinterpret_cast<const uint32_t*>(a.payload + a.byte_off[st]),
       kHist ? nullptr : a.out + a.out_off[st], nb, 4u * ((nb + 3u) / 4u) + 32u,
@@ -291,10 +325,33 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
       if (lane >= o) incl += v;
     }
     // the host sized the maps for the batch's most slow buckets
-    if (__shfl_sync(0xffffffffu, incl, kWarp - 1) > a.max_slow) __trap();
+    if (__shfl_sync(0xffffffffu, incl, kWarp - 1) > a.max_slow) {
+      if (lane == 0) rans_refuse(a.err, RANS_REFUSE_MAPS);
+      return;
+    }
     rans8_wide_maps(rows, t.setup, t.lut.bucket, maps, incl - cnt, lane,
                     kWarp);
     __syncwarp();
+  } else if constexpr (kLarge) {
+    // the planes after the Tables, sized by the host for the batch's most
+    // rows: a stream with more is refused
+    const int32_t* cs = a.ctx_start + (int64_t)st * 257;
+    const uint32_t* rows = a.rows + a.row_off[st];
+    const int n = cs[256];
+    const RansO1LargeLayout l = rans_o1_large_layout(n, 256, a.shift);
+    uint32_t avail;
+    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(avail));
+    if (sizeof(t) + (uint32_t)l.end > avail) {
+      if (lane == 0) rans_refuse(a.err, RANS_REFUSE_SMEM);
+      return;
+    }
+    const RansO1LargeOut o =
+        rans_o1_large_planes(smem + sizeof(t), l, a.shift);
+    rans_o1_large_rows(rows, n, o, lane, kWarp);
+    __syncwarp();
+    rans_o1_large_contexts(rows, cs, o, lane, kWarp);
+    __syncwarp();
+    s.large = rans_o1_large_view(o);
   } else if constexpr (kO1 && !kDense) {
     for (int c = lane; c < 257; c += kWarp)
       t.setup[c] = (uint16_t)a.ctx_start[(int64_t)st * 257 + c];
@@ -378,19 +435,22 @@ __global__ void __launch_bounds__(kWarp) rans4x8_kernel(const Args a) {
 }
 
 // Bytes of dynamic shared memory a block of the variant takes: its Tables
-// and, for the wide table, the maps of max_slow slow buckets.
-template <bool kHist, bool kO1, bool kDense, bool kWide>
-int smem_of(int max_slow) {
-  return (int)sizeof(Tables<kHist, kO1, kDense, kWide>) +
-         (kWide ? 2 * RANS8_WIDE_MAP * max_slow : 0);
+// and, for the wide table, the maps of `extra` slow buckets, for the large
+// table the planes of `extra` rows with buckets of 1 << shift slots.
+template <bool kHist, bool kO1, bool kDense, bool kWide, bool kLarge = false>
+int smem_of(int extra, int shift = RANS_O1_LARGE_SHIFT) {
+  return (int)sizeof(Tables<kHist, kO1, kDense, kWide, kLarge>) +
+         (kWide ? 2 * RANS8_WIDE_MAP * extra : 0) +
+         (kLarge ? rans_o1_large_layout(extra, 256, shift).end : 0);
 }
 
 // Set the variant up for its tables in dynamic shared memory, with the
 // largest shared-memory carveout so that as many blocks share an SM as the
 // tables allow; returns a CUDA error code.
-template <bool kHist, bool kO1, bool kW16, bool kDense, bool kWide>
+template <bool kHist, bool kO1, bool kW16, bool kDense, bool kWide,
+          bool kLarge = false>
 cudaError_t configure(int smem) {
-  auto* fn = rans4x8_kernel<kHist, kO1, kW16, kDense, kWide>;
+  auto* fn = rans4x8_kernel<kHist, kO1, kW16, kDense, kWide, kLarge>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -399,30 +459,32 @@ cudaError_t configure(int smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-// One launch of the variant; returns a CUDA error code (an attribute's, or
-// the launch's).
+// One launch of the variant, its shared memory sized for `extra` (smem_of);
+// returns a CUDA error code (an attribute's, or the launch's).
 template <bool kHist, bool kO1, bool kW16, bool kDense = false,
-          bool kWide = false>
-int launch(const Args& a, int n_streams, cudaStream_t s) {
-  const int smem = smem_of<kHist, kO1, kDense, kWide>(a.max_slow);
-  const cudaError_t e = configure<kHist, kO1, kW16, kDense, kWide>(smem);
+          bool kWide = false, bool kLarge = false>
+int launch(const Args& a, int n_streams, cudaStream_t s, int extra = 0) {
+  const int smem = smem_of<kHist, kO1, kDense, kWide, kLarge>(extra, a.shift);
+  const cudaError_t e =
+      configure<kHist, kO1, kW16, kDense, kWide, kLarge>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  rans4x8_kernel<kHist, kO1, kW16, kDense, kWide>
+  rans4x8_kernel<kHist, kO1, kW16, kDense, kWide, kLarge>
       <<<n_streams, kWarp, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks (streams) of the variant one SM holds at once, or minus a CUDA
-// error code.
+// Blocks (streams) of the variant one SM holds at once, its shared memory
+// sized for `extra`, or minus a CUDA error code.
 template <bool kHist, bool kO1, bool kW16, bool kDense = false,
-          bool kWide = false>
-int blocks_per_sm(int max_slow = 0) {
-  const int smem = smem_of<kHist, kO1, kDense, kWide>(max_slow);
-  cudaError_t e = configure<kHist, kO1, kW16, kDense, kWide>(smem);
+          bool kWide = false, bool kLarge = false>
+int blocks_per_sm(int extra = 0, int shift = RANS_O1_LARGE_SHIFT) {
+  const int smem = smem_of<kHist, kO1, kDense, kWide, kLarge>(extra, shift);
+  cudaError_t e = configure<kHist, kO1, kW16, kDense, kWide, kLarge>(smem);
   int n = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, rans4x8_kernel<kHist, kO1, kW16, kDense, kWide>, kWarp, smem);
+        &n, rans4x8_kernel<kHist, kO1, kW16, kDense, kWide, kLarge>, kWarp,
+        smem);
   // a refused size (the wide table's maps past a block's shared memory)
   // must not stay behind as the next launch's error
   if (e != cudaSuccess) cudaGetLastError();
@@ -434,7 +496,8 @@ Args make_args(const void* payload, const void* byte_off, const void* n_bytes,
                const void* ctx_start, const void* dense, const void* x0,
                const void* ulen, const void* out_off, void* out,
                const void* offs, void* hist, void* x_out, void* cur_out,
-               void* ctx_out, int qbins, int max_rounds, int max_slow) {
+               void* ctx_out, void* err, int qbins, int max_rounds,
+               int max_slow) {
   return {static_cast<const uint8_t*>(payload),
           static_cast<const int64_t*>(byte_off),
           static_cast<const int32_t*>(n_bytes),
@@ -452,9 +515,11 @@ Args make_args(const void* payload, const void* byte_off, const void* n_bytes,
           static_cast<uint32_t*>(x_out),
           static_cast<int32_t*>(cur_out),
           static_cast<int32_t*>(ctx_out),
+          static_cast<int32_t*>(err),
           qbins,
           max_rounds,
-          max_slow};
+          max_slow,
+          RANS_O1_LARGE_SHIFT};
 }
 
 }  // namespace
@@ -482,8 +547,8 @@ extern "C" int rans4x8_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(payload, byte_off, n_bytes, freqs, rows, row_off,
                            ctx_start, dense, x0, ulen, out_off, out, offs,
-                           hist, x_out, cur_out, ctx_out, qbins, max_rounds,
-                           0);
+                           hist, x_out, cur_out, ctx_out, nullptr, qbins,
+                           max_rounds, 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hist != nullptr)
     return o1 ? launch<true, true, false>(a, n_streams, s)
@@ -532,26 +597,72 @@ extern "C" int rans4x8_smem_bytes(int hist, int o1, int dense) {
 // The wide order-1 table's variants (rans4x8_step.cuh): X1 (symbols), X3
 // (symbols, w16) or B8 order 1 (hist != NULL), the arguments of
 // rans4x8_launch (order 1, no dense table), with shared memory for the
-// maps of max_slow slow buckets a stream; a stream with more traps.
+// maps of max_slow slow buckets a stream; a stream with more sets the
+// int32 error word `err` (zeroed before) to RANS_REFUSE_MAPS.
 extern "C" int rans4x8_wide_launch(
     const void* payload, const void* byte_off, const void* n_bytes,
     const void* freqs, const void* rows, const void* row_off,
     const void* n_rows, const void* ctx_start, const void* x0,
     const void* ulen, const void* out_off, void* out, const void* offs,
-    void* hist, void* x_out, void* cur_out, void* ctx_out, int n_streams,
-    int qbins, int max_rounds, int w16, int max_slow, void* stream) {
+    void* hist, void* x_out, void* cur_out, void* ctx_out, void* err,
+    int n_streams, int qbins, int max_rounds, int w16, int max_slow,
+    void* stream) {
   if (n_streams <= 0) return 0;
-  if ((hist != nullptr && w16) || max_slow < 0)
+  if ((hist != nullptr && w16) || max_slow < 0 || err == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(payload, byte_off, n_bytes, freqs, rows, row_off,
                            ctx_start, nullptr, x0, ulen, out_off, out, offs,
-                           hist, x_out, cur_out, ctx_out, qbins, max_rounds,
-                           max_slow);
+                           hist, x_out, cur_out, ctx_out, err, qbins,
+                           max_rounds, max_slow);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hist != nullptr)
-    return launch<true, true, false, false, true>(a, n_streams, s);
-  return w16 ? launch<false, true, true, false, true>(a, n_streams, s)
-             : launch<false, true, false, false, true>(a, n_streams, s);
+    return launch<true, true, false, false, true>(a, n_streams, s, max_slow);
+  return w16 ? launch<false, true, true, false, true>(a, n_streams, s,
+                                                      max_slow)
+             : launch<false, true, false, false, true>(a, n_streams, s,
+                                                       max_slow);
+}
+
+// The large order-1 table's variants: X1 (symbols) or X3 (w16) over
+// tables of any row count up to RANS_O1_LARGE_MAX_ROWS, the arguments of
+// rans4x8_wide_launch but the histogram, with shared memory for the planes
+// of max_rows rows a stream and buckets of 1 << shift slots (shift 3-5); a
+// stream with more rows sets the error word `err` to RANS_REFUSE_SMEM.
+extern "C" int rans4x8_large_launch(
+    const void* payload, const void* byte_off, const void* n_bytes,
+    const void* freqs, const void* rows, const void* row_off,
+    const void* n_rows, const void* ctx_start, const void* x0,
+    const void* ulen, const void* out_off, void* out, void* x_out,
+    void* cur_out, void* ctx_out, void* err, int n_streams, int max_rounds,
+    int w16, int max_rows, int shift, void* stream) {
+  if (n_streams <= 0) return 0;
+  if (max_rows < 0 || max_rows > RANS_O1_LARGE_MAX_ROWS || err == nullptr ||
+      shift < RANS_O1_LARGE_SHIFT_MIN || shift > RANS_O1_LARGE_SHIFT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(payload, byte_off, n_bytes, freqs, rows, row_off,
+                     ctx_start, nullptr, x0, ulen, out_off, out, nullptr,
+                     nullptr, x_out, cur_out, ctx_out, err, 0, max_rounds, 0);
+  a.shift = shift;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w16 ? launch<false, true, true, false, false, true>(a, n_streams, s,
+                                                             max_rows)
+             : launch<false, true, false, false, false, true>(a, n_streams,
+                                                              s, max_rows);
+}
+
+// Shared memory a block of the large variants takes, and the streams an SM
+// holds (or minus a CUDA error code), for tables of max_rows rows and
+// buckets of 1 << shift slots.
+extern "C" int rans4x8_large_smem_bytes(int max_rows, int shift) {
+  return smem_of<false, true, false, false, true>(max_rows, shift);
+}
+
+extern "C" int rans4x8_large_blocks_per_sm(int w16, int max_rows,
+                                           int shift) {
+  return w16 ? blocks_per_sm<false, true, true, false, false, true>(max_rows,
+                                                                    shift)
+             : blocks_per_sm<false, true, false, false, false, true>(
+                   max_rows, shift);
 }
 
 // Shared memory a block of the wide variants takes, and the streams an SM

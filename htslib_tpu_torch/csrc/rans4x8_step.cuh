@@ -341,6 +341,36 @@ RANS_HD uint32_t rans8_round_wide(uint32_t* x, uint32_t* ctx, uint32_t* syms,
   return rans8_refill<kW16>(x, xs, live, hi, lo);
 }
 
+// One order-1 round through the large table (rans_nx16_o1_step.cuh, for
+// tables past RANS_O1_MAX_ROWS rows: X1 and X3 on the streams ops/rans.py
+// routes past A2_MAX): rans8_round's, the four picks issued together and,
+// where one of them is slow, a walk behind one branch (a pick covers three
+// rows: the thread runs four states, and every candidate costs
+// instructions); contexts held as symbol * 128.
+template <bool kW16 = false>
+RANS_HD uint32_t rans8_round_large(uint32_t* x, uint32_t* ctx7,
+                                   uint32_t* syms, unsigned live, uint32_t hi,
+                                   uint32_t lo, const RansO1Large& t) {
+  RansO1Hit e[RANS8_NWAY];
+  uint32_t xs[RANS8_NWAY];
+  unsigned slow = 0;  // bit j: state j's pick is slow
+  for (int j = 0; j < RANS8_NWAY; ++j) {
+    bool sj;
+    e[j] = rans_o1_large_pick<3>(t, ctx7[j], x[j], &sj);
+    slow |= (unsigned)sj << j;
+  }
+  if (slow)
+    for (int j = 0; j < RANS8_NWAY; ++j)
+      if ((slow >> j) & 1u) e[j] = rans_o1_large_walk(t, ctx7[j], x[j]);
+  for (int j = 0; j < RANS8_NWAY; ++j)
+    xs[j] = e[j].f * (x[j] >> RANS_TF_SHIFT) + (x[j] & (RANS_TOTFREQ - 1)) -
+            e[j].cum;
+  *syms = e[0].sym | e[1].sym << 8 | e[2].sym << 16 | e[3].sym << 24;
+  for (int j = 0; j < RANS8_NWAY; ++j)
+    if ((live >> j) & 1u) ctx7[j] = e[j].sym << 7;
+  return rans8_refill<kW16>(x, xs, live, hi, lo);
+}
+
 // The byte cursor and the three (byte-swapped) words at it.  The cursor
 // runs on past the payload's end, where every byte reads 0 (`rans8_cap`
 // holds it a little beyond); the wire's cursor, clamped at n_bytes, is

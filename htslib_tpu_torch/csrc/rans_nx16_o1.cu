@@ -54,6 +54,25 @@
 // its stream's [256, 4096] table in device memory (rans_o1_dense, an L2 or
 // memory latency on the round's chain), no table is built, and its block
 // takes the fixed part of shared memory only.
+//
+// The large variant (B5 on the streams past RANS_O1_MAX_ROWS rows of a
+// batch of at most LARGE_WAVES waves of it: ops/rans_nx16_o1.py
+// `large_fits`) decodes them from shared memory instead: the large table
+// of rans_nx16_o1_step.cuh over the stream's own alphabet (u16 cum and u8
+// index planes, a u32 word and 32 to 128 u8 buckets a context; 232,216
+// bytes with the fixed part at 65,536 rows, 256 contexts and 32-slot
+// buckets, one stream an SM), sized per launch to the batch's most rows
+// and contexts, the buckets as fine as the batch's waves allow.  A lane's
+// lookup is a bucket load, six cums, four compares and its index; where
+// five rows after the bucket's own start at or before the slot (or the
+// slot is past its context's sum) it is slow, and when __any_sync finds
+// one the slow lanes walk.  A warp waits for its slowest lane (PERF.md, PR
+// 5), so the fast path is fixed-length and covers five rows, and the walk
+// is counted in slow_rounds.
+//
+// A block whose tables outgrow the shared memory its launch was sized for
+// sets the launch's error word and returns (rans_refuse); the wrapper
+// raises.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -117,8 +136,10 @@ struct Args {
   int32_t* cur_out;
   int32_t* ctx_out;
   int32_t* slow_rounds;
+  int32_t* err;  // the error word (rans_refuse)
   int qbins;
   int max_rounds;
+  int shift;  // the large table: its buckets hold 1 << shift slots
 };
 
 // One stream's decode state: the lane's state and context, the word
@@ -134,29 +155,47 @@ struct State {
 // One round of the warp; the lane's state decodes where `live` (always in
 // a full block).  Returns the lane's record, its symbol's dense index in
 // bits 24-31.  kDense: `rec` is the stream's dense table (rans_o1_dense),
-// whose records carry the symbol itself.
-template <bool kAllLive, bool kDense>
+// whose records carry the symbol itself; kLarge: the lookup is the large
+// table's `big` (its symbols dense indices), and only bits 24-31 of the
+// returned word are set.
+template <bool kAllLive, bool kDense, bool kLarge = false>
 __device__ __forceinline__ uint32_t o1_round(State& s, bool live,
                                              const uint32_t* rec,
                                              const uint16_t* bucket,
                                              const uint8_t* maps,
+                                             const RansO1Large& big,
                                              const uint16_t* words,
                                              uint32_t nw, int lane) {
   uint32_t e;
-  if constexpr (kDense) {
-    e = rans_o1_dense(rec, s.ctx7, s.x);
-  } else {
+  if constexpr (kLarge) {
     bool slow;
-    uint32_t v;
-    e = rans_o1_pick(rec, bucket, s.ctx7, s.x, &slow, &v);
+    RansO1Hit h = rans_o1_large_pick<5>(big, s.ctx7, s.x, &slow);
     if (__any_sync(kFull, slow)) {
       ++s.slow;
-      if (slow) e = rans_o1_mapped(rec, maps, v, s.x);
+      if (slow) h = rans_o1_large_walk(big, s.ctx7, s.x);
     }
-  }
-  if (kAllLive || live) {
-    s.x = rans_o1_advance(s.x, e);
-    s.ctx7 = rans_o1_ctx7(e);
+    if (kAllLive || live) {
+      s.x = h.f * (s.x >> RANS_TF_SHIFT) + (s.x & (RANS_TOTFREQ - 1)) -
+            h.cum;
+      s.ctx7 = h.sym << 7;
+    }
+    e = h.sym << 24;
+  } else {
+    if constexpr (kDense) {
+      e = rans_o1_dense(rec, s.ctx7, s.x);
+    } else {
+      bool slow;
+      uint32_t v;
+      e = rans_o1_pick(rec, bucket, s.ctx7, s.x, &slow, &v);
+      if (__any_sync(kFull, slow)) {
+        ++s.slow;
+        if (slow) e = rans_o1_mapped(rec, maps, v, s.x);
+      }
+    }
+    if (kAllLive || live) {
+      s.x = rans_o1_advance(s.x, e);
+      s.ctx7 = rans_o1_ctx7(e);
+    }
   }
   const bool need = (kAllLive || live) && rans_needs_refill(s.x);
   const unsigned mask = __ballot_sync(kFull, need);
@@ -202,24 +241,58 @@ __device__ __forceinline__ void store32(uint8_t* p, const uint32_t* W) {
       if (i >= 28 + h) p[i] = (uint8_t)(W[7] >> (8 * (i - 28)));
 }
 
-template <bool kHist, bool kDense = false>
+template <bool kHist, bool kDense = false, bool kLarge = false>
 __global__ void __launch_bounds__(kWarp) rans_nx16_o1_kernel(const Args a) {
-  static_assert(!(kHist && kDense), "the dense variant decodes symbols");
+  static_assert(!(kHist && (kDense || kLarge)) && !(kDense && kLarge),
+                "the dense and large variants decode symbols");
   extern __shared__ __align__(16) unsigned char smem[];
   Head& h = *reinterpret_cast<Head*>(smem);
   const int lane = threadIdx.x;
   const int st = blockIdx.x;
-  const uint32_t* rec;
+  const uint32_t* rec = nullptr;
   const uint16_t* bucket = nullptr;
   const uint8_t* maps = nullptr;
+  RansO1Large big = {};
   int32_t* hrow = nullptr;
   int n_ctx = 256, stride = 0;
   Layout l = {};
+  uint32_t smem_bytes;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(smem_bytes));
 
   if constexpr (kDense) {
     // contexts and symbols are values: each is its own dense index
     for (int v = lane; v < 256; v += kWarp) h.ctx_of[v] = (uint8_t)v;
     rec = a.dense + (int64_t)st * (256 * RANS_TOTFREQ);
+  } else if constexpr (kLarge) {
+    // the row planes (their size is the rows'), marking the rows' symbols,
+    // then the alphabet, then the context words and buckets over it
+    const int32_t* cs = a.ctx_start + (int64_t)st * 257;
+    const uint32_t* rows = a.rows + a.row_off[st];
+    const int n = cs[256];
+    RansO1LargeLayout ll = rans_o1_large_layout(n, 0, a.shift);
+    if (sizeof(Head) + (uint32_t)ll.end > smem_bytes) {
+      if (lane == 0) rans_refuse(a.err, RANS_REFUSE_SMEM);
+      return;
+    }
+    for (int v = lane; v < 256; v += kWarp) h.present[v] = 0;
+    __syncwarp();
+    RansO1LargeOut o = rans_o1_large_planes(smem + sizeof(Head), ll,
+                                            a.shift);
+    rans_o1_large_rows(rows, n, o, lane, kWarp, h.present);
+    for (int c = lane; c < 256; c += kWarp)
+      if (c == 0 || cs[c] < cs[c + 1]) h.present[c] = 1;
+    __syncwarp();
+    n_ctx = rans_o1_index(h.present, h.index_of, h.ctx_of, lane, kWarp);
+    __syncwarp();
+    ll = rans_o1_large_layout(n, n_ctx, a.shift);
+    if (sizeof(Head) + (uint32_t)ll.end > smem_bytes) {
+      if (lane == 0) rans_refuse(a.err, RANS_REFUSE_SMEM);
+      return;
+    }
+    o = rans_o1_large_planes(smem + sizeof(Head), ll, a.shift);
+    rans_o1_large_contexts(rows, cs, o, lane, kWarp, n_ctx, h.ctx_of,
+                           h.index_of);
+    big = rans_o1_large_view(o);
   } else {
     // the stream's alphabet, then its tables
     for (int c = lane; c < 257; c += kWarp)
@@ -233,9 +306,10 @@ __global__ void __launch_bounds__(kWarp) rans_nx16_o1_kernel(const Args a) {
     __syncwarp();
     const int n_rows = h.setup[256];
     l = o1_layout(n_rows, n_ctx, 0, kHist);
-    uint32_t smem_bytes;
-    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(smem_bytes));
-    if ((uint32_t)l.end > smem_bytes) __trap();  // the launch sized it wrong
+    if ((uint32_t)l.end > smem_bytes) {  // the launch sized it wrong
+      if (lane == 0) rans_refuse(a.err, RANS_REFUSE_SMEM);
+      return;
+    }
     uint32_t* rec_w = reinterpret_cast<uint32_t*>(smem + l.rec);
     uint16_t* bucket_w = reinterpret_cast<uint16_t*>(smem + l.bucket);
     uint8_t* maps_w = smem + l.maps;
@@ -251,7 +325,10 @@ __global__ void __launch_bounds__(kWarp) rans_nx16_o1_kernel(const Args a) {
     }
     l = o1_layout(n_rows, n_ctx, __shfl_sync(kFull, first, kWarp - 1),
                   kHist);
-    if ((uint32_t)l.end > smem_bytes) __trap();
+    if ((uint32_t)l.end > smem_bytes) {
+      if (lane == 0) rans_refuse(a.err, RANS_REFUSE_SMEM);
+      return;
+    }
     rans_o1_maps(rec_w, bucket_w, maps_w, n_ctx, first - n_mine, lane,
                  kWarp);
     rec = rec_w;
@@ -295,8 +372,8 @@ __global__ void __launch_bounds__(kWarp) rans_nx16_o1_kernel(const Args a) {
 #pragma unroll kUnroll
     for (int i = 0; i < kBlock; ++i) {
       const uint32_t d =
-          o1_round<true, kDense>(s, true, rec, bucket, maps, words, nw,
-                                 lane) >> 24;
+          o1_round<true, kDense, kLarge>(s, true, rec, bucket, maps, big,
+                                         words, nw, lane) >> 24;
       buf[4 * buf_word(lane, i >> 2) + (i & 3)] =
           kHist ? (uint8_t)d : h.ctx_of[d];
     }
@@ -315,8 +392,8 @@ __global__ void __launch_bounds__(kWarp) rans_nx16_o1_kernel(const Args a) {
   for (; r < rounds; ++r) {
     const bool live = r < len;
     const uint32_t d =
-        o1_round<false, kDense>(s, live, rec, bucket, maps, words, nw,
-                                lane) >> 24;
+        o1_round<false, kDense, kLarge>(s, live, rec, bucket, maps, big,
+                                        words, nw, lane) >> 24;
     if (live) {
       if (kHist)
         atomicAdd(&hrow[d], 1);
@@ -352,9 +429,9 @@ __global__ void __launch_bounds__(kWarp) rans_nx16_o1_kernel(const Args a) {
 // Set the variant up for `smem` bytes of dynamic shared memory, with the
 // largest shared-memory carveout so that as many blocks share an SM as
 // their tables allow; returns a CUDA error code.
-template <bool kHist, bool kDense = false>
+template <bool kHist, bool kDense = false, bool kLarge = false>
 cudaError_t configure(int smem) {
-  auto* fn = rans_nx16_o1_kernel<kHist, kDense>;
+  auto* fn = rans_nx16_o1_kernel<kHist, kDense, kLarge>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -363,13 +440,15 @@ cudaError_t configure(int smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <bool kHist>
+template <bool kHist, bool kLarge = false>
 int blocks_per_sm(int smem) {
-  cudaError_t e = configure<kHist>(smem);
+  cudaError_t e = configure<kHist, false, kLarge>(smem);
   int n = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, rans_nx16_o1_kernel<kHist>, kWarp, smem);
+        &n, rans_nx16_o1_kernel<kHist, false, kLarge>, kWarp, smem);
+  // a refused size must not stay behind as the next launch's error
+  if (e != cudaSuccess) cudaGetLastError();
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
@@ -383,25 +462,42 @@ extern "C" int rans_nx16_o1_smem_bytes(int n_rows, int n_ctx, int n_slow,
   return o1_layout(n_rows, n_ctx, n_slow, hist != 0).end;
 }
 
+// Bytes of dynamic shared memory a block of B5's large variant needs for a
+// stream of n_rows rows, an alphabet of n_ctx contexts and buckets of
+// 1 << shift slots.
+extern "C" int rans_nx16_o1_large_smem_bytes(int n_rows, int n_ctx,
+                                             int shift) {
+  return (int)sizeof(Head) + rans_o1_large_layout(n_rows, n_ctx, shift).end;
+}
+
 // Decode (out != NULL) or histogram (hist != NULL) n_streams streams on
 // `stream`, every block with smem_bytes of dynamic shared memory (with
 // `dense`, symbols only: stream s's table is dense[s * 256 * 4096 ...],
-// rans_o1_dense, and the record tables are not read);
-// slow_rounds (may be NULL) gets, per stream, the rounds in which some
-// state's bucket was slow (its lookup went through the bucket's map).  n_rows is not read (a stream's ctx_start[256] is its row
-// count).  Returns cudaGetLastError() after the launch, or the error of
-// the shared-memory attribute when it is refused.
+// rans_o1_dense, and the record tables are not read; with large_shift 3-5,
+// symbols only, through the large table with buckets of 1 << large_shift
+// slots, for any row count up to RANS_O1_LARGE_MAX_ROWS); slow_rounds (may be NULL) gets, per stream, the
+// rounds in which some state's bucket was slow (its lookup went through
+// the bucket's map, or the large table's walk).  n_rows is not read (a
+// stream's ctx_start[256] is its row count).  A stream whose tables
+// outgrow smem_bytes sets the int32 error word `err` (zeroed before) to
+// RANS_REFUSE_SMEM.  Returns cudaGetLastError() after the launch, or the
+// error of the shared-memory attribute when it is refused.
 extern "C" int rans_nx16_o1_launch(
     const void* payload, const void* word_off, const void* n_words,
     const void* rows, const void* row_off, const void* n_rows,
     const void* ctx_start, const void* dense, const void* x0,
     const void* ulen,
     const void* out_off, void* out, const void* offs, void* hist,
-    void* x_out, void* cur_out, void* ctx_out, void* slow_rounds,
-    int n_streams, int qbins, int max_rounds, int smem_bytes, void* stream) {
+    void* x_out, void* cur_out, void* ctx_out, void* slow_rounds, void* err,
+    int n_streams, int qbins, int max_rounds, int smem_bytes,
+    int large_shift, void* stream) {
   (void)n_rows;
   if (n_streams <= 0) return 0;
-  if (hist != nullptr && dense != nullptr)
+  const bool large = large_shift != 0;
+  if ((hist != nullptr && (dense != nullptr || large)) ||
+      (dense != nullptr && large) || err == nullptr ||
+      (large && (large_shift < RANS_O1_LARGE_SHIFT_MIN ||
+                 large_shift > RANS_O1_LARGE_SHIFT)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = {static_cast<const uint8_t*>(payload),
                   static_cast<const int64_t*>(word_off),
@@ -420,8 +516,10 @@ extern "C" int rans_nx16_o1_launch(
                   static_cast<int32_t*>(cur_out),
                   static_cast<int32_t*>(ctx_out),
                   static_cast<int32_t*>(slow_rounds),
+                  static_cast<int32_t*>(err),
                   qbins,
-                  max_rounds};
+                  max_rounds,
+                  large ? large_shift : RANS_O1_LARGE_SHIFT};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (hist != nullptr) {
@@ -432,6 +530,11 @@ extern "C" int rans_nx16_o1_launch(
     e = configure<false, true>(smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     rans_nx16_o1_kernel<false, true><<<n_streams, kWarp, smem_bytes, s>>>(a);
+  } else if (large) {
+    e = configure<false, false, true>(smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rans_nx16_o1_kernel<false, false, true>
+        <<<n_streams, kWarp, smem_bytes, s>>>(a);
   } else {
     e = configure<false>(smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -446,6 +549,11 @@ extern "C" int rans_nx16_o1_launch(
 extern "C" int rans_nx16_o1_blocks_per_sm(int hist, int smem_bytes) {
   return hist ? blocks_per_sm<true>(smem_bytes)
               : blocks_per_sm<false>(smem_bytes);
+}
+
+// The same for B5's large variant.
+extern "C" int rans_nx16_o1_large_blocks_per_sm(int smem_bytes) {
+  return blocks_per_sm<false, true>(smem_bytes);
 }
 
 extern "C" const char* kernel_error_string(int rc) {

@@ -261,3 +261,247 @@ RANS_HD uint32_t rans_o1_dense(const uint32_t* dense, uint32_t ctx7,
                                uint32_t x) {
   return rans_o1_dense_row(dense[(ctx7 << 5) | (x & (RANS_TOTFREQ - 1))]);
 }
+
+// Why a kernel refused a stream.  A kernel whose layout outgrows what its
+// launch was sized for sets its error word (`rans_refuse`, the first code
+// wins) and returns, so the process keeps its CUDA context; the wrapper
+// reads the word after the launch and raises.
+#define RANS_REFUSE_SMEM 1  // the tables outgrew the block's shared memory
+#define RANS_REFUSE_MAPS 2  // more slow buckets than the launch's maps hold
+#if defined(__CUDACC__)
+__device__ __forceinline__ void rans_refuse(int32_t* err, int code) {
+  atomicCAS(err, 0, code);
+}
+#endif
+
+// ---------------------------------------------------------------------------
+// The large order-1 table, for tables past RANS_O1_MAX_ROWS rows up to the
+// wire's 65,536 (the streams ops/rans.py sends past A2_MAX: X1, X3 and B5),
+// in shared memory, decoding as the JAX function's dense [256, 4096] table
+// of packed entries does: a slot past its context's sum (every slot of a
+// context with no rows) is entry 0, symbol 0 with f = 1 and cum 0.
+//
+// Budget.  A block has 232,448 bytes.  The rows' u32 records take 256 KiB
+// at 65,536 rows, a u16 bucket cannot address past 8,192 records, and a
+// near-uniform table (256 rows a context, ~16 slots a row) has every
+// 64-slot bucket slow: maps for all of them would take 2 MiB.  So the rows
+// are split into planes, and nothing is kept per slot:
+//   cum[r]     u16, row r's cum; the row after a context's last reads 0
+//              (the next context's first row starts at cum 0, and eight
+//              zeros pad the plane), so the next row's cum gives f without
+//              a sentinel, and a context's end comes from its info word;
+//   sym[r]     u8, its symbol (B5: the symbol's dense index);
+//   info[k]    u32, context k's first row | its sum (end) << 17;
+//   bucket[k << (12 - shift) | j]  u8, the row (counted from the
+//              context's first) that owns slot j << shift of context k: a
+//              context has at most 256 rows.
+// At 65,536 rows, 256 contexts and buckets of 32 slots (shift 5): 2 x
+// 65,544 + 65,544 + 1,024 + 32,768 = 230,424 bytes, under the block's
+// budget by 2,024 bytes: the 4x8 kernels' ring and symbol buffer (1,160)
+// or B5's fixed part (1,792) fit beside it.  A launch sizes its planes for
+// the batch's largest table and chooses the shift (3, 4 or 5: buckets of
+// 8, 16 or 32 slots; ops/ `large_shift`): the finest whose blocks still
+// fit, which smaller tables (a HiFi alphabet's 94 x 94 pairs, B5's dense
+// alphabets) afford, so fewer lookups walk.
+//
+// Lookup (`rans_o1_large_pick<kSpan>`).  The bucket gives row r, owning
+// the bucket's first slot; the answer is one of r .. r + kSpan - 1 unless
+// kSpan rows after r start at or before the slot.  The cums r .. r + kSpan
+// load together after the bucket (and the info word beside it), the row
+// is chosen by kSpan - 1 compares, and its symbol is one load more: four
+// dependent shared loads a round, as the compact table's three and a
+// symbol.  A slot where kSpan rows after r start at or before it, or one
+// past its context's sum, sets *slow, and the caller takes the walk
+// (`rans_o1_large_walk`, at most 31 rows, and the JAX entry 0 past the
+// sum): the 4x8 round (kSpan 3: its thread runs four states, and each
+// candidate costs instructions) behind one branch over its four states, B5
+// (kSpan 5: a lane runs one state, and the warp waits for its slowest
+// lane) behind a vote.
+#define RANS_O1_LARGE_MAX_ROWS 65536
+#define RANS_O1_LARGE_SHIFT 5      // the coarsest buckets: 32 slots
+#define RANS_O1_LARGE_SHIFT_MIN 3  // the finest: 8 slots
+#define RANS_O1_LARGE_START 0x1FFFFu  // info: the first row, 17 bits
+#define RANS_O1_LARGE_END_SHIFT 17    // info: the sum, 13 bits
+static_assert((RANS_TOTFREQ >> RANS_O1_LARGE_SHIFT) == 128,
+              "ctx7 = index * 128 is a context's buckets at shift 5");
+
+#define RANS_O1_LARGE_PAD 8  // zero cums after the rows: a pick's reach
+
+// Byte offsets of a stream's planes from the start of its tables, for n
+// rows, n_ctx contexts and buckets of 1 << shift slots; the planes cum and
+// sym, which the rows alone size, come first, so a kernel can fill them
+// before it knows its alphabet.
+struct RansO1LargeLayout {
+  int cum, sym, info, bucket, end;
+};
+
+RANS_HD RansO1LargeLayout rans_o1_large_layout(
+    int n, int n_ctx, int shift = RANS_O1_LARGE_SHIFT) {
+  // the rows and their zeros, in whole words
+  const int n4 = (n + RANS_O1_LARGE_PAD + 3) & ~3;
+  RansO1LargeLayout l;
+  l.cum = 0;
+  l.sym = 2 * n4;
+  l.info = l.sym + n4;
+  l.bucket = l.info + 4 * n_ctx;
+  l.end = l.bucket + (RANS_TOTFREQ >> shift) * n_ctx;
+  return l;
+}
+
+// A stream's planes, built (`RansO1LargeOut`) or read (`RansO1Large`),
+// with the bucket shift (`up`: 5 - shift, which turns ctx7 = index * 128
+// into the context's first bucket).
+struct RansO1LargeOut {
+  uint16_t* cum;
+  uint8_t* sym;
+  uint32_t* info;
+  uint8_t* bucket;
+  uint32_t shift;
+};
+struct RansO1Large {
+  const uint16_t* cum;
+  const uint8_t* sym;
+  const uint32_t* info;
+  const uint8_t* bucket;
+  uint32_t shift, up;
+};
+
+RANS_HD RansO1LargeOut rans_o1_large_planes(
+    uint8_t* base, const RansO1LargeLayout& l,
+    int shift = RANS_O1_LARGE_SHIFT) {
+  return {reinterpret_cast<uint16_t*>(base + l.cum), base + l.sym,
+          reinterpret_cast<uint32_t*>(base + l.info), base + l.bucket,
+          (uint32_t)shift};
+}
+
+RANS_HD RansO1Large rans_o1_large_view(const RansO1LargeOut& o) {
+  return {o.cum, o.sym, o.info, o.bucket, o.shift,
+          (uint32_t)RANS_O1_LARGE_SHIFT - o.shift};
+}
+
+// The row planes of n rows (lane `lane` of `nlanes` fills the rows r with
+// r % nlanes == lane, eight loads in flight, and the zeros after them);
+// where `present` is given, it also marks each row's symbol there (B5's
+// alphabet: `rans_o1_mark`'s first loop).
+RANS_HD void rans_o1_large_put(const RansO1LargeOut& o, int r, uint32_t e,
+                               uint8_t* present) {
+  o.cum[r] = (uint16_t)rans_row_cum(e);
+  o.sym[r] = (uint8_t)(e >> 24);
+  if (present) present[e >> 24] = 1;
+}
+
+RANS_HD void rans_o1_large_rows(const uint32_t* rows, int n,
+                                const RansO1LargeOut& o, int lane,
+                                int nlanes, uint8_t* present = nullptr) {
+  int r = lane;
+  for (; r + 7 * nlanes < n; r += 8 * nlanes) {
+    uint32_t e[8];
+    for (int i = 0; i < 8; ++i) e[i] = rows[r + i * nlanes];
+    for (int i = 0; i < 8; ++i) rans_o1_large_put(o, r + i * nlanes, e[i],
+                                                  present);
+  }
+  for (; r < n; r += nlanes) rans_o1_large_put(o, r, rows[r], present);
+  for (int z = n + lane; z < n + RANS_O1_LARGE_PAD; z += nlanes) {
+    o.cum[z] = 0;
+    o.sym[z] = 0;
+  }
+}
+
+// The context words and buckets, from the rows' cum plane (filled, and
+// every lane past it) and the rows' context starts (ctx_start[256] = n):
+// contexts k = 0 .. n_ctx - 1 of value ctx_of[k] (or k where ctx_of is
+// null), lane `lane` of `nlanes` taking k % nlanes == lane.  With index_of
+// (B5), the lane first turns the symbols of its rows into their dense
+// indices.
+template <typename CS>
+RANS_HD void rans_o1_large_contexts(const uint32_t* rows, const CS* ctx_start,
+                                    const RansO1LargeOut& o, int lane,
+                                    int nlanes, int n_ctx = 256,
+                                    const uint8_t* ctx_of = nullptr,
+                                    const uint8_t* index_of = nullptr) {
+  if (index_of)
+    for (int r = lane; r < (int)ctx_start[256]; r += nlanes)
+      o.sym[r] = index_of[o.sym[r]];
+  const int per_ctx = RANS_TOTFREQ >> o.shift;
+  for (int k = lane; k < n_ctx; k += nlanes) {
+    const int c = ctx_of ? ctx_of[k] : k;
+    const int lo = (int)ctx_start[c], hi = (int)ctx_start[c + 1];
+    const uint32_t end =
+        lo < hi ? rans_row_cum(rows[hi - 1]) + (rows[hi - 1] & 0xFFFu) + 1u
+                : 0u;
+    o.info[k] = (uint32_t)lo | end << RANS_O1_LARGE_END_SHIFT;
+    uint8_t* bk = o.bucket + k * per_ctx;
+    int r = lo;
+    for (int j = 0; j < per_ctx; ++j) {
+      const uint32_t slot = (uint32_t)j << o.shift;
+      while (r + 1 < hi && o.cum[r + 1] <= slot) ++r;
+      bk[j] = (uint8_t)(lo < hi ? r - lo : 0);
+    }
+  }
+}
+
+// A lookup's answer, fields ready: f, cum and the symbol (B5: its index).
+struct RansO1Hit {
+  uint32_t f, cum, sym;
+};
+
+// The answer for slot s of the context with info word `info`, from the
+// cum of the row owning it (or, past the sum, the context's last row) and
+// of the row after it (0 after the context's last).
+RANS_HD RansO1Hit rans_o1_large_hit(uint32_t info, uint32_t s, uint32_t cum,
+                                    uint32_t next, uint32_t sym) {
+  const uint32_t end = info >> RANS_O1_LARGE_END_SHIFT;
+  RansO1Hit h = {(next ? next : end) - cum, cum, sym};
+  if (s >= end) h = {1u, 0u, 0u};  // the JAX packed entry 0
+  return h;
+}
+
+// Row r of the context ctx7 / 128 owning the first slot of slot s's bucket
+// (absolute), and the context's info word.
+RANS_HD uint32_t rans_o1_large_row(const RansO1Large& t, uint32_t ctx7,
+                                   uint32_t s, uint32_t* info) {
+  *info = t.info[ctx7 >> 7];
+  return (*info & RANS_O1_LARGE_START) +
+         t.bucket[(ctx7 << t.up) | (s >> t.shift)];
+}
+
+// Whether a row whose cum is c, following a candidate, starts at or before
+// slot s inside the candidate's context (a cum of 0 is the next context's).
+RANS_HD bool rans_o1_large_in(uint32_t c, uint32_t s) { return c - 1u < s; }
+
+// The pick's answer where it does not set *slow (where it does, the
+// answer is the walk's).
+template <int kSpan>
+RANS_HD RansO1Hit rans_o1_large_pick(const RansO1Large& t, uint32_t ctx7,
+                                     uint32_t x, bool* slow) {
+  static_assert(kSpan >= 2 && kSpan < RANS_O1_LARGE_PAD,
+                "a pick reads the cums r .. r + kSpan");
+  const uint32_t s = x & (RANS_TOTFREQ - 1u);
+  uint32_t info;
+  const uint32_t r = rans_o1_large_row(t, ctx7, s, &info);
+  uint32_t c[kSpan + 1];
+  for (int i = 0; i <= kSpan; ++i) c[i] = t.cum[r + i];
+  uint32_t cum = c[0], next = c[1], k = 0;
+  bool in = true;  // rows r + 1 .. r + i all start at or before s
+  for (int i = 1; i < kSpan; ++i) {
+    in = in && rans_o1_large_in(c[i], s);
+    if (in) {
+      cum = c[i];
+      next = c[i + 1];
+      ++k;
+    }
+  }
+  const uint32_t end = info >> RANS_O1_LARGE_END_SHIFT;
+  *slow = (in && rans_o1_large_in(c[kSpan], s)) || s >= end;
+  return {(next ? next : end) - cum, cum, t.sym[r + k]};
+}
+
+// The answer by a walk of the bucket's rows, for a slow pick.
+RANS_HD RansO1Hit rans_o1_large_walk(const RansO1Large& t, uint32_t ctx7,
+                                     uint32_t x) {
+  const uint32_t s = x & (RANS_TOTFREQ - 1u);
+  uint32_t info;
+  uint32_t r = rans_o1_large_row(t, ctx7, s, &info);
+  while (rans_o1_large_in(t.cum[r + 1], s)) ++r;
+  return rans_o1_large_hit(info, s, t.cum[r], t.cum[r + 1], t.sym[r]);
+}

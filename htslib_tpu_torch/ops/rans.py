@@ -16,11 +16,18 @@ its own end:
     Nx16 4-way order 1   X3 (csrc/rans4x8.cu, the Nx16 refill)
 
 The order-1 kernels' record tables hold at most A2_MAX (4,096) (context,
-symbol) rows; an order-1 stream with more goes, in a launch of its own
-group, to the same kernel's dense variant (X1, X3 or B5 over the JAX
-function's own [256, 4096] table of packed entries, 4 MiB a stream in
-device memory), so every order-1 stream the JAX functions decode decodes
-here too.
+symbol) rows; the order-1 streams with more go, in a launch of their own
+group, to one of two variants of the same kernel (X1, X3 or B5), each
+answering as the JAX function's own [256, 4096] table of packed entries
+does, so every order-1 stream the JAX functions decode decodes here too:
+the large variant, which builds the stream's rows in shared memory (one
+stream an SM at the wire's 65,536 rows), for a group of at most
+LARGE_WAVES waves of it (`large_fits` of ops/rans4x8.py and
+ops/rans_nx16_o1.py), else the dense variant, over that table itself, 4
+MiB a stream in device memory, built on the card in the group's framing.
+The route is decided on the host, from the rows and alphabets the
+streams' parse counts, before any launch; a refused launch raises and is
+never retried on the other route.
 
 The outputs are the JAX functions' bytes, in the input order: the JAX
 4-way order-0 loop runs every stream to the batch's longest and cuts it
@@ -42,6 +49,8 @@ from typing import Callable, List, Optional, Tuple
 
 from htslib_tpu_torch import _build
 from htslib_tpu_torch.codecs.rans4x16 import u7_get
+from htslib_tpu_torch.ops import rans4x8 as t8
+from htslib_tpu_torch.ops import rans_nx16_o1 as to1
 from htslib_tpu_torch.ops.rans4x8 import (_parse_4x8_o1, decode_streams,
                                           frame_4x8, frame_nx16_4way)
 from htslib_tpu_torch.ops.rans_nx16 import decode_o0_streams, frame_streams
@@ -49,19 +58,29 @@ from htslib_tpu_torch.ops.rans_nx16_o1 import (A2_MAX, _parse_nx16_header,
                                                decode_o1_streams,
                                                frame_o1_streams, o1_row_count)
 
+# the launch groups of an order-1 wire: the record tables (within A2_MAX
+# rows), and past them the large table or the dense one
+ROUTES = ("", "_large", "_dense")
+
 
 def _by_rows(idx: List[int], blocks: List[bytes], parse: Callable,
-             timing: Optional[dict]) -> Tuple[List[List[int]], dict]:
-    """Order-1 streams split by their tables: ([within A2_MAX rows, past
-    it], each stream's parse(block), its table second, by index, which
-    the framing takes in place of a second parse).  The host seconds
-    this takes add to timing["route_s"] where `timing` is given."""
+             fits: Callable, timing: Optional[dict]
+             ) -> Tuple[List[List[int]], dict]:
+    """Order-1 streams split by their tables into ROUTES' groups: within
+    A2_MAX rows; past it, all in the large group where fits(their tables)
+    says the large variant takes them, else all in the dense one.
+    Returns (the groups, each stream's parse(block), its table second, by
+    index, which the framing takes in place of a second parse).  The
+    host seconds this takes add to timing["route_s"] where `timing` is
+    given."""
     t0 = time.perf_counter()
-    groups: List[List[int]] = [[], []]
+    groups: List[List[int]] = [[], [], []]
     parsed = {}
     for i in idx:
         parsed[i] = parse(blocks[i])
-        groups[o1_row_count(parsed[i][1]) > A2_MAX].append(i)
+        groups[2 * (o1_row_count(parsed[i][1]) > A2_MAX)].append(i)
+    if groups[2] and fits([parsed[i][1] for i in groups[2]]):
+        groups[1], groups[2] = groups[2], []
     if timing is not None:
         timing["route_s"] = (timing.get("route_s", 0.0)
                              + time.perf_counter() - t0)
@@ -72,7 +91,8 @@ def _group(dev, timing: Optional[dict], name: str, n: int, frame, decode):
     """One launch group: decode(frame(part)), where `timing` is given
     noted under `name` as its streams, frame_s (parse, tables, upload;
     with dense tables their build on the device, dense_table_s, within
-    it) and decode_s (launch, kernel, download and slicing)."""
+    it; a large group builds none) and decode_s (launch, kernel, download
+    and slicing)."""
     if timing is None:
         return decode(frame(None))
     part = {"streams": n}
@@ -91,22 +111,25 @@ def uncompress_batch(blocks: List[bytes], device="cuda",
     first, as the JAX function takes them), one launch an order (order-1
     streams past A2_MAX rows in one more).  A stream of another order
     byte gives b"", as in JAX.  `timing`, where given, gets each launch
-    group's parts (`_group`) under 4x8_o0, 4x8_o1 and 4x8_o1_dense, and
-    the order-1 tables' parse that routes them under route_s."""
+    group's parts (`_group`) under 4x8_o0, 4x8_o1, 4x8_o1_large and
+    4x8_o1_dense, and the order-1 tables' parse that routes them under
+    route_s."""
     dev = _build.resolve_device(device)
     res = [b""] * len(blocks)
     for order in (0, 1):
         idx = [i for i, data in enumerate(blocks) if data[0] == order]
-        groups, parsed = (_by_rows(idx, blocks, _parse_4x8_o1, timing)
-                          if order else ([idx, []], {}))
-        for dense, g in enumerate(groups):
+        groups, parsed = (_by_rows(idx, blocks, _parse_4x8_o1,
+                                   lambda Fs: t8.large_fits(Fs, False, dev),
+                                   timing)
+                          if order else ([idx, [], []], {}))
+        for route, g in zip(ROUTES, groups):
             if g:
                 outs = _group(
-                    dev, timing, f"4x8_o{order}" + "_dense" * dense, len(g),
+                    dev, timing, f"4x8_o{order}" + route, len(g),
                     lambda t: frame_4x8([blocks[i] for i in g], bool(order),
-                                        dev, bool(dense), t,
+                                        dev, route == "_dense", t,
                                         [parsed[i] for i in g] if order
-                                        else None),
+                                        else None, route == "_large"),
                     decode_streams)
                 for i, out in zip(g, outs):
                     res[i] = out
@@ -120,7 +143,7 @@ def uncompress_nx16_batch(blocks: List[bytes], device="cuda",
     group (order-1 streams past A2_MAX rows in one more); a zero-length
     stream gives b"".  Raises ValueError, before any decode, on a
     transform flag.  `timing`, where given, gets each launch group's
-    parts (`_group`) under nx16_{4,32}way_o{0,1}[_dense], and the
+    parts (`_group`) under nx16_{4,32}way_o{0,1}[_large|_dense], and the
     order-1 tables' parse that routes them under route_s."""
     dev = _build.resolve_device(device)
     groups: dict = {}
@@ -134,28 +157,31 @@ def uncompress_nx16_batch(blocks: List[bytes], device="cuda",
     for (n32, o1), idxs in groups.items():
         idxs = [i for i in idxs if u7_get(blocks[i], 1)[0]]
         nway = 32 if n32 else 4
+        fits = ((lambda Fs: to1.large_fits(Fs, dev)) if n32
+                else (lambda Fs: t8.large_fits(Fs, True, dev)))
         parts, parsed = (_by_rows(idxs, blocks,
                                   lambda d: _parse_nx16_header(d, nway),
-                                  timing)
-                         if o1 else ([idxs, []], {}))
-        for dense, part in enumerate(parts):
+                                  fits, timing)
+                         if o1 else ([idxs, [], []], {}))
+        for route, part in zip(ROUTES, parts):
             if not part:
                 continue
             datas = [blocks[i] for i in part]
             ps = [parsed[i] for i in part] if o1 else None
+            dense, large = route == "_dense", route == "_large"
             if n32 and o1:
                 # decode_nx16_o1_batch's body, on the streams' parses
                 frame, decode = (lambda t: frame_o1_streams(
-                    ps, dev, bool(dense), t), decode_o1_streams)
+                    ps, dev, dense, t, large), decode_o1_streams)
             elif n32:
                 frame, decode = (lambda t: frame_streams(
                     datas, dev, normalised=False), decode_o0_streams)
             else:
                 frame, decode = (lambda t: frame_nx16_4way(
-                    datas, bool(o1), dev, bool(dense), t, ps),
+                    datas, bool(o1), dev, dense, t, ps, large),
                     decode_streams)
             outs = _group(dev, timing, f"nx16_{nway}way_o{int(bool(o1))}"
-                          + "_dense" * dense, len(part), frame, decode)
+                          + route, len(part), frame, decode)
             for i, out in zip(part, outs):
                 res[i] = out
     return res

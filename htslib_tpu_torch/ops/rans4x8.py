@@ -34,7 +34,13 @@ the batch and the device, `rans4x8_cuda(..., layout=...)` forces one.
 An order-1 batch may carry dense [256 x 4096] tables in place of rows
 (`Rans4x8Batch.dense`, `frame_4x8` / `frame_nx16_4way` with `dense`): the
 streams whose tables pass the rows' A2_MAX, which ops/rans.py decodes as
-its JAX twin does, through the dense variants of X1 and X3.
+its JAX twin does, through the dense variants of X1 and X3.  Or it keeps
+their rows, up to LARGE_MAX_ROWS (`Rans4x8Batch.large`, `frame_4x8` /
+`frame_nx16_4way` with `large`), for the large table of the same round
+(csrc/rans4x8_step.cuh `rans8_round_large`, built in shared memory, the
+JAX dense table's answers), one stream an SM at the wire's 65,536 rows:
+ops/rans.py gives it a past-A2_MAX group of at most LARGE_WAVES waves
+(`large_fits`), the dense variants a larger one.
 
 Past a payload's end the kernels and the plain version read zero bytes,
 where the host codecs stop refilling; a valid stream never refills there,
@@ -54,11 +60,12 @@ from htslib_tpu_torch import _build
 from htslib_tpu_torch.codecs.rans4x8 import _read_freqs, _read_freqs_o1
 from htslib_tpu_torch.ops.rans_nx16 import (TOTFREQ, _U32, exclusive_cumsum,
                                             pack_payloads)
-from htslib_tpu_torch.ops.rans_nx16_o1 import (A2_MAX, O1Tables,
-                                               _parse_nx16_header,
+from htslib_tpu_torch.ops.rans_nx16_o1 import (A2_MAX, LARGE_MAX_ROWS,
+                                               O1Tables, _parse_nx16_header,
                                                check_dense, check_o1_tables,
                                                dense_tables, frame_o1_tables,
-                                               o1_lookup, o1_pads,
+                                               finest_shift, o1_lookup,
+                                               o1_pads,
                                                o1_row_count, o1_table_sizes,
                                                slot_step)
 
@@ -68,8 +75,12 @@ NWAY4 = 4
 # waves of the wide order-1 table's blocks up to which an order-1 batch
 # takes it (`wide_fits`; set by probe_x1_x5.py's sweep)
 WIDE_WAVES = 1
+# waves of the large table's blocks (X1, X3 past A2_MAX rows) up to which
+# a past-A2_MAX group takes it rather than the dense variants (`large_fits`;
+# set by probe_dense.py's sweep)
+LARGE_WAVES = 1
 # launches of the order-1 kernels (X1, X3, B8 order 1) by table layout
-LAYOUT_LAUNCHES = {"wide": 0, "compact": 0}
+LAYOUT_LAUNCHES = {"wide": 0, "compact": 0, "large": 0}
 
 
 @dataclass
@@ -89,6 +100,7 @@ class Rans4x8Batch:
     #                         against 2^15) in place of 4x8's bytes
     dense: Optional[torch.Tensor] = None  # int32 [S, 256 * 4096]: order-1
     #                         dense tables (`dense_tables`) in place of rows
+    large: bool = False     # order-1 rows past A2_MAX, for the large table
 
     @property
     def o1(self) -> bool:
@@ -143,11 +155,13 @@ def o1_gate_4x8(F: np.ndarray) -> None:
 
 def frame_4x8(blocks: List[bytes], o1: bool, device, dense: bool = False,
               timing: Optional[dict] = None,
-              parsed: Optional[list] = None) -> Rans4x8Batch:
+              parsed: Optional[list] = None,
+              large: bool = False) -> Rans4x8Batch:
     """Parse 4x8 streams of one order (flag byte included) into a
     `Rans4x8Batch`; raises as the JAX front ends do.  `dense` (order 1):
     dense tables in place of rows, for any row count, their build timed
-    into `timing` as `dense_tables` times it.  `parsed` (order 1): the
+    into `timing` as `dense_tables` times it; `large` (order 1): rows up
+    to LARGE_MAX_ROWS for the large table.  `parsed` (order 1): the
     streams' `_parse_4x8_o1` results, where the caller has them."""
     S = len(blocks)
     freqs = np.zeros((S, 256), np.int32)
@@ -164,23 +178,24 @@ def frame_4x8(blocks: List[bytes], o1: bool, device, dense: bool = False,
         else:
             ulen[i], freqs[i], states[i], pl = _parse_4x8_o0(data)
             payloads.append(pl)
-    if o1 and not dense:
+    if o1 and not dense and not large:
         for F in Fs:
             o1_gate_4x8(F)
     return _batch(payloads, freqs, Fs if o1 else None, states, ulen, False,
-                  device, dense, timing)
+                  device, dense, timing, large)
 
 
 def frame_nx16_4way(blocks: List[bytes], o1: bool, device,
                     dense: bool = False, timing: Optional[dict] = None,
-                    parsed: Optional[list] = None) -> Rans4x8Batch:
+                    parsed: Optional[list] = None,
+                    large: bool = False) -> Rans4x8Batch:
     """Parse plain 4-way rANS Nx16 streams of one order (flags 0x00 or
     0x01; none of zero length: such a stream has no table) into a
     `Rans4x8Batch` with the Nx16 refill (`w16`).  Raises ValueError on
     other flags, frequencies past 4096 or (order 1, without `dense`)
     tables past the kernels' A2_MAX rows, as the 32-way framings do;
-    `dense` and `timing` as in `frame_4x8`; `parsed`: the streams'
-    `_parse_nx16_header` results, where the caller has them."""
+    `dense`, `large` and `timing` as in `frame_4x8`; `parsed`: the
+    streams' `_parse_nx16_header` results, where the caller has them."""
     if parsed is None:
         parsed = [_parse_nx16_header(d, NWAY4, o1) for d in blocks]
     ulen = np.array([p[0] for p in parsed], np.int64)
@@ -188,7 +203,7 @@ def frame_nx16_4way(blocks: List[bytes], o1: bool, device,
         raise ValueError("a zero-length Nx16 stream has no table to frame")
     freqs = np.zeros((len(blocks), 256), np.int32)
     if o1:
-        if not dense:
+        if not dense and not large:
             o1_pads(parsed)
     else:
         for i, p in enumerate(parsed):
@@ -198,14 +213,14 @@ def frame_nx16_4way(blocks: List[bytes], o1: bool, device,
     states = np.array([p[2] for p in parsed], np.int64).reshape(-1, NWAY4)
     return _batch([p[3] for p in parsed], freqs,
                   [p[1] for p in parsed] if o1 else None, states, ulen, True,
-                  device, dense, timing)
+                  device, dense, timing, large)
 
 
 def _batch(payloads, freqs, Fs, states, ulen, w16, device,
-           dense=False, timing=None) -> Rans4x8Batch:
+           dense=False, timing=None, large=False) -> Rans4x8Batch:
     """A `Rans4x8Batch` of parsed streams on `device`: order 1 where the
     per-context frequencies Fs are given, through dense tables with
-    `dense`."""
+    `dense`, with rows for the large table with `large`."""
     if (ulen >= 1 << 31).any():
         raise ValueError("stream too long for the 4x8 kernel")
     payload, word_off, _ = pack_payloads(payloads, 4)
@@ -216,11 +231,12 @@ def _batch(payloads, freqs, Fs, states, ulen, w16, device,
     return Rans4x8Batch(
         dev(payload), dev(4 * word_off),
         dev(np.array([len(p) for p in payloads], np.int32)), dev(freqs),
-        frame_o1_tables(Fs, device) if Fs is not None and not dense
-        else None,
+        frame_o1_tables(Fs, device, LARGE_MAX_ROWS if large else A2_MAX)
+        if Fs is not None and not dense else None,
         dev(states.astype(np.uint32).view(np.int32)),
         dev(ulen.astype(np.int32)), dev(exclusive_cumsum(ulen)), w16,
-        dense_tables(Fs, device, timing) if dense else None)
+        dense_tables(Fs, device, timing) if dense else None,
+        large and Fs is not None)
 
 
 def o0_slot_table(freqs: torch.Tensor) -> torch.Tensor:
@@ -340,12 +356,49 @@ def wide_smem_bytes(hist: bool, slow: int) -> int:
     return _build.load("rans4x8").rans4x8_wide_smem_bytes(int(hist), slow)
 
 
+def large_smem_bytes(n_rows: int, shift: int = 5) -> int:
+    """Bytes of shared memory a block of the large-table variants of X1
+    and X3 takes for tables of up to n_rows rows, with buckets of
+    1 << shift slots."""
+    return _build.load("rans4x8").rans4x8_large_smem_bytes(n_rows, shift)
+
+
+def large_blocks_per_sm(w16: bool, n_rows: int, shift: int = 5) -> int:
+    """Streams of up to n_rows rows one SM holds in the large-table
+    variant of X1 (X3 with w16), with buckets of 1 << shift slots; 0 past
+    a block's shared memory."""
+    n = _build.load("rans4x8").rans4x8_large_blocks_per_sm(int(w16), n_rows,
+                                                           shift)
+    return max(n, 0)
+
+
+def large_per_wave(n_rows: int, w16: bool, device) -> Optional[int]:
+    """Streams of up to n_rows rows that one wave of the large-table
+    variant of X1 (X3 with w16) decodes on `device`: its blocks an SM
+    times the SMs; None on the CPU, where both routes run the same plain
+    version and no wave bounds a batch."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return large_blocks_per_sm(w16, n_rows) * torch.cuda.\
+        get_device_properties(dev).multi_processor_count
+
+
+def large_fits(Fs: List[np.ndarray], w16: bool, device) -> bool:
+    """Whether order-1 streams with per-context frequencies Fs, past
+    A2_MAX rows, take the large table (at most LARGE_WAVES waves of it)
+    rather than the dense variants; decided on the host before any
+    launch."""
+    per = large_per_wave(max(o1_row_count(F) for F in Fs), w16, device)
+    return per is None or len(Fs) <= LARGE_WAVES * per
+
+
 def wide_fits(b: Rans4x8Batch, hist: bool = False) -> bool:
     """Whether an order-1 batch with row tables decodes through the wide
     table (ready records, no loop in the round) rather than the compact
     one: its maps fit a block's shared memory and its streams fit
     WIDE_WAVES waves of the wide blocks (one an SM)."""
-    if not b.o1 or b.dense is not None:
+    if not b.o1 or b.dense is not None or b.large:
         return False
     per_sm = wide_blocks_per_sm(hist, b.w16, max_slow(b.tables))
     sms = torch.cuda.get_device_properties(
@@ -356,16 +409,22 @@ def wide_fits(b: Rans4x8Batch, hist: bool = False) -> bool:
 def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
                  offs: Optional[torch.Tensor] = None,
                  qbins: Optional[int] = None,
-                 layout: Optional[str] = None
+                 layout: Optional[str] = None,
+                 sized_for: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
     """Kernel B7 (order-0 symbols), X1 (order-1 symbols), X2/X3 (the
     4-way Nx16 wire's symbols, `b.w16`), X1/X3's dense variants (a batch
-    with `b.dense`) or, with `qbins`, kernel B8 (order-0 or order-1 4x8
-    histogram) over the whole batch in one launch; same results as
-    `rans4x8_plain`.  An order-1 batch with row tables decodes through
-    the wide table or the compact one (`layout` "wide" or "compact";
-    None takes `wide_fits`)."""
+    with `b.dense`), their large-table variants (a `b.large` batch) or,
+    with `qbins`, kernel B8 (order-0 or order-1 4x8 histogram) over the
+    whole batch in one launch; same results as `rans4x8_plain`.  An
+    order-1 batch with row tables within A2_MAX decodes through the wide
+    table or the compact one (`layout` "wide" or "compact"; None takes
+    `wide_fits`).  `sized_for`: the slow buckets (wide) or rows (large) a
+    block's shared memory is sized for, where the caller sizes it (None:
+    the batch's most); a stream past it is refused, and this raises.  The
+    large table's buckets are the finest that keep the batch's waves
+    (`finest_shift`)."""
     S = b.n_streams
     req = _build.require_cuda
     req(b.payload, torch.uint8, "payload")
@@ -390,7 +449,7 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
     if dense:
         check_dense(b.dense, S)
     elif b.o1:
-        check_o1_tables(b.tables, S)
+        check_o1_tables(b.tables, S, LARGE_MAX_ROWS if b.large else A2_MAX)
     # the order-0 and dense kernels read no order-1 rows: null pointers
     t_ptrs = ([x.data_ptr() for x in (b.tables.rows, b.tables.row_off,
                                       b.tables.n_rows, b.tables.ctx_start)]
@@ -406,13 +465,14 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
             b.total_out, dtype=torch.uint8, device=dev)
         out_ptr, hist_ptr, offs_ptr = res.data_ptr(), None, None
         key = ("rans_nx16_4way_o%d%s_decode" if b.w16
-               else "rans4x8_o%d%s_decode") % (int(b.o1),
-                                              "_dense" if dense else "")
+               else "rans4x8_o%d%s_decode") % (
+                   int(b.o1), "_dense" if dense else "_large" if b.large
+                   else "")
     else:
         if b.w16:
             raise ValueError("4-way rANS Nx16 histogram: no kernel (the "
                              "wire is decoded to symbols only)")
-        if dense:
+        if dense or b.large:
             raise ValueError("dense order-1 tables: symbols only (the "
                              "histogram lane refuses such streams)")
         if not 1 <= qbins <= 256:
@@ -427,13 +487,18 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
     if b.tables is None:
         if layout is not None:
             raise ValueError("layout: only order-1 row tables have one")
+    elif b.large:
+        if layout not in (None, "large"):
+            raise ValueError("layout: a large batch takes the large table")
+        layout = "large"
     elif layout is None:
         layout = "wide" if wide_fits(b, qbins is not None) else "compact"
     elif layout not in ("wide", "compact"):
         raise ValueError(f"layout: expected 'wide' or 'compact', got "
                          f"{layout!r}")
+    err = _build.error_word(dev)
     if layout == "wide":
-        slow = max_slow(b.tables)
+        slow = max_slow(b.tables) if sized_for is None else sized_for
         if wide_blocks_per_sm(qbins is not None, b.w16, slow) <= 0:
             raise ValueError(f"wide order-1 table: the maps of {slow} slow "
                              "buckets exceed a block's shared memory")
@@ -442,8 +507,25 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
             b.n_bytes.data_ptr(), b.freqs.data_ptr(), *t_ptrs,
             b.x0.data_ptr(), b.ulen.data_ptr(), b.out_off.data_ptr(),
             out_ptr, offs_ptr, hist_ptr, x_out.data_ptr(),
-            cur_out.data_ptr(), ctx_out.data_ptr(), S, qbins or 0,
-            max_rounds, int(b.w16), slow, _build.stream_handle(b.payload))
+            cur_out.data_ptr(), ctx_out.data_ptr(), err.data_ptr(), S,
+            qbins or 0, max_rounds, int(b.w16), slow,
+            _build.stream_handle(b.payload))
+    elif layout == "large":
+        rows = (int(b.tables.n_rows.max()) if S else 0) \
+            if sized_for is None else sized_for
+        shift = finest_shift(
+            lambda k: large_blocks_per_sm(b.w16, rows, k), S,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        if large_blocks_per_sm(b.w16, rows, shift) <= 0:
+            raise ValueError(f"large order-1 table: {rows} rows exceed a "
+                             "block's shared memory")
+        rc = lib.rans4x8_large_launch(
+            b.payload.data_ptr(), b.byte_off.data_ptr(),
+            b.n_bytes.data_ptr(), b.freqs.data_ptr(), *t_ptrs,
+            b.x0.data_ptr(), b.ulen.data_ptr(), b.out_off.data_ptr(),
+            out_ptr, x_out.data_ptr(), cur_out.data_ptr(),
+            ctx_out.data_ptr(), err.data_ptr(), S, max_rounds, int(b.w16),
+            rows, shift, _build.stream_handle(b.payload))
     else:
         rc = lib.rans4x8_launch(
             b.payload.data_ptr(), b.byte_off.data_ptr(),
@@ -457,6 +539,7 @@ def rans4x8_cuda(b: Rans4x8Batch, max_rounds: int = -1,
     _build.LAUNCHES[key] += 1
     if layout is not None:
         LAYOUT_LAUNCHES[layout] += 1
+    _build.check_word(err, key)
     if _build.SHAPES is not None:
         # (key, order-1 layout, streams, rounds of the longest stream)
         n = int(b.ulen.max())

@@ -34,6 +34,16 @@ JAX function's own packed entries (`dense_tables`), 4 MiB a stream, built
 on the batch's device from the 256 KiB of frequencies a stream, which
 the dense variant of B5 reads in device memory and the plain version
 gathers (`dense_step`).
+
+Large tables.  Such a stream may instead keep its rows, up to the wire's
+LARGE_MAX_ROWS (`frame_o1_streams(..., large=True)`, `Nx16O1Batch.large`):
+B5's large variant builds them in shared memory (csrc/rans_nx16_o1.cu,
+the large table of csrc/rans_nx16_o1_step.cuh), answering as the JAX
+dense table does, a slot past its context's sum included.  Its blocks
+take up to one SM each, so ops/rans.py gives it a past-A2_MAX group of at
+most LARGE_WAVES waves (`large_fits`) and the dense variant a larger one.
+The large variant's plain version gathers from the dense tables of the
+same rows (`rows_dense_tables`, `dense_step`).
 """
 from __future__ import annotations
 
@@ -51,6 +61,10 @@ from htslib_tpu_torch.ops.rans_nx16 import (NWAY, RANS16_L, TF_SHIFT,
                                             pack_payloads, refill16)
 
 A2_MAX = 4096  # stacked (ctx, sym) rows the device O1 kernels take
+LARGE_MAX_ROWS = 256 * 256  # rows the large table takes: every pair
+# waves of B5's large-table blocks up to which a past-A2_MAX group takes
+# it rather than the dense variant (`large_fits`; set by probe_dense.py)
+LARGE_WAVES = 2
 
 
 @dataclass
@@ -74,6 +88,9 @@ class Nx16O1Batch:
     out_off: torch.Tensor   # int64 [S]: each stream's first output byte
     dense: Optional[torch.Tensor] = None  # int32 [S, 256 * 4096]: the
     #                         dense tables (`dense_tables`) in place of rows
+    large: bool = False     # rows past A2_MAX, for the large table
+    alphabet: int = 0       # large: the streams' largest dense alphabet
+    #                         (`o1_alphabet`, counted at framing)
 
     @property
     def n_streams(self) -> int:
@@ -141,16 +158,27 @@ def o1_pads(parsed) -> Tuple[int, int]:
     return a2_pad, a_pad
 
 
-def o1_rows(F: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+def o1_alphabet(F: np.ndarray) -> int:
+    """Size of a table's dense alphabet as the kernels index it
+    (`rans_o1_mark`): context 0, the contexts with rows and the rows'
+    symbols."""
+    F = np.asarray(F)
+    present = (F.sum(axis=1) > 0) | (F.sum(axis=0) > 0)
+    present[0] = True
+    return int(present.sum())
+
+
+def o1_rows(F: np.ndarray, max_rows: int = A2_MAX
+            ) -> Tuple[np.ndarray, np.ndarray]:
     """Per-context frequencies [256, 256] -> (rows uint32 [n], packed
     (f-1) | cum<<12 | sym<<24 in (ctx, sym) order; ctx_start int32
     [257]).  Raises ValueError when a context's frequencies exceed 4096
-    or the rows exceed A2_MAX."""
+    or the rows exceed max_rows."""
     F = np.asarray(F, np.int64)
     if (F.sum(axis=1) > TOTFREQ).any():
         raise ValueError("order-1 context frequencies exceed 4096")
     ctx, sym = np.nonzero(F)
-    if len(ctx) > A2_MAX:
+    if len(ctx) > max_rows:
         raise ValueError("alphabet too large for the device O1 kernel")
     cum = np.cumsum(F, axis=1) - F
     rows = ((F[ctx, sym] - 1) | (cum[ctx, sym] << 12) | (sym << 24))
@@ -159,9 +187,11 @@ def o1_rows(F: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return rows.astype(np.uint32), ctx_start
 
 
-def frame_o1_tables(Fs: List[np.ndarray], device) -> O1Tables:
-    """O1Tables of streams with per-context frequencies Fs."""
-    built = [o1_rows(F) for F in Fs]
+def frame_o1_tables(Fs: List[np.ndarray], device,
+                    max_rows: int = A2_MAX) -> O1Tables:
+    """O1Tables of streams with per-context frequencies Fs, of at most
+    max_rows rows each."""
+    built = [o1_rows(F, max_rows) for F in Fs]
     n_rows = np.array([len(r) for r, _ in built], np.int64)
     rows = np.concatenate([r for r, _ in built] + [np.zeros(1, np.uint32)])
     ctx_start = np.stack([c for _, c in built]) if built \
@@ -215,10 +245,12 @@ def dense_tables(Fs: List[np.ndarray], device,
 
 
 def frame_o1_streams(parsed, device, dense: bool = False,
-                     timing: Optional[dict] = None) -> Nx16O1Batch:
+                     timing: Optional[dict] = None,
+                     large: bool = False) -> Nx16O1Batch:
     """Parsed O1 streams (`_parse_nx16_header`) -> an `Nx16O1Batch`, with
     `dense` carrying dense tables in place of rows (any row count; their
-    build timed into `timing` as `dense_tables` times it)."""
+    build timed into `timing` as `dense_tables` times it), with `large`
+    rows up to LARGE_MAX_ROWS for the large table."""
     ulen = np.array([p[0] for p in parsed], np.int64)
     if (ulen >= 1 << 31).any():
         raise ValueError("stream too long for the Nx16 kernel")
@@ -231,10 +263,12 @@ def frame_o1_streams(parsed, device, dense: bool = False,
     Fs = [p[1] for p in parsed]
     return Nx16O1Batch(
         dev(payload), dev(word_off), dev(n_words.astype(np.int32)),
-        None if dense else frame_o1_tables(Fs, device),
+        None if dense else frame_o1_tables(
+            Fs, device, LARGE_MAX_ROWS if large else A2_MAX),
         dev(states.astype(np.uint32).view(np.int32)),
         dev(ulen.astype(np.int32)), dev(exclusive_cumsum(ulen)),
-        dense_tables(Fs, device, timing) if dense else None)
+        dense_tables(Fs, device, timing) if dense else None, large,
+        max(map(o1_alphabet, Fs), default=0) if large else 0)
 
 
 def o1_slot_table(t: O1Tables) -> torch.Tensor:
@@ -284,12 +318,29 @@ def dense_step(x, idx, dense):
     return e & 0xFF, step
 
 
+def rows_dense_tables(t: O1Tables) -> torch.Tensor:
+    """The dense tables (`dense_tables`, on the rows' device) of the
+    streams whose rows `t` holds: the large table's answers."""
+    rows = t.rows.cpu().numpy().view(np.uint32)
+    cs = t.ctx_start.cpu().numpy()
+    Fs = []
+    for i, lo in enumerate(t.row_off.tolist()):
+        e = rows[lo:lo + int(t.n_rows[i])].astype(np.int64)
+        F = np.zeros((256, 256), np.int64)
+        F[np.repeat(np.arange(256), np.diff(cs[i])), e >> 24] = \
+            (e & 0xFFF) + 1
+        Fs.append(F)
+    return dense_tables(Fs, t.rows.device)
+
+
 def o1_lookup(b):
     """(step function, table) of an order-1 batch's plain version: the
-    dense tables where it carries them, else the slot table of its
-    rows."""
+    dense tables where it carries them or where its rows are for the
+    large table (built from them), else the slot table of its rows."""
     if b.dense is not None:
         return dense_step, b.dense.long() & _U32
+    if b.large:
+        return dense_step, rows_dense_tables(b.tables).long() & _U32
     return slot_step, o1_slot_table(b.tables)
 
 
@@ -348,17 +399,17 @@ def check_dense(dense: torch.Tensor, S: int) -> None:
     _build.require_cuda(dense, torch.int32, "dense", (S, 256 * TOTFREQ))
 
 
-def check_o1_tables(t: O1Tables, S: int) -> None:
+def check_o1_tables(t: O1Tables, S: int, max_rows: int = A2_MAX) -> None:
     """Validate tables the kernels trust: on the card, of the right
-    types and shapes, every stream's rows inside the buffer and its
-    context starts rising from 0 to its row count."""
+    types and shapes, every stream's rows (at most max_rows) inside the
+    buffer and its context starts rising from 0 to its row count."""
     req = _build.require_cuda
     req(t.rows, torch.int32, "rows")
     req(t.row_off, torch.int64, "row_off", (S,))
     req(t.n_rows, torch.int32, "n_rows", (S,))
     req(t.ctx_start, torch.int32, "ctx_start", (S, 257))
     cs = t.ctx_start
-    bad = ((t.row_off < 0) | (t.n_rows < 0) | (t.n_rows > A2_MAX)
+    bad = ((t.row_off < 0) | (t.n_rows < 0) | (t.n_rows > max_rows)
            | (t.row_off + t.n_rows > t.rows.numel())
            | (cs[:, 0] != 0) | (cs[:, -1] != t.n_rows)).any() \
         | (cs[:, 1:] < cs[:, :-1]).any()
@@ -421,6 +472,73 @@ def dense_smem_bytes() -> int:
     return _build.load("rans_nx16_o1").rans_nx16_o1_smem_bytes(0, 0, 0, 0)
 
 
+LARGE_SHIFTS = (3, 4, 5)   # the large table's buckets: 8, 16 or 32 slots
+
+
+def finest_shift(per_sm, n_streams: int, sms: int) -> int:
+    """The large table's finest bucket shift whose blocks (per_sm(shift)
+    of them an SM) decode n_streams streams in as few waves as the
+    coarsest's: finer buckets walk less, and cost shared memory."""
+    def waves(shift):
+        n = per_sm(shift)
+        return -(-n_streams // (n * sms)) if n > 0 else None
+    coarsest = waves(LARGE_SHIFTS[-1])
+    return next(k for k in LARGE_SHIFTS if waves(k) == coarsest)
+
+
+def large_smem_bytes(n_rows: int, n_ctx: int, shift: int = 5) -> int:
+    """Bytes of shared memory a block of B5's large variant takes for
+    tables of up to n_rows rows and n_ctx contexts, with buckets of
+    1 << shift slots."""
+    return _build.load("rans_nx16_o1").rans_nx16_o1_large_smem_bytes(
+        n_rows, n_ctx, shift)
+
+
+def large_shift(t: O1Tables, device, alphabet: int) -> Tuple[int, int]:
+    """(bucket shift, shared memory a block) of a launch of B5's large
+    variant over a batch's rows (`finest_shift`), whose largest dense
+    alphabet the framing counted (`Nx16O1Batch.alphabet`; a stream with a
+    larger one is refused)."""
+    if not int(t.n_rows.shape[0]):
+        return 5, 0
+    rows, ctxs = int(t.n_rows.max()), alphabet
+    shift = finest_shift(
+        lambda k: large_blocks_per_sm(large_smem_bytes(rows, ctxs, k)),
+        int(t.n_rows.shape[0]),
+        torch.cuda.get_device_properties(device).multi_processor_count)
+    return shift, large_smem_bytes(rows, ctxs, shift)
+
+
+def large_blocks_per_sm(smem: int) -> int:
+    """Streams one SM holds in B5's large variant with `smem` bytes a
+    block; 0 past a block's shared memory."""
+    n = _build.load("rans_nx16_o1").rans_nx16_o1_large_blocks_per_sm(smem)
+    return max(n, 0)
+
+
+def large_per_wave(n_rows: int, n_ctx: int, device) -> Optional[int]:
+    """Streams of up to n_rows rows and n_ctx contexts that one wave of
+    B5's large variant decodes on `device` (its blocks an SM times the
+    SMs); None on the CPU, where both routes run the same plain version
+    and no wave bounds a batch."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    per_sm = large_blocks_per_sm(large_smem_bytes(n_rows, n_ctx))
+    return per_sm * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+
+
+def large_fits(Fs: List[np.ndarray], device) -> bool:
+    """Whether order-1 streams with per-context frequencies Fs, past
+    A2_MAX rows, take B5's large variant (at most LARGE_WAVES waves of
+    it) rather than the dense one; decided on the host before any
+    launch."""
+    per = large_per_wave(max(o1_row_count(F) for F in Fs),
+                         max(o1_alphabet(F) for F in Fs), device)
+    return per is None or 0 < len(Fs) <= LARGE_WAVES * per
+
+
 def blocks_per_sm(t: O1Tables, hist: bool) -> int:
     """Streams with tables `t` that one SM of the card decodes at once in
     kernel B5 (or, with `hist`, B6): the blocks its shared memory holds."""
@@ -433,15 +551,20 @@ def blocks_per_sm(t: O1Tables, hist: bool) -> int:
 def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
                  offs: Optional[torch.Tensor] = None,
                  qbins: Optional[int] = None,
-                 slow_rounds: Optional[torch.Tensor] = None
+                 slow_rounds: Optional[torch.Tensor] = None,
+                 smem_bytes: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
     """Kernel B5 (symbols) or, with `qbins`, kernel B6 (histogram) over
     the whole batch in one launch, or B5's dense variant for a batch with
-    dense tables (symbols only); same results as `rans_o1_plain`.
-    `slow_rounds` (int32 [S] on the card), where given, gets each
-    stream's rounds in which some state's bucket was slow (its lookup
-    took the bucket's map; 0 with dense tables)."""
+    dense tables, or its large variant for a `large` batch (both symbols
+    only); same results as `rans_o1_plain`.  `slow_rounds` (int32 [S] on
+    the card), where given, gets each stream's rounds in which some
+    state's bucket was slow (its lookup took the bucket's map, or the
+    large table's walk; 0 with dense tables).  `smem_bytes` sizes a
+    block's shared memory where the caller does (None: for the batch's
+    largest table); a stream whose tables outgrow it is refused, and this
+    raises."""
     S = b.n_streams
     req = _build.require_cuda
     req(b.payload, torch.uint8, "payload")
@@ -451,13 +574,14 @@ def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
     req(b.ulen, torch.int32, "ulen", (S,))
     req(b.out_off, torch.int64, "out_off", (S,))
     dense = b.dense is not None
-    if dense:
-        check_dense(b.dense, S)
+    if dense or b.large:
         if qbins is not None:
             raise ValueError("dense order-1 tables: symbols only (the "
                              "histogram lane refuses such streams)")
+    if dense:
+        check_dense(b.dense, S)
     else:
-        check_o1_tables(b.tables, S)
+        check_o1_tables(b.tables, S, LARGE_MAX_ROWS if b.large else A2_MAX)
     if b.payload.numel() % 2 or b.payload.data_ptr() % 2:
         raise ValueError("payload: expected whole, aligned 16-bit words")
     bad = (((b.word_off + b.n_words) * 2 > b.payload.numel())
@@ -475,7 +599,8 @@ def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
         res = (torch.empty if max_rounds < 0 else torch.zeros)(
             b.total_out, dtype=torch.uint8, device=dev)
         out_ptr, hist_ptr, offs_ptr, key = res.data_ptr(), None, None, \
-            "rans_nx16_o1_dense_decode" if dense else "rans_nx16_o1_decode"
+            "rans_nx16_o1_%sdecode" % ("dense_" if dense else "large_"
+                                       if b.large else "")
     else:
         if not 1 <= qbins <= 256:
             raise ValueError("qbins must be in 1..256")
@@ -489,23 +614,32 @@ def rans_o1_cuda(b: Nx16O1Batch, max_rounds: int = -1,
         req(slow_rounds, torch.int32, "slow_rounds", (S,))
     lib = _build.load("rans_nx16_o1")
     t = b.tables
+    large = 0
     if dense:
         smem = dense_smem_bytes()
         t_ptrs = [None] * 4
     else:
-        smem = o1_smem_bytes(t, qbins is not None)
+        if b.large:
+            large, smem = large_shift(t, dev, b.alphabet)
+        else:
+            smem = o1_smem_bytes(t, qbins is not None)
         t_ptrs = [t.rows.data_ptr(), t.row_off.data_ptr(),
                   t.n_rows.data_ptr(), t.ctx_start.data_ptr()]
+    if smem_bytes is not None:
+        smem = smem_bytes
+    err = _build.error_word(dev)
     rc = lib.rans_nx16_o1_launch(
         b.payload.data_ptr(), b.word_off.data_ptr(), b.n_words.data_ptr(),
         *t_ptrs, b.dense.data_ptr() if dense else None,
         b.x0.data_ptr(), b.ulen.data_ptr(),
         b.out_off.data_ptr(), out_ptr, offs_ptr, hist_ptr, x_out.data_ptr(),
         cur_out.data_ptr(), ctx_out.data_ptr(),
-        None if slow_rounds is None else slow_rounds.data_ptr(), S,
-        qbins or 0, max_rounds, smem, _build.stream_handle(b.payload))
+        None if slow_rounds is None else slow_rounds.data_ptr(),
+        err.data_ptr(), S, qbins or 0, max_rounds, smem, large,
+        _build.stream_handle(b.payload))
     _build.check(lib, rc, key)
     _build.LAUNCHES[key] += 1
+    _build.check_word(err, key)
     return res, x_out, cur_out, ctx_out
 
 

@@ -974,14 +974,19 @@ DENSE_KEYS = {"4x8_o1": "rans4x8_o1_dense_decode",
               "nx16_o1": "rans_nx16_o1_dense_decode"}
 
 
-def _dense_batch(wire, dev, seed=21):
-    """Order-1 streams past A2_MAX rows on `wire`, with dense tables:
-    uniform random bytes of lengths about the rounds' blocks, and one
-    walk (few rows, through the dense table all the same)."""
+def _dense_datas(seed=21):
+    """Uniform random bytes of lengths about the rounds' blocks (order-1
+    tables past A2_MAX rows), and one walk (few rows)."""
     rng = np.random.default_rng(seed)
     datas = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
              for n in (20000, 20003, 4 * 32 * 40 + 1, 33333)]
-    datas.append(_walk(rng, 5001))
+    return datas + [_walk(rng, 5001)]
+
+
+def _dense_batch(wire, dev, seed=21):
+    """Order-1 streams past A2_MAX rows on `wire` (`_dense_datas`), with
+    dense tables (the walk through the dense table all the same)."""
+    datas = _dense_datas(seed)
     if wire == "4x8_o1":
         return datas, t8.frame_4x8([r8.compress(d, 1) for d in datas], True,
                                    dev, True)
@@ -1032,8 +1037,8 @@ def test_dense_smem_and_streams_per_sm(card):
 
 def test_uncompress_dense_on_card_matches_cpu(card, monkeypatch):
     """Order-1 streams past A2_MAX beside ones within it, on every order-1
-    wire: the CPU's bytes, each group through its kernel, never a plain
-    version."""
+    wire: the CPU's bytes, each group through its kernel (past A2_MAX the
+    large variant: two streams fit its waves), never a plain version."""
     from htslib_tpu_torch.ops import rans as trans
     rng = np.random.default_rng(22)
     wide = [rng.integers(0, 256, 20000, dtype=np.uint8).tobytes()
@@ -1052,11 +1057,129 @@ def test_uncompress_dense_on_card_matches_cpu(card, monkeypatch):
     for mod, fn in ((t8, "rans4x8_plain"), (o1, "rans_o1_plain")):
         monkeypatch.setattr(mod, fn, refuse)
     keys = ["rans4x8_o1_decode", "rans_nx16_o1_decode",
-            "rans_nx16_4way_o1_decode"] + list(DENSE_KEYS.values())
+            "rans_nx16_4way_o1_decode"] + list(LARGE_KEYS.values())
     before = {k: _build.LAUNCHES[k] for k in keys}
     assert trans.uncompress_batch(b48, device=card) == want48
     assert trans.uncompress_nx16_batch(b16, device=card) == want16
     assert all(_build.LAUNCHES[k] == before[k] + 1 for k in keys)
+
+
+LARGE_KEYS = {w: k.replace("_dense", "_large") for w, k in DENSE_KEYS.items()}
+
+
+def _large_batch(wire, dev, datas):
+    if wire == "4x8_o1":
+        return t8.frame_4x8([r8.compress(d, 1) for d in datas], True, dev,
+                            large=True)
+    if wire == "nx16_4way_o1":
+        return t8.frame_nx16_4way([compress(d, 0x01) for d in datas], True,
+                                  dev, large=True)
+    return o1.frame_o1_streams(
+        [o1._parse_nx16_header(compress(d, 0x05)) for d in datas], dev,
+        large=True)
+
+
+@pytest.mark.parametrize("wire", list(LARGE_KEYS))
+def test_large_kernels_match_plain(card, wire):
+    """The large-table variants against their plain versions (a gather
+    from the JAX dense table of the same rows), whole and stopped inside
+    and on a block's edges, and against the raw bytes, on uniform random
+    streams (past A2_MAX, 1 MiB of them all 65,536 rows), a HiFi-style
+    block and a walk (few rows, through the large table all the same);
+    each launch counted under its own name."""
+    from chip_smoke import hifi_qualities
+    datas = _dense_datas()
+    datas.append(hifi_qualities(60_000, floor=1.0, top=0.2))
+    datas.append(np.random.default_rng(25).integers(
+        0, 256, 1 << 20, dtype=np.uint8).tobytes())
+    b = _large_batch(wire, card, datas)
+    assert b.large and int(b.tables.n_rows.max()) == 65536
+    kern, plain = ((t8.rans4x8, t8.rans4x8_plain) if wire != "nx16_o1"
+                   else (o1.rans_o1, o1.rans_o1_plain))
+    before = _build.LAUNCHES[LARGE_KEYS[wire]]
+    for mr in (-1, 1, 31, 32, 33, 700):
+        got = kern(b, max_rounds=mr)
+        want = plain(b, max_rounds=mr) if mr >= 0 else None
+        if want is not None:
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+        else:
+            assert got[0].cpu().numpy().tobytes() == b"".join(datas)
+    assert _build.LAUNCHES[LARGE_KEYS[wire]] == before + 6
+
+
+def test_large_smem_and_streams_per_sm(card):
+    """The large table's blocks: at the wire's 65,536 rows under a block's
+    232,448 bytes, one stream an SM; fewer rows share an SM."""
+    assert t8.large_smem_bytes(65536) <= 232448
+    assert o1.large_smem_bytes(65536, 256) <= 232448
+    for w16 in (False, True):
+        assert t8.large_blocks_per_sm(w16, 65536) == 1
+        assert t8.large_blocks_per_sm(w16, 8000) >= 3
+    assert o1.large_blocks_per_sm(o1.large_smem_bytes(65536, 256)) == 1
+    assert o1.large_blocks_per_sm(o1.large_smem_bytes(8000, 94)) >= 4
+
+
+@pytest.mark.parametrize("wire", list(LARGE_KEYS))
+def test_routing_past_the_waves_takes_dense(card, monkeypatch, wire):
+    """Past A2_MAX a group within LARGE_WAVES waves launches the large
+    variant, and with no wave allowed the dense one; the same bytes."""
+    from htslib_tpu_torch.ops import rans as trans
+    rng = np.random.default_rng(26)
+    datas = [rng.integers(0, 256, 20000, dtype=np.uint8).tobytes()
+             for _ in range(3)]
+    if wire == "4x8_o1":
+        encs, call = [r8.compress(d, 1) for d in datas], \
+            trans.uncompress_batch
+    else:
+        encs = [compress(d, 0x05 if wire == "nx16_o1" else 0x01)
+                for d in datas]
+        call = trans.uncompress_nx16_batch
+    mod = o1 if wire == "nx16_o1" else t8
+    for waves, key in ((mod.LARGE_WAVES, LARGE_KEYS[wire]),
+                       (0, DENSE_KEYS[wire])):
+        monkeypatch.setattr(mod, "LARGE_WAVES", waves)
+        before = dict(_build.LAUNCHES)
+        assert call(encs, device=card) == datas
+        grew = {k for k, v in _build.LAUNCHES.items() if v != before[k]}
+        assert grew == {key}
+
+
+def test_refused_launches_raise_and_the_context_survives(card):
+    """Launches sized too small for their streams: B5 and B6 under their
+    tables' shared memory, the wide table with no maps for its slow
+    buckets, and the large tables (4-way and B5) under their rows.  Each
+    block sets the error word and returns, the wrapper raises, and a
+    correctly sized launch after it in the same process gives the plain
+    version's bytes."""
+    rng = np.random.default_rng(27)
+    walk = [_walk(rng, 20000) for _ in range(2)]
+    wide = wide_stream(rng, 6000)
+    rand = rng.integers(0, 256, 30000, dtype=np.uint8).tobytes()
+    b5 = o1.frame_o1_streams([o1._parse_nx16_header(compress(d, 0x05))
+                              for d in walk], card)
+    for qb in (None, 64):
+        with pytest.raises(RuntimeError, match="refused"):
+            o1.rans_o1_cuda(b5, qbins=qb, smem_bytes=2048)
+        torch.cuda.synchronize()
+        for g, w in zip(o1.rans_o1_cuda(b5, qbins=qb),
+                        o1.rans_o1_plain(b5, qbins=qb)):
+            assert torch.equal(g, w)
+    bw = t8.frame_4x8([r8.compress(wide, 1)], True, card)
+    assert t8.max_slow(bw.tables) > 0
+    with pytest.raises(RuntimeError, match="slow buckets outnumbered"):
+        t8.rans4x8_cuda(bw, layout="wide", sized_for=0)
+    assert t8.rans4x8_cuda(bw, layout="wide")[0].cpu().numpy().tobytes() \
+        == wide
+    for wire in ("4x8_o1", "nx16_4way_o1", "nx16_o1"):
+        b = _large_batch(wire, card, [rand])
+        with pytest.raises(RuntimeError, match="outgrew"):
+            if wire == "nx16_o1":
+                o1.rans_o1_cuda(b, smem_bytes=o1.large_smem_bytes(100, 256))
+            else:
+                t8.rans4x8_cuda(b, sized_for=100)
+        got = (o1.rans_o1_cuda if wire == "nx16_o1" else t8.rans4x8_cuda)(b)
+        assert got[0].cpu().numpy().tobytes() == rand
 
 
 def test_dense_tables_built_on_card_equal_cpu(card):
@@ -1430,8 +1553,8 @@ def test_cram_file_to_sam_on_card_matches_cpu(card, tmp_path, version):
     assert wires
     for w in wires:
         k = tcb.WIRE_KERNELS[w]
-        assert (_build.LAUNCHES[k] + _build.LAUNCHES.get(
-            k.replace("_decode", "_dense_decode"), 0)) >= 1, w
+        assert sum(_build.LAUNCHES.get(k.replace("_decode", r + "_decode"), 0)
+                   for r in ("", "_large", "_dense")) >= 1, w
     assert _build.LAUNCHES["record_scan"] >= 1
     assert _build.LAUNCHES["nibble_to_base"] >= 1
     _, want = tcb.cram_file_to_sam(cram, device="cpu")
