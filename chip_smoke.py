@@ -145,7 +145,7 @@ PyTorch version on the card and times both.  Phases:
      both order-1 tables (wide and compact); their rows say which one the
      row's batch takes, with ns a round, streams an SM and shared memory
      of each.  The shapes of every launch of csrc/rans4x8.cu's kernels
-     (B7, B8, X1-X3) and of X5 in legs 7-12 (streams and the longest
+     (B7, B8, X1-X3) and of X5 in legs 7-13 (streams and the longest
      stream's rounds; payload bytes) are printed, so that the launches
      no timing covers can be reckoned.  X6 (probaln) is held against its
      plain version on the card over each of leg 9's HMM calls in float64
@@ -211,15 +211,48 @@ PyTorch version on the card and times both.  Phases:
      text in order equals 12a's.  Printed: the encode s, each part's time
      by the `timing` keys (read_s, inflate_s, frame_s, format_s), VCF MB/s
      whole and over the 4 shards, X4's launches in leg 12;
+  5k. leg 13, the CRAM host code (cram/index.py, cram/refs.py,
+     hts_expr.py, required_fields in cram/decode.py, the encoder's
+     write_index and device_profile), run after leg 12 on leg 11's
+     inputs; 11a's file is written with its .crai.  13a: the .crai must
+     equal build_crai's entries; 16 seeded regions on both references (1
+     kb to 500 kb, two across a slice boundary, one past a reference's
+     end, which must hit no container), each through
+     CramIndex.container_offsets and cram_range_to_sam on the card over
+     each run of consecutive containers (B7, X1, X5, B1): each run's text
+     must equal the host chain's over its containers (leg 11's truths),
+     and its lines that overlap the region CramReader.fetch's records
+     formatted by to_sam.  13b: 11a's containers decoded on the host with
+     required_fields SAM_QUAL, SAM_FLAG|SAM_POS|SAM_MAPQ, SAM_SEQ|SAM_CIGAR
+     and 0, a process a container: every requested field must equal the
+     full decode's; each mask's decode s and blocks left compressed are
+     printed.  13c: a REF_CACHE directory built from the FASTA by the
+     M5 tags the encoder wrote, the FASTA moved away (its UR no longer
+     resolves), 11a decoded on the card with no ref= under REF_CACHE,
+     then under a REF_PATH template: both texts must equal 11a's; the
+     FASTA is moved back.  13d: 11b's BAM written against the FASTA as
+     CRAM 3.1 with device_profile (LEG13D_SLICE records a slice, in a
+     process of its own while 13a and 13c run): every QS block of 64
+     bytes or more must be on a 32-way Nx16 wire, cram_qual_hist on the
+     card must equal the host codec's histogram of those blocks (B3 or
+     B6) and cram_file_to_sam on the card the host chain's text (B2 or
+     B5).  13e: two of 13a's regions with two filter expressions (flags
+     and MAPQ; aux tags): the card's region lines of records passing
+     sam_passes_filter must equal the host records that pass, and fetch
+     with the expression set must yield every record of the region (the
+     JAX reader's fetch does not apply the filter).  Printed: the
+     regions, containers, ms a region, 13b's decode s by mask, 13c's
+     seconds, 13d's encode s, decode s in parts and SAM MB/s, 13e's
+     counts, leg 13's launches;
 
-Launch counts are reset just before phase 3 and read just after phase 5j,
-with leg 10b's ranks' counts added; legs 7-12 are also counted alone
+Launch counts are reset just before phase 3 and read just after phase 5k,
+with leg 10b's ranks' counts added; legs 7-13 are also counted alone
 (reset just before each, read just after; 10b's, 11a's and 12b's shards'
 in the ranks) and each must have launched its kernels (X4; X5 and B1; X6;
 B1, X4 and X5 in 10a and in 10b; X5, B1 and the kernel of every rANS wire
 its files hold, in leg 11 and in its shards; X4 in leg 12 and in its
-shards).  The kernels line's X4 row gives leg 12's launches apart
-(launches_leg12).
+shards; B1, B7, X1, X5, B2 or B5 and B3 or B6 in leg 13).  The kernels
+line's X4 row gives leg 12's launches apart (launches_leg12).
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -280,6 +313,10 @@ N_CRAM = 40_000         # leg 11a's records, 4 slices
 N_CRAM31 = 10_000       # leg 11b's records, one slice
 CRAM_SLICE = 10_000     # records a slice: htslib's default
 CRAM_SPAN = 2_000_000   # leg 11's reads start within 2 Mbp of a reference
+N_REGIONS = 16          # leg 13a's region queries on 11a's file
+LEG13D_SLICE = 2_500    # records a slice of 13d's CRAM 3.1 (4 slices)
+LEG13_FILTERS = ["mapq >= 30 && flag.paired",
+                 'exists([XS]) && [RG] != "grp1" && [NM] < 6']
 N_VCF = 20_000          # leg 12's VCF records, on LEG12_CONTIGS
 N_SAMPLES = 32          # and their samples
 LEG12_CONTIGS = [("chr1", 248956422), ("chr2", 242193529)]
@@ -1170,10 +1207,10 @@ def hist_of(raw: bytes, qbins: int) -> np.ndarray:
 
 def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
               tile_len=TILE_LEN, n_decode=N_DECODE):
-    """Phases 3-5g through the port's entry points on `device`, each
+    """Phases 3-5k through the port's entry points on `device`, each
     result held against its host truth.  Returns (leg-1 args on the
     device, seconds of each phase, notes: leg 4's timing dict, leg 5's
-    lookups per second, legs 6-9's parts)."""
+    lookups per second, legs 6-13's parts)."""
     from htslib_tpu_torch.entry import entry
     from htslib_tpu_torch.ops.device_stats import (QBINS, cram_qual_hist,
                                                    qualstats_device,
@@ -1308,6 +1345,8 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                          ("leg9", lambda: leg9(device, baq)),
                          ("leg11", lambda: leg11(device, tmp)),
                          ("leg12", lambda: leg12(device, tmp)),
+                         ("leg13", lambda: leg13(device, tmp,
+                                                 notes["leg11"])),
                          ("leg10a", lambda: leg10a(batch)),
                          ("leg10b", lambda: leg10b(device, batch, bgzf,
                                                    chain_sam, cram_plan,
@@ -1339,6 +1378,9 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                                  mp_context=ctx) as pool:
             notes["leg11"]["check"] = leg11_check(device, notes["leg11"],
                                                   outs, pool)
+            texts_11a = notes["leg11"]["check"].pop("texts_11a")
+            notes["leg13"]["check"] = leg13_check(
+                notes["leg13"], notes["leg11"], texts_11a, pool)
             notes["leg12"]["check"] = leg12_check(notes["leg12"], outs,
                                                   pool)
     finally:
@@ -1950,10 +1992,11 @@ def leg11(device, tmp: str):
         cram = os.path.join(tmp, f"leg{tag}.cram")
         t0 = time.time()
         n = bam_to_cram_file(bam, cram, ref=ref, version=version,
-                             seqs_per_slice=CRAM_SLICE)
+                             seqs_per_slice=CRAM_SLICE,
+                             write_index=tag == "11a")
         leg = {"records": n, "encode_s": time.time() - t0,
                "cram_bytes": os.path.getsize(cram), "path": cram,
-               "ref": ref}
+               "ref": ref, "bam": bam}
         leg["wires"] = {}
         for _, blocks in cram_blocks(cram):
             for b in blocks:
@@ -2016,7 +2059,367 @@ def leg11_check(device, notes, rank_outs, pool):
     return {"check_s": time.time() - t0, "blocks_checked":
             sum(len(j[4]) for j in jobs), "device_blocks_checked": n_dev,
             "shards_sam_MBps": len(shards) / max(
-                o["cram_decode_s"] for o in rank_outs) / 1e6}
+                o["cram_decode_s"] for o in rank_outs) / 1e6,
+            "texts_11a": {off: t for (g, _, _, off, _), (_, t)
+                          in zip(jobs, truths) if g == "11a"}}
+
+
+def leg13_regions(index, lens, seed: int = 13):
+    """Leg 13a's N_REGIONS regions (tid, beg, end; 0-based, end
+    exclusive) on 11a's references: two across the boundary of two
+    slices of one reference (from its .crai entries), one past a
+    reference's end, the rest seeded, 1 kb to 500 kb long."""
+    rng = np.random.default_rng(seed)
+    out = []
+    by_ref = {}
+    for e in index.entries:
+        if e.refid >= 0:
+            by_ref.setdefault(e.refid, []).append(e)
+    for es in by_ref.values():
+        for a, b in zip(es, es[1:]):
+            if len(out) < 2 and a.offset != b.offset:
+                cut = b.start - 1          # 0-based start of slice b
+                out.append((a.refid, cut - 700, cut + 700))
+    require(len(out) == 2, f"leg 13a: slice boundaries {out}")
+    out.append((0, lens[0] + 1000, lens[0] + 2000))
+    while len(out) < N_REGIONS:
+        tid = int(rng.integers(0, 2))
+        span = int(np.exp(rng.uniform(np.log(1000), np.log(500_000))))
+        beg = int(rng.integers(0, CRAM_SPAN - span))
+        out.append((tid, beg, beg + span))
+    return out
+
+
+def region_runs(offsets, every):
+    """Runs of consecutive containers among `offsets` (container offsets
+    of a region, in file order): (first offset, the offset of the
+    container after the run, or None past the last)."""
+    nxt = dict(zip(every, every[1:] + [None]))
+    runs = []
+    for off in offsets:
+        if runs and runs[-1][1] == off:
+            runs[-1][1] = nxt[off]
+        else:
+            runs.append([off, nxt[off]])
+    return [tuple(r) for r in runs]
+
+
+def sam_overlaps(line: str, name: str, beg: int, end: int) -> bool:
+    """Whether a SAM line lies on `name` and overlaps [beg, end) (0-based),
+    its end as bam_endpos reckons it (at least one base)."""
+    import re
+    f = line.split("\t")
+    pos = int(f[3]) - 1
+    rlen = 0 if int(f[1]) & 4 else sum(
+        int(n) for n, op in re.findall(r"(\d+)([MIDNSHP=X])", f[5])
+        if op in "MDN=X")
+    return f[2] == name and pos < end and pos + (rlen or 1) > beg
+
+
+def cram_header(path: str):
+    """The SAM header of a CRAM, read by the port's CramReader."""
+    from htslib_tpu_torch.cram import CramReader
+    with CramReader(path) as r:
+        return r.header
+
+
+def _leg13_encode(bam: str, cram: str, fasta: str, per_slice: int):
+    """Leg 13d's file: `bam` written against `fasta` as CRAM 3.1 with
+    device_profile, `per_slice` records a slice.  Returns (records, s)."""
+    from htslib_tpu_torch.cram.batch import bam_to_cram_file
+    t0 = time.time()
+    n = bam_to_cram_file(bam, cram, ref=fasta, version=(3, 1),
+                         seqs_per_slice=per_slice, device_profile=True)
+    return n, time.time() - t0
+
+
+def _leg13_fetch(path: str, fasta: str, region, exprs):
+    """Host truths of a 13a region: CramReader.fetch's records formatted
+    by to_sam; for each of `exprs`, each record's sam_passes_filter
+    verdict and the records fetch yields with the reader's filter set."""
+    from htslib_tpu_torch.cram import CramReader
+    from htslib_tpu_torch.hts_expr import HtsFilter, sam_passes_filter
+    with CramReader(path, ref=fasta) as r:
+        recs = list(r.fetch(*region))
+        lines = [rec.to_sam(r.header) for rec in recs]
+        verdicts, with_filter = {}, {}
+        for expr in exprs:
+            f = HtsFilter(expr)
+            verdicts[expr] = [sam_passes_filter(rec, r.header, f)
+                              for rec in recs]
+            r.set_filter(expr)
+            with_filter[expr] = [rec.to_sam(r.header)
+                                 for rec in r.fetch(*region)]
+            r.set_filter(None)
+    return lines, verdicts, with_filter
+
+
+def _leg13_fields(path: str, fasta: str, offset: int, mask: int):
+    """13b on the host: the container at `offset` decoded with
+    required_fields `mask`.  Returns (decode s, blocks left compressed,
+    blocks, MD5s of the QUAL, FLAG/POS/MAPQ and SEQ/CIGAR fields of its
+    records)."""
+    import hashlib
+    from htslib_tpu_torch.cram import CramReader
+    from htslib_tpu_torch.cram.batch import _slice_jobs
+    from htslib_tpu_torch.cram.decode import decode_slice
+    digests = [hashlib.md5() for _ in range(3)]
+    secs, left, n_blocks = 0.0, 0, 0
+    with CramReader(path, ref=fasta) as r:
+        r.fp.seek(offset)
+        for chdr, sh, blocks in _slice_jobs(r, offset + 1):
+            t0 = time.time()
+            recs = decode_slice(chdr, sh, blocks, r.header, r.refs.get,
+                                r.version[0], required_fields=mask)
+            secs += time.time() - t0
+            left += sum(b._uncompressed is None for b in blocks)
+            n_blocks += len(blocks)
+            for rec in recs:
+                digests[0].update(rec.qual)
+                digests[1].update(struct.pack("<Hii", rec.flag, rec.pos,
+                                              rec.mapq))
+                digests[2].update(struct.pack("<i", rec.l_qseq) + rec.seq4
+                                  + rec.cigar.tobytes())
+    return secs, left, n_blocks, [d.hexdigest() for d in digests]
+
+
+def _leg13_qs_hist(path: str):
+    """The histogram ([QBINS]) of every QS block of a CRAM, each decoded
+    by the port's host codec."""
+    from htslib_tpu_torch.ops.device_stats import QBINS, QS_CONTENT_ID
+    hist = np.zeros(QBINS, np.int64)
+    for _, blocks in cram_blocks(path):
+        for b in blocks:
+            if b.content_id == QS_CONTENT_ID:
+                hist += hist_of(b.uncompress(), QBINS)
+    return hist
+
+
+def _leg13_build_crai(path: str, fasta: str, out: str):
+    from htslib_tpu_torch.cram.index import build_crai
+    return [tuple(vars(e).values())
+            for e in build_crai(path, out, ref=fasta).entries]
+
+
+def leg13(device, tmp: str, l11):
+    """Leg 13's work on the card, after leg 11: 11a's regions through its
+    .crai (13a), 11a's file decoded by M5 from REF_CACHE and REF_PATH
+    with its FASTA moved away (13c), and 11b's BAM as a reference-based
+    CRAM 3.1 with device_profile, written in a process of its own while
+    13a and 13c run, then decoded and histogrammed on the card (13d).
+    Returns its notes; the host truths are leg13_check's."""
+    from htslib_tpu_torch.cram.batch import (block_wire, cram_file_to_sam,
+                                             cram_range_to_sam)
+    from htslib_tpu_torch.cram.index import CramIndex
+    from htslib_tpu_torch.ops.device_stats import (QS_CONTENT_ID,
+                                                   cram_qual_hist)
+    a = l11["11a"]
+    path, fasta = a["path"], a["ref"]
+    notes = {}
+    # 13d's encode reads a copy of the FASTA, which 13c moves meanwhile
+    fasta_d = os.path.join(tmp, "leg13d.fa")
+    with open(fasta, "rb") as src, open(fasta_d, "wb") as dst:
+        dst.write(src.read())
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as enc_pool:
+        cram31 = os.path.join(tmp, "leg13d.cram")
+        enc = enc_pool.submit(_leg13_encode, l11["11b"]["bam"], cram31,
+                              fasta_d, LEG13D_SLICE)
+        # 13a: each region's containers from the index, decoded in runs
+        idx = CramIndex.load(path + ".crai")
+        every = sorted({e.offset for e in idx.entries})
+        hdr = cram_header(path)
+        regions = leg13_regions(idx, [hdr.tid2len(t)
+                                      for t in range(hdr.nref)])
+        out, n_cont, t0 = [], 0, time.time()
+        for tid, beg, end in regions:
+            offsets = idx.container_offsets(tid, beg + 1, end)
+            texts = []
+            for off, stop in region_runs(offsets, every):
+                _, sam = cram_range_to_sam(path, off, stop, ref=fasta,
+                                           device=device)
+                texts.append((off, stop, sam.tobytes()))
+            n_cont += len(offsets)
+            out.append({"region": (tid, beg, end), "runs": texts,
+                        "containers": len(offsets)})
+        secs = time.time() - t0
+        require(out[2]["runs"] == [], "leg 13a: a region past the "
+                "reference's end hit containers")
+        notes["13a"] = {"regions": out, "containers": n_cont,
+                        "decode_s": secs, "ms_a_region":
+                        secs / len(regions) * 1e3}
+        # 13c: REF_CACHE, then REF_PATH, with the FASTA moved away
+        notes["13c"] = leg13c(device, tmp, path, fasta, a["sam"])
+        # 13d
+        n31, encode_s = enc.result()
+    d = {"records": n31, "encode_s": encode_s,
+         "cram_bytes": os.path.getsize(cram31), "path": cram31,
+         "ref": fasta_d}
+    qs, wires = [], {}
+    for _, blocks in cram_blocks(cram31):
+        for b in blocks:
+            w = block_wire(b) or "host"
+            wires[w] = wires.get(w, 0) + 1
+            if b.content_id == QS_CONTENT_ID:
+                qs.append((w, b.raw_size))
+    require(all(w.startswith("nx16_32way") for w, n in qs if n >= 64),
+            f"leg 13d: QS blocks not on a 32-way wire {qs}")
+    d["wires"], d["qs_wires"] = wires, [w for w, _ in qs]
+    timing = {}
+    t0 = time.time()
+    _, sam = cram_file_to_sam(cram31, ref=fasta_d, device=device,
+                              timing=timing)
+    d["decode_s"] = time.time() - t0
+    d["sam"] = sam.tobytes()
+    d["sam_MBps"] = len(sam) / d["decode_s"] / 1e6
+    d["parts"] = {k: v for k, v in timing.items() if k != "format"}
+    require(timing["records"] == n31, "leg 13d records")
+    stats = {}
+    t0 = time.time()
+    d["hist"] = cram_qual_hist(cram31, device=device, stats=stats)
+    d["hist_s"] = time.time() - t0
+    d["hist_blocks"] = stats
+    require(stats["device_blocks"] == len(qs) and stats["host_blocks"] == 0,
+            f"leg 13d: quality blocks not all on the card {stats}")
+    notes["13d"] = d
+    return notes
+
+
+def leg13c(device, tmp: str, path: str, fasta: str, want: bytes):
+    """11a's file decoded on the card with no ref= after its FASTA (the
+    @SQ lines' UR) is moved away: its sequences found by M5 in a
+    REF_CACHE directory built here, then in a REF_PATH template.  Both
+    texts must equal 11a's.  The FASTA is moved back after."""
+    import hashlib
+    from htslib_tpu_torch.cram.batch import cram_file_to_sam
+    from htslib_tpu_torch.faidx import Faidx
+    cache = os.path.join(tmp, "ref_cache")
+    os.makedirs(cache, exist_ok=True)
+    fai = Faidx.load(fasta)
+    for ln in cram_header(path).lines:
+        if ln.type == "SQ":
+            seq = fai.fetch_seq(ln.get("SN")).encode().upper()
+            require(hashlib.md5(seq).hexdigest() == ln.get("M5"),
+                    "leg 13c: an @SQ line's M5")
+            with open(os.path.join(cache, ln.get("M5")), "wb") as fp:
+                fp.write(seq)
+    fai.close()
+    moved = fasta + ".moved"
+    notes = {}
+    saved = {k: os.environ.get(k) for k in ("REF_CACHE", "REF_PATH")}
+    os.rename(fasta, moved)
+    try:
+        for key, val in (("REF_CACHE", cache),
+                         ("REF_PATH", os.path.join(tmp, "no_such_dir") + ":"
+                          + os.path.join(cache, "%s"))):
+            for k in saved:
+                os.environ.pop(k, None)
+            os.environ[key] = val
+            t0 = time.time()
+            _, sam = cram_file_to_sam(path, device=device)
+            notes[key + "_s"] = time.time() - t0
+            require(sam.tobytes() == want,
+                    f"leg 13c: SAM by {key} != leg 11a's")
+    finally:
+        os.rename(moved, fasta)
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    return notes
+
+
+def leg13_check(notes, l11, truths_11a, pool):
+    """Leg 13's host truths in `pool`, after leg 11's: build_crai equals
+    the encoder's .crai (13a.1); each region's card text equals the host
+    chain's over its containers (leg 11's truths, 13a.3) and its lines
+    that overlap the region equal fetch's records (13a.4); the region
+    lines of records passing each filter expression equal the host
+    records passing sam_passes_filter (13e); each required-fields mask's
+    fields equal the full decode's (13b); 13d's text and histogram equal
+    the host chain's.  Returns its notes."""
+    from htslib_tpu_torch.cram.index import CramIndex
+    from htslib_tpu_torch.cram.decode import (SAM_CIGAR, SAM_FLAG, SAM_MAPQ,
+                                              SAM_POS, SAM_QUAL, SAM_SEQ)
+    t0 = time.time()
+    a = l11["11a"]
+    path, fasta = a["path"], a["ref"]
+    regions = notes["13a"]["regions"]
+    # 13e's regions: the two longest that hit containers
+    filtered = sorted((i for i, r in enumerate(regions) if r["runs"]),
+                      key=lambda i: regions[i]["region"][1]
+                      - regions[i]["region"][2])[:2]
+    crai = pool.submit(_leg13_build_crai, path, fasta,
+                       path + ".rebuilt.crai")
+    fetches = [pool.submit(_leg13_fetch, path, fasta, r["region"],
+                           LEG13_FILTERS if i in filtered else [])
+               for i, r in enumerate(regions)]
+    # 13b: each mask, and the digests of _leg13_fields it must match
+    masks = [("SAM_QUAL", SAM_QUAL, [0]),
+             ("SAM_FLAG|SAM_POS|SAM_MAPQ", SAM_FLAG | SAM_POS | SAM_MAPQ,
+              [1]),
+             ("SAM_SEQ|SAM_CIGAR", SAM_SEQ | SAM_CIGAR, [2]),
+             ("0 (everything)", 0, [0, 1, 2])]
+    offsets = sorted(truths_11a)
+    fields = [[pool.submit(_leg13_fields, path, fasta, off, m)
+               for off in offsets] for _, m, _ in masks]
+    d = notes["13d"]
+    d_truth = [pool.submit(_host_cram_truth, d["path"], d["ref"], off)
+               for off, _ in cram_blocks(d["path"])]
+    d_hist = pool.submit(_leg13_qs_hist, d["path"])
+    out = {}
+    written = [tuple(vars(e).values())
+               for e in CramIndex.load(path + ".crai").entries]
+    require(crai.result() == written, "leg 13a: build_crai != the "
+            "encoder's .crai")
+    out["crai_entries"] = len(written)
+    hdr = cram_header(path)
+    names = [hdr.tid2name(t) for t in range(hdr.nref)]
+    hits, passed = 0, []
+    for r, fut in zip(regions, fetches):
+        tid, beg, end = r["region"]
+        lines, verdicts, with_filter = fut.result()
+        card = []
+        for off, stop, text in r["runs"]:
+            want = b"".join(truths_11a[o] for o in offsets
+                            if o >= off and (stop is None or o < stop))
+            require(text == want, f"leg 13a: region {r['region']}'s run at "
+                    f"{off} != the host chain's text")
+            card += [ln for ln in text.decode().splitlines()
+                     if sam_overlaps(ln, names[tid], beg, end)]
+        require(card == lines, f"leg 13a: region {r['region']}'s lines != "
+                "CramReader.fetch's records")
+        hits += len(lines)
+        for expr, v in verdicts.items():
+            got = [ln for ln, ok in zip(card, v) if ok]
+            require(got == [ln for ln, ok in zip(lines, v) if ok],
+                    f"leg 13e: {expr!r} over {r['region']}")
+            # the JAX fetch (and so the port's) ignores the reader's filter
+            require(with_filter[expr] == lines,
+                    f"leg 13e: fetch with {expr!r} set")
+            passed.append((r["region"], expr, len(got), len(lines)))
+    out["region_records"] = hits
+    require(len(passed) == 2 * len(LEG13_FILTERS)
+            and 0 < sum(p[2] for p in passed) < sum(p[3] for p in passed),
+            f"leg 13e: the filters passed {passed}")
+    out["filter_passed"] = passed
+    full = [f.result() for f in fields[-1]]
+    out["fields"] = {}
+    for (name, _, keep), futs in zip(masks, fields):
+        got = [f.result() for f in futs]
+        for g, f in zip(got, full):
+            require(all(g[3][k] == f[3][k] for k in keep),
+                    f"leg 13b: {name}'s fields != the full decode's")
+        out["fields"][name] = {
+            "decode_s": sum(g[0] for g in got),
+            "blocks_left_compressed": sum(g[1] for g in got),
+            "blocks": sum(g[2] for g in got)}
+    texts = [f.result()[1] for f in d_truth]
+    require(d["sam"] == b"".join(texts), "leg 13d: SAM != the host chain's")
+    require(np.array_equal(d["hist"], d_hist.result()),
+            "leg 13d: cram_qual_hist != the host histogram")
+    out["check_s"] = time.time() - t0
+    return out
 
 
 def leg12(device, tmp: str):
@@ -3348,9 +3751,20 @@ def main() -> int:
                       ("leg11", ["nibble_to_base", "record_scan_seg"]),
                       ("leg11_ranks", ["nibble_to_base",
                                        "record_scan_seg"]),
-                      ("leg12", ["X4"]), ("leg12_ranks", ["X4"])):
+                      ("leg12", ["X4"]), ("leg12_ranks", ["X4"]),
+                      ("leg13", ["nibble_to_base", "rans4x8_o0_decode",
+                                 "X1", "X5", "B2/B5", "B3/B6"])):
         got = dict(notes["launches_" + leg])
         got["X4"] = got.get("inflate", 0) + got.get("inflate_slot", 0)
+        got["X5"] = got.get("record_scan", 0) + got.get("record_scan_seg",
+                                                        0)
+        # a kernel with its large-table and dense variants
+        for key, names in (("X1", ["rans4x8_o1"]),
+                           ("B2/B5", ["rans_nx16_o0", "rans_nx16_o1"])):
+            got[key] = sum(got.get(f"{n}{r}_decode", 0) for n in names
+                           for r in ("", "_large", "_dense"))
+        got["B3/B6"] = (got.get("rans_nx16_o0_hist", 0)
+                        + got.get("rans_nx16_o1_hist", 0))
         for k in need:
             require(got.get(k, 0) >= 1, f"kernel {k} not launched in {leg}")
     # every wire of leg 11's files launched its kernel (or, for an order-1
@@ -3394,7 +3808,7 @@ def main() -> int:
     for tag, what in (("11a", "CRAM 3.0 with a reference"),
                       ("11b", "CRAM 3.1, no reference")):
         leg = {k: v for k, v in l11[tag].items()
-               if k not in ("sam", "path", "ref")}
+               if k not in ("sam", "path", "ref", "bam")}
         print(f"leg {tag} ({what}): {leg}", flush=True)
     print(f"leg 11a over {N_RANKS} shards in leg 10b's ranks: SAM "
           f"{l11['check']['shards_sam_MBps']:.6g} MB/s; each rank's "
@@ -3415,12 +3829,35 @@ def main() -> int:
           "bcf_decode_s " + json.dumps([r["bcf_decode_s"] for r in ranks])
           + ", parts " + json.dumps([r["bcf_parts_s"] for r in ranks]),
           flush=True)
+    l13 = notes["leg13"]
+    a13 = l13["13a"]
+    print(f"leg 13 wall (this process): {secs['leg13']:.3f} s; "
+          f"13a: {len(a13['regions'])} regions of 11a through its .crai, "
+          f"{a13['containers']} containers decoded on the card in "
+          f"{a13['decode_s']:.3f} s, {a13['ms_a_region']:.6g} ms a region; "
+          "regions (tid, beg, end; containers, SAM bytes): " + json.dumps(
+              [(r["region"], r["containers"],
+                sum(len(t) for *_, t in r["runs"])) for r in a13["regions"]]),
+          flush=True)
+    print(f"leg 13c (11a by M5, its FASTA moved): {l13['13c']}", flush=True)
+    d13 = {k: v for k, v in l13["13d"].items()
+           if k not in ("sam", "path", "ref", "hist")}
+    print(f"leg 13d (11b's BAM as reference-based CRAM 3.1, "
+          f"device_profile): {d13}", flush=True)
+    c13 = l13["check"]
+    print(f"leg 13b (11a, required_fields, host decode a container a "
+          f"process): {c13['fields']}", flush=True)
+    print(f"leg 13e (filters over two 13a regions: region, expression, "
+          f"passed, records): {c13['filter_passed']}", flush=True)
+    print(f"leg 13 check: " + json.dumps(
+        {k: v for k, v in c13.items()
+         if k not in ("fields", "filter_passed")}), flush=True)
     print("launches by leg: " + json.dumps({k: v for k, v in notes.items()
                                             if k.startswith("launches_")}),
           flush=True)
     # each launch of csrc/rans4x8.cu's kernels (key, order-1 layout,
     # streams, rounds of the longest stream) and of X5 (key, payload
-    # bytes, max_records) in legs 7-12, the ranks' apart: PERF.md reckons
+    # bytes, max_records) in legs 7-13, the ranks' apart: PERF.md reckons
     # the launches no timing covers from these shapes
     shapes = {k[len("shapes_"):]: v for k, v in notes.items()
               if k.startswith("shapes_")}

@@ -3,12 +3,15 @@ htslib_tpu/cram/__init__.py; reference cram/, cram_io.c).
 
 `CramReader` walks containers -> slices -> records: the file definition,
 the SAM header container, then each data container's compression
-header and slices, decoded on the host by cram/decode.py.  `CramWriter`
-queues records into containers (cram/encode.py).  Plain Python file
-objects take the place of the JAX package's hfile layer; the CRAI index
-(`load_index`, `fetch`) and filter expressions (`set_filter`) are not
-ported.  The batch pipeline that decodes ranges of containers with the
-rANS blocks on the device is cram/batch.py.
+header and slices, decoded on the host by cram/decode.py (only the data
+series of `required_fields`, where given).  It skips the records that
+fail a filter expression (`set_filter`, hts_expr.py) and answers region
+queries through the CRAI index (`load_index`, `fetch`; cram/index.py).
+`CramWriter` queues records into containers (cram/encode.py), and with
+`write_index` writes the `.crai` beside the file.  Plain Python file
+objects take the place of the JAX package's hfile layer.  The batch
+pipeline that decodes ranges of containers with the rANS blocks on the
+device is cram/batch.py.
 """
 from __future__ import annotations
 
@@ -18,12 +21,14 @@ from typing import BinaryIO, Iterator, List, Optional, Union
 from htslib_tpu_torch.cram.decode import (decode_compression_header,
                                           decode_slice, decode_slice_header)
 from htslib_tpu_torch.cram.encode import CramEncoder
+from htslib_tpu_torch.cram.index import CramIndex
 from htslib_tpu_torch.cram.io import (CramContainer, CramIO,
                                       read_file_definition)
 from htslib_tpu_torch.cram.refs import RefRegistry
 from htslib_tpu_torch.cram.structs import (CT_COMPRESSION_HEADER,
                                            CT_FILE_HEADER, CT_MAPPED_SLICE,
                                            CT_UNMAPPED_SLICE)
+from htslib_tpu_torch.hts_expr import HtsFilter, sam_passes_filter
 from htslib_tpu_torch.sam.header import SamHeader
 from htslib_tpu_torch.sam.record import BamRecord
 
@@ -32,16 +37,28 @@ CRAM_EOF_START = 0x454F46  # container ref_seq_start magic in EOF block
 
 class CramReader:
     def __init__(self, src: Union[str, BinaryIO], ref: Optional[str] = None,
-                 decode_md: bool = True):
-        self.fp = open(src, "rb") if isinstance(src, str) else src
+                 ignore_md5: bool = False, decode_md: bool = True,
+                 required_fields: int = 0):
+        if isinstance(src, str):
+            self.fp = open(src, "rb")
+            self.name = src
+        else:
+            self.fp = src
+            self.name = getattr(src, "name", "?")
         self.version, self.file_id = read_file_definition(self.fp)
         self.io = CramIO(self.fp, self.version)
         self.header = self._read_sam_header()
-        self.refs = RefRegistry(self.header, fasta=ref)
+        self.refs = RefRegistry(self.header, fasta=ref,
+                                ignore_md5=ignore_md5)
         self.decode_md = decode_md
+        # CRAM_OPT_REQUIRED_FIELDS (SAM_* bits; 0 = everything): series
+        # whose blocks are not needed are never even uncompressed
+        self.required_fields = required_fields
         self._rec_queue: List[BamRecord] = []
         self._qi = 0
         self._eof = False
+        self._filter: Optional[HtsFilter] = None
+        self.index: Optional[CramIndex] = None
 
     def _read_sam_header(self) -> SamHeader:
         c = self.io.read_container_header()
@@ -74,7 +91,8 @@ class CramReader:
             blocks = [self.io.read_block() for _ in range(sh.num_blocks)]
             out.extend(decode_slice(chdr, sh, blocks, self.header,
                                     self.refs.get, self.version[0],
-                                    decode_md=self.decode_md))
+                                    decode_md=self.decode_md,
+                                    required_fields=self.required_fields))
         return out
 
     def _next_container(self) -> bool:
@@ -94,11 +112,19 @@ class CramReader:
     def __iter__(self) -> Iterator[BamRecord]:
         return self
 
+    def set_filter(self, expr: Optional[str]) -> None:
+        """hts_set_filter_expression (hts.c:1967): the iterator skips
+        records failing the expression (sam_passes_filter, sam.c:1535)."""
+        self._filter = HtsFilter(expr) if expr else None
+
     def __next__(self) -> BamRecord:
-        rec = self.read1()
-        if rec is None:
-            raise StopIteration
-        return rec
+        while True:
+            rec = self.read1()
+            if rec is None:
+                raise StopIteration
+            if (self._filter is None
+                    or sam_passes_filter(rec, self.header, self._filter)):
+                return rec
 
     def read1(self) -> Optional[BamRecord]:
         while self._qi >= len(self._rec_queue):
@@ -108,6 +134,26 @@ class CramReader:
         rec = self._rec_queue[self._qi]
         self._qi += 1
         return rec
+
+    # -- region queries through the .crai --------------------------------
+    def load_index(self, path: Optional[str] = None) -> None:
+        self.index = CramIndex.load(path or self.name + ".crai")
+
+    def fetch(self, tid: int, beg: int, end: int) -> Iterator[BamRecord]:
+        """Records of reference `tid` overlapping [beg, end) (0-based):
+        cram_itr_query's semantics (sam.c:1686), a seek to each container
+        the index names, then the records filtered by position.  The
+        filter expression is not applied here, as in the JAX reader."""
+        if self.index is None:
+            self.load_index()
+        for off in self.index.container_offsets(tid, beg + 1, end):
+            self.fp.seek(off)
+            c = self.io.read_container_header()
+            if c is None:
+                break
+            for rec in self._decode_container(c):
+                if rec.tid == tid and rec.pos < end and rec.endpos() > beg:
+                    yield rec
 
     def close(self) -> None:
         self.fp.close()
@@ -124,12 +170,16 @@ class CramWriter:
     options are the encoder's."""
 
     def __init__(self, dst, header, ref=None, embed_ref=0, lossy_names=0,
-                 version=(3, 0), slices_per_container=1,
-                 seqs_per_slice=10000, profile=None):
+                 version=(3, 0), write_index=False, slices_per_container=1,
+                 seqs_per_slice=10000, nthreads=None,
+                 device_profile=False, profile=None):
         self._enc = CramEncoder(dst, header, ref=ref, embed_ref=embed_ref,
                                 lossy_names=lossy_names, version=version,
+                                write_index=write_index,
                                 slices_per_container=slices_per_container,
                                 seqs_per_slice=seqs_per_slice,
+                                nthreads=nthreads,
+                                device_profile=device_profile,
                                 profile=profile)
         self.header = header
 

@@ -26,6 +26,12 @@ Slices are decoded in file order in the calling thread: the record
 decode is Python under the GIL, which the JAX package's pipeline
 threads do not speed up.  With `device="cpu"` the kernels' plain
 versions run.
+
+A region query (`samtools view file.cram chr:beg-end`) is the index's
+containers decoded on the device: cram/index.py
+`CramIndex.container_offsets`, then `cram_range_to_sam` over each run of
+consecutive containers, the lines outside the region dropped by the
+caller (or `CramReader.fetch` on the host).
 """
 from __future__ import annotations
 
@@ -260,7 +266,10 @@ def bam_to_cram_file(bam_path: str, cram_path: str, ref=None,
     stream read once (sam/bam.py `BamReader.raw_records`), planned into
     containers of seqs_per_slice x slices_per_container records by its
     tid/pos/end columns, each container encoded by the CramWriter's
-    encoder.  `opts` are CramWriter's.  Returns the record count."""
+    encoder.  `opts` are CramWriter's: `write_index=True` writes the
+    `.crai` beside the file, `device_profile=True` (CRAM 3.1) pins the
+    quality blocks to a wire the device decodes.  Returns the record
+    count."""
     with BamReader(bam_path) as r:
         header = r.header
         run = _raw_run(*r.raw_records())

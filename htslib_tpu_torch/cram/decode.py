@@ -5,10 +5,13 @@ Per-slice: parse the compression header's codec maps once, then play the
 per-record decode loop (cram_decode_slice:2346, cram_decode_seq:1096),
 resolve intra-slice mate references (cram_decode_slice_xref:2140) and
 convert to BamRecords (cram_to_bam:3100).  The JAX package's native slice
-decoder and its required-fields pruning are not ported: every slice is
-decoded whole by this loop.  A block whose `_uncompressed` bytes are
-already set (cram/batch.py decodes the rANS blocks of a batch of slices
-on the device) is not decoded again.
+decoder is not ported: every slice goes through this loop, which is the
+JAX package's own path whenever required-fields pruning is on.  With
+`required_fields` (SAM_* bits) the series no requested field needs are
+not read, and their EXTERNAL blocks are not even uncompressed
+(`_active_series`).  A block whose `_uncompressed` bytes are already set
+(cram/batch.py decodes the rANS blocks of a batch of slices on the
+device) is not decoded again.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from htslib_tpu_torch.cram.codecs import Codec, SliceStreams, parse_encoding
+from htslib_tpu_torch.cram.codecs import (CORE_ID, Codec, SliceStreams,
+                                          parse_encoding)
 from htslib_tpu_torch.cram.io import CramBlock
 from htslib_tpu_torch.cram.structs import (
     CRAM_FLAG_DETACHED, CRAM_FLAG_EXPLICIT_TLEN, CRAM_FLAG_MATE_DOWNSTREAM,
@@ -33,6 +37,83 @@ from htslib_tpu_torch.sam.record import (FMREVERSE, FMUNMAP, FPAIRED,
                                          FREVERSE, FUNMAP, BamRecord)
 
 INT64_MIN = -(1 << 63)
+
+# SAM_* required-field bits (htslib/sam.h:35-50, used with
+# CRAM_OPT_REQUIRED_FIELDS / hts_set_opt)
+SAM_QNAME = 0x1
+SAM_FLAG = 0x2
+SAM_RNAME = 0x4
+SAM_POS = 0x8
+SAM_MAPQ = 0x10
+SAM_CIGAR = 0x20
+SAM_RNEXT = 0x40
+SAM_PNEXT = 0x80
+SAM_TLEN = 0x100
+SAM_SEQ = 0x200
+SAM_QUAL = 0x400
+SAM_AUX = 0x800
+SAM_RGAUX = 0x1000
+
+# the feature-playback series: decoded as a unit because the CIGAR and
+# sequence structure interleave (cram_decode_seq, cram_decode.c:1096)
+_FEAT_SERIES = ("FN", "FC", "FP", "BS", "IN", "SC", "DL", "HC", "PD",
+                "RS", "BB", "BA")
+
+
+def _active_series(hdr: "CompressionHeader", required: int):
+    """Required-fields pruning (cram_dependent_data_series,
+    cram_decode.c:553): which gated series groups decode, widened to a
+    fixpoint over shared blocks (a skipped series must not leave a stream
+    that an active series reads out of step).  Returns None when
+    everything decodes, else (active keys, whether aux values decode,
+    the content ids of the blocks needed)."""
+    if not required:
+        return None
+
+    def ids_of(keys):
+        out = set()
+        for k in keys:
+            c = hdr.codecs.get(k)
+            if c is not None:
+                out |= c.block_ids()
+        return out
+
+    groups = {
+        "RN": ({"RN"}, ids_of(["RN"]), bool(required & SAM_QNAME)),
+        "QS": ({"QS"}, ids_of(["QS"]), bool(required & SAM_QUAL)),
+        "AUX": (set(), set().union(*(c.block_ids() for c in
+                                     hdr.tag_codecs.values())),
+                bool(required & (SAM_AUX | SAM_RGAUX))),
+        "FEAT": (set(_FEAT_SERIES), ids_of(_FEAT_SERIES),
+                 bool(required & (SAM_CIGAR | SAM_SEQ | SAM_QUAL
+                                  | SAM_TLEN))),
+    }
+    always = [k for k in hdr.codecs
+              if k not in {"RN", "QS"} and k not in _FEAT_SERIES]
+    active_ids = ids_of(always)
+    active = {g for g, (_, _, on) in groups.items() if on}
+    for g in active:
+        active_ids |= groups[g][1]
+    changed = True
+    while changed:
+        changed = False
+        # a skipped group sharing a block with the active set (CORE
+        # included) is switched on
+        for g, (_, gids, _) in groups.items():
+            if g not in active and gids & active_ids:
+                active.add(g)
+                active_ids |= gids
+                changed = True
+        # QS bytes are read inside the feature loop, so an active QS
+        # stream switches the feature group on
+        if "QS" in active and "FEAT" not in active:
+            active.add("FEAT")
+            active_ids |= groups["FEAT"][1]
+            changed = True
+    keys = set(always)
+    for g in active:
+        keys |= groups[g][0]
+    return keys, "AUX" in active, active_ids - {CORE_ID}
 
 
 @dataclass
@@ -194,15 +275,29 @@ class CramRecordTmp:
 def decode_slice(hdr: CompressionHeader, sh: SliceHeader,
                  blocks: List[CramBlock], header: SamHeader,
                  get_ref, vmajor: int, decode_md: bool = True,
-                 ) -> List[BamRecord]:
-    """cram_decode_slice (cram_decode.c:2346)."""
+                 required_fields: int = 0) -> List[BamRecord]:
+    """cram_decode_slice (cram_decode.c:2346).  required_fields (SAM_*
+    bits, 0 = everything) prunes gated series: their blocks are not even
+    uncompressed (cram_dependent_data_series, cram_decode.c:553); fields
+    not requested carry unspecified values."""
+    act = _active_series(hdr, required_fields)
+    if act is None:
+        act_keys, aux_values, needed_ids = None, True, None
+    else:
+        act_keys, aux_values, needed_ids = act
+
+    def on(key: str) -> bool:
+        return act_keys is None or key in act_keys
+
     core = b""
     ext: Dict[int, bytes] = {}
     for b in blocks:
         if b.content_type == CT_CORE:
             core = b.uncompress()
         elif b.content_type == CT_EXTERNAL:
-            ext[b.content_id] = b.uncompress()
+            if (needed_ids is None or b.content_id in needed_ids
+                    or b.content_id == sh.ref_base_id):
+                ext[b.content_id] = b.uncompress()
     st = SliceStreams(core, ext)
     cs = hdr.codecs
 
@@ -259,11 +354,11 @@ def decode_slice(hdr: CompressionHeader, sh: SliceHeader,
             cr.rg = codec("RG").read_int(st)
             if cr.rg == -1 or cr.rg >= len(rg_names):
                 cr.rg = -1
-        if hdr.read_names_included and "RN" in cs:
+        if hdr.read_names_included and "RN" in cs and on("RN"):
             cr.name = codec("RN").read_array(st)
         if cf & CRAM_FLAG_DETACHED:
             cr.mate_flags = codec("MF").read_int(st) if "MF" in cs else 0
-            if not hdr.read_names_included and "RN" in cs:
+            if not hdr.read_names_included and "RN" in cs and on("RN"):
                 cr.name = codec("RN").read_array(st)
             if "NS" in cs:
                 cr.mate_ref_id = codec("NS").read_int(st)
@@ -283,7 +378,8 @@ def decode_slice(hdr: CompressionHeader, sh: SliceHeader,
             if "TS" in cs:
                 cr.explicit_tlen = codec("TS").read_int(st)
         # aux tags
-        has_MD, has_NM = _decode_aux(hdr, st, cr, rg_names)
+        has_MD, has_NM = _decode_aux(hdr, st, cr, rg_names,
+                                     values=aux_values)
         # per-record reference (multiref slices)
         rref = ref
         rref_start = ref_start
@@ -292,21 +388,30 @@ def decode_slice(hdr: CompressionHeader, sh: SliceHeader,
                 multi_ref_cache[cr.ref_id] = get_ref(cr.ref_id, 1, -1)
             rref = multi_ref_cache[cr.ref_id]
             rref_start = 1
-        if not (cr.flags & FUNMAP):
+        if not (cr.flags & FUNMAP) and on("FN"):
             _decode_seq(hdr, st, cr, rref, rref_start, header, cf,
                         vmajor, has_MD, has_NM,
                         # CRAM <4: decode_md is off/on; CRAM 4: auto — only
                         # '*' placeholder tags trigger generation
                         # (cram_decode.c:1114-1117)
-                        decode_md and vmajor < 4)
+                        decode_md and vmajor < 4, qs_on=on("QS"))
+        elif not (cr.flags & FUNMAP):
+            # features pruned: the structure fields are unspecified, but
+            # MQ (always on) still reads its stream
+            cr.cigar = []
+            cr.aend = cr.apos
+            cr.mqual = cs["MQ"].read_int(st) if "MQ" in cs else 40
+            cr.seq = b""
+            cr.qual = b""
+            cr.len = 0
         else:
             cr.cigar = []
             cr.aend = cr.apos
             cr.mqual = 0
-            if "BA" in cs and cr.len:
+            if "BA" in cs and cr.len and on("BA"):
                 cr.seq = codec("BA").read_bytes(st, cr.len)
             if cf & CRAM_FLAG_PRESERVE_QUAL_SCORES:
-                if "QS" in cs and cr.len >= 0:
+                if "QS" in cs and cr.len >= 0 and on("QS"):
                     cr.qual = codec("QS").read_bytes(st, cr.len)
             else:
                 cr.qual = b"\xff" * cr.len
@@ -337,16 +442,22 @@ def decode_slice_blob(hdr: CompressionHeader, sh: SliceHeader,
 
 
 def _decode_aux(hdr: CompressionHeader, st: SliceStreams,
-                cr: CramRecordTmp, rg_names=()) -> Tuple[int, int]:
+                cr: CramRecordTmp, rg_names=(),
+                values: bool = True) -> Tuple[int, int]:
     """cram_decode_aux (cram_decode.c:976).  Returns (has_MD, has_NM);
     -1 means a CRAM 4 '*' placeholder tag forcing auto-generation
-    (cram_decode.c:2045-2087)."""
+    (cram_decode.c:2045-2087).  With values=False (required-fields
+    pruning) the TL series is still read but no tag stream is."""
     if "TL" not in hdr.codecs:
         return 0, 0
     TL = hdr.codecs["TL"].read_int(st)
     if TL < 0 or TL >= len(hdr.TD):
         raise IOError("CRAM: invalid TL")
     TN = hdr.TD[TL]
+    if not values:
+        tags = [TN[i:i + 2] for i in range(0, len(TN), 3)]
+        cr.aux = b""
+        return int(b"MD" in tags), int(b"NM" in tags)
     aux = bytearray()
     has_MD = has_NM = 0
     for i in range(0, len(TN), 3):
@@ -388,7 +499,7 @@ def _decode_aux(hdr: CompressionHeader, st: SliceStreams,
 def _decode_seq(hdr: CompressionHeader, st: SliceStreams, cr: CramRecordTmp,
                 ref: Optional[bytes], ref_start: int, header: SamHeader,
                 cf: int, vmajor: int, has_MD: int = 0, has_NM: int = 0,
-                decode_md: bool = True) -> None:
+                decode_md: bool = True, qs_on: bool = True) -> None:
     """cram_decode_seq (cram_decode.c:1096) — feature playback, including
     MD/NM auto-generation (hts_hopen enables CRAM_OPT_DECODE_MD auto,
     hts.c:1584)."""
@@ -592,7 +703,7 @@ def _decode_seq(hdr: CompressionHeader, st: SliceStreams, cr: CramRecordTmp,
                             md_parts.append(ref_at(ref_pos, 1))
                         nm += 1
                         md_dist = 0
-            if "QS" in cs:
+            if "QS" in cs and qs_on:
                 q = cs["QS"].read_byte(st)
                 if not (cf & CRAM_FLAG_PRESERVE_QUAL_SCORES) and cr.len > 0 \
                         and qual[0] == 0xFF:
@@ -603,7 +714,7 @@ def _decode_seq(hdr: CompressionHeader, st: SliceStreams, cr: CramRecordTmp,
             seq_pos += 1
             ref_pos += 1
         elif op == "Q":
-            if "QS" in cs:
+            if "QS" in cs and qs_on:
                 q = cs["QS"].read_byte(st)
                 if not (cf & CRAM_FLAG_PRESERVE_QUAL_SCORES) and cr.len > 0 \
                         and qual[0] == 0xFF:
@@ -654,7 +765,7 @@ def _decode_seq(hdr: CompressionHeader, st: SliceStreams, cr: CramRecordTmp,
     cr.cigar = cigar
     cr.aend = max(ref_pos, cr.apos)
     cr.mqual = cs["MQ"].read_int(st) if "MQ" in cs else 40
-    if cf & CRAM_FLAG_PRESERVE_QUAL_SCORES and "QS" in cs:
+    if cf & CRAM_FLAG_PRESERVE_QUAL_SCORES and "QS" in cs and qs_on:
         qual = bytearray(cs["QS"].read_bytes(st, cr.len))
     if cr.cram_flags & CRAM_FLAG_NO_SEQ:
         cr.len = 0

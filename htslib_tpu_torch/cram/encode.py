@@ -11,7 +11,11 @@ rANS Nx16 and its PACK transform, with FQZ and the name tokeniser as
 challengers).  Every codec is the port's own host codec, so the bytes
 are those of the JAX encoder with its native library off (its native
 encoder writes other, equally valid, bytes).  Containers are built and
-written in order in the calling thread.  CRAI indexing is not ported.
+written in order in the calling thread, which writes the bytes of the
+JAX encoder at any `nthreads`.  With `write_index` each slice gets its
+CRAI entry as its container is written, and the `.crai` is saved at
+close; with `device_profile` (CRAM 3.1) quality blocks are pinned to a
+32-way rANS Nx16 wire that the port's quality lane decodes on the device.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import BinaryIO, Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from htslib_tpu_torch.codecs import arith, fqzcomp, rans4x8, rans4x16, tok3
+from htslib_tpu_torch.cram.index import CraiEntry, CramIndex
 from htslib_tpu_torch.cram.refs import RefRegistry
 from htslib_tpu_torch.cram.structs import (
     ARITH, BZIP2, CRAM_FLAG_DETACHED, CRAM_FLAG_MATE_DOWNSTREAM,
@@ -118,6 +123,39 @@ class _Stream:
 
 def _fqz_compress(data: bytes, lens) -> bytes:
     return fqzcomp.compress(data, list(lens))
+
+
+def _device_qs(data: bytes, method: int, comp: bytes) -> Tuple[int, bytes]:
+    """A QS block pinned to a device-decodable 32-way rANS Nx16 wire:
+    order 0, or order 1 where it is at least 3% smaller (its device
+    decode is slower than order 0's, so a marginal size win is not worth
+    it).  Keeps (method, comp) where order 0 cannot encode the block."""
+    try:
+        comp = rans4x16.compress(data, 0x04)
+    except (ValueError, ZeroDivisionError):
+        return method, comp
+    try:
+        c1 = rans4x16.compress(data, 0x05)
+        if len(c1) < 0.97 * len(comp):
+            comp = c1
+    except (ValueError, ZeroDivisionError):
+        pass
+    return RANSPR, comp
+
+
+def _ref_extents(recs) -> Dict[int, Tuple[int, int]]:
+    """tid -> (first 1-based position, last end) over a multi-ref slice's
+    records (a RawRun's columns or BamRecords)."""
+    by_ref: Dict[int, Tuple[int, int]] = {}
+    if isinstance(recs, RawRun):
+        rows = zip(recs.tids.tolist(), recs.poss.tolist(),
+                   recs.ends.tolist())
+    else:
+        rows = ((r.tid, r.pos, r.endpos()) for r in recs)
+    for tid, pos, end in rows:
+        lo, hi = by_ref.get(tid, (1 << 62, -1))
+        by_ref[tid] = (min(lo, pos + 1), max(hi, end))
+    return by_ref
 
 
 def _tok3_encode(data: bytes) -> bytes:
@@ -322,7 +360,10 @@ class CramEncoder:
     def __init__(self, dst: Union[str, BinaryIO], header: SamHeader,
                  ref: Optional[str] = None, seqs_per_slice: int = 10000,
                  version: Tuple[int, int] = (3, 0), embed_ref: int = 0,
-                 lossy_names: int = 0, slices_per_container: int = 1,
+                 nthreads: Optional[int] = None,
+                 lossy_names: int = 0, write_index: bool = False,
+                 slices_per_container: int = 1,
+                 device_profile: bool = False,
                  profile: Optional[str] = None):
         self.fp = open(dst, "wb") if isinstance(dst, str) else dst
         # codec enables follow the reference defaults (cram_io.c:5370):
@@ -334,6 +375,18 @@ class CramEncoder:
         self._use_arith = False
         self._archive = False
         self._level = 6
+        # pin the QS series to 32-way rANS Nx16 (a valid 3.1 wire that any
+        # decoder reads) so the device quality lane decodes it
+        # (ops/device_stats.py)
+        self.device_profile = device_profile
+        # the JAX encoder's container threads (cram_flush_container_mt);
+        # the port builds containers in order, with the same bytes
+        self.nthreads = nthreads
+        # on-the-fly .crai (cram_index_slice, cram_index.c:695)
+        self.index_entries: Optional[List[CraiEntry]] = (
+            [] if write_index else None)
+        self.index_path = (dst + ".crai" if write_index
+                           and isinstance(dst, str) else None)
         self.header = header
         self.refs = None
         if ref is not None:
@@ -511,15 +564,23 @@ class CramEncoder:
 
     # ------------------------------------------------------------------
     def _write_data_container(self, recs: List[BamRecord]) -> None:
-        """Encode and write one container."""
-        self.fp.write(self._build_container(recs, self.record_counter))
+        """Encode and write one container, and add its slices' CRAI
+        entries at its file offset."""
+        cont, entries = self._build_container(recs, self.record_counter)
+        cpos = self.fp.tell() if self.index_entries is not None else 0
+        self.fp.write(cont)
+        if self.index_entries is not None:
+            for tid, start, span, lm, ssize in entries:
+                self.index_entries.append(
+                    CraiEntry(tid, start, span, cpos, lm, ssize))
 
-    def _build_container(self, recs: List[BamRecord], counter0: int
-                         ) -> bytes:
+    def _build_container(self, recs: List[BamRecord], counter0: int):
         """One container = one or more slices (CRAM_OPT_SLICES_PER_
         CONTAINER; cram_encode_container, cram_encode.c:1843): a shared
         compression header, then per-slice header+core+external blocks
-        at the landmark offsets."""
+        at the landmark offsets.  Returns (its bytes, its slices' CRAI
+        entries (tid, start, span, landmark, size), relative to the
+        container)."""
         n = max(1, self.seqs_per_slice)
         if self.slices_per_container > 1 and len(recs) > n:
             groups = [recs[i:i + n] for i in range(0, len(recs), n)]
@@ -576,9 +637,25 @@ class CramEncoder:
             c_ref, c_start, c_span = -2, 0, 0
 
         nblocks = 1 + sum(s["nblocks"] for s in slices)
-        return self._container(bytes(blocks), c_ref, c_start, c_span,
+        cont = self._container(bytes(blocks), c_ref, c_start, c_span,
                                len(recs), total_bases, nblocks, landmarks,
                                counter=counter0)
+        entries = []
+        if self.index_entries is not None:
+            for lm, s, g, p in zip(landmarks, slices, groups, plans):
+                ssize = len(s["blocks"])
+                if p["multiref"]:
+                    # per-refid extents (cram_index_build_multiref)
+                    for tid, (lo, hi) in _ref_extents(g).items():
+                        entries.append((-1, 0, 0, lm, ssize) if tid < 0
+                                       else (tid, lo, hi - lo + 1, lm,
+                                             ssize))
+                elif p["slice_ref"] < 0:
+                    entries.append((-1, 0, 0, lm, ssize))
+                else:
+                    entries.append((p["slice_ref"], p["start"], s["span"],
+                                    lm, ssize))
+        return cont, entries
     # ------------------------------------------------------------------
     def _slice_ref_plan(self, recs: List[BamRecord]) -> dict:
         """Per-slice reference window decision (the front of
@@ -822,7 +899,10 @@ class CramEncoder:
         for cid in ext_ids:
             data = stream_bytes[cid]
             method, comp = self.metrics.choose(cid, data)
-            if (self.use_fqz and self.version >= (3, 1)
+            if (self.device_profile and self.version >= (3, 1)
+                    and cid == SERIES["QS"] and len(data) >= 64):
+                method, comp = _device_qs(data, method, comp)
+            elif (self.use_fqz and self.version >= (3, 1)
                     and cid == SERIES["QS"]
                     and len(data) >= 512 and sum(qs_lens) == len(data)):
                 # fqzcomp quality model (FQZ, cram_io.c:1821; meth_cost
@@ -1110,6 +1190,8 @@ class CramEncoder:
         self._write_eof()
         self.fp.flush()
         self.fp.close()
+        if self.index_entries is not None and self.index_path:
+            CramIndex(self.index_entries).save(self.index_path)
 
     def _write_eof(self):
         blocks = bytearray()

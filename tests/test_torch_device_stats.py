@@ -474,3 +474,40 @@ def test_host_decoded_block_uses_port_codec():
     tb = TBlock(RANSPR, CT_EXT, tds.QS_CONTENT_ID, 0, len(d),
                 compress(d, 0x00))
     assert tb.uncompress() == d == blk.uncompress()
+
+
+# -- the STRIPE and PACK fixture ------------------------------------------
+# (the whole of tests/test_torch_stripe_pack.py, merged here: its
+# interpret-mode JAX runs take minutes and share their compiled lanes,
+# and pytest-xdist's loadfile scheduling starts a file of many tests
+# first, where a file of two to five tests started last and ended the
+# tier-1 run alone)
+
+STRIPE_PACK = os.path.join(REPO, "htslib_tpu_torch", "testdata",
+                           "qual_stripe_pack.cram")
+
+
+def test_committed_stripe_pack_fixture(tmp_path):
+    check_committed_fixture(tmp_path, STRIPE_PACK, write_stripe_pack_cram,
+                            ["stripe", "pack", None])
+
+
+def test_stripe_pack_fixture_wires():
+    """The fixture holds STRIPE blocks of both orders and PACK blocks of
+    both orders."""
+    flags = set()
+    with open(STRIPE_PACK, "rb") as fp:
+        version, _ = read_file_definition(fp)
+        io = CramIO(fp, version)
+        c = io.read_container_header()
+        fp.seek(c.data_offset + c.length)
+        while True:
+            c = io.read_container_header()
+            if c is None or c.ref_seq_start == CRAM_EOF_START:
+                break
+            while fp.tell() < c.data_offset + c.length:
+                blk = io.read_block()
+                if blk.content_id == tds.QS_CONTENT_ID \
+                        and blk.method == RANSPR:
+                    flags.add(blk.data[0])
+    assert {0x0C, 0x0D, 0x84, 0x85} <= flags

@@ -52,6 +52,9 @@ def test_sources_found():
                  "htslib_tpu_torch/cram/decode.py",
                  "htslib_tpu_torch/cram/encode.py",
                  "htslib_tpu_torch/cram/refs.py",
+                 "htslib_tpu_torch/cram/index.py",
+                 "htslib_tpu_torch/cram/external.py",
+                 "htslib_tpu_torch/hts_expr.py",
                  "htslib_tpu_torch/faidx.py",
                  "htslib_tpu_torch/ops/bam2sam.py",
                  "htslib_tpu_torch/ops/probaln.py",

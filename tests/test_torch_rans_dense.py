@@ -17,15 +17,21 @@ import numpy as np
 import pytest
 
 from htslib_tpu.codecs import rans4x16 as host16
+from htslib_tpu.codecs.rans4x16 import compress
+from htslib_tpu.ops import device_stats as jds
 from htslib_tpu.ops import rans as jrans
 from htslib_tpu_torch.codecs import rans4x8 as r8
 from htslib_tpu_torch.codecs import rans4x16 as r16
+from htslib_tpu_torch.ops import device_stats as tds
 from htslib_tpu_torch.ops import rans as trans
 from htslib_tpu_torch.ops import rans4x8 as t8
 from htslib_tpu_torch.ops import rans_nx16_o1 as to1
+from test_torch_device_stats import check_committed_fixture, write_o1_cram
 from test_torch_device_stats import read_walks as _walk
 from test_torch_gpu import short_table_compress, unnormalised_stream
 from test_torch_rans4x8 import CSRC, _HARNESS
+from tests.test_torch_timing_contract import (check_timing_contract,
+                                              quality_streams)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -895,3 +901,70 @@ def test_hifi_stream_matches_jax(wire):
         port = trans.uncompress_nx16_batch([enc], device="cpu")
         jaxd = jrans.uncompress_nx16_batch([enc])
     assert port == jaxd == [raw]
+
+
+# -- the order-1 quality lane against the JAX lane ------------------------
+# (the whole of tests/test_torch_o1_stats.py, merged here: its
+# interpret-mode JAX runs take minutes and share their compiled lanes,
+# and pytest-xdist's loadfile scheduling starts a file of many tests
+# first, where a file of two to five tests started last and ended the
+# tier-1 run alone)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+O1_FIXTURE = os.path.join(REPO, "htslib_tpu_torch", "testdata",
+                          "qual_o1.cram")
+
+
+def _datas():
+    rng = np.random.default_rng(41)
+    return [_walk(rng, 30000), _walk(rng, 1007), _walk(rng, 13),
+            bytes([30]) * 999, _walk(rng, 64),
+            rng.integers(20, 41, 3001, dtype=np.uint8).tobytes()]
+
+
+DATAS = _datas()
+# with these, more than 32 streams: the JAX lane takes two groups
+FILLERS = [_walk(np.random.default_rng(42), 40 + 37 * i) for i in range(27)]
+
+
+@pytest.mark.parametrize("qbins", [64, 256])
+def test_qualstats_device_o1_matches_jax(qbins):
+    datas = DATAS + (FILLERS if qbins == 64 else [])
+    encs = [compress(d, 0x05) for d in datas]
+    got, timing = tds.qualstats_device_o1(encs, device="cpu", qbins=qbins)
+    ref, _ = jds.qualstats_device_o1(encs, interpret=True, qbins=qbins)
+    truth = np.stack([np.bincount(np.minimum(np.frombuffer(d, np.uint8),
+                                             qbins - 1), minlength=qbins)
+                      for d in datas])
+    assert got.dtype == np.int64 and got.shape == (len(datas), qbins)
+    assert np.array_equal(got, truth)
+    assert np.array_equal(got, ref)
+    assert timing["uncompressed_bytes"] == sum(len(d) for d in datas)
+
+
+def test_qualstats_device_o1_rejects_other_wires():
+    for flags in (0x04, 0x01):
+        enc = compress(DATAS[1], flags)
+        with pytest.raises(ValueError) as port_err:
+            tds.qualstats_device_o1([enc], device="cpu")
+        with pytest.raises(ValueError) as jax_err:
+            jds.qualstats_device_o1([enc], interpret=True)
+        assert str(port_err.value) == str(jax_err.value)
+
+
+def test_committed_o1_fixture(tmp_path):
+    check_committed_fixture(tmp_path, O1_FIXTURE, write_o1_cram,
+                            ["nx16_o1", None])
+
+
+# -- the order-1 lane's timing keys ---------------------------------------
+# (the whole of tests/test_torch_timing_contract_o1.py, merged here: it
+# compiles the same JAX lane as the cases above)
+
+@pytest.mark.parametrize("reps", [1, 2])
+def test_o1_timing_keys_match_jax(reps):
+    encs = [compress(d, 0x05) for d in quality_streams()]
+    check_timing_contract(tds.qualstats_device_o1(encs, device="cpu",
+                                                  reps=reps),
+                          jds.qualstats_device_o1(encs, interpret=True,
+                                                  reps=reps))

@@ -15,8 +15,10 @@ import pytest
 import torch
 
 from htslib_tpu.codecs.rans4x16 import compress, uncompress
+from htslib_tpu.ops import device_stats as jds
 from htslib_tpu.ops import rans_o1_pallas as jo1
 from htslib_tpu_torch import carry
+from htslib_tpu_torch.ops import device_stats as tds
 from htslib_tpu_torch.ops import rans_nx16_o1 as to1
 from chip_smoke import fallback_buckets, wide_stream
 from test_torch_device_stats import read_walks as _walk
@@ -469,3 +471,27 @@ def test_hist_plain_counts_decoded_symbols():
         s = syms[b.out_off[i]:b.out_off[i] + b.ulen[i]].long()
         want = torch.bincount((s - o).clamp(0, 255), minlength=256)
         assert torch.equal(hist[i].long(), want)
+
+
+# -- a 256-context table under the A2_MAX gate ----------------------------
+# (the whole of tests/test_torch_o1_ctx256.py, merged here: the
+# table needs a 256-symbol JAX alphabet select, the costliest JAX
+# configuration of the lane, minutes in interpret mode, and
+# pytest-xdist's loadfile scheduling starts a file of many tests first)
+
+def test_table_has_256_contexts_under_the_gate():
+    F = to1._parse_nx16_header(compress(CTX256, 0x05))[1]
+    assert (F.sum(axis=1) > 0).sum() == 256
+    assert (F > 0).sum() <= to1.A2_MAX
+
+
+def test_ctx256_matches_jax_and_host():
+    datas = [CTX256, CTX256[:1007], CTX256[:4000]]
+    encs = [compress(d, 0x05) for d in datas]
+    assert to1.decode_nx16_o1_batch(encs, device="cpu") \
+        == [uncompress(e) for e in encs] == datas
+    got, _ = tds.qualstats_device_o1(encs, device="cpu")
+    ref, _ = jds.qualstats_device_o1(encs, interpret=True)
+    truth = tds.qualstats_host(datas)
+    assert np.array_equal(got, truth)
+    assert np.array_equal(got, ref)

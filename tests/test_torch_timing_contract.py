@@ -3,8 +3,9 @@ device_stats.py qualstats_device and qualstats_device_4x8) has the JAX
 package's keys on the same streams: for reps=1 the collect-wall rate, for
 reps > 1 the best of `reps` device-resident re-runs and the resident
 rate.  The times differ by nature; the histograms and byte counts are
-exact.  The order-1 lane is in test_torch_timing_contract_o1.py: its
-interpret-mode JAX runs take the longest."""
+exact.  The order-1 lane is in test_torch_rans_dense.py, beside the
+other cases that compile it: its interpret-mode JAX runs take the
+longest."""
 import jax
 import numpy as np
 import pytest
