@@ -244,14 +244,43 @@ PyTorch version on the card and times both.  Phases:
      regions, containers, ms a region, 13b's decode s by mask, 13c's
      seconds, 13d's encode s, decode s in parts and SAM MB/s, 13e's
      counts, leg 13's launches;
+  5l. leg 14, the indexes (index.py, sam/indexing.py, vcf/io.py's CSI,
+     tbx.py, faidx.py over BGZF), run after leg 10b on the files legs
+     10-12 made; the host builds and truths run in a pool of processes
+     while the card works.  14a: leg 10's BAM read back record by record
+     by the streaming BamReader and written again with
+     BamWriter(build_index=True), with LEG14_UNPLACED unplaced reads as
+     its tail: its .bai must equal build_bam_index's, and a CSI
+     (min_shift 14) is built too; 16 regions (one across the file's
+     middle member boundary, one on the reference with no records, the
+     unplaced tail by HTS_IDX_NOCOOR, 13 seeded of 1 kb to 500 kb), each's
+     chunks mapped to stream offsets through the file's member table,
+     inflated by bgzf.inflate_range (X4) and formatted by
+     bam_payload_to_sam_device (X5, B1): the lines that overlap the
+     region must equal bam_itr_query's records formatted by to_sam, over
+     the BAI and over the CSI.  14b: leg 12's BCF rewritten with
+     BcfWriter(build_index=True), its .csi equal to bcf_index_build's;
+     16 regions on both contigs through it: chunks inflated (X4), framed
+     (split_frames), the frames that overlap formatted (format_frames),
+     equal to BcfReader.fetch's records as VCF.  14c: leg 12's VCF
+     bgzipped and indexed by Tabix.build as TBI and as CSI; 16 regions
+     inflated (X4), the lines tbx_parse1 places in the region equal to
+     Tabix.query_region's over either index.  14d: leg 11's FASTA
+     bgzipped with its .gzi (BgzfWriter.save_index), 64 intervals fetched
+     from it equal to the plain file's, and 11a decoded by
+     cram_file_to_sam with ref= the .fa.gz on the card (B7, X1, X5, B1)
+     equal to 11a's text.  Printed: the wall time, ms a region by part,
+     each index build's seconds, 14d's decode s in parts, the leg 14
+     check line (records a region), leg 14's launches;
 
-Launch counts are reset just before phase 3 and read just after phase 5k,
-with leg 10b's ranks' counts added; legs 7-13 are also counted alone
+Launch counts are reset just before phase 3 and read just after phase 5l,
+with leg 10b's ranks' counts added; legs 7-14 are also counted alone
 (reset just before each, read just after; 10b's, 11a's and 12b's shards'
 in the ranks) and each must have launched its kernels (X4; X5 and B1; X6;
 B1, X4 and X5 in 10a and in 10b; X5, B1 and the kernel of every rANS wire
 its files hold, in leg 11 and in its shards; X4 in leg 12 and in its
-shards; B1, B7, X1, X5, B2 or B5 and B3 or B6 in leg 13).  The kernels
+shards; B1, B7, X1, X5, B2 or B5 and B3 or B6 in leg 13; X4, X5, B1, B7
+and X1 in leg 14).  The kernels
 line's X4 row gives leg 12's launches apart (launches_leg12).
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -320,6 +349,7 @@ LEG13_FILTERS = ["mapq >= 30 && flag.paired",
 N_VCF = 20_000          # leg 12's VCF records, on LEG12_CONTIGS
 N_SAMPLES = 32          # and their samples
 LEG12_CONTIGS = [("chr1", 248956422), ("chr2", 242193529)]
+LEG14_UNPLACED = 2_000  # leg 14a's unmapped, unplaced tail (HTS_IDX_NOCOOR)
 
 
 def _encode(data: bytes, wire: str = "nx16_o0") -> bytes:
@@ -1207,10 +1237,10 @@ def hist_of(raw: bytes, qbins: int) -> np.ndarray:
 
 def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
               tile_len=TILE_LEN, n_decode=N_DECODE):
-    """Phases 3-5k through the port's entry points on `device`, each
+    """Phases 3-5l through the port's entry points on `device`, each
     result held against its host truth.  Returns (leg-1 args on the
     device, seconds of each phase, notes: leg 4's timing dict, leg 5's
-    lookups per second, legs 6-13's parts)."""
+    lookups per second, legs 6-14's parts)."""
     from htslib_tpu_torch.entry import entry
     from htslib_tpu_torch.ops.device_stats import (QBINS, cram_qual_hist,
                                                    qualstats_device,
@@ -1339,6 +1369,7 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="leg11_12_")
+    leg10_bam = os.path.join(tmp, "leg10.bam")
     try:
         for leg, run in (("leg7", lambda: leg7(device, bgzf, raws)),
                          ("leg8", lambda: leg8(device, inflated, varied)),
@@ -1350,7 +1381,10 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                          ("leg10a", lambda: leg10a(batch)),
                          ("leg10b", lambda: leg10b(device, batch, bgzf,
                                                    chain_sam, cram_plan,
-                                                   bcf_plan))):
+                                                   bcf_plan, leg10_bam)),
+                         ("leg14", lambda: leg14(device, tmp, leg10_bam,
+                                                 notes["leg11"],
+                                                 notes["leg12"]))):
             t0 = time.time()
             with Shapes() as shapes:
                 notes[leg], notes["launches_" + leg] = _counted(run)
@@ -1777,7 +1811,23 @@ def leg10_rank(rank: int, n: int, device, batch, halo, plan, refs,
     return out
 
 
-def leg10b(device, batch, bgzf, chain_sam, cram_plan, bcf_plan):
+def write_leg10_bam(path: str, bgzf) -> None:
+    """Leg 10's BAM file: a header member (LEG8_REFS, 300 Mbp each), leg
+    7's members, the EOF member."""
+    from htslib_tpu_torch.bgzf import BGZF_EOF, bgzf_member, compress_block
+    from htslib_tpu_torch.sam.bam import write_bam_header
+    from htslib_tpu_torch.sam.header import SamHeader
+    head = io.BytesIO()
+    write_bam_header(head, SamHeader("".join(
+        f"@SQ\tSN:{r}\tLN:300000000\n" for r in LEG8_REFS)))
+    with open(path, "wb") as fp:
+        fp.write(compress_block(head.getvalue()))
+        for deflated, piece in zip(*bgzf):
+            fp.write(bgzf_member(deflated, piece))
+        fp.write(BGZF_EOF)
+
+
+def leg10b(device, batch, bgzf, chain_sam, cram_plan, bcf_plan, path):
     """Leg 10b: N_RANKS gloo ranks (spawned processes, compute on device)
     run dryrun_multichip(N_RANKS), the full-size steps and a shard each of
     leg 7's stream written as a BAM file (a header member, leg 7's 1,232
@@ -1786,45 +1836,28 @@ def leg10b(device, batch, bgzf, chain_sam, cram_plan, bcf_plan):
     (`bcf_plan`).  Every output is held against numpy, the shards' SAM
     text against leg 8's single-process text, their counters against the
     flagstat step's (the CRAM and BCF shards are held by leg11_check and
-    leg12_check).  Returns its notes with each rank's launches, the CRAM
-    and BCF shards' apart, and the ranks' outputs."""
-    import shutil
-    import tempfile
-
+    leg12_check).  The BAM is written to `path`, which leg 14 reads
+    after.  Returns its notes with each rank's launches, the CRAM and BCF
+    shards' apart, and the ranks' outputs."""
     import torch
 
-    from htslib_tpu_torch.bgzf import BGZF_EOF, bgzf_member, compress_block
     from htslib_tpu_torch.parallel.distributed import plan_bam_shards
     from htslib_tpu_torch.parallel.launch import run_ranks
-    from htslib_tpu_torch.sam.bam import write_bam_header
-    from htslib_tpu_torch.sam.header import SamHeader
     _cores, _seq4, starts, ends, _valid = batch
-    tmp = tempfile.mkdtemp(prefix="leg10_")
-    try:
-        t0 = time.time()
-        path = os.path.join(tmp, "leg10.bam")
-        head = io.BytesIO()
-        write_bam_header(head, SamHeader("".join(
-            f"@SQ\tSN:{r}\tLN:300000000\n" for r in LEG8_REFS)))
-        with open(path, "wb") as fp:
-            fp.write(compress_block(head.getvalue()))
-            for deflated, piece in zip(*bgzf):
-                fp.write(bgzf_member(deflated, piece))
-            fp.write(BGZF_EOF)
-        plan = plan_bam_shards(path, N_RANKS)
-        require(len(plan.shards) == N_RANKS, "leg 10 plan's shards")
-        notes = {"bam_bytes": os.path.getsize(path),
-                 "members": len(plan.coffsets), "setup_s": time.time() - t0}
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
-        ranks = {}
-        outs = run_ranks(leg10_rank, N_RANKS, (
-            device, batch, halo_layout(starts, ends), plan, LEG8_REFS,
-            cram_plan, bcf_plan),
-            backend="gloo", timeout=LEG10_TIMEOUT, timing=ranks)
-        notes["ranks_s"] = ranks.pop("wall_s")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.time()
+    write_leg10_bam(path, bgzf)
+    plan = plan_bam_shards(path, N_RANKS)
+    require(len(plan.shards) == N_RANKS, "leg 10 plan's shards")
+    notes = {"bam_bytes": os.path.getsize(path),
+             "members": len(plan.coffsets), "setup_s": time.time() - t0}
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    ranks = {}
+    outs = run_ranks(leg10_rank, N_RANKS, (
+        device, batch, halo_layout(starts, ends), plan, LEG8_REFS,
+        cram_plan, bcf_plan),
+        backend="gloo", timeout=LEG10_TIMEOUT, timing=ranks)
+    notes["ranks_s"] = ranks.pop("wall_s")
     t0 = time.time()
     check_leg10(batch, outs, N_RANKS, HALO_TILE)
     require(all(o["backend"] == "gloo" for o in outs), "leg 10b backend")
@@ -2420,6 +2453,384 @@ def leg13_check(notes, l11, truths_11a, pool):
             "leg 13d: cram_qual_hist != the host histogram")
     out["check_s"] = time.time() - t0
     return out
+
+
+# ---------------------------------------------------------------------------
+# leg 14: the indexes (index.py, sam/indexing.py, vcf/io.py, tbx.py,
+# faidx.py) with their region queries decoded on the card
+# ---------------------------------------------------------------------------
+
+def chunk_ranges(chunks, coffsets, ustarts):
+    """Each chunk (u, v) of virtual offsets as uncompressed stream offsets
+    [u0, u1): a virtual offset's member is found by its compressed offset
+    in the file's member table (scan_blocks, the EOF member included), so
+    both forms of a member's end, (member, its ISIZE) and (next member,
+    0), map to the same offset."""
+    at = {int(c): int(u) for c, u in zip(coffsets, ustarts)}
+    return [(at[u >> 16] + (u & 0xFFFF), at[v >> 16] + (v & 0xFFFF))
+            for u, v in chunks]
+
+
+def member_table(path: str):
+    """(coffsets, csizes, ustarts, usizes) of a BGZF file's members, its
+    EOF member included."""
+    from htslib_tpu_torch.bgzf import scan_blocks
+    bt = scan_blocks(np.fromfile(path, np.uint8))
+    return bt.coffsets, bt.csizes, bt.uoffsets, bt.usizes
+
+
+def leg14_rewrite(src: str, dst: str, unplaced: int = LEG14_UNPLACED):
+    """14a's file: leg 10's BAM read back a record at a time by the
+    streaming BamReader and written with BamWriter(build_index=True) (its
+    .bai beside it), then `unplaced` unmapped, unplaced copies of its
+    first records as the tail that HTS_IDX_NOCOOR reads.  Returns (each
+    placed record's position, its uncompressed end, records read)."""
+    from htslib_tpu_torch.sam.bam import BamReader, BamWriter
+    pos, uend, first = [], [], []
+    with BamReader(src) as r, BamWriter(dst, r.header, level=BGZF_LEVEL,
+                                        build_index=True) as w:
+        for rec in r:
+            w.write(rec)
+            pos.append(rec.pos)
+            uend.append(w.fp.utell())
+            if len(first) < unplaced:
+                first.append(rec)
+        for rec in first:
+            rec.tid = rec.mtid = rec.pos = rec.mpos = -1
+            rec.flag |= 4
+            rec.cigar = np.empty(0, np.uint32)
+            rec.bin = 4680                          # reg2bin(-1, 0)
+            rec.isize = 0
+            w.write(rec)
+    return np.array(pos, np.int64), np.array(uend, np.int64), len(pos)
+
+
+def _leg14_bam_index(path: str, out: str, min_shift: int):
+    """build_bam_index of `path` into `out`; returns its seconds."""
+    from htslib_tpu_torch.sam.indexing import build_bam_index
+    t0 = time.time()
+    build_bam_index(path, out, min_shift)
+    return time.time() - t0
+
+
+def _leg14_bam_fetch(path: str, idx_path: str, region):
+    """Host truth of a 14a region: bam_itr_query's records over the index
+    at `idx_path`, formatted by to_sam."""
+    from htslib_tpu_torch.sam.bam import BamReader
+    from htslib_tpu_torch.sam.indexing import bam_itr_query, load_bam_index
+    with BamReader(path) as r:
+        idx = load_bam_index(path, idx_path)
+        return [rec.to_sam(r.header)
+                for rec in bam_itr_query(r, idx, *region)]
+
+
+def _leg14_bcf(src: str, dst: str, level: int):
+    """14b's file: leg 12's BCF read back by BcfReader and written with
+    BcfWriter(build_index=True); then bcf_index_build of it, whose .csi
+    must be the writer's byte for byte.  Returns (write s, build s,
+    records)."""
+    from htslib_tpu_torch.vcf.io import BcfReader, BcfWriter, bcf_index_build
+    t0 = time.time()
+    n = 0
+    with BcfReader(src) as r, BcfWriter(dst, r.header, level=level,
+                                        build_index=True) as w:
+        for rec in r:
+            w.write(rec)
+            n += 1
+    t1 = time.time()
+    bcf_index_build(dst, out=dst + ".rebuilt.csi")
+    t2 = time.time()
+    with open(dst + ".csi", "rb") as a, open(dst + ".rebuilt.csi",
+                                              "rb") as b:
+        require(a.read() == b.read(), "leg 14b: BcfWriter's .csi != "
+                "bcf_index_build's")
+    return t1 - t0, t2 - t1, n
+
+
+def _leg14_bcf_fetch(path: str, region):
+    """Host truth of a 14b region: BcfReader.fetch's records as VCF."""
+    from htslib_tpu_torch.vcf.io import BcfReader
+    with BcfReader(path) as r:
+        lines = [rec.to_vcf(r.header) for rec in r.fetch(*region)]
+    return ("\n".join(lines) + ("\n" if lines else "")).encode()
+
+
+def _leg14_tabix(src: str, dst: str, level: int):
+    """14c's file: leg 12's VCF text bgzipped, indexed by Tabix.build as
+    TBI and as CSI (min_shift 14).  Returns (bgzip s, TBI s, CSI s)."""
+    from htslib_tpu_torch.bgzf import BgzfWriter
+    from htslib_tpu_torch.tbx import CONF_VCF, Tabix
+    t0 = time.time()
+    with open(src, "rb") as fp, BgzfWriter(dst, level=level) as w:
+        w.write(fp.read())
+    t1 = time.time()
+    Tabix.build(dst, CONF_VCF)
+    t2 = time.time()
+    Tabix.build(dst, CONF_VCF, 14)
+    return t1 - t0, t2 - t1, time.time() - t2
+
+
+def _leg14_tabix_fetch(path: str, ext: str, region: str):
+    """Host truth of a 14c region: Tabix.query_region's lines over the
+    index `path` + `ext`."""
+    from htslib_tpu_torch.bgzf import BgzfReader
+    from htslib_tpu_torch.tbx import Tabix
+    tbx = Tabix.load(path + ext)
+    with BgzfReader(path) as fp:
+        return list(tbx.query_region(fp, region))
+
+
+def _leg14_fasta(src: str, dst: str, level: int, seed: int = 14):
+    """14d's reference: leg 11's FASTA bgzipped with its .gzi
+    (BgzfWriter.save_index); Faidx.fetch_seq over 64 seeded intervals of
+    it must equal the plain file's.  Returns (bgzip s, fetch s)."""
+    from htslib_tpu_torch.bgzf import BgzfWriter
+    from htslib_tpu_torch.faidx import Faidx
+    t0 = time.time()
+    with open(src, "rb") as fp:
+        data = fp.read()
+    w = BgzfWriter(dst, level=level)
+    w.write(data)
+    w.close()
+    w.save_index()
+    t1 = time.time()
+    plain, gz = Faidx.load(src), Faidx.load(dst)
+    rng = np.random.default_rng(seed)
+    for _ in range(64):
+        name = LEG8_REFS[int(rng.integers(0, len(LEG8_REFS)))]
+        beg = int(rng.integers(0, plain.seq_len(name)))
+        end = beg + int(rng.integers(1, 100_000))
+        require(gz.fetch_seq(name, beg, end) == plain.fetch_seq(
+            name, beg, end), f"leg 14d: {name}:{beg}-{end} of the .fa.gz")
+    plain.close()
+    gz.close()
+    return t1 - t0, time.time() - t1
+
+
+def leg14_regions(pos, uend, ustarts, seed: int = 14):
+    """14a's N_REGIONS regions (tid, beg, end): one of 1 kb across the
+    boundary of the file's middle member (around the first record that
+    ends past it), one on the reference with no records, the unplaced
+    tail (HTS_IDX_NOCOOR), the rest seeded, 1 kb to 500 kb, on leg 10's
+    1 Mbp of chr1."""
+    from htslib_tpu_torch.index import HTS_IDX_NOCOOR
+    rng = np.random.default_rng(seed)
+    i = int(np.searchsorted(uend, ustarts[len(ustarts) // 2],
+                            side="right"))
+    out = [(0, int(pos[i]) - 500, int(pos[i]) + 500), (1, 0, 500_000),
+           (HTS_IDX_NOCOOR, 0, 0)]
+    while len(out) < N_REGIONS:
+        span = int(np.exp(rng.uniform(np.log(1000), np.log(500_000))))
+        beg = int(rng.integers(0, 1_000_000 - span))
+        out.append((0, beg, beg + span))
+    return out
+
+
+def leg14_vcf_regions(seed: int):
+    """N_REGIONS seeded regions (tid, beg, end) over leg 12's contigs, 1
+    kb to 500 kb long, within the span its records take (10,000 bp, then
+    N_VCF / 2 steps of 1,000 bp on average a contig)."""
+    rng = np.random.default_rng(seed)
+    extent = 10_000 + N_VCF * 500
+    out = []
+    for k in range(N_REGIONS):
+        span = int(np.exp(rng.uniform(np.log(1000), np.log(
+            min(500_000, extent // 2)))))
+        beg = int(rng.integers(0, extent - span))
+        out.append((k % len(LEG12_CONTIGS), beg, beg + span))
+    return out
+
+
+def leg14(device, tmp: str, l10_bam: str, l11, l12):
+    """Leg 14, the indexes on the card, after leg 10b (whose BAM it
+    reads) and legs 11-13.  The host builds run in a pool of processes
+    while this process rewrites 14a's BAM and drives the card; the host
+    truths are tasks of the same pool.  14a: leg 10's BAM rewritten with
+    its .bai (leg14_rewrite); build_bam_index's BAI must equal the
+    writer's, and a CSI (min_shift 14) is built too; N_REGIONS regions
+    (leg14_regions), each's chunks inflated by bgzf.inflate_range (X4)
+    and formatted by bam_payload_to_sam_device (X5, B1), its lines that
+    overlap the region (RNAME "*" for the tail) equal to the records of
+    bam_itr_query over the BAI and over the CSI, formatted by to_sam.
+    14b: leg 12's BCF rewritten with BcfWriter(build_index=True) (its
+    .csi equal to bcf_index_build's); regions over both contigs, their
+    chunks inflated (X4), framed (split_frames), the frames that overlap
+    formatted (format_frames), equal to BcfReader.fetch's records as VCF.
+    14c: leg 12's VCF bgzipped and indexed by Tabix.build as TBI and CSI;
+    regions inflated (X4), the lines tbx_parse1 places in the region
+    equal to Tabix.query_region's over either index.  14d: leg 11's
+    FASTA bgzipped with its .gzi; 64 intervals fetched from it equal the
+    plain file's; 11a decoded by cram_file_to_sam with ref= the .fa.gz on
+    the card (B7, X1, X5, B1) equals 11a's text.  Returns its notes."""
+    from htslib_tpu_torch.bgzf import inflate_range
+    from htslib_tpu_torch.cram.batch import cram_file_to_sam
+    from htslib_tpu_torch.index import HTS_IDX_NOCOOR, HtsIndex
+    from htslib_tpu_torch.ops.bam2sam import bam_payload_to_sam_device
+    from htslib_tpu_torch.sam.bam import read_header
+    from htslib_tpu_torch.tbx import CONF_VCF, Tabix, tbx_parse1
+    from htslib_tpu_torch.vcf.io import BcfReader, format_frames, split_frames
+    t_leg = time.time()
+    notes, truths = {}, {}
+    bam = os.path.join(tmp, "leg14.bam")
+    bcf = os.path.join(tmp, "leg14.bcf")
+    vgz = os.path.join(tmp, "leg14.vcf.gz")
+    fgz = os.path.join(tmp, "leg14.fa.gz")
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        builds = {"b": pool.submit(_leg14_bcf, l12["path"], bcf, BGZF_LEVEL),
+                  "c": pool.submit(_leg14_tabix, os.path.join(
+                      tmp, "leg12.vcf"), vgz, BGZF_LEVEL),
+                  "d": pool.submit(_leg14_fasta, l11["11a"]["ref"], fgz,
+                                   BGZF_LEVEL)}
+        # 14a: the rewrite here, the BAI and CSI builds in the pool
+        t0 = time.time()
+        pos, uend, n = leg14_rewrite(l10_bam, bam)
+        a = {"records": n, "rewrite_s": time.time() - t0}
+        require(n == N_RECORDS, f"leg 14a: {n} records read back")
+        bai = pool.submit(_leg14_bam_index, bam, bam + ".rebuilt.bai", 0)
+        csi = pool.submit(_leg14_bam_index, bam, bam + ".csi", 14)
+        co, cs, us0, us = member_table(bam)
+        regions = leg14_regions(pos, uend, us0)
+        truths["a.bai"] = [pool.submit(_leg14_bam_fetch, bam, bam + ".bai",
+                                       r) for r in regions]
+        idx = HtsIndex.load(bam + ".bai")
+        hdr = read_header(bam)
+        t0 = time.time()
+        a["regions"] = []
+        for tid, beg, end in regions:
+            if tid == HTS_IDX_NOCOOR:
+                chunks = [(idx.nocoor_offset(), int(co[-1]) << 16)]
+            else:
+                chunks = idx.query_chunks(tid, beg, end)
+            lines = []
+            for u0, u1 in chunk_ranges(chunks, co, us0):
+                payload = inflate_range(bam, co, cs, us0, us, u0, u1, device)
+                text = bam_payload_to_sam_device(payload, hdr, device=device)
+                lines += text.decode().splitlines()
+            if tid == HTS_IDX_NOCOOR:
+                lines = [ln for ln in lines if ln.split("\t", 3)[2] == "*"]
+            else:
+                lines = [ln for ln in lines if sam_overlaps(
+                    ln, hdr.tid2name(tid), beg, end)]
+            a["regions"].append({"region": (tid, beg, end),
+                                 "chunks": chunks, "lines": lines})
+        a["card_s"] = time.time() - t0
+        a["ms_a_region"] = a["card_s"] / len(regions) * 1e3
+        require(a["regions"][0]["chunks"][0][0] >> 16
+                < int(co[len(co) // 2]) <= a["regions"][0]["chunks"][-1][1]
+                >> 16, "leg 14a: region 0 does not cross the middle member")
+        a["bai_build_s"], a["csi_build_s"] = bai.result(), csi.result()
+        truths["a.csi"] = [pool.submit(_leg14_bam_fetch, bam, bam + ".csi",
+                                       r) for r in regions]
+        with open(bam + ".bai", "rb") as x, open(bam + ".rebuilt.bai",
+                                                  "rb") as y:
+            require(x.read() == y.read(), "leg 14a: BamWriter's .bai != "
+                    "build_bam_index's")
+        notes["14a"] = a
+
+        # 14b: regions of the rewritten BCF through its .csi
+        b = dict(zip(("write_s", "index_build_s", "records"),
+                     builds["b"].result()))
+        vregions = leg14_vcf_regions(15)
+        truths["b"] = [pool.submit(_leg14_bcf_fetch, bcf, r)
+                       for r in vregions]
+        co, cs, us0, us = member_table(bcf)
+        idx = HtsIndex.load(bcf + ".csi")
+        with BcfReader(bcf) as r:
+            vhdr = r.header
+        t0 = time.time()
+        b["regions"] = []
+        for rid, beg, end in vregions:
+            keep_s, keep_i = [], []
+            for u0, u1 in chunk_ranges(idx.query_chunks(rid, beg, end), co,
+                                       us0):
+                shared, indiv = split_frames(inflate_range(
+                    bcf, co, cs, us0, us, u0, u1, device))
+                for s, i in zip(shared, indiv):
+                    r_rid, r_pos, r_len = struct.unpack_from("<iii", s)
+                    if r_rid == rid and r_pos < end and r_pos + max(
+                            r_len, 1) > beg:
+                        keep_s.append(s)
+                        keep_i.append(i)
+            b["regions"].append({"region": (rid, beg, end), "text":
+                                 format_frames(keep_s, keep_i, vhdr)})
+        b["card_s"] = time.time() - t0
+        b["ms_a_region"] = b["card_s"] / len(vregions) * 1e3
+        notes["14b"] = b
+
+        # 14c: the bgzipped VCF's regions through its TBI
+        c = dict(zip(("bgzip_s", "tbi_build_s", "csi_build_s"),
+                     builds["c"].result()))
+        tbx = Tabix.load(vgz + ".tbi")
+        cregions = [(LEG12_CONTIGS[t][0], b0, e0)
+                    for t, b0, e0 in leg14_vcf_regions(16)]
+        for ext in (".tbi", ".csi"):
+            truths["c" + ext] = [pool.submit(
+                _leg14_tabix_fetch, vgz, ext, f"{name}:{b0 + 1}-{e0}")
+                for name, b0, e0 in cregions]
+        co, cs, us0, us = member_table(vgz)
+        t0 = time.time()
+        c["regions"] = []
+        for name, beg, end in cregions:
+            lines = []
+            for u0, u1 in chunk_ranges(tbx.idx.query_chunks(
+                    tbx.name2tid(name), beg, end), co, us0):
+                for ln in inflate_range(vgz, co, cs, us0, us, u0, u1,
+                                        device).decode().splitlines():
+                    p = tbx_parse1(CONF_VCF, ln)
+                    if p and p[0] == name and p[1] < end and p[2] > beg:
+                        lines.append(ln)
+            c["regions"].append({"region": (name, beg, end),
+                                 "lines": lines})
+        c["card_s"] = time.time() - t0
+        c["ms_a_region"] = c["card_s"] / len(cregions) * 1e3
+        notes["14c"] = c
+
+        # 14d: 11a decoded against the bgzipped FASTA
+        d = dict(zip(("bgzip_s", "fetch_s"), builds["d"].result()))
+        timing = {}
+        t0 = time.time()
+        _, sam = cram_file_to_sam(l11["11a"]["path"], ref=fgz, device=device,
+                                  timing=timing)
+        d["decode_s"] = time.time() - t0
+        d["parts"] = {k: v for k, v in timing.items()
+                      if k not in ("wires", "format")}
+        require(sam.tobytes() == l11["11a"]["sam"], "leg 14d: 11a by the "
+                ".fa.gz != 11a's text")
+        notes["14d"] = d
+
+        # the truths
+        t0 = time.time()
+        for ext in (".bai", ".csi"):
+            for r, fut in zip(a["regions"], truths["a" + ext]):
+                require(r["lines"] == fut.result(), f"leg 14a: region "
+                        f"{r['region']}'s lines != bam_itr_query's ({ext})")
+        for r, fut in zip(b["regions"], truths["b"]):
+            require(r["text"] == fut.result(), f"leg 14b: region "
+                    f"{r['region']}'s text != BcfReader.fetch's")
+        for ext in (".tbi", ".csi"):
+            for r, fut in zip(c["regions"], truths["c" + ext]):
+                require(r["lines"] == fut.result(), f"leg 14c: region "
+                        f"{r['region']}'s lines != query_region's ({ext})")
+        check = {"truth_wait_s": time.time() - t0,
+                 "14a_lines": [len(r["lines"]) for r in a["regions"]],
+                 "14b_records": [r["text"].count(b"\n")
+                                 for r in b["regions"]],
+                 "14c_lines": [len(r["lines"]) for r in c["regions"]]}
+    require(check["14a_lines"][1] == 0 and check["14a_lines"][2]
+            == LEG14_UNPLACED and all(check["14a_lines"][3:]),
+            f"leg 14a: region records {check['14a_lines']}")
+    require(sum(map(bool, check["14b_records"])) > N_REGIONS // 2
+            and sum(map(bool, check["14c_lines"])) > N_REGIONS // 2,
+            f"leg 14b/c: regions hit {check}")
+    for part in (a, b, c):
+        for r in part["regions"]:
+            for k in ("lines", "text", "chunks"):
+                r.pop(k, None)
+    notes["check"] = check
+    notes["wall_s"] = time.time() - t_leg
+    return notes
 
 
 def leg12(device, tmp: str):
@@ -3753,7 +4164,9 @@ def main() -> int:
                                        "record_scan_seg"]),
                       ("leg12", ["X4"]), ("leg12_ranks", ["X4"]),
                       ("leg13", ["nibble_to_base", "rans4x8_o0_decode",
-                                 "X1", "X5", "B2/B5", "B3/B6"])):
+                                 "X1", "X5", "B2/B5", "B3/B6"]),
+                      ("leg14", ["X4", "X5", "nibble_to_base",
+                                 "rans4x8_o0_decode", "X1"])):
         got = dict(notes["launches_" + leg])
         got["X4"] = got.get("inflate", 0) + got.get("inflate_slot", 0)
         got["X5"] = got.get("record_scan", 0) + got.get("record_scan_seg",
@@ -3852,6 +4265,33 @@ def main() -> int:
     print(f"leg 13 check: " + json.dumps(
         {k: v for k, v in c13.items()
          if k not in ("fields", "filter_passed")}), flush=True)
+    l14 = notes["leg14"]
+    a14, b14, c14, d14 = (l14[k] for k in ("14a", "14b", "14c", "14d"))
+    print(f"leg 14 wall (this process): {secs['leg14']:.3f} s, of which "
+          f"the host truths' wait {l14['check']['truth_wait_s']:.3f} s; ms "
+          f"a region on the card: 14a {a14['ms_a_region']:.6g} (BAM, "
+          f"{len(a14['regions'])} regions through the .bai), 14b "
+          f"{b14['ms_a_region']:.6g} (BCF through its .csi), 14c "
+          f"{c14['ms_a_region']:.6g} (bgzipped VCF through its .tbi)",
+          flush=True)
+    print("leg 14 index builds (s): " + json.dumps({
+        "14a_rewrite_with_bai": a14["rewrite_s"],
+        "14a_build_bam_index_bai": a14["bai_build_s"],
+        "14a_build_bam_index_csi14": a14["csi_build_s"],
+        "14b_bcf_write_with_csi": b14["write_s"],
+        "14b_bcf_index_build": b14["index_build_s"],
+        "14c_bgzip": c14["bgzip_s"], "14c_tabix_tbi": c14["tbi_build_s"],
+        "14c_tabix_csi14": c14["csi_build_s"],
+        "14d_bgzip_with_gzi": d14["bgzip_s"],
+        "14d_fetch_64": d14["fetch_s"]}), flush=True)
+    print(f"leg 14d (11a decoded with ref= the .fa.gz): "
+          f"{d14['decode_s']:.3f} s, parts {json.dumps(d14['parts'])}",
+          flush=True)
+    print("leg 14 check: " + json.dumps(
+        {**l14["check"],
+         "14a_regions": [r["region"] for r in a14["regions"]],
+         "14b_regions": [r["region"] for r in b14["regions"]],
+         "14c_regions": [r["region"] for r in c14["regions"]]}), flush=True)
     print("launches by leg: " + json.dumps({k: v for k, v in notes.items()
                                             if k.startswith("launches_")}),
           flush=True)

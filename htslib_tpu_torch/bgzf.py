@@ -6,14 +6,17 @@ most 64 KiB of data with its compressed size in a "BC" extra subfield
 (bgzf.c:70-90), and an empty member at the end (BGZF_EOF).  This module
 writes members (`compress_block`, `bgzf_member`, `BgzfWriter`), walks
 their sizes (`scan_blocks`), reads BGZF, plain gzip or uncompressed input
-as a stream with virtual offsets (`BgzfReader`, zlib on the host), and
-inflates the members that cover a range of a file's uncompressed stream
-on the device (`inflate_range`: ops/inflate.py, kernel X4 on the card).
-The JAX package's `HFile` back ends, its `.gzi` index and `bgzf_useek`
-are not ported.
+as a stream with virtual offsets (`BgzfReader`, zlib on the host), maps
+uncompressed offsets to members through a `.gzi` index (`GziIndex`,
+`BgzfReader.useek`, `BgzfWriter.save_index`), and inflates the members
+that cover a range of a file's uncompressed stream on the device
+(`inflate_range`: ops/inflate.py, kernel X4 on the card).  The JAX
+package's `HFile` back ends are not ported: files are local paths or
+binary file objects.
 """
 from __future__ import annotations
 
+import bisect
 import io
 import os
 import struct
@@ -93,6 +96,17 @@ class BlockTable:
     @property
     def n(self) -> int:
         return len(self.coffsets)
+
+    @property
+    def uoffsets(self) -> np.ndarray:
+        """Each member's uncompressed start offset (uint64)."""
+        out = np.zeros(self.n, dtype=np.uint64)
+        np.cumsum(self.usizes[:-1], dtype=np.uint64, out=out[1:])
+        return out
+
+    @property
+    def total_usize(self) -> int:
+        return int(self.usizes.sum(dtype=np.uint64))
 
 
 def scan_blocks(data: Union[bytes, memoryview, np.ndarray],
@@ -208,6 +222,62 @@ def _add(timing: Optional[dict], key: str, seconds: float) -> None:
 
 
 # ---------------------------------------------------------------------------
+# .gzi index (bgzidx_t, bgzf.c:162-270)
+# ---------------------------------------------------------------------------
+
+class GziIndex:
+    """Maps uncompressed offsets to the members that hold them.
+
+    On disk: a u64 count, then count x (u64 compressed offset, u64
+    uncompressed offset), the first member's (0, 0) entry left implicit
+    (bgzf_index_dump, bgzf.c:2394-2440)."""
+
+    def __init__(self, coffsets: Optional[np.ndarray] = None,
+                 uoffsets: Optional[np.ndarray] = None):
+        self.coffsets = (coffsets if coffsets is not None
+                         else np.zeros(1, np.uint64))
+        self.uoffsets = (uoffsets if uoffsets is not None
+                         else np.zeros(1, np.uint64))
+
+    @classmethod
+    def from_table(cls, table: BlockTable) -> "GziIndex":
+        """An entry at each member's start, the first one's included."""
+        return cls(table.coffsets.astype(np.uint64),
+                   table.uoffsets.astype(np.uint64))
+
+    @classmethod
+    def load(cls, fname: str) -> "GziIndex":
+        with open(fname, "rb") as fp:
+            raw = fp.read()
+        (n,) = struct.unpack_from("<Q", raw, 0)
+        if len(raw) < 8 + 16 * n:
+            raise IOError(f"truncated .gzi index {fname}")
+        arr = np.frombuffer(raw, dtype="<u8", offset=8,
+                            count=2 * n).reshape(n, 2)
+        co = np.concatenate([[0], arr[:, 0]]).astype(np.uint64)
+        uo = np.concatenate([[0], arr[:, 1]]).astype(np.uint64)
+        return cls(co, uo)
+
+    def save(self, fname: str) -> None:
+        co, uo = self.coffsets, self.uoffsets
+        if len(co) and co[0] == 0 and uo[0] == 0:
+            co, uo = co[1:], uo[1:]
+        arr = np.empty((len(co), 2), dtype="<u8")
+        arr[:, 0] = co
+        arr[:, 1] = uo
+        with open(fname, "wb") as f:
+            f.write(struct.pack("<Q", len(co)))
+            f.write(arr.tobytes())
+
+    def query(self, uoffset: int) -> Tuple[int, int]:
+        """(compressed offset, uncompressed start) of the member that
+        holds uncompressed offset `uoffset` (bgzf_useek, bgzf.c:2288)."""
+        i = max(int(np.searchsorted(self.uoffsets, uoffset,
+                                    side="right")) - 1, 0)
+        return int(self.coffsets[i]), int(self.uoffsets[i])
+
+
+# ---------------------------------------------------------------------------
 # Streaming reader and writer
 # ---------------------------------------------------------------------------
 
@@ -260,6 +330,7 @@ class BgzfReader:
         self._next_address = 0          # compressed offset after current block
         self._gz = None                 # plain-gzip streaming decompressor
         self._uncompressed_pos = 0
+        self.idx: Optional[GziIndex] = None
         self._cache: dict = {}
         self._cache_order: List[int] = []
         self._cache_blocks = cache_blocks
@@ -294,7 +365,10 @@ class BgzfReader:
             self._block_offset = 0
             self._block_address = caddr
             self._next_address = caddr + total
-            if self._cache_blocks:
+            # a member read again in sequence is cached once: the JAX
+            # reader queues its address twice and raises KeyError when
+            # it evicts the second (ROADMAP queue C)
+            if self._cache_blocks and caddr not in self._cache:
                 self._cache[caddr] = (self._block, self._next_address)
                 self._cache_order.append(caddr)
                 if len(self._cache_order) > self._cache_blocks:
@@ -410,14 +484,66 @@ class BgzfReader:
             raise IOError("invalid virtual offset (uoffset beyond block)")
         self._block_offset = uoff
 
+    def useek(self, uoffset: int) -> None:
+        """Seek to an uncompressed offset through the `.gzi` index
+        (bgzf_useek, bgzf.c:2288); a file that is not compressed seeks
+        directly."""
+        if not self.is_compressed:
+            self.seek(uoffset)
+            return
+        if self.idx is None:
+            raise IOError("bgzf_useek needs a loaded .gzi index")
+        caddr, ustart = self.idx.query(uoffset)
+        if not self._read_block_at(caddr):
+            raise IOError("useek beyond EOF")
+        skip = uoffset - ustart
+        while skip > len(self._block):
+            skip -= len(self._block)
+            if not self._read_next_block():
+                raise IOError("useek beyond EOF")
+        self._block_offset = skip
+        self._uncompressed_pos = uoffset
+
+    def utell(self) -> int:
+        """The uncompressed offset of the next read."""
+        return self._uncompressed_pos
+
+    def load_index(self, fname: Optional[str] = None) -> None:
+        """Load the `.gzi` index (by default the file's name + ".gzi")."""
+        self.idx = GziIndex.load(fname or self.name + ".gzi")
+
+    def check_eof(self) -> int:
+        """1 if the 28-byte EOF member ends the file, 0 if it does not,
+        2 if the file cannot seek, 3 if it is not BGZF (bgzf_check_EOF,
+        bgzf.c:2132)."""
+        if not self.is_bgzf:
+            return 3
+        if not self._fp.seekable():
+            return 2
+        pos = self._fp.tell()
+        try:
+            size = self._fp.seek(0, io.SEEK_END)
+            if size < 28:
+                return 0
+            self._fp.seek(size - 28)
+            return 1 if self._fp.read(28) == BGZF_EOF else 0
+        finally:
+            self._fp.seek(pos)
+
     def read_all(self) -> np.ndarray:
         """The rest of the stream as uint8: the unread tail of the current
-        block, then the remaining members inflated on the host."""
+        block, then the remaining members inflated on the host; `idx`
+        becomes those members' block map."""
         if self.is_bgzf:
             tail = self._block[self._block_offset:]
             self._block_offset = len(self._block)
+            start = self._fp.tell()
             raw = np.frombuffer(self._fp.read(-1), np.uint8)
-            out = np.frombuffer(inflate_host(raw, scan_blocks(raw)), np.uint8)
+            table = scan_blocks(raw)
+            out = np.frombuffer(inflate_host(raw, table), np.uint8)
+            self.idx = GziIndex.from_table(BlockTable(
+                table.coffsets + np.uint64(start), table.csizes,
+                table.usizes))
             if tail:
                 out = np.concatenate([np.frombuffer(tail, np.uint8), out])
             return out
@@ -435,22 +561,44 @@ class BgzfReader:
 
 class BgzfWriter:
     """Buffers what is written and emits one member for each
-    BGZF_BLOCK_SIZE bytes, as bgzf_write does; `flush` ends the current
-    member early, `close` flushes and appends BGZF_EOF."""
+    BGZF_BLOCK_SIZE bytes, as bgzf_write does (the JAX package's
+    `BGZFWriter`; it deflates a member as soon as it is full, where the
+    JAX writer queues up to 64 of them); `flush` ends the current member
+    early, `close` flushes and appends BGZF_EOF.  `compress=False` writes
+    the bytes as they come (bgzf_open's "u" mode).  `_idx_co`/`_idx_uo`
+    hold each member's compressed and uncompressed end offsets after a
+    (0, 0) entry, the block map that `save_index` writes as a `.gzi`."""
 
-    def __init__(self, dst: Union[str, BinaryIO], level: int = -1):
-        self._own = isinstance(dst, str)
+    def __init__(self, dst: Union[str, os.PathLike, BinaryIO],
+                 level: int = -1, build_index: bool = False,
+                 compress: bool = True):
+        self._own = isinstance(dst, (str, os.PathLike))
         self._fp = open(dst, "wb") if self._own else dst
-        self._level = level
+        self.name = (os.fspath(dst) if self._own
+                     else getattr(dst, "name", "?"))
+        self.level = level
+        self.compress = compress
+        self.build_index = build_index
         self._buf = bytearray()
-        self._caddr = 0                 # compressed bytes written
+        self._block_address = 0         # compressed bytes written
+        self._uncompressed = 0          # uncompressed bytes in them
+        self._idx_co: List[int] = [0]
+        self._idx_uo: List[int] = [0]
+        self._closed = False
 
     def _emit(self, data: bytes) -> None:
-        member = compress_block(data, self._level)
+        member = compress_block(data, self.level)
         self._fp.write(member)
-        self._caddr += len(member)
+        self._block_address += len(member)
+        self._uncompressed += len(data)
+        self._idx_co.append(self._block_address)
+        self._idx_uo.append(self._uncompressed)
 
     def write(self, data: bytes) -> int:
+        if not self.compress:
+            self._fp.write(data)
+            self._uncompressed += len(data)
+            return len(data)
         self._buf += data
         while len(self._buf) >= BGZF_BLOCK_SIZE:
             self._emit(bytes(self._buf[:BGZF_BLOCK_SIZE]))
@@ -458,22 +606,73 @@ class BgzfWriter:
         return len(data)
 
     def tell(self) -> int:
-        """Virtual offset of the next write (bgzf_tell)."""
-        return make_virtual_offset(self._caddr, len(self._buf))
+        """Virtual offset of the next write (bgzf_tell); the byte count
+        when not compressing."""
+        if not self.compress:
+            return self._uncompressed
+        return make_virtual_offset(self._block_address, len(self._buf))
+
+    def utell(self) -> int:
+        """Uncompressed bytes written so far, those still buffered too."""
+        return self._uncompressed + len(self._buf)
+
+    def virtual_offset(self, uoffset: int) -> int:
+        """The virtual offset of uncompressed offset `uoffset` among the
+        members emitted so far: at a member's end, (next member, 0), as a
+        reader's `tell` gives it (what hts_idx_amend_last keeps,
+        hts.c:2708)."""
+        i = bisect.bisect_right(self._idx_uo, uoffset) - 1
+        return make_virtual_offset(self._idx_co[i],
+                                   uoffset - self._idx_uo[i])
 
     def flush(self) -> None:
+        """End the current member (bgzf_flush)."""
         if self._buf:
             self._emit(bytes(self._buf))
             self._buf.clear()
+        self._fp.flush()
 
-    def close(self) -> None:
+    def flush_try(self, size: int) -> None:
+        """Flush if `size` more bytes would overflow the member
+        (bgzf_flush_try, bgzf.c:1745), so that a record is not split."""
+        if len(self._buf) + size > BGZF_BLOCK_SIZE:
+            self.flush()
+
+    def save_index(self, fname: Optional[str] = None) -> None:
+        """Write the `.gzi` of the members emitted so far (by default the
+        file's name + ".gzi")."""
+        idx = GziIndex(np.array(self._idx_co[:-1] or [0], np.uint64),
+                       np.array(self._idx_uo[:-1] or [0], np.uint64))
+        idx.save(fname or self.name + ".gzi")
+
+    def close(self, write_eof: bool = True) -> None:
+        if self._closed:
+            return
         self.flush()
-        self._fp.write(BGZF_EOF)
+        if self.compress and write_eof:
+            self._fp.write(BGZF_EOF)
+        self._fp.flush()
         if self._own:
             self._fp.close()
+        self._closed = True
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
         self.close()
+
+
+def bgzf_open(fname: str, mode: str = "r") -> Union[BgzfReader, BgzfWriter]:
+    """Open as bgzf_open does (htslib/bgzf.h:111): mode "r", or "w" with
+    an optional level digit and "u" for uncompressed."""
+    if "r" in mode:
+        return BgzfReader(fname)
+    level = -1
+    compress = True
+    for ch in mode:
+        if ch.isdigit():
+            level = int(ch)
+        if ch == "u":
+            compress = False
+    return BgzfWriter(fname, level=level, compress=compress)

@@ -1,25 +1,31 @@
-"""BAM container on the host: the port's copy of what it needs of
-htslib_tpu/sam/bam.py (reference sam.c:703-900 bam_hdr_read,
-bam_hdr_write, bam_read1, bam_write1).
+"""BAM container on the host: the port's copy of htslib_tpu/sam/bam.py
+(reference sam.c:703-900 bam_hdr_read, bam_hdr_write, bam_read1,
+bam_write1).
 
 A BAM file is BGZF (bgzf.py) around one uncompressed stream: the magic
 "BAM\\1", the header text and the references, then the records, each a
 u32 length and its payload (sam/record.py `BamRecord.to_bam_buffer`).
-`BamReader.raw_records` returns the record stream as the device chains
-take it (ops/bam2sam.py, parallel/distributed.py).
+`BamReader` reads it a record at a time with virtual offsets (`read1`,
+`tell`, `seek`, what the region iterators of sam/indexing.py walk), or
+all at once: `raw_records` returns the rest of the record stream as the
+device chains take it (ops/bam2sam.py, parallel/distributed.py).
+`BamWriter(build_index=True)` writes the `.bai` beside the file.
 """
 from __future__ import annotations
 
 import io
+import os
 import struct
-from typing import BinaryIO, List, Tuple, Union
+from typing import BinaryIO, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
-from htslib_tpu_torch.bgzf import (BgzfWriter, BlockTable, inflate_host,
-                                  scan_blocks)
+from htslib_tpu_torch.bgzf import (BgzfReader, BgzfWriter, BlockTable,
+                                   inflate_host, scan_blocks)
+from htslib_tpu_torch.hts_expr import HtsFilter, sam_passes_filter
+from htslib_tpu_torch.index import HTS_FMT_BAI, HtsIndex
 from htslib_tpu_torch.sam.header import SamHeader
-from htslib_tpu_torch.sam.record import BamRecord
+from htslib_tpu_torch.sam.record import FUNMAP, BamRecord
 
 BAM_MAGIC = b"BAM\x01"
 
@@ -82,22 +88,67 @@ def read_header(path: str) -> SamHeader:
 
 
 class BamReader:
-    """A whole BAM file read at once: its members inflated on the host
-    (zlib, each CRC32 checked), `header` parsed, and the record stream
-    after it kept for `raw_records`."""
+    """Reads a BAM file (a path, a binary file object or a BgzfReader):
+    `header` parsed on opening, then the records a time (`read1`,
+    iteration, `set_filter`) or the rest of the stream at once
+    (`raw_records`)."""
 
-    def __init__(self, path: str):
-        raw = np.fromfile(path, np.uint8)
-        stream = io.BytesIO(inflate_host(raw, scan_blocks(raw)))
-        self.header = read_bam_header(stream)
-        self._data = np.frombuffer(stream.read(), np.uint8)
+    def __init__(self, src: Union[str, os.PathLike, BinaryIO, BgzfReader]):
+        self.fp = src if isinstance(src, BgzfReader) else BgzfReader(src)
+        self.header = read_bam_header(self.fp)
+        self._filter = None
+
+    def __iter__(self) -> Iterator[BamRecord]:
+        return self
+
+    def set_filter(self, expr: Optional[str]) -> None:
+        """hts_set_filter_expression (hts.c:1967): iteration skips the
+        records that fail the expression (sam_passes_filter,
+        sam.c:1535); `read1` does not."""
+        self._filter = HtsFilter(expr) if expr else None
+
+    def __next__(self) -> BamRecord:
+        while True:
+            rec = self.read1()
+            if rec is None:
+                raise StopIteration
+            if self._filter is None or sam_passes_filter(
+                    rec, self.header, self._filter):
+                return rec
+
+    def read1(self) -> Optional[BamRecord]:
+        """bam_read1 (sam.c:784): the next record, or None at the end."""
+        szb = self.fp.read(4)
+        if len(szb) == 0:
+            return None
+        if len(szb) < 4:
+            raise IOError("truncated BAM record")
+        (block_size,) = struct.unpack("<I", szb)
+        if block_size < 32:
+            raise IOError("invalid BAM record size")
+        payload = self.fp.read(block_size)
+        if len(payload) != block_size:
+            raise IOError("truncated BAM record")
+        rec = BamRecord.from_bam_buffer(payload)
+        # reference-name bounds checks (sam.c:824-833)
+        nref = self.header.nref
+        if rec.tid >= nref or rec.mtid >= nref:
+            raise IOError("BAM record refers to nonexistent reference")
+        return rec
+
+    def tell(self) -> int:
+        return self.fp.tell()
+
+    def seek(self, voffset: int) -> None:
+        self.fp.seek(voffset)
 
     def raw_records(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(data, offsets, sizes): the uint8 record stream after the
-        header, each record's offset in it (at its u32 length) as uint64,
-        and its whole size with that length as uint32.  Raises IOError on
-        a truncated stream."""
-        data = self._data
+        """(data, offsets, sizes): the rest of the uncompressed stream as
+        uint8 (its members inflated on the host at once), each record's
+        offset in it (at its u32 length) as uint64, and its whole size
+        with that length as uint32.  Raises IOError on a truncated
+        stream."""
+        data = self.fp.read_all()
         offs: List[int] = []
         sizes: List[int] = []
         mv = memoryview(data)
@@ -112,7 +163,7 @@ class BamReader:
         return data, np.array(offs, np.uint64), np.array(sizes, np.uint32)
 
     def close(self) -> None:
-        self._data = None
+        self.fp.close()
 
     def __enter__(self):
         return self
@@ -124,19 +175,57 @@ class BamReader:
 class BamWriter:
     """Writes the header, then each record as its u32 length and payload
     (bam_write1, sam.c:862), through a BgzfWriter that ends the file
-    with the EOF member on close."""
+    with the EOF member on close.  With `build_index`, each record's
+    uncompressed end is kept and mapped to a virtual offset through the
+    writer's block map at close, which reproduces the reader's offsets
+    (the (next member, 0) form at a member's end too, hts.c:2708), and
+    the BAI is saved beside the file (`idx`)."""
 
-    def __init__(self, dst: Union[str, BinaryIO], header, level: int = -1):
-        self.fp = BgzfWriter(dst, level=level)
+    def __init__(self, dst: Union[str, BinaryIO, BgzfWriter], header,
+                 level: int = -1, build_index: bool = False):
+        self.fp = (dst if isinstance(dst, BgzfWriter)
+                   else BgzfWriter(dst, level=level))
         self.header = header
+        self._index_recs = None
+        if build_index:
+            if max(header.ref_lens, default=0) + 256 > (1 << (14 + 3 * 5)):
+                raise ValueError("reference too long for BAI; use CSI")
+            self._index_recs = []
         write_bam_header(self.fp, header)
+        self._uheader_end = None
 
     def write(self, rec: BamRecord) -> None:
         payload = rec.to_bam_buffer()
-        self.fp.write(struct.pack("<I", len(payload)) + payload)
+        if self._index_recs is not None and self._uheader_end is None:
+            self._uheader_end = self.fp.utell()
+        self.fp.write(struct.pack("<I", len(payload)))
+        self.fp.write(payload)
+        if self._index_recs is not None:
+            self._index_recs.append((rec.tid, rec.pos, rec.endpos(),
+                                     self.fp.utell(),
+                                     not (rec.flag & FUNMAP)))
+
+    def tell(self) -> int:
+        return self.fp.tell()
 
     def close(self) -> None:
+        if self._index_recs is None:
+            self.fp.close()
+            return
+        self.fp.flush()
+        u2v = self.fp.virtual_offset
+        idx = HtsIndex(len(self.header.ref_names), HTS_FMT_BAI, 14, 5)
+        off0 = u2v(self._uheader_end or 0)
+        idx._last_off = idx._save_off = off0
+        idx._off_beg = idx._off_end = off0
+        for tid, beg, end, uend, mapped in self._index_recs:
+            idx.push(tid, beg, end, u2v(uend), mapped)
+        idx.finish(u2v(self.fp._uncompressed))
+        name = self.fp.name
         self.fp.close()
+        if name and name != "?":
+            idx.save(name + ".bai")
+        self.idx = idx
 
     def __enter__(self):
         return self

@@ -136,6 +136,21 @@ class SamHeader:
     def tid2len(self, tid: int) -> int:
         return self.ref_lens[tid] if 0 <= tid < len(self.ref_lens) else 0
 
+    def add_ref(self, name: str, length: int) -> int:
+        """Register a reference the text does not describe, with an @SQ
+        line (the SAM parser's lenient path; sam_hdr_add_line @SQ)."""
+        if name in self._name2tid:
+            return self._name2tid[name]
+        tid = len(self.ref_names)
+        self.ref_names.append(name)
+        self.ref_lens.append(length)
+        self._name2tid[name] = tid
+        line = HeaderLine("SQ", [("SN", name), ("LN", str(length))])
+        self.lines.append(line)
+        self._index[("SQ", name)] = line
+        self._dirty = True
+        return tid
+
     def find_line_id(self, type_: str, id_key: str,
                      id_val: str) -> Optional[HeaderLine]:
         if _ID_TAG.get(type_) == id_key:

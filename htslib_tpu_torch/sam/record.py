@@ -1,6 +1,6 @@
 """BAM record model (the port's copy of htslib_tpu/sam/record.py's
 `BamRecord`; reference htslib/sam.h:214-332, sam.c:784-900 binary I/O,
-sam.c:4324 SAM format).
+sam.c:4324 SAM format, sam.c:2662 SAM parse).
 
 A BamRecord keeps the parsed core fields and the variable-length payload
 split into qname / packed CIGAR / 4-bit seq / qual / aux blob.  The aux
@@ -17,8 +17,9 @@ from typing import Iterator, List, Optional, Tuple, Union
 import numpy as np
 
 from htslib_tpu_torch.sam.cigar import (BAM_CIGAR_SHIFT, BAM_CREF_SKIP,
-                                        BAM_CSOFT_CLIP, cigar2rlen,
-                                        format_cigar, reg2bin)
+                                        BAM_CSOFT_CLIP, cigar2qlen,
+                                        cigar2rlen, format_cigar,
+                                        parse_cigar, reg2bin)
 
 # -- flags (htslib/sam.h:151-178) -------------------------------------------
 FPAIRED = 0x1
@@ -357,6 +358,80 @@ class BamRecord:
             line += "\t" + auxs
         return line
 
+    @classmethod
+    def from_sam(cls, line: str, header,
+                 lenient_refs: bool = False) -> "BamRecord":
+        """sam_parse1 (sam.c:2662).  A trailing CR is stripped like
+        hts_getline's KS_SEP_LINE terminator handling (DOS line
+        endings, test/index_dos.sam)."""
+        line = line.rstrip("\n")
+        if line.endswith("\r"):
+            line = line[:-1]
+        cols = line.split("\t")
+        if len(cols) < 11:
+            raise ValueError(f"SAM record has {len(cols)} fields; need 11")
+        b = cls()
+        b.qname = cols[0].encode("ascii")
+        if not b.qname:
+            raise ValueError("empty query name")
+        flag = cols[1]
+        b.flag = int(flag, 16) if flag.startswith("0x") else int(flag)
+        rname = cols[2]
+        if rname == "*":
+            b.tid = -1
+        else:
+            b.tid = header.name2tid(rname)
+            if b.tid < 0:
+                if lenient_refs or header.nref == 0:
+                    b.tid = header.add_ref(rname, 0)
+                else:
+                    raise ValueError(f"unknown reference name {rname!r}")
+        b.pos = int(cols[3]) - 1
+        if b.pos < 0 and b.tid >= 0:
+            # unmapped with coordinate 0 (sam.c:2720)
+            b.tid = -1 if rname == "*" else b.tid
+        b.mapq = int(cols[4])
+        b.cigar = parse_cigar(cols[5])
+        if len(b.cigar) and b.pos < 0:
+            raise ValueError("mapped query cannot have zero coordinate")
+        rnext = cols[6]
+        if rnext == "*":
+            b.mtid = -1
+        elif rnext == "=":
+            b.mtid = b.tid
+        else:
+            b.mtid = header.name2tid(rnext)
+            if b.mtid < 0:
+                if lenient_refs or header.nref == 0:
+                    b.mtid = header.add_ref(rnext, 0)
+                else:
+                    raise ValueError(f"unknown mate reference name {rnext!r}")
+        b.mpos = int(cols[7]) - 1
+        b.isize = int(cols[8])
+        seq = cols[9]
+        qual = cols[10]
+        if seq != "*":
+            b.set_seq(seq)
+            if qual != "*":
+                if len(qual) != b.l_qseq:
+                    raise ValueError("SEQ and QUAL are of different length")
+                b.qual = bytes(ord(q) - 33 for q in qual)
+        elif qual != "*":
+            raise ValueError("QUAL defined for missing SEQ")
+        if len(b.cigar) and b.l_qseq and cigar2qlen(b.cigar) != b.l_qseq:
+            raise ValueError("CIGAR and query sequence are of different length")
+        rlen = cigar2rlen(b.cigar)
+        if b.pos >= 0:
+            b.bin = reg2bin(b.pos, b.pos + (rlen if rlen else 1))
+        else:
+            b.bin = reg2bin(-1, 0)
+        parts = []
+        for col in cols[11:]:
+            parts.append(parse_aux_field(col))
+        b.aux = b"".join(parts)
+        b._tag2cigar()
+        return b
+
     def copy(self) -> "BamRecord":
         c = BamRecord()
         for name in self.__slots__:
@@ -368,6 +443,39 @@ class BamRecord:
 # ---------------------------------------------------------------------------
 # Aux encode/format helpers
 # ---------------------------------------------------------------------------
+
+def parse_aux_field(col: str) -> bytes:
+    """Encode one SAM TAG:TYPE:VALUE field in BAM wire format
+    (sam.c:2570-2650 aux parsing, incl. smallest-int-type selection)."""
+    if len(col) < 5 or col[2] != ":" or col[4] != ":":
+        raise ValueError(f"malformed aux field {col!r}")
+    tag = col[:2].encode("ascii")
+    t = col[3]
+    v = col[5:]
+    if t in ("A", "a", "c", "C"):
+        return tag + b"A" + v[:1].encode("ascii")
+    if t in ("i", "I"):
+        x = int(v)
+        return tag + _encode_int_aux(x)
+    if t == "f":
+        return tag + b"f" + struct.pack("<f", float(v))
+    if t == "d":
+        return tag + b"d" + struct.pack("<d", float(v))
+    if t in ("Z", "H"):
+        if t == "H" and len(v) % 2:
+            raise ValueError("hex field does not have an even number of digits")
+        return tag + t.encode() + v.encode("ascii") + b"\0"
+    if t == "B":
+        if not v:
+            raise ValueError("empty B array")
+        sub = v[0]
+        rest = v[1:]
+        if rest and not rest.startswith(","):
+            raise ValueError("B aux field type not followed by ','")
+        items = rest[1:].split(",") if len(rest) > 1 else []
+        return tag + encode_B_array(sub, items)
+    raise ValueError(f"unrecognized aux type {t!r}")
+
 
 def _encode_int_aux(x: int) -> bytes:
     if x < 0:
@@ -381,6 +489,41 @@ def _encode_int_aux(x: int) -> bytes:
     if x <= 0xFFFF:
         return b"S" + struct.pack("<H", x)
     return b"I" + struct.pack("<I", x)
+
+
+def encode_B_array(sub: str, items: List[str]) -> bytes:
+    n = len(items)
+    head = b"B" + sub.encode() + struct.pack("<I", n)
+    if sub == "f":
+        return head + b"".join(struct.pack("<f", float(s)) for s in items)
+    fmt = {"c": "<b", "C": "<B", "s": "<h", "S": "<H", "i": "<i", "I": "<I"}.get(sub)
+    if fmt is None:
+        raise ValueError(f"unknown B subtype {sub!r}")
+    try:
+        return head + b"".join(struct.pack(fmt, int(s)) for s in items)
+    except struct.error:
+        # rescue with a wider type (sam_parse_B_vals_r retry, sam.c:2452-2485)
+        vals = [int(s) for s in items]
+        mn, mx = min(vals), max(vals)
+        if mn < 0:
+            if mn >= -128 and mx <= 127:
+                sub2 = "c"
+            elif mn >= -32768 and mx <= 32767:
+                sub2 = "s"
+            elif mn >= -(1 << 31) and mx < (1 << 31):
+                sub2 = "i"
+            else:
+                raise ValueError("numeric value in B array out of allowed range")
+        else:
+            if mx < 0xFF:
+                sub2 = "C"
+            elif mx <= 0xFFFF:
+                sub2 = "S"
+            elif mx <= 0xFFFFFFFF:
+                sub2 = "I"
+            else:
+                raise ValueError("numeric value in B array out of allowed range")
+        return encode_B_array(sub2, items)
 
 
 def encode_aux(tag: bytes, type_: str, value) -> bytes:

@@ -5,9 +5,9 @@ The port's copy of htslib_tpu/vcf/io.py, its pure-Python paths (no
 native branches), over the port's `BgzfReader` and `BgzfWriter`.
 `bcf_file_to_vcf` inflates a BGZF body's members on the device
 (bgzf.py `inflate_range`: kernel X4 on the card), then frames and formats
-the records on the host.  The CSI index (`bcf_index_build`,
-`BcfReader.fetch`, `BcfWriter(build_index=True)`) is not ported: ROADMAP
-A12.
+the records on the host.  The CSI index of a BCF is index.py's
+`HtsIndex`: `bcf_index_build` writes it from a file, `BcfWriter(
+build_index=True)` as it writes, and `BcfReader.fetch` queries it.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from htslib_tpu_torch import _build
 from htslib_tpu_torch.bgzf import (BgzfReader, BgzfWriter, inflate_range,
                                    scan_blocks)
 from htslib_tpu_torch.format import Format, detect_format
+from htslib_tpu_torch.index import HTS_FMT_CSI, HtsIndex
 from htslib_tpu_torch.vcf.header import BcfHeader
 from htslib_tpu_torch.vcf.record import BcfRecord
 
@@ -123,6 +124,29 @@ class BcfReader:
     def seek(self, voffset: int) -> None:
         self.fp.seek(voffset)
 
+    def fetch(self, rid: int, beg: int, end: int,
+              index: Optional[HtsIndex] = None) -> Iterator[BcfRecord]:
+        """Indexed region query over a CSI index (bcf_itr_queryi; the
+        shared hts_itr machinery, hts.c:3426), by default the file's
+        name + ".csi", loaded once.  beg/end 0-based half-open."""
+        if index is None:
+            index = getattr(self, "_index", None)
+        if index is None:
+            index = HtsIndex.load(self.name + ".csi")
+            self._index = index
+        for u, v in index.query_chunks(rid, beg, end):
+            self.fp.seek(u)
+            while True:
+                if v and self.fp.tell() >= v:
+                    break
+                rec = self.read1()
+                if rec is None:
+                    break
+                if rec.rid != rid or rec.pos >= end:
+                    break
+                if rec.pos + max(rec.rlen, 1) > beg:
+                    yield rec
+
     def close(self) -> None:
         self.fp.close()
 
@@ -167,9 +191,7 @@ class BcfWriter:
     def __init__(self, dst: Union[str, BinaryIO, BgzfWriter],
                  header: BcfHeader, level: int = -1,
                  build_index: bool = False):
-        if build_index:
-            raise NotImplementedError("BcfWriter(build_index=True): the CSI "
-                                      "index is not ported (ROADMAP A12)")
+        self._name = dst if isinstance(dst, str) else None
         self.fp = (dst if isinstance(dst, BgzfWriter)
                    else BgzfWriter(dst, level=level))
         self.header = header
@@ -181,17 +203,41 @@ class BcfWriter:
         self.fp.write(BCF_MAGIC)
         self.fp.write(struct.pack("<I", len(text)))
         self.fp.write(text)
+        # on-the-fly CSI (bcf_idx_init/bcf_idx_save, the --write-index
+        # path): record uncompressed end offsets, map to virtual offsets
+        # through the writer's block table at close
+        self._index_recs = [] if build_index else None
+        self._uheader_end = self.fp.utell() if build_index else None
 
     def write(self, rec: BcfRecord) -> None:
         shared, indiv = rec.to_bcf()
         self.fp.write(struct.pack("<II", len(shared), len(indiv)))
         self.fp.write(shared)
         self.fp.write(indiv)
+        if self._index_recs is not None:
+            self._index_recs.append((rec.rid, rec.pos,
+                                     rec.pos + max(rec.rlen, 1),
+                                     self.fp.utell()))
 
     def tell(self) -> int:
         return self.fp.tell()
 
     def close(self) -> None:
+        if self._index_recs is not None:
+            self.fp.flush()
+            u2v = self.fp.virtual_offset
+            idx = HtsIndex(len(self.header.ctg_names), HTS_FMT_CSI, 14, 5)
+            off0 = u2v(self._uheader_end or 0)
+            idx._last_off = idx._save_off = off0
+            idx._off_beg = idx._off_end = off0
+            last = off0
+            for rid, beg, end, uend in self._index_recs:
+                last = u2v(uend)
+                idx.push(rid, beg, end, last, True)
+            idx.finish(last)
+            if self._name:
+                idx.save(self._name + ".csi")
+            self.index = idx
         self.fp.close()
 
     def __enter__(self):
@@ -223,6 +269,28 @@ def open_vcf(name: str, mode: str = "r", header: Optional[BcfHeader] = None):
     if "b" in mode and "u" not in mode:
         return BcfWriter(name, header, level=level)
     return VcfWriter(name, header, compress="z" in mode, level=level)
+
+
+def bcf_index_build(path: str, min_shift: int = 14,
+                    out: Optional[str] = None) -> HtsIndex:
+    """Build a CSI index for a BCF (bcf_index_build, vcf.c; the binning
+    of BAM).  Returns the HtsIndex and writes `out` (by default the
+    file's name + ".csi")."""
+    with BcfReader(path) as r:
+        idx = HtsIndex(len(r.header.ctg_names), HTS_FMT_CSI, min_shift, 5)
+        last = r.tell()
+        idx._last_off = idx._save_off = last
+        idx._off_beg = idx._off_end = last
+        while True:
+            rec = r.read1()
+            if rec is None:
+                break
+            last = r.tell()
+            idx.push(rec.rid, rec.pos, rec.pos + max(rec.rlen, 1), last,
+                     True)
+        idx.finish(last)
+    idx.save(out or path + ".csi")
+    return idx
 
 
 def bcf_members(raw: np.ndarray):

@@ -72,7 +72,13 @@ def test_sources_found():
                  "htslib_tpu_torch/vcf/__init__.py",
                  "htslib_tpu_torch/vcf/header.py",
                  "htslib_tpu_torch/vcf/record.py",
-                 "htslib_tpu_torch/vcf/io.py"):
+                 "htslib_tpu_torch/vcf/io.py",
+                 "htslib_tpu_torch/vcf/merge.py",
+                 "htslib_tpu_torch/index.py",
+                 "htslib_tpu_torch/tbx.py",
+                 "htslib_tpu_torch/regidx.py",
+                 "htslib_tpu_torch/sam/indexing.py",
+                 "htslib_tpu_torch/sam/samtext.py"):
         assert want in rel
 
 

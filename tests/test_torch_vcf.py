@@ -748,10 +748,28 @@ def test_detect_format_matches_jax():
             j.version_major, j.version_minor, j.description())
 
 
-def test_bcf_writer_refuses_an_index(tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        tio.BcfWriter(str(tmp_path / "x.bcf"), THeader(HEADERS["matrix"]),
-                      build_index=True)
+def test_bcf_writer_refuses_an_index(tmp_path, monkeypatch):
+    """BcfWriter(build_index=True) refuses, at close, to index records
+    out of position order, as the JAX writer does (hts_idx_push,
+    hts.c:2558); in order it writes the file's .csi."""
+    text, body = matrix_vcf()
+    lines = body.splitlines()
+    for mod, header, record, name in (
+            (tio, THeader, TRecord, "t"), (jio, JHeader, JRecord, "j")):
+        h = header(text)
+        w = mod.BcfWriter(str(tmp_path / f"{name}.bcf"), h,
+                          build_index=True)
+        for line in lines[1::-1]:
+            w.write(record.from_vcf(line, h))
+        with pytest.raises(ValueError, match="Unsorted positions"):
+            w.close()
+    h = THeader(text)
+    with tio.BcfWriter(str(tmp_path / "s.bcf"), h, build_index=True) as w:
+        for line in lines:
+            w.write(TRecord.from_vcf(line, h))
+    with tio.BcfReader(str(tmp_path / "s.bcf")) as r:
+        assert len(list(r.fetch(0, 0, 1 << 30))) == sum(
+            ln.split("\t")[0] == "1" for ln in lines)
 
 
 def test_bgzf_writer_tell_matches_jax(tmp_path):
