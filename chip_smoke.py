@@ -272,15 +272,40 @@ PyTorch version on the card and times both.  Phases:
      equal to 11a's text.  Printed: the wall time, ms a region by part,
      each index build's seconds, 14d's decode s in parts, the leg 14
      check line (records a region), leg 14's launches;
+  5m. leg 15, the I/O layer and the file-level entry points (hfile.py,
+     remote/, hts.py, opts.py, sam/fastq.py, sam/batch.py, pipeline.py),
+     run after leg 14 on the files legs 10-14 made, a RangeServer on
+     127.0.0.1 serving them (nothing leaves the machine); the host work
+     runs in a pool of processes while the card works.  15a:
+     bam_file_to_sam on leg 10's BAM (45.2 MB, 400,000 records) on the
+     card (X4, X5, B1) equals leg 8's text.  15b: the same file through
+     HttpFile (one request) and through an htsget+http ticket of
+     LEG15_PARTS Range parts and its EOF member inline (a request a
+     part), each equal to 15a's text; hts_open on the URL is a BamReader
+     whose first LEG15_FIRST records are leg 8's lines.  15c: 11a decoded
+     by cram_file_to_sam on the card (B7, X1, X5, B1) with its FASTA
+     moved away and REF_PATH the server's M5 template: 11a's text.  15d:
+     hts_open on leg 10's BAM, 11a's and 11b's CRAMs, leg 12's BCF, leg
+     14's bgzipped VCF and .fa.gz and 15e's FASTQ gives the format's
+     reader, with the record count and first and last records of the
+     format's own reader; the first LEG15_WRITE records of 11a written by
+     mode letters ("wb" level=1, "wc" with seqs_per_slice and the
+     reference, "wz") read back the same.  15e: LEG15_READS paired
+     150-bp reads with CASAVA comments bgzipped, imported by hts_open
+     into a BAM, decoded on the card: every line's QNAME, FLAG, SEQ and
+     QUAL the read's.  15f: leg 8's varied text written by
+     sam_to_bam_file (pipeline_map) and decoded on the card gives it
+     back.  Printed: the wall time, each sub-leg's seconds and MB/s,
+     15a's parts, the requests each transport made, leg 15's launches;
 
-Launch counts are reset just before phase 3 and read just after phase 5l,
-with leg 10b's ranks' counts added; legs 7-14 are also counted alone
+Launch counts are reset just before phase 3 and read just after phase 5m,
+with leg 10b's ranks' counts added; legs 7-15 are also counted alone
 (reset just before each, read just after; 10b's, 11a's and 12b's shards'
 in the ranks) and each must have launched its kernels (X4; X5 and B1; X6;
 B1, X4 and X5 in 10a and in 10b; X5, B1 and the kernel of every rANS wire
 its files hold, in leg 11 and in its shards; X4 in leg 12 and in its
 shards; B1, B7, X1, X5, B2 or B5 and B3 or B6 in leg 13; X4, X5, B1, B7
-and X1 in leg 14).  The kernels
+and X1 in legs 14 and 15).  The kernels
 line's X4 row gives leg 12's launches apart (launches_leg12).
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -350,6 +375,110 @@ N_VCF = 20_000          # leg 12's VCF records, on LEG12_CONTIGS
 N_SAMPLES = 32          # and their samples
 LEG12_CONTIGS = [("chr1", 248956422), ("chr2", 242193529)]
 LEG14_UNPLACED = 2_000  # leg 14a's unmapped, unplaced tail (HTS_IDX_NOCOOR)
+LEG15_READS = 100_000   # 15e's FASTQ reads, 150 bp, in pairs
+LEG15_READ_LEN = 150
+LEG15_FIRST = 1_000     # 15b's records read by hts_open over http
+LEG15_WRITE = 4_000     # 15d's records written back by mode letters
+LEG15_PARTS = 4         # 15b's htsget ticket: byte ranges of the file
+
+
+class RangeServer:
+    """An HTTP server on 127.0.0.1 (a free port), in a thread of this
+    process, for the remote paths: GET of /PATH answers `extra[PATH]`
+    (bytes) or the file PATH under `root`, whole or, for one `Range:
+    bytes=A-B` or `bytes=A-` header, as 206 with its Content-Range.
+    `requests` logs each request's (path, Range header, headers).  A
+    context manager; `url(path)` is the full URL."""
+
+    def __init__(self, root: str, extra=None):
+        import http.server
+        import threading
+        import urllib.parse
+        srv = self
+        self.root = root
+        self.extra = dict(extra or {})
+        self.requests = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                path = urllib.parse.unquote(self.path.split("?")[0])
+                rng = self.headers.get("Range")
+                srv.requests.append((path, rng, dict(self.headers)))
+                body = srv.extra.get(path)
+                name = os.path.join(srv.root, path.lstrip("/"))
+                if body is None and not os.path.isfile(name):
+                    self.send_error(404)
+                    return
+                size = len(body) if body is not None else os.path.getsize(
+                    name)
+                lo, hi = 0, size - 1
+                if rng:
+                    a, _, b = rng.split("=", 1)[1].partition("-")
+                    lo, hi = int(a), min(int(b) if b else size - 1, size - 1)
+                    if lo >= size:
+                        self.send_error(416)
+                        return
+                self.send_response(206 if rng else 200)
+                self.send_header("Content-Length", str(hi - lo + 1))
+                if rng:
+                    self.send_header("Content-Range",
+                                     f"bytes {lo}-{hi}/{size}")
+                self.end_headers()
+                try:
+                    if body is not None:
+                        self.wfile.write(body[lo:hi + 1])
+                        return
+                    with open(name, "rb") as fp:
+                        fp.seek(lo)
+                        left = hi - lo + 1
+                        while left:
+                            chunk = fp.read(min(left, 1 << 20))
+                            if not chunk:
+                                break
+                            self.wfile.write(chunk)
+                            left -= len(chunk)
+                except (BrokenPipeError, ConnectionResetError):
+                    pass        # the client closed early (a seek, a peek)
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        self.httpd.daemon_threads = True
+        self.port = self.httpd.server_address[1]
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def url(self, path: str) -> str:
+        return f"http://127.0.0.1:{self.port}/{path.lstrip('/')}"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=10)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def htsget_ticket(url: str, size: int, parts: int, tail: bytes = b""
+                  ) -> bytes:
+    """An htsget ticket (JSON) for the first `size` bytes of `url` in
+    `parts` byte ranges of about equal length, each an http part with its
+    Range header, then `tail` as an inline base64 `data:` part."""
+    import base64
+    cuts = [size * i // parts for i in range(parts + 1)]
+    urls = [{"url": url, "headers": {"Range": f"bytes={a}-{b - 1}"}}
+            for a, b in zip(cuts, cuts[1:]) if b > a]
+    if tail:
+        urls.append({"url": "data:application/octet-stream;base64,"
+                     + base64.b64encode(tail).decode()})
+    return json.dumps({"htsget": {"format": "BAM", "urls": urls}}).encode()
 
 
 def _encode(data: bytes, wire: str = "nx16_o0") -> bytes:
@@ -1237,10 +1366,10 @@ def hist_of(raw: bytes, qbins: int) -> np.ndarray:
 
 def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
               tile_len=TILE_LEN, n_decode=N_DECODE):
-    """Phases 3-5l through the port's entry points on `device`, each
+    """Phases 3-5m through the port's entry points on `device`, each
     result held against its host truth.  Returns (leg-1 args on the
     device, seconds of each phase, notes: leg 4's timing dict, leg 5's
-    lookups per second, legs 6-14's parts)."""
+    lookups per second, legs 6-15's parts)."""
     from htslib_tpu_torch.entry import entry
     from htslib_tpu_torch.ops.device_stats import (QBINS, cram_qual_hist,
                                                    qualstats_device,
@@ -1384,6 +1513,10 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                                                    bcf_plan, leg10_bam)),
                          ("leg14", lambda: leg14(device, tmp, leg10_bam,
                                                  notes["leg11"],
+                                                 notes["leg12"])),
+                         ("leg15", lambda: leg15(device, tmp, leg10_bam,
+                                                 chain_sam, varied_sam,
+                                                 notes["leg11"],
                                                  notes["leg12"]))):
             t0 = time.time()
             with Shapes() as shapes:
@@ -1394,6 +1527,7 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                 inflated = notes["leg7"].pop("inflated")
             if leg == "leg8":
                 chain_sam = notes["leg8"].pop("chain_sam")
+                varied_sam = notes["leg8"].pop("varied_sam")
             if leg == "leg11":
                 cram_plan = notes["leg11"].pop("plan")
             if leg == "leg12":
@@ -1484,9 +1618,10 @@ def leg6(device, raws, encs, leg3, n_decode: int = N_DECODE) -> dict:
 class Shapes:
     """Inside a with block, the shapes of the launches of csrc/rans4x8.cu
     (B7, B8, X1-X3 and their dense variants: key, order-1 layout,
-    streams, rounds of the longest stream) and of X5 (key, payload bytes,
-    max_records), in `got` (_build.SHAPES), so that launches no timing
-    covers can be reckoned from their shapes."""
+    streams, rounds of the longest stream), of X5 (key, payload bytes,
+    max_records) and of X4 (key, members, the longest member's steps), in
+    `got` (_build.SHAPES), so that launches no timing covers can be
+    reckoned from their shapes."""
 
     def __enter__(self):
         from htslib_tpu_torch import _build
@@ -1517,8 +1652,9 @@ def leg8(device, chain, varied):
     stream (X4's output), and `varied`, leg 8's varied stream, each
     through bam_payload_to_sam_device; every line must be the port's host
     formatter's (timed apart, in processes).  Returns its notes: each
-    call's wall time, its parts from the entry point's `timing` dict, and
-    SAM MB/s."""
+    call's wall time, its parts from the entry point's `timing` dict, SAM
+    MB/s, and both texts (chain_sam, varied_sam: legs 10b and 15 hold
+    theirs to them)."""
     from htslib_tpu_torch.ops.bam2sam import bam_payload_to_sam_device
     from htslib_tpu_torch.sam.header import SamHeader
     hdr = SamHeader(ref_names=LEG8_REFS)
@@ -1532,8 +1668,7 @@ def leg8(device, chain, varied):
         t1 = time.time()
         require(text == host_sam_parallel(payload, LEG8_REFS),
                 f"leg 8 {name}: SAM text != host formatter")
-        if name == "chain":
-            notes["chain_sam"] = text
+        notes[name + "_sam"] = text
         notes[name] = {"wall_s": wall, "parts": timing,
                        "in_bytes": len(payload), "sam_bytes": len(text),
                        "sam_MBps": len(text) / wall / 1e6,
@@ -2829,6 +2964,406 @@ def leg14(device, tmp: str, l10_bam: str, l11, l12):
             for k in ("lines", "text", "chunks"):
                 r.pop(k, None)
     notes["check"] = check
+    notes["wall_s"] = time.time() - t_leg
+    return notes
+
+
+def leg15_reads(n: int = LEG15_READS, length: int = LEG15_READ_LEN,
+                seed: int = 15):
+    """15e's reads: n Illumina-style reads of `length` bases in pairs (the
+    names of a HiSeq run, /1 and /2), qualities from a seeded model (a
+    per-cycle mean falling from 38 to 28 along the read, Gaussian noise,
+    5% of the reads ending in a Q2 tail), bases uniform, N at Q2.  Returns
+    (QNAMEs as bytes, FLAGs, bases uint8 [n, length], phred uint8
+    [n, length])."""
+    rng = np.random.default_rng(seed)
+    cycle = np.arange(length)
+    mean = 38.0 - 10.0 * (cycle / length) ** 2
+    qual = np.clip(np.rint(mean + rng.normal(0, 3, (n, length))), 2,
+                   41).astype(np.uint8)
+    tail = rng.random(n) < 0.05
+    start = rng.integers(length // 2, length, n)
+    qual[tail[:, None] & (cycle[None, :] >= start[:, None])] = 2
+    bases = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, length))]
+    bases[qual == 2] = ord("N")
+    names = [b"HWI-ST1234:8:FC706VJ:2:%d:%d:%d" % (1101 + (i // 2) % 16,
+                                                    1000 + (i // 2) % 20000,
+                                                    i // 2)
+             for i in range(n)]
+    flags = np.where(np.arange(n) % 2 == 0, 77, 141)
+    return names, flags, bases, qual
+
+
+def leg15_fastq_text(reads) -> bytes:
+    """leg15_reads as FASTQ: each name with its /1 or /2 and a CASAVA
+    comment (read number, N, 0, one of four barcodes)."""
+    names, flags, bases, qual = reads
+    codes = [b"ATCACG", b"CGATGT", b"TTAGGC", b"TGACCA"]
+    phred = qual + 33
+    return b"".join(
+        b"@%s/%d %d:N:0:%s\n%s\n+\n%s\n" % (
+            names[i], 1 + i % 2, 1 + i % 2, codes[(i // 2) % 4],
+            bases[i].tobytes(), phred[i].tobytes())
+        for i in range(len(names)))
+
+
+def _leg15_import(fq: str, bam: str, n: int):
+    """15e on the host: leg15_reads(n) written as bgzipped FASTQ, read
+    back through hts_open (a FastxReader) and written as BAM through
+    hts_open(bam, "wb").  Returns (seconds by part, and the summary
+    _leg15_open(fq, "fastq", True) gives, from the same pass)."""
+    from htslib_tpu_torch.bgzf import BgzfWriter
+    from htslib_tpu_torch.hts import hts_open
+    from htslib_tpu_torch.sam.fastq import FastxReader
+    t0 = time.time()
+    text = leg15_fastq_text(leg15_reads(n))
+    t1 = time.time()
+    with BgzfWriter(fq, level=BGZF_LEVEL) as w:
+        w.write(text)
+    t2 = time.time()
+    r = hts_open(fq)
+    require(isinstance(r, FastxReader), f"15e: hts_open gave {r}")
+    w = hts_open(bam, "wb", header=r.header)
+    first = last = None
+    count = 0
+    for rec in r:
+        w.write(rec)
+        first = rec if first is None else first
+        last = rec
+        count += 1
+    w.close()
+    r.close()
+    return {"make_s": t1 - t0, "bgzip_s": t2 - t1,
+            "read_write_s": time.time() - t2, "fastq_bytes": len(text),
+            "bam_bytes": os.path.getsize(bam)}, (
+        type(r).__name__, count, first.to_sam(r.header),
+        last.to_sam(r.header))
+
+
+def _leg15_sam_to_bam(text: bytes, header_text: str, out: str):
+    """15f on the host: sam_to_bam_file (pipeline_map's threads).
+    Returns (uncompressed bytes written, seconds)."""
+    from htslib_tpu_torch.sam.batch import sam_to_bam_file
+    from htslib_tpu_torch.sam.header import SamHeader
+    t0 = time.time()
+    n = sam_to_bam_file(text, SamHeader(header_text), out, level=BGZF_LEVEL)
+    return n, time.time() - t0
+
+
+def _leg15_open(path: str, kind: str, by_hts: bool):
+    """15d: the file opened by hts_open (by_hts) or by its format's own
+    reader.  Returns ((the reader's class name, records, first and last
+    records' text: SAM, or VCF for variant data), seconds)."""
+    from htslib_tpu_torch.hts import hts_open
+    from htslib_tpu_torch.sam.bam import BamReader
+    from htslib_tpu_torch.sam.fastq import FastxReader
+    from htslib_tpu_torch.vcf.io import BcfReader, VcfReader
+    t0 = time.time()
+    if by_hts:
+        r = hts_open(path)
+    else:
+        r = {"bam": lambda: BamReader(path),
+             "bcf": lambda: BcfReader(path), "vcf": lambda: VcfReader(path),
+             "fasta": lambda: FastxReader(path, fasta=True),
+             "fastq": lambda: FastxReader(path)}[kind]()
+    first = last = None
+    count = 0
+    with r:
+        for rec in r:
+            if first is None:
+                first = rec
+            last = rec
+            count += 1
+        texts = [x.to_vcf(r.header) if kind in ("bcf", "vcf")
+                 else x.to_sam(r.header) for x in (first, last)]
+    return (type(r).__name__, count, texts[0], texts[1]), time.time() - t0
+
+
+def cram_containers(path: str):
+    """(offset, records) of every data container of a CRAM file, from
+    its container headers."""
+    from htslib_tpu_torch.cram import CRAM_EOF_START
+    from htslib_tpu_torch.cram.io import CramIO, read_file_definition
+    out = []
+    with open(path, "rb") as fp:
+        io_ = CramIO(fp, read_file_definition(fp)[0])
+        c = io_.read_container_header()
+        while True:
+            fp.seek(c.data_offset + c.length)
+            c = io_.read_container_header()
+            if c is None or (c.ref_seq_id == -1
+                             and c.ref_seq_start == CRAM_EOF_START):
+                return out
+            if c.num_records:
+                out.append((c.offset, c.num_records))
+
+
+def _leg15_cram_part(path: str, ref, offset: int, n: int, last: bool,
+                     by_hts: bool):
+    """15d over one container of a CRAM (its host decode costs seconds,
+    so a reader's pass runs a container a process): the reader hts_open
+    gives (by_hts) or a CramReader, seeked to the container at `offset`,
+    must give its `n` records, then, where it is the `last`, none.
+    Returns ((the class name, n, first and last records' SAM text),
+    seconds)."""
+    from htslib_tpu_torch.cram import CramReader
+    from htslib_tpu_torch.hts import hts_open
+    t0 = time.time()
+    r = hts_open(path, ref=ref) if by_hts else CramReader(path, ref=ref)
+    with r:
+        r.fp.seek(offset)
+        recs = [r.read1() for _ in range(n)]
+        require(all(recs) and (not last or r.read1() is None),
+                f"15d: the container at {offset} of {path}")
+        texts = [x.to_sam(r.header) for x in (recs[0], recs[-1])]
+    return (type(r).__name__, n, texts[0], texts[1]), time.time() - t0
+
+
+def _leg15_writers(src: str, ref: str, tmp: str):
+    """15d's writers: the first LEG15_WRITE records of `src` (11a's CRAM,
+    read by hts_open) written by hts_open's mode letters, "wb" with
+    level=1, "wc" with seqs_per_slice=2000 and the reference, "wz", each
+    file read back by hts_open: the reader's class and every record's
+    SAM line must be the source's.  Returns {mode: (class, records,
+    bytes, write s)}."""
+    from htslib_tpu_torch.hts import hts_open
+    with hts_open(src, ref=ref) as r:
+        hdr = r.header
+        recs = []
+        for rec in r:
+            recs.append(rec)
+            if len(recs) == LEG15_WRITE:
+                break
+    want = [rec.to_sam(hdr) for rec in recs]
+    out = {}
+    for mode, opts, ext, cls in (
+            ("wb", ["level=1"], "bam", "BamReader"),
+            ("wc", ["seqs_per_slice=2000", f"reference={ref}"], "cram",
+             "CramReader"),
+            ("wz", [], "sam.gz", "SamReader")):
+        path = os.path.join(tmp, f"leg15.{ext}")
+        t0 = time.time()
+        w = hts_open(path, mode, header=hdr, opts=opts)
+        for rec in recs:
+            w.write(rec)
+        w.close()
+        secs = time.time() - t0
+        with hts_open(path, ref=ref) as r:
+            require(type(r).__name__ == cls, f"15d {mode}: read back by "
+                    f"{type(r).__name__}")
+            got = [rec.to_sam(r.header) for rec in r]
+        require(got == want, f"15d {mode}: records read back differ")
+        out[mode] = (cls, len(got), os.path.getsize(path), secs)
+    return out
+
+
+def leg15(device, tmp: str, l10_bam: str, chain_sam: bytes,
+          varied_sam: bytes, l11, l12):
+    """Leg 15, the I/O layer and the file-level entry points on the card,
+    after leg 14, on the files legs 10-14 made; the host work runs in a
+    pool of processes while the card works.  15a: bam_file_to_sam on leg
+    10's BAM (X4, X5, B1) must equal leg 8's text.  15b: the same file
+    from a RangeServer on 127.0.0.1 through HttpFile, and from an
+    htsget+http ticket of LEG15_PARTS Range parts and the EOF member
+    inline, each equal to 15a's text; hts_open on the URL a BamReader
+    whose first LEG15_FIRST lines are leg 8's.  15c: 11a's CRAM decoded
+    by cram_file_to_sam on the card with its FASTA moved away and
+    REF_PATH a URL template the server answers by M5 (B7, X1, X5, B1):
+    11a's text.  15d: hts_open on every file of legs 10-14 and 15e's
+    FASTQ gives the reader of its format, with the records, first and
+    last, of the format's own reader (_leg15_open; _leg15_cram_part a
+    container a process for the CRAMs); writers by mode
+    letters read back the records (_leg15_writers).  15e: LEG15_READS
+    reads imported from bgzipped FASTQ to BAM by hts_open
+    (_leg15_import), then bam_file_to_sam on the card: every line's
+    QNAME, FLAG, SEQ and QUAL the read's.  15f: leg 8's varied text
+    written by sam_to_bam_file (pipeline_map), then bam_file_to_sam on
+    the card gives it back.  Returns its notes."""
+    import shutil
+
+    from htslib_tpu_torch.cram.batch import cram_file_to_sam
+    from htslib_tpu_torch.faidx import Faidx
+    from htslib_tpu_torch.hts import hts_open
+    from htslib_tpu_torch.sam.bam import BamReader
+    from htslib_tpu_torch.sam.batch import bam_file_to_sam
+    t_leg = time.time()
+    notes = {}
+    fasta = l11["11a"]["ref"]
+    ref = os.path.join(tmp, "leg15_ref.fa")       # the pool's copy
+    shutil.copy(fasta, ref)
+    shutil.copy(fasta + ".fai", ref + ".fai")
+    fq, fq_bam = (os.path.join(tmp, "leg15.fq.gz"),
+                  os.path.join(tmp, "leg15_fq.bam"))
+    f_bam = os.path.join(tmp, "leg15_varied.bam")
+    files = {"bam": l10_bam, "cram30": l11["11a"]["path"],
+             "cram31": l11["11b"]["path"], "bcf": l12["path"],
+             "vcf.gz": os.path.join(tmp, "leg14.vcf.gz"),
+             "fa.gz": os.path.join(tmp, "leg14.fa.gz")}
+    kinds = {"bam": "bam", "bcf": "bcf", "vcf.gz": "vcf", "fa.gz": "fasta"}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        # the longest host tasks first: the CRAM containers' host
+        # decode (the pure-Python rANS, 5-10 s a container), the writers
+        # (which decode 11a's first container), the VCF parse (about half
+        # a millisecond a record of 32 samples), the import
+        parts = {(name, by): [pool.submit(
+            _leg15_cram_part, files[name], ref if name == "cram30" else
+            None, off, n, k == len(conts) - 1, by)
+            for k, (off, n) in enumerate(conts)]
+            for name, conts in (("cram30", cram_containers(files["cram30"])),
+                                ("cram31", cram_containers(files["cram31"])))
+            for by in (True, False)}
+        writers = pool.submit(_leg15_writers, files["cram30"], ref, tmp)
+        opens = {("vcf.gz", by): pool.submit(_leg15_open, files["vcf.gz"],
+                                             "vcf", by)
+                 for by in (True, False)}
+        imp = pool.submit(_leg15_import, fq, fq_bam, LEG15_READS)
+        s2b = pool.submit(_leg15_sam_to_bam, varied_sam, "".join(
+            f"@SQ\tSN:{r}\tLN:300000000\n" for r in LEG8_REFS), f_bam)
+        opens.update({(name, by): pool.submit(_leg15_open, files[name],
+                                              kinds[name], by)
+                      for name in ("bam", "bcf", "fa.gz")
+                      for by in (True, False)})
+
+        # 15a: the BAM file on the card
+        timing = {}
+        t0 = time.time()
+        _, text = bam_file_to_sam(l10_bam, device=device, timing=timing)
+        wall = time.time() - t0
+        text = text.tobytes()
+        require(text == chain_sam, "15a: bam_file_to_sam != leg 8's text")
+        notes["15a"] = {"wall_s": wall, "sam_MBps": len(text) / wall / 1e6,
+                        "bam_bytes": os.path.getsize(l10_bam),
+                        "sam_bytes": len(text), "parts": timing}
+
+        # 15b and 15c: one server on 127.0.0.1
+        m5s = {}
+        fai = Faidx.load(fasta)
+        for ln in cram_header(files["cram30"]).lines:
+            if ln.type == "SQ":
+                m5s["/m5/" + ln.get("M5")] = fai.fetch_seq(
+                    ln.get("SN")).encode().upper()
+        fai.close()
+        with RangeServer(tmp, m5s) as srv:
+            size = os.path.getsize(l10_bam)
+            with open(l10_bam, "rb") as fp:
+                fp.seek(size - 28)
+                eof = fp.read()
+            srv.extra["/tickets/leg10"] = htsget_ticket(
+                srv.url("leg10.bam"), size - 28, LEG15_PARTS, eof)
+            b = {}
+            for tag, url in (("http", srv.url("leg10.bam")), (
+                    "htsget", f"htsget+http://127.0.0.1:{srv.port}/tickets/"
+                    "leg10")):
+                n0 = len(srv.requests)
+                t0 = time.time()
+                _, got = bam_file_to_sam(url, device=device)
+                wall = time.time() - t0
+                require(got.tobytes() == text, f"15b {tag}: != 15a's text")
+                b[tag] = {"wall_s": wall, "sam_MBps": len(text) / wall / 1e6,
+                          "requests": len(srv.requests) - n0}
+            require(b["http"]["requests"] == 1
+                    and b["htsget"]["requests"] == 1 + LEG15_PARTS,
+                    f"15b: requests {b}")
+            t0 = time.time()
+            with hts_open(srv.url("leg10.bam")) as r:
+                require(isinstance(r, BamReader), f"15b: hts_open gave {r}")
+                first = [r.read1().to_sam(r.header)
+                         for _ in range(LEG15_FIRST)]
+            b["hts_open_first_s"] = time.time() - t0
+            require(first == [ln.decode() for ln in chain_sam.split(
+                b"\n", LEG15_FIRST)[:LEG15_FIRST]],
+                "15b: hts_open's first records != leg 8's lines")
+            notes["15b"] = b
+
+            # 15c: 11a by REF_PATH URL, its FASTA moved away
+            moved = fasta + ".moved"
+            saved = {k: os.environ.get(k) for k in ("REF_CACHE", "REF_PATH")}
+            os.rename(fasta, moved)
+            try:
+                for k in saved:
+                    os.environ.pop(k, None)
+                os.environ["REF_PATH"] = srv.url("m5/%s")
+                n0 = len(srv.requests)
+                timing = {}
+                t0 = time.time()
+                _, sam = cram_file_to_sam(files["cram30"], device=device,
+                                          timing=timing)
+                c = {"wall_s": time.time() - t0,
+                     "requests": sorted(p for p, *_ in srv.requests[n0:]),
+                     "parts": {k: v for k, v in timing.items()
+                               if k not in ("wires", "format")}}
+            finally:
+                os.rename(moved, fasta)
+                for k, v in saved.items():
+                    os.environ.pop(k, None)
+                    if v is not None:
+                        os.environ[k] = v
+            require(sam.tobytes() == l11["11a"]["sam"],
+                    "15c: 11a by REF_PATH URL != 11a's text")
+            require(c["requests"] == sorted(m5s), f"15c: fetched {c}")
+            notes["15c"] = c
+
+        # 15e: the FASTQ import, decoded on the card
+        e, fq_open = imp.result()
+        require(fq_open[1] == LEG15_READS, f"15e: {fq_open[1]} reads "
+                "imported")
+        opens[("fq.gz", False)] = pool.submit(_leg15_open, fq, "fastq",
+                                              False)
+        t0 = time.time()
+        _, got = bam_file_to_sam(fq_bam, device=device)
+        e["decode_s"] = time.time() - t0
+        names, flags, bases, qual = leg15_reads(LEG15_READS)
+        lines = got.tobytes().split(b"\n")
+        require(len(lines) == LEG15_READS + 1 and lines[-1] == b"",
+                "15e: line count")
+        cols = [ln.split(b"\t", 11) for ln in lines[:-1]]
+        require([c[0] for c in cols] == names, "15e: QNAMEs")
+        require([int(c[1]) for c in cols] == flags.tolist(), "15e: FLAGs")
+        require(b"".join(c[9] for c in cols) == bases.tobytes(), "15e: SEQ")
+        require(b"".join(c[10] for c in cols) == (qual + 33).tobytes(),
+                "15e: QUAL")
+        e["sam_MBps"] = len(got) / e["decode_s"] / 1e6
+        notes["15e"] = e
+
+        # 15f: SAM -> BAM by sam_to_bam_file, back on the card
+        written, secs = s2b.result()
+        t0 = time.time()
+        _, got = bam_file_to_sam(f_bam, device=device)
+        notes["15f"] = {"sam_to_bam_s": secs, "written": written,
+                        "bam_bytes": os.path.getsize(f_bam),
+                        "decode_s": time.time() - t0}
+        require(got.tobytes() == varied_sam, "15f: the text back != leg 8's")
+
+        # 15d: the truths of the pool, each a (summary, seconds); a CRAM
+        # reader's pass is its containers' parts, summed
+        t0 = time.time()
+        summ = {key: fut.result() for key, fut in opens.items()}
+        for key, futs in parts.items():
+            got = [f.result() for f in futs]
+            require(len({g[0][0] for g in got}) == 1, f"15d {key}: {got}")
+            summ[key] = ((got[0][0][0], sum(g[0][1] for g in got),
+                          got[0][0][2], got[-1][0][3]),
+                         max(g[1] for g in got))
+        summ[("fq.gz", True)] = (fq_open, e["read_write_s"])
+        d = {}
+        for name in list(files) + ["fq.gz"]:
+            (ours, ours_s), (direct, direct_s) = (summ[(name, True)],
+                                                  summ[(name, False)])
+            require(ours == direct, f"15d {name}: hts_open's reader "
+                    f"{ours[:2]} != the direct reader's {direct[:2]}")
+            d[name] = ours[:2] + (ours_s, direct_s)
+        want = {"bam": "BamReader", "cram30": "CramReader",
+                "cram31": "CramReader", "bcf": "BcfReader",
+                "vcf.gz": "VcfReader", "fa.gz": "FastxReader",
+                "fq.gz": "FastxReader"}
+        require({k: v[0] for k, v in d.items()} == want, f"15d: {d}")
+        require(d["bam"][1] == N_RECORDS and d["cram30"][1] == N_CRAM
+                and d["bcf"][1] == d["vcf.gz"][1] == N_VCF
+                and d["fq.gz"][1] == LEG15_READS, f"15d: counts {d}")
+        notes["15d"] = {"readers": d, "writers": writers.result(),
+                        "truth_wait_s": time.time() - t0}
     notes["wall_s"] = time.time() - t_leg
     return notes
 
@@ -4166,6 +4701,8 @@ def main() -> int:
                       ("leg13", ["nibble_to_base", "rans4x8_o0_decode",
                                  "X1", "X5", "B2/B5", "B3/B6"]),
                       ("leg14", ["X4", "X5", "nibble_to_base",
+                                 "rans4x8_o0_decode", "X1"]),
+                      ("leg15", ["X4", "X5", "nibble_to_base",
                                  "rans4x8_o0_decode", "X1"])):
         got = dict(notes["launches_" + leg])
         got["X4"] = got.get("inflate", 0) + got.get("inflate_slot", 0)
@@ -4292,13 +4829,30 @@ def main() -> int:
          "14a_regions": [r["region"] for r in a14["regions"]],
          "14b_regions": [r["region"] for r in b14["regions"]],
          "14c_regions": [r["region"] for r in c14["regions"]]}), flush=True)
+    l15 = notes["leg15"]
+    print(f"leg 15 wall (this process): {secs['leg15']:.3f} s; 15a BAM -> "
+          f"SAM from the file {l15['15a']['wall_s']:.3f} s, "
+          f"{l15['15a']['sam_MBps']:.6g} MB/s of SAM, parts "
+          + json.dumps(l15["15a"]["parts"]), flush=True)
+    print("leg 15b (the same BAM over 127.0.0.1): " + json.dumps(l15["15b"]),
+          flush=True)
+    print("leg 15c (11a by a REF_PATH URL): " + json.dumps(l15["15c"]),
+          flush=True)
+    print("leg 15d (hts_open: reader, records, s by hts_open and by the "
+          "direct reader; writers: reader, records, bytes, s): "
+          + json.dumps(l15["15d"]), flush=True)
+    print("leg 15e (FASTQ import, decoded on the card): "
+          + json.dumps(l15["15e"]), flush=True)
+    print("leg 15f (sam_to_bam_file, decoded on the card): "
+          + json.dumps(l15["15f"]), flush=True)
     print("launches by leg: " + json.dumps({k: v for k, v in notes.items()
                                             if k.startswith("launches_")}),
           flush=True)
     # each launch of csrc/rans4x8.cu's kernels (key, order-1 layout,
-    # streams, rounds of the longest stream) and of X5 (key, payload
-    # bytes, max_records) in legs 7-13, the ranks' apart: PERF.md reckons
-    # the launches no timing covers from these shapes
+    # streams, rounds of the longest stream), of X5 (key, payload bytes,
+    # max_records) and of X4 (key, members, the longest member's steps)
+    # in legs 7-15, the ranks' apart: PERF.md reckons the launches no
+    # timing covers from these shapes
     shapes = {k[len("shapes_"):]: v for k, v in notes.items()
               if k.startswith("shapes_")}
     shapes["leg10b_ranks"] = rank_shapes

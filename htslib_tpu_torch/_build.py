@@ -48,8 +48,9 @@ LAUNCHES: Dict[str, int] = {
     "record_scan": 0, "record_scan_seg": 0, "probaln": 0,
     "probaln_warp": 0}
 # where a list: each launch of the kernels whose wrappers record their
-# shapes (ops/rans4x8.py, ops/bam2sam.py) appends (launch key, ...its
-# shape), so a run can reckon launches that no timing covers
+# shapes (ops/rans4x8.py, ops/bam2sam.py, ops/inflate.py) appends
+# (launch key, ...its shape), so a run can reckon launches that no
+# timing covers
 # (chip_smoke.py); None costs nothing
 SHAPES: Optional[list] = None
 _LIBS: Dict[str, ctypes.CDLL] = {}

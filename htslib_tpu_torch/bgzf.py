@@ -10,9 +10,9 @@ as a stream with virtual offsets (`BgzfReader`, zlib on the host), maps
 uncompressed offsets to members through a `.gzi` index (`GziIndex`,
 `BgzfReader.useek`, `BgzfWriter.save_index`), and inflates the members
 that cover a range of a file's uncompressed stream on the device
-(`inflate_range`: ops/inflate.py, kernel X4 on the card).  The JAX
-package's `HFile` back ends are not ported: files are local paths or
-binary file objects.
+(`inflate_range`: ops/inflate.py, kernel X4 on the card).  A file is a
+name that hfile.py `hopen` opens (a local path, `-`, or a URL such as
+http://, s3:// or an htsget ticket) or a binary file object.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from typing import BinaryIO, List, Optional, Tuple, Union
 import numpy as np
 
 from htslib_tpu_torch import _build
+from htslib_tpu_torch.hfile import hfile_scheme, hopen
 from htslib_tpu_torch.ops.inflate import inflate_batch
 
 BGZF_BLOCK_SIZE = 0xFF00        # htslib/bgzf.h:50
@@ -213,7 +214,20 @@ def _file_bytes(src: Union[str, np.ndarray], offset: int,
                 count: int) -> np.ndarray:
     if isinstance(src, np.ndarray):
         return src[offset:offset + count]
+    if hfile_scheme(src):
+        with hopen(src, "rb") as fp:
+            fp.seek(offset)
+            return np.frombuffer(fp.read(count), np.uint8)
     return np.fromfile(src, np.uint8, count=count, offset=offset)
+
+
+def read_file(src: Union[str, os.PathLike, BinaryIO]) -> np.ndarray:
+    """The whole of a file as uint8: a local path read at once, a URL
+    through one `hopen` stream (one request for http), a binary file
+    object from its position to its end."""
+    if isinstance(src, (str, os.PathLike)):
+        return _file_bytes(os.fspath(src), 0, -1)
+    return np.frombuffer(src.read(-1), np.uint8)
 
 
 def _add(timing: Optional[dict], key: str, seconds: float) -> None:
@@ -247,8 +261,8 @@ class GziIndex:
 
     @classmethod
     def load(cls, fname: str) -> "GziIndex":
-        with open(fname, "rb") as fp:
-            raw = fp.read()
+        with hopen(fname, "rb") as fp:
+            raw = fp.read(-1)
         (n,) = struct.unpack_from("<Q", raw, 0)
         if len(raw) < 8 + 16 * n:
             raise IOError(f"truncated .gzi index {fname}")
@@ -303,14 +317,17 @@ def decompress_block(comp: bytes) -> bytes:
 class BgzfReader:
     """Streaming BGZF (or plain gzip, or uncompressed) reader with
     virtual-offset seek/tell (bgzf_seek/bgzf_tell, bgzf.c:2175-2258), over
-    a path or a binary file object; the JAX package's `BGZFReader`, its
-    members inflated on the host by zlib."""
+    a name that `hopen` opens, an `HFile` or a binary file object; the
+    JAX package's `BGZFReader`, its members inflated on the host by zlib.
+    It reads a stream in order and seeks only where asked, so a stream
+    that cannot seek back (standard input, a multipart ticket) reads
+    through."""
 
     def __init__(self, src: Union[str, os.PathLike, BinaryIO],
                  cache_blocks: int = 8):
         if isinstance(src, (str, os.PathLike)):
-            self._fp = open(src, "rb")
             self.name = os.fspath(src)
+            self._fp = hopen(self.name, "rb")
         else:
             self._fp = src if hasattr(src, "peek") else io.BufferedReader(src)
             self.name = getattr(src, "name", "?")
@@ -573,9 +590,9 @@ class BgzfWriter:
                  level: int = -1, build_index: bool = False,
                  compress: bool = True):
         self._own = isinstance(dst, (str, os.PathLike))
-        self._fp = open(dst, "wb") if self._own else dst
         self.name = (os.fspath(dst) if self._own
                      else getattr(dst, "name", "?"))
+        self._fp = hopen(self.name, "wb") if self._own else dst
         self.level = level
         self.compress = compress
         self.build_index = build_index

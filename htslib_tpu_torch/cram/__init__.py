@@ -8,8 +8,9 @@ series of `required_fields`, where given).  It skips the records that
 fail a filter expression (`set_filter`, hts_expr.py) and answers region
 queries through the CRAI index (`load_index`, `fetch`; cram/index.py).
 `CramWriter` queues records into containers (cram/encode.py), and with
-`write_index` writes the `.crai` beside the file.  Plain Python file
-objects take the place of the JAX package's hfile layer.  The batch
+`write_index` writes the `.crai` beside the file.  A file is a name
+that hfile.py `hopen` opens (a path or a URL) or a binary file object.
+The batch
 pipeline that decodes ranges of containers with the rANS blocks on the
 device is cram/batch.py.
 """
@@ -28,6 +29,7 @@ from htslib_tpu_torch.cram.refs import RefRegistry
 from htslib_tpu_torch.cram.structs import (CT_COMPRESSION_HEADER,
                                            CT_FILE_HEADER, CT_MAPPED_SLICE,
                                            CT_UNMAPPED_SLICE)
+from htslib_tpu_torch.hfile import hopen
 from htslib_tpu_torch.hts_expr import HtsFilter, sam_passes_filter
 from htslib_tpu_torch.sam.header import SamHeader
 from htslib_tpu_torch.sam.record import BamRecord
@@ -40,7 +42,7 @@ class CramReader:
                  ignore_md5: bool = False, decode_md: bool = True,
                  required_fields: int = 0):
         if isinstance(src, str):
-            self.fp = open(src, "rb")
+            self.fp = hopen(src, "rb")
             self.name = src
         else:
             self.fp = src

@@ -41,6 +41,7 @@ from htslib_tpu_torch.cram.structs import (
     E_EXTERNAL, E_VARINT_SIGNED, E_VARINT_UNSIGNED, FQZ, GZIP, LZMA, RANS,
     RANSPR, RAW, TOK3, l1)
 from htslib_tpu_torch.cram.v4 import VarintVec, varint_vec
+from htslib_tpu_torch.hfile import hopen
 from htslib_tpu_torch.sam.cigar import (BAM_CDEL, BAM_CHARD_CLIP, BAM_CINS,
                                         BAM_CPAD, BAM_CREF_SKIP,
                                         BAM_CSOFT_CLIP, cigar2qlen,
@@ -365,7 +366,7 @@ class CramEncoder:
                  slices_per_container: int = 1,
                  device_profile: bool = False,
                  profile: Optional[str] = None):
-        self.fp = open(dst, "wb") if isinstance(dst, str) else dst
+        self.fp = hopen(dst, "wb") if isinstance(dst, str) else dst
         # codec enables follow the reference defaults (cram_io.c:5370):
         # name tokeniser on for >= 3.1, fqzcomp/arith/bz2 off until a
         # profile turns them on

@@ -7,16 +7,18 @@ that its @SQ line's UR tag names, then by the line's M5 checksum in
 REF_CACHE (a directory, or a template with `%s`) and in each element of
 REF_PATH.  It is cached whole, and its MD5 is checked against M5 (a
 mismatch logs a warning unless `ignore_md5`).  A REF_PATH element that
-is a URL (http:, https:, ftp:) is skipped: the port has no hfile layer
-to fetch it with.
+is a URL (http:, https:, ftp:) is fetched through hfile.py `hopen` and
+the sequence written into REF_CACHE where it is set; a fetch that fails
+goes on to the next element.
 """
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from htslib_tpu_torch.faidx import Faidx
+from htslib_tpu_torch.hfile import hopen
 from htslib_tpu_torch.sam.header import SamHeader
 from htslib_tpu_torch.util.log import log_warning
 
@@ -77,23 +79,52 @@ class RefRegistry:
             out.append("".join(cur))
         return out
 
-    def _md5_lookup(self, md5: str) -> Optional[str]:
-        """The local file holding the sequence of checksum `md5`, or None:
-        REF_CACHE first, then every REF_PATH element but URLs
-        (cram_populate_ref, cram_io.c:2977-3130)."""
+    @staticmethod
+    def _fetch_url(url: str) -> Optional[bytes]:
+        """A REF_PATH URL element's body through the hfile layer (the
+        find_file_url role, cram/open_trace_file.c:182), or None where
+        the fetch fails."""
+        try:
+            with hopen(url, "rb") as f:
+                return bytes(f.read(-1))
+        except Exception:
+            return None
+
+    def _md5_lookup(self, md5: str) -> Tuple[Optional[str], Optional[bytes]]:
+        """(local file, None) or (None, fetched bytes) holding the
+        sequence of checksum `md5`, or (None, None): REF_CACHE first,
+        then every REF_PATH element, a URL fetched and written back
+        into REF_CACHE where it is set (cram_populate_ref,
+        cram_io.c:2977-3130)."""
         cache = os.environ.get("REF_CACHE")
+        cpath = None
         if cache:
-            p = cache % md5 if "%s" in cache else os.path.join(cache, md5)
-            if os.path.exists(p):
-                return p
+            cpath = (cache % md5 if "%s" in cache
+                     else os.path.join(cache, md5))
+            if os.path.exists(cpath):
+                return cpath, None
         for tmpl in self._tokenise_ref_path(os.environ.get("REF_PATH", "")):
             if tmpl.startswith(_URL):
-                continue
+                url = (tmpl.replace("%s", md5) if "%s" in tmpl
+                       else tmpl.rstrip("/") + "/" + md5)
+                data = self._fetch_url(url)
+                if data is None:
+                    continue
+                if cpath:
+                    try:
+                        os.makedirs(os.path.dirname(cpath), exist_ok=True)
+                        tmp = cpath + ".tmp.%d" % os.getpid()
+                        with open(tmp, "wb") as f:
+                            f.write(data)
+                        os.replace(tmp, cpath)
+                    except OSError:
+                        pass
+                return None, data
             p = (tmpl.replace("%s", md5) if "%s" in tmpl
                  else os.path.join(tmpl, md5))
             if os.path.exists(p):
-                return p
-        return None
+                return p, None
+        return None, None
 
     def _load_full(self, tid: int) -> bytes:
         if tid in self._cache:
@@ -112,10 +143,12 @@ class RefRegistry:
                     seq = fai.fetch_seq(name).encode().upper()
                 fai.close()
         if seq is None and m5:
-            p = self._md5_lookup(m5)
+            p, data = self._md5_lookup(m5)
             if p:
                 with open(p, "rb") as f:
-                    seq = f.read().upper()
+                    data = f.read()
+            if data is not None:
+                seq = data.upper()
         if seq is None:
             raise IOError(f"unable to load reference for {name!r}; pass "
                           "ref=FILE or set REF_PATH/REF_CACHE")

@@ -8,10 +8,11 @@ gzip/bgzf streams decompress a small prefix to identify the inner format
 Categories and enum values mirror htslib/hts.h:134-200 so that mode
 dispatch and user code can be written against familiar names.
 
-The port's copy of htslib_tpu/format.py's `detect_format`, which
-vcf/io.py `open_vcf` reads (the whole classifier, so that it refuses
-what the JAX function refuses); `detect_format_file` and
-`detect_format_hfile` are not ported.
+The port's copy of htslib_tpu/format.py: `detect_format` over leading
+bytes (the whole classifier, so that it refuses what the JAX function
+refuses), and `detect_format_file` / `detect_format_hfile` over a name
+that hfile.py `hopen` opens or an open `HFile`, which hts.py and
+vcf/io.py `open_vcf` dispatch on.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import re
 import zlib
 from dataclasses import dataclass, field
 from typing import Optional
+
+from htslib_tpu_torch.hfile import HFile, hopen
 
 
 class Category(enum.Enum):
@@ -306,3 +309,18 @@ def detect_format(data: bytes) -> HtsFormat:
     else:
         fmt.format = Format.binary_format
     return fmt
+
+
+def detect_format_file(fname: str) -> HtsFormat:
+    """The format of the stream that `hopen(fname)` opens, from its
+    first 64 KiB."""
+    with hopen(fname, "rb") as fp:
+        data = fp.peek(1 << 16)
+        if not data:
+            data = fp.read(1 << 16)
+    return detect_format(data)
+
+
+def detect_format_hfile(fp: HFile) -> HtsFormat:
+    """The format of an open stream, from its next 64 KiB, not consumed."""
+    return detect_format(fp.peek(1 << 16))

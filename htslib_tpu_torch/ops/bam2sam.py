@@ -394,11 +394,16 @@ def _text_faults(pl_t: torch.Tensor, offs: torch.Tensor, c: torch.Tensor
     return first, host.cpu().numpy()
 
 
+def _host_line(payload: bytes, off: int, size: int, header) -> str:
+    """A record's whole line by the host formatter (to_sam)."""
+    rec = BamRecord.from_bam_buffer(memoryview(payload), off + 4, size)
+    return rec.to_sam(SamHeader(ref_names=header.ref_names))
+
+
 def _host_tail(payload: bytes, off: int, size: int, header) -> str:
     """A record's aux tail as the JAX wrapper takes it from the host
     formatter: its line split on tabs, the fields past the eleventh."""
-    rec = BamRecord.from_bam_buffer(memoryview(payload), off + 4, size)
-    parts = rec.to_sam(SamHeader(ref_names=header.ref_names)).split("\t")
+    parts = _host_line(payload, off, size, header).split("\t")
     return "\t" + "\t".join(parts[11:]) if len(parts) > 11 else ""
 
 
@@ -427,7 +432,8 @@ def _aux_texts(payload: bytes, offs: np.ndarray, sizes: np.ndarray,
 def bam_payload_to_sam_device(payload: bytes, header,
                               aux_texts: Optional[List[str]] = None,
                               device="cuda",
-                              timing: Optional[dict] = None) -> bytes:
+                              timing: Optional[dict] = None,
+                              host_lines: bool = False) -> bytes:
     """SAM text of a u32-framed BAM record stream: the device chain for
     the line prefixes (X5, B1 and torch ops), the aux tails rendered on
     the host (or `aux_texts`, one per record, as the JAX function takes
@@ -435,7 +441,12 @@ def bam_payload_to_sam_device(payload: bytes, header,
     `header` is any object with `ref_names`.  Raises
     IOError on a truncated stream and, with `aux_texts` None, what the
     JAX function's host formatter raises, for the first record it
-    refuses.  `timing`, where given, gets seconds by part: framing_s (the
+    refuses.  With `host_lines` (and `aux_texts` None), the records that
+    take the host formatter's path (a CIGAR in a CG tag, a tab in a
+    QNAME) get its whole line, as the file-level formatters give them
+    (sam/batch.py; htslib's sam_format1), where the JAX wrapper keeps the
+    device's line and splits the host's tail from it.  `timing`, where
+    given, gets seconds by part: framing_s (the
     host framing scan, maxima and names table), upload_s, check_s (the
     record checks), scan_s (X5), format_s, download_s, aux_s (the tails)
     and splice_s."""
@@ -496,15 +507,25 @@ def bam_payload_to_sam_device(payload: bytes, header,
     text = line[keep].cpu().numpy().tobytes()
     ends = np.cumsum(total.cpu().numpy().astype(np.int64) + 1) - 1
     t6 = clock(dev)
+    whole = {}
     if aux_texts is None:
         tails = _aux_texts(payload, o, sizes, aux_at, host, header)
+        if host_lines:
+            for i in host.tolist():
+                whole[i] = _host_line(payload, int(o[i]), int(sizes[i]),
+                                      header)
+                tails.pop(i, None)
     else:
         tails = {i: s for i, s in enumerate(aux_texts) if s}
     t7 = clock(dev)
-    if tails:
+    if tails or whole:
         pieces, prev = [], 0
-        for i in sorted(tails):
-            pieces += [text[prev:ends[i]], tails[i].encode()]
+        for i in sorted(set(tails) | set(whole)):
+            if i in whole:
+                start = int(ends[i - 1]) + 1 if i else 0
+                pieces += [text[prev:start], whole[i].encode()]
+            else:
+                pieces += [text[prev:ends[i]], tails[i].encode()]
             prev = int(ends[i])
         pieces.append(text[prev:])
         text = b"".join(pieces)

@@ -548,6 +548,10 @@ def inflate_cuda(b: InflateBatch, ring: Optional[bool] = None
         stats.data_ptr(), B, _build.stream_handle(b.payload))
     _build.check(lib, rc, name)
     _build.LAUNCHES[name] += 1
+    if _build.SHAPES is not None:
+        # (key, members, the longest member's steps): what a launch's
+        # time follows, so that launches no timing covers can be reckoned
+        _build.SHAPES.append((name, B, int(stats[:, 3].max()) if B else 0))
     return out, stats
 
 

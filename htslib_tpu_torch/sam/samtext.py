@@ -1,13 +1,14 @@
 """SAM text I/O: the port's copy of htslib_tpu/sam/samtext.py (reference
-sam.c:2662 sam_parse1 / sam.c:4324 sam_format1).  Files are local paths
-or binary file objects (the JAX package's HFile back ends are not
-ported)."""
+sam.c:2662 sam_parse1 / sam.c:4324 sam_format1).  A file is a name that
+hfile.py `hopen` opens (a path, `-` or a URL) or a binary file
+object."""
 from __future__ import annotations
 
 import os
 from typing import BinaryIO, Iterator, Optional, Union
 
 from htslib_tpu_torch.bgzf import BgzfReader, BgzfWriter
+from htslib_tpu_torch.hfile import hopen
 from htslib_tpu_torch.hts_expr import HtsFilter, sam_passes_filter
 from htslib_tpu_torch.sam.header import SamHeader
 from htslib_tpu_torch.sam.record import BamRecord
@@ -80,7 +81,7 @@ class SamWriter:
             self.fp = (dst if isinstance(dst, BgzfWriter)
                        else BgzfWriter(dst, level=level))
         elif isinstance(dst, str):
-            self.fp = open(dst, "wb")
+            self.fp = hopen(dst, "wb")
         else:
             self.fp = dst
         self.header = header

@@ -2,7 +2,9 @@
 :2510 bcf_write, :4699 vcf_hdr_read/vcf_read).
 
 The port's copy of htslib_tpu/vcf/io.py, its pure-Python paths (no
-native branches), over the port's `BgzfReader` and `BgzfWriter`.
+native branches), over the port's `BgzfReader` and `BgzfWriter`; a
+file is a name that hfile.py `hopen` opens (a path, `-` or a URL) or a
+binary file object.
 `bcf_file_to_vcf` inflates a BGZF body's members on the device
 (bgzf.py `inflate_range`: kernel X4 on the card), then frames and formats
 the records on the host.  The CSI index of a BCF is index.py's
@@ -19,8 +21,9 @@ import numpy as np
 
 from htslib_tpu_torch import _build
 from htslib_tpu_torch.bgzf import (BgzfReader, BgzfWriter, inflate_range,
-                                   scan_blocks)
-from htslib_tpu_torch.format import Format, detect_format
+                                   read_file, scan_blocks)
+from htslib_tpu_torch.format import Format, detect_format_hfile
+from htslib_tpu_torch.hfile import hopen
 from htslib_tpu_torch.index import HTS_FMT_CSI, HtsIndex
 from htslib_tpu_torch.vcf.header import BcfHeader
 from htslib_tpu_torch.vcf.record import BcfRecord
@@ -164,7 +167,7 @@ class VcfWriter:
             self.fp = (dst if isinstance(dst, BgzfWriter)
                        else BgzfWriter(dst, level=level))
         elif isinstance(dst, str):
-            self.fp = open(dst, "wb")
+            self.fp = hopen(dst, "wb")
         else:
             self.fp = dst
         self.header = header
@@ -251,8 +254,8 @@ def open_vcf(name: str, mode: str = "r", header: Optional[BcfHeader] = None):
     """hts_open for variant data: r auto-detects VCF vs BCF; modes
     w / wz / wb mirror the reference's letters."""
     if "r" in mode:
-        fp = open(name, "rb", buffering=1 << 16)
-        fmt = detect_format(fp.peek(1 << 16))
+        fp = hopen(name, "rb")
+        fmt = detect_format_hfile(fp)
         if fmt.format == Format.bcf:
             return BcfReader(fp)
         if fmt.format in (Format.vcf, Format.text_format, Format.empty_format):
@@ -344,16 +347,13 @@ def bcf_file_to_vcf(src: Union[str, BinaryIO], device="cuda",
     """Whole-file BCF -> VCF text: the file's members inflated in one
     `inflate_range` call on `device` (X4 on the card), the header parsed
     from the stream, the body's records framed and formatted on the host
-    (vcf_format port, vcf.c:4304).  `src` is a path or a binary file
-    object.  Returns (header, vcf_body_bytes).  `timing`, where given,
+    (vcf_format port, vcf.c:4304).  `src` is a path, a URL or a binary
+    file object (bgzf.py `read_file`).  Returns (header, vcf_body_bytes).  `timing`, where given,
     gets read_s, inflate_s, frame_s and format_s."""
     dev = _build.resolve_device(device)
     timing = {} if timing is None else timing
     t0 = _build.clock(dev)
-    if isinstance(src, str):
-        raw = np.fromfile(src, np.uint8)
-    else:
-        raw = np.frombuffer(src.read(), np.uint8)
+    raw = read_file(src)
     co, cs, ustarts, us, total = bcf_members(raw)
     timing["read_s"] = _build.clock(dev) - t0
     stream = inflate_range(raw, co, cs, ustarts, us, 0, total, dev, timing)
@@ -388,8 +388,8 @@ def vcf_body_to_bcf_frames(body: bytes, header: BcfHeader) -> bytes:
 def vcf_file_to_bcf(src: str, dst: str) -> int:
     """Whole-file VCF -> BCF: header parse, body parse a line at a time,
     BGZF write.  Returns the record count."""
-    with open(src, "rb") as f:
-        raw = f.read()
+    with hopen(src, "rb") as f:
+        raw = f.read(-1)
     if raw[:2] == b"\x1f\x8b":
         raw = gzip.decompress(raw)
     # split header from body

@@ -6,10 +6,11 @@ an @SQ line, their order, the MD5 check and `ignore_md5`.
 The files are the port's reference-based CRAM 3.0 over a seeded FASTA,
 whose @SQ lines carry M5 and UR tags, read after the FASTA is gone (as
 on another machine), with no `ref=`.  The cache directories are built
-here from the FASTA.  A REF_PATH URL element is never fetched: the port
-skips it (it has no hfile layer), and the JAX registry's fetch is
-replaced by one that fails, as it does without a network.  Records and
-text are compared byte for byte."""
+here from the FASTA.  A REF_PATH URL element is fetched through each
+package's hfile layer from a server on 127.0.0.1
+(chip_smoke.RangeServer) that answers each sequence by its M5; an
+element no server answers fails and the lookup goes on, as it does
+without a network.  Records and text are compared byte for byte."""
 import hashlib
 import os
 
@@ -22,6 +23,7 @@ from htslib_tpu.cram.refs import RefRegistry as JRegistry
 from htslib_tpu_torch.cram import CramReader
 from htslib_tpu_torch.cram import batch as tbatch
 from htslib_tpu_torch.cram.refs import RefRegistry
+from chip_smoke import RangeServer
 from test_torch_cram import cram_records, write_bam, write_fasta
 
 
@@ -157,10 +159,40 @@ def test_ref_path_elements_and_escape(gone, tmp_path, monkeypatch):
                          for u in calls)
     reg, jreg = RefRegistry(None), JRegistry(None)
     for m5 in gone["m5"].values():
-        assert reg._md5_lookup(m5) == jreg._md5_lookup(m5)[0] \
-            == str(odd / m5)
-    assert reg._md5_lookup("0" * 32) is None
-    assert jreg._md5_lookup("0" * 32) == (None, None)
+        assert reg._md5_lookup(m5) == jreg._md5_lookup(m5) \
+            == (str(odd / m5), None)
+    assert reg._md5_lookup("0" * 32) == jreg._md5_lookup("0" * 32) \
+        == (None, None)
+
+
+@pytest.mark.parametrize("cache", [False, True])
+def test_ref_path_url_served_locally(gone, tmp_path, monkeypatch, cache):
+    """REF_PATH of a URL no server answers, then a URL template served on
+    127.0.0.1 (each sequence by its M5): both registries fetch the
+    sequences through their hfile layers and decode the file; with
+    REF_CACHE set, the fetched sequences are written into it, and a
+    second read asks the server for nothing."""
+    extra = {f"/m5/{gone['m5'][n]}": s.encode()
+             for n, s in gone["seqs"].items()}
+    if cache:
+        monkeypatch.setenv("REF_CACHE", str(tmp_path / "cache" / "%s"))
+    with RangeServer(str(tmp_path), extra) as srv:
+        monkeypatch.setenv("REF_PATH", "http://127.0.0.1:1/none/%s:"
+                           + srv.url("m5/%s"))
+        ours, theirs = _both_read(gone)
+        assert ours == theirs == gone["truth"]
+        asked = [p for p, *_ in srv.requests]
+        assert sorted(set(asked)) == sorted(extra)
+        _, text = tbatch.cram_file_to_sam(gone["path"], device="cpu")
+        monkeypatch.setattr("htslib_tpu.native.native", None)
+        _, jtext = jbatch.cram_file_to_sam(gone["path"])
+        assert text.tobytes() == jtext.tobytes()
+        if cache:
+            for m5 in gone["m5"].values():
+                assert os.path.isfile(str(tmp_path / "cache" / m5))
+            n = len(srv.requests)
+            assert _records(gone["path"], CramReader) == gone["truth"]
+            assert len(srv.requests) == n
 
 
 def test_ref_cache_comes_before_ref_path(gone, tmp_path, monkeypatch,

@@ -1662,3 +1662,47 @@ def test_uncompressed_bcf_on_card_launches_nothing(card, tmp_path):
              for sh in plan.shards]
     assert _build.LAUNCHES["inflate"] == 0
     assert got == bcf_file_to_vcf(path, device="cpu")[1] == b"".join(parts)
+
+
+@pytest.mark.parametrize("level", [6, 0])
+def test_bam_file_to_sam_on_card_matches_cpu(card, tmp_path, level):
+    """bam_file_to_sam on the card (X4, X5, B1), from a path and from a
+    URL served on 127.0.0.1, equals device="cpu" (the plain versions) on
+    leg 8's varied records and a CG long-CIGAR record; a stored file
+    still launches X4 (its members are inflated as stored blocks)."""
+    import struct
+
+    from chip_smoke import LEG8_REFS, RangeServer, varied_bam_stream
+    from htslib_tpu_torch.bgzf import BgzfWriter
+    from htslib_tpu_torch.sam import batch as sb
+    from htslib_tpu_torch.sam.bam import write_bam_header
+    from htslib_tpu_torch.sam.header import SamHeader
+    from htslib_tpu_torch.sam.record import BamRecord, encode_aux
+    cg = BamRecord()
+    cg.qname, cg.tid, cg.pos, cg.flag = b"cg", 0, 99, 0
+    cg.set_seq("ACGTACGTAC", bytes(range(10, 20)))
+    cg.cigar = np.array([(10 << 4) | 4, (500 << 4) | 3], np.uint32)
+    cg.aux = encode_aux(b"CG", "B", ("I", np.array(
+        [(4 << 4) | 0, (70000 << 4) | 3, (6 << 4) | 0], np.uint32)))
+    body = cg.to_bam_buffer()
+    payload = (varied_bam_stream(3000, seed=5)
+               + struct.pack("<I", len(body)) + body)
+    path = str(tmp_path / "v.bam")
+    with BgzfWriter(path, level=level) as w:
+        write_bam_header(w, SamHeader("".join(
+            f"@SQ\tSN:{r}\tLN:300000000\n" for r in LEG8_REFS)))
+        w.write(payload)
+    want = sb.bam_file_to_sam(path, device="cpu")[1].tobytes()
+    assert b"\t4M70000N6M\t" in want
+    with RangeServer(str(tmp_path)) as srv:
+        for src in (path, srv.url("v.bam")):
+            _build.reset_launches()
+            timing = {}
+            _, got = sb.bam_file_to_sam(src, device=card, timing=timing)
+            assert got.tobytes() == want
+            assert _build.LAUNCHES["nibble_to_base"] >= 1
+            assert (_build.LAUNCHES["inflate"]
+                    + _build.LAUNCHES["inflate_slot"]) == 1
+            assert (_build.LAUNCHES["record_scan"]
+                    + _build.LAUNCHES["record_scan_seg"]) == 1
+            assert {"read_s", "inflate_s", "format_s"} <= set(timing)
