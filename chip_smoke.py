@@ -297,15 +297,38 @@ PyTorch version on the card and times both.  Phases:
      sam_to_bam_file (pipeline_map) and decoded on the card gives it
      back.  Printed: the wall time, each sub-leg's seconds and MB/s,
      15a's parts, the requests each transport made, leg 15's launches;
+  5n. leg 16, pileup (`samtools mpileup`: pileup.py,
+     parallel/pileup_shard.py's model), after leg 15: leg16_records
+     (LEG16_CONTIGS, 250 and 50 kb, 2 x 100 bp pairs at 30x, 90,000
+     reads: a third of the pairs overlapping, indels, soft clips, the
+     flags mpileup skips, unmapped reads with placed mates) written as a
+     zlib level-6 BAM; the host truths run in a pool of processes while
+     the card works.  16a: mpileup_text_parallel on it (X4, X5, B1 in
+     this process, the tiles in the port's own pool): the inflated
+     stream equals zlib's member by member, X5's offsets and sizes the
+     host walk's, B1's bases the host decode's, the tile plan the plan
+     from host-decoded fields, the lines in a LEG16_WINDOW window across
+     every tile boundary the serial engine's over the reads overlapping
+     it, and device_pileup_counts on the card for each whole reference
+     the text's depth (0 where it has no column) and base counts.  16b:
+     mpileup_text on the first LEG16_SMALL records as a BAM equals
+     mpileup_text_parallel at LEG16_SMALL_THREADS and the engine fed by
+     BamReader.read1; 16c: the same records as SAM text through
+     mpileup_text (sam_text_to_bam, X5, B1) give 16b's text.  Printed:
+     the wall time, 16a's parts from `timing`, columns, entries, entries
+     a second and processes, 16b/16c's seconds, the leg 16 check line;
+     phase 6 also holds B1, X4 and X5 against their plain versions at
+     leg 16's shapes (the rows' "leg16" and "launches_leg16");
 
-Launch counts are reset just before phase 3 and read just after phase 5m,
-with leg 10b's ranks' counts added; legs 7-15 are also counted alone
+Launch counts are reset just before phase 3 and read just after phase 5n,
+with leg 10b's ranks' counts added; legs 7-16 are also counted alone
 (reset just before each, read just after; 10b's, 11a's and 12b's shards'
 in the ranks) and each must have launched its kernels (X4; X5 and B1; X6;
 B1, X4 and X5 in 10a and in 10b; X5, B1 and the kernel of every rANS wire
 its files hold, in leg 11 and in its shards; X4 in leg 12 and in its
 shards; B1, B7, X1, X5, B2 or B5 and B3 or B6 in leg 13; X4, X5, B1, B7
-and X1 in legs 14 and 15).  The kernels
+and X1 in legs 14 and 15; X4, X5's segmented kernels and B1 in leg 16).
+The kernels
 line's X4 row gives leg 12's launches apart (launches_leg12).
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -313,11 +336,14 @@ checkout of the repository.
 """
 from __future__ import annotations
 
+import bisect
 import gzip
+import hashlib
 import io
 import json
 import multiprocessing
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -380,6 +406,15 @@ LEG15_READ_LEN = 150
 LEG15_FIRST = 1_000     # 15b's records read by hts_open over http
 LEG15_WRITE = 4_000     # 15d's records written back by mode letters
 LEG15_PARTS = 4         # 15b's htsget ticket: byte ranges of the file
+# leg 16's pileup: two references cut from a whole genome to 300 kb for
+# the script's time limit, 2 x 100 bp pairs at 30x (90,000 reads)
+LEG16_CONTIGS = [("chr1", 250_000), ("chr2", 50_000)]
+LEG16_DEPTH = 30
+LEG16_READ_LEN = 100
+LEG16_WINDOW = 10_000   # 16a's check windows across the tile boundaries
+LEG16_SMALL = 3_000     # 16b's and 16c's records
+LEG16_SMALL_THREADS = 3
+LEG16_PLAIN_BYTES = 2048  # X4's member against its plain version
 
 
 class RangeServer:
@@ -1366,10 +1401,10 @@ def hist_of(raw: bytes, qbins: int) -> np.ndarray:
 
 def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
               tile_len=TILE_LEN, n_decode=N_DECODE):
-    """Phases 3-5m through the port's entry points on `device`, each
+    """Phases 3-5n through the port's entry points on `device`, each
     result held against its host truth.  Returns (leg-1 args on the
     device, seconds of each phase, notes: leg 4's timing dict, leg 5's
-    lookups per second, legs 6-15's parts)."""
+    lookups per second, legs 6-16's parts)."""
     from htslib_tpu_torch.entry import entry
     from htslib_tpu_torch.ops.device_stats import (QBINS, cram_qual_hist,
                                                    qualstats_device,
@@ -1517,7 +1552,8 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                          ("leg15", lambda: leg15(device, tmp, leg10_bam,
                                                  chain_sam, varied_sam,
                                                  notes["leg11"],
-                                                 notes["leg12"]))):
+                                                 notes["leg12"])),
+                         ("leg16", lambda: leg16(device, tmp))):
             t0 = time.time()
             with Shapes() as shapes:
                 notes[leg], notes["launches_" + leg] = _counted(run)
@@ -3368,6 +3404,445 @@ def leg15(device, tmp: str, l10_bam: str, chain_sam: bytes,
     return notes
 
 
+def leg16_records(contigs=LEG16_CONTIGS, depth: int = LEG16_DEPTH,
+                  length: int = LEG16_READ_LEN, seed: int = 16):
+    """Leg 16's reads: 2 x `length` bp pairs at `depth`x over `contigs`
+    (name, length), coordinate-sorted, from a seeded random reference
+    with 1% substitutions.  Fragments run 150-500 bp (150 + 350 u^2, so
+    about a third are shorter than two reads and their mates overlap);
+    10% of reads carry a 1-5 bp insertion or deletion, 5% a 1-20 bp soft
+    clip; 2% are duplicates, 1% secondary, 1% QC-fail and 0.5% unmapped
+    with a placed mate (which loses its proper-pair flag); qualities
+    2-40, MAPQ 0-60.  Drawn in bulk with numpy.  Returns (SamHeader,
+    records)."""
+    from htslib_tpu_torch.sam.header import SamHeader
+    from htslib_tpu_torch.sam.record import BamRecord
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    nt16 = np.zeros(256, np.uint8)
+    nt16[acgt] = [1, 2, 4, 8]
+    header = SamHeader("@HD\tVN:1.6\tSO:coordinate\n" + "".join(
+        f"@SQ\tSN:{name}\tLN:{ln}\n" for name, ln in contigs))
+    out = []
+    pair0 = 0
+    for tid, (_, ln) in enumerate(contigs):
+        ref = acgt[rng.integers(0, 4, ln + 1000)]
+        n_pairs = ln * depth // (2 * length)
+        n = 2 * n_pairs
+        frag = 150 + (350 * rng.random(n_pairs) ** 2).astype(np.int64)
+        left = (rng.random(n_pairs) * (ln - frag)).astype(np.int64)
+        pr = np.repeat(np.arange(n_pairs), 2)
+        side = np.tile([0, 1], n_pairs)
+        # 1: insertion, 2: deletion, 3: clip at the start, 4: at the end
+        r = rng.random(n)
+        kind = np.select([r < 0.05, r < 0.10, r < 0.125, r < 0.15],
+                         [1, 2, 3, 4], 0)
+        a = rng.integers(10, length - 10, n)
+        k = rng.integers(1, 6, n)
+        c = rng.integers(1, 21, n)
+        span = np.select([kind == 1, kind == 2, kind >= 3],
+                         [length - k, length + k, length - c], length)
+        pos = np.where(side == 0, left[pr], left[pr] + frag[pr] - span)
+        q = np.arange(length)[None, :]
+        A, K, C, kd = a[:, None], k[:, None], c[:, None], kind[:, None]
+        off = np.broadcast_to(q, (n, length)).astype(np.int64)
+        off = np.where((kd == 1) & (q >= A), np.where(q < A + K, -1, q - K),
+                       off)
+        off = np.where((kd == 2) & (q >= A), q + K, off)
+        off = np.where(kd == 3, np.where(q < C, -1, q - C), off)
+        off = np.where((kd == 4) & (q >= length - C), -1, off)
+        seq = np.where(off >= 0, ref[pos[:, None] + np.maximum(off, 0)],
+                       acgt[rng.integers(0, 4, (n, length))])
+        err = rng.random((n, length)) < 0.01
+        seq = np.where(err, acgt[rng.integers(0, 4, (n, length))], seq)
+        codes = nt16[seq]
+        packed = (codes[:, 0::2] << 4) | codes[:, 1::2]
+        qual = rng.integers(2, 41, (n, length)).astype(np.uint8)
+        mapq = rng.integers(0, 61, n)
+        first_left = (rng.random(n_pairs) < 0.5)[pr]
+        flag = (0x1 | 0x2 | np.where(side == 0, 0x20, 0x10)
+                | np.where((side == 0) == first_left, 0x40, 0x80))
+        r = rng.random(n)
+        flag |= np.select([r < 0.02, r < 0.03, r < 0.04],
+                          [0x400, 0x100, 0x200], 0)
+        isize = np.where(side == 0, frag[pr], -frag[pr])
+        mpos = pos.reshape(-1, 2)[:, ::-1].reshape(-1).copy()
+        # one mate of 1% of pairs (0.5% of reads) unmapped, placed at its
+        # mate
+        lost_pair = np.flatnonzero(rng.random(n_pairs) < 0.01)
+        lost = 2 * lost_pair + (rng.random(len(lost_pair)) < 0.5)
+        kept = lost ^ 1
+        unmapped = np.zeros(n, bool)
+        unmapped[lost] = True
+        flag[lost] = ((flag[lost] & ~0x32) | 0x4
+                      | np.where(flag[kept] & 0x10, 0x20, 0))
+        pos[lost], mapq[lost], isize[lost] = pos[kept], 0, 0
+        flag[kept] = (flag[kept] & ~0x22) | 0x8
+        mpos[kept], isize[kept] = pos[kept], 0
+        # each read's CIGAR ops, 3 a read, 0-length ops dropped
+        ops = np.zeros((n, 3), np.uint32)
+        ops[:, 0] = length << 4
+        for kk, row in ((1, (a << 4, k << 4 | 1, (length - a - k) << 4)),
+                        (2, (a << 4, k << 4 | 2, (length - a) << 4)),
+                        (3, (c << 4 | 4, (length - c) << 4, 0 * c)),
+                        (4, ((length - c) << 4, c << 4 | 4, 0 * c))):
+            m = kind == kk
+            ops[m] = np.stack(row, 1)[m]
+        n_ops = np.select([unmapped, kind == 0, kind >= 3], [0, 1, 2], 3)
+        end = np.where(unmapped, pos + 1, pos + span)
+        bins = reg2bin(pos, end)
+        for i in np.argsort(pos, kind="stable").tolist():
+            b = BamRecord()
+            b.qname = b"L16:%d" % (pair0 + pr[i])
+            b.tid = b.mtid = tid
+            b.pos, b.mpos, b.isize = int(pos[i]), int(mpos[i]), int(isize[i])
+            b.mapq, b.flag, b.bin = int(mapq[i]), int(flag[i]), int(bins[i])
+            b.cigar = ops[i, :n_ops[i]]
+            b.seq4, b.l_qseq, b.qual = packed[i].tobytes(), length, \
+                qual[i].tobytes()
+            out.append(b)
+        pair0 += n_pairs
+    return header, out
+
+
+def write_leg16_files(tmp: str, contigs=LEG16_CONTIGS,
+                      level: int = BGZF_LEVEL, small: int = LEG16_SMALL):
+    """Leg 16's inputs under `tmp`: leg16_records as a BAM deflated at
+    `level` by the port's BamWriter ("bam"), its first `small` records
+    as a BAM of their own ("small_bam") and as SAM text ("small_sam").
+    Returns the paths and the record count."""
+    from htslib_tpu_torch.sam.bam import BamWriter
+    header, recs = leg16_records(contigs)
+    paths = {k: os.path.join(tmp, f) for k, f in (
+        ("bam", "leg16.bam"), ("small_bam", "leg16_small.bam"),
+        ("small_sam", "leg16_small.sam"))}
+    for key, part in (("bam", recs), ("small_bam", recs[:small])):
+        with BamWriter(paths[key], header, level=level) as w:
+            for b in part:
+                w.write(b)
+    with open(paths["small_sam"], "w") as fp:
+        fp.write(header.text)
+        for b in recs[:small]:
+            fp.write(b.to_sam(header) + "\n")
+    paths["records"] = len(recs)
+    return paths
+
+
+def _zlib_stream(path: str):
+    """A BAM file's header length and its record stream, every member
+    inflated by zlib on the host, with the members' uncompressed
+    sizes."""
+    from htslib_tpu_torch.sam.bam import read_bam_header
+    raw = open(path, "rb").read()
+    pieces, at = [], 0
+    while at < len(raw):
+        bsize = struct.unpack_from("<H", raw, at + 16)[0] + 1
+        pieces.append(zlib.decompress(raw[at + 18:at + bsize - 8], -15))
+        at += bsize
+    whole = b"".join(pieces)
+    bio = io.BytesIO(whole)
+    read_bam_header(bio)
+    return bio.tell(), whole[bio.tell():], [len(p) for p in pieces]
+
+
+def stream_fields(stream: bytes) -> dict:
+    """The pileup's columns of a record stream by the host, in numpy:
+    the u32 walk's offsets and sizes, then each record's tid, pos, end
+    (bam_endpos), flag, l_qseq and the offset of its packed sequence
+    ("seq_at")."""
+    offs, at = [], 0
+    while at + 4 <= len(stream):
+        offs.append(at)
+        at += 4 + int.from_bytes(stream[at:at + 4], "little")
+    o = np.array(offs, np.int64)
+    pl = np.frombuffer(stream, np.uint8)
+    core = pl[o[:, None] + 4 + np.arange(32)].astype(np.int64)
+
+    def le(a, b):
+        return sum(core[:, a + i] << (8 * i) for i in range(b - a))
+    tid, pos = le(0, 4), le(4, 8)
+    tid = np.where(tid >= 1 << 31, tid - (1 << 32), tid)
+    pos = np.where(pos >= 1 << 31, pos - (1 << 32), pos)
+    n_cig, flag, l_qseq = le(12, 14), le(14, 16), le(16, 20)
+    rec = np.repeat(np.arange(len(o)), n_cig)
+    k = np.arange(len(rec)) - np.repeat(np.cumsum(n_cig) - n_cig, n_cig)
+    op_at = (o + 36 + core[:, 8])[rec] + 4 * k
+    word = sum(pl[op_at + i].astype(np.int64) << (8 * i) for i in range(4))
+    ref_op = np.isin(word & 0xF, (0, 2, 3, 7, 8))
+    span = np.bincount(rec, np.where(ref_op, word >> 4, 0),
+                       len(o)).astype(np.int64)
+    span = np.where(flag & 4, 0, span)
+    return {"offs": o, "sizes": np.diff(np.append(o, len(stream))) - 4,
+            "tid": tid, "pos": pos, "end": pos + np.where(span > 0, span, 1),
+            "flag": flag, "l_qseq": l_qseq,
+            "seq_at": o + 36 + core[:, 8] + 4 * n_cig}
+
+
+def packed_seqs(stream: bytes, rs: dict) -> np.ndarray:
+    """Every record's packed sequence (ceil(l_qseq / 2) bytes) laid end to
+    end, gathered from the stream by `stream_fields`' columns: B1's input
+    in `decode_records`."""
+    plen = (rs["l_qseq"] + 1) // 2
+    at = np.repeat(rs["seq_at"] - (np.cumsum(plen) - plen), plen)
+    return np.frombuffer(stream, np.uint8)[at + np.arange(len(at))]
+
+
+def _leg16_host_truth(path: str, nthreads: int):
+    """16a's truths from the host: the zlib record stream (with the
+    members' sizes and the header's length), the host walk's offsets and
+    sizes, the bases by the host decode, and the tile plan from the
+    host's fields.  Returns them and the seconds they took."""
+    from htslib_tpu_torch.pileup import DEFAULT_SKIP, plan_tiles
+    t0 = time.time()
+    head, stream, usizes = _zlib_stream(path)
+    rs = stream_fields(stream)
+    bases = nt16_numpy(packed_seqs(stream, rs)[None, :]).tobytes()
+    tiles, _ = plan_tiles(rs, nthreads, DEFAULT_SKIP)
+    return ({"stream": stream, "head": head, "usizes": usizes,
+             "offs": rs["offs"], "sizes": rs["sizes"],
+             "bases_sha": hashlib.sha256(bases).hexdigest(),
+             "tiles": tiles}, time.time() - t0)
+
+
+def _engine_lines(names, recs, lo=(-1, -1), hi=(1 << 40, 0)) -> bytes:
+    """The port's engine over `recs` (overlaps on), its columns with lo
+    <= (tid, pos) < hi in the test/pileup.c format."""
+    from htslib_tpu_torch.pileup import Pileup, _format_plp_column
+    from htslib_tpu_torch.sam.header import SamHeader
+    header = SamHeader(ref_names=names)
+    it = iter(list(recs) + [None])
+    lines = []
+    for tid, pos, col in Pileup(lambda: next(it), overlaps=True):
+        if (tid, pos) >= hi:
+            break
+        if (tid, pos) >= lo:
+            lines.append(_format_plp_column(header, tid, pos, col))
+    return ("\n".join(lines) + ("\n" if lines else "")).encode()
+
+
+def _leg16_window(path: str, nthreads: int, k: int, half: int):
+    """The serial engine over the reads (inflated by zlib, parsed by
+    BamRecord on the host) that overlap the `half`-wide window either
+    side of the k-th tile boundary of the plan from host fields
+    (`stream_fields`).  Returns ((tid, lo, hi), its text, seconds), or
+    None where the plan has fewer boundaries."""
+    from htslib_tpu_torch.pileup import DEFAULT_SKIP, plan_tiles
+    from htslib_tpu_torch.sam.record import BamRecord
+    t0 = time.time()
+    head, stream, _ = _zlib_stream(path)
+    rs = stream_fields(stream)
+    tiles, _ = plan_tiles(rs, nthreads, DEFAULT_SKIP)
+    if k + 1 >= len(tiles):
+        return None
+    tid, at = tiles[k + 1][0][0]
+    lo, hi = max(at - half, 0), at + half
+    mv = memoryview(stream)
+    keep = np.flatnonzero(((rs["flag"] & DEFAULT_SKIP) == 0)
+                          & (rs["tid"] == tid) & (rs["end"] > lo)
+                          & (rs["pos"] < hi))
+    recs = [BamRecord.from_bam_buffer(mv, int(rs["offs"][i]) + 4,
+                                      int(rs["sizes"][i])) for i in keep]
+    from htslib_tpu_torch.sam.bam import BamReader
+    with BamReader(path) as r:
+        names = list(r.header.ref_names)
+    return ((tid, lo, hi), _engine_lines(names, recs, (tid, lo), (tid, hi)),
+            time.time() - t0)
+
+
+def _leg16_read1_text(path: str):
+    """16b's host truth: the port's engine over records from
+    BamReader.read1 (zlib on the host), without the skipped flags."""
+    from htslib_tpu_torch.pileup import DEFAULT_SKIP
+    from htslib_tpu_torch.sam.bam import BamReader
+    t0 = time.time()
+    with BamReader(path) as r:
+        recs = [b for b in iter(r.read1, None) if not b.flag & DEFAULT_SKIP]
+        names = list(r.header.ref_names)
+    return _engine_lines(names, recs), time.time() - t0
+
+
+_BASE_MARKS = re.compile(rb"\^.|\$|[+-][0-9]+\([^)]*\)", re.S)
+_NT16_CODE = np.full(256, -1, np.int64)
+for _i, _c in enumerate(b"=ACMGRSVTWYHKDBN"):
+    _NT16_CODE[_c] = _NT16_CODE[_c + 32 if _c >= 65 else _c] = _i
+
+
+def pileup_text_counts(text: bytes):
+    """Each column of pileup text: (reference name, 0-based position,
+    depth from the third field, base counts by nt16 code from the base
+    string with the markers ^x, $, +n(...), -n() and the *, <, > of
+    deletions and skips left out).  Returns (names, positions, depths,
+    counts int64 [columns, 16])."""
+    names, poss, depths, stripped = [], [], [], []
+    for line in text.split(b"\n"):
+        if not line:
+            continue
+        f = line.split(b"\t")
+        names.append(f[0].decode())
+        poss.append(int(f[1]) - 1)
+        depths.append(int(f[2]))
+        stripped.append(_BASE_MARKS.sub(b"", f[3]))
+    lens = np.array([len(s) for s in stripped], np.int64)
+    codes = _NT16_CODE[np.frombuffer(b"".join(stripped), np.uint8)]
+    col = np.repeat(np.arange(len(stripped)), lens)
+    keep = codes >= 0
+    counts = np.zeros((len(stripped), 16), np.int64)
+    np.add.at(counts, (col[keep], codes[keep]), 1)
+    return names, np.array(poss, np.int64), np.array(depths, np.int64), counts
+
+
+def leg16(device, tmp: str, contigs=LEG16_CONTIGS, level: int = BGZF_LEVEL,
+          small: int = LEG16_SMALL, half: int = LEG16_WINDOW // 2):
+    """Leg 16, pileup (`samtools mpileup`) on the card: the files of
+    write_leg16_files, the host truths in a pool of processes while the
+    card works.  16a: mpileup_text_parallel on the whole BAM (X4, X5, B1;
+    the tiles in the port's own pool): the inflated stream equals zlib's,
+    member by member; X5's offsets and sizes the host walk's; B1's bases
+    the host decode's; the tile plan the plan from host-decoded fields;
+    the text's lines in a window `half` either side of every tile
+    boundary the serial engine's over the reads overlapping that window;
+    and device_pileup_counts on the card, for each whole reference, the
+    depth of every column of the text (0 where it has none) and its base
+    counts.  16b: mpileup_text on the first `small` records as a BAM of
+    their own equals mpileup_text_parallel on it at LEG16_SMALL_THREADS
+    and the engine fed by BamReader.read1.  16c: the same records as SAM
+    text through mpileup_text (sam_text_to_bam, X5, B1) equal 16b's.
+    Returns its notes."""
+    from htslib_tpu_torch import pileup
+    from htslib_tpu_torch.ops.pileup_kernel import device_pileup_counts
+    from htslib_tpu_torch.sam.batch import _text_chunks as text_chunks
+    from htslib_tpu_torch.sam.record import BamRecord
+    t_leg = time.time()
+    t0 = time.time()
+    paths = write_leg16_files(tmp, contigs, level, small)
+    notes = {"inputs_s": time.time() - t0, "records": paths["records"],
+             "bam_bytes": os.path.getsize(paths["bam"])}
+    nthreads = os.cpu_count() or 2
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, nthreads),
+                             mp_context=ctx) as pool:
+        truth = pool.submit(_leg16_host_truth, paths["bam"], nthreads)
+        windows = [pool.submit(_leg16_window, paths["bam"], nthreads, k,
+                               half) for k in range(nthreads - 1)]
+        read1 = pool.submit(_leg16_read1_text, paths["small_bam"])
+
+        # 16a: the whole BAM, tiles in the port's pool
+        timing, stages = {}, {}
+        t0 = time.time()
+        header, text = pileup.mpileup_text_parallel(
+            paths["bam"], device=device, timing=timing, stages=stages)
+        wall = time.time() - t0
+        names = list(header.ref_names)
+        parse = [pool.submit(pileup_text_counts, c)
+                 for c in text_chunks(text, len(text) // 8 + 1)]
+        a = {"wall_s": wall, "timing": timing,
+             "entries_per_s": timing["entries"] / wall,
+             "text_bytes": len(text)}
+
+        # the card's base and depth counts of each whole reference
+        t0 = time.time()
+        mv = memoryview(stages["payload"])
+        keep = np.flatnonzero((stages["flag"] & pileup.DEFAULT_SKIP) == 0)
+        recs = [BamRecord.from_bam_buffer(mv, int(stages["offs"][i]) + 4,
+                                          int(stages["sizes"][i]))
+                for i in keep]
+        by_ref = {}
+        for tid, (_, ln) in enumerate(contigs):
+            by_ref[tid] = device_pileup_counts(
+                [b for b in recs if b.tid == tid], 0, ln, device=device)
+        a["device_counts_s"] = time.time() - t0
+
+        # 16b and 16c on the card
+        b_notes = {}
+        for tag, run in (
+                ("serial", lambda t: pileup.mpileup_text(
+                    paths["small_bam"], device=device, timing=t)),
+                ("parallel", lambda t: pileup.mpileup_text_parallel(
+                    paths["small_bam"], LEG16_SMALL_THREADS, device=device,
+                    timing=t)),
+                ("sam", lambda t: pileup.mpileup_text(
+                    paths["small_sam"], device=device, timing=t))):
+            t, t0 = {}, time.time()
+            b_notes[tag] = (run(t)[1], time.time() - t0, t)
+        small_text = b_notes["serial"][0]
+        require(b_notes["parallel"][0] == small_text,
+                "16b: mpileup_text_parallel at 3 != mpileup_text")
+        require(b_notes["sam"][0] == small_text,
+                "16c: the SAM text's pileup != 16b's")
+
+        # the truths of the pool
+        t0 = time.time()
+        tr, truth_s = truth.result()
+        ok = stages["payload"] == tr["stream"]
+        if not ok:
+            us = np.cumsum([0] + tr["usizes"]) - tr["head"]
+            got = np.frombuffer(stages["payload"], np.uint8)
+            want = np.frombuffer(tr["stream"], np.uint8)
+            n = min(len(got), len(want))
+            first = int(np.flatnonzero(got[:n] != want[:n])[0]) if (
+                got[:n] != want[:n]).any() else n
+            require(False, "16a: the inflated stream != zlib's from member "
+                    f"{int(np.searchsorted(us, first, side='right')) - 1}")
+        require(np.array_equal(stages["offs"], tr["offs"])
+                and np.array_equal(stages["sizes"], tr["sizes"]),
+                "16a: X5's offsets and sizes != the host walk's")
+        require(hashlib.sha256(stages["bases"]).hexdigest()
+                == tr["bases_sha"], "16a: B1's bases != the host decode")
+        require(stages["tiles"] == tr["tiles"],
+                "16a: the tile plan != the plan from host fields")
+        lines = text.split(b"\n")[:-1]
+        keys = [(names.index(ln[:ln.index(b"\t")].decode()),
+                 int(ln.split(b"\t", 2)[1]) - 1) for ln in lines]
+        checked = []
+        for fut in windows:
+            got = fut.result()
+            if got is None:
+                continue
+            (tid, lo, hi), want, secs = got
+            i0 = bisect.bisect_left(keys, (tid, lo))
+            i1 = bisect.bisect_left(keys, (tid, hi))
+            mine = b"".join(ln + b"\n" for ln in lines[i0:i1])
+            require(mine == want, f"16a: window {names[tid]}:{lo}-{hi} != "
+                    "the serial engine's")
+            checked.append((names[tid], lo, hi, i1 - i0, secs))
+        require(len(checked) == len(stages["tiles"]) - 1,
+                "16a: a tile boundary without its window")
+        cols = [f.result() for f in parse]
+        for tid, (name, ln) in enumerate(contigs):
+            depth = np.zeros(ln, np.int64)
+            counts = np.zeros((ln, 16), np.int64)
+            for nms, poss, deps, cnt in cols:
+                m = np.array([x == name for x in nms], bool)
+                depth[poss[m]] = deps[m]
+                counts[poss[m]] = cnt[m]
+            d_dev, c_dev = by_ref[tid]
+            require(np.array_equal(d_dev, depth),
+                    f"16a: device_pileup_counts depth of {name}")
+            require(np.array_equal(c_dev, counts),
+                    f"16a: device_pileup_counts base counts of {name}")
+        r1_text, r1_s = read1.result()
+        require(r1_text == small_text,
+                "16b: mpileup_text != the engine fed by BamReader.read1")
+        notes["check"] = {
+            "inflated_eq_zlib": True, "x5_eq_host_walk": True,
+            "b1_eq_host_decode": True, "plan_eq_host_fields": True,
+            "windows": checked, "device_counts_eq_text": True,
+            "16b_eq": True, "16c_eq": True,
+            "truth_s": truth_s, "read1_s": r1_s,
+            "truth_wait_s": time.time() - t0}
+    pileup.shutdown_pool()
+    a["columns"] = timing["columns"]
+    a["entries"] = timing["entries"]
+    notes["16a"] = a
+    notes["16b"] = {k: {"wall_s": v[1], "timing": v[2]}
+                    for k, v in b_notes.items()}
+    notes["stages"] = stages
+    with open(paths["bam"], "rb") as fp:
+        notes["bam_file"] = fp.read()
+    notes["wall_s"] = time.time() - t_leg
+    return notes
+
+
 def leg12(device, tmp: str):
     """Leg 12's work in this process (12a): leg12_vcf written to `tmp`
     and encoded by vcf_file_to_bcf (host), then bcf_file_to_vcf on the
@@ -4243,6 +4718,88 @@ def inflate_vs_plain(device, bgzf, leg12_members, launches,
                 "(its waves included)", "match": True}
 
 
+def leg16_vs_plain(device, l16: dict, launches16: dict) -> dict:
+    """Phase 6 at leg 16's shapes: B1 over 16a's packed sequences laid
+    end to end ([1, T], gathered again here from the stream on the host),
+    X5 over 16a's stream and X4 over 16a's members, each against its
+    plain version on the same card tensors (X4's plain version over a
+    member of the stream's first LEG16_PLAIN_BYTES deflated at the
+    leg's level: the plain inflate takes a millisecond or two a step,
+    and a whole member has 8,000-38,000), then timed.  Returns, by row
+    name, what goes into each kernels-line row's "leg16"."""
+    import torch
+
+    from htslib_tpu_torch.bgzf import member_payload, scan_blocks
+    from htslib_tpu_torch.ops import bam2sam as tb
+    from htslib_tpu_torch.ops import inflate as ti
+    from htslib_tpu_torch.ops import seqfmt as ts
+    st = l16["stages"]
+    payload = st["payload"]
+    pl = np.frombuffer(payload, np.uint8)
+    packed = packed_seqs(payload, stream_fields(payload))
+    t = len(packed)
+    p_t = torch.from_numpy(packed).to(device).view(1, t)
+    got = ts.nibble_to_base_cuda(p_t)
+    want = ts.nibble_to_base_plain(p_t)
+    require(torch.equal(got, want), "leg 16: B1 != plain")
+    require(got.cpu().numpy().tobytes() == st["bases"],
+            "leg 16: B1 here != 16a's bases")
+    out = {}
+    b_ms, b_by = bound_ms(3 * t, 0)
+    out["nibble_to_base"] = {
+        "shape": [1, t], "max_abs_err": 0,
+        "ms": cuda_ms(lambda: ts.nibble_to_base_cuda(p_t), 20),
+        "plain_ms": cuda_ms(lambda: ts.nibble_to_base_plain(p_t), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "launches": launches16.get("nibble_to_base", 0)}
+
+    u, n = len(payload), len(st["offs"])
+    pay_t = torch.from_numpy(pl.copy()).to(device)
+    got = tb.record_scan_cuda(pay_t, u // 36 + 1)
+    want = tb.record_scan_plain(pay_t, u // 36 + 1)
+    for g, w, what in zip(got, want, ("offsets", "sizes", "n")):
+        require(torch.equal(g, w), f"leg 16: X5 != plain ({what})")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tb.record_scan_plain(pay_t, u // 36 + 1)
+    plain_ms = (time.time() - t0) * 1e3
+    b_ms, b_by = bound_ms(u + 8 * n + 4, 6 * n)
+    out["record_scan_seg"] = {
+        "bytes": u, "records": n, "max_abs_err": 0,
+        "ms": cuda_ms(lambda: tb.record_scan_cuda(pay_t, u // 36 + 1), 20),
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "launches": launches16.get("record_scan_seg", 0)}
+
+    raw = np.frombuffer(l16["bam_file"], np.uint8)
+    tbl = scan_blocks(raw)
+    data = np.flatnonzero(tbl.usizes > 0)
+    pays = [member_payload(raw, int(tbl.coffsets[i]), int(tbl.csizes[i]))
+            for i in data]
+    big = ti.frame_members(pays, [int(tbl.usizes[i]) for i in data],
+                           device)
+    outb, stb = ti.inflate_cuda(big)
+    require(not bool(ti.corrupt(big, stb).any()), "leg 16: X4 refused")
+    head = payload[:LEG16_PLAIN_BYTES]
+    one = ti.frame_members([deflate_raw(head)], [len(head)], device)
+    gerr, plain_ms, err, gh = _inflate_vs_plain(ti, one, "leg 16 member")
+    require(not any(gerr), "leg 16: X4's member refused")
+    require(gh.tobytes() == head, "leg 16: X4's member != its bytes")
+    n_in, n_out = sum(map(len, pays)), int(tbl.usizes.sum())
+    b_ms, b_by = bound_ms(n_in + n_out, 0)
+    out["inflate"] = {
+        "members": big.n_members, "max_abs_err": err,
+        "ms": cuda_ms(lambda: ti.inflate_cuda(big), 5),
+        "variant": "ring" if ti.ring_fits(big.n_members, device)
+        else "slot", "plain_ms": plain_ms,
+        "plain_member_bytes": len(head),
+        "plain_member_steps": int(ti.inflate_cuda(one)[1][0, 3]),
+        "ms_at_plain_member": cuda_ms(lambda: ti.inflate_cuda(one), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "launches": launches16.get("inflate", 0)
+        + launches16.get("inflate_slot", 0)}
+    return out
+
+
 def torch_sms(device) -> int:
     """The card's SMs."""
     import torch
@@ -4703,7 +5260,9 @@ def main() -> int:
                       ("leg14", ["X4", "X5", "nibble_to_base",
                                  "rans4x8_o0_decode", "X1"]),
                       ("leg15", ["X4", "X5", "nibble_to_base",
-                                 "rans4x8_o0_decode", "X1"])):
+                                 "rans4x8_o0_decode", "X1"]),
+                      ("leg16", ["X4", "record_scan_seg",
+                                 "nibble_to_base"])):
         got = dict(notes["launches_" + leg])
         got["X4"] = got.get("inflate", 0) + got.get("inflate_slot", 0)
         got["X5"] = got.get("record_scan", 0) + got.get("record_scan_seg",
@@ -4845,13 +5404,26 @@ def main() -> int:
           + json.dumps(l15["15e"]), flush=True)
     print("leg 15f (sam_to_bam_file, decoded on the card): "
           + json.dumps(l15["15f"]), flush=True)
+    l16 = notes["leg16"]
+    a16 = l16["16a"]
+    print(f"leg 16 wall (this process): {secs['leg16']:.3f} s, of which "
+          f"inputs {l16['inputs_s']:.3f} s; 16a mpileup_text_parallel on "
+          f"{l16['records']} reads ({l16['bam_bytes']} B of BAM): "
+          f"{a16['wall_s']:.3f} s, {a16['columns']} columns, "
+          f"{a16['entries']} entries, {a16['entries_per_s']:.6g} entries/s, "
+          f"{a16['timing']['processes']} processes, parts "
+          + json.dumps(a16["timing"]) + f"; device_pileup_counts "
+          f"{a16['device_counts_s']:.3f} s", flush=True)
+    print("leg 16b/16c (3,000 records: BAM serial and at 3 processes, SAM "
+          "serial): " + json.dumps(l16["16b"]), flush=True)
+    print("leg 16 check: " + json.dumps(l16["check"]), flush=True)
     print("launches by leg: " + json.dumps({k: v for k, v in notes.items()
                                             if k.startswith("launches_")}),
           flush=True)
     # each launch of csrc/rans4x8.cu's kernels (key, order-1 layout,
     # streams, rounds of the longest stream), of X5 (key, payload bytes,
     # max_records) and of X4 (key, members, the longest member's steps)
-    # in legs 7-15, the ranks' apart: PERF.md reckons the launches no
+    # in legs 7-16, the ranks' apart: PERF.md reckons the launches no
     # timing covers from these shapes
     shapes = {k[len("shapes_"):]: v for k, v in notes.items()
               if k.startswith("shapes_")}
@@ -4891,6 +5463,14 @@ def main() -> int:
     t0 = time.time()
     rows.append(probaln_vs_plain(args[1].device, hmm_calls, launches))
     print(f"phase 6, X6: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    at16 = leg16_vs_plain(args[1].device, l16, notes["launches_leg16"])
+    for row in rows:
+        if row["name"] in at16:
+            row["leg16"] = at16[row["name"]]
+            row["launches_leg16"] = at16[row["name"]]["launches"]
+    print(f"phase 6, leg 16's shapes (B1, X4, X5): {time.time() - t0:.1f} "
+          "s", flush=True)
     # the figure the chain-bound kernels are designed against
     for row in rows:
         if "chain_rounds" in row:

@@ -9,7 +9,9 @@ modules it needs are its own copies (codecs/, cram/, sam/ with
 sam/indexing.py, sam/samtext.py, sam/fastq.py, sam/mods.py,
 sam/batch.py and sam/hts_open.py, vcf/ with vcf/merge.py, bgzf.py,
 faidx.py, format.py, hfile.py and remote/, hts.py, opts.py, pipeline.py,
-hts_expr.py, index.py, tbx.py, regidx.py, util/log.py).
+hts_expr.py, index.py, tbx.py, regidx.py, util/log.py, pileup.py with
+parallel/pileup_shard.py, errmod.py, kfunc.py, synced_reader.py,
+vcfutils.py, vcf_sweep.py).
 
 Entry points run on the card (`device="cuda"`) and raise when there is
 none, unless the caller passes `device="cpu"`, which runs each kernel's

@@ -19,10 +19,10 @@ port's; `from_jax_names_table` and `from_jax_probaln` carry the BAM -> SAM
 chain's names table and the BAQ HMM's outputs,
 `from_jax_bam_shard_plan` a BAM shard plan (its member arrays and
 shards), `from_jax_cram_shard_plan` a CRAM shard plan (its container
-arrays and shards) and `from_jax_bcf_plan` a BCF shard plan (its record
-arrays and shards, with the file's members read from the file), so the two
-packages' plans can be compared field by field and one plan decoded by
-both.
+arrays and shards), `from_jax_bcf_plan` a BCF shard plan (its record
+arrays and shards, with the file's members read from the file) and
+`from_jax_pileup_tiles` a pileup tile plan, so the two packages' plans
+can be compared field by field and one plan decoded by both.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from htslib_tpu_torch.parallel.distributed import (BamShard, BamShardPlan,
                                                    BcfShard, BcfShardPlan,
                                                    CramShard, CramShardPlan,
                                                    bcf_layout)
+from htslib_tpu_torch.parallel.pileup_shard import PileupTile
 
 BLOCKS = 32  # streams per JAX order-0 Nx16 group
 
@@ -264,3 +265,11 @@ def from_jax_bcf_plan(plan):
         np.asarray(plan.sizes, np.int64), co, cs, ustarts, us, body,
         [BcfShard(int(s.index), int(s.rec_lo), int(s.rec_hi),
                   int(s.ustart), int(s.uend)) for s in plan.shards])
+
+
+def from_jax_pileup_tiles(tiles):
+    """JAX `PileupTile`s (htslib_tpu/parallel/pileup_shard.py) as the
+    port's: the index and the (tid, pos) keys as Python ints.  The tile
+    plan is the only state a pileup carries across packages."""
+    return [PileupTile(int(t.index), (int(t.lo[0]), int(t.lo[1])),
+                       (int(t.hi[0]), int(t.hi[1]))) for t in tiles]

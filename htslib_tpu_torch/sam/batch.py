@@ -720,21 +720,17 @@ def _header_end(raw: np.ndarray, table: BlockTable
     return read_bam_header(bio), bio.tell()
 
 
-def bam_file_to_sam(path, device="cuda", timing: Optional[dict] = None):
-    """BAM file -> SAM text in one call (`samtools view x.bam`).  `path`
-    is a name that `hopen` opens (a local path, an http(s) or ftp URL, an
+def read_bam_stream(path, device="cuda", timing: Optional[dict] = None
+                    ) -> Tuple[SamHeader, bytes]:
+    """A BAM file's header and its uncompressed record stream.  `path` is
+    a name that `hopen` opens (a local path, an http(s) or ftp URL, an
     htsget ticket) or a binary file object; its compressed bytes are read
     once.  The header is parsed on the host; the members past it are
     inflated in one `inflate_range` call on `device` (X4 on the card,
-    CRC32 and ISIZE checked) and the records formatted by
-    `bam_payload_to_sam_device` (X5, B1).  A file that is not BGZF
-    (plain gzip, or uncompressed) is read on the host, then formatted
-    the same way.  Returns (header, SAM text as uint8), as the JAX
-    function does.  A build or launch that fails raises; nothing falls
-    back to the host formatter.  Raises IOError on a truncated record
-    stream.  `timing`, where given, gets read_s (the file read, the
-    member walk and the header), inflate_s, format_s and format (the
-    format's parts)."""
+    CRC32 and ISIZE checked).  A file that is not BGZF (plain gzip, or
+    uncompressed) is read on the host.  A build or launch that fails
+    raises.  `timing`, where given, gets read_s (the file read, the
+    member walk and the header) and inflate_s."""
     dev = _build.resolve_device(device)
     timing = {} if timing is None else timing
     t0 = _build.clock(dev)
@@ -752,15 +748,29 @@ def bam_file_to_sam(path, device="cuda", timing: Optional[dict] = None):
         hdr = read_bam_header(bio)
         payload = bio.read()
         timing["read_s"] = _build.clock(dev) - t0
-    else:
-        hdr, u_skip = _header_end(raw, table)
-        us0 = table.uoffsets
-        timing["read_s"] = _build.clock(dev) - t0
-        inflated: dict = {}
-        payload = inflate_range(raw, table.coffsets, table.csizes, us0,
-                                table.usizes, u_skip, table.total_usize,
-                                dev, inflated)
-        timing["inflate_s"] = sum(inflated.values())
+        return hdr, payload
+    hdr, u_skip = _header_end(raw, table)
+    timing["read_s"] = _build.clock(dev) - t0
+    inflated: dict = {}
+    payload = inflate_range(raw, table.coffsets, table.csizes,
+                            table.uoffsets, table.usizes, u_skip,
+                            table.total_usize, dev, inflated)
+    timing["inflate_s"] = sum(inflated.values())
+    return hdr, payload
+
+
+def bam_file_to_sam(path, device="cuda", timing: Optional[dict] = None):
+    """BAM file -> SAM text in one call (`samtools view x.bam`): the
+    header and record stream by `read_bam_stream` (X4 on the card), the
+    records formatted by `bam_payload_to_sam_device` (X5, B1).  Returns
+    (header, SAM text as uint8), as the JAX function does.  A build or
+    launch that fails raises; nothing falls back to the host formatter.
+    Raises IOError on a truncated record stream.  `timing`, where given,
+    gets read_s (the file read, the member walk and the header),
+    inflate_s, format_s and format (the format's parts)."""
+    dev = _build.resolve_device(device)
+    timing = {} if timing is None else timing
+    hdr, payload = read_bam_stream(path, dev, timing)
     t0 = _build.clock(dev)
     parts: dict = {}
     text = bam_payload_to_sam_device(payload, hdr, device=dev, timing=parts,

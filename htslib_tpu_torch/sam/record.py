@@ -61,8 +61,14 @@ def _fmt_g(x: float) -> str:
 
 
 class BamRecord:
+    """One alignment record.  `seq_text`, where a decoder has set it, is
+    the record's sequence as ASCII (the card's decode of its `seq4`, B1):
+    `seq` returns it rather than decode `seq4` again, `copy()` keeps it,
+    and setting `seq4` clears it."""
+
     __slots__ = ("tid", "pos", "mapq", "bin", "flag", "mtid", "mpos",
-                 "isize", "qname", "cigar", "seq4", "l_qseq", "qual", "aux")
+                 "isize", "qname", "cigar", "_seq4", "seq_text", "l_qseq",
+                 "qual", "aux")
 
     def __init__(self):
         self.tid = -1
@@ -182,9 +188,20 @@ class BamRecord:
         return self.pos + (rlen if rlen else 1)
 
     @property
+    def seq4(self) -> bytes:
+        return self._seq4
+
+    @seq4.setter
+    def seq4(self, packed: bytes) -> None:
+        self._seq4 = packed
+        self.seq_text = None
+
+    @property
     def seq(self) -> str:
         if self.l_qseq == 0:
             return "*"
+        if self.seq_text is not None:
+            return self.seq_text
         packed = np.frombuffer(self.seq4, np.uint8)
         nib = np.empty(self.l_qseq, np.uint8)
         hi = packed >> 4

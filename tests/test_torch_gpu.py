@@ -1706,3 +1706,100 @@ def test_bam_file_to_sam_on_card_matches_cpu(card, tmp_path, level):
             assert (_build.LAUNCHES["record_scan"]
                     + _build.LAUNCHES["record_scan_seg"]) == 1
             assert {"read_s", "inflate_s", "format_s"} <= set(timing)
+
+
+@pytest.fixture(scope="module")
+def pileup_case(tmp_path_factory):
+    """chip_smoke's leg 16 files over 8 kb and 2 kb (about 3,000 reads),
+    the BAM deflated at zlib level 6 and stored (level 0), with the
+    first 800 records as a BAM and a SAM of their own; and each file's
+    mpileup_text on the CPU, once for the module (the CPU's plain
+    inflate takes a second or more a deflated member)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import write_leg16_files
+    from htslib_tpu_torch import pileup
+    out = {}
+    for level in (0, 6):
+        d = tmp_path_factory.mktemp(f"plp{level}")
+        paths = write_leg16_files(str(d), [("chr1", 8_000),
+                                           ("chr2", 2_000)], level, 800)
+        out[level] = {k: (paths[k], pileup.mpileup_text(
+            paths[k], device="cpu")[1])
+            for k in ("bam", "small_bam", "small_sam")}
+    return out
+
+
+def _x4(launches):
+    return launches["inflate"] + launches["inflate_slot"]
+
+
+@pytest.mark.parametrize("level", [0, 6])
+def test_pileup_mpileup_text_on_card_matches_cpu(card, pileup_case, level):
+    """mpileup_text on the card (X4, X5, B1) equals device="cpu" on a
+    BAM and on SAM text, and each launches its kernels once."""
+    from htslib_tpu_torch import pileup
+    for key, (path, want) in pileup_case[level].items():
+        _build.reset_launches()
+        timing = {}
+        got = pileup.mpileup_text(path, device=card, timing=timing)[1]
+        assert got == want and got.count(b"\n") > 1000
+        assert _x4(_build.LAUNCHES) == (0 if key == "small_sam" else 1)
+        assert (_build.LAUNCHES["record_scan"]
+                + _build.LAUNCHES["record_scan_seg"]) == 1
+        assert _build.LAUNCHES["nibble_to_base"] == 1
+        assert timing["entries"] > 0 and timing["bases_s"] > 0
+
+
+@pytest.mark.parametrize("nthreads", [1, 3, 8])
+def test_pileup_parallel_on_card_matches_cpu(card, pileup_case, nthreads):
+    """mpileup_text_parallel with the read and decode on the card and the
+    tiles in spawned processes equals the serial text on the CPU; its
+    plan is plan_tiles over the CPU's decode."""
+    from htslib_tpu_torch import pileup
+    from htslib_tpu_torch.sam.batch import read_bam_stream
+    path, want = pileup_case[6]["bam"]
+    st = {}
+    _build.reset_launches()
+    got = pileup.mpileup_text_parallel(path, nthreads, device=card,
+                                       stages=st)[1]
+    pileup.shutdown_pool()
+    assert got == want
+    rs = pileup.decode_records(read_bam_stream(
+        pileup_case[0]["bam"][0], "cpu")[1], "cpu")
+    assert st["tiles"] == pileup.plan_tiles(rs, nthreads,
+                                            pileup.DEFAULT_SKIP)[0]
+    assert 1 <= len(st["tiles"]) <= nthreads
+    assert _x4(_build.LAUNCHES) == 1
+    assert _build.LAUNCHES["nibble_to_base"] == 1
+
+
+def test_pileup_decode_records_on_card_matches_cpu(card, pileup_case):
+    from htslib_tpu_torch import pileup
+    from htslib_tpu_torch.sam.batch import read_bam_stream
+    _, stream = read_bam_stream(pileup_case[6]["bam"][0], device=card)
+    got = pileup.decode_records(stream, card)
+    want = pileup.decode_records(stream, "cpu")
+    assert set(got) == set(want)
+    for k in got:
+        if isinstance(got[k], bytes):
+            assert got[k] == want[k], k
+        else:
+            assert np.array_equal(got[k], want[k]), k
+    with pytest.raises(IOError, match="truncated"):
+        pileup.decode_records(stream[:-3], card)
+
+
+def test_pileup_device_counts_on_card_match_cpu(card, pileup_case):
+    """device_pileup_counts on the card equals its CPU run for each whole
+    reference of leg 16's reads."""
+    from htslib_tpu_torch.ops.pileup_kernel import device_pileup_counts
+    from htslib_tpu_torch.pileup import DEFAULT_SKIP, read_records
+    _, recs = read_records(pileup_case[6]["bam"][0], False, card,
+                           DEFAULT_SKIP)
+    for tid, ln in ((0, 8_000), (1, 2_000)):
+        mine = [b for b in recs if b.tid == tid]
+        d_dev, c_dev = device_pileup_counts(mine, 0, ln, device=card)
+        d_cpu, c_cpu = device_pileup_counts(mine, 0, ln, device="cpu")
+        assert np.array_equal(d_dev, d_cpu) and np.array_equal(c_dev, c_cpu)
+        assert d_dev.max() > 20

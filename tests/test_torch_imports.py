@@ -90,7 +90,14 @@ def test_sources_found():
                  "htslib_tpu_torch/sam/hts_open.py",
                  "htslib_tpu_torch/sam/fastq.py",
                  "htslib_tpu_torch/sam/mods.py",
-                 "htslib_tpu_torch/sam/batch.py"):
+                 "htslib_tpu_torch/sam/batch.py",
+                 "htslib_tpu_torch/pileup.py",
+                 "htslib_tpu_torch/parallel/pileup_shard.py",
+                 "htslib_tpu_torch/errmod.py",
+                 "htslib_tpu_torch/kfunc.py",
+                 "htslib_tpu_torch/synced_reader.py",
+                 "htslib_tpu_torch/vcfutils.py",
+                 "htslib_tpu_torch/vcf_sweep.py"):
         assert want in rel
 
 

@@ -1,6 +1,6 @@
 """Rank functions for the port's multi-process tests
 (tests/test_torch_mesh.py, tests/test_torch_distributed.py,
-tests/test_torch_bcf_shards.py), run by
+tests/test_torch_bcf_shards.py, tests/test_torch_pileup_shard.py), run by
 htslib_tpu_torch/parallel/launch.py `run_ranks` in spawned processes.
 This module imports neither JAX nor the JAX package, so a rank process
 loads torch alone."""
@@ -111,3 +111,20 @@ def bcf_shard(rank, n, path):
     torch.set_num_threads(1)
     plan = plan_bcf_shards(path, n, device="cpu")
     return decode_bcf_shard_to_vcf(plan, plan.shards[rank], device="cpu")
+
+
+def pileup_tile(rank, n, path):
+    """This rank's tile of a pileup: the tile plan made on every rank
+    from its own read of `path`, its own tile's columns (pileup text
+    lines) on the CPU, and the world's column count all-reduced."""
+    from htslib_tpu_torch.parallel.pileup_shard import (_load_records,
+                                                        mpileup_one_tile,
+                                                        plan_pileup_tiles)
+    from htslib_tpu_torch.pileup import _format_plp_column
+    torch.set_num_threads(1)
+    _, records = _load_records(path, device="cpu")
+    tiles = plan_pileup_tiles(records, n)
+    cols = mpileup_one_tile(path, tiles[rank], _format_plp_column, "cpu")
+    total = torch.tensor([len(cols)], dtype=torch.int64)
+    dist.all_reduce(total)
+    return cols, int(total[0])
