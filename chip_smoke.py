@@ -319,15 +319,33 @@ PyTorch version on the card and times both.  Phases:
      a second and processes, 16b/16c's seconds, the leg 16 check line;
      phase 6 also holds B1, X4 and X5 against their plain versions at
      leg 16's shapes (the rows' "leg16" and "launches_leg16");
+  5o. leg 17, the last slice, after leg 16 (leg17): 17a kernel P1 (the
+     gather probe's resolve chain, 256 chains x 4 states x 512 rounds)
+     against its plain version; 17b kernel P2 (B2's round with stages
+     removed) in every mode over 32 of leg 2's streams x 2,048 rounds
+     against its plain version, the full mode's symbols the raw bytes;
+     17c 11a decoded on the card (B7, X1, X5, B1) with its FASTA moved
+     away, REF_PATH the port's RefCacheServer whose upstream is its
+     AsyncRefCacheServer: 11a's text, one upstream fetch an M5, cache
+     files named by their MD5s; 17d cram_file_to_bam_stream of 11a on
+     the card, formatted, gives 11a's text, and the stream equals the
+     host decode's (held after the loop with leg 11's truths); 17e the
+     CLI: bgzip -i/-d (X4)/-t/-b -s over leg 12's VCF text, tabix -p vcf
+     and leg 14c's regions (leg 14c's lines), htsfile over legs 10-16's
+     files, annot-tsv over two 10,000-row TSVs against RegIdx; phase 6
+     rows P1 (resolve_cmp) and P2 (rans_ablate_<mode>, each compared
+     again with its plain version there), and X4's row gains
+     launches_leg17; 17a's and 17b's times are warm, from CUDA events;
 
-Launch counts are reset just before phase 3 and read just after phase 5n,
-with leg 10b's ranks' counts added; legs 7-16 are also counted alone
+Launch counts are reset just before phase 3 and read just after phase 5o,
+with leg 10b's ranks' counts added; legs 7-17 are also counted alone
 (reset just before each, read just after; 10b's, 11a's and 12b's shards'
 in the ranks) and each must have launched its kernels (X4; X5 and B1; X6;
 B1, X4 and X5 in 10a and in 10b; X5, B1 and the kernel of every rANS wire
 its files hold, in leg 11 and in its shards; X4 in leg 12 and in its
 shards; B1, B7, X1, X5, B2 or B5 and B3 or B6 in leg 13; X4, X5, B1, B7
-and X1 in legs 14 and 15; X4, X5's segmented kernels and B1 in leg 16).
+and X1 in legs 14 and 15; X4, X5's segmented kernels and B1 in leg 16;
+P1, P2 in every mode, X4, B7, X1, X5 and B1 in leg 17).
 The kernels
 line's X4 row gives leg 12's launches apart (launches_leg12).
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
@@ -349,7 +367,7 @@ import subprocess
 import sys
 import time
 import zlib
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -415,6 +433,8 @@ LEG16_WINDOW = 10_000   # 16a's check windows across the tile boundaries
 LEG16_SMALL = 3_000     # 16b's and 16c's records
 LEG16_SMALL_THREADS = 3
 LEG16_PLAIN_BYTES = 2048  # X4's member against its plain version
+LEG17_TSV_ROWS = 10_000  # 17e's annot-tsv inputs: rows of each TSV
+LEG17_OFFSETS = 16      # 17e's bgzip -b/-s reads
 
 
 class RangeServer:
@@ -522,11 +542,15 @@ def _encode(data: bytes, wire: str = "nx16_o0") -> bytes:
     return encode(data, wire)
 
 
-def _encode_all(raws, wires):
+def _encode_all(raws, wires, pool=None):
+    """Each stream on its wire, in `pool` or in a spawned pool of their
+    own."""
+    if pool is not None:
+        return list(pool.map(_encode, raws, wires, chunksize=1))
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
-                             mp_context=ctx) as pool:
-        return list(pool.map(_encode, raws, wires, chunksize=1))
+                             mp_context=ctx) as own:
+        return list(own.map(_encode, raws, wires, chunksize=1))
 
 
 def _host_sam(payload: bytes, refs) -> bytes:
@@ -583,9 +607,10 @@ def leg1_batch(n: int = N_RECORDS, seed: int = 1):
 
 
 def leg2_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
-                 seed: int = 2):
-    """QS-sized quality streams, raw and encoded: most uniform over
-    20..40, the last fifth bounded random walks over 0..44."""
+                 seed: int = 2, pool=None):
+    """QS-sized quality streams, raw and encoded (in `pool` where given):
+    most uniform over 20..40, the last fifth bounded random walks over
+    0..44."""
     rng = np.random.default_rng(seed)
     raws = []
     for i in range(n):
@@ -595,13 +620,14 @@ def leg2_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
             q = np.clip(np.cumsum(rng.integers(-2, 3, size)) + 20,
                         0, 44).astype(np.uint8)
         raws.append(q.tobytes())
-    return raws, _encode_all(raws, ["nx16_o0"] * n)
+    return raws, _encode_all(raws, ["nx16_o0"] * n, pool)
 
 
 def leg3_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
                  small: int = SMALL_BYTES, n_small: int = N_SMALL,
-                 seed: int = 3):
-    """QS-sized streams on the other rANS wires, raw and encoded, with
+                 seed: int = 3, pool=None):
+    """QS-sized streams on the other rANS wires, raw and encoded (in
+    `pool` where given), with
     n_small streams of `small` bytes per wire for the whole-stream
     comparisons: {wire: (raws, encs, small raws, small encs)} for wires
     nx16_o1 (n bounded random walks), 4x8_o0 (n/2, uniform over 20..40)
@@ -620,7 +646,7 @@ def leg3_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
               for w in raws}
     jobs = [(w, d) for w, ds in list(raws.items()) + list(smalls.items())
             for d in ds]
-    encs = _encode_all([d for _, d in jobs], [w for w, _ in jobs])
+    encs = _encode_all([d for _, d in jobs], [w for w, _ in jobs], pool)
     out, k = {}, 0
     for w in raws:
         out[w] = [raws[w], encs[k:k + len(raws[w])]]
@@ -634,8 +660,10 @@ def leg3_streams(n: int = N_STREAMS, size: int = STREAM_BYTES,
     return out
 
 
-def leg6_streams(raws2, leg3, n: int = N_DECODE, seed: int = 6):
-    """The 4-way Nx16 wires in leg 3's form: {"nx16_4way_o0": [raws,
+def leg6_streams(raws2, leg3, n: int = N_DECODE, seed: int = 6,
+                 pool=None):
+    """The 4-way Nx16 wires in leg 3's form, encoded in `pool` where
+    given: {"nx16_4way_o0": [raws,
     encs, small raws, small encs] (n of leg 2's raws, leg 3's uniform
     64 KiB streams), "nx16_4way_o1": the same of leg 3's walks, and
     "nx16_4way_o1_wide": leg 3's wide-alphabet stream (raw, encoded)};
@@ -660,7 +688,7 @@ def leg6_streams(raws2, leg3, n: int = N_DECODE, seed: int = 6):
     for w in dense:
         dense[w] += [hifi, spill]
     jobs += [(w, d) for w, ds in dense.items() for d in ds]
-    encs = _encode_all([d for _, d in jobs], [w for w, _ in jobs])
+    encs = _encode_all([d for _, d in jobs], [w for w, _ in jobs], pool)
     out, k = {}, 0
     for w, (big, small) in sets.items():
         out[w] = [big, encs[k:k + len(big)], small,
@@ -1145,9 +1173,11 @@ def deflate_raw(data: bytes, level: int = BGZF_LEVEL,
 
 def bgzf_members(stream: bytes, block: int = BGZF_BLOCK):
     """The stream cut into BGZF-sized pieces, each deflated on the host at
-    bgzip's default level: (payloads, raw pieces)."""
+    bgzip's default level, in threads (zlib releases the interpreter
+    lock): (payloads, raw pieces)."""
     raws = [stream[i:i + block] for i in range(0, len(stream), block)]
-    return [deflate_raw(r) for r in raws], raws
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as tp:
+        return list(tp.map(deflate_raw, raws)), raws
 
 
 def _fixed(w, sym: int):
@@ -1553,7 +1583,12 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                                                  chain_sam, varied_sam,
                                                  notes["leg11"],
                                                  notes["leg12"])),
-                         ("leg16", lambda: leg16(device, tmp))):
+                         ("leg16", lambda: leg16(device, tmp)),
+                         ("leg17", lambda: leg17(
+                             device, tmp, notes["leg11"], l14_lines, raws,
+                             encs, leg17_files(tmp, leg10_bam,
+                                               notes["leg11"],
+                                               notes["leg12"])))):
             t0 = time.time()
             with Shapes() as shapes:
                 notes[leg], notes["launches_" + leg] = _counted(run)
@@ -1568,6 +1603,8 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                 cram_plan = notes["leg11"].pop("plan")
             if leg == "leg12":
                 bcf_plan = notes["leg12"].pop("plan")
+            if leg == "leg14":
+                l14_lines = notes["leg14"].pop("14c_lines")
         # leg 10b's kernels ran in its rank processes: their counts, with
         # those of 11a's and 12b's shard decodes apart
         notes["launches_leg10b"] = notes["leg10b"].pop("rank_launches")
@@ -1583,6 +1620,10 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
             notes["leg11"]["check"] = leg11_check(device, notes["leg11"],
                                                   outs, pool)
             texts_11a = notes["leg11"]["check"].pop("texts_11a")
+            # 17d's stream, decoded on the card, against the host chain's
+            require(notes["leg11"]["check"].pop("blob_11a")
+                    == notes["leg17"].pop("blob_17d"),
+                    "leg 17d: the stream on the card != the host decode's")
             notes["leg13"]["check"] = leg13_check(
                 notes["leg13"], notes["leg11"], texts_11a, pool)
             notes["leg12"]["check"] = leg12_check(notes["leg12"], outs,
@@ -2157,17 +2198,19 @@ def cram_blocks(path: str):
     return out
 
 
-def _host_cram_truth(path: str, ref, offset: int):
+def _host_cram_truth(path: str, ref, offset: int, blob: bool = False):
     """The host chain over the container at `offset`: each data block
     decoded by the port's host codec (its MD5, in file order), each slice
     decoded by cram/decode.py and every record formatted by sam/record.py
-    to_sam.  Returns (digests, SAM text)."""
+    to_sam.  Returns (digests, SAM text), and with `blob` the slices'
+    u32-framed record blobs too (decode_slice_blob over the same host-
+    decoded blocks, leg 17d's truth)."""
     import hashlib
     from htslib_tpu_torch.cram import CramReader
     from htslib_tpu_torch.cram.batch import _slice_jobs
-    from htslib_tpu_torch.cram.decode import decode_slice
+    from htslib_tpu_torch.cram.decode import decode_slice, decode_slice_blob
     from htslib_tpu_torch.cram.structs import CT_CORE, CT_EXTERNAL
-    digests, lines = [], []
+    digests, lines, blobs = [], [], []
     with CramReader(path, ref=ref) as r:
         r.fp.seek(offset)
         for chdr, sh, blocks in _slice_jobs(r, offset + 1):
@@ -2175,7 +2218,11 @@ def _host_cram_truth(path: str, ref, offset: int):
                         if b.content_type in (CT_CORE, CT_EXTERNAL)]
             lines += [rec.to_sam(r.header) for rec in decode_slice(
                 chdr, sh, blocks, r.header, r.refs.get, r.version[0])]
-    return digests, ("\n".join(lines) + "\n").encode() if lines else b""
+            if blob:
+                blobs.append(decode_slice_blob(chdr, sh, blocks, r.header,
+                                               r.refs.get, r.version[0]))
+    text = ("\n".join(lines) + "\n").encode() if lines else b""
+    return (digests, text, b"".join(blobs)) if blob else (digests, text)
 
 
 def leg11(device, tmp: str):
@@ -2239,8 +2286,8 @@ def leg11_check(device, notes, rank_outs, pool):
     jobs = [(tag, notes[tag]["path"], notes[tag]["ref"], off, blocks)
             for tag in ("11a", "11b")
             for off, blocks in cram_blocks(notes[tag]["path"])]
-    futs = [pool.submit(_host_cram_truth, path, ref, off)
-            for _, path, ref, off, _ in jobs]
+    futs = [pool.submit(_host_cram_truth, path, ref, off, tag == "11a")
+            for tag, path, ref, off, _ in jobs]
     before = dict(_build.LAUNCHES)
     n_dev = 0
     for *_, blocks in jobs:
@@ -2248,12 +2295,12 @@ def leg11_check(device, notes, rank_outs, pool):
         n_dev += sum(v for k, v in counts.items() if k != "host")
     _build.LAUNCHES.update(before)
     truths = [f.result() for f in futs]
-    for (tag, _, _, off, blocks), (digests, _) in zip(jobs, truths):
+    for (tag, _, _, off, blocks), (digests, *_) in zip(jobs, truths):
         got = [hashlib.md5(b._uncompressed).digest() for b in blocks]
         require(got == digests, f"leg {tag} container at {off}: a block "
                 "decoded on the card != the host codec's bytes")
     for tag in ("11a", "11b"):
-        text = b"".join(t for (g, *_), (_, t) in zip(jobs, truths)
+        text = b"".join(t for (g, *_), (_, t, *_) in zip(jobs, truths)
                         if g == tag)
         require(notes[tag]["sam"] == text,
                 f"leg {tag} SAM != the host chain's")
@@ -2264,8 +2311,10 @@ def leg11_check(device, notes, rank_outs, pool):
             sum(len(j[4]) for j in jobs), "device_blocks_checked": n_dev,
             "shards_sam_MBps": len(shards) / max(
                 o["cram_decode_s"] for o in rank_outs) / 1e6,
-            "texts_11a": {off: t for (g, _, _, off, _), (_, t)
-                          in zip(jobs, truths) if g == "11a"}}
+            "texts_11a": {off: t for (g, _, _, off, _), (_, t, *_)
+                          in zip(jobs, truths) if g == "11a"},
+            "blob_11a": b"".join(b for (g, *_), (*_, b) in zip(jobs, truths)
+                                 if g == "11a")}
 
 
 def leg13_regions(index, lens, seed: int = 13):
@@ -2995,6 +3044,8 @@ def leg14(device, tmp: str, l10_bam: str, l11, l12):
     require(sum(map(bool, check["14b_records"])) > N_REGIONS // 2
             and sum(map(bool, check["14c_lines"])) > N_REGIONS // 2,
             f"leg 14b/c: regions hit {check}")
+    # 14c's lines, which leg 17's tabix queries must give again
+    notes["14c_lines"] = [r["lines"] for r in c["regions"]]
     for part in (a, b, c):
         for r in part["regions"]:
             for k in ("lines", "text", "chunks"):
@@ -3839,6 +3890,278 @@ def leg16(device, tmp: str, contigs=LEG16_CONTIGS, level: int = BGZF_LEVEL,
     notes["stages"] = stages
     with open(paths["bam"], "rb") as fp:
         notes["bam_file"] = fp.read()
+    notes["wall_s"] = time.time() - t_leg
+    return notes
+
+
+
+class _Stdout:
+    """A stand-in for sys.stdout whose `buffer` keeps what a tool
+    writes."""
+
+    def __init__(self):
+        self.buffer = io.BytesIO()
+
+    def write(self, s):
+        self.buffer.write(s.encode())
+        return len(s)
+
+    def flush(self):
+        pass
+
+
+def _cli(main, argv, **kw):
+    """(exit code, standard output) of one run of a port tool's main."""
+    saved = sys.stdout
+    sys.stdout = out = _Stdout()
+    try:
+        rc = main(argv, **kw)
+    finally:
+        sys.stdout = saved
+    return rc, out.buffer.getvalue()
+
+
+def leg17_tsv(rng, n: int = LEG17_TSV_ROWS) -> str:
+    """A BED-like TSV of `n` seeded intervals (1-based, inclusive) over
+    leg 12's contigs' first 5 Mbp, with a header line."""
+    rows = ["#chr\tbeg\tend\tname"]
+    for i in range(n):
+        beg = int(rng.integers(1, 5_000_000))
+        rows.append(f"{LEG12_CONTIGS[i % 2][0]}\t{beg}\t"
+                    f"{beg + int(rng.integers(0, 5_000))}\tf{i}")
+    return "\n".join(rows) + "\n"
+
+
+def leg17_regions():
+    """Leg 14c's regions as tabix region strings (1-based)."""
+    return [f"{LEG12_CONTIGS[t][0]}:{b0 + 1}-{e0}"
+            for t, b0, e0 in leg14_vcf_regions(16)]
+
+
+def leg17_files(tmp: str, l10_bam: str, l11, l12) -> dict:
+    """The files of legs 10-16 that leg 17's htsfile reads: {path: a
+    word its format's description must hold}."""
+    at = lambda name: os.path.join(tmp, name)     # noqa: E731
+    return {l10_bam: "BAM", l11["11a"]["path"]: "CRAM",
+            l11["11b"]["path"]: "CRAM", l12["path"]: "BCF",
+            at("leg12.vcf"): "VCF", at("leg14.bam.bai"): "BAI",
+            at("leg14.bam.csi"): "CSI", at("leg14.bcf.csi"): "CSI",
+            at("leg14.vcf.gz"): "VCF", at("leg14.vcf.gz.tbi"): "Tabix",
+            at("leg14.fa.gz"): "FASTA", at("leg15.fq.gz"): "FASTQ",
+            at("leg15_fq.bam"): "BAM", at("leg16.bam"): "BAM",
+            at("leg16_small.sam"): "SAM"}
+
+
+def leg17(device, tmp: str, l11, l14_lines, raws, encs, files) -> dict:
+    """Leg 17, the last slice on the card, after leg 16, on the files of
+    legs 10-16.  17a: kernel P1 (probe_pallas_gather.resolve_cmp) at
+    the script's shapes equals its plain version.  17b: kernel P2
+    (probe_rans_ablate.ablate) in every mode over the first BLOCKS of leg
+    2's streams at SEG rounds equals its plain version; the full mode's
+    symbols are the streams' raw bytes.  17c: 11a's references served by
+    the port's AsyncRefCacheServer behind its RefCacheServer, whose
+    upstream it is; with the FASTA moved away and REF_PATH the front's
+    template, cram_file_to_sam on the card (B7, X1, X5, B1) gives 11a's
+    text, the upstream is asked once for each M5 and the cache files'
+    MD5s are their names.  17d: cram_file_to_bam_stream of 11a on the
+    card, formatted by bam_payload_to_sam_device, gives 11a's text; the
+    stream (notes' "blob_17d") is held to the host decode's by
+    leg11_check's truths (_host_cram_truth with `blob`).  17e, the CLI:
+    bgzip -i of leg 12's VCF text, -d (X4) gives it back, -t passes, -b/-s at
+    LEG17_OFFSETS seeded offsets give its slices; tabix -p vcf, then leg
+    14c's regions give leg 14c's lines; htsfile over `files` ({path:
+    the word its description must hold}); annot-tsv -a cnt over two
+    LEG17_TSV_ROWS-row TSVs equals RegIdx's overlap counts.  Returns its
+    notes."""
+    import hashlib
+
+    import torch
+
+    from htslib_tpu_torch import probe_pallas_gather as pg
+    from htslib_tpu_torch import probe_rans_ablate as pa
+    from htslib_tpu_torch.cli import annot_tsv, bgzip, htsfile, tabix
+    from htslib_tpu_torch.cram.batch import (cram_file_to_bam_stream,
+                                             cram_file_to_sam)
+    from htslib_tpu_torch.faidx import Faidx
+    from htslib_tpu_torch.ops.bam2sam import bam_payload_to_sam_device
+    from htslib_tpu_torch.ops.rans_nx16 import frame_streams
+    from htslib_tpu_torch.refcache import AsyncRefCacheServer, RefCacheServer
+    from htslib_tpu_torch.regidx import RegIdx
+
+    t_leg = time.time()
+    notes = {}
+    d = os.path.join(tmp, "leg17")
+    os.makedirs(d)
+    path, fasta = l11["11a"]["path"], l11["11a"]["ref"]
+    # 17a: P1 at the script's shapes
+    cum, freqs, _packed, x0 = pg.make_inputs()
+    args = [torch.from_numpy(a).to(device) for a in (cum, freqs, x0)]
+    got = pg.resolve_cmp(*args, device=device).cpu()
+    require(torch.equal(got, pg.resolve_cmp_plain(*args).cpu()),
+            "17a: P1 != its plain version")
+    # warm, from CUDA events, through the wrapper (its table check waits
+    # for the card)
+    ms = cuda_ms(lambda: pg.resolve_cmp(*args, device=device), 5)
+    notes["17a"] = {"call_ms": ms, "lookups_per_s": pg.G * pg.NSTATES
+                    * pg.ROUNDS / (ms * 1e-3)}
+
+    # 17b: P2, every mode
+    t0 = time.time()
+    b = frame_streams(encs[:pa.BLOCKS], device)
+    want = pa.raw_symbols(raws[:pa.BLOCKS])
+    ns = {}
+    for mode in pa.MODES:
+        got = pa.ablate(b, mode)
+        plain = pa.ablate_plain(b, mode)
+        # warm, from CUDA events, through the wrapper
+        ns[mode] = cuda_ms(lambda: pa.ablate(b, mode), 3) / pa.SEG * 1e6
+        for g, w, what in zip(got, plain, ("symbols", "states", "cursors")):
+            require(torch.equal(g, w), f"17b: P2 {mode} != its plain "
+                    f"version ({what})")
+        if mode == "full":
+            require(np.array_equal(got[0].cpu().numpy(), want),
+                    "17b: P2's full mode != the streams' bytes")
+    notes["17b"] = {"wall_s": time.time() - t0,
+                    "ns_a_round_with_call": ns}
+
+    # 17c: 11a through the reference cache, its FASTA moved away
+    m5s = {}
+    fai = Faidx.load(fasta)
+    for ln in cram_header(path).lines:
+        if ln.type == "SQ":
+            m5s[ln.get("M5")] = fai.fetch_seq(ln.get("SN")).encode(
+                ).upper()
+    fai.close()
+    up_log = os.path.join(d, "upstream.log")
+    up = AsyncRefCacheServer(os.path.join(d, "upstream"),
+                             upstream=None, log_path=up_log)
+    up.start()
+    front = RefCacheServer(os.path.join(d, "front"),
+                           upstream=up.url_template)
+    front.start()
+    moved = fasta + ".moved"
+    saved = {k: os.environ.get(k) for k in ("REF_CACHE", "REF_PATH")}
+    try:
+        for seq in m5s.values():
+            up.put(seq)
+        os.rename(fasta, moved)
+        for k in saved:
+            os.environ.pop(k, None)
+        os.environ["REF_PATH"] = front.url_template
+        t0 = time.time()
+        _, sam = cram_file_to_sam(path, device=device)
+        c = {"wall_s": time.time() - t0,
+             "upstream_fetches": front.upstream_fetches}
+    finally:
+        if os.path.exists(moved):
+            os.rename(moved, fasta)
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        front.stop()
+        up.stop()
+        up._thread.join(timeout=30)
+    require(sam.tobytes() == l11["11a"]["sam"],
+            "17c: 11a through the reference cache != 11a's text")
+    with open(up_log) as fp:
+        asked = sorted(ln.split()[2].strip("/") for ln in fp)
+    require(asked == sorted(m5s) and c["upstream_fetches"] == len(m5s),
+            f"17c: the upstream was asked for {asked}")
+    cached = {}
+    for name in os.listdir(front.cache_dir):
+        with open(os.path.join(front.cache_dir, name), "rb") as fp:
+            cached[name] = hashlib.md5(fp.read()).hexdigest()
+    require(cached == {m: m for m in m5s}, f"17c: cache files {cached}")
+    notes["17c"] = c
+
+    # 17d: 11a as a BAM record stream on the card
+    t0 = time.time()
+    hdr, blob = cram_file_to_bam_stream(path, ref=fasta, device=device)
+    e = {"stream_s": time.time() - t0, "stream_bytes": len(blob)}
+    t0 = time.time()
+    text = bam_payload_to_sam_device(blob, hdr, device=device)
+    e["format_s"] = time.time() - t0
+    require(text == l11["11a"]["sam"], "17d: the stream, formatted, != "
+            "11a's text")
+    notes["17d"] = e
+    # held to the host decode's blob with leg 11's truths (leg11_check)
+    notes["blob_17d"] = blob
+
+    # 17e: the command-line tools
+    cli = {}
+    with open(os.path.join(tmp, "leg12.vcf"), "rb") as fp:
+        vcf_text = fp.read()
+    vcf = os.path.join(d, "leg17.vcf")
+    with open(vcf, "wb") as fp:
+        fp.write(vcf_text)
+    gz = vcf + ".gz"
+    t0 = time.time()
+    require(_cli(bgzip.main, ["-i", "-k", vcf], device=device)[0] == 0,
+            "17e: bgzip -i")
+    cli["bgzip_i_s"] = time.time() - t0
+    t0 = time.time()
+    require(_cli(bgzip.main, ["-d", "-f", "-k", gz], device=device)[0] == 0,
+            "17e: bgzip -d")
+    cli["bgzip_d_s"] = time.time() - t0
+    with open(vcf, "rb") as fp:
+        require(fp.read() == vcf_text, "17e: bgzip -d != the text")
+    t0 = time.time()
+    require(_cli(bgzip.main, ["-t", gz], device=device)[0] == 0,
+            "17e: bgzip -t")
+    cli["bgzip_t_s"] = time.time() - t0
+    rng = np.random.default_rng(17)
+    t0 = time.time()
+    for _ in range(LEG17_OFFSETS):
+        off = int(rng.integers(0, len(vcf_text)))
+        size = int(rng.integers(1, 200_000))
+        rc, out = _cli(bgzip.main, ["-b", str(off), "-s", str(size), gz],
+                       device=device)
+        require(rc == 0 and out == vcf_text[off:off + size],
+                f"17e: bgzip -b {off} -s {size}")
+    cli["bgzip_b_s"] = time.time() - t0
+    t0 = time.time()
+    require(_cli(tabix.main, ["-p", "vcf", gz])[0] == 0, "17e: tabix -p")
+    cli["tabix_p_s"] = time.time() - t0
+    t0 = time.time()
+    rc, out = _cli(tabix.main, [gz] + leg17_regions())
+    cli["tabix_regions_s"] = time.time() - t0
+    require(rc == 0 and out.decode() == "".join(
+        ln + "\n" for lines in l14_lines for ln in lines),
+        "17e: tabix's regions != leg 14c's lines")
+    cli["tabix_lines"] = out.count(b"\n")
+    t0 = time.time()
+    rc, out = _cli(htsfile.main, list(files))
+    cli["htsfile_s"] = time.time() - t0
+    seen = dict(ln.split(":\t", 1) for ln in out.decode().splitlines())
+    require(rc == 0 and all(word in seen.get(p, "")
+                            for p, word in files.items()),
+            f"17e: htsfile said {seen}")
+    cli["htsfile"] = {os.path.basename(p): v for p, v in seen.items()}
+    tsv_rng = np.random.default_rng(171)
+    src, tgt = os.path.join(d, "src.tsv"), os.path.join(d, "tgt.tsv")
+    for p in (src, tgt):
+        with open(p, "w") as fp:
+            fp.write(leg17_tsv(tsv_rng))
+    t0 = time.time()
+    rc, out = _cli(annot_tsv.main, ["-s", src, "-t", tgt, "-a", "cnt"])
+    cli["annot_tsv_s"] = time.time() - t0
+    idx = RegIdx()
+    with open(src) as fp:
+        for ln in fp.read().splitlines()[1:]:
+            c0, b0, e0, name = ln.split("\t")
+            idx.push(c0, int(b0) - 1, int(e0) - 1, name)
+    want = ["#[1]chr\t[2]beg\t[3]end\t[4]name\t[5]cnt"]
+    with open(tgt) as fp:
+        for ln in fp.read().splitlines()[1:]:
+            c0, b0, e0, _ = ln.split("\t")
+            hits = idx.overlap(c0, int(b0) - 1, int(e0) - 1)
+            want.append(f"{ln}\t{len(list(hits))}")
+    require(rc == 0 and out.decode().splitlines() == want,
+            "17e: annot-tsv's counts != RegIdx's overlaps")
+    cli["annot_tsv_hits"] = sum(int(ln.rsplit("\t", 1)[1]) > 0
+                                for ln in want[1:])
+    notes["17e"] = cli
     notes["wall_s"] = time.time() - t_leg
     return notes
 
@@ -4800,6 +5123,103 @@ def leg16_vs_plain(device, l16: dict, launches16: dict) -> dict:
     return out
 
 
+def probes_vs_plain(device, encs, launches):
+    """Phase 6 for the probes' kernels: P1 at the script's shapes (256
+    chains of 4 states, 512 rounds) and P2 in each mode over the first
+    BLOCKS of leg 2's streams at SEG rounds, each against its plain
+    version on the same card tensors; with times.
+    Each ms goes through its wrapper (whose check waits for the card),
+    launch_ms is the kernel launched directly; no single PyTorch call
+    computes either chain, so library_ms is None (P1's row gives the
+    probe's own yardstick, a chain of 512 torch.gather calls, apart; P2's
+    full row B2's decode of the same streams and rounds launched directly,
+    b2_launch_ms, beside the full round it ablates).  Returns their
+    rows."""
+    import torch
+
+    from htslib_tpu_torch import _build
+    from htslib_tpu_torch import probe_pallas_gather as pg
+    from htslib_tpu_torch import probe_rans_ablate as pa
+    from htslib_tpu_torch.ops.rans_nx16 import frame_streams
+    rows = []
+    cum, freqs, packed, x0 = pg.make_inputs()
+    cum, freqs, x0 = (torch.from_numpy(a).to(device) for a in (cum, freqs,
+                                                                x0))
+    packed = torch.from_numpy(packed.view(np.int32)).to(device)
+    got = pg.resolve_cmp_cuda(cum, freqs, x0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = pg.resolve_cmp_plain(cum, freqs, x0)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    require(torch.equal(got, want), "P1 kernel != plain")
+    lib = _build.load("resolve_cmp")
+    out = torch.empty_like(x0)
+
+    def direct():
+        _build.check(lib, lib.resolve_cmp_launch(
+            cum.data_ptr(), freqs.data_ptr(), x0.data_ptr(), out.data_ptr(),
+            pg.G, pg.ROUNDS, _build.stream_handle(cum)), "resolve_cmp")
+
+    n = pg.G * pg.NSTATES
+    # the bounds and frequencies read once, the states in and out; a
+    # lookup: the mask, a search of 256 bounds (8 compares), the shift,
+    # multiply, add and subtract
+    b_ms, b_by = bound_ms(4 * (cum.numel() + freqs.numel() + 2 * n),
+                          13 * n * pg.ROUNDS)
+    rows.append({
+        "name": "resolve_cmp", "route": "cuda",
+        "source": "htslib_tpu_torch/csrc/resolve_cmp.cu",
+        "replaces": "scripts/probe_pallas_gather.py:135",
+        "launches": launches["resolve_cmp"],
+        "max_abs_err": int((got.long() - want.long()).abs().max()),
+        "ms": cuda_ms(lambda: pg.resolve_cmp_cuda(cum, freqs, x0), 20),
+        "launch_ms": cuda_ms(direct, 50), "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "torch_gather_chain_ms": cuda_ms(lambda: pg.gather_chain(packed,
+                                                                 x0), 3),
+        "chains": pg.G, "states": pg.NSTATES, "chain_rounds": pg.ROUNDS,
+        "match": True})
+
+    b = frame_streams(encs[:pa.BLOCKS], device)
+    lanes = pa.BLOCKS * pa.NWAY
+    for mode in pa.MODES:
+        key = pa.launch_key(mode)
+        got = pa.ablate_cuda(b, mode)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = pa.ablate_plain(b, mode)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        # states are u32 bits: compare them as such
+        err = max(int(((g.long() & 0xFFFFFFFF) - (w.long() & 0xFFFFFFFF))
+                      .abs().max()) for g, w in zip(got, want))
+        require(err == 0, f"P2 {mode} kernel != plain")
+        # the words each stream's farthest cursor passed, the tables where
+        # the mode reads them and the states in; the symbols, states and
+        # cursors out
+        words = int(got[2].view(pa.BLOCKS, pa.NWAY).long().max(1)
+                    .values.sum())
+        n_in = 2 * words + 4 * lanes + (4 * b.freqs.numel() if mode in (
+            "full", "no_select", "no_scan") else 0)
+        n_out = 4 * lanes * (pa.SEG + 2)
+        b_ms, b_by = bound_ms(n_in + n_out,
+                              pa.OPS_PER_ROUND[mode] * lanes * pa.SEG)
+        rows.append({
+            "name": key, "route": "cuda",
+            "source": "htslib_tpu_torch/csrc/rans_ablate.cu",
+            "replaces": "scripts/probe_rans_ablate.py:163",
+            "launches": launches[key], "max_abs_err": err,
+            "ms": cuda_ms(lambda: pa.ablate_cuda(b, mode), 5),
+            "launch_ms": cuda_ms(pa.launcher(b, mode), 10),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "streams": pa.BLOCKS,
+            "chain_rounds": pa.SEG, "match": err == 0})
+        if mode == "full":
+            rows[-1]["b2_launch_ms"] = cuda_ms(pa.b2_launcher(b), 10)
+    return rows
+
+
 def torch_sms(device) -> int:
     """The card's SMs."""
     import torch
@@ -5207,6 +5627,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from htslib_tpu_torch import _build
 
+    t_whole = time.time()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -5225,15 +5646,36 @@ def main() -> int:
                     print(f"  {name}: {line.strip()}")
 
     t0 = time.time()
-    batch = leg1_batch()
-    raws, encs = leg2_streams()
-    leg3 = leg3_streams()
-    leg3.update(leg6_streams(raws, leg3))
-    stream = bam_record_stream(batch)
-    bgzf = bgzf_members(stream)
-    varied = varied_bam_stream(N_VARIED)
-    baq = baq_case(N_BAQ)
-    print(f"inputs: {time.time() - t0:.1f} s", flush=True)
+    parts = {}
+
+    def timed(name, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        parts[name] = time.time() - t
+        return out
+
+    def streams(pool):
+        raws, encs = timed("leg2_streams", lambda: leg2_streams(pool=pool))
+        leg3 = timed("leg3_streams", lambda: leg3_streams(pool=pool))
+        leg3.update(timed("leg6_streams", lambda: leg6_streams(
+            raws, leg3, pool=pool)))
+        return raws, encs, leg3
+
+    # the rANS streams encode in one spawned pool, driven from a thread
+    # of their own while this one builds the rest
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx) as pool, \
+            ThreadPoolExecutor(max_workers=1) as side:
+        encoded = side.submit(streams, pool)
+        batch = timed("leg1_batch", leg1_batch)
+        stream = timed("bam_record_stream", bam_record_stream, batch)
+        bgzf = timed("bgzf_members", bgzf_members, stream)
+        varied = timed("varied_bam_stream", varied_bam_stream, N_VARIED)
+        baq = timed("baq_case", baq_case, N_BAQ)
+        raws, encs, leg3 = encoded.result()
+    print(f"inputs: {time.time() - t0:.1f} s, parts (s; leg 2, 3 and 6's "
+          "streams beside the rest) " + json.dumps(parts), flush=True)
 
     _build.reset_launches()
     args, secs, notes = main_path("cuda", batch, raws, encs, leg3, bgzf,
@@ -5262,6 +5704,14 @@ def main() -> int:
                       ("leg15", ["X4", "X5", "nibble_to_base",
                                  "rans4x8_o0_decode", "X1"]),
                       ("leg16", ["X4", "record_scan_seg",
+                                 "nibble_to_base"]),
+                      ("leg17", ["resolve_cmp", "rans_ablate_full",
+                                 "rans_ablate_no_select",
+                                 "rans_ablate_no_resolve",
+                                 "rans_ablate_no_scan",
+                                 "rans_ablate_only_loop",
+                                 "rans_ablate_slice_cost", "X4",
+                                 "rans4x8_o0_decode", "X1", "X5",
                                  "nibble_to_base"])):
         got = dict(notes["launches_" + leg])
         got["X4"] = got.get("inflate", 0) + got.get("inflate_slot", 0)
@@ -5417,6 +5867,17 @@ def main() -> int:
     print("leg 16b/16c (3,000 records: BAM serial and at 3 processes, SAM "
           "serial): " + json.dumps(l16["16b"]), flush=True)
     print("leg 16 check: " + json.dumps(l16["check"]), flush=True)
+    l17 = notes["leg17"]
+    print(f"leg 17 wall (this process): {secs['leg17']:.3f} s; 17a P1 "
+          f"{l17['17a']['lookups_per_s']:.6g} lookups/s through its "
+          "wrapper, warm (B4's leg 5 chain "
+          f"{notes['rans_resolve_lookups_per_s']:.6g}); 17b P2 ns a round "
+          "through its wrapper, warm " + json.dumps(
+              l17["17b"]["ns_a_round_with_call"]), flush=True)
+    print("leg 17c (11a by REF_PATH through the reference cache): "
+          + json.dumps(l17["17c"]) + "; 17d (cram_file_to_bam_stream): "
+          + json.dumps(l17["17d"]), flush=True)
+    print("leg 17e (the CLI): " + json.dumps(l17["17e"]), flush=True)
     print("launches by leg: " + json.dumps({k: v for k, v in notes.items()
                                             if k.startswith("launches_")}),
           flush=True)
@@ -5471,6 +5932,13 @@ def main() -> int:
             row["launches_leg16"] = at16[row["name"]]["launches"]
     print(f"phase 6, leg 16's shapes (B1, X4, X5): {time.time() - t0:.1f} "
           "s", flush=True)
+    t0 = time.time()
+    rows += probes_vs_plain(args[1].device, encs, launches)
+    for row in rows:
+        if row["name"] == "inflate":
+            row["launches_leg17"] = sum(notes["launches_leg17"].get(k, 0)
+                                        for k in ("inflate", "inflate_slot"))
+    print(f"phase 6, P1 and P2: {time.time() - t0:.1f} s", flush=True)
     # the figure the chain-bound kernels are designed against
     for row in rows:
         if "chain_rounds" in row:
@@ -5481,6 +5949,7 @@ def main() -> int:
     print(f"leg 2 host side: {secs['leg2'] - kern_s:.4f} s of "
           f"{secs['leg2']:.4f} s (kernels B3 + B2 {kern_s * 1e3:.3f} ms)",
           flush=True)
+    print(f"whole: {time.time() - t_whole:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,10 @@ LAUNCHES: Dict[str, int] = {
     "rans_nx16_4way_o1_large_decode": 0, "rans_nx16_o1_large_decode": 0,
     "inflate": 0, "inflate_slot": 0,
     "record_scan": 0, "record_scan_seg": 0, "probaln": 0,
-    "probaln_warp": 0}
+    "probaln_warp": 0, "resolve_cmp": 0, "rans_ablate_full": 0,
+    "rans_ablate_no_select": 0, "rans_ablate_no_resolve": 0,
+    "rans_ablate_no_scan": 0, "rans_ablate_only_loop": 0,
+    "rans_ablate_slice_cost": 0}
 # where a list: each launch of the kernels whose wrappers record their
 # shapes (ops/rans4x8.py, ops/bam2sam.py, ops/inflate.py) appends
 # (launch key, ...its shape), so a run can reckon launches that no
@@ -125,11 +128,19 @@ _SIGNATURES = {
         "record_scan_window_bytes": [],
     },
     "probaln": {
-        "probaln_launch": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+        "probaln_launch": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
         + [ctypes.c_double] * 2 + [ctypes.c_int, ctypes.c_void_p],
-        "probaln_warp_launch": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+        "probaln_warp_launch": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3
         + [ctypes.c_double] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         "probaln_warp_j_max": [],
+    },
+    "resolve_cmp": {
+        "resolve_cmp_launch": [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    },
+    "rans_ablate": {
+        "rans_ablate_launch": [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     },
 }
 # flags of one source beyond NVCC_FLAGS: X6 must not contract a * b + c

@@ -4,15 +4,18 @@ htslib_tpu/bgzf.py (reference bgzf.c, htslib/bgzf.h).
 A BGZF file is a run of gzip members, each one raw DEFLATE stream of at
 most 64 KiB of data with its compressed size in a "BC" extra subfield
 (bgzf.c:70-90), and an empty member at the end (BGZF_EOF).  This module
-writes members (`compress_block`, `bgzf_member`, `BgzfWriter`), walks
-their sizes (`scan_blocks`), reads BGZF, plain gzip or uncompressed input
-as a stream with virtual offsets (`BgzfReader`, zlib on the host), maps
-uncompressed offsets to members through a `.gzi` index (`GziIndex`,
-`BgzfReader.useek`, `BgzfWriter.save_index`), and inflates the members
-that cover a range of a file's uncompressed stream on the device
-(`inflate_range`: ops/inflate.py, kernel X4 on the card).  A file is a
-name that hfile.py `hopen` opens (a local path, `-`, or a URL such as
-http://, s3:// or an htsget ticket) or a binary file object.
+writes members (`compress_block`, `bgzf_member`, `deflate_blocks`,
+`BgzfWriter`), walks their sizes (`scan_blocks`), reads BGZF, plain gzip
+or uncompressed input as a stream with virtual offsets (`BgzfReader`,
+zlib on the host), maps uncompressed offsets to members through a `.gzi`
+index (`GziIndex`, `BgzfReader.useek`, `BgzfWriter.save_index`), and
+inflates members on the device (ops/inflate.py, kernel X4 on the card):
+those that cover a range of a file's uncompressed stream
+(`inflate_range`), or every member of a byte range (`inflate_blocks`).
+`BGZFReader` and `BGZFWriter` are the JAX package's names for the reader
+and writer.  A file is a name that hfile.py `hopen` opens (a local path,
+`-`, or a URL such as http://, s3:// or an htsget ticket) or a binary
+file object.
 """
 from __future__ import annotations
 
@@ -64,6 +67,18 @@ def compress_block(data: bytes, level: int = -1) -> bytes:
     bgzf.c:561-720); level -1 is zlib's 6, level 0 stored blocks."""
     co = zlib.compressobj(6 if level == -1 else level, zlib.DEFLATED, -15)
     return bgzf_member(co.compress(data) + co.flush(), data)
+
+
+# the JAX package's name for its pure-Python member writer, whose bytes
+# compress_block's are (the port has no native deflate)
+_compress_block_py = compress_block
+
+
+def deflate_blocks(chunks: List[bytes], level: int = -1) -> List[bytes]:
+    """N independent chunks as N BGZF members (the batch form of the MT
+    write queue, bgzf.c:1852), deflated on the host by zlib: the JAX
+    package's bytes where it has no native library."""
+    return [compress_block(c, level) for c in chunks]
 
 
 def parse_block_header(hdr: bytes) -> int:
@@ -168,6 +183,35 @@ def check_member(raw: np.ndarray, coffset: int, csize: int,
         raise IOError("BGZF ISIZE mismatch")
     if zlib.crc32(data) & 0xFFFFFFFF != crc:
         raise IOError("BGZF CRC32 mismatch")
+
+
+def inflate_blocks(data: Union[bytes, memoryview, np.ndarray],
+                   table: Optional[BlockTable] = None, base_offset: int = 0,
+                   verify_crc: bool = True, device="cuda"
+                   ) -> Tuple[np.ndarray, BlockTable]:
+    """A whole BGZF byte range inflated to one contiguous uint8 array
+    (the batch form of looping bgzf_read_block, bgzf.c:1004).  `table`
+    (from `scan_blocks`, offsets counted from `base_offset`) is scanned
+    when not given.  Every member is inflated in one `inflate_batch` call
+    on `device` (kernel X4 on the card, its plain version on the CPU);
+    each ISIZE is checked, and with `verify_crc` each CRC32 too, on the
+    host.  Returns (uncompressed bytes, block table)."""
+    dev = _build.resolve_device(device)
+    buf = (data if isinstance(data, np.ndarray)
+           else np.frombuffer(data, np.uint8))
+    if table is None:
+        table = scan_blocks(buf, base_offset)
+    co = table.coffsets.astype(np.int64) - base_offset
+    pieces = inflate_batch([member_payload(buf, o, s)
+                            for o, s in zip(co, table.csizes)],
+                           [int(u) for u in table.usizes], device=dev)
+    for o, s, u, piece in zip(co, table.csizes, table.usizes, pieces):
+        if verify_crc:
+            check_member(buf, int(o), int(s), piece)
+        elif len(piece) != int(u):
+            raise IOError("BGZF ISIZE mismatch")
+    out = np.frombuffer(b"".join(pieces), np.uint8)
+    return out, table
 
 
 def inflate_range(src: Union[str, np.ndarray], coffsets: np.ndarray,
@@ -693,3 +737,8 @@ def bgzf_open(fname: str, mode: str = "r") -> Union[BgzfReader, BgzfWriter]:
         if ch == "u":
             compress = False
     return BgzfWriter(fname, level=level, compress=compress)
+
+
+# the JAX package's names for the streaming reader and writer
+BGZFReader = BgzfReader
+BGZFWriter = BgzfWriter

@@ -22,6 +22,9 @@ two batchable stages to the device:
      records, are formatted by one call of ops/bam2sam.py
      `bam_payload_to_sam_device` (X5, B1 and the torch line assembly).
 
+`iter_slice_blobs` and `cram_file_to_bam_stream` stop after the record
+decode: they give the slices' u32-framed BAM records, not formatted.
+
 Slices are decoded in file order in the calling thread: the record
 decode is Python under the GIL, which the JAX package's pipeline
 threads do not speed up.  With `device="cpu"` the kernels' plain
@@ -155,6 +158,61 @@ def decode_blocks(blocks: List[CramBlock], device="cuda",
                    if b.content_type in (CT_CORE, CT_EXTERNAL))
 
 
+def _decoded_slices(r: CramReader, jobs: Iterator[SliceJob], window: int,
+                    decode_md: bool, dev, parts: Dict, wires: Counter
+                    ) -> Iterator[bytes]:
+    """Each slice of `jobs` as its u32-framed BAM record blob, in file
+    order: blocks go to the device `window` slices at a time
+    (`decode_blocks`), records are decoded on the host.  `parts` gets
+    device_blocks_s, host_blocks_s, record_decode_s and slices added,
+    `wires` the blocks by wire."""
+    while True:
+        batch = list(islice(jobs, max(window, 1)))
+        if not batch:
+            return
+        wires += decode_blocks([b for _, _, bl in batch for b in bl], dev,
+                               parts)
+        t0 = _build.clock(dev)
+        blobs = [decode_slice_blob(chdr, sh, blocks, r.header, r.refs.get,
+                                   r.version[0], decode_md=decode_md)
+                 for chdr, sh, blocks in batch]
+        parts["record_decode_s"] = (parts.get("record_decode_s", 0.0)
+                                    + _build.clock(dev) - t0)
+        parts["slices"] = parts.get("slices", 0) + len(batch)
+        yield from blobs
+
+
+def iter_slice_blobs(r: CramReader, window: int = 8,
+                     decode_md: Optional[bool] = None, device="cuda",
+                     timing: Optional[dict] = None) -> Iterator[bytes]:
+    """Each slice of an open reader, from its position on, as its
+    u32-framed BAM record blob in file order (the JAX package's
+    decode-ahead slice pipeline): the blocks of `window` slices at a time
+    decoded on `device` (`decode_blocks`), the records on the host.
+    `timing`, where given, gets the stages' seconds, slices and blocks by
+    wire."""
+    dev = _build.resolve_device(device)
+    md = r.decode_md if decode_md is None else decode_md
+    parts: Dict = {} if timing is None else timing
+    wires: Counter = Counter()
+    yield from _decoded_slices(r, _slice_jobs(r), window, md, dev, parts,
+                               wires)
+    parts["wires"] = dict(wires)
+
+
+def cram_file_to_bam_stream(path: str, ref: Optional[str] = None,
+                            decode_md: bool = True, window: int = 8,
+                            device="cuda", timing: Optional[dict] = None
+                            ) -> Tuple[SamHeader, bytes]:
+    """CRAM file -> u32-framed BAM record stream (the batch form of
+    cram_to_bam): every slice through `iter_slice_blobs` on `device`, the
+    blobs joined.  Returns (header, stream); the records are not
+    formatted."""
+    with CramReader(path, ref=ref, decode_md=decode_md) as r:
+        return r.header, b"".join(iter_slice_blobs(
+            r, window=window, device=device, timing=timing))
+
+
 def cram_file_to_sam(path: str, ref: Optional[str] = None,
                      decode_md: bool = True, window: int = 8,
                      device="cuda", timing: Optional[dict] = None,
@@ -184,27 +242,13 @@ def cram_range_to_sam(path: str, offset: Optional[int],
     dev = _build.resolve_device(device)
     parts: Dict = {} if timing is None else timing
     wires: Counter = Counter()
-    blobs: List[bytes] = []
     with CramReader(path, ref=ref, decode_md=decode_md) as r:
         hdr = r.header
         if offset is not None:
             r.fp.seek(offset)
-        jobs = _slice_jobs(r, end_offset)
-        while True:
-            batch = list(islice(jobs, max(window, 1)))
-            if not batch:
-                break
-            wires += decode_blocks([b for _, _, bl in batch for b in bl],
-                                   dev, parts)
-            t0 = _build.clock(dev)
-            for chdr, sh, blocks in batch:
-                blobs.append(decode_slice_blob(chdr, sh, blocks, hdr,
-                                               r.refs.get, r.version[0],
-                                               decode_md=decode_md))
-            parts["record_decode_s"] = (parts.get("record_decode_s", 0.0)
-                                        + _build.clock(dev) - t0)
-            parts["slices"] = parts.get("slices", 0) + len(batch)
-    payload = b"".join(blobs)
+        payload = b"".join(_decoded_slices(r, _slice_jobs(r, end_offset),
+                                           window, decode_md, dev, parts,
+                                           wires))
     t0 = _build.clock(dev)
     fmt: Dict = {}
     text = bam_payload_to_sam_device(payload, hdr, device=dev, timing=fmt)

@@ -44,8 +44,8 @@ __global__ void __launch_bounds__(kThreads)
                    const int32_t* bw, const int32_t* order,
                    const int64_t* warp_off, const int32_t* warp_j,
                    const int32_t* warp_q, T* scratch, int32_t* pr,
-                   int32_t* state, uint8_t* q, int32_t B, int32_t R,
-                   int32_t Q, double d, double e) {
+                   int32_t* state, uint8_t* q, uint8_t* flag, int32_t B,
+                   int32_t R, int32_t Q, double d, double e) {
   const int32_t t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= B) return;
   const int32_t b = order[t], w = t / 32, lane = t % 32;
@@ -66,7 +66,8 @@ __global__ void __launch_bounds__(kThreads)
   r.bw = bw[b];
   r.d = d;
   r.e = e;
-  pr[b] = probaln_read<T>(r, s, state + (int64_t)b * Q, q + (int64_t)b * Q);
+  pr[b] = probaln_read<T>(r, s, state + (int64_t)b * Q, q + (int64_t)b * Q,
+                          flag ? flag + (int64_t)b * Q : nullptr);
 }
 
 // One read a warp: read order[blockIdx.x], its scratch
@@ -78,8 +79,9 @@ __global__ void __launch_bounds__(32)
                         const uint8_t* query, const int32_t* qlen,
                         const T* qprob, const int32_t* bw,
                         const int32_t* order, const int64_t* off, T* scratch,
-                        int32_t* pr, int32_t* state, uint8_t* q, int32_t R,
-                        int32_t Q, double d, double e) {
+                        int32_t* pr, int32_t* state, uint8_t* q,
+                        uint8_t* flag, int32_t R, int32_t Q, double d,
+                        double e) {
   extern __shared__ __align__(16) unsigned char pb_smem[];
   const int32_t b = order[blockIdx.x];
   PbRead<T> r;
@@ -101,7 +103,8 @@ __global__ void __launch_bounds__(32)
   s.lg = s.ss + r.lq;
   s.x = reinterpret_cast<T*>(pb_smem);
   const int32_t p =
-      probaln_read_warp<T>(r, s, state + (int64_t)b * Q, q + (int64_t)b * Q);
+      probaln_read_warp<T>(r, s, state + (int64_t)b * Q, q + (int64_t)b * Q,
+                           flag ? flag + (int64_t)b * Q : nullptr);
   if (threadIdx.x == 0) pr[b] = p;
 }
 
@@ -110,15 +113,17 @@ __global__ void __launch_bounds__(32)
 // The short reads: B reads order[0..B) of the batch, a thread each; per
 // warp w of them, scratch elements at warp_off[w]: (2 * warp_q[w] + 8) *
 // warp_j[w] * 32 + warp_q[w] * 32.  Each read b's pr[b], and state and q
-// (rows of Q) for its first qlen entries, are written.  dbl: T is double
-// (else float).  Returns cudaGetLastError().
+// (rows of Q) for its first qlen entries, are written, and where `flag` is
+// not NULL its row of pb_map's flags.  dbl: T is double (else float).
+// Returns cudaGetLastError().
 extern "C" int probaln_launch(const void* ref, const void* rlen,
                               const void* query, const void* qlen,
                               const void* qprob, const void* bw,
                               const void* order, const void* warp_off,
                               const void* warp_j, const void* warp_q,
                               void* scratch, void* pr, void* state, void* q,
-                              int B, int R, int Q, double d, double e,
+                              void* flag, int B, int R, int Q, double d,
+                              double e,
                               int dbl, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -132,7 +137,7 @@ extern "C" int probaln_launch(const void* ref, const void* rlen,
       static_cast<const int32_t*>(warp_j),                                 \
       static_cast<const int32_t*>(warp_q), static_cast<T*>(scratch),       \
       static_cast<int32_t*>(pr), static_cast<int32_t*>(state),             \
-      static_cast<uint8_t*>(q), B, R, Q, d, e
+      static_cast<uint8_t*>(q), static_cast<uint8_t*>(flag), B, R, Q, d, e
   if (dbl)
     probaln_kernel<double><<<grid, kThreads, 0, st>>>(PB_ARGS(double));
   else
@@ -151,8 +156,8 @@ extern "C" int probaln_warp_launch(const void* ref, const void* rlen,
                                    const void* qprob, const void* bw,
                                    const void* order, const void* off,
                                    void* scratch, void* pr, void* state,
-                                   void* q, int n, int R, int Q, double d,
-                                   double e, int jmax, int dbl,
+                                   void* q, void* flag, int n, int R, int Q,
+                                   double d, double e, int jmax, int dbl,
                                    void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -164,7 +169,8 @@ extern "C" int probaln_warp_launch(const void* ref, const void* rlen,
       static_cast<const T*>(qprob), static_cast<const int32_t*>(bw),       \
       static_cast<const int32_t*>(order), static_cast<const int64_t*>(off), \
       static_cast<T*>(scratch), static_cast<int32_t*>(pr),                 \
-      static_cast<int32_t*>(state), static_cast<uint8_t*>(q), R, Q, d, e
+      static_cast<int32_t*>(state), static_cast<uint8_t*>(q),             \
+      static_cast<uint8_t*>(flag), R, Q, d, e
   if (dbl)
     probaln_warp_kernel<double><<<n, 32, smem, st>>>(PB_WARGS(double));
   else

@@ -117,11 +117,15 @@ PB_HD PbTerms<T> pb_terms(int32_t lr, int32_t lq, double d, double e) {
 
 // The MAP of row i from its forward (fM, fI) and backward (bM, bI) cells
 // and s_i: the state ((k - 1) << 2 | I?) of the largest product and the
-// quality of the mass off it.  Writes state[i - 1] and q[i - 1].
+// quality of the mass off it.  Writes state[i - 1] and q[i - 1], and
+// where `flag` is given flag[i - 1]: 2 where the row's sum is 0 and 1
+// where the largest product over the sum is 1, the rows on which the
+// scalar's mx / sum (a division by zero) or its log(1 - mx / sum) (a log
+// of 0) fails (probaln.c:255-258), else 0.
 template <typename T>
 PB_HD void pb_map(const T* fM, const T* fI, const T* bM, const T* bI,
                   int64_t cell, int32_t J, int32_t x, T s_i, int32_t* state,
-                  uint8_t* q, int32_t i) {
+                  uint8_t* q, int32_t i, uint8_t* flag = nullptr) {
   const T minv = T(1) / s_i;
   T ssum = T(0), mx = T(0);
   int32_t arg = 0;
@@ -151,12 +155,16 @@ PB_HD void pb_map(const T* fM, const T* fI, const T* bM, const T* bI,
       (int32_t)(T(-4.343) * pb_log(pb_max(frac, (T)1e-30)) + T(0.499));
   state[i - 1] = ((x + arg / 2 - 1 - 1) << 2) | (arg & 1);
   q[i - 1] = (uint8_t)(kk > 100 ? 99 : kk);
+  if (flag)
+    flag[i - 1] = ssum == T(0) ? 2 : (mx / ssum == T(1) ? 1 : 0);
 }
 
-// The whole read.  Returns Pr; writes state[0..lq) and q[0..lq).
+// The whole read.  Returns Pr; writes state[0..lq) and q[0..lq), and
+// with `flag` pb_map's flag[0..lq).
 template <typename T>
 PB_HD int32_t probaln_read(const PbRead<T>& r, const PbScratch<T>& s,
-                           int32_t* state, uint8_t* q) {
+                           int32_t* state, uint8_t* q,
+                           uint8_t* flag = nullptr) {
   const int32_t lr = r.lr, lq = r.lq, bw = r.bw, J = 2 * bw + 2;
   const int64_t cell = s.cell;
   const PbTerms<T> t = pb_terms<T>(lr, lq, r.d, r.e);
@@ -253,7 +261,8 @@ PB_HD int32_t probaln_read(const PbRead<T>& r, const PbScratch<T>& s,
       cI[j * cell] = act ? a1 : T(0);
       cD[j * cell] = T(0);
     }
-    pb_map<T>(lM, lI, cM, cI, cell, J, pb_x(lq, bw), s_lq, state, q, lq);
+    pb_map<T>(lM, lI, cM, cI, cell, J, pb_x(lq, bw), s_lq, state, q, lq,
+              flag);
   }
   for (int32_t i = lq - 1; i >= 1; --i) {
     const int32_t x = pb_x(i, bw), sh = pb_x(i + 1, bw) - x;
@@ -285,7 +294,7 @@ PB_HD int32_t probaln_read(const PbRead<T>& r, const PbScratch<T>& s,
       dnext = dj;
     }
     pb_map<T>(s.fM + (int64_t)(i - 1) * s.row, s.fI + (int64_t)(i - 1) * s.row,
-              cM, cI, cell, J, x, s_i, state, q, i);
+              cM, cI, cell, J, x, s_i, state, q, i, flag);
   }
   return pr;
 }
@@ -361,10 +370,11 @@ struct PbWarpScratch {
 };
 
 // The whole read, as probaln_read.  Returns Pr (on the card, on lane 0);
-// writes state[0..lq) and q[0..lq).
+// writes state[0..lq) and q[0..lq), and with `flag` pb_map's flag[0..lq).
 template <typename T>
 PB_HD int32_t probaln_read_warp(const PbRead<T>& r, const PbWarpScratch<T>& s,
-                                int32_t* state, uint8_t* q) {
+                                int32_t* state, uint8_t* q,
+                                uint8_t* flag = nullptr) {
   const int32_t lr = r.lr, lq = r.lq, bw = r.bw, J = 2 * bw + 2;
   const int32_t Jp = pb_xstride(J);
   const PbTerms<T> t = pb_terms<T>(lr, lq, r.d, r.e);
@@ -550,7 +560,7 @@ PB_HD int32_t probaln_read_warp(const PbRead<T>& r, const PbWarpScratch<T>& s,
   PB_LANES(for (int32_t i = 1 + lane; i <= lq; i += PB_WARP) {
     const int64_t o = (int64_t)(i - 1) * J;
     pb_map<T>(s.fM + o, s.fI + o, s.bM + o, s.bI + o, 1, J, pb_x(i, bw),
-              s.ss[i - 1], state, q, i);
+              s.ss[i - 1], state, q, i, flag);
   });
   return pr;
 }

@@ -69,7 +69,7 @@ def _shift_left(a):
 
 
 def probaln_plain(ref, rlen, query, qlen, qprob, bw, J: int, d=0.001,
-                  e=0.1):
+                  e=0.1, flag: Optional[torch.Tensor] = None):
     """Plain PyTorch version of kernel X6: the JAX scans as torch ops over
     [B, J] rows, the band sums and chains cell by cell from cell 0 (the
     kernel's and XLA's order).  Same arguments and results as
@@ -237,6 +237,12 @@ def probaln_plain(ref, rlen, query, qlen, qprob, bw, J: int, d=0.001,
         live = i <= lq
         states[:, i - 1] = torch.where(live, state, 0)
         qs[:, i - 1] = torch.where(live, qv, 0).to(torch.uint8)
+        # where the JAX scalar's MAP fails (pb_map)
+        if flag is not None:
+            mx = torch.gather(z2, 1, arg[:, None])[:, 0]
+            one = mx / torch.where(ssum == 0, 1.0, ssum) == 1.0
+            flag[:, i - 1] = torch.where(live, torch.where(
+                ssum == 0, 2, one.to(torch.uint8)), 0).to(torch.uint8)
         bM_n, bI_n = bM_row, bI_row
     return pr, states, qs
 
@@ -283,7 +289,8 @@ def _long_layout(qlen, bw, sel):
 
 
 def probaln_cuda(ref, rlen, query, qlen, qprob, bw, J: int, d=0.001,
-                 e=0.1, layout: Optional[dict] = None):
+                 e=0.1, layout: Optional[dict] = None,
+                 flag: Optional[torch.Tensor] = None):
     """Kernel X6 over the batch: the reads `split_reads` picks in one
     launch of a warp a read, the others in one launch of a thread a read;
     same results as `probaln_plain`.  `layout`, where given, gets the
@@ -296,13 +303,17 @@ def probaln_cuda(ref, rlen, query, qlen, qprob, bw, J: int, d=0.001,
     req(qprob, qprob.dtype, "qprob")
     for t, name in ((rlen, "rlen"), (qlen, "qlen"), (bw, "bw")):
         req(t, torch.int32, name, (B,))
+    if flag is not None:
+        req(flag, torch.uint8, "flag", tuple(query.shape))
     j_max = _build.load("probaln").probaln_warp_j_max()
     warp = split_reads(qlen, bw, j_max)
-    return launch(ref, rlen, query, qlen, qprob, bw, d, e, warp, layout)
+    return launch(ref, rlen, query, qlen, qprob, bw, d, e, warp, layout,
+                  flag)
 
 
 def launch(ref, rlen, query, qlen, qprob, bw, d, e, warp,
-           layout: Optional[dict] = None):
+           layout: Optional[dict] = None,
+           flag: Optional[torch.Tensor] = None):
     """The launches of `probaln_cuda` on checked tensors, with the split
     given: the reads of the bool mask `warp` (each band at most
     `probaln_warp_j_max` cells) a warp each, the others a thread each."""
@@ -316,6 +327,7 @@ def launch(ref, rlen, query, qlen, qprob, bw, d, e, warp,
     state = torch.zeros((B, Q), dtype=torch.int32, device=dev)
     q = torch.zeros((B, Q), dtype=torch.uint8, device=dev)
     dbl = int(qprob.dtype == torch.float64)
+    flag_ptr = None if flag is None else flag.data_ptr()
     common = (ref.data_ptr(), rlen.data_ptr(), query.data_ptr(),
               qlen.data_ptr(), qprob.data_ptr(), bw.data_ptr())
     stream = _build.stream_handle(ref)
@@ -326,8 +338,8 @@ def launch(ref, rlen, query, qlen, qprob, bw, d, e, warp,
         rc = lib.probaln_launch(
             *common, order.data_ptr(), woff.data_ptr(), wj.data_ptr(),
             wq.data_ptr(), scratch.data_ptr(), pr.data_ptr(),
-            state.data_ptr(), q.data_ptr(), len(sel_t), R, Q, float(d),
-            float(e), dbl, stream)
+            state.data_ptr(), q.data_ptr(), flag_ptr, len(sel_t), R, Q,
+            float(d), float(e), dbl, stream)
         _build.check(lib, rc, "probaln")
         _build.LAUNCHES["probaln"] += 1
     if len(sel_w):
@@ -336,8 +348,8 @@ def launch(ref, rlen, query, qlen, qprob, bw, d, e, warp,
                               device=dev)
         rc = lib.probaln_warp_launch(
             *common, order.data_ptr(), off.data_ptr(), scratch.data_ptr(),
-            pr.data_ptr(), state.data_ptr(), q.data_ptr(), len(sel_w), R, Q,
-            float(d), float(e), jmax, dbl, stream)
+            pr.data_ptr(), state.data_ptr(), q.data_ptr(), flag_ptr,
+            len(sel_w), R, Q, float(d), float(e), jmax, dbl, stream)
         _build.check(lib, rc, "probaln_warp")
         _build.LAUNCHES["probaln_warp"] += 1
     if layout is not None:
@@ -346,7 +358,7 @@ def launch(ref, rlen, query, qlen, qprob, bw, d, e, warp,
 
 
 def probaln_batch(ref, rlen, query, qlen, qprob, bw, J: int, d=0.001,
-                  e=0.1):
+                  e=0.1, flag: Optional[torch.Tensor] = None):
     """Forward/backward/MAP over a padded batch.
 
     ref:   [B, R] uint8 translated bases (0..3, >=4 ambiguous)
@@ -357,14 +369,21 @@ def probaln_batch(ref, rlen, query, qlen, qprob, bw, J: int, d=0.001,
     bw:    [B] int32 per-read band width (already max'd with |lr-lq|)
     J:     band cell count, >= 2*max(bw)+2
 
+    flag:  where given, [B, Q] uint8 on the batch's device, gets each
+           base's 2 where its MAP row sums to 0 and 1 where the largest
+           product over the row's sum is 1 (where the JAX scalar's
+           division or log(1 - mx) fails), else 0; entries past qlen are
+           left as they are
+
     Returns (Pr [B] int32, state [B, Q] int32, q [B, Q] uint8); entries
     past qlen are zero.  Kernel X6 for tensors on the card, the plain
     version for tensors on the CPU."""
     if ref.is_cuda:
-        return probaln_cuda(ref, rlen, query, qlen, qprob, bw, J, d, e)
+        return probaln_cuda(ref, rlen, query, qlen, qprob, bw, J, d, e,
+                            flag=flag)
     if ref.device.type != "cpu":
         raise ValueError(f"unsupported device {ref.device}")
-    return probaln_plain(ref, rlen, query, qlen, qprob, bw, J, d, e)
+    return probaln_plain(ref, rlen, query, qlen, qprob, bw, J, d, e, flag)
 
 
 def pad_batch(refs, queries, iquals, bw_param=10, dtype=np.float64,

@@ -7,20 +7,24 @@ record bookkeeping around the HMM (`_realn_setup` :216, `_realn_apply`
 :363) and `sam_prob_realn_batch` (:325), whose HMM runs for the whole
 batch through ops/probaln.probaln_batch (kernel X6 on the card).  The
 setup and apply stay per record on the host, as in the JAX design.
-`sam_prob_realn` is a batch of one through the same op; the port keeps
-no scalar HMM to fall back to.
+`sam_prob_realn` and `probaln_glocal` are batches of one through the
+same op; the port keeps no scalar HMM to fall back to.  `sam_cap_mapq`
+runs on the host, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import math
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from htslib_tpu_torch import _build
-from htslib_tpu_torch.ops.probaln import probaln_arrays
+from htslib_tpu_torch.ops.probaln import (pad_batch, probaln_arrays,
+                                          probaln_batch)
 from htslib_tpu_torch.sam.cigar import (BAM_CDEL, BAM_CDIFF, BAM_CEQUAL,
-                                        BAM_CINS, BAM_CMATCH, BAM_CREF_SKIP,
-                                        BAM_CSOFT_CLIP)
+                                        BAM_CHARD_CLIP, BAM_CINS, BAM_CMATCH,
+                                        BAM_CREF_SKIP, BAM_CSOFT_CLIP)
 from htslib_tpu_torch.sam.record import FUNMAP, BamRecord, _NT16_TABLE
 
 BAQ_APPLY = 1
@@ -38,6 +42,37 @@ class ProbalnParams:
         self.d = d
         self.e = e
         self.bw = bw
+
+
+def probaln_glocal(ref: bytes, query: bytes, iqual: Optional[bytes],
+                   c: ProbalnParams, want_map: bool = True, device="cuda"
+                   ) -> Tuple[int, Optional[List[int]], Optional[bytes]]:
+    """probaln_glocal (probaln.c:77) of one read: a batch of one through
+    ops/probaln (kernel X6 on the card).  ref and query are 0..4 codes, a
+    missing iqual reads as phred 30.  Returns (Pr, MAP states, MAP
+    qualities), the last two None when `want_map` is False, and (0, None,
+    None) for an empty ref or query, as the JAX scalar does.  Where the
+    JAX scalar fails at a base's MAP (only with `want_map`), this raises
+    as it does: ZeroDivisionError where the base's row sums to 0,
+    ValueError (its log(0)) where the largest product over the sum is 1
+    (the op's `flag`, probaln.c:255-258)."""
+    if not ref or not query:
+        return 0, None, None
+    dev = _build.resolve_device(device)
+    arrays, J = pad_batch([ref], [query], [iqual], c.bw, np.float64, [c.bw])
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    flag = torch.zeros(args[2].shape, dtype=torch.uint8, device=dev)
+    pr, state, q = (t[0].cpu().numpy() for t in probaln_batch(
+        *args, J, d=c.d, e=c.e, flag=flag))
+    if not want_map:    # the scalar returns before its MAP
+        return int(pr), None, None
+    bad = np.flatnonzero(flag[0].cpu().numpy())
+    if len(bad):
+        if flag[0, bad[0]] == 2:
+            raise ZeroDivisionError("float division by zero")
+        raise ValueError("math domain error")
+    n = len(query)
+    return int(pr), state[:n].tolist(), q[:n].tobytes()
 
 
 def ref_codes(ref: str) -> np.ndarray:
@@ -265,3 +300,63 @@ def _realn_apply(b: BamRecord, qual, xb: int, state, q, flag: int) -> int:
     else:
         b.set_aux("BQ", "Z", bq_bytes)
     return 0
+
+
+def sam_cap_mapq(b: BamRecord, ref: str, thres: int = 40) -> int:
+    """sam_cap_mapq (realn.c:39) on the host, as in the JAX package: the
+    MAPQ cap from the read's high-quality mismatches and clips, or -1
+    where none applies."""
+    if thres < 0:
+        thres = 40
+    ref_len = len(ref)
+    qual = b.qual
+    packed = np.frombuffer(b.seq4, np.uint8)
+    nib = np.empty(b.l_qseq, np.uint8)
+    nib[0::2] = packed[:(b.l_qseq + 1) // 2] >> 4
+    nib[1::2] = packed[:b.l_qseq // 2] & 0xF
+    mm = q = length = clip_q = 0
+    x, y = b.pos, 0
+    for op_l in b.cigar:
+        op, ln = int(op_l) & 0xF, int(op_l) >> 4
+        if op in _MATCH:
+            j = 0
+            while j < ln:
+                z = y + j
+                if x + j >= ref_len:
+                    break
+                c1 = int(nib[z])
+                c2 = int(_NT16_TABLE[ord(ref[x + j])])
+                if c2 != 15 and c1 != 15 and qual[z] >= 13:
+                    length += 1
+                    if c1 and c1 != c2 and qual[z] >= 13:
+                        mm += 1
+                        q += min(qual[z], 33)
+                j += 1
+            if j < ln:
+                break
+            x += ln
+            y += ln
+            length += ln
+        elif op == BAM_CDEL:
+            if x + ln > ref_len:
+                break
+            x += ln
+        elif op == BAM_CSOFT_CLIP:
+            clip_q += sum(qual[y:y + ln])
+            y += ln
+        elif op == BAM_CHARD_CLIP:
+            clip_q += 13 * ln
+        elif op == BAM_CINS:
+            y += ln
+        elif op == BAM_CREF_SKIP:
+            x += ln
+    t = 1.0
+    for i in range(mm):
+        t *= length / (i + 1)
+    t = q - 4.343 * math.log(t) + clip_q / 5.0
+    if t > thres:
+        return -1
+    if t < 0:
+        t = 0
+    t = math.sqrt((thres - t) / thres) * thres
+    return int(t + 0.499)

@@ -1,6 +1,5 @@
-"""CIGAR constants, text and lengths (the port's copy of the part of
-htslib_tpu/sam/cigar.py that the record, the CRAM codecs and the SAM
-text parser need; reference htslib/sam.h:65-134)."""
+"""CIGAR constants, helpers, text and lengths (the port's copy of
+htslib_tpu/sam/cigar.py; reference htslib/sam.h:65-134)."""
 from __future__ import annotations
 
 import numpy as np
@@ -17,6 +16,7 @@ BAM_CDIFF = 8
 BAM_CBACK = 9
 
 BAM_CIGAR_STR = "MIDNSHP=XB"
+CIGAR_OPS = BAM_CIGAR_STR
 BAM_CIGAR_SHIFT = 4
 BAM_CIGAR_MASK = 0xF
 
@@ -29,8 +29,26 @@ _CONSUME_Q = tuple((BAM_CIGAR_TYPE >> (op * 2)) & 1 for op in range(16))
 _CONSUME_R = tuple((BAM_CIGAR_TYPE >> (op * 2 + 1)) & 1 for op in range(16))
 
 
+def cigar_op(c: int) -> int:
+    return c & BAM_CIGAR_MASK
+
+
+def cigar_oplen(c: int) -> int:
+    return c >> BAM_CIGAR_SHIFT
+
+
+def cigar_opchr(c: int) -> str:
+    return BAM_CIGAR_STR[c & BAM_CIGAR_MASK]
+
+
 def cigar_gen(length: int, op: int) -> int:
     return (length << BAM_CIGAR_SHIFT) | op
+
+
+def cigar_type(op: int) -> int:
+    """bam_cigar_type: bit 1 the op consumes the query, bit 2 the
+    reference."""
+    return (BAM_CIGAR_TYPE >> (op * 2)) & 3
 
 
 def parse_cigar(text: str) -> np.ndarray:

@@ -1,7 +1,7 @@
-"""The SAM header: its text, its parsed lines and the references' names
-and lengths (the port's copy of the part of htslib_tpu/sam/header.py
-that the BAM and CRAM containers read; reference header.c,
-htslib/sam.h:483-843).
+"""The SAM header: its text, its parsed lines, the references' names
+and lengths, and htslib's header-editing API (`add_line`, `update_line`,
+`remove_line_id`, `add_pg` and the rest; the port's copy of
+htslib_tpu/sam/header.py; reference header.c, htslib/sam.h:483-843).
 
 The text is kept verbatim until a line is changed (`_dirty`), then
 rebuilt from the lines (header.c sam_hdr_rebuild:1604), as the JAX
@@ -11,6 +11,8 @@ package does.  The port's device functions read a header only through
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
+
+from htslib_tpu_torch.util.log import log_warning
 
 _ID_TAG = {"SQ": "SN", "RG": "ID", "PG": "ID"}
 
@@ -151,6 +153,44 @@ class SamHeader:
         self._dirty = True
         return tid
 
+    # -- line CRUD (sam_hdr_add_line etc., htslib/sam.h:551-720) --------
+    def _add_line_obj(self, line: HeaderLine) -> None:
+        if line.type == "HD" and any(l.type == "HD" for l in self.lines):
+            log_warning("duplicate @HD line ignored")
+            return
+        if line.type == "HD":
+            self.lines.insert(0, line)
+        else:
+            self.lines.append(line)
+        idtag = _ID_TAG.get(line.type)
+        if idtag and line.get(idtag) is not None:
+            self._index[(line.type, line.get(idtag))] = line
+        self._dirty = True
+
+    def _add_sq_ref(self, sn: Optional[str], ln: str) -> None:
+        """Register a new @SQ line's reference (not its AN names)."""
+        if sn and sn not in self._name2tid:
+            self._name2tid[sn] = len(self.ref_names)
+            self.ref_names.append(sn)
+            self.ref_lens.append(int(ln))
+
+    def add_line(self, type_: str, *tagvals: str) -> None:
+        """sam_hdr_add_line: a line of `type_` with tag, value pairs."""
+        tags = [(tagvals[i], tagvals[i + 1])
+                for i in range(0, len(tagvals), 2)]
+        if type_ == "SQ":
+            self._add_sq_ref(dict(tags).get("SN"), dict(tags).get("LN", "0"))
+        self._add_line_obj(HeaderLine(type_, tags))
+
+    def add_lines(self, text: str) -> None:
+        """sam_hdr_add_lines: every line of `text`."""
+        for raw in text.split("\n"):
+            if raw:
+                line = HeaderLine.parse(raw)
+                if line.type == "SQ":
+                    self._add_sq_ref(line.get("SN"), line.get("LN") or "0")
+                self._add_line_obj(line)
+
     def find_line_id(self, type_: str, id_key: str,
                      id_val: str) -> Optional[HeaderLine]:
         if _ID_TAG.get(type_) == id_key:
@@ -159,6 +199,82 @@ class SamHeader:
             if line.type == type_ and line.get(id_key) == id_val:
                 return line
         return None
+
+    def find_line_pos(self, type_: str, pos: int) -> Optional[HeaderLine]:
+        """The `pos`-th line of `type_` (from 0), or None."""
+        i = 0
+        for line in self.lines:
+            if line.type == type_:
+                if i == pos:
+                    return line
+                i += 1
+        return None
+
+    def count_lines(self, type_: str) -> int:
+        return sum(1 for line in self.lines if line.type == type_)
+
+    def find_tag_id(self, type_: str, id_key: str, id_val: str,
+                    tag: str) -> Optional[str]:
+        line = self.find_line_id(type_, id_key, id_val)
+        return line.get(tag) if line else None
+
+    def find_tag_pos(self, type_: str, pos: int, tag: str) -> Optional[str]:
+        line = self.find_line_pos(type_, pos)
+        return line.get(tag) if line else None
+
+    def remove_line_id(self, type_: str, id_key: str, id_val: str) -> bool:
+        """sam_hdr_remove_line_id: drops the line's text, not its
+        reference, as the JAX package does."""
+        line = self.find_line_id(type_, id_key, id_val)
+        if line is None:
+            return False
+        self.lines.remove(line)
+        idtag = _ID_TAG.get(type_)
+        if idtag and line.get(idtag) is not None:
+            self._index.pop((type_, line.get(idtag)), None)
+        self._dirty = True
+        return True
+
+    def remove_except(self, type_: str, id_key: Optional[str] = None,
+                      id_val: Optional[str] = None) -> None:
+        """sam_hdr_remove_except (htslib/sam.h:640): every line of
+        `type_` but the one with id_key:id_val."""
+        keep = None
+        if id_key is not None:
+            keep = self.find_line_id(type_, id_key, id_val)
+        self.lines = [l for l in self.lines if l.type != type_ or l is keep]
+        self._index = {k: v for k, v in self._index.items()
+                       if k[0] != type_ or v is keep}
+        self._dirty = True
+
+    def update_line(self, type_: str, id_key: str, id_val: str,
+                    *tagvals: Optional[str]) -> bool:
+        """sam_hdr_update_line: set (or, with None, remove) tags of the
+        line with id_key:id_val."""
+        line = self.find_line_id(type_, id_key, id_val)
+        if line is None:
+            return False
+        for i in range(0, len(tagvals), 2):
+            line.set(tagvals[i], tagvals[i + 1])
+        self._dirty = True
+        return True
+
+    def add_pg(self, name: str, **tags: str) -> None:
+        """sam_hdr_add_pg (header.c:2228): an @PG line with a unique ID,
+        its PP the last line of the chain's leaves."""
+        pg_ids = [l.get("ID") for l in self.lines if l.type == "PG"]
+        pps = {l.get("PP") for l in self.lines if l.type == "PG"}
+        leaves = [i for i in pg_ids if i not in pps and i is not None]
+        uid = name
+        n = 0
+        while uid in pg_ids:
+            n += 1
+            uid = f"{name}.{n}"
+        tlist: List[Tuple[str, Optional[str]]] = [("ID", uid), ("PN", name)]
+        if leaves:
+            tlist.append(("PP", leaves[-1]))
+        tlist.extend(tags.items())
+        self._add_line_obj(HeaderLine("PG", tlist))
 
     # -- text ----------------------------------------------------------
     @property
@@ -183,6 +299,17 @@ class SamHeader:
             nl = base.index("\n") + 1
             return base[:nl] + extra + base[nl:]
         return extra + base
+
+    @property
+    def version(self) -> Optional[str]:
+        """The @HD line's VN, or None."""
+        for line in self.lines:
+            if line.type == "HD":
+                return line.get("VN")
+        return None
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, SamHeader) and self.text == other.text
 
     def copy(self) -> "SamHeader":
         h = SamHeader(self.text)

@@ -449,6 +449,20 @@ class BamRecord:
         b._tag2cigar()
         return b
 
+    def is_reverse(self) -> bool:
+        return bool(self.flag & FREVERSE)
+
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & FUNMAP)
+
+    def __repr__(self):
+        return (f"<BamRecord {self.qname.decode()} flag={self.flag} "
+                f"tid={self.tid} pos={self.pos}>")
+
+    def __eq__(self, other):
+        return (isinstance(other, BamRecord)
+                and self.to_bam_buffer() == other.to_bam_buffer())
+
     def copy(self) -> "BamRecord":
         c = BamRecord()
         for name in self.__slots__:

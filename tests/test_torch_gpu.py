@@ -1803,3 +1803,191 @@ def test_pileup_device_counts_on_card_match_cpu(card, pileup_case):
         d_cpu, c_cpu = device_pileup_counts(mine, 0, ln, device="cpu")
         assert np.array_equal(d_dev, d_cpu) and np.array_equal(c_dev, c_cpu)
         assert d_dev.max() > 20
+
+
+# -- the last slice: P1, P2 and the functions over X4, B7, X1, X5, B1, X6 --
+
+@pytest.mark.parametrize("seed,rounds", [(7, 512), (3, 1), (5, 0)])
+def test_resolve_cmp_kernel_matches_plain(card, seed, rounds):
+    from htslib_tpu_torch import probe_pallas_gather as pg
+    cum, freqs, _packed, x0 = (torch.from_numpy(a).to(card)
+                               for a in pg.make_inputs(seed))
+    before = _build.LAUNCHES["resolve_cmp"]
+    got = pg.resolve_cmp(cum, freqs, x0, rounds, device=card)
+    assert _build.LAUNCHES["resolve_cmp"] == before + 1
+    assert torch.equal(got, pg.resolve_cmp_plain(cum, freqs, x0, rounds))
+    bad = freqs.clone()
+    bad[0, 0] += 1
+    with pytest.raises(ValueError, match="normalised"):
+        pg.resolve_cmp_cuda(cum, bad, x0, rounds)
+
+
+@pytest.fixture(scope="module")
+def ablate_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from htslib_tpu_torch import probe_rans_ablate as pa
+    raws = pa.quality_streams(n=5, size=96 * pa.NWAY, seed=9)
+    return raws, pa.make_batch(raws, "cuda")
+
+
+@pytest.mark.parametrize("mode", ["full", "no_select", "no_resolve",
+                                  "no_scan", "only_loop", "slice_cost"])
+def test_rans_ablate_kernel_matches_plain(card, ablate_case, mode):
+    from htslib_tpu_torch import probe_rans_ablate as pa
+    raws, b = ablate_case
+    before = _build.LAUNCHES[pa.launch_key(mode)]
+    got = pa.ablate(b, mode, 96)
+    assert _build.LAUNCHES[pa.launch_key(mode)] == before + 1
+    for g, w in zip(got, pa.ablate_plain(b, mode, 96)):
+        assert torch.equal(g, w)
+    if mode == "full":
+        assert np.array_equal(got[0].cpu().numpy(), pa.raw_symbols(raws, 96))
+
+
+def test_rans_ablate_refuses_a_mono_table(card):
+    from htslib_tpu_torch import probe_rans_ablate as pa
+    b = pa.make_batch([bytes([5]) * (8 * pa.NWAY)], card)
+    with pytest.raises(ValueError, match="one symbol"):
+        pa.ablate(b, "full", 8)
+    got = pa.ablate(b, "only_loop", 8)
+    assert torch.equal(got[0], pa.ablate_plain(b, "only_loop", 8)[0])
+
+
+@pytest.mark.parametrize("mode", ["full", "no_select", "no_resolve",
+                                  "no_scan", "only_loop", "slice_cost"])
+def test_rans_ablate_kernel_matches_plain_where_cursors_spread(card, mode):
+    """A table of one slot's symbol beside one of 4,095 slots: the lanes
+    that start on the small symbol refill almost every round, the others
+    never, so no_scan's cursors spread past the ring's reach (its rounds
+    then read device memory); stream 0 starts at an odd word, stream 1
+    runs past its end."""
+    from htslib_tpu_torch import probe_rans_ablate as pa
+    from htslib_tpu_torch.ops.rans_nx16 import Nx16Batch
+    rng = np.random.default_rng(5)
+    n = [8192, 100, 3000]
+    words = np.zeros(1 + sum(n) + 1, np.uint16)
+    off = np.array([1, 1 + n[0], 1 + n[0] + n[1]], np.int64)
+    words[off[0]:off[0] + n[0]] = 0xFFFF
+    words[off[2]:off[2] + n[2]] = rng.integers(0, 1 << 16, n[2])
+    freqs = np.zeros((3, 256), np.int32)
+    freqs[:, 2], freqs[:, 3] = 4095, 1
+    x0 = np.where(np.arange(32) % 2, (1 << 16) + 4095, 1 << 30)
+    arrays = (words.view(np.uint8), off, np.array(n, np.int32), freqs,
+              np.tile(x0, (3, 1)).astype(np.int32), np.zeros(3, np.int32),
+              np.zeros(3, np.int64))
+    b = Nx16Batch(*(torch.from_numpy(a).to(card) for a in arrays))
+    want = pa.ablate_plain(b, mode, 4096)
+    if mode == "no_scan":
+        cur = want[2].view(3, 32)[0]
+        assert int(cur.max() - cur.min()) > 2048
+    for g, w in zip(pa.ablate(b, mode, 4096), want):
+        assert torch.equal(g, w)
+
+
+def _bgzf_file(path, seed=12, level=6):
+    from htslib_tpu_torch import bgzf as tbgzf
+    rng = np.random.default_rng(seed)
+    text = b"".join(b"chr1\t%d\t%s\n" % (i, bytes(rng.integers(
+        65, 70, int(rng.integers(1, 40)), dtype=np.uint8)))
+        for i in range(20000))
+    chunks = [text[i:i + tbgzf.BGZF_BLOCK_SIZE]
+              for i in range(0, len(text), tbgzf.BGZF_BLOCK_SIZE)]
+    with open(path, "wb") as fp:
+        fp.write(b"".join(tbgzf.deflate_blocks(chunks, level))
+                 + tbgzf.BGZF_EOF)
+    return text
+
+
+def test_inflate_blocks_on_card(card, tmp_path):
+    from htslib_tpu_torch import bgzf as tbgzf
+    text = _bgzf_file(str(tmp_path / "t.gz"))
+    raw = np.fromfile(str(tmp_path / "t.gz"), np.uint8)
+    before = _build.LAUNCHES["inflate"] + _build.LAUNCHES["inflate_slot"]
+    out, table = tbgzf.inflate_blocks(raw, device=card)
+    assert out.tobytes() == text and table.n > 5
+    assert (_build.LAUNCHES["inflate"] + _build.LAUNCHES["inflate_slot"]
+            == before + 1)
+    bad = raw.copy()
+    bad[int(table.csizes[0]) - 8] ^= 1
+    with pytest.raises(IOError, match="CRC32"):
+        tbgzf.inflate_blocks(bad, device=card)
+
+
+def test_bgzip_cli_on_card(card, tmp_path, monkeypatch):
+    from htslib_tpu_torch.cli import bgzip
+    text = _bgzf_file(str(tmp_path / "t.txt.gz"))
+    monkeypatch.setattr(bgzip, "BATCH", 3)      # members a device call
+    before = _build.LAUNCHES["inflate"] + _build.LAUNCHES["inflate_slot"]
+    assert bgzip.main(["-t", str(tmp_path / "t.txt.gz")], device=card) == 0
+    assert bgzip.main(["-d", "-k", str(tmp_path / "t.txt.gz")],
+                      device=card) == 0
+    assert (tmp_path / "t.txt").read_bytes() == text
+    from htslib_tpu_torch.bgzf import read_file, scan_blocks
+    n = -(-scan_blocks(read_file(str(tmp_path / "t.txt.gz"))).n // 3)
+    assert (_build.LAUNCHES["inflate"] + _build.LAUNCHES["inflate_slot"]
+            - before) == 2 * n
+
+
+def test_cram_file_to_bam_stream_on_card(card, tmp_path, monkeypatch):
+    """11a-style CRAM 3.0 at 300 records: the stream decoded on the card
+    equals the host decode's (the port's host codecs)."""
+    import chip_smoke
+    from htslib_tpu_torch.cram.batch import (bam_to_cram_file,
+                                             cram_file_to_bam_stream,
+                                             iter_slice_blobs)
+    from htslib_tpu_torch.cram import CramReader
+    monkeypatch.setattr(chip_smoke, "N_CRAM", 300)
+    monkeypatch.setattr(chip_smoke, "N_CRAM31", 10)
+    fasta, bam, _ = chip_smoke.leg11_inputs(str(tmp_path))
+    path = str(tmp_path / "a.cram")
+    bam_to_cram_file(bam, path, ref=fasta, seqs_per_slice=100)
+    _, blob = cram_file_to_bam_stream(path, ref=fasta, device=card)
+    host = b"".join(chip_smoke._host_cram_truth(path, fasta, off, True)[2]
+                    for off, _ in chip_smoke.cram_containers(path))
+    assert blob == host and len(blob) > 10000
+    with CramReader(path, ref=fasta) as r:
+        assert b"".join(iter_slice_blobs(r, window=2, device=card)) == blob
+
+
+def test_probaln_flags_on_card_match_plain(card, monkeypatch):
+    """Kernel X6's MAP flags, from both launches, equal the plain
+    version's on a batch that holds flagged bases; probaln_glocal on the
+    card raises on a read exactly where it raises on the CPU."""
+    monkeypatch.setattr(tpb, "THREAD_MIN_READS", 16)
+    long_r = hmm_reads(8, 1500, 3)
+    short_r = hmm_reads(60, 100, 4)
+    refs, qs, quals, bws = [x + y for x, y in zip(long_r, short_r)]
+    arrays, J = tpb.pad_batch(refs, qs, quals, bws=bws)
+    a = [torch.from_numpy(x).to(card) for x in arrays]
+    want = torch.zeros(a[2].shape, dtype=torch.uint8, device=card)
+    got = torch.zeros_like(want)
+    tpb.probaln_plain(*a, J, d=1e-7, flag=want)
+    layout = {}
+    tpb.probaln_cuda(*a, J, d=1e-7, layout=layout, flag=got)
+    assert layout == {"warp_reads": 8, "thread_reads": 60}
+    assert torch.equal(got, want) and bool(want.any())
+    raised = 0
+    for r, q, iq, bw in zip(refs[8:20], qs[8:20], quals[8:20], bws[8:20]):
+        c = trl.ProbalnParams(1e-7, 0.1, bw)
+        try:
+            trl.probaln_glocal(r, q, iq, c, device="cpu")
+        except (ValueError, ZeroDivisionError) as err:
+            raised += 1
+            with pytest.raises(type(err)):
+                trl.probaln_glocal(r, q, iq, c, device=card)
+            continue
+        trl.probaln_glocal(r, q, iq, c, device=card)
+    assert raised > 0
+
+
+def test_probaln_glocal_on_card_matches_cpu(card):
+    rng = np.random.default_rng(21)
+    for _ in range(20):
+        lq = int(rng.integers(5, 120))
+        ref = rng.integers(0, 4, lq + 12).astype(np.uint8).tobytes()
+        q = ref[4:4 + lq]
+        qual = rng.integers(5, 40, lq).astype(np.uint8).tobytes()
+        c = trl.ProbalnParams(0.001, 0.1, int(rng.integers(3, 12)))
+        assert trl.probaln_glocal(ref, q, qual, c, device=card) == \
+            trl.probaln_glocal(ref, q, qual, c, device="cpu")

@@ -97,7 +97,16 @@ def test_sources_found():
                  "htslib_tpu_torch/kfunc.py",
                  "htslib_tpu_torch/synced_reader.py",
                  "htslib_tpu_torch/vcfutils.py",
-                 "htslib_tpu_torch/vcf_sweep.py"):
+                 "htslib_tpu_torch/vcf_sweep.py",
+                 "htslib_tpu_torch/probe_pallas_gather.py",
+                 "htslib_tpu_torch/probe_rans_ablate.py",
+                 "htslib_tpu_torch/refcache.py",
+                 "htslib_tpu_torch/util/memory.py",
+                 "htslib_tpu_torch/cli/__init__.py",
+                 "htslib_tpu_torch/cli/bgzip.py",
+                 "htslib_tpu_torch/cli/tabix.py",
+                 "htslib_tpu_torch/cli/htsfile.py",
+                 "htslib_tpu_torch/cli/annot_tsv.py"):
         assert want in rel
 
 

@@ -129,13 +129,14 @@ _HARNESS = r"""
 
 // Each read of a padded batch through probaln_read<T>, its scratch one
 // read's rows (cell stride 1, row stride J); ss_out [B, Q] gets each
-// read's row sums.
+// read's row sums and flag [B, Q] its MAP flags.
 template <typename T>
 static void thread_reads(const uint8_t* ref, const int32_t* rlen,
                          const uint8_t* query, const int32_t* qlen,
                          const T* qprob, const int32_t* bw, int B, int R,
                          int Q, double d, double e, T* buf, int32_t* pr,
-                         int32_t* state, uint8_t* q, T* ss_out) {
+                         int32_t* state, uint8_t* q, uint8_t* flag,
+                         T* ss_out) {
   for (int b = 0; b < B; ++b) {
     const int J = 2 * bw[b] + 2, lq = qlen[b];
     PbScratch<T> s;
@@ -148,7 +149,7 @@ static void thread_reads(const uint8_t* ref, const int32_t* rlen,
     PbRead<T> r = {ref + (int64_t)b * R, query + (int64_t)b * Q,
                    qprob + (int64_t)b * Q, rlen[b], lq, bw[b], d, e};
     pr[b] = probaln_read<T>(r, s, state + (int64_t)b * Q,
-                            q + (int64_t)b * Q);
+                            q + (int64_t)b * Q, flag + (int64_t)b * Q);
     for (int i = 0; i < lq; ++i) ss_out[(int64_t)b * Q + i] = s.ss[i];
   }
 }
@@ -160,7 +161,8 @@ static void warp_reads(const uint8_t* ref, const int32_t* rlen,
                        const uint8_t* query, const int32_t* qlen,
                        const T* qprob, const int32_t* bw, int B, int R,
                        int Q, double d, double e, T* buf, T* x, int32_t* pr,
-                       int32_t* state, uint8_t* q, T* ss_out) {
+                       int32_t* state, uint8_t* q, uint8_t* flag,
+                       T* ss_out) {
   for (int b = 0; b < B; ++b) {
     const int J = 2 * bw[b] + 2, lq = qlen[b];
     const int64_t cells = (int64_t)lq * J;
@@ -175,7 +177,7 @@ static void warp_reads(const uint8_t* ref, const int32_t* rlen,
     PbRead<T> r = {ref + (int64_t)b * R, query + (int64_t)b * Q,
                    qprob + (int64_t)b * Q, rlen[b], lq, bw[b], d, e};
     pr[b] = probaln_read_warp<T>(r, s, state + (int64_t)b * Q,
-                                 q + (int64_t)b * Q);
+                                 q + (int64_t)b * Q, flag + (int64_t)b * Q);
     for (int i = 0; i < lq; ++i) ss_out[(int64_t)b * Q + i] = s.ss[i];
   }
 }
@@ -183,21 +185,21 @@ static void warp_reads(const uint8_t* ref, const int32_t* rlen,
 #define PB_ARGS(T) const uint8_t *ref, const int32_t *rlen,               \
     const uint8_t *query, const int32_t *qlen, const T *qprob,            \
     const int32_t *bw, int B, int R, int Q, double d, double e, T *buf
-#define PB_OUTS int32_t *pr, int32_t *state, uint8_t *q
+#define PB_OUTS int32_t *pr, int32_t *state, uint8_t *q, uint8_t *flag
 #define PB_PASS ref, rlen, query, qlen, qprob, bw, B, R, Q, d, e, buf
 extern "C" void probaln_reads(PB_ARGS(double), PB_OUTS, double* ss) {
-  thread_reads<double>(PB_PASS, pr, state, q, ss);
+  thread_reads<double>(PB_PASS, pr, state, q, flag, ss);
 }
 extern "C" void probaln_reads_f32(PB_ARGS(float), PB_OUTS, float* ss) {
-  thread_reads<float>(PB_PASS, pr, state, q, ss);
+  thread_reads<float>(PB_PASS, pr, state, q, flag, ss);
 }
 extern "C" void probaln_warp_reads(PB_ARGS(double), double* x, PB_OUTS,
                                    double* ss) {
-  warp_reads<double>(PB_PASS, x, pr, state, q, ss);
+  warp_reads<double>(PB_PASS, x, pr, state, q, flag, ss);
 }
 extern "C" void probaln_warp_reads_f32(PB_ARGS(float), float* x, PB_OUTS,
                                        float* ss) {
-  warp_reads<float>(PB_PASS, x, pr, state, q, ss);
+  warp_reads<float>(PB_PASS, x, pr, state, q, flag, ss);
 }
 """
 
@@ -219,9 +221,9 @@ def _compile(tmp, header_text=None):
     h = ctypes.CDLL(str(lib))
     args = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
         + [ctypes.c_double] * 2
-    for name, n_ptr in (("probaln_reads", 5), ("probaln_reads_f32", 5),
-                        ("probaln_warp_reads", 6),
-                        ("probaln_warp_reads_f32", 6)):
+    for name, n_ptr in (("probaln_reads", 6), ("probaln_reads_f32", 6),
+                        ("probaln_warp_reads", 7),
+                        ("probaln_warp_reads_f32", 7)):
         getattr(h, name).restype = None
         getattr(h, name).argtypes = args + [ctypes.c_void_p] * n_ptr
     return h
@@ -232,9 +234,10 @@ def step_lib(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("probaln"))
 
 
-def _step_run(h, arrays, J, d, warp=False, with_ss=False):
+def _step_run(h, arrays, J, d, warp=False, with_ss=False, with_flag=False):
     """The thread routine (or with `warp` the warp routine) over a padded
-    batch: (Pr, states, q) and with `with_ss` the row sums [B, Q]."""
+    batch: (Pr, states, q), with `with_ss` the row sums [B, Q] and with
+    `with_flag` the MAP flags [B, Q] after them."""
     ref, rlen, qry, qlen, qpr, bw = arrays
     B, Q = qry.shape
     dt = qpr.dtype
@@ -244,6 +247,7 @@ def _step_run(h, arrays, J, d, warp=False, with_ss=False):
     st = np.zeros((B, Q), np.int32)
     qq = np.zeros((B, Q), np.uint8)
     ss = np.zeros((B, Q), dt)
+    flag = np.zeros((B, Q), np.uint8)
     name = ("probaln_warp_reads" if warp else "probaln_reads") + (
         "_f32" if dt == np.float32 else "")
     xbuf = np.zeros(6 * ((Jr + 7) & ~7) + 4, dt)
@@ -252,8 +256,9 @@ def _step_run(h, arrays, J, d, warp=False, with_ss=False):
                      qlen.ctypes.data, qpr.ctypes.data, bw.ctypes.data, B,
                      ref.shape[1], Q, d, 0.1, buf.ctypes.data, *x,
                      pr.ctypes.data, st.ctypes.data, qq.ctypes.data,
-                     ss.ctypes.data)
-    return (pr, st, qq, ss) if with_ss else (pr, st, qq)
+                     flag.ctypes.data, ss.ctypes.data)
+    return (pr, st, qq) + ((ss,) if with_ss else ()) + (
+        (flag,) if with_flag else ())
 
 
 @pytest.mark.parametrize("seed,d", [(7, 0.001), (8, 1e-7)])
@@ -277,6 +282,29 @@ def test_probaln_step_matches_plain_and_scalar(step_lib, seed, d):
                 == sc
             held += 1
     assert held >= B // 6
+
+
+@pytest.mark.parametrize("seed,d", [(7, 0.001), (8, 1e-7)])
+def test_probaln_step_flags_match_plain_and_scalar(step_lib, seed, d):
+    """The MAP flags of both routines equal the plain version's, and a
+    read has one exactly where the JAX scalar raises on it."""
+    arrays, J = probaln_batch_args(120, seed=seed, long_every=29)
+    ref, rlen, qry, qlen, qpr, bw = arrays
+    want = torch.zeros(qry.shape, dtype=torch.uint8)
+    tp.probaln_plain(*[torch.from_numpy(a) for a in arrays], J, d=d,
+                     flag=want)
+    for warp in (False, True):
+        got = _step_run(step_lib, arrays, J, d, warp=warp, with_flag=True)
+        assert np.array_equal(got[3], want.numpy())
+    flagged = 0
+    for b in range(qry.shape[0]):
+        n = int(qlen[b])
+        sc = _scalar(ref[b, :rlen[b]].tobytes(), qry[b, :n].tobytes(),
+                     np.round(-10 * np.log10(qpr[b, :n])).astype(
+                         np.uint8).tobytes(), int(bw[b]), d)
+        assert (sc is None) == bool(want[b].any())
+        flagged += sc is None
+    assert flagged > 0
 
 
 def test_probaln_step_mutation_fails(tmp_path):
