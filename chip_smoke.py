@@ -337,15 +337,34 @@ PyTorch version on the card and times both.  Phases:
      again with its plain version there), and X4's row gains
      launches_leg17; 17a's and 17b's times are warm, from CUDA events;
 
-Launch counts are reset just before phase 3 and read just after phase 5o,
-with leg 10b's ranks' counts added; legs 7-17 are also counted alone
+  5p. leg 18, the native engine (htslib_tpu_torch/native/, built at the
+     start beside the kernels, its build time printed), after leg 17: the
+     port's host modules call it where the JAX package calls its own, in
+     every leg (the CRAM encoder and decoder, the BGZF host deflate, BCF
+     formatting; leg 16 alone runs with it off, for its checks of B1 and
+     the Python engine).  18a: cram_file_to_sam on leg 11's two files,
+     the card decoding every block (B7, X1 for 11a; the Nx16 wires for
+     11b) and native.cram_decode_slice each slice of one reference (11b's
+     one slice holds both, and is decoded in Python, as the JAX
+     package decodes it), byte for byte the same call's text with
+     `native.native` None, and 11a's launching B7 and X1 and calling
+     cram_decode_slice; 18b mpileup_text_parallel on leg 16's
+     BAM (X4, X5; the native engine over the tiles) equals 16a's text,
+     which the Python engine wrote; 18c bcf_file_to_vcf on leg 12's BCF
+     (X4, then native.bcf_to_vcf) equals the same call with the library
+     off.  Printed: each run's seconds and parts, the record decode's
+     share of 18a, and the bridge's calls;
+
+Launch counts are reset just before phase 3 and read just after phase 5p,
+with leg 10b's ranks' counts added; legs 7-18 are also counted alone
 (reset just before each, read just after; 10b's, 11a's and 12b's shards'
 in the ranks) and each must have launched its kernels (X4; X5 and B1; X6;
 B1, X4 and X5 in 10a and in 10b; X5, B1 and the kernel of every rANS wire
 its files hold, in leg 11 and in its shards; X4 in leg 12 and in its
 shards; B1, B7, X1, X5, B2 or B5 and B3 or B6 in leg 13; X4, X5, B1, B7
 and X1 in legs 14 and 15; X4, X5's segmented kernels and B1 in leg 16;
-P1, P2 in every mode, X4, B7, X1, X5 and B1 in leg 17).
+P1, P2 in every mode, X4, B7, X1, X5 and B1 in leg 17; B7, X1, X4, X5
+and B1 in leg 18).
 The kernels
 line's X4 row gives leg 12's launches apart (launches_leg12).
 Any mismatch raises.  The last line is {"ok": true, "device": {...}}.
@@ -1583,12 +1602,15 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
                                                  chain_sam, varied_sam,
                                                  notes["leg11"],
                                                  notes["leg12"])),
-                         ("leg16", lambda: leg16(device, tmp)),
+                         ("leg16", lambda: native_off(leg16, device, tmp)),
                          ("leg17", lambda: leg17(
                              device, tmp, notes["leg11"], l14_lines, raws,
                              encs, leg17_files(tmp, leg10_bam,
                                                notes["leg11"],
-                                               notes["leg12"])))):
+                                               notes["leg12"]))),
+                         ("leg18", lambda: leg18(device, notes["leg11"],
+                                                 notes["leg12"],
+                                                 notes["leg16"]))):
             t0 = time.time()
             with Shapes() as shapes:
                 notes[leg], notes["launches_" + leg] = _counted(run)
@@ -1613,10 +1635,13 @@ def main_path(device, batch, raws, encs, leg3, bgzf, varied, baq,
         notes["launches_leg12_ranks"] = notes["leg10b"].pop(
             "rank_bcf_launches")
         outs = notes["leg10b"].pop("outs")
-        # the host truths of legs 11 and 12 in one pool of processes
+        # the host truths of legs 11-13 in one pool of processes, on the
+        # port's pure routes (the native library off), so that they do not
+        # share the native engine that the legs ran
         ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
-                                 mp_context=ctx) as pool:
+                                 mp_context=ctx,
+                                 initializer=native_off_worker) as pool:
             notes["leg11"]["check"] = leg11_check(device, notes["leg11"],
                                                   outs, pool)
             texts_11a = notes["leg11"]["check"].pop("texts_11a")
@@ -3888,6 +3913,8 @@ def leg16(device, tmp: str, contigs=LEG16_CONTIGS, level: int = BGZF_LEVEL,
     notes["16b"] = {k: {"wall_s": v[1], "timing": v[2]}
                     for k, v in b_notes.items()}
     notes["stages"] = stages
+    notes["text_16a"] = text
+    notes["bam_path"] = paths["bam"]
     with open(paths["bam"], "rb") as fp:
         notes["bam_file"] = fp.read()
     notes["wall_s"] = time.time() - t_leg
@@ -4208,6 +4235,105 @@ def leg12(device, tmp: str):
     payloads = [member_payload(raw, int(o), int(c)) for o, c in zip(co, cs)]
     notes["x4_members"] = (payloads, [zlib.decompress(p, -15)
                                       for p in payloads])
+    return notes
+
+
+def native_off_worker() -> None:
+    """A pool process's initializer: the port's native library off."""
+    from htslib_tpu_torch import native
+    native.native = None
+
+
+def native_off(fn, *args):
+    """fn(*args) with the port's native library off (its modules' pure
+    routes), restored after."""
+    from htslib_tpu_torch import native
+    saved, native.native = native.native, None
+    try:
+        return fn(*args)
+    finally:
+        native.native = saved
+
+
+def _native_run(fn, on: bool):
+    """fn() with the port's native library on or off: (its result, wall
+    seconds, the kernels it launched, the bridge functions it called)."""
+    from htslib_tpu_torch import _build, native
+    before = dict(_build.LAUNCHES)
+    native.reset_calls()
+    t0 = time.time()
+    out = fn() if on else native_off(fn)
+    wall = time.time() - t0
+    return (out, wall, {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                        if v > before[k]},
+            {k: v for k, v in native.CALLS.items() if v})
+
+
+def leg18(device, l11, l12, l16) -> dict:
+    """Leg 18, the native engine, after leg 17 (phase 5p): 18a CRAM ->
+    SAM on leg 11's files, 18b mpileup on leg 16's BAM, 18c BCF -> VCF on
+    leg 12's BCF, each with the library on, against the same call with
+    it off (18b against 16a's text, written with it off).  Returns its
+    notes."""
+    from htslib_tpu_torch import native
+    from htslib_tpu_torch.cram.batch import cram_file_to_sam
+    from htslib_tpu_torch.pileup import mpileup_text_parallel
+    from htslib_tpu_torch.vcf.io import bcf_file_to_vcf
+    notes = {"build": dict(native.BUILD_INFO)}
+    for tag in ("11a", "11b"):
+        leg = l11[tag]
+        runs = {}
+        for on in (True, False):
+            timing = {}
+            (_, sam), wall, launched, calls = _native_run(
+                lambda: cram_file_to_sam(leg["path"], ref=leg["ref"],
+                                         device=device, timing=timing), on)
+            runs[on] = (sam.tobytes(), {
+                "wall_s": wall, "launches": launched, "calls": calls,
+                "record_decode_s": timing["record_decode_s"],
+                "record_decode_share": timing["record_decode_s"] / wall,
+                "parts": {k: v for k, v in timing.items()
+                          if k not in ("wires", "format")}})
+        require(runs[True][0] == runs[False][0] == leg["sam"],
+                f"18a: {tag}'s text with the native library != without it")
+        got = runs[True][1]
+        require(not runs[False][1]["calls"],
+                f"18a: {tag} with native None called the library")
+        if tag == "11a":
+            # 11b's one slice holds every reference: a multi-reference
+            # slice, which the JAX package and the port decode in Python
+            require(got["calls"].get("cram_decode_slice", 0) >= 1,
+                    f"18a: {tag} called no native.cram_decode_slice")
+            x1 = sum(v for k, v in got["launches"].items()
+                     if k.startswith("rans4x8_o1"))
+            require(got["launches"].get("rans4x8_o0_decode", 0) >= 1
+                    and x1 >= 1, f"18a: 11a launched no B7 or X1: "
+                    f"{got['launches']}")
+        notes["18a_" + tag] = {"native": got, "pure": runs[False][1],
+                               "sam_bytes": len(runs[True][0])}
+    timing = {}
+    (_, text), wall, launched, calls = _native_run(
+        lambda: mpileup_text_parallel(l16["bam_path"], device=device,
+                                      timing=timing), True)
+    require(text == l16["text_16a"], "18b: the native mpileup's text != "
+            "16a's (the Python engine's)")
+    require(calls.get("mpileup", 0) >= 1 and "nibble_to_base"
+            not in launched, f"18b: calls {calls}, launches {launched}")
+    notes["18b"] = {"wall_s": wall, "timing": timing, "launches": launched,
+                    "calls": calls, "text_bytes": len(text)}
+    runs = {}
+    for on in (True, False):
+        timing = {}
+        (_, vcf), wall, launched, calls = _native_run(
+            lambda: bcf_file_to_vcf(l12["path"], device=device,
+                                    timing=timing), on)
+        runs[on] = (vcf, {"wall_s": wall, "launches": launched,
+                          "calls": calls, "parts": timing})
+    require(runs[True][0] == runs[False][0] == l12["text"],
+            "18c: the VCF with the native library != without it")
+    require(runs[True][1]["calls"].get("bcf_to_vcf", 0) >= 1,
+            "18c: no native.bcf_to_vcf call")
+    notes["18c"] = {"native": runs[True][1], "pure": runs[False][1]}
     return notes
 
 
@@ -5635,10 +5761,20 @@ def main() -> int:
             else f"nvidia-smi failed: {smi.stderr.strip()}")
     print(f"card: {card}", flush=True)
 
+    # the kernels (nvcc, one process a source) and the native library
+    # (g++ and gcc) built together
+    from htslib_tpu_torch import native
     t0 = time.time()
-    libs = _build.build()
-    build_s = time.time() - t0
-    print(f"build: {build_s:.1f} s", flush=True)
+    with ThreadPoolExecutor(max_workers=1) as side:
+        host = side.submit(native.native.load)
+        libs = _build.build()
+        build_s = time.time() - t0
+        host.result()
+    print(f"build: {build_s:.1f} s; native library: "
+          f"{native.BUILD_INFO['seconds']:.1f} s "
+          f"({os.path.basename(native.BUILD_INFO['path'])}, compat/ for "
+          f"{native.BUILD_INFO['compat'] or 'nothing'}), both done at "
+          f"{time.time() - t0:.1f} s", flush=True)
     for name, path in libs.items():
         with open(path + ".log") as fp:
             for line in fp:
@@ -5704,6 +5840,8 @@ def main() -> int:
                       ("leg15", ["X4", "X5", "nibble_to_base",
                                  "rans4x8_o0_decode", "X1"]),
                       ("leg16", ["X4", "record_scan_seg",
+                                 "nibble_to_base"]),
+                      ("leg18", ["rans4x8_o0_decode", "X1", "X4", "X5",
                                  "nibble_to_base"]),
                       ("leg17", ["resolve_cmp", "rans_ablate_full",
                                  "rans_ablate_no_select",
@@ -5867,6 +6005,27 @@ def main() -> int:
     print("leg 16b/16c (3,000 records: BAM serial and at 3 processes, SAM "
           "serial): " + json.dumps(l16["16b"]), flush=True)
     print("leg 16 check: " + json.dumps(l16["check"]), flush=True)
+    l18 = notes["leg18"]
+    print(f"leg 18 wall (this process): {secs['leg18']:.3f} s; the native "
+          f"library {json.dumps(l18['build'])}", flush=True)
+    for tag in ("11a", "11b"):
+        a18 = l18["18a_" + tag]
+        print(f"leg 18a ({tag} CRAM -> SAM, {a18['sam_bytes']} B): native "
+              f"{a18['native']['wall_s']:.3f} s, record decode "
+              f"{a18['native']['record_decode_s']:.3f} s (share "
+              f"{a18['native']['record_decode_share']:.4f}); pure "
+              f"{a18['pure']['wall_s']:.3f} s, record decode "
+              f"{a18['pure']['record_decode_s']:.3f} s (share "
+              f"{a18['pure']['record_decode_share']:.4f}); "
+              + json.dumps(a18), flush=True)
+    print(f"leg 18b (mpileup_text_parallel, native engine): "
+          f"{l18['18b']['wall_s']:.3f} s against 16a's "
+          f"{l16['16a']['wall_s']:.3f} s; " + json.dumps(l18["18b"]),
+          flush=True)
+    print(f"leg 18c (bcf_file_to_vcf): native "
+          f"{l18['18c']['native']['wall_s']:.3f} s, pure "
+          f"{l18['18c']['pure']['wall_s']:.3f} s; " + json.dumps(l18["18c"]),
+          flush=True)
     l17 = notes["leg17"]
     print(f"leg 17 wall (this process): {secs['leg17']:.3f} s; 17a P1 "
           f"{l17['17a']['lookups_per_s']:.6g} lookups/s through its "

@@ -12,15 +12,19 @@ remote/, hts.py, opts.py, pipeline.py, hts_expr.py, index.py, tbx.py,
 regidx.py; util/log.py and util/memory.py; pileup.py with
 parallel/pileup_shard.py, errmod.py, kfunc.py, synced_reader.py,
 vcfutils.py, vcf_sweep.py; realn.py; refcache.py (the reference cache
-server, `python -m htslib_tpu_torch.refcache`); and cli/ (bgzip, tabix,
-htsfile and annot_tsv, each `python -m htslib_tpu_torch.cli.<tool>`).
-The JAX package's native C++ helper has no copy: the port's own paths
-replace it.
+server, `python -m htslib_tpu_torch.refcache`); cli/ (bgzip, tabix,
+htsfile and annot_tsv, each `python -m htslib_tpu_torch.cli.<tool>`);
+and native/, the C++ host engine (BGZF inflate and deflate, record
+scans, SAM/BAM/VCF/BCF formatting and parsing, mpileup, CRAM slice
+decode and encode, the CRAM 3.1 codecs), which the host modules call
+where the JAX package calls its own, unless `htslib_tpu_torch.native.
+native` is set to None.
 
 Entry points run on the card (`device="cuda"`) and raise when there is
 none, unless the caller passes `device="cpu"`, which runs each kernel's
 plain PyTorch version.  Kernels are built from csrc/ by nvcc at first use
-(_build.py).
+(_build.py), the native library from native/ by g++ and gcc at first use
+(native/__init__.py), both into build/.
 """
 
 __version__ = "0.1.0"
@@ -37,11 +41,19 @@ from htslib_tpu_torch.util.log import (  # noqa: F401,E402
 
 def hts_features() -> int:
     """Build-feature bitmask (hts_features, hts.c:89; the HTS_FEATURE_*
-    bits of htslib/hts.h) of what this environment provides.  The JAX
-    package sets LIBDEFLATE (32) where its native library loads; the port
-    has no native library and never sets it."""
-    S3, GCS, LZMA, BZIP2, HTSCODECS = 8, 16, 64, 128, 1 << 27
+    bits of htslib/hts.h) of what this environment provides: LIBDEFLATE
+    (32) where the native library loads (built here where it is not), as
+    the JAX package sets it."""
+    S3, GCS, LIBDEFLATE, LZMA, BZIP2, HTSCODECS = (8, 16, 32, 64, 128,
+                                                   1 << 27)
     feats = S3 | GCS                  # s3/gs signing built in
+    try:
+        from htslib_tpu_torch.native import native
+        if native is not None:
+            native.load()
+            feats |= LIBDEFLATE
+    except (OSError, RuntimeError):     # a library that fails to build
+        pass
     try:
         import lzma  # noqa: F401
         feats |= LZMA

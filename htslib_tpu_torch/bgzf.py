@@ -7,7 +7,7 @@ most 64 KiB of data with its compressed size in a "BC" extra subfield
 writes members (`compress_block`, `bgzf_member`, `deflate_blocks`,
 `BgzfWriter`), walks their sizes (`scan_blocks`), reads BGZF, plain gzip
 or uncompressed input as a stream with virtual offsets (`BgzfReader`,
-zlib on the host), maps uncompressed offsets to members through a `.gzi`
+on the host), maps uncompressed offsets to members through a `.gzi`
 index (`GziIndex`, `BgzfReader.useek`, `BgzfWriter.save_index`), and
 inflates members on the device (ops/inflate.py, kernel X4 on the card):
 those that cover a range of a file's uncompressed stream
@@ -16,6 +16,14 @@ those that cover a range of a file's uncompressed stream
 and writer.  A file is a name that hfile.py `hopen` opens (a local path,
 `-`, or a URL such as http://, s3:// or an htsget ticket) or a binary
 file object.
+
+As in the JAX package, the host's member deflate (`compress_block`,
+`deflate_blocks`), member walk (`scan_blocks`) and inflate (`inflate_host`,
+`BgzfReader.read_all`) go to the native library (libdeflate) unless
+`htslib_tpu_torch.native.native` is None, where zlib and a Python walk
+do them.  libdeflate writes other bytes than zlib for the same members'
+data; the device inflate (`inflate_blocks`, `inflate_range`) stays on the
+device.
 """
 from __future__ import annotations
 
@@ -64,21 +72,28 @@ def bgzf_member(deflated: bytes, data: bytes) -> bytes:
 
 def compress_block(data: bytes, level: int = -1) -> bytes:
     """One <= 64 KiB chunk as a whole BGZF member (bgzf_compress,
-    bgzf.c:561-720); level -1 is zlib's 6, level 0 stored blocks."""
+    bgzf.c:561-720): the native deflate, or `_compress_block_py`."""
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        return native.deflate_blocks([data], level)[0]
+    return _compress_block_py(data, level)
+
+
+def _compress_block_py(data: bytes, level: int = -1) -> bytes:
+    """A member deflated by zlib (the JAX package's pure path): level -1
+    is zlib's 6, level 0 stored blocks."""
     co = zlib.compressobj(6 if level == -1 else level, zlib.DEFLATED, -15)
     return bgzf_member(co.compress(data) + co.flush(), data)
 
 
-# the JAX package's name for its pure-Python member writer, whose bytes
-# compress_block's are (the port has no native deflate)
-_compress_block_py = compress_block
-
-
 def deflate_blocks(chunks: List[bytes], level: int = -1) -> List[bytes]:
     """N independent chunks as N BGZF members (the batch form of the MT
-    write queue, bgzf.c:1852), deflated on the host by zlib: the JAX
-    package's bytes where it has no native library."""
-    return [compress_block(c, level) for c in chunks]
+    write queue, bgzf.c:1852): one native call over the batch, or zlib a
+    member at a time."""
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        return native.deflate_blocks(chunks, level)
+    return [_compress_block_py(c, level) for c in chunks]
 
 
 def parse_block_header(hdr: bytes) -> int:
@@ -127,11 +142,16 @@ class BlockTable:
 
 def scan_blocks(data: Union[bytes, memoryview, np.ndarray],
                 base_offset: int = 0) -> BlockTable:
-    """Walk the BSIZE hops over an in-memory BGZF byte range; raises
-    IOError on a truncated member or bytes after the last one."""
-    buf = memoryview(np.ascontiguousarray(
-        np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray)
-        else data, np.uint8))
+    """Walk the BSIZE hops over an in-memory BGZF byte range (the native
+    scan where the library is on); raises IOError on a truncated member
+    or bytes after the last one."""
+    from htslib_tpu_torch.native import native
+    arr = (np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray)
+           else data)
+    if native is not None:
+        co, cs, us = native.bgzf_scan(arr)
+        return BlockTable(co + np.uint64(base_offset), cs, us)
+    buf = memoryview(np.ascontiguousarray(arr, np.uint8))
     coffs: List[int] = []
     csz: List[int] = []
     usz: List[int] = []
@@ -161,8 +181,13 @@ def member_payload(raw: np.ndarray, coffset: int, csize: int) -> bytes:
 
 
 def inflate_host(raw: np.ndarray, table: BlockTable) -> bytes:
-    """The members of `table` inflated on the host by zlib, each CRC32 and
-    ISIZE checked (bgzf_uncompress, bgzf.c:730-806), concatenated."""
+    """The members of `table` inflated on the host, each CRC32 and ISIZE
+    checked (bgzf_uncompress, bgzf.c:730-806), concatenated: in one
+    native call (libdeflate, threads), or by zlib a member at a time."""
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        return native.inflate_batch(raw, table.coffsets, table.csizes,
+                                    table.usizes).tobytes()
     out = []
     for co, cs, us in zip(table.coffsets, table.csizes, table.usizes):
         data = zlib.decompress(member_payload(raw, co, cs), -15,
@@ -362,8 +387,9 @@ class BgzfReader:
     """Streaming BGZF (or plain gzip, or uncompressed) reader with
     virtual-offset seek/tell (bgzf_seek/bgzf_tell, bgzf.c:2175-2258), over
     a name that `hopen` opens, an `HFile` or a binary file object; the
-    JAX package's `BGZFReader`, its members inflated on the host by zlib.
-    It reads a stream in order and seeks only where asked, so a stream
+    JAX package's `BGZFReader`, its members inflated on the host: by
+    zlib a member at a time, and the rest of a stream at once by
+    `inflate_host` (`read_all`).  It reads a stream in order and seeks only where asked, so a stream
     that cannot seek back (standard input, a multipart ticket) reads
     through."""
 

@@ -9,9 +9,10 @@ port's copy of htslib_tpu/cli/bgzip.py:
 (bgzf.inflate_blocks, kernel X4), BATCH members a call, each CRC32 and
 ISIZE checked on the host; standard input and plain gzip or uncompressed
 input are read by the host reader, as the JAX tool reads everything.
-Members are deflated on the host by zlib (bgzf.deflate_blocks), the JAX
-tool's bytes without its native library.  `-@` is parsed and not used,
-as in the JAX tool.
+Members are deflated on the host by bgzf.deflate_blocks: libdeflate
+through the native library, the JAX tool's bytes, or zlib where
+`htslib_tpu_torch.native.native` is None, the JAX tool's bytes without
+its native library.  `-@` is parsed and not used, as in the JAX tool.
 """
 from __future__ import annotations
 

@@ -1,10 +1,13 @@
 """rANS 4x8, the CRAM 3.0 static rANS codec (htscodecs rANS_static.c,
 used via cram/cram_io.c:1668/1838), as host Python.
 
-The port's own copy of the JAX package's host codec (pure-Python path),
-kept byte for byte in its arithmetic so that both packages write and
-read the same wire.  It decodes the QS blocks that stay on the host,
-frames the streams the card decodes, and synthesises test streams.
+The port's own copy of the JAX package's host codec, kept byte for byte
+in its arithmetic so that both packages write and read the same wire.
+As in the JAX package, `uncompress` and `compress` go to the native
+library (htstpu_rans4x8_uncompress / _compress) unless
+`htslib_tpu_torch.native.native` is None.  It decodes the QS blocks that
+stay on the host, frames the streams the card decodes, and synthesises
+test streams.
 
 Stream layout (CRAM 3.0 spec section 13):
   byte   order (0 or 1)
@@ -127,6 +130,9 @@ def _read_freqs_o1(buf: bytes, p: int) -> Tuple[np.ndarray, int]:
 def uncompress(data: bytes) -> bytes:
     order = data[0]
     _comp_sz, out_sz = struct.unpack_from("<II", data, 1)
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        return native.rans4x8_uncompress(data, out_sz)
     if order == 0:
         return _uncompress_o0(data, 9, out_sz)
     return _uncompress_o1(data, 9, out_sz)
@@ -223,6 +229,9 @@ def _uncompress_o1(buf: bytes, p: int, out_sz: int) -> bytes:
 # -- encode ------------------------------------------------------------------
 
 def compress(data: bytes, order: int = 0) -> bytes:
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        return native.rans4x8_compress(data, order)
     if order == 0 or len(data) < 4:
         body = _compress_o0(data)
         order = 0

@@ -2,10 +2,14 @@
 work, and the whole-file BAM -> CRAM writer (the port's copy of
 htslib_tpu/cram/batch.py).
 
-The JAX package decodes each slice with one fused native call, or
-falls back to its Python record decoder and SAM formatter.  The port
-keeps that fallback's host record decode (cram/decode.py) and moves its
-two batchable stages to the device:
+The JAX package decodes each slice with one fused native call
+(block decompression, record decode and SAM format), or falls back to
+its Python record decoder and SAM formatter.  The port moves the two
+batchable stages to the device and keeps the record decode between them
+on the host, where cram/decode.py `decode_slice_blob` gives it to the
+native slice decoder (`native.cram_decode_slice`) as the JAX function
+does, and to the Python loop where the native library is off
+(`htslib_tpu_torch.native.native` None) or bails:
 
   1. block entropy decode.  For each run of `window` slices, every CORE
      and EXTERNAL block with data whose wire a device function decodes
@@ -25,10 +29,8 @@ two batchable stages to the device:
 `iter_slice_blobs` and `cram_file_to_bam_stream` stop after the record
 decode: they give the slices' u32-framed BAM records, not formatted.
 
-Slices are decoded in file order in the calling thread: the record
-decode is Python under the GIL, which the JAX package's pipeline
-threads do not speed up.  With `device="cpu"` the kernels' plain
-versions run.
+Slices are decoded in file order in the calling thread.  With
+`device="cpu"` the kernels' plain versions run.
 
 A region query (`samtools view file.cram chr:beg-end`) is the index's
 containers decoded on the device: cram/index.py
@@ -304,19 +306,48 @@ def _raw_run(data: np.ndarray, offs: np.ndarray, sizes: np.ndarray
     return RawRun(buf, offs, sizes, tids, poss, ends)
 
 
+def _native_run(bam_path: str, voff: int) -> RawRun:
+    """The record stream of a BGZF BAM from virtual offset `voff` (its
+    first record) and the planner's columns, by the native library: one
+    member scan, one parallel inflate, one record scan and one pass over
+    the fields (the JAX function's native branch)."""
+    from htslib_tpu_torch.native import native
+    raw = np.fromfile(bam_path, np.uint8)
+    co, cs, us = native.bgzf_scan(raw)
+    stream = native.inflate_batch(raw, co, cs, us)
+    ustarts = np.zeros(len(us), np.int64)
+    np.cumsum(np.asarray(us[:-1], np.int64), out=ustarts[1:])
+    bi = int(np.searchsorted(np.asarray(co, np.int64), voff >> 16))
+    u_hdr = int(ustarts[bi]) + (voff & 0xFFFF)
+    buf = np.ascontiguousarray(stream[u_hdr:])
+    offs, sizes = native.bam_scan(buf, 0)
+    offs = np.asarray(offs, np.int64)
+    sizes = np.asarray(sizes, np.int64)
+    tids, poss, ends, _flags = native.bam_fields(buf, offs)
+    return RawRun(buf, offs, sizes, tids, poss, ends)
+
+
 def bam_to_cram_file(bam_path: str, cram_path: str, ref=None,
                      **opts) -> int:
     """Whole-file BAM -> CRAM (the test_view -C shape): the BAM's record
-    stream read once (sam/bam.py `BamReader.raw_records`), planned into
-    containers of seqs_per_slice x slices_per_container records by its
-    tid/pos/end columns, each container encoded by the CramWriter's
-    encoder.  `opts` are CramWriter's: `write_index=True` writes the
-    `.crai` beside the file, `device_profile=True` (CRAM 3.1) pins the
-    quality blocks to a wire the device decodes.  Returns the record
-    count."""
+    stream read once, planned into containers of seqs_per_slice x
+    slices_per_container records by its tid/pos/end columns, each
+    container encoded by the CramWriter's encoder.  The stream and its
+    columns come from the native library (`_native_run`), or with
+    `htslib_tpu_torch.native.native` None from sam/bam.py
+    `BamReader.raw_records` and numpy (`_raw_run`).  `opts` are
+    CramWriter's: `write_index=True` writes the `.crai` beside the file,
+    `device_profile=True` (CRAM 3.1) pins the quality blocks to a wire
+    the device decodes.  Returns the record count."""
+    from htslib_tpu_torch.native import native
     with BamReader(bam_path) as r:
         header = r.header
-        run = _raw_run(*r.raw_records())
+        if native is not None:
+            voff = r.fp.tell()      # virtual offset of the first record
+        else:
+            run = _raw_run(*r.raw_records())
+    if native is not None:
+        run = _native_run(bam_path, voff)
     n = len(run)
     with CramWriter(cram_path, header, ref=ref, **opts) as w:
         enc = w._enc

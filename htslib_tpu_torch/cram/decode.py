@@ -4,14 +4,16 @@ of htslib_tpu/cram/decode.py; reference cram/cram_decode.c).
 Per-slice: parse the compression header's codec maps once, then play the
 per-record decode loop (cram_decode_slice:2346, cram_decode_seq:1096),
 resolve intra-slice mate references (cram_decode_slice_xref:2140) and
-convert to BamRecords (cram_to_bam:3100).  The JAX package's native slice
-decoder is not ported: every slice goes through this loop, which is the
-JAX package's own path whenever required-fields pruning is on.  With
-`required_fields` (SAM_* bits) the series no requested field needs are
-not read, and their EXTERNAL blocks are not even uncompressed
-(`_active_series`).  A block whose `_uncompressed` bytes are already set
-(cram/batch.py decodes the rANS blocks of a batch of slices on the
-device) is not decoded again.
+convert to BamRecords (cram_to_bam:3100).  A CRAM 3 slice that is not
+multi-reference, read without pruning, goes first to the native slice
+decoder (`native.cram_decode_slice`, htstpu_cram_decode_slice) on its
+blocks' uncompressed payloads, where and when the JAX package sends it
+there; the loop here decodes it where the native library is off or bails
+on the slice's configuration.  With `required_fields` (SAM_* bits) the
+series no requested field needs are not read, and their EXTERNAL blocks
+are not even uncompressed (`_active_series`).  A block whose
+`_uncompressed` bytes are already set (cram/batch.py decodes the rANS
+blocks of a batch of slices on the device) is not decoded again.
 """
 from __future__ import annotations
 
@@ -126,6 +128,7 @@ class CompressionHeader:
     TD: List[bytes] = field(default_factory=list)
     codecs: Dict[str, Codec] = field(default_factory=dict)
     tag_codecs: Dict[int, Codec] = field(default_factory=dict)
+    raw: Optional[bytes] = None   # uncompressed header bytes (native path)
 
 
 def decode_compression_header(block: CramBlock,
@@ -134,6 +137,7 @@ def decode_compression_header(block: CramBlock,
     buf = block.uncompress()
     vv = varint_vec(vmajor)
     hdr = CompressionHeader()
+    hdr.raw = bytes(buf)
     # default substitution matrix "CGTN AGTN ACTN ACGN ACGT"
     default = ["CGTN", "AGTN", "ACTN", "ACGN", "ACGT"]
     hdr.sub_matrix = {i: default[i].encode() for i in range(5)}
@@ -324,6 +328,14 @@ def decode_slice(hdr: CompressionHeader, sh: SliceHeader,
                     f"{sh.ref_seq_start + sh.ref_seq_span - 1}; "
                     "please check the reference given is correct")
 
+    # native fast path (htstpu_cram_decode_slice): CRAM v3, no pruning,
+    # single-ref/unmapped/no-ref slices; bails back here on anything exotic
+    if act is None and vmajor == 3 and sh.ref_seq_id != -2:
+        res = _native_decode_slice(hdr, sh, blocks, header, ref, ref_start,
+                                   decode_md)
+        if res is not None:
+            return res
+
     recs: List[CramRecordTmp] = []
     last_apos = sh.ref_seq_start
     rg_names = [ln.get("ID") for ln in header.lines if ln.type == "RG"]
@@ -426,13 +438,93 @@ def decode_slice(hdr: CompressionHeader, sh: SliceHeader,
     return _to_bam(recs, sh, header, rg_names)
 
 
+def _native_payloads(blocks: List[CramBlock]):
+    """(content types, content ids, uncompressed payloads) of a slice's
+    CORE and EXTERNAL blocks, in block order: the native decoder's
+    input."""
+    payloads = []
+    ctypes_list = []
+    cids = []
+    for b in blocks:
+        if b.content_type in (CT_CORE, CT_EXTERNAL):
+            payloads.append(b.uncompress())
+            ctypes_list.append(b.content_type)
+            cids.append(b.content_id)
+    return ctypes_list, cids, payloads
+
+
+def _native_decode_slice(hdr: CompressionHeader, sh: SliceHeader,
+                         blocks: List[CramBlock], header: SamHeader,
+                         ref: Optional[bytes], ref_start: int,
+                         decode_md: bool) -> Optional[List[BamRecord]]:
+    """Try the C++ slice decoder (native/src/htstpu.cc
+    htstpu_cram_decode_slice).  Returns None when unavailable or when the
+    native side bails (unsupported codec/configuration) — the caller then
+    runs the Python decoder on the same (immutable) inputs."""
+    from htslib_tpu_torch.native import native
+    if native is None or hdr.raw is None:
+        return None
+    ctypes_list, cids, payloads = _native_payloads(blocks)
+    rg_names = [ln.get("ID") for ln in header.lines if ln.type == "RG"]
+    blob = native.cram_decode_slice(
+        hdr.raw, sh.ref_seq_id, sh.ref_seq_start, sh.ref_seq_span,
+        sh.num_records, sh.record_counter, ctypes_list, cids, payloads,
+        None if hdr.no_ref else ref, ref_start,
+        header.tid2len(sh.ref_seq_id), rg_names, decode_md)
+    if blob is None:
+        return None
+    out: List[BamRecord] = []
+    mv = memoryview(blob)
+    p = 0
+    n = len(mv)
+    while p + 4 <= n:
+        bsz = int.from_bytes(mv[p:p + 4], "little")
+        out.append(BamRecord.from_bam_buffer(mv, p + 4, bsz))
+        p += 4 + bsz
+    if p != n or len(out) != sh.num_records:
+        return None
+    return out
+
+
 def decode_slice_blob(hdr: CompressionHeader, sh: SliceHeader,
                       blocks: List[CramBlock], header: SamHeader,
                       get_ref, vmajor: int, decode_md: bool = True,
                       ) -> bytes:
     """One slice as a blob of BAM records, each framed by its u32 length:
     the batch form of decode_slice, which SAM formatting takes whole
-    (ops/bam2sam.py)."""
+    (ops/bam2sam.py).  A CRAM 3 slice that is not multi-reference goes
+    to the native slice decoder, whose blob is passed through untouched;
+    where the native library is off or bails, the Python record decoder
+    runs and its records are serialised."""
+    ref = None
+    ref_start = sh.ref_seq_start
+    if sh.ref_seq_id >= 0 and not hdr.no_ref:
+        if sh.ref_base_id >= 0:
+            for b in blocks:
+                if b.content_id == sh.ref_base_id:
+                    ref = b.uncompress()
+                    break
+        else:
+            ref = get_ref(sh.ref_seq_id, sh.ref_seq_start,
+                          sh.ref_seq_start + sh.ref_seq_span - 1)
+        if ref is not None and sh.md5 != b"\0" * 16:
+            import hashlib
+            if hashlib.md5(ref[:sh.ref_seq_span]).digest() != sh.md5:
+                raise IOError("MD5 checksum reference mismatch at "
+                              f"#{sh.ref_seq_id}:{sh.ref_seq_start}")
+    from htslib_tpu_torch.native import native
+    if (native is not None and vmajor == 3 and sh.ref_seq_id != -2
+            and hdr.raw is not None):
+        ctypes_list, cids, payloads = _native_payloads(blocks)
+        rg_names = [ln.get("ID") for ln in header.lines
+                    if ln.type == "RG"]
+        blob = native.cram_decode_slice(
+            hdr.raw, sh.ref_seq_id, sh.ref_seq_start, sh.ref_seq_span,
+            sh.num_records, sh.record_counter, ctypes_list, cids, payloads,
+            None if hdr.no_ref else ref, ref_start,
+            header.tid2len(sh.ref_seq_id), rg_names, decode_md)
+        if blob is not None:
+            return bytes(blob)
     parts = []
     for rec in decode_slice(hdr, sh, blocks, header, get_ref, vmajor,
                             decode_md=decode_md):

@@ -1,16 +1,20 @@
-"""CRAM encoder (the port's copy of the Python path of
-htslib_tpu/cram/encode.py; reference cram/cram_encode.c:4042
-cram_put_bam_seq, :3382 process_one_read, :1843 cram_encode_container).
+"""CRAM encoder (the port's copy of htslib_tpu/cram/encode.py; reference
+cram/cram_encode.c:4042 cram_put_bam_seq, :3382 process_one_read, :1843
+cram_encode_container).
 
 Records are planned into containers of slices; each slice's data series
-are built record by record into EXTERNAL streams (matches implicit
-against a reference where one is given, else every base in the BB/IN/SC
-byte arrays), and each stream's block method is chosen by trial
-(`CodecMetrics`: rANS 4x8 of both orders, GZIP, RAW, and for CRAM 3.1
-rANS Nx16 and its PACK transform, with FQZ and the name tokeniser as
-challengers).  Every codec is the port's own host codec, so the bytes
-are those of the JAX encoder with its native library off (its native
-encoder writes other, equally valid, bytes).  Containers are built and
+are built into EXTERNAL streams (matches implicit against a reference
+where one is given, else every base in the BB/IN/SC byte arrays), and
+each stream's block method is chosen by trial (`CodecMetrics`: rANS 4x8
+of both orders, GZIP, RAW, and for CRAM 3.1 rANS Nx16 and its PACK
+transform, with FQZ and the name tokeniser as challengers).  As in the
+JAX encoder, a CRAM 3 slice of one reference without lossy names or an
+embedded reference is built by the native slice encoder
+(`native.cram_encode_slice`, the process_one_read loop in C++), and the
+codecs are the native library's; with `htslib_tpu_torch.native.native`
+None, or where the native encoder bails, the streams are built record by
+record here and the port's host codecs compress them.  Either way the
+bytes are the JAX encoder's on the same route.  Containers are built and
 written in order in the calling thread, which writes the bytes of the
 JAX encoder at any `nthreads`.  With `write_index` each slice gets its
 CRAI entry as its container is written, and the `.crai` is saved at
@@ -32,6 +36,7 @@ import numpy as np
 
 from htslib_tpu_torch.codecs import arith, fqzcomp, rans4x8, rans4x16, tok3
 from htslib_tpu_torch.cram.index import CraiEntry, CramIndex
+from htslib_tpu_torch.cram.itf8 import itf8_encode
 from htslib_tpu_torch.cram.refs import RefRegistry
 from htslib_tpu_torch.cram.structs import (
     ARITH, BZIP2, CRAM_FLAG_DETACHED, CRAM_FLAG_MATE_DOWNSTREAM,
@@ -123,7 +128,30 @@ class _Stream:
 
 
 def _fqz_compress(data: bytes, lens) -> bytes:
+    """FQZ encode, native shim when available (same wire as codecs/fqzcomp)."""
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        return native.fqz_compress(data, lens)
     return fqzcomp.compress(data, list(lens))
+
+
+def _costed(comp: bytes, weight: float) -> Tuple[bytes, float]:
+    """A challenger's bytes and their cost at meth_cost `weight`."""
+    return comp, len(comp) * weight
+
+
+def _rans4x16_compress(data: bytes, flags: int) -> bytes:
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        return native.rans4x16_compress(data, flags)
+    return rans4x16.compress(data, flags)
+
+
+def _arith_compress(data: bytes, order: int) -> bytes:
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        return native.arith_compress(data, order)
+    return arith.compress(data, order)
 
 
 def _device_qs(data: bytes, method: int, comp: bytes) -> Tuple[int, bytes]:
@@ -132,11 +160,11 @@ def _device_qs(data: bytes, method: int, comp: bytes) -> Tuple[int, bytes]:
     decode is slower than order 0's, so a marginal size win is not worth
     it).  Keeps (method, comp) where order 0 cannot encode the block."""
     try:
-        comp = rans4x16.compress(data, 0x04)
+        comp = _rans4x16_compress(data, 0x04)
     except (ValueError, ZeroDivisionError):
         return method, comp
     try:
-        c1 = rans4x16.compress(data, 0x05)
+        c1 = _rans4x16_compress(data, 0x05)
         if len(c1) < 0.97 * len(comp):
             comp = c1
     except (ValueError, ZeroDivisionError):
@@ -159,12 +187,22 @@ def _ref_extents(recs) -> Dict[int, Tuple[int, int]]:
     return by_ref
 
 
-def _tok3_encode(data: bytes) -> bytes:
+def _tok3_encode(data: bytes, use_arith: int = 0) -> bytes:
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        return native.tok3_encode(data, use_arith)
     return tok3.encode_names(data.split(b"\0")[:-1])
 
 
 def _gzip_compress(data: bytes, level: int = 6) -> bytes:
-    """GZIP block method (cram/cram_io.c:1604): zlib with a gzip wrapper."""
+    """GZIP block method (cram/cram_io.c:1604): native libdeflate when
+    available, zlib with a gzip wrapper otherwise."""
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        try:
+            return native.gzip_compress(data, level)
+        except (ValueError, AttributeError):
+            pass
     co = zlib.compressobj(min(level, 9), zlib.DEFLATED, 31)
     return co.compress(data) + co.flush()
 
@@ -178,7 +216,8 @@ class RawRun:
     """A run of records for the file-level encode (cram/batch.py
     bam_to_cram_file): a u32-framed BAM record stream shared by every run,
     each record's frame offset and size, and its tid, pos and end as
-    numpy columns, which the container planner reads; the slice encoder
+    numpy columns, which the container planner reads.  The native slice
+    encoder takes the run's bytes as they stand (`blob`); the Python one
     materialises the records."""
 
     __slots__ = ("data", "offs", "sizes", "tids", "poss", "ends")
@@ -199,6 +238,15 @@ class RawRun:
             raise TypeError("RawRun supports slicing only")
         return RawRun(self.data, self.offs[key], self.sizes[key],
                       self.tids[key], self.poss[key], self.ends[key])
+
+    @property
+    def blob(self) -> bytes:
+        """The run's u32-framed record bytes, verbatim from the BAM
+        stream (BAM block_size framing == the native encoder's input
+        framing)."""
+        lo = int(self.offs[0])
+        hi = int(self.offs[-1] + self.sizes[-1])
+        return self.data[lo:hi]
 
     def materialize(self):
         out = []
@@ -281,12 +329,12 @@ class CodecMetrics:
         if cand.startswith("r16"):
             fl = {"r16o0": 0, "r16o1": 1, "r16pack": 0x81}[cand]
             try:
-                return RANSPR, rans4x16.compress(data, fl)
+                return RANSPR, _rans4x16_compress(data, fl)
             except (ValueError, ZeroDivisionError):
                 return RAW, data
         if cand.startswith("arith"):
             try:
-                return ARITH, arith.compress(data, 1)
+                return ARITH, _arith_compress(data, 1)
             except (ValueError, ZeroDivisionError):
                 return RAW, data
         order = 0 if cand == "rans0" else 1
@@ -739,7 +787,18 @@ class CramEncoder:
         def S(key) -> _Stream:
             return streams[SERIES[key] if isinstance(key, str) else key]
 
-        # the slice encoder reads whole records: a RawRun is materialised
+        # native fast path: the process_one_read hot loop in C++
+        # (htstpu_cram_encode_slice); bails here for v4 / lossy names /
+        # multiref / embedded-ref configurations
+        if (not self.v4 and not self.lossy_names and not multiref
+                and not self.embed_ref):
+            res = self._encode_slice_native(recs, plan, tag_dict,
+                                            tag_lines, used_tags,
+                                            record_counter)
+            if res is not None:
+                return res
+
+        # the Python builder reads whole records: a RawRun is materialised
         if isinstance(recs, RawRun):
             recs = recs.materialize()
 
@@ -909,13 +968,15 @@ class CramEncoder:
                 # fqzcomp quality model (FQZ, cram_io.c:1821; meth_cost
                 # 1.05, cram_io.c:2115)
                 method, comp = self._challenge(
-                    "fqz", lambda: _fqz_compress(data, qs_lens), 1.05,
-                    method, comp, FQZ)
+                    "fqz", lambda: _costed(_fqz_compress(data, qs_lens),
+                                           1.05), method, comp, FQZ)
             if (self.use_tok and self.version >= (3, 1)
                     and cid == SERIES["RN"] and len(data) >= 64):
-                # name tokeniser for the read-name series (TOK3)
+                # name tokeniser for the read-name series (TOK3); under
+                # use_arith the arith-strat tokeniser (TOKA, cost 1.07,
+                # cram_io.c:1885) is tried beside it, same wire method id
                 method, comp = self._challenge(
-                    "tok3", lambda: _tok3_encode(data), 1.05, method, comp,
+                    "tok3", lambda: self._tok3_best(data), method, comp,
                     TOK3)
             _write_block(blocks, method, CT_EXTERNAL, cid, data,
                          precompressed=comp if method != RAW else None,
@@ -929,12 +990,28 @@ class CramEncoder:
                 "cids": set(stream_bytes.keys()),
                 "nblocks": 2 + len(all_ids), "span": span}
 
-    def _challenge(self, kind: str, make, weight: float, method: int,
-                   comp: bytes, new_method: int) -> Tuple[int, bytes]:
+    def _tok3_best(self, data: bytes) -> Tuple[bytes, float]:
+        """The tokeniser's stream for the RN block and its weighted cost:
+        tok3-rans at 1.05 and, under use_arith, TOKA at 1.07 where it
+        costs less."""
+        t = _tok3_encode(data)
+        cost = len(t) * 1.05
+        if self._use_arith:
+            try:
+                ta = _tok3_encode(data, 1)
+                if len(ta) * 1.07 < cost:
+                    t, cost = ta, len(ta) * 1.07
+            except ValueError:
+                pass
+        return t, cost
+
+    def _challenge(self, kind: str, make, method: int, comp: bytes,
+                   new_method: int) -> Tuple[int, bytes]:
         """A challenger codec against the metrics winner (method, comp):
         tried every TRIAL_EVERY blocks of its kind, its verdict reused in
         between (cram_compress_block3's periodic revised trials,
-        cram_io.c:2137-2153).  Returns the (method, bytes) to write."""
+        cram_io.c:2137-2153).  `make` gives the challenger's bytes and
+        weighted cost.  Returns the (method, bytes) to write."""
         st = self._challenger[kind]
         n = st["n"]
         st["n"] = n + 1
@@ -943,15 +1020,63 @@ class CramEncoder:
         if not (trial or use):
             return method, comp
         try:
-            c = make()
+            c, cost = make()
         except ValueError:
             return method, comp
-        wins = len(c) * weight < len(comp) * _METHOD_COST.get(method, 1.0)
+        wins = cost < len(comp) * _METHOD_COST.get(method, 1.0)
         if trial:
             st["use"] = wins
         if wins or (use and not trial):
             return new_method, c
         return method, comp
+
+    def _encode_slice_native(self, recs, plan, tag_dict, tag_lines,
+                             used_tags, record_counter):
+        """Native stream builder (htstpu_cram_encode_slice): records are
+        framed into a u32-prefixed BAM blob, the C++ hot loop produces
+        every data-series stream + the slice tag dictionary, and Python
+        merges the TD lines into the container dictionary and builds the
+        TL stream.  None where the native library is off or bails."""
+        from htslib_tpu_torch.native import native
+        if native is None:
+            return None
+        if isinstance(recs, RawRun):
+            blob = recs.blob       # BAM framing == encoder framing
+        else:
+            parts = []
+            for rec in recs:
+                buf = rec.to_bam_buffer()
+                parts.append(struct.pack("<I", len(buf)) + buf)
+            blob = b"".join(parts)
+        res = native.cram_encode_slice(
+            blob, plan["slice_ref"], plan["start"], plan["ref_seq"],
+            plan["start"], plan["use_ref"] and plan["ref_seq"] is not None)
+        if res is None:
+            return None
+        n, nbases, end_pos, streams, td_lines, rec_tl, qs_lens = res
+        # merge slice-local TD lines into the container-wide dictionary
+        remap = np.empty(max(len(td_lines), 1), np.uint32)
+        for li, line in enumerate(td_lines):
+            tl = tag_lines.get(line)
+            if tl is None:
+                tl = len(tag_dict)
+                tag_lines[line] = tl
+                tag_dict.append(line)
+            remap[li] = tl
+        mapped = remap[rec_tl]
+        if mapped.size and int(mapped.max()) < 128:
+            tl_stream = mapped.astype(np.uint8).tobytes()
+        else:
+            out = bytearray()
+            for v in mapped:
+                out += itf8_encode(int(v))
+            tl_stream = bytes(out)
+        streams[SERIES["TL"]] = tl_stream
+        for cid in streams:
+            if cid >= TAG_ID_BASE:
+                used_tags[cid - TAG_ID_BASE] = b""
+        return self._emit_slice_tail(streams, qs_lens.tolist(), n, plan,
+                                     record_counter, nbases, int(end_pos))
 
     # ------------------------------------------------------------------
     @staticmethod

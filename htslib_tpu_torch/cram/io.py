@@ -4,8 +4,10 @@ Host-side framing: file definition, container headers, blocks, and block
 decompression for every method of CRAM 3.1 (cram_uncompress_block,
 cram_io.c:1576-1750): RAW, GZIP, BZIP2, LZMA; RANS, the rANS 4x8 coder;
 RANSPR, the rANS Nx16 coder; ARITH, the adaptive arithmetic coder; FQZ,
-fqzcomp; TOK3, the name tokeniser.  The last five are the port's own
-pure-Python codecs.
+fqzcomp; TOK3, the name tokeniser.  As in the JAX package, the last
+five go to the native library (RANS through codecs/rans4x8.py) and to
+the port's own pure-Python codecs where `htslib_tpu_torch.native.native`
+is None.
 """
 from __future__ import annotations
 
@@ -50,17 +52,33 @@ class CramBlock:
             from htslib_tpu_torch.codecs import rans4x8
             out = rans4x8.uncompress(self.data)
         elif m == RANSPR:
-            from htslib_tpu_torch.codecs import rans4x16
-            out = rans4x16.uncompress(self.data)
+            from htslib_tpu_torch.native import native
+            if native is not None:
+                out = native.rans4x16_uncompress(self.data)
+            else:
+                from htslib_tpu_torch.codecs import rans4x16
+                out = rans4x16.uncompress(self.data)
         elif m == ARITH:
-            from htslib_tpu_torch.codecs import arith
-            out = arith.uncompress(self.data)
+            from htslib_tpu_torch.native import native
+            if native is not None:
+                out = native.arith_uncompress(self.data)
+            else:
+                from htslib_tpu_torch.codecs import arith
+                out = arith.uncompress(self.data)
         elif m == FQZ:
-            from htslib_tpu_torch.codecs import fqzcomp
-            out = fqzcomp.decompress(self.data)
+            from htslib_tpu_torch.native import native
+            if native is not None:
+                out = native.fqz_decompress(self.data)
+            else:
+                from htslib_tpu_torch.codecs import fqzcomp
+                out = fqzcomp.decompress(self.data)
         elif m == TOK3:
-            from htslib_tpu_torch.codecs import tok3
-            out = tok3.decode_names(self.data)
+            from htslib_tpu_torch.native import native
+            if native is not None:
+                out = native.tok3_decode(self.data)
+            else:
+                from htslib_tpu_torch.codecs import tok3
+                out = tok3.decode_names(self.data)
         else:
             raise IOError(f"unknown CRAM compression method {m}")
         if m != TOK3 and len(out) != self.raw_size:

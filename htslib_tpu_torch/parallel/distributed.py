@@ -12,8 +12,12 @@ containers (cram/batch.py `cram_range_to_sam`: rANS blocks on the
 device, records on the host, SAM formatting on the device).  A BCF plan
 holds record-aligned ranges of the body, balanced by record bytes, and
 the BGZF members of the file: each rank inflates only the members that
-cover its range on the device (X4) and frames and formats its records on
-the host (vcf/record.py).
+cover its range on the device (X4) and formats its records on the host
+(the native formatter, `native.bcf_to_vcf`, as in the JAX package, or
+with `htslib_tpu_torch.native.native` None vcf/record.py a record at a
+time).  The plans' member walks and record scans on the host go through
+bgzf.py `scan_blocks` and sam/bam.py `BamReader.raw_records`, native
+where the library is on.
 
 `initialize` joins this process to a torch.distributed world (the JAX
 package's wraps jax.distributed.initialize).
@@ -352,11 +356,13 @@ def decode_bcf_shard_to_vcf(plan: BcfShardPlan, shard: BcfShard,
                             header=None, device="cuda",
                             timing: Optional[dict] = None) -> bytes:
     """One rank's work: inflate only the members that cover this shard's
-    body range on `device` (X4 on the card), frame its records and format
-    them as VCF text on the host.  Concatenating the results in shard
-    order gives the single-process `bcf_file_to_vcf` body.  `timing`,
-    where given, gets read_s (the header, where none is given, and the
-    members' bytes), inflate_s, frame_s and format_s."""
+    body range on `device` (X4 on the card), and format its records as
+    VCF text on the host (the native formatter, or with the native
+    library off framed and formatted a record at a time).  Concatenating
+    the results in shard order gives the single-process `bcf_file_to_vcf`
+    body.  `timing`, where given, gets read_s (the header, where none is
+    given, and the members' bytes), inflate_s, frame_s (0 on the native
+    route) and format_s."""
     dev = _build.resolve_device(device)
     timing = {} if timing is None else timing
     timing.update(read_s=0.0, inflate_s=0.0)
@@ -369,6 +375,14 @@ def decode_bcf_shard_to_vcf(plan: BcfShardPlan, shard: BcfShard,
                         plan.usizes, plan.body + shard.ustart,
                         plan.body + shard.uend, dev, timing)
     t0 = time.perf_counter()
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        text = native.bcf_to_vcf(np.frombuffer(buf, np.uint8),
+                                 header.ctg_names, header.id_names,
+                                 header.id2int("GT"), header.v44)
+        timing["frame_s"] = 0.0
+        timing["format_s"] = time.perf_counter() - t0
+        return text
     shared, indiv = split_frames(buf)
     t1 = time.perf_counter()
     text = format_frames(shared, indiv, header)

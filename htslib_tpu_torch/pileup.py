@@ -24,6 +24,20 @@ tiles in spawned processes that get the tile's record bytes and bases
 and never touch the card; a tile emits only the columns inside it.  This
 module imports torch only inside the entry points, so a tile's process
 loads the engine alone.
+
+As in the JAX package, both entry points go to the native engine
+(`native.mpileup`, the resolve_cigar2 and overlap-tweak port in C++)
+unless `htslib_tpu_torch.native.native` is None: the stream is read as
+above (X4 for a BAM; a SAM's body parsed by `native.sam_to_bam`), and
+`mpileup_text` hands it whole to the engine.  Where the parser or the
+engine refuses a SAM (IOError, or BlockingIOError on a record the engine
+does not handle, such as a CIGAR in a CG tag), the Python engine runs;
+where the engine refuses a BAM the text is empty, as the JAX function's
+is (its fallback reads a spent reader; ROADMAP queue C).
+`mpileup_text_parallel` frames it and reads the planner fields on
+the device (X5; B1 is not launched, since the engine reads the packed
+bases itself), plans the same tiles and runs the engine over each tile's
+record range with an emission window on pipeline.py's host threads.
 """
 from __future__ import annotations
 
@@ -622,7 +636,8 @@ def _sam_stream(path, dev, timing: dict):
 
 
 def decode_records(payload: bytes, device="cuda",
-                   timing: Optional[dict] = None) -> dict:
+                   timing: Optional[dict] = None, bases: bool = True
+                   ) -> dict:
     """Frame a u32-length-prefixed BAM record stream and decode what the
     pileup needs, on `device`: the record offsets and sizes by
     `device_record_scan` (X5), each record's tid, pos, end (bam_endpos:
@@ -634,8 +649,9 @@ def decode_records(payload: bytes, device="cuda",
     "l_qseq", the bases as bytes ("bases": each record's
     2 * ceil(l_qseq / 2) characters at "base_offs").  Raises IOError on
     a truncated stream and ValueError on a record shorter than its core.
-    `timing`, where given, gets scan_s (X5, the checks and the fields)
-    and bases_s (the gather, B1 and the download)."""
+    With `bases` False, B1 is not launched and "bases" and "base_offs"
+    are left out.  `timing`, where given, gets scan_s (X5, the checks and
+    the fields) and bases_s (the gather, B1 and the download)."""
     import torch
 
     from htslib_tpu_torch import _build
@@ -678,6 +694,9 @@ def decode_records(payload: bytes, device="cuda",
             "l_qseq": f["l_qseq"].long()}
     out = {key: v.cpu().numpy() for key, v in cols.items()}
     t1 = _build.clock(dev)
+    timing["scan_s"] = t1 - t0
+    if not bases:
+        return out
     plen = (cols["l_qseq"].clamp(min=0) + 1) // 2
     t = int(plen.sum())
     if t:
@@ -692,7 +711,6 @@ def decode_records(payload: bytes, device="cuda",
         out["bases"] = b""
     out["base_offs"] = np.concatenate(
         [[0], np.cumsum(2 * plen.cpu().numpy())]).astype(np.int64)
-    timing["scan_s"] = t1 - t0
     timing["bases_s"] = _build.clock(dev) - t1
     return out
 
@@ -709,6 +727,76 @@ def _read_stream(path: str, is_sam: bool, device, timing: dict):
     else:
         header, stream = read_bam_stream(path, dev, timing)
     return header, stream, decode_records(stream, dev, timing)
+
+
+def _native_stream(path: str, is_sam: bool, dev, timing: dict):
+    """(header, the uncompressed record stream) as the native route reads
+    them: a BAM by `read_bam_stream` (X4 on the card), a SAM's text on
+    the host and its body (past the @ lines) parsed by `native.sam_to_bam`,
+    which raises IOError on a line it refuses."""
+    import io
+
+    from htslib_tpu_torch import _build
+    from htslib_tpu_torch.bgzf import BgzfReader, read_file
+    from htslib_tpu_torch.native import native
+    from htslib_tpu_torch.sam.batch import read_bam_stream
+    from htslib_tpu_torch.sam.samtext import SamReader
+
+    if not is_sam:
+        return read_bam_stream(path, dev, timing)
+    t0 = _build.clock(dev)
+    text = read_file(path).tobytes()
+    if text[:2] == b"\x1f\x8b":
+        text = BgzfReader(io.BytesIO(text)).read(-1)
+    header = SamReader(io.BytesIO(text)).header
+    # skip the @-header block with one scan, no split
+    p = 0
+    while p < len(text) and text[p:p + 1] == b"@":
+        nl = text.find(b"\n", p)
+        if nl < 0:
+            p = len(text)
+            break
+        p = nl + 1
+    t1 = _build.clock(dev)
+    stream = native.sam_to_bam(np.frombuffer(text, np.uint8, len(text) - p,
+                                             p), header.ref_names).tobytes()
+    timing["read_s"] = t1 - t0
+    timing["parse_s"] = _build.clock(dev) - t1
+    return header, stream
+
+
+def _native_text(path: str, is_sam: bool, device, skip_mask: int,
+                 overlaps: bool, timing: dict, stages: Optional[dict]):
+    """`mpileup_text` by the native engine: (header, text), or None where
+    the caller runs the Python engine, as the JAX function falls back:
+    where a SAM's parser or engine refuses the input (IOError, the
+    engine's BlockingIOError included).  A BAM's engine refusal gives no
+    column, as the JAX function gives none there: its fallback engine
+    reads the reader whose stream it has already read whole (ROADMAP
+    queue C, a CIGAR in a CG tag)."""
+    from htslib_tpu_torch import _build
+    from htslib_tpu_torch.native import native
+
+    dev = _build.resolve_device(device)
+    try:
+        header, stream = _native_stream(path, is_sam, dev, timing)
+    except IOError:
+        if is_sam:
+            return None
+        raise
+    t0 = time.perf_counter()
+    try:
+        text = native.mpileup(np.frombuffer(stream, np.uint8),
+                              header.ref_names, skip_mask, overlaps)
+    except IOError:         # BlockingIOError (the engine's bail) included
+        if is_sam:
+            return None
+        text = b""
+    timing.update(plan_s=0.0, engine_s=time.perf_counter() - t0,
+                  format_s=0.0)
+    if stages is not None:
+        stages.update(payload=stream)
+    return header, text
 
 
 def records_with_bases(payload: bytes, offs: np.ndarray, sizes: np.ndarray,
@@ -796,14 +884,23 @@ def mpileup_text(path: str, overlaps: bool = True,
     (header, text), byte for byte the JAX function's.  A name ending in
     ".bam" is read as BAM, anything else as SAM; the record stream is
     read and decoded on `device` (module docstring: X4 for a BAM, X5, B1)
-    and the engine runs in this process.  A build or launch that fails
-    raises; nothing falls back to the CPU.  `timing`, where given, gets
-    read_s, inflate_s (BAM) or parse_s (SAM), scan_s, bases_s, plan_s
-    (0 here), engine_s, format_s, columns and entries; `stages`, where
-    given, gets the stream ("payload") and `decode_records`' columns."""
+    and the engine runs in this process: the native engine where the
+    library is on (module docstring), else the Python engine.  A build or
+    launch that fails raises; nothing falls back to the CPU.  `timing`,
+    where given, gets read_s, inflate_s (BAM) or parse_s (SAM), plan_s
+    (0 here), engine_s and format_s (0 on the native route, whose engine
+    writes the text), and on the Python route scan_s, bases_s, columns
+    and entries; `stages`, where given, gets the stream ("payload") and,
+    on the Python route, `decode_records`' columns."""
     timing = {} if timing is None else timing
-    header, stream, rs = _read_stream(path, not path.endswith(".bam"),
-                                      device, timing)
+    is_sam = not path.endswith(".bam")
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        out = _native_text(path, is_sam, device, skip_mask, overlaps, timing,
+                           stages)
+        if out is not None:
+            return out
+    header, stream, rs = _read_stream(path, is_sam, device, timing)
     if stages is not None:
         stages.update(rs, payload=stream)
     timing["plan_s"] = 0.0
@@ -893,11 +990,16 @@ def mpileup_text_parallel(path: str, nthreads: int = 0,
     in this process.  `timing`, where given, gets `mpileup_text`'s keys
     (engine_s and format_s summed over the tiles), pool_s (the tiles'
     wall time), processes and tiles; `stages`, where given, gets
-    `mpileup_text`'s and the plan ("tiles")."""
+    `mpileup_text`'s and the plan ("tiles").  With the native library on,
+    the JAX function's native route (`_native_parallel`) runs instead."""
     import os
 
     nthreads = nthreads or (os.cpu_count() or 2)
     timing = {} if timing is None else timing
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        return _native_parallel(path, nthreads, overlaps, skip_mask, device,
+                                timing, stages)
     header, stream, rs = _read_stream(path, not path.endswith(".bam"),
                                       device, timing)
     t0 = time.perf_counter()
@@ -931,3 +1033,51 @@ def mpileup_text_parallel(path: str, nthreads: int = 0,
     timing["processes"] = nthreads
     timing["tiles"] = len(tiles)
     return header, b"".join(blob for blob, _ in outs)
+
+
+def _native_parallel(path: str, nthreads: int, overlaps: bool,
+                     skip_mask: int, device, timing: dict,
+                     stages: Optional[dict]) -> Tuple[object, bytes]:
+    """`mpileup_text_parallel` by the native engine, as the JAX function
+    runs it: the stream read (`_native_stream`), framed with its planner
+    fields on `device` (`decode_records` without B1), the tiles of
+    `plan_tiles`, and `native.mpileup` over each tile's record range with
+    the tile as its emission window, on pipeline.py's shared threads (the
+    engine drops the GIL).  No mapped read, or `nthreads` <= 1, runs the
+    engine once over the whole stream.  A refusal of the parser or the
+    engine raises, as in the JAX function.  `timing` gets read_s,
+    inflate_s or parse_s, scan_s, plan_s, engine_s (the tiles' wall
+    time), format_s (0), threads and tiles."""
+    from htslib_tpu_torch import _build
+    from htslib_tpu_torch.native import native
+    from htslib_tpu_torch.pipeline import shared_pool
+
+    dev = _build.resolve_device(device)
+    header, stream = _native_stream(path, not path.endswith(".bam"), dev,
+                                    timing)
+    rs = decode_records(stream, dev, timing, bases=False)
+    t0 = time.perf_counter()
+    tiles, n_mapped = plan_tiles(rs, nthreads, skip_mask)
+    timing["plan_s"] = time.perf_counter() - t0
+    if stages is not None:
+        stages.update(rs, payload=stream, tiles=tiles)
+    names = list(header.ref_names)
+    arr = np.frombuffer(stream, np.uint8)
+    t0 = time.perf_counter()
+    if n_mapped == 0 or nthreads <= 1:
+        outs = [native.mpileup(arr, names, skip_mask, overlaps)]
+    else:
+        def run_tile(tile):
+            window, rng = tile
+            if rng is None:
+                return b""
+            i0, i1 = rng
+            a = int(rs["offs"][i0])
+            b = int(rs["offs"][i1] + 4 + rs["sizes"][i1])
+            return native.mpileup(arr[a:b], names, skip_mask, overlaps,
+                                  window=window)
+
+        outs = list(shared_pool().map(run_tile, tiles))
+    timing.update(engine_s=time.perf_counter() - t0, format_s=0.0,
+                  threads=nthreads, tiles=len(tiles))
+    return header, b"".join(outs)

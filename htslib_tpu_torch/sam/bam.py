@@ -146,9 +146,14 @@ class BamReader:
         """(data, offsets, sizes): the rest of the uncompressed stream as
         uint8 (its members inflated on the host at once), each record's
         offset in it (at its u32 length) as uint64, and its whole size
-        with that length as uint32.  Raises IOError on a truncated
-        stream."""
+        with that length as uint32, framed by the native library's
+        record scan unless `htslib_tpu_torch.native.native` is None.
+        Raises IOError on a truncated stream."""
+        from htslib_tpu_torch.native import native
         data = self.fp.read_all()
+        if native is not None:
+            offs, sizes = native.bam_scan(data, 0)
+            return data, offs, sizes
         offs: List[int] = []
         sizes: List[int] = []
         mv = memoryview(data)

@@ -11,7 +11,9 @@ scatters (vectorised int -> ascii in place of kputw, nibble -> base in
 place of simd.c:121).  Records that do not vectorise (a CG long-CIGAR
 escape, float aux values formatted by %g) go through the record API on
 a mask.  This is the JAX package's pure path: the host truth that the
-device chain is held to.
+device chain is held to.  `bam_to_sam_bytes` gives a batch to the native
+formatter first (`native.bam_to_sam`, falling back here on an IOError),
+as the JAX function does.
 
 `bam_file_to_sam(path, device)` is `samtools view x.bam`: the file's
 compressed bytes read once through hfile.py `hopen` (a path, a URL, an
@@ -20,9 +22,12 @@ inflated on the device in one call (bgzf.py `inflate_range`, kernel X4
 on the card) and the records formatted on the device
 (ops/bam2sam.py `bam_payload_to_sam_device`: X5 and B1, the aux tails on
 the host).  `bam_stream_to_sam` runs the same format on an inflated
-stream.  `sam_text_to_bam` parses SAM lines on the host
-(`BamRecord.from_sam`), and `sam_to_bam_file` runs it over chunks on
-pipeline.py's host threads, the members deflated by zlib.
+stream.  `sam_text_to_bam` parses SAM lines on the host, by the native
+parser (`native.sam_to_bam`) or, where that refuses the text or the
+library is off, a line at a time (`BamRecord.from_sam`);
+`sam_to_bam_file` runs it over chunks on pipeline.py's host threads, the
+members deflated by bgzf.py `deflate_blocks` (libdeflate, or zlib with
+the library off).
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ import numpy as np
 
 from htslib_tpu_torch import _build
 from htslib_tpu_torch.bgzf import (BGZF_BLOCK_SIZE, BGZF_EOF, BgzfReader,
-                                   BlockTable, compress_block, inflate_host,
+                                   BlockTable, deflate_blocks, inflate_host,
                                    inflate_range, read_file, scan_blocks)
 from htslib_tpu_torch.ops.bam2sam import bam_payload_to_sam_device
 from htslib_tpu_torch.sam.bam import read_bam_header, write_bam_header
@@ -682,8 +687,16 @@ def _format_aux_batch(cols: BamColumns, slow: np.ndarray,
 def bam_to_sam_bytes(data: np.ndarray, offs: np.ndarray, sizes: np.ndarray,
                      header: SamHeader) -> bytes:
     """SAM text of the records at `offs` (each `sizes` bytes with its u32
-    length) of the uncompressed stream `data`, by the numpy formatter
-    (the JAX function's pure path)."""
+    length) of the uncompressed stream `data`: the multithreaded C++
+    formatter (the sam_format_worker equivalent), or the numpy formatter
+    (the JAX function's pure path) with the library off or for a record
+    the native formatter rejects."""
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        try:
+            return native.bam_to_sam(data, offs, sizes, header.ref_names)
+        except IOError:
+            pass  # malformed record: fall through to python path
     return format_sam_batch(decode_bam_columns(data, offs, sizes), header)
 
 
@@ -781,9 +794,19 @@ def bam_file_to_sam(path, device="cuda", timing: Optional[dict] = None):
 
 
 def sam_text_to_bam(text: bytes, header: SamHeader) -> np.ndarray:
-    """SAM text -> the u32-framed BAM record stream (uint8), a line at a
-    time through `BamRecord.from_sam` (sam_parse1; the JAX function's
-    Python path); header and blank lines are skipped."""
+    """SAM text -> the u32-framed BAM record stream (uint8): the native
+    multithreaded parser (the sam_parse_worker direction, sam.c:3215), or
+    where it rejects a line (an unknown reference name with no
+    references, a CIGAR of more than 65,535 ops) or the library is off, a
+    line at a time through `BamRecord.from_sam` (sam_parse1; the JAX
+    function's Python path); header and blank lines are skipped."""
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        try:
+            return native.sam_to_bam(np.frombuffer(text, np.uint8),
+                                     header.ref_names)
+        except IOError:
+            pass
     parts = []
     for line in text.split(b"\n"):
         if not line or line.startswith(b"@"):
@@ -812,9 +835,9 @@ def sam_to_bam_file(text: bytes, header: SamHeader, out_path: str,
     """SAM text -> a BAM file: chunks of lines parsed by `sam_text_to_bam`
     on pipeline.py's host threads (`pipeline_map`, results in order),
     their records after the header cut into BGZF_BLOCK_SIZE members and
-    deflated at `level`, then the EOF member (the sam_dispatcher_read and
-    BGZF write stack, sam.c:3325, bgzf.c:1852).  Returns the uncompressed
-    bytes written, the header's included."""
+    deflated at `level` (`deflate_blocks`), then the EOF member (the
+    sam_dispatcher_read and BGZF write stack, sam.c:3325, bgzf.c:1852).
+    Returns the uncompressed bytes written, the header's included."""
     from htslib_tpu_torch.hfile import hopen
     from htslib_tpu_torch.pipeline import pipeline_map
 
@@ -828,9 +851,10 @@ def sam_to_bam_file(text: bytes, header: SamHeader, out_path: str,
             cut = (len(pending) if force
                    else len(pending) // BGZF_BLOCK_SIZE * BGZF_BLOCK_SIZE)
             mv = memoryview(pending)
-            for at in range(0, cut, BGZF_BLOCK_SIZE):
-                fp.write(compress_block(bytes(mv[at:min(
-                    at + BGZF_BLOCK_SIZE, cut)]), level))
+            for member in deflate_blocks(
+                    [bytes(mv[at:min(at + BGZF_BLOCK_SIZE, cut)])
+                     for at in range(0, cut, BGZF_BLOCK_SIZE)], level):
+                fp.write(member)
             mv.release()
             written += cut
             del pending[:cut]

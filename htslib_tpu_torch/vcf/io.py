@@ -1,13 +1,16 @@
 """VCF/BCF file I/O (reference vcf.c:1349 bcf_hdr_read, :2256 bcf_read,
 :2510 bcf_write, :4699 vcf_hdr_read/vcf_read).
 
-The port's copy of htslib_tpu/vcf/io.py, its pure-Python paths (no
-native branches), over the port's `BgzfReader` and `BgzfWriter`; a
-file is a name that hfile.py `hopen` opens (a path, `-` or a URL) or a
-binary file object.
+The port's copy of htslib_tpu/vcf/io.py over the port's `BgzfReader` and
+`BgzfWriter`; a file is a name that hfile.py `hopen` opens (a path, `-`
+or a URL) or a binary file object.
 `bcf_file_to_vcf` inflates a BGZF body's members on the device
-(bgzf.py `inflate_range`: kernel X4 on the card), then frames and formats
-the records on the host.  The CSI index of a BCF is index.py's
+(bgzf.py `inflate_range`: kernel X4 on the card), then formats the
+records on the host: by the native formatter (`native.bcf_to_vcf`), or
+with `htslib_tpu_torch.native.native` None framed and formatted a record
+at a time.  `vcf_body_to_bcf_frames` parses VCF lines by the native
+parser (`native.vcf_parse`), the lines it bails on by the Python one, as
+the JAX function does.  The CSI index of a BCF is index.py's
 `HtsIndex`: `bcf_index_build` writes it from a file, `BcfWriter(
 build_index=True)` as it writes, and `BcfReader.fetch` queries it.
 """
@@ -25,7 +28,8 @@ from htslib_tpu_torch.bgzf import (BgzfReader, BgzfWriter, inflate_range,
 from htslib_tpu_torch.format import Format, detect_format_hfile
 from htslib_tpu_torch.hfile import hopen
 from htslib_tpu_torch.index import HTS_FMT_CSI, HtsIndex
-from htslib_tpu_torch.vcf.header import BcfHeader
+from htslib_tpu_torch.vcf.header import (BCF_HL_FLT, BCF_HL_FMT,
+                                         BCF_HL_INFO, BcfHeader)
 from htslib_tpu_torch.vcf.record import BcfRecord
 
 BCF_MAGIC = b"BCF\x02\x02"
@@ -305,7 +309,7 @@ def bcf_members(raw: np.ndarray):
     if len(raw) >= 2 and raw[0] == 0x1F and raw[1] == 0x8B:
         try:
             bt = scan_blocks(raw)
-        except ValueError as e:
+        except (ValueError, IOError) as e:      # the native scan's IOError
             raise IOError(f"BCF is gzip but not BGZF: {e}") from None
         co, cs, us = bt.coffsets, bt.csizes, bt.usizes
     else:
@@ -346,10 +350,12 @@ def bcf_file_to_vcf(src: Union[str, BinaryIO], device="cuda",
                     timing: Optional[dict] = None) -> tuple:
     """Whole-file BCF -> VCF text: the file's members inflated in one
     `inflate_range` call on `device` (X4 on the card), the header parsed
-    from the stream, the body's records framed and formatted on the host
-    (vcf_format port, vcf.c:4304).  `src` is a path, a URL or a binary
-    file object (bgzf.py `read_file`).  Returns (header, vcf_body_bytes).  `timing`, where given,
-    gets read_s, inflate_s, frame_s and format_s."""
+    from the stream, the body's records formatted on the host (vcf_format
+    port, vcf.c:4304): by the native formatter, or with the native
+    library off framed and formatted a record at a time.  `src` is a
+    path, a URL or a binary file object (bgzf.py `read_file`).  Returns
+    (header, vcf_body_bytes).  `timing`, where given, gets read_s,
+    inflate_s, frame_s (0 on the native route) and format_s."""
     dev = _build.resolve_device(device)
     timing = {} if timing is None else timing
     t0 = _build.clock(dev)
@@ -363,6 +369,15 @@ def bcf_file_to_vcf(src: Union[str, BinaryIO], device="cuda",
     (l_text,) = struct.unpack_from("<I", stream, 5)
     header = BcfHeader(stream[9:9 + l_text].rstrip(b"\0")
                        .decode("utf-8", "replace"))
+    from htslib_tpu_torch.native import native
+    if native is not None:
+        body = native.bcf_to_vcf(
+            np.frombuffer(stream, np.uint8, offset=9 + l_text),
+            header.ctg_names, header.id_names, header.id2int("GT"),
+            header.v44)
+        timing["frame_s"] = 0.0
+        timing["format_s"] = _build.clock(dev) - t0
+        return header, body
     shared, indiv = split_frames(stream, 9 + l_text)
     t1 = _build.clock(dev)
     body = format_frames(shared, indiv, header)
@@ -371,18 +386,71 @@ def bcf_file_to_vcf(src: Union[str, BinaryIO], device="cuda",
     return header, body
 
 
+def _header_parse_tables(header: BcfHeader):
+    """Marshal the header dictionaries for the native VCF parser."""
+    n = len(header.id_names)
+    flt_def = np.full(n, -1, np.int32)
+    info_type = np.full(n, -1, np.int32)
+    fmt_type = np.full(n, -1, np.int32)
+    for i, info in enumerate(header.id_info):
+        flt_def[i] = info.type[BCF_HL_FLT]
+        info_type[i] = info.type[BCF_HL_INFO]
+        fmt_type[i] = info.type[BCF_HL_FMT]
+    return flt_def, info_type, fmt_type
+
+
 def vcf_body_to_bcf_frames(body: bytes, header: BcfHeader) -> bytes:
-    """VCF body text -> concatenated BCF record frames, a line at a
-    time (from_vcf, to_bcf); blank lines are skipped."""
-    frames = bytearray()
-    for line in body.splitlines():
-        if not line.strip():
-            continue
-        rec = BcfRecord.from_vcf(line.decode("utf-8"), header)
-        shared, indiv = rec.to_bcf()
-        frames += struct.pack("<II", len(shared), len(indiv))
-        frames += shared + indiv
-    return bytes(frames)
+    """VCF body text -> concatenated BCF record frames: the native parser
+    with a per-line Python fallback (from_vcf, to_bcf) for the records
+    it bails on (unknown contigs or keys, exotic values), or a line at a
+    time where the native library is off; blank lines are skipped."""
+    from htslib_tpu_torch.native import native
+
+    n_lines = body.count(b"\n") + (0 if body.endswith(b"\n") or not body
+                                   else 1)
+    if n_lines == 0:
+        return b""
+    if native is None:
+        frames = bytearray()
+        for line in body.splitlines():
+            if not line.strip():
+                continue
+            rec = BcfRecord.from_vcf(line.decode("utf-8"), header)
+            shared, indiv = rec.to_bcf()
+            frames += struct.pack("<II", len(shared), len(indiv))
+            frames += shared + indiv
+        return bytes(frames)
+
+    flt_def, info_type, fmt_type = _header_parse_tables(header)
+    frames, bails = native.vcf_parse(
+        np.frombuffer(body, np.uint8), header.id_names, flt_def,
+        info_type, fmt_type, header.ctg_names, header.id2int("GT"),
+        header.id2int("END"), header.n_samples, n_lines, header.v44)
+    if not bails.any():
+        return frames
+    # splice Python-parsed frames for the bailing lines, in order
+    # (split exactly like the native walker: '\n' only)
+    lines = body.split(b"\n")
+    if lines and lines[-1] == b"":
+        lines.pop()
+    lines = [ln[:-1] if ln.endswith(b"\r") else ln for ln in lines]
+    out = bytearray()
+    fpos = 0
+    mv = memoryview(frames)
+    for i, line in enumerate(lines):
+        if i < len(bails) and not bails[i]:
+            l_shared, l_indiv = struct.unpack_from("<II", mv, fpos)
+            sz = 8 + l_shared + l_indiv
+            out += mv[fpos:fpos + sz]
+            fpos += sz
+        else:
+            if not line.strip():
+                continue
+            rec = BcfRecord.from_vcf(line.decode("utf-8"), header)
+            shared, indiv = rec.to_bcf()
+            out += struct.pack("<II", len(shared), len(indiv))
+            out += shared + indiv
+    return bytes(out)
 
 
 def vcf_file_to_bcf(src: str, dst: str) -> int:

@@ -81,6 +81,7 @@ def files(tmp_path_factory):
     d = tmp_path_factory.mktemp("bam")
     mp = pytest.MonkeyPatch()
     mp.setattr("htslib_tpu.native.native", None)
+    mp.setattr("htslib_tpu_torch.native.native", None)
     try:
         out = {}
         for side, hdr_cls, rec_cls, mod in (
@@ -118,6 +119,7 @@ def test_bam_writer_index_matches_jax(files):
 def test_build_bam_index_matches_jax(files, min_shift, monkeypatch):
     d = files["dir"]
     ext = ".bai" if min_shift == 0 else f".{min_shift}.csi"
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     t = tind.build_bam_index(files["t"], str(d / f"t{ext}"), min_shift)
     monkeypatch.setattr("htslib_tpu.native.native", None)
     j = jind.build_bam_index(files["t"], str(d / f"j{ext}"), min_shift)
@@ -234,6 +236,7 @@ def test_streaming_reader_matches_jax(files):
 
 def test_sam_text_reader_writer_match_jax(files, tmp_path, monkeypatch):
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     outs = []
     for side, hdr_cls, rec_cls, mod in (
             ("t", THeader, TRecord, ttext), ("j", JHeader, JRecord, jtext)):
@@ -252,6 +255,7 @@ def test_sam_text_reader_writer_match_jax(files, tmp_path, monkeypatch):
 
 def test_sam_gz_index_and_fetch_match_jax(files, tmp_path, monkeypatch):
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     gz = str(tmp_path / "r.sam.gz")
     hdr = THeader(HEADER)
     with ttext.SamWriter(gz, hdr, compress=True, level=1) as w:

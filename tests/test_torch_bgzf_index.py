@@ -25,6 +25,7 @@ from htslib_tpu_torch import bgzf as tbgzf
 @pytest.fixture
 def pure(monkeypatch):
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
 
 
 def chunks(seed, n=24, hi=50_000):

@@ -4,10 +4,11 @@ port's over identical copies of seeded input files, and compares the exit
 code, standard output, standard error and every file in the directory
 afterwards, over each option the JAX tools parse.  The port's bgzip runs
 with `device="cpu"` (the plain inflate: the BGZF inputs it decompresses
-are stored or small); the JAX side runs its pure-Python path
-(`htslib_tpu.native.native` None), whose bytes the port writes.  With the
-JAX native library on, its deflate writes other bytes: those files are
-compared by their members' sizes and inflated content."""
+are stored or small); both sides run their pure-Python paths
+(`htslib_tpu.native.native` and `htslib_tpu_torch.native.native` None),
+where both deflate with zlib.  With both native libraries on, both
+deflate with libdeflate, and bgzip's and tabix -r's files are again the
+same bytes."""
 import gzip
 import io
 import os
@@ -191,6 +192,7 @@ def _both(tool, argv, src, tmp_path, stdin=b"", setup=()):
 @pytest.fixture(autouse=True)
 def _jax_pure(monkeypatch):
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
 
 
 BGZIP = [
@@ -228,14 +230,15 @@ def test_bgzip_matches_jax(src, tmp_path, argv, stdin):
 
 
 def test_bgzip_native_bytes_inflate_alike(src, tmp_path, monkeypatch):
-    """The JAX tool with its native deflate: other bytes, the same
-    members (sizes) and the same data inflated, and a .gzi alike."""
+    """Both tools with their native deflate (libdeflate): the same bytes,
+    members and .gzi, and the data inflated."""
     monkeypatch.undo()
     import htslib_tpu.native as jn
     if jn.native is None:
         pytest.skip("the JAX native library does not load here")
-    (jrc, jout, _, jfiles), (rc, out, _, files) = _both(
-        "bgzip", ["-i", "a.txt"], src, tmp_path)
+    jax_res, ours = _both("bgzip", ["-i", "a.txt"], src, tmp_path)
+    assert ours == jax_res
+    (jrc, jout, _, jfiles), (rc, out, _, files) = jax_res, ours
     assert jrc == rc == 0 and jout == out == b""
     assert set(jfiles) == set(files)
     for name in ("a.txt.gz",):
@@ -289,12 +292,16 @@ def test_tabix_matches_jax(src, tmp_path, argv, setup):
 
 
 def test_tabix_reheader_native_inflates_alike(src, tmp_path, monkeypatch):
+    """tabix -r with both native libraries on: the same bytes, members
+    and inflated data."""
     monkeypatch.undo()
     import htslib_tpu.native as jn
     if jn.native is None:
         pytest.skip("the JAX native library does not load here")
-    (jrc, jout, _, _), (rc, out, _, _) = _both(
-        "tabix", ["-r", "newhdr.txt", "w.vcf.gz"], src, tmp_path)
+    jax_res, ours = _both("tabix", ["-r", "newhdr.txt", "w.vcf.gz"], src,
+                          tmp_path)
+    assert ours == jax_res
+    (jrc, jout, _, _), (rc, out, _, _) = jax_res, ours
     assert jrc == rc == 0
     jt, tt = tbgzf.scan_blocks(jout), tbgzf.scan_blocks(out)
     assert np.array_equal(jt.usizes, tt.usizes)

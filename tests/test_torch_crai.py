@@ -67,6 +67,10 @@ def corpus(tmp_path_factory):
             "unmapped_slice": write_bam(str(d / "u.bam"), hdr,
                                         mapped[:200] + unmapped)}
     mp = pytest.MonkeyPatch()
+    # the port's encoder on its pure route, whose bytes are the JAX
+    # Python encoder's
+    port = pytest.MonkeyPatch()
+    port.setattr("htslib_tpu_torch.native.native", None)
     files = {}
     for case, (kind, which, ver, with_ref, spc) in CASES.items():
         ref = fa if with_ref else None
@@ -79,6 +83,7 @@ def corpus(tmp_path_factory):
         else:
             _write_records(ours, hdr, recs, CramWriter, **opts)
             mp.setattr("htslib_tpu.native.native", None)
+            mp.setattr("htslib_tpu_torch.native.native", None)
             try:
                 _write_records(theirs, JHeader(hdr.text),
                                [JRecord.from_bam_buffer(r.to_bam_buffer())
@@ -86,6 +91,7 @@ def corpus(tmp_path_factory):
             finally:
                 mp.undo()
         files[case] = (ours, theirs, ref)
+    port.undo()
     return {"fasta": fa, "files": files, "dir": d}
 
 
@@ -177,6 +183,7 @@ def test_range_to_sam_at_index_offsets_matches_jax(corpus, case,
     idx = tindex.CramIndex.load(path + ".crai")
     every = sorted({e.offset for e in idx.entries})
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     runs_seen = 0
     for tid, beg, end in _regions(n=4)[:6]:
         runs = region_runs(idx.container_offsets(tid, beg + 1, end), every)

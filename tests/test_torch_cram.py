@@ -7,9 +7,10 @@ d aux values and B arrays added, their mapped reads' bases copied from a
 seeded FASTA with a few substitutions, written as a BAM.  The JAX
 package writes CRAM two ways, through its native library and through its
 pure-Python encoder (`htslib_tpu.native.native` set to None; its
-functions read it at call time), and the two write different bytes: the
-port's encoder is held to the Python path's bytes, its decoder to the
-files of both.  On the CPU the device stages run their plain versions;
+functions read it at call time), and the two write different bytes; so
+does the port, through its own native library or with
+`htslib_tpu_torch.native.native` None.  The port's encoder is held to
+the JAX encoder on each route, its decoder to the files of both.  On the CPU the device stages run their plain versions;
 outputs are bytes and integers, so every comparison is exact."""
 import os
 import shutil
@@ -276,49 +277,63 @@ def test_container_and_slice_headers_match_jax(corpus, key):
 def test_bam_to_cram_file_writes_the_jax_python_bytes(corpus, ver, with_ref,
                                                       spc, tmp_path,
                                                       monkeypatch):
+    """The port's bam_to_cram_file writes the JAX function's bytes on
+    each route: the JAX Python path's with both native libraries off, the
+    JAX native path's with both on."""
     opts = dict(ref=corpus["fasta"] if with_ref else None, version=ver,
                 seqs_per_slice=100, slices_per_container=spc)
-    ours = str(tmp_path / "p.cram")
-    n = tbatch.bam_to_cram_file(corpus["bam"], ours, **opts)
-    theirs = jax_cram(corpus["bam"], str(tmp_path / "j.cram"), False,
-                      monkeypatch, **opts)
-    assert n == 300
-    with open(ours, "rb") as a, open(theirs, "rb") as b:
-        assert a.read() == b.read()
+    for on in (False, True):
+        ours = str(tmp_path / f"p{on:d}.cram")
+        if not on:
+            monkeypatch.setattr("htslib_tpu_torch.native.native", None)
+        n = tbatch.bam_to_cram_file(corpus["bam"], ours, **opts)
+        monkeypatch.undo()
+        theirs = jax_cram(corpus["bam"], str(tmp_path / f"j{on:d}.cram"), on,
+                          monkeypatch, **opts)
+        assert n == 300
+        with open(ours, "rb") as a, open(theirs, "rb") as b:
+            assert a.read() == b.read(), on
 
 
 def test_the_two_jax_encoders_write_different_bytes(corpus):
-    """Why the port's encoder is held to the JAX Python path alone: the
-    JAX native encoder writes other bytes (which decode to the same
-    text: test_cram_file_to_sam_matches_jax)."""
+    """The JAX native encoder writes other bytes than the JAX Python path
+    (which decode to the same text: test_cram_file_to_sam_matches_jax);
+    the port's encoder, on its default native route, writes the JAX
+    native encoder's."""
     for ver in VERSIONS:
         for with_ref in (False, True):
             paths = [corpus["files"][(e, ver, with_ref)]
-                     for e in ("jax_py", "jax_native")]
-            a, b = (open(p, "rb").read() for p in paths)
-            assert a != b
+                     for e in ("jax_py", "jax_native", "port")]
+            a, b, c = (open(p, "rb").read() for p in paths)
+            assert a != b and b == c
 
 
 def test_cram_writer_records_write_the_jax_python_bytes(corpus, tmp_path,
                                                         monkeypatch):
     """The record path (CramWriter.write), with a profile that turns the
-    FQZ and bzip2 challengers on and two slices a container."""
+    FQZ and bzip2 challengers on and two slices a container: the JAX
+    Python path's bytes with both native libraries off, the JAX native
+    path's with both on."""
     from htslib_tpu.cram import CramWriter as JWriter
     from htslib_tpu.sam.header import SamHeader as JHeader
     from htslib_tpu.sam.record import BamRecord as JRecord
     opts = dict(version=(3, 1), seqs_per_slice=100,
                 slices_per_container=2, profile="small")
-    ours, theirs = str(tmp_path / "p.cram"), str(tmp_path / "j.cram")
-    with CramWriter(ours, corpus["hdr"], **opts) as w:
-        for r in corpus["recs"]:
-            w.write(r)
-    monkeypatch.setattr("htslib_tpu.native.native", None)
-    with JWriter(theirs, JHeader(corpus["hdr"].text), nthreads=1,
-                 **opts) as w:
-        for r in corpus["recs"]:
-            w.write(JRecord.from_bam_buffer(r.to_bam_buffer()))
-    with open(ours, "rb") as a, open(theirs, "rb") as b:
-        assert a.read() == b.read()
+    for on in (True, False):
+        ours = str(tmp_path / f"p{on:d}.cram")
+        theirs = str(tmp_path / f"j{on:d}.cram")
+        if not on:
+            monkeypatch.setattr("htslib_tpu.native.native", None)
+            monkeypatch.setattr("htslib_tpu_torch.native.native", None)
+        with CramWriter(ours, corpus["hdr"], **opts) as w:
+            for r in corpus["recs"]:
+                w.write(r)
+        with JWriter(theirs, JHeader(corpus["hdr"].text), nthreads=1,
+                     **opts) as w:
+            for r in corpus["recs"]:
+                w.write(JRecord.from_bam_buffer(r.to_bam_buffer()))
+        with open(ours, "rb") as a, open(theirs, "rb") as b:
+            assert a.read() == b.read(), on
 
 
 # -- the decoder -----------------------------------------------------------
@@ -337,18 +352,22 @@ def test_cram_reader_records_match_jax(corpus, key):
 
 @pytest.mark.parametrize("key", FILE_KEYS, ids=FILE_IDS)
 def test_cram_file_to_sam_matches_jax(corpus, key, monkeypatch):
-    """Blocks through ops/rans.py's plain versions, records on the host,
-    SAM formatting through ops/bam2sam.py's plain versions; the JAX text
-    with its native code on and off."""
+    """Blocks through ops/rans.py's plain versions, records on the host
+    (the native slice decoder, or the Python loop with the port's native
+    library off), SAM formatting through ops/bam2sam.py's plain versions;
+    the JAX text with its native code on and off."""
     path, ref = corpus["files"][key], _ref(corpus, key)
     timing = {}
     hdr, ours = tbatch.cram_file_to_sam(path, ref=ref, device="cpu",
                                         timing=timing)
     _, native = jbatch.cram_file_to_sam(path, ref=ref)
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     jhdr, python = jbatch.cram_file_to_sam(path, ref=ref)
+    _, pure = tbatch.cram_file_to_sam(path, ref=ref, device="cpu")
     assert ours.dtype == np.uint8
-    assert ours.tobytes() == native.tobytes() == python.tobytes()
+    assert (ours.tobytes() == native.tobytes() == python.tobytes()
+            == pure.tobytes())
     assert hdr.text == jhdr.text
     assert timing["records"] == 300 and timing["slices"] == 3
     assert sum(v for k, v in timing["wires"].items() if k != "host") > 0

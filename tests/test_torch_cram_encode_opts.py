@@ -1,6 +1,8 @@
 """The port's CRAM encoder options (htslib_tpu_torch/cram/encode.py
-`device_profile`, `nthreads`) against the JAX package's pure-Python
-encoder (its native library off, as in tests/test_torch_cram.py).
+`device_profile`, `nthreads`) against the JAX package's encoder: its
+pure-Python path with both native libraries off, as in
+tests/test_torch_cram.py, and for `device_profile` its native path with
+both on too.
 
 `device_profile` pins a CRAM 3.1 file's quality blocks of 64 bytes or
 more to 32-way rANS Nx16, order 1 where that is at least 3% smaller: the
@@ -85,11 +87,15 @@ def test_device_profile_writes_the_jax_bytes(bams, kind, order, ver,
                                              tmp_path, monkeypatch):
     opts = dict(ref=bams["fasta"], version=ver, seqs_per_slice=80,
                 device_profile=True)
-    ours = str(tmp_path / "p.cram")
-    tbatch.bam_to_cram_file(bams[kind], ours, **opts)
-    theirs = jax_cram(bams[kind], str(tmp_path / "j.cram"), False,
-                      monkeypatch, **opts)
-    assert _same_bytes(ours, theirs)
+    for on in (False, True):
+        ours = str(tmp_path / f"p{on:d}.cram")
+        if not on:
+            monkeypatch.setattr("htslib_tpu_torch.native.native", None)
+        tbatch.bam_to_cram_file(bams[kind], ours, **opts)
+        monkeypatch.undo()
+        theirs = jax_cram(bams[kind], str(tmp_path / f"j{on:d}.cram"), on,
+                          monkeypatch, **opts)
+        assert _same_bytes(ours, theirs), on
     plain = str(tmp_path / "plain.cram")
     tbatch.bam_to_cram_file(bams[kind], plain,
                             **dict(opts, device_profile=False))
@@ -109,6 +115,7 @@ def test_device_profile_qual_hist_matches_the_jax_reader(bams, tmp_path,
     histogram of the JAX reader's qualities, every block decoded by the
     quality lane."""
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     for kind in ("iid", "walk"):
         path = str(tmp_path / f"{kind}.cram")
         tbatch.bam_to_cram_file(bams[kind], path, version=(3, 1),
@@ -130,7 +137,17 @@ def test_device_profile_qual_hist_matches_the_jax_reader(bams, tmp_path,
 def test_nthreads_writes_the_same_bytes(bams, ver, profile, tmp_path,
                                         monkeypatch):
     """The port at nthreads 1 and 4 and the JAX encoder at nthreads 1
-    write the same bytes (three containers of one slice, and of two)."""
+    write the same bytes (three containers of one slice, and of two),
+    both on their pure-Python paths."""
+    port = pytest.MonkeyPatch()
+    port.setattr("htslib_tpu_torch.native.native", None)
+    try:
+        _nthreads_same_bytes(bams, ver, profile, tmp_path, monkeypatch)
+    finally:
+        port.undo()
+
+
+def _nthreads_same_bytes(bams, ver, profile, tmp_path, monkeypatch):
     for spc in (1, 2):
         opts = dict(ref=bams["fasta"], version=ver, seqs_per_slice=80,
                     slices_per_container=spc, profile=profile)

@@ -87,12 +87,17 @@ def test_transcode_rg_writes_the_jax_bytes(corpus, name, tmp_path,
                                            monkeypatch):
     path, ref = corpus[name]
     rg_map = {"grp0": "renamed0", "grp2": "renamed2"}
-    ours, theirs = str(tmp_path / "p.cram"), str(tmp_path / "j.cram")
-    n = text.transcode_rg(path, ours, rg_map, ref=ref)
-    monkeypatch.setattr("htslib_tpu.native.native", None)
-    assert jext.transcode_rg(path, theirs, rg_map, ref=ref) == n == 300
-    with open(ours, "rb") as a, open(theirs, "rb") as b:
-        assert a.read() == b.read()
+    # with both native libraries on, then both off
+    for on in (True, False):
+        if not on:
+            monkeypatch.setattr("htslib_tpu.native.native", None)
+            monkeypatch.setattr("htslib_tpu_torch.native.native", None)
+        ours = str(tmp_path / f"p{on:d}.cram")
+        theirs = str(tmp_path / f"j{on:d}.cram")
+        n = text.transcode_rg(path, ours, rg_map, ref=ref)
+        assert jext.transcode_rg(path, theirs, rg_map, ref=ref) == n == 300
+        with open(ours, "rb") as a, open(theirs, "rb") as b:
+            assert a.read() == b.read(), on
     with CramReader(ours, ref=ref) as r:
         assert "ID:renamed0" in r.header.text
         rgs = {rec.get_aux("RG") for rec in r}

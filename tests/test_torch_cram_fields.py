@@ -50,6 +50,7 @@ def _jax_32bit():
 @pytest.fixture(autouse=True)
 def _jax_python(monkeypatch):
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
 
 
 @pytest.fixture(scope="module")

@@ -127,6 +127,7 @@ def test_ref_cache_decodes_a_file_whose_ur_is_gone(gone, layout,
     assert ours == theirs == gone["truth"]
     _, text = tbatch.cram_file_to_sam(gone["path"], device="cpu")
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     _, jtext = jbatch.cram_file_to_sam(gone["path"])
     assert text.tobytes() == jtext.tobytes()
 
@@ -185,6 +186,7 @@ def test_ref_path_url_served_locally(gone, tmp_path, monkeypatch, cache):
         assert sorted(set(asked)) == sorted(extra)
         _, text = tbatch.cram_file_to_sam(gone["path"], device="cpu")
         monkeypatch.setattr("htslib_tpu.native.native", None)
+        monkeypatch.setattr("htslib_tpu_torch.native.native", None)
         _, jtext = jbatch.cram_file_to_sam(gone["path"])
         assert text.tobytes() == jtext.tobytes()
         if cache:

@@ -231,9 +231,19 @@ def test_shard_decode_refuses_a_corrupt_member(tmp_path):
     at = int(plan.coffsets[0]) + int(plan.csizes[0]) - 8
     raw[at] ^= 0xFF                       # the first member's CRC32
     open(bam, "wb").write(bytes(raw))
-    with pytest.raises(IOError, match="CRC32"):
+    # the header read refuses the member first: the native inflate on its
+    # route, zlib's CRC check with the port's native library off
+    with pytest.raises(IOError, match="BGZF inflate failed on block 0"):
         for sh in plan.shards:
             td.decode_shard_to_sam(plan, sh, device="cpu")
+    mp = pytest.MonkeyPatch()
+    mp.setattr("htslib_tpu_torch.native.native", None)
+    try:
+        with pytest.raises(IOError, match="CRC32"):
+            for sh in plan.shards:
+                td.decode_shard_to_sam(plan, sh, device="cpu")
+    finally:
+        mp.undo()
 
 
 def test_dryrun_multichip_world_of_one():

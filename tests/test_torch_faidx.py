@@ -73,18 +73,26 @@ def intervals(seed, n=64):
 
 
 def test_bgzf_copy_and_gzi_match_jax(fa, tmp_path, monkeypatch):
-    monkeypatch.setattr("htslib_tpu.native.native", None)
+    """The port's bgzipped copy and .gzi equal the JAX writer's, with both
+    native libraries on (the fixture's copy) and with both off."""
     with open(fa["plain"], "rb") as fp:
         data = fp.read()
-    j = str(tmp_path / "j.fa.gz")
-    w = jbgzf.BGZFWriter(j)
-    for i in range(0, len(data), 10_000):
-        w.write(data[i:i + 10_000])
-    w.close()
-    w.save_index()
-    for suffix in ("", ".gzi"):
-        with open(fa["gz"] + suffix, "rb") as a, open(j + suffix, "rb") as b:
-            assert a.read() == b.read()
+    for on in (True, False):
+        if not on:
+            monkeypatch.setattr("htslib_tpu.native.native", None)
+            monkeypatch.setattr("htslib_tpu_torch.native.native", None)
+        ours = fa["gz"] if on else str(tmp_path / "t.fa.gz")
+        if not on:
+            bgzip(fa["plain"], ours)
+        j = str(tmp_path / f"j{on:d}.fa.gz")
+        w = jbgzf.BGZFWriter(j)
+        for i in range(0, len(data), 10_000):
+            w.write(data[i:i + 10_000])
+        w.close()
+        w.save_index()
+        for suffix in ("", ".gzi"):
+            with open(ours + suffix, "rb") as a, open(j + suffix, "rb") as b:
+                assert a.read() == b.read(), (on, suffix)
 
 
 @pytest.mark.parametrize("kind", ["plain", "gz", "gz_no_gzi"])
@@ -219,6 +227,7 @@ def test_cram_decodes_against_a_bgzf_reference(tmp_path, monkeypatch):
     gz = str(tmp_path / "ref.fa.gz")
     bgzip(fa, gz)
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     for gzi in (True, False):
         if not gzi:
             os.remove(gz + ".gzi")

@@ -356,20 +356,21 @@ def test_o1_streams_per_sm(card):
 def short_table_compress(data: bytes, order: int = 0,
                          short: int = 96) -> bytes:
     """A valid 4x8 stream whose frequencies (order 1: those of every
-    context) sum to 4096 - short: the port's encoder with its largest
-    frequency cut."""
-    norm = r8._normalize
+    context) sum to 4096 - short: the port's pure-Python encoder (its
+    native library off) with its largest frequency cut."""
+    from htslib_tpu_torch import native
+    norm, saved = r8._normalize, native.native
 
     def cut(h, total=r8.TOTFREQ):
         f = norm(h, total)
         f[int(np.argmax(f))] -= short
         return f
 
-    r8._normalize = cut
+    r8._normalize, native.native = cut, None
     try:
         return r8.compress(data, order)
     finally:
-        r8._normalize = norm
+        r8._normalize, native.native = norm, saved
 
 
 def odd_payload_stream(rng, order: int = 0):
@@ -1735,14 +1736,27 @@ def _x4(launches):
 
 
 @pytest.mark.parametrize("level", [0, 6])
-def test_pileup_mpileup_text_on_card_matches_cpu(card, pileup_case, level):
-    """mpileup_text on the card (X4, X5, B1) equals device="cpu" on a
-    BAM and on SAM text, and each launches its kernels once."""
-    from htslib_tpu_torch import pileup
+def test_pileup_mpileup_text_on_card_matches_cpu(card, pileup_case, level,
+                                                 monkeypatch):
+    """mpileup_text on the card equals device="cpu" on a BAM and on SAM
+    text: with the port's native library off (X4, X5, B1, the Python
+    engine) each launches its kernels once; with it on, X4 reads a BAM
+    and the native engine writes the text, launching no X5 or B1."""
+    from htslib_tpu_torch import native, pileup
     for key, (path, want) in pileup_case[level].items():
+        _build.reset_launches()
+        native.reset_calls()
+        got = pileup.mpileup_text(path, device=card)[1]
+        assert got == want and native.CALLS["mpileup"] == 1
+        assert _x4(_build.LAUNCHES) == (0 if key == "small_sam" else 1)
+        assert (_build.LAUNCHES["record_scan"]
+                + _build.LAUNCHES["record_scan_seg"]
+                + _build.LAUNCHES["nibble_to_base"]) == 0
+        monkeypatch.setattr(native, "native", None)
         _build.reset_launches()
         timing = {}
         got = pileup.mpileup_text(path, device=card, timing=timing)[1]
+        monkeypatch.undo()
         assert got == want and got.count(b"\n") > 1000
         assert _x4(_build.LAUNCHES) == (0 if key == "small_sam" else 1)
         assert (_build.LAUNCHES["record_scan"]
@@ -1752,13 +1766,22 @@ def test_pileup_mpileup_text_on_card_matches_cpu(card, pileup_case, level):
 
 
 @pytest.mark.parametrize("nthreads", [1, 3, 8])
-def test_pileup_parallel_on_card_matches_cpu(card, pileup_case, nthreads):
-    """mpileup_text_parallel with the read and decode on the card and the
-    tiles in spawned processes equals the serial text on the CPU; its
-    plan is plan_tiles over the CPU's decode."""
-    from htslib_tpu_torch import pileup
+def test_pileup_parallel_on_card_matches_cpu(card, pileup_case, nthreads,
+                                           monkeypatch):
+    """mpileup_text_parallel with the read and decode on the card equals
+    the serial text on the CPU, with the tiles in the native engine (X4
+    and X5 launched, not B1) and, with the port's native library off, in
+    spawned processes; its plan is plan_tiles over the CPU's decode."""
+    from htslib_tpu_torch import native, pileup
     from htslib_tpu_torch.sam.batch import read_bam_stream
     path, want = pileup_case[6]["bam"]
+    _build.reset_launches()
+    assert pileup.mpileup_text_parallel(path, nthreads, device=card)[1] \
+        == want
+    assert _x4(_build.LAUNCHES) == 1 and (
+        _build.LAUNCHES["record_scan"] + _build.LAUNCHES["record_scan_seg"]
+        == 1) and _build.LAUNCHES["nibble_to_base"] == 0
+    monkeypatch.setattr(native, "native", None)
     st = {}
     _build.reset_launches()
     got = pileup.mpileup_text_parallel(path, nthreads, device=card,
@@ -1948,6 +1971,31 @@ def test_cram_file_to_bam_stream_on_card(card, tmp_path, monkeypatch):
     assert blob == host and len(blob) > 10000
     with CramReader(path, ref=fasta) as r:
         assert b"".join(iter_slice_blobs(r, window=2, device=card)) == blob
+
+
+def test_native_route_cram_on_card_matches_pure(card, tmp_path,
+                                                monkeypatch):
+    """11a-style CRAM 3.0 at 4,000 records: cram_file_to_sam with the
+    blocks on the card (B7, X1) and the slices in the native decoder
+    equals the same call with the port's native library off."""
+    import chip_smoke
+    from htslib_tpu_torch import native
+    from htslib_tpu_torch.cram.batch import bam_to_cram_file, cram_file_to_sam
+    monkeypatch.setattr(chip_smoke, "N_CRAM", 4000)
+    monkeypatch.setattr(chip_smoke, "N_CRAM31", 10)
+    fasta, bam, _ = chip_smoke.leg11_inputs(str(tmp_path))
+    path = str(tmp_path / "a.cram")
+    # 500 records a slice: 6 of the 8 slices hold one reference (a slice
+    # that holds both goes to the Python decoder)
+    bam_to_cram_file(bam, path, ref=fasta, seqs_per_slice=500)
+    _build.reset_launches()
+    native.reset_calls()
+    got = cram_file_to_sam(path, ref=fasta, device=card)[1]
+    assert native.CALLS["cram_decode_slice"] == 6
+    assert _build.LAUNCHES["rans4x8_o0_decode"] >= 1
+    want = chip_smoke.native_off(cram_file_to_sam, path, fasta, True, 8,
+                                 card)[1]
+    assert got.tobytes() == want.tobytes() and len(got) > 10000
 
 
 def test_probaln_flags_on_card_match_plain(card, monkeypatch):

@@ -133,6 +133,7 @@ def test_values_and_lookup_match_jax(recs):
     "rlen > 60 && !flag.reverse", None])
 def test_cram_reader_set_filter_matches_jax(recs, expr, monkeypatch):
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     out = []
     for cls in (CramReader, JReader):
         with cls(recs["cram"], ref=recs["fasta"]) as r:

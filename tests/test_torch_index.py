@@ -186,6 +186,7 @@ def built(request, tmp_path_factory):
     d = tmp_path_factory.mktemp(name)
     mp = pytest.MonkeyPatch()
     mp.setattr("htslib_tpu.native.native", None)
+    mp.setattr("htslib_tpu_torch.native.native", None)
     try:
         t = build(tidx, recs, fmt, ms, nl, len(lens), meta)
         j = build(jidx, recs, fmt, ms, nl, len(lens), meta)

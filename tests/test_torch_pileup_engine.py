@@ -1,8 +1,10 @@
 """The port's pileup engine and mpileup entry points against the JAX
 package's on the CPU: `mpileup_text(device="cpu")` and
 `mpileup_text_parallel(..., nthreads=1-8)` (the plain versions of X4, X5
-and B1; the tiles in spawned processes) give the JAX `mpileup_text`'s
-bytes, with the JAX native library on and off, on seeded SAM and BAM
+and B1; with the port's native library off (`pure`), the Python engine
+and the tiles in spawned processes; with it on, the native engine, whose
+text is the JAX native path's) give the JAX `mpileup_text`'s bytes, with
+the JAX native library on and off, on seeded SAM and BAM
 files (dense overlapping pairs, multi-contig indel-heavy reads, CG-tag
 CIGARs, =/X ops, empty and all-unmapped files, leg 16's mix); and
 `Pileup`, `MultiPileup` and `plp_insertion` (with base modifications)
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 
 import htslib_tpu.native
+import htslib_tpu_torch.native
 from htslib_tpu import pileup as jp
 from htslib_tpu.sam import SamReader as JSamReader
 from htslib_tpu.sam.mods import BaseModState as JMods
@@ -196,6 +199,17 @@ def files(tmp_path_factory):
     return {k: _make(k, tmp) for k in KINDS}
 
 
+class pure:
+    """The port's native library off inside the block."""
+
+    def __enter__(self):
+        self.saved = htslib_tpu_torch.native.native
+        htslib_tpu_torch.native.native = None
+
+    def __exit__(self, *exc):
+        htslib_tpu_torch.native.native = self.saved
+
+
 def _jax_text(path, native_on):
     if native_on:
         return jp.mpileup_text(path)[1]
@@ -219,16 +233,19 @@ def jax_texts(files):
 def test_mpileup_text_matches_jax(files, jax_texts, kind, fmt):
     path = files[kind][fmt == "bam"]
     timing = {}
-    _, got = tp.mpileup_text(path, device="cpu", timing=timing)
+    with pure():
+        _, got = tp.mpileup_text(path, device="cpu", timing=timing)
     on, off = jax_texts[(kind, fmt, True)], jax_texts[(kind, fmt, False)]
     if kind == "cg" and fmt == "bam":
         # the JAX native path bails on the CG record after its reader has
         # read the stream whole: its Python engine then reads nothing
-        # (ROADMAP queue C); the port gives the Python path's text
+        # (ROADMAP queue C); the port on its native route gives that
+        # text, and on its pure route the Python path's
         assert on == b"" and off != b""
     else:
         assert on == off
     assert got == off
+    assert tp.mpileup_text(path, device="cpu")[1] == on
     assert timing["entries"] == sum(int(ln.split(b"\t")[2])
                                     for ln in got.split(b"\n") if ln)
     if kind not in ("empty", "unmapped"):
@@ -241,13 +258,18 @@ def test_mpileup_text_parallel_matches_jax(files, jax_texts, kind,
                                            nthreads):
     for fmt in ("bam", "sam"):
         timing, stages = {}, {}
-        _, got = tp.mpileup_text_parallel(files[kind][fmt == "bam"],
-                                          nthreads, device="cpu",
-                                          timing=timing, stages=stages)
+        with pure():
+            _, got = tp.mpileup_text_parallel(files[kind][fmt == "bam"],
+                                              nthreads, device="cpu",
+                                              timing=timing, stages=stages)
         assert got == jax_texts[(kind, fmt, False)], fmt
         if kind == "cg" and fmt == "bam":
             continue
         assert got == jax_texts[(kind, fmt, True)], fmt
+        nat = {}
+        assert tp.mpileup_text_parallel(
+            files[kind][fmt == "bam"], nthreads, device="cpu",
+            timing=nat)[1] == got, fmt
     mapped = ((stages["flag"] & tp.DEFAULT_SKIP) == 0) & (
         stages["tid"] >= 0) & ((stages["flag"] & 4) == 0)
     if nthreads > 1 and mapped.any():
@@ -257,12 +279,15 @@ def test_mpileup_text_parallel_matches_jax(files, jax_texts, kind,
 
 def test_jax_parallel_raises_on_cg_where_port_answers(files, jax_texts):
     """The JAX mpileup_text_parallel hands a stream with a CG-tag record
-    to its native engine, which bails: BlockingIOError (ROADMAP queue C).
-    The port has no native engine and reads the record through
-    bam_tag2cigar."""
+    to its native engine, which bails: BlockingIOError (ROADMAP queue C),
+    and so does the port's on its native route.  With its native library
+    off the port reads the record through bam_tag2cigar."""
     with pytest.raises(BlockingIOError):
         jp.mpileup_text_parallel(files["cg"][1], nthreads=3)
-    _, got = tp.mpileup_text_parallel(files["cg"][1], 3, device="cpu")
+    with pytest.raises(BlockingIOError):
+        tp.mpileup_text_parallel(files["cg"][1], 3, device="cpu")
+    with pure():
+        _, got = tp.mpileup_text_parallel(files["cg"][1], 3, device="cpu")
     assert got == jax_texts[("cg", "bam", False)] and b">" in got
 
 
@@ -435,8 +460,10 @@ def test_smallest_cg_bam_of_the_jax_paths(tmp_path):
     differ (ROADMAP queue C): a BAM of one record whose CIGAR (4M1N6M)
     sits in a CG tag behind a 10S7N placeholder.  The JAX native path
     bails after its reader has read the stream, so its Python engine
-    reads no record and the text is empty; its Python path, and the
-    port, give the 11 columns."""
+    reads no record and the text is empty, and so does the port's native
+    route (its parallel form raises BlockingIOError, as the JAX one); the
+    JAX Python path, and the port's with its native library off, give
+    the 11 columns."""
     path = str(tmp_path / "cg1.bam")
     cg = BamRecord()
     cg.qname, cg.tid, cg.pos, cg.flag, cg.mapq = b"cg", 0, 9, 0, 40
@@ -451,5 +478,9 @@ def test_smallest_cg_bam_of_the_jax_paths(tmp_path):
     assert _jax_text(path, True) == b""
     want = _jax_text(path, False)
     assert want.count(b"\n") == 11 and b"\t>\t" in want
-    assert tp.mpileup_text(path, device="cpu")[1] == want
-    assert tp.mpileup_text_parallel(path, 2, device="cpu")[1] == want
+    assert tp.mpileup_text(path, device="cpu")[1] == b""
+    with pytest.raises(BlockingIOError):
+        tp.mpileup_text_parallel(path, 2, device="cpu")
+    with pure():
+        assert tp.mpileup_text(path, device="cpu")[1] == want
+        assert tp.mpileup_text_parallel(path, 2, device="cpu")[1] == want

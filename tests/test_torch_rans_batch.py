@@ -156,17 +156,24 @@ def test_nx16_frequencies_past_4096_raise_as_jax(flags):
         jrans.uncompress_nx16_batch([enc])
 
 
-def test_empty_4x8_stream_raises_as_jax():
+def test_empty_4x8_stream_raises_as_jax(monkeypatch):
     """A zero-length 4x8 stream: the encoder writes a one-byte empty table
     that the JAX function's parse, the port's and the pure-Python host
-    codec's all read past, and all three raise ValueError."""
+    codec's all read past, and all three raise ValueError; the native
+    host codec (the default route of both packages) gives it back
+    empty."""
     enc = r8.compress(b"", 0)
     with pytest.raises(ValueError):
         trans.uncompress_batch([r8.compress(b"abc", 1), enc], device="cpu")
     with pytest.raises(ValueError):
-        r8.uncompress(enc)
-    with pytest.raises(ValueError):
         jrans.uncompress_batch([enc])
+    import htslib_tpu.native as jn
+    from htslib_tpu.codecs import rans4x8 as jr8
+    if jn.native is not None:
+        assert jr8.uncompress(enc) == r8.uncompress(enc) == b""
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
+    with pytest.raises(ValueError):
+        r8.uncompress(enc)
 
 
 def test_unknown_4x8_order_gives_empty_as_jax():

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 import htslib_tpu.native as jnative
+import htslib_tpu_torch.native as tnative
 from chip_smoke import LEG8_REFS, RangeServer, htsget_ticket, varied_bam_stream
 from htslib_tpu.sam import batch as jb
 from htslib_tpu.sam.header import SamHeader as JHeader
@@ -343,11 +344,11 @@ def test_jax_python_sam_text_to_bam_raises():
 
 @pytest.mark.parametrize("chunk", [1 << 12, 8 << 20])
 def test_sam_to_bam_file_matches_jax(tmp_path, chunk):
-    """The file's uncompressed stream equals the JAX function's (its
-    native deflate may write other bytes; the members are compared
-    inflated), its members are zlib's at the level (0, stored, so that
-    the CPU's plain inflate reads it back quickly), and bam_file_to_sam
-    gives the text back."""
+    """The file equals the JAX function's byte for byte (both native
+    deflates, libdeflate, level 0: stored, so that the CPU's plain
+    inflate reads it back quickly), bam_file_to_sam gives the text back,
+    and with the port's native library off its members are zlib's at
+    the level, the same stream."""
     text = _sam_text("varied") + _sam_text("edges")
     out, jout = str(tmp_path / "o.bam"), str(tmp_path / "j.bam")
     n = tb.sam_to_bam_file(text, HDR, out, level=0, chunk_bytes=chunk)
@@ -359,9 +360,19 @@ def test_sam_to_bam_file_matches_jax(tmp_path, chunk):
         return gzip.decompress(raw), raw
 
     got, raw = stream(out)
-    assert got == stream(jout)[0] and raw.endswith(BGZF_EOF)
+    assert raw == stream(jout)[1] and raw.endswith(BGZF_EOF)
     assert len(got) == n
     assert tb.bam_file_to_sam(out, device="cpu")[1].tobytes() == text
+    saved = tnative.native
+    tnative.native = None
+    try:
+        pure = str(tmp_path / "p.bam")
+        assert tb.sam_to_bam_file(text, HDR, pure, level=0,
+                                  chunk_bytes=chunk) == n
+    finally:
+        tnative.native = saved
+    got, raw = stream(pure)
+    assert got == stream(out)[0]
     # each member is the zlib deflate of its 0xff00-byte piece
     first = zlib.compressobj(0, zlib.DEFLATED, -15)
     body = first.compress(got[:0xFF00]) + first.flush()

@@ -5,9 +5,10 @@ plain version here) and `sam_cap_mapq`; cram/batch.py's
 `inflate_blocks`, `deflate_blocks`, `_compress_block_py` and the names
 `BGZFReader`/`BGZFWriter`; the CIGAR and record helpers; util/memory.py;
 and the package's `__version__`, `HTS_VERSION`, log re-exports and
-feature bits.  Byte comparisons use the JAX package's pure-Python path
-(`htslib_tpu.native.native` None); where its native library writes or
-reports otherwise, the difference is the test's subject."""
+feature bits.  Byte comparisons use both packages' pure-Python paths
+(`htslib_tpu.native.native` and `htslib_tpu_torch.native.native` None),
+and where the native libraries write or report otherwise, both with
+their native libraries on."""
 import os
 import struct
 import subprocess
@@ -42,6 +43,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture
 def jax_pure(monkeypatch):
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
 
 
 # -- realn ------------------------------------------------------------------
@@ -270,13 +272,15 @@ def test_deflate_blocks_bytes_match_jax(jax_pure, level):
 
 
 def test_deflate_blocks_native_layout_alike():
-    """The JAX native deflate's members: other bytes, the same data and
-    sizes, each a whole member the port reads."""
+    """The native deflate's members (libdeflate, both libraries on): the
+    port's are the JAX package's bytes, each a whole member the port
+    reads."""
     import htslib_tpu.native as jn
     if jn.native is None:
         pytest.skip("the JAX native library does not load here")
     chunks = [b"ACGT" * 16000, b"x" * 7, b""]
     native = jbgzf.deflate_blocks(chunks, 6)
+    assert tbgzf.deflate_blocks(chunks, 6) == native
     assert [tbgzf.decompress_block(m) for m in native] == chunks
     assert [tbgzf.parse_block_header(m) for m in native] == [
         len(m) for m in native]
@@ -339,12 +343,18 @@ def test_features_match_jax_without_its_native_library(jax_pure):
 
 
 def test_features_leave_out_libdeflate():
-    """The JAX package sets LIBDEFLATE (32) where its native library
-    loads; the port, which has none, never does (ROADMAP queue C)."""
+    """Both packages set LIBDEFLATE (32) where their native libraries
+    load, and leave it out where they are set to None."""
     import htslib_tpu.native as jn
     jax_bits = htslib_tpu.hts_features()
     assert bool(jax_bits & 32) == (jn.native is not None)
-    assert htslib_tpu_torch.hts_features() == jax_bits & ~32
+    assert htslib_tpu_torch.hts_features() == jax_bits
+    mp = pytest.MonkeyPatch()
+    mp.setattr("htslib_tpu_torch.native.native", None)
+    try:
+        assert htslib_tpu_torch.hts_features() == jax_bits & ~32
+    finally:
+        mp.undo()
 
 
 def test_tune_host_allocator_matches_jax():

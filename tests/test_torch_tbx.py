@@ -123,6 +123,7 @@ def test_tabix_build_and_query_match_jax(tmp_path, monkeypatch, preset,
     lines = make_lines(preset, len(preset) + min_shift)
     bgzip_lines(path, lines)
     conf_t, conf_j = ttbx.PRESETS[preset], jtbx.PRESETS[preset]
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     t = ttbx.Tabix.build(path, conf_t, min_shift, out_path=path + ".t")
     monkeypatch.setattr("htslib_tpu.native.native", None)
     j = jtbx.Tabix.build(path, conf_j, min_shift, out_path=path + ".j")

@@ -9,8 +9,8 @@ several FILTERs and IDs) encode to JAX's BCF bytes and decode to JAX's
 text; the record-edit API gives JAX's records; files written by each
 side read to the same text on the other, and `bcf_file_to_vcf`
 (device="cpu": the plain inflate) and `vcf_file_to_bcf` give JAX's text.
-Compressed bytes are compared only where both sides deflate with zlib
-(the JAX writer with `htslib_tpu.native.native` set to None).  Outputs
+Compressed bytes are compared where both sides deflate alike: with both
+native libraries on (libdeflate), or both set to None (zlib).  Outputs
 are bytes and text: equality is exact."""
 import gzip
 import io
@@ -509,15 +509,21 @@ def _read_text(reader_cls, path):
 
 
 def test_bcf_writer_stream_matches_jax(tmp_path):
-    """The port's BcfWriter: its inflated stream is the JAX writer's;
-    with both deflating by zlib, its file is the JAX file byte for
-    byte."""
+    """The port's BcfWriter: its file is the JAX writer's byte for byte,
+    with both deflating by libdeflate (both native libraries on) and
+    with both deflating by zlib (both off)."""
     port = write_port_bcf(str(tmp_path / "p.bcf"))
     jax_native = write_jax_bcf(str(tmp_path / "j.bcf"))
     assert _zlib_stream(port) == _zlib_stream(jax_native)
+    assert open(port, "rb").read() == open(jax_native, "rb").read()
     mp = pytest.MonkeyPatch()
+    mp.setattr("htslib_tpu_torch.native.native", None)
+    try:
+        port_py = write_port_bcf(str(tmp_path / "pp.bcf"))
+    finally:
+        mp.undo()
     jax_py = write_jax_bcf(str(tmp_path / "jp.bcf"), mp)
-    assert open(port, "rb").read() == open(jax_py, "rb").read()
+    assert open(port_py, "rb").read() == open(jax_py, "rb").read()
 
 
 def test_each_side_reads_the_others_bcf(tmp_path):
@@ -656,7 +662,8 @@ def test_jax_bcf_to_vcf_paths_agree(tmp_path, monkeypatch):
     """Queue C record: the JAX package's two BCF -> VCF paths (native
     bcf_to_vcf and the Python formatter) give the same text on these
     fixtures (16 groups of the matrix, and the 4 v4.4 groups), and so
-    does the port, which follows the Python path."""
+    does the port on its native route (native bcf_to_vcf after the
+    device inflate)."""
     files = [write_jax_bcf(str(tmp_path / "a.bcf"), level=0,
                            groups=range(16))]
     h = JHeader(HEADERS["v44"])
@@ -675,7 +682,8 @@ def test_jax_bcf_to_vcf_paths_agree(tmp_path, monkeypatch):
 def test_vcf_file_to_bcf_matches_jax(tmp_path, monkeypatch):
     """The port's vcf_file_to_bcf (plain and gzip input): its file
     decodes to the text of the JAX function's file, record counts equal,
-    and with the JAX writer on zlib the files are equal byte for byte."""
+    and the files are equal byte for byte with both native libraries on
+    (libdeflate) and with both off (zlib)."""
     text, body = matrix_vcf(range(16))
     src = str(tmp_path / "in.vcf")
     open(src, "w").write(text + body)
@@ -689,9 +697,12 @@ def test_vcf_file_to_bcf_matches_jax(tmp_path, monkeypatch):
         assert tio.vcf_file_to_bcf(s, tdst) == n
         assert bytes(jio.bcf_file_to_vcf(tdst)[1]) == want
         assert _zlib_stream(tdst) == _zlib_stream(jdst)
+        assert open(tdst, "rb").read() == open(jdst, "rb").read()
     monkeypatch.setattr("htslib_tpu.native.native", None)
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     jpy = str(tmp_path / "jp.bcf")
     assert jio.vcf_file_to_bcf(src, jpy) == n
+    assert tio.vcf_file_to_bcf(src, tdst) == n
     assert open(jpy, "rb").read() == open(tdst, "rb").read()
     assert tio.vcf_body_to_bcf_frames(b"", THeader(text)) == b""
 
@@ -781,6 +792,7 @@ def test_bgzf_writer_tell_matches_jax(tmp_path):
     t = tbgzf.BgzfWriter(io.BytesIO())
     mp = pytest.MonkeyPatch()
     mp.setattr("htslib_tpu.native.native", None)
+    mp.setattr("htslib_tpu_torch.native.native", None)
     j = jbgzf.BGZFWriter(io.BytesIO())
     for c in chunks:
         t.write(c)

@@ -46,6 +46,7 @@ def bcfs(tmp_path_factory):
     d = tmp_path_factory.mktemp("bcf")
     mp = pytest.MonkeyPatch()
     mp.setattr("htslib_tpu.native.native", None)
+    mp.setattr("htslib_tpu_torch.native.native", None)
     out = {"dir": d}
     try:
         for side, hdr_cls, rec_cls, mod in (
@@ -76,6 +77,7 @@ def test_bcf_writer_index_matches_jax(bcfs):
 @pytest.mark.parametrize("min_shift", [14, 12])
 def test_bcf_index_build_matches_jax(bcfs, min_shift, monkeypatch):
     d = bcfs["dir"]
+    monkeypatch.setattr("htslib_tpu_torch.native.native", None)
     t = tio.bcf_index_build(bcfs["t"], min_shift, str(d / f"t{min_shift}"))
     monkeypatch.setattr("htslib_tpu.native.native", None)
     jio.bcf_index_build(bcfs["t"], min_shift, str(d / f"j{min_shift}"))
